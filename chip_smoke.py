@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (pgen_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py        # from the root of a checkout, one card
+
+Phases, each printing its own lines:
+
+  1 device   CUDA present and compute capability 9.0; the card's name and
+             power limit as nvidia-smi reports them
+  2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
+  3 kernels  K1-K3 against their plain PyTorch versions on the card
+             (torch.equal) at widths 2504, 2503, 5 and 1 samples; kernel and
+             plain times at the filter's block shape, CUDA events, median of 10
+  4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
+             chr22-scale fixtures made by tools/make_fixtures.py in a
+             subprocess: full 1000 Genomes chr22 (1,103,547 variants x 2504
+             samples) keep-two and region keep-two, and a 140,001-variant
+             keep-all as plain VCF and as .vcf.gz with a tabix index. Each
+             output's GT text is checked with numpy against the .pgen bytes
+             (the .gz after gunzip, against the plain keep-all), then its
+             sha256 (and the .tbi's) against the same CLI with --device cpu,
+             whose plain PyTorch text the CPU tests hold byte for byte against
+             pgen_tpu's providers. K2 and K3 must have launched.
+
+The script imports no jax and nothing of pgen_tpu itself; the port uses
+pgen_tpu's jax-free host layers, and a last check fails if jax was loaded.
+
+Then one JSON line of the path's kernels, and as the last line
+{"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
+non-zero before the result lines, as does a machine without CUDA or a
+directory without the rest of the repository.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import io
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 2504
+BLOCK_ROWS = 1 << 16  # pgen_tpu.pipeline.filter.DEFAULT_BLOCK_VARIANTS
+WIDTHS = (2504, 2503, 5, 1)
+CHR22_VARIANTS = 1_103_547
+RAGGED_VARIANTS = 140_001
+
+
+def _time_ms(fn, reps: int = 10) -> float:
+    """Median device time of fn in ms, one CUDA event pair per call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _max_abs_err(a, b) -> int:
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+
+
+def _sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def phase_device():
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        raise SystemExit(f"chip_smoke: needs compute capability 9.0 (sm_90a), {name} has {cap}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    print(
+        f"[1 device] {name}, capability {cap[0]}.{cap[1]}, "
+        f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit:"
+    )
+    print(smi[0])
+    return name
+
+
+def phase_build() -> float:
+    from pgen_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    so = kernels.build()
+    kernels.load()
+    seconds = time.perf_counter() - t0
+    print(f"[2 build] {seconds:.3f} s: {so.relative_to(ROOT)} (nvcc {' '.join(kernels.NVCC_FLAGS)})")
+    return seconds
+
+
+def phase_kernels() -> dict:
+    """Each kernel against its plain version; returns per-kernel errors and
+    times at the filter's block shape (2504 samples, 65,536 rows)."""
+    import torch
+
+    from pgen_tpu_torch.ops.gt_text import (
+        genotype_text,
+        genotype_text_plain,
+        subset_text_from_packed,
+        subset_text_plain,
+    )
+    from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = {"unpack_codes": 0, "genotype_text": 0, "subset_text_from_packed": 0}
+    for s in WIDTHS:
+        rec = (s + 3) // 4
+        # 65,536 random rows, then 256 rows that each repeat one byte value,
+        # so every byte value sits at every position, pad bits included
+        packed = torch.randint(0, 256, (BLOCK_ROWS + 256, rec), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        packed[BLOCK_ROWS:] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+        pairs = [
+            ("unpack_codes", unpack_codes(packed, s), unpack_codes_plain(packed, s)),
+            ("genotype_text", genotype_text(packed, s), genotype_text_plain(packed, s)),
+        ]
+        for k in sorted({min(2, s), min(1000, s)}):
+            sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
+            pairs.append((
+                "subset_text_from_packed",
+                subset_text_from_packed(packed, sel),
+                subset_text_plain(packed, sel),
+            ))
+        torch.cuda.synchronize()
+        for name, got, want in pairs:
+            e = _max_abs_err(got, want)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from its plain version at S={s}: max |err| {e}")
+            err[name] = max(err[name], e)
+        print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}): "
+              f"K1, K2, K3 x{len(pairs) - 2} equal to their plain versions")
+
+    s = WIDTHS[0]
+    rec = (s + 3) // 4
+    packed = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
+    sel2 = torch.randperm(s, generator=gen, device=dev)[:2].to(torch.int32)
+    sel1000 = torch.randperm(s, generator=gen, device=dev)[:1000].to(torch.int32)
+    cases = {
+        "unpack_codes": (lambda: unpack_codes(packed, s), lambda: unpack_codes_plain(packed, s),
+                         packed.numel() * 5),
+        "genotype_text": (lambda: genotype_text(packed, s), lambda: genotype_text_plain(packed, s),
+                          packed.numel() + BLOCK_ROWS * 4 * s),
+        "subset_text_from_packed": (lambda: subset_text_from_packed(packed, sel2),
+                                    lambda: subset_text_plain(packed, sel2),
+                                    BLOCK_ROWS * 2 * 5),
+        "subset_text_from_packed K=1000": (lambda: subset_text_from_packed(packed, sel1000),
+                                           lambda: subset_text_plain(packed, sel1000),
+                                           BLOCK_ROWS * 1000 * 5),
+    }
+    times = {}
+    for name, (kernel, plain, nbytes) in cases.items():
+        # alternate plain, kernel, kernel, plain so drift hits both alike
+        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
+        ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+        times[name] = (ms, plain_ms)
+        print(f"[3 kernels] {name} at ({BLOCK_ROWS}, {rec}) S={s}: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB moved), "
+              f"plain {plain_ms:.4f} ms")
+    return {"err": err, "times": times}
+
+
+def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
+    """Independent check of a plain VCF output against the .pgen bytes: one
+    body row per kept variant, and each row's last 4K bytes are the GT text
+    of the kept samples, decoded here with numpy (LSB-first 2-bit codes;
+    0 -> \\t0/0, 1 -> \\t0/1, 2 -> \\t1/1, 3 -> \\t./.), sharing no code with
+    the port."""
+    import numpy as np
+
+    buf = np.fromfile(vcf, dtype=np.uint8)
+    head = bytes(buf[: 1 << 20])
+    body_at = head.index(b"\n#CHROM")
+    body_at = head.index(b"\n", body_at + 1) + 1
+    ends = np.flatnonzero(buf[body_at:] == ord("\n")) + body_at
+    if len(ends) != len(rows):
+        raise AssertionError(f"{vcf.name}: {len(ends)} body rows, expected {len(rows)}")
+    table = np.frombuffer(b"\t0/0\t0/1\t1/1\t./.", dtype=np.uint8).reshape(4, 4)
+    gt_len = 4 * len(sample_idx)
+    step = max(1, (1 << 24) // gt_len)
+    byte_of, shift = sample_idx >> 2, (2 * (sample_idx & 3)).astype(np.uint8)
+    for lo in range(0, len(rows), step):
+        hi = min(lo + step, len(rows))
+        codes = (packed[rows[lo:hi, None], byte_of] >> shift) & 3
+        want = table[codes].reshape(hi - lo, gt_len)
+        got = buf[ends[lo:hi, None] - gt_len + np.arange(gt_len)]
+        if not np.array_equal(got, want):
+            bad = lo + int(np.flatnonzero((got != want).any(axis=1))[0])
+            raise AssertionError(f"{vcf.name}: GT text of body row {bad} differs from the .pgen")
+
+
+def _port_filter(prefix, argv, out: Path, device: str) -> float:
+    """One filter through the port's CLI; returns its wall seconds and
+    prints the --stats stage report for the cuda run."""
+    from pgen_tpu_torch.cli import main as port_main
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = port_main(["filter", str(prefix), *argv, "-o", str(out), "--device", device,
+                        "--stats"])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"port CLI on {device} returned {rc}\n{err.getvalue()}")
+    if device == "cuda":
+        for line in err.getvalue().strip().splitlines():
+            print(f"    {line}")
+    return seconds
+
+
+def _gunzip_sha256(path: Path) -> str:
+    import gzip
+
+    h = hashlib.sha256()
+    with gzip.open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _read_fileset(prefix: Path):
+    """IIDs, POS and the packed records of a mode-0x02 fileset, read with
+    numpy alone (the .pgen header is 12 bytes)."""
+    import numpy as np
+
+    lines = Path(f"{prefix}.psam").read_text().splitlines()
+    col = [c.lstrip("#") for c in lines[0].split("\t")].index("IID")
+    iids = [line.split("\t")[col] for line in lines[1:] if line]
+    body = [ln for ln in Path(f"{prefix}.pvar").read_bytes().split(b"\n")
+            if ln and not ln.startswith(b"#")]
+    pos = np.array([int(ln.split(b"\t", 2)[1]) for ln in body], dtype=np.int64)
+    rec = (2 * len(iids) + 7) // 8
+    packed = np.memmap(f"{prefix}.pgen", dtype=np.uint8, mode="r", offset=12,
+                       shape=(len(pos), rec))
+    return iids, pos, packed
+
+
+def phase_filter() -> dict:
+    """The port's CLI on cuda for each configuration (launch counts read
+    around these runs only), each output checked with numpy against the
+    .pgen; then the same CLI on cpu, whose plain PyTorch text the CPU tests
+    hold byte for byte against pgen_tpu, as the sha256 reference."""
+    import numpy as np
+
+    from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
+    from pgen_tpu_torch.ops.unpack import unpack_codes
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        make = (
+            "import sys; from pathlib import Path; sys.path.insert(0, 'tools')\n"
+            "from make_fixtures import ensure_chr22\n"
+            "for sub, n in (('full', int(sys.argv[2])), ('ragged', int(sys.argv[3]))):\n"
+            "    print(ensure_chr22(out_dir=Path(sys.argv[1]) / sub, num_variants=n,"
+            " uniform_bytes=True))\n"
+        )
+        made = subprocess.run(
+            [sys.executable, "-c", make, str(tmp), str(CHR22_VARIANTS), str(RAGGED_VARIANTS)],
+            cwd=ROOT, capture_output=True, text=True, check=True,
+        ).stdout.split()
+        full, ragged = Path(made[0]), Path(made[1])
+        print(f"[4 filter] fixtures in {time.perf_counter() - t0:.1f} s: "
+              f"{CHR22_VARIANTS} and {RAGGED_VARIANTS} variants x 2504 samples, "
+              f"{Path(f'{full}.pgen').stat().st_size} B .pgen")
+        iids, pos, packed = _read_fileset(full)
+        _, _, ragged_packed = _read_fileset(ragged)
+        two = np.array([7, 2000])
+        region_lo, region_hi = pos[len(pos) // 4], pos[3 * len(pos) // 4]
+        in_region = np.flatnonzero((pos >= region_lo) & (pos <= region_hi))
+        names = f"{iids[two[0]]},{iids[two[1]]}"
+        every = np.arange(len(iids))
+        runs = [
+            # label, fileset, argv, output name, (packed, kept rows, kept samples)
+            ("chr22 keep-two", full, ["--samples", names], "k2.vcf",
+             (packed, np.arange(len(pos)), two)),
+            (f"chr22 keep-two -r 22:{region_lo}-{region_hi}", full,
+             ["--samples", names, "-r", f"22:{region_lo}-{region_hi}"], "r2.vcf",
+             (packed, in_region, two)),
+            (f"{RAGGED_VARIANTS}-variant keep-all", ragged, [], "ka.vcf",
+             (ragged_packed, np.arange(RAGGED_VARIANTS), every)),
+            (f"{RAGGED_VARIANTS}-variant keep-all .vcf.gz --index", ragged, ["--index"],
+             "ka.vcf.gz", None),
+        ]
+
+        # untimed: the first filter of a process builds pgen_tpu's C++ host
+        # runtime (cached by source hash), which is no part of a filter's wall
+        t0 = time.perf_counter()
+        _port_filter(ragged, ["-r", "22:1-1"], tmp / "warm.vcf", "cpu")
+        print(f"[4 filter] warm-up filter (builds the host runtime): "
+              f"{time.perf_counter() - t0:.3f} s")
+
+        results = []
+        walls = []
+        # every launch counted from here to the read below is the main path's
+        for w in (unpack_codes, genotype_text, subset_text_from_packed):
+            w.launches = 0
+        for label, prefix, argv, name, expect in runs:
+            out = tmp / f"cuda.{name}"
+            print(f"[4 filter] {label} on cuda:")
+            walls.append(_port_filter(prefix, argv, out, "cuda"))
+            files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
+            results.append(([_sha256(f) for f in files], out.stat().st_size))
+            if expect is not None:
+                _check_gt_text(out, *expect)
+            elif _gunzip_sha256(out) != results[2][0][0]:
+                # BGZF must hold the plain keep-all output, byte for byte
+                raise AssertionError(f"{name} does not decompress to the plain keep-all VCF")
+            for f in files:
+                f.unlink()
+        launches = {
+            "unpack_codes": unpack_codes.launches,
+            "genotype_text": genotype_text.launches,
+            "subset_text_from_packed": subset_text_from_packed.launches,
+        }
+
+        for (label, prefix, argv, name, _), (hashes, size), cuda_s in zip(runs, results, walls):
+            out = tmp / f"cpu.{name}"
+            cpu_s = _port_filter(prefix, argv, out, "cpu")
+            files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
+            for f, want in zip(files, hashes):
+                if _sha256(f) != want:
+                    raise AssertionError(f"{label}: the cuda run's {f.suffix} differs from the cpu run's")
+                f.unlink()
+            print(f"[4 filter] {label}: {size} B, sha256 equal on cuda and cpu"
+                  f"{' (+ .tbi)' if len(files) > 1 else ''}, GT text equal to numpy's "
+                  f"decode of the .pgen{' after gunzip' if '--index' in argv else ''}; "
+                  f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s")
+    print(f"[4 filter] main-path launches: {launches}")
+    for name in ("genotype_text", "subset_text_from_packed"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    name = phase_device()
+    phase_build()
+    measured = phase_kernels()
+    launches = phase_filter()
+    if "jax" in sys.modules:
+        raise AssertionError("the port's run loaded jax")
+
+    source = "pgen_tpu_torch/csrc/genotype.cu"
+    replaces = {
+        "genotype_text": "pgen_tpu/ops/gt_text.py:45",
+        "subset_text_from_packed": "pgen_tpu/ops/gt_text.py:109",
+    }
+    rows = []
+    for kname, where in replaces.items():
+        ms, plain_ms = measured["times"][kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": where,
+            "launches": launches[kname], "max_abs_err": measured["err"][kname],
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    ms, plain_ms = measured["times"]["unpack_codes"]
+    print(f"[3 kernels] off the filter path: unpack_codes (K1, replaces "
+          f"pgen_tpu/ops/unpack.py:62) max |err| {measured['err']['unpack_codes']}, "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,43 @@
+"""pgen_tpu_torch — pgen_tpu ported to PyTorch and CUDA for an NVIDIA H100.
+
+The JAX package ``pgen_tpu`` stays the reference; this package sits beside
+it, imports torch and never jax. Its module names mirror ``pgen_tpu`` so
+that each counterpart is easy to find:
+
+  device.py           resolve_device: "cuda" (required, never replaced by
+                      the CPU) or "cpu" (the kernels' plain versions)
+  kernels.py          nvcc build of csrc/ (sm_90a) at first use, ctypes load
+  csrc/               the hand-written CUDA kernels
+  ops/unpack.py       unpack_codes (K1)
+  ops/gt_text.py      genotype_text (K2), subset_text_from_packed (K3)
+  pipeline/filter.py  filter_to_vcf on one GPU
+  cli.py              python -m pgen_tpu_torch.cli filter ...
+
+The host layers are pgen_tpu's, reused by import and not copied: metadata
+and predicates, the output row layout, the C++ row assembler, BGZF and
+tabix. The system has no model and no weights; its state is the fileset,
+which both packages read through the shared ``pgen_tpu.formats`` loaders.
+
+Imports are lazy (PEP 562), as in ``pgen_tpu.ops``: importing the package
+loads neither torch nor the kernel library, and no module of it loads jax.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "resolve_device": "pgen_tpu_torch.device",
+    "unpack_codes": "pgen_tpu_torch.ops.unpack",
+    "genotype_text": "pgen_tpu_torch.ops.gt_text",
+    "subset_text_from_packed": "pgen_tpu_torch.ops.gt_text",
+    "filter_to_vcf": "pgen_tpu_torch.pipeline.filter",
+}
+
+__all__ = [*_LAZY, "__version__"]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'pgen_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,163 @@
+"""Command line of the port: ``python -m pgen_tpu_torch.cli filter PREFIX ...``.
+
+It takes pgen_tpu's argument parser (``pgen_tpu.cli.build_arg_parser``) and
+adds ``--device cuda|cpu`` (default ``cuda``, which must be available) to
+``filter``. The query flags compose exactly as in ``pgen_tpu.cli.main``,
+through the same host composers: ``--keep/--remove``, ``-r/-R``,
+``--exclude-var/--exclude-sam``, ``--samples``, ``--extract/--exclude-ids``,
+the ``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup
+force-first|exclude-all``.
+
+What this slice does not serve is refused with the ROADMAP.md item that
+will serve it: every subcommand but ``filter``, and the filter flags listed
+in ``_UNSERVED``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from pgen_tpu.cli import build_arg_parser
+
+# flag dest -> (test on its parsed value, refusal naming the ROADMAP item)
+_UNSERVED = {
+    "workers": (
+        lambda v: v is not None,
+        "--workers: multi-process filtering is ROADMAP §1 item 6 (multi-GPU filter)",
+    ),
+    "shards": (
+        lambda v: v is not None,
+        "--shards: variant sharding is ROADMAP §1 item 6 (multi-GPU filter)",
+    ),
+    "shard_index": (
+        lambda v: v is not None,
+        "--shard-index: variant sharding is ROADMAP §1 item 6 (multi-GPU filter)",
+    ),
+    "resume": (
+        lambda v: v,
+        "--resume: multi-process filtering is ROADMAP §1 item 6 (multi-GPU filter)",
+    ),
+    "profile": (
+        lambda v: v is not None,
+        "--profile: the torch.profiler trace is ROADMAP §1 item 6",
+    ),
+    "out_format": (
+        lambda v: v != "vcf",
+        "--out-format pgen|bed: the pack kernel and fileset output are "
+        "ROADMAP §1 item 7",
+    ),
+    "provider": (
+        lambda v: v != "auto",
+        "--provider: the port has one device path, chosen with --device; "
+        "pgen_tpu's mesh provider is ROADMAP §1 item 6 and its host providers "
+        "stay pgen_tpu's",
+    ),
+    "threads": (
+        lambda v: v is not None,
+        "--threads: host emission threads give way to the two-stream block "
+        "pipeline, ROADMAP §1 item 12",
+    ),
+    "rm_dup": (
+        lambda v: v in ("error", "list"),
+        "--rm-dup error|list: the duplicate report is ROADMAP §1 item 12",
+    ),
+}
+
+
+def build_torch_arg_parser() -> argparse.ArgumentParser:
+    """pgen_tpu's parser with ``--device`` on ``filter``."""
+    p = build_arg_parser()
+    p.prog = "pgen-tpu-torch"
+    sub = next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
+    sub.choices["filter"].add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help="Device for the genotype text: cuda (default; must be available, "
+        "never replaced by the CPU) or cpu (the kernels' plain PyTorch versions).",
+    )
+    return p
+
+
+def _and_cond(query, cond):
+    return cond if query is None else f"({query}) && ({cond})"
+
+
+def _compose_queries(args) -> None:
+    """Fold the query flags into args.var_query / args.sam_query, as
+    pgen_tpu.cli.main does for filter."""
+    from pgen_tpu.query.exclude import apply_exclude
+    from pgen_tpu.query.idlist import apply_id_lists
+    from pgen_tpu.query.regions import apply_regions
+    from pgen_tpu.query.samples import apply_keep_remove, apply_samples
+
+    if args.keep or args.remove:
+        args.sam_query = apply_keep_remove(args.sam_query, args.keep, args.remove)
+    args.var_query = apply_id_lists(
+        apply_exclude(
+            apply_regions(args.var_query, args.regions, args.regions_file),
+            args.var_exclude,
+        ),
+        args.extract,
+        args.exclude_ids,
+    )
+    args.sam_query = apply_exclude(
+        apply_samples(args.sam_query, args.samples, args.samples_file),
+        args.sam_exclude,
+    )
+    if args.maf is not None:
+        args.var_query = _and_cond(args.var_query, f"GT_MAF >= {args.maf!r}")
+    if args.max_maf is not None:
+        args.var_query = _and_cond(args.var_query, f"GT_MAF <= {args.max_maf!r}")
+    if args.geno is not None:
+        args.var_query = _and_cond(args.var_query, f"GT_MISSING_RATE <= {args.geno!r}")
+    if args.hwe is not None:
+        hwe_var = "GT_HWE_MIDP" if args.hwe_midp else "GT_HWE_P"
+        args.var_query = _and_cond(args.var_query, f"{hwe_var} >= {args.hwe!r}")
+    if args.mind is not None:
+        args.sam_query = _and_cond(args.sam_query, f"GT_MISSING_RATE <= {args.mind!r}")
+    # --rm-dup acts on the post-filter variant set (plink2's filter order)
+    if args.rm_dup in ("force-first", "exclude-all"):
+        fn = "dup_first_within" if args.rm_dup == "force-first" else "dup_unique_within"
+        inner = args.var_query if args.var_query is not None else "true"
+        args.var_query = f"{fn}(({inner}))"
+
+
+def main(argv=None) -> int:
+    parser = build_torch_arg_parser()
+    args = parser.parse_args(argv)
+    if args.command != "filter":
+        parser.error(
+            f"{args.command}: the port serves only filter so far; the other "
+            "subcommands are ROADMAP §1 item 13"
+        )
+    for dest, (unserved, why) in _UNSERVED.items():
+        if unserved(getattr(args, dest)):
+            parser.error(why)
+    if args.hwe_midp and args.hwe is None:
+        parser.error("--hwe-midp requires --hwe X")
+    if args.index and not str(args.out_file or "").endswith(".gz"):
+        parser.error("--index requires -o out.vcf.gz")
+    _compose_queries(args)
+
+    from pgen_tpu_torch.pipeline.filter import filter_to_vcf
+
+    kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
+    result = filter_to_vcf(
+        args.pfile_prefix,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_file=args.out_file,
+        device=args.device,
+        index=args.index,
+        index_format=args.index_format,
+        **kwargs,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

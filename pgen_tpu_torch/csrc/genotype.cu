@@ -1,0 +1,153 @@
+// Genotype kernels for Hopper (sm_90a): packed 2-bit records -> codes or
+// VCF GT text. Built by pgen_tpu_torch/kernels.py with nvcc into a shared
+// library with a plain C interface, loaded with ctypes.
+//
+// Each launcher takes raw device pointers, int64 sizes and the caller's
+// cudaStream_t, launches on that stream without synchronising, and returns
+// cudaGetLastError(). The wrappers in pgen_tpu_torch/ops/ allocate every
+// output and return early on zero-sized shapes; the launchers repeat that
+// guard because a grid of 0 blocks is a launch error.
+//
+// All offsets are int64: a whole chr22 keep-all text matrix is
+// 1.1M rows x 10,016 B, about 11 GB, past 2^31.
+
+#include <cassert>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "genotype.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+// Grid-stride loops past this many blocks (about 2M threads in flight).
+constexpr int64_t kMaxBlocks = 8192;
+
+unsigned grid_for(int64_t n) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+__device__ __forceinline__ int64_t first_index() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int64_t grid_stride() {
+  return static_cast<int64_t>(gridDim.x) * blockDim.x;
+}
+
+// K1. Replaces the Pallas kernel pgen_tpu/ops/unpack.py:_unpack_kernel
+// (launched by unpack_words, wrapped by unpack_codes).
+// (V, R) u8 records -> (V, R) u32 words = (V, 4R) u8 codes; the wrapper
+// returns the [:, :S] slice, as unpack.py:110 does.
+// Bound: memory, 1 B read and 4 B written per packed byte, a handful of
+// integer ops between. Design: one thread per packed byte and one aligned
+// u32 store of its four codes, so neighbouring threads write neighbouring
+// words and every warp store is one contiguous 128 B segment.
+__global__ void unpack_codes_kernel(const uint8_t* __restrict__ packed,
+                                    uint32_t* __restrict__ words, int64_t n) {
+  for (int64_t i = first_index(); i < n; i += grid_stride()) {
+    words[i] = unpack_byte(packed[i]);
+  }
+}
+
+// K2. Replaces the Pallas pair pgen_tpu/ops/gt_text.py:_codes_kernel after
+// ops/unpack.py:_unpack_kernel (the fused genotype_text), and on the
+// keep-all filter path the plane form planes_from_packed, whose four planes
+// exist only because Mosaic cannot interleave lanes.
+// (V, R) u8 records -> (V, 4S) u8 text; sample s owns bytes 4s..4s+3.
+// Bound: memory, 1 B read and 16 B written per packed byte; one chr22 block
+// of 65,536 x 626 B reads 41 MB and writes 656 MB. End to end this kernel is
+// not the bound: the PCIe copy of its output to the host and the host's row
+// assembly each take longer (PERF.md). Design: one thread per (row, packed
+// byte j) decodes the byte once and writes the text words of samples
+// 4j..4j+3 straight into the interleaved row, so codes never reach device
+// memory. The row stride is 4S bytes: u32 stores are
+// always aligned, 16 B stores only when S % 4 == 0, so they are not used.
+// Codes past S in a row's last byte are padding (arbitrary bits in real
+// files) and are never written.
+__global__ void genotype_text_kernel(const uint8_t* __restrict__ packed,
+                                     uint32_t* __restrict__ text,
+                                     int64_t n_var, int64_t rec,
+                                     int64_t n_samples) {
+  const int64_t n = n_var * rec;
+  for (int64_t i = first_index(); i < n; i += grid_stride()) {
+    const int64_t v = i / rec;
+    const int64_t s0 = 4 * (i - v * rec);
+    const uint32_t codes = unpack_byte(packed[i]);
+    uint32_t* row = text + v * n_samples;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (s0 + k < n_samples) {
+        row[s0 + k] = text_word((codes >> (8 * k)) & 0xFFu);
+      }
+    }
+  }
+}
+
+// K3. Replaces pgen_tpu/ops/gt_text.py:_subset_words (XLA gather + text
+// word, behind subset_text_from_packed) on the sample-subset filter path.
+// (V, R) u8 records + sel (K) int32 sample ids, any order -> (V, 4K) u8
+// text in sel order.
+// Bound: memory, 4 B written per kept sample and one record byte read; for
+// a keep-two filter the whole block is a few hundred KB, so launch latency
+// and the host around it dominate. Design: one thread per (row, kept k)
+// reads only the byte holding its sample; K u32 words per row is what the
+// host copies back, instead of the full 16 B per record byte.
+__global__ void subset_text_kernel(const uint8_t* __restrict__ packed,
+                                   const int32_t* __restrict__ sel,
+                                   uint32_t* __restrict__ text, int64_t n_var,
+                                   int64_t rec, int64_t n_kept) {
+  const int64_t n = n_var * n_kept;
+  for (int64_t i = first_index(); i < n; i += grid_stride()) {
+    const int64_t v = i / n_kept;
+    const int32_t s = sel[i - v * n_kept];
+    assert(s >= 0 && static_cast<int64_t>(s) < 4 * rec);
+    const uint32_t b = packed[v * rec + (s >> 2)];
+    text[i] = text_word((b >> (2 * (s & 3))) & 3u);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int pgen_unpack_codes(const void* packed, void* words, int64_t n_var,
+                      int64_t rec, void* stream) {
+  const int64_t n = n_var * rec;
+  if (n <= 0) return 0;
+  unpack_codes_kernel<<<grid_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<uint32_t*>(words), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_genotype_text(const void* packed, void* text, int64_t n_var,
+                       int64_t rec, int64_t n_samples, void* stream) {
+  const int64_t n = n_var * rec;
+  if (n <= 0 || n_samples <= 0) return 0;
+  genotype_text_kernel<<<grid_for(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<uint32_t*>(text), n_var,
+      rec, n_samples);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_subset_text(const void* packed, const void* sel, void* text,
+                     int64_t n_var, int64_t rec, int64_t n_kept,
+                     void* stream) {
+  const int64_t n = n_var * n_kept;
+  if (n <= 0) return 0;
+  subset_text_kernel<<<grid_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
+      static_cast<uint32_t*>(text), n_var, rec, n_kept);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* pgen_cuda_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+}  // extern "C"

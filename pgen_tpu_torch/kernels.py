@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels (``csrc/``).
+
+At first use ``nvcc`` compiles ``csrc/genotype.cu`` for ``sm_90a`` into a
+shared library with a plain C interface, which ctypes loads. Nothing here
+includes PyTorch's headers, so the build takes seconds rather than the
+minutes of ``torch.utils.cpp_extension.load``.
+
+The library lands in ``build/pgen_tpu_torch/libpgen_kernels_<sha16>.so`` at
+the root of the checkout, keyed by a hash of the sources and the flags (as
+``pgen_tpu/native/lib.py`` keys its C++ build); a changed source builds a
+new file. Each build writes a temporary file and renames it into place, so
+concurrent first uses never load a half-written library. A failed build
+raises with nvcc's stderr: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).with_name("csrc")
+SOURCES = ("genotype.cu", "genotype.cuh")
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pgen_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources and flags
+    exists; returns its path."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"libpgen_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".build-", suffix=".so")
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "genotype.cu")]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {r.returncode}: {' '.join(cmd)}\n"
+                f"{r.stderr}"
+            )
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call. Every pointer and the stream
+    are ``c_void_p`` and every size ``c_int64``: with ctypes' default int
+    conversion a 64-bit pointer would be cut to 32 bits."""
+    lib = ctypes.CDLL(str(build()))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.pgen_unpack_codes.argtypes = [ptr, ptr, i64, i64, ptr]
+    lib.pgen_genotype_text.argtypes = [ptr, ptr, i64, i64, i64, ptr]
+    lib.pgen_subset_text.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    for fn in (lib.pgen_unpack_codes, lib.pgen_genotype_text, lib.pgen_subset_text):
+        fn.restype = ctypes.c_int
+    lib.pgen_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pgen_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(status: int, kernel: str) -> None:
+    """Raise if a launcher reported a CUDA error (a refused launch never
+    runs, and a later synchronise would not report it)."""
+    if status != 0:
+        msg = load().pgen_cuda_error_string(status).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")

@@ -1,0 +1,238 @@
+"""Filter a pgen fileset to VCF on one GPU: the port of pgen_tpu's
+``device`` provider (``pgen_tpu/pipeline/filter.py:_emit_block``).
+
+Everything but the genotype text is pgen_tpu's host code, reused by import:
+``derive_row_layout`` (metadata, predicates, the byte layout of every output
+row), ``_gather_rows``, ``materialize_prefixes``, the C++ row assembler
+``native.assemble_rows_buf``, BGZF and tabix. The predicates stay on the host
+by design: they run on pgen_tpu's ``native`` provider, or ``numpy`` without a
+C++ toolchain, never its ``device`` provider, which is jax.
+
+The records are pgen_tpu's memory-mapped ``.pgen`` matrix; what reaches the
+device is each block's kept rows, copied into a staging tensor. Per block:
+
+  gather    host gather of the kept rows into the staging tensor (pinned
+            host memory when the device is CUDA)
+  h2d       copy to the device
+  kernel    keep-all: genotype_text (K2); kept samples: subset_text_from_packed
+            (K3) with the sample ids resident on the device
+  d2h       copy of the text to a pinned host buffer
+  assemble  pvar prefixes + text + newline into the output (mmap or scratch)
+  write     fd sink, compressed to BGZF for a .gz output
+
+The loop is synchronous: each stage ends before the next starts, so the
+StageTimer report attributes the time honestly. Overlapping the stages on
+two streams is later work. Output bytes equal pgen_tpu's for every provider.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pgen_tpu.pipeline.filter import (
+    BGZF_EOF,
+    DEFAULT_BLOCK_VARIANTS,
+    FilterResult,
+    _assemble_rows_numpy,
+    _can_mmap,
+    _gather_rows,
+    _write_all,
+    derive_row_layout,
+    emit_tabix_index,
+    materialize_prefixes,
+)
+from pgen_tpu.utils.log import get_logger
+from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.device import resolve_device
+from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
+
+log = get_logger("torch.filter")
+
+# BGZF compresses 65,280-byte input blocks independently, so a buffer split
+# on multiples of it compresses in parallel to the same bytes as one call.
+_BGZF_INPUT_BLOCK = 65280
+
+
+class _BlockRows:
+    """The block loop's work for kept rows [lo, hi): staging buffers, sample
+    ids on the device, the kernel for the layout (K2 keep-all, K3 subset),
+    and the host assembly of the rows."""
+
+    def __init__(self, lay, dev: torch.device, rows: int, timer: StageTimer):
+        self.lay, self.dev, self.timer = lay, dev, timer
+        self.cuda = dev.type == "cuda"
+        self.n_samples = len(lay.sam_idx)
+        rec = lay.records.shape[1]
+        self.staging = torch.empty((rows, rec), dtype=torch.uint8, pin_memory=self.cuda)
+        self.sel = (
+            None
+            if lay.sample_idx_arg is None
+            else torch.from_numpy(lay.sample_idx_arg).to(dev)
+        )
+        self.text_host = (
+            torch.empty((rows, 4 * self.n_samples), dtype=torch.uint8, pin_memory=True)
+            if self.cuda
+            else None
+        )
+
+    def _sync(self) -> None:
+        if self.cuda:
+            torch.cuda.current_stream(self.dev).synchronize()
+
+    def _text(self, lo: int, hi: int) -> np.ndarray:
+        """GT text of kept rows [lo, hi) as a (hi-lo, 4*n_samples) u8 host array."""
+        n, t = hi - lo, self.timer
+        packed_np = self.staging.numpy()
+        with t.stage("gather", nbytes=n * packed_np.shape[1]):
+            np.copyto(packed_np[:n], _gather_rows(self.lay.records, self.lay.var_idx[lo:hi]))
+        with t.stage("h2d", nbytes=n * packed_np.shape[1]):
+            packed = self.staging[:n].to(self.dev, non_blocking=True)
+            self._sync()
+        with t.stage("kernel", nbytes=n * 4 * self.n_samples):
+            if self.sel is None:
+                text = genotype_text(packed, self.n_samples)
+            else:
+                text = subset_text_from_packed(packed, self.sel)
+            self._sync()
+        if not self.cuda:
+            return text.numpy()
+        with t.stage("d2h", nbytes=text.numel()):
+            self.text_host[:n].copy_(text, non_blocking=True)
+            self._sync()
+        return self.text_host[:n].numpy()
+
+    def write(self, lo: int, hi: int, out: np.ndarray) -> None:
+        """pvar prefix + GT text + newline of kept rows [lo, hi), filling out."""
+        from pgen_tpu.native import HAVE_NATIVE, native
+
+        text = self._text(lo, hi)
+        with self.timer.stage("assemble", nbytes=out.nbytes):
+            pbuf, off = materialize_prefixes(
+                self.lay.pvar.data_buffer, self.lay.v_starts[lo:hi], self.lay.v_ends[lo:hi]
+            )
+            if HAVE_NATIVE:
+                n = native.assemble_rows_buf(text, pbuf, off, out)
+            else:
+                n = _assemble_rows_numpy(text, pbuf, off, out)
+        if n != out.nbytes:
+            raise RuntimeError(f"rows [{lo},{hi}) took {n} bytes, layout says {out.nbytes}")
+
+
+def _bgzf(pool: ThreadPoolExecutor, threads: int, data: np.ndarray) -> list:
+    """BGZF members of data, compressed in slices across the pool's threads
+    (the C call releases the GIL)."""
+    from pgen_tpu.native import native
+
+    nparts = min(threads, max(1, data.nbytes // (4 << 20)))
+    if nparts == 1:
+        return [native.bgzf_compress(data)]
+    step = -(-data.nbytes // nparts)
+    step = -(-step // _BGZF_INPUT_BLOCK) * _BGZF_INPUT_BLOCK
+    slices = [data[o : o + step] for o in range(0, data.nbytes, step)]
+    return list(pool.map(native.bgzf_compress, slices))
+
+
+def filter_to_vcf(
+    pfile_prefix: str,
+    var_query: str | None = None,
+    sam_query: str | None = None,
+    out_file: str | Path | None = None,
+    device: str | torch.device = "cuda",
+    block_variants: int = DEFAULT_BLOCK_VARIANTS,
+    index: bool = False,
+    index_format: str = "auto",
+) -> FilterResult:
+    """Filter a pgen fileset to a VCF with the genotype text made on
+    ``device`` (``"cuda"``, which must be available, or ``"cpu"``).
+
+    Same arguments and output bytes as pgen_tpu's ``filter_to_vcf``:
+    ``out_file`` defaults to ``{prefix}.pgen-rs.vcf``, ``"-"`` streams to
+    stdout, a ``.gz`` name writes BGZF, and ``index`` (``.gz`` only) also
+    writes a tabix index (``index_format`` tbi, csi or auto).
+    """
+    from pgen_tpu.native import HAVE_NATIVE
+
+    dev = resolve_device(device)
+    if block_variants < 1:
+        raise ValueError(f"block_variants must be positive, got {block_variants}")
+    timer = StageTimer()
+    if out_file == "-":
+        out_file = "/dev/stdout"
+    if out_file is None:
+        out_file = f"{pfile_prefix}.pgen-rs.vcf"
+    out_file = str(out_file)
+
+    lay = derive_row_layout(
+        pfile_prefix, var_query, sam_query, "native" if HAVE_NATIVE else "numpy",
+        timer=timer,
+    )
+    gz = out_file.endswith(".gz")
+    if gz and not HAVE_NATIVE:
+        raise ValueError("bgzf (.gz) output requires the native runtime (C++ toolchain)")
+    if index and not gz:
+        raise ValueError("--index requires a .gz (BGZF) output file")
+
+    n_var = len(lay.var_idx)
+    header_len = len(lay.header_bytes)
+    blocks = []
+    pos = header_len
+    for lo in range(0, n_var, block_variants):
+        hi = min(lo + block_variants, n_var)
+        cap = int(lay.prefix_sizes[hi] - lay.prefix_sizes[lo]) + (hi - lo) * lay.row_fixed
+        blocks.append((lo, hi, pos, cap))
+        pos += cap
+    if pos != lay.total:
+        raise RuntimeError(f"size accounting: planned {pos} bytes, layout says {lay.total}")
+    rows = _BlockRows(lay, dev, min(block_variants, n_var), timer) if n_var else None
+
+    if _can_mmap(out_file) and not gz:
+        out_mm = np.memmap(out_file, dtype=np.uint8, mode="w+", shape=(lay.total,))
+        out_mm[:header_len] = np.frombuffer(lay.header_bytes, dtype=np.uint8)
+        for lo, hi, bpos, cap in blocks:
+            rows.write(lo, hi, out_mm[bpos : bpos + cap])
+        del out_mm  # unmap; the OS writes back lazily, as pgen_tpu does
+        bytes_written = lay.total
+    else:
+        fd = os.open(out_file, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        try:
+            threads = os.cpu_count() or 1
+            with ThreadPoolExecutor(threads) as pool:
+
+                def sink(data: np.ndarray) -> int:
+                    with timer.stage("write", nbytes=data.nbytes):
+                        parts = _bgzf(pool, threads, data) if gz else [data]
+                        for p in parts:
+                            _write_all(fd, memoryview(p))
+                        return sum(p.nbytes for p in parts)
+
+                bytes_written = sink(np.frombuffer(lay.header_bytes, dtype=np.uint8))
+                scratch = np.empty(max((b[3] for b in blocks), default=0), dtype=np.uint8)
+                for lo, hi, _, cap in blocks:
+                    rows.write(lo, hi, scratch[:cap])
+                    bytes_written += sink(scratch[:cap])
+            if gz:
+                _write_all(fd, memoryview(BGZF_EOF))
+                bytes_written += len(BGZF_EOF)
+        finally:
+            os.close(fd)
+
+    if index:
+        with timer.stage("index"):
+            emit_tabix_index(
+                out_file, lay.pvar, lay.var_idx, lay.prefix_sizes, lay.row_fixed,
+                header_len, fmt=index_format,
+            )
+
+    log.info("filter (%s): %s", dev, timer.report())
+    return FilterResult(
+        out_path=out_file,
+        num_variants_kept=n_var,
+        num_samples_kept=len(lay.sam_idx),
+        bytes_written=bytes_written,
+        timer=timer,
+    )

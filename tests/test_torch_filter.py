@@ -1,0 +1,227 @@
+"""The port's filter (pgen_tpu_torch.pipeline.filter, pgen_tpu_torch.cli)
+against pgen_tpu's, byte for byte.
+
+Filesets are synthesized from a seed (conftest.build_fileset, then random
+record bytes, pad bits included). The port runs with device="cpu", where
+the kernels' plain PyTorch versions make the text; pgen_tpu runs its numpy
+provider and its device provider (JAX on the CPU).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import build_fileset
+from pgen_tpu.cli import main as tpu_main
+from pgen_tpu.formats.writer import write_pgen_packed
+from pgen_tpu.native import HAVE_NATIVE
+from pgen_tpu.pipeline.filter import filter_to_vcf as tpu_filter
+from pgen_tpu_torch.cli import main as port_main
+from pgen_tpu_torch.pipeline.filter import filter_to_vcf as port_filter
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _fileset(dirpath, n_var, n_samples, seed, name="fs"):
+    """n_var variants on contigs 1 and 2, every fifth ID a duplicate of the
+    one before, ALT cycling G/C/T; records are random bytes."""
+    rng = np.random.default_rng(seed)
+    pos = np.cumsum(rng.integers(1, 60, n_var)) + 100
+    alts = "GCT"
+    pvar = [
+        f"{1 + (2 * i) // n_var}\t{pos[i]}\trs{i - (i % 5 == 4)}\tA\t{alts[i % 3]}\t.\tPASS\tAF=0.{i}"
+        for i in range(n_var)
+    ]
+    psam = [f"s{i}\t{'F' if i % 2 else 'M'}" for i in range(n_samples)]
+    codes = np.zeros((n_var, n_samples), dtype=np.uint8)
+    prefix = build_fileset(dirpath, name, codes, pvar, psam)
+    rec = (2 * n_samples + 7) // 8
+    write_pgen_packed(
+        f"{prefix}.pgen", rng.integers(0, 256, (n_var, rec), dtype=np.uint8), n_samples
+    )
+    return prefix
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+CASES = {
+    "keep_all": {},
+    "sample_subset": {"sam_query": 'IID == "s4" || IID == "s1" || IID == "s2"'},
+    "variant_subset": {"var_query": 'ALT == "G"'},
+    "both_subsets": {"var_query": 'ALT != "C"', "sam_query": 'SEX == "F"'},
+    "empty_variants": {"var_query": 'ID == "none"'},
+    "empty_samples": {"sam_query": 'IID == "none"'},
+    "ragged_blocks_keep_all": {"block_variants": 7},
+    "ragged_blocks_subset": {"block_variants": 7, "sam_query": 'IID != "s3"'},
+}
+
+
+@pytest.mark.parametrize("provider", ["numpy", "device"])
+@pytest.mark.parametrize("n_samples", [5, 6, 7, 8])
+@pytest.mark.parametrize("case", list(CASES))
+def test_filter_matches_pgen_tpu(tmp_path, case, n_samples, provider):
+    prefix = _fileset(tmp_path, 23, n_samples, seed=n_samples)
+    kw = CASES[case]
+    want = tpu_filter(prefix, out_file=tmp_path / "tpu.vcf", provider=provider, **kw)
+    got = port_filter(prefix, out_file=tmp_path / "port.vcf", device="cpu", **kw)
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+    assert (got.num_variants_kept, got.num_samples_kept, got.bytes_written) == (
+        want.num_variants_kept,
+        want.num_samples_kept,
+        want.bytes_written,
+    )
+
+
+@pytest.mark.parametrize("provider", ["numpy", "device"])
+@pytest.mark.parametrize("case", ["keep_all", "sample_subset"])
+def test_filter_matches_pgen_tpu_wide(tmp_path, case, provider):
+    prefix = _fileset(tmp_path, 9, 2503, seed=2503)
+    kw = CASES[case]
+    tpu_filter(prefix, out_file=tmp_path / "tpu.vcf", provider=provider, **kw)
+    port_filter(prefix, out_file=tmp_path / "port.vcf", device="cpu", **kw)
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+
+
+@pytest.mark.skipif(not HAVE_NATIVE, reason="BGZF output needs the C++ runtime")
+@pytest.mark.parametrize("provider", ["numpy", "device"])
+@pytest.mark.parametrize("case", ["keep_all", "ragged_blocks_subset", "empty_variants"])
+def test_bgzf_and_index_match_pgen_tpu(tmp_path, case, provider):
+    prefix = _fileset(tmp_path, 40, 7, seed=40)
+    kw = CASES[case]
+    tpu_filter(prefix, out_file=tmp_path / "tpu.vcf.gz", provider=provider, index=True, **kw)
+    port_filter(prefix, out_file=tmp_path / "port.vcf.gz", device="cpu", index=True, **kw)
+    assert _read(tmp_path / "port.vcf.gz") == _read(tmp_path / "tpu.vcf.gz")
+    assert _read(tmp_path / "port.vcf.gz.tbi") == _read(tmp_path / "tpu.vcf.gz.tbi")
+
+
+def test_fifo_output_matches(tmp_path):
+    """A non-regular output takes the fd sink instead of the memory map."""
+    import threading
+
+    prefix = _fileset(tmp_path, 30, 6, seed=30)
+    tpu_filter(prefix, out_file=tmp_path / "tpu.vcf", provider="numpy", block_variants=8)
+    fifo = tmp_path / "out.fifo"
+    os.mkfifo(fifo)
+    chunks = []
+    reader = threading.Thread(target=lambda: chunks.append(_read(fifo)))
+    reader.start()
+    port_filter(prefix, out_file=fifo, device="cpu", block_variants=8)
+    reader.join(timeout=60)
+    assert not reader.is_alive()
+    assert chunks == [_read(tmp_path / "tpu.vcf")]
+
+
+def test_default_output_name(tmp_path):
+    prefix = _fileset(tmp_path, 6, 5, seed=6)
+    res = port_filter(prefix, device="cpu")
+    assert res.out_path == f"{prefix}.pgen-rs.vcf"
+    tpu_filter(prefix, out_file=tmp_path / "tpu.vcf", provider="numpy")
+    assert _read(res.out_path) == _read(tmp_path / "tpu.vcf")
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["-r", "1:150-600"],
+        ["--samples", "s5,s1"],
+        ["--exclude-var", 'ALT == "G"'],
+        ["--rm-dup", "force-first"],
+        ["-r", "2", "--samples", "^s0", "--rm-dup", "exclude-all", "--block-variants", "4"],
+        ["--maf", "0.35"],
+        ["--max-maf", "0.45", "--geno", "0.34"],
+        ["--hwe", "0.3"],
+        ["--hwe", "0.3", "--hwe-midp"],
+        ["--mind", "0.25"],
+        ["--keep", "{dir}/keep.txt"],
+        ["--remove", "{dir}/keep.txt", "--maf", "0.3"],
+        ["--extract", "{dir}/ids.txt"],
+        ["--exclude-ids", "{dir}/ids.txt", "--rm-dup", "force-first"],
+    ],
+    ids=[
+        "regions", "samples", "exclude", "rm_dup_force_first", "combined", "maf",
+        "max_maf_geno", "hwe", "hwe_midp", "mind", "keep", "remove_maf", "extract",
+        "exclude_ids_rm_dup",
+    ],
+)
+def test_cli_matches_pgen_tpu(tmp_path, argv):
+    prefix = _fileset(tmp_path, 31, 6, seed=31)
+    (tmp_path / "keep.txt").write_text("s4\ns1\nFAM s3\n")
+    (tmp_path / "ids.txt").write_text("rs2\nrs3\nrs17\nrs30\n")
+    argv = [arg.format(dir=tmp_path) for arg in argv]
+    a, b = tmp_path / "port.vcf", tmp_path / "tpu.vcf"
+    assert port_main(["filter", prefix, *argv, "--device", "cpu", "-o", str(a)]) == 0
+    assert tpu_main(["filter", prefix, *argv, "-o", str(b)]) == 0
+    assert _read(a) == _read(b)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--workers", "2"],
+        ["--shards", "2"],
+        ["--out-format", "pgen"],
+        ["--out-format", "bed"],
+        ["--profile", "prof"],
+        ["--provider", "native"],
+        ["--rm-dup", "list"],
+        ["--threads", "2"],
+    ],
+)
+def test_cli_refuses_unserved_flags_naming_roadmap(tmp_path, capsys, argv):
+    prefix = _fileset(tmp_path, 4, 4, seed=4)
+    with pytest.raises(SystemExit) as e:
+        port_main(["filter", prefix, *argv, "--device", "cpu", "-o", str(tmp_path / "x.vcf")])
+    assert e.value.code == 2
+    assert "ROADMAP" in capsys.readouterr().err
+    assert not (tmp_path / "x.vcf").exists()
+
+
+def test_cli_refuses_other_subcommands(tmp_path, capsys):
+    prefix = _fileset(tmp_path, 4, 4, seed=4)
+    with pytest.raises(SystemExit) as e:
+        port_main(["query", prefix, "-f", "ID"])
+    assert e.value.code == 2
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    prefix = _fileset(tmp_path, 4, 4, seed=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.vcf"
+    with pytest.raises(RuntimeError, match="is_available"):
+        port_filter(prefix, out_file=out, device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        port_main(["filter", prefix, "-o", str(out)])  # --device defaults to cuda
+    assert not out.exists()
+
+
+def test_port_never_loads_jax(tmp_path):
+    """Importing the port and running a filter (GT_* sugar included) keeps
+    jax out of the process. A subprocess, since this test process has jax."""
+    prefix = _fileset(tmp_path, 12, 6, seed=12)
+    code = (
+        "import sys\n"
+        "import pgen_tpu_torch, pgen_tpu_torch.pipeline.filter, pgen_tpu_torch.cli\n"
+        "import pgen_tpu_torch.kernels, pgen_tpu_torch.device\n"
+        "assert 'jax' not in sys.modules, 'import loaded jax'\n"
+        "from pgen_tpu_torch.cli import main\n"
+        "assert main(['filter', sys.argv[1], '--device', 'cpu', '--maf', '0.1',\n"
+        "             '--samples', 's1,s2', '-o', sys.argv[2]]) == 0\n"
+        "assert 'jax' not in sys.modules, 'filter loaded jax'\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", code, prefix, str(tmp_path / "o.vcf")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "o.vcf").stat().st_size > 0

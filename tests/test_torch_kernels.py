@@ -1,0 +1,126 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions
+and against pgen_tpu's numpy oracles (``unpack_codes_reference`` and
+``emit_rows_numpy``), so the kernels are held to the reference package
+directly, not only through their twins.
+
+Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
+has no CPU mode. The file imports no jax (both oracles are numpy only), so
+on a machine with a card and without jax it runs on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+(chip_smoke.py runs the same comparisons at the filter's block shape.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pgen_tpu.ops.unpack_host import unpack_codes_reference
+from pgen_tpu.pipeline.vcf import emit_rows_numpy
+from pgen_tpu_torch.ops.gt_text import (
+    genotype_text,
+    genotype_text_plain,
+    subset_text_from_packed,
+    subset_text_plain,
+)
+from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
+
+WIDTHS = [1, 2, 3, 4, 5, 2503, 2504]
+WRAPPERS = (unpack_codes, genotype_text, subset_text_from_packed)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _packed(n_var, n_samples, seed, device):
+    """Random records whose last 256 rows each repeat one byte value, so
+    every byte value sits at every position, pad bits included."""
+    rec = (2 * n_samples + 7) // 8
+    packed = np.random.default_rng(seed).integers(0, 256, size=(n_var + 256, rec), dtype=np.uint8)
+    packed[n_var:] = np.arange(256, dtype=np.uint8)[:, None]
+    return torch.from_numpy(packed).to(device)
+
+
+def _oracle_text(packed, sample_idx, n_samples):
+    """pgen_tpu's numpy row emitter with empty prefixes: each row is the GT
+    text then a newline, which is dropped."""
+    n_var = packed.shape[0]
+    n_kept = n_samples if sample_idx is None else len(sample_idx)
+    out = np.empty(n_var * (4 * n_kept + 1), dtype=np.uint8)
+    total = emit_rows_numpy(packed, np.empty(0, np.uint8), np.zeros(n_var + 1, np.int64),
+                            sample_idx, n_samples, out)
+    assert total == out.size
+    return out.reshape(n_var, 4 * n_kept + 1)[:, :-1]
+
+
+@pytest.mark.parametrize("n_samples", WIDTHS)
+def test_kernels_match_plain(cuda_device, n_samples):
+    packed = _packed(300, n_samples, n_samples, cuda_device)
+    order = np.random.default_rng(n_samples).permutation(n_samples)
+    host = packed.cpu().numpy()
+    counts = [w.launches for w in WRAPPERS]
+    codes = unpack_codes(packed, n_samples)
+    assert torch.equal(codes, unpack_codes_plain(packed, n_samples))
+    np.testing.assert_array_equal(codes.cpu().numpy(), unpack_codes_reference(host, n_samples))
+    text = genotype_text(packed, n_samples)
+    assert torch.equal(text, genotype_text_plain(packed, n_samples))
+    np.testing.assert_array_equal(text.cpu().numpy(), _oracle_text(host, None, n_samples))
+    for k in sorted({min(2, n_samples), min(1000, n_samples)}):
+        sel = torch.from_numpy(order[:k].astype(np.int32)).to(cuda_device)
+        text = subset_text_from_packed(packed, sel)
+        assert torch.equal(text, subset_text_plain(packed, sel))
+        np.testing.assert_array_equal(text.cpu().numpy(), _oracle_text(host, order[:k], n_samples))
+    torch.cuda.synchronize()
+    n_subsets = len({min(2, n_samples), min(1000, n_samples)})
+    assert [w.launches for w in WRAPPERS] == [counts[0] + 1, counts[1] + 1, counts[2] + n_subsets]
+
+
+def test_zero_sized_launch_nothing(cuda_device):
+    counts = [w.launches for w in WRAPPERS]
+    empty = torch.empty((0, 5), dtype=torch.uint8, device=cuda_device)
+    assert unpack_codes(empty, 17).shape == (0, 17)
+    assert genotype_text(empty, 17).shape == (0, 68)
+    packed = _packed(3, 17, 0, cuda_device)
+    assert genotype_text(packed, 0).shape == (259, 0)
+    sel = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    assert subset_text_from_packed(packed, sel).shape == (259, 0)
+    assert [w.launches for w in WRAPPERS] == counts
+
+
+def test_sel_on_another_device_is_refused(cuda_device):
+    packed = _packed(3, 17, 0, cuda_device)
+    with pytest.raises(ValueError):
+        subset_text_from_packed(packed, torch.tensor([1, 2], dtype=torch.int32))
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two CUDA cards")
+def test_launch_on_a_card_that_is_not_current():
+    """Each wrapper launches on its tensor's card, on that card's current
+    stream, while another card is current."""
+    dev = torch.device("cuda", 1)
+    packed = _packed(40, 2503, 1, dev)
+    sel = torch.tensor([2502, 0, 7], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), torch.cuda.device(0):
+        assert torch.cuda.current_device() == 0
+        got = [
+            unpack_codes(packed, 2503),
+            genotype_text(packed, 2503),
+            subset_text_from_packed(packed, sel),
+        ]
+    side.synchronize()
+    want = [
+        unpack_codes_plain(packed, 2503),
+        genotype_text_plain(packed, 2503),
+        subset_text_plain(packed, sel),
+    ]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
