@@ -8,9 +8,11 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K3 against their plain PyTorch versions on the card
-             (torch.equal) at widths 2504, 2503, 5 and 1 samples; kernel and
-             plain times at the filter's block shape, CUDA events, median of 10
+  3 kernels  K1-K7 against their plain PyTorch versions on the card
+             (torch.equal) at widths 2504, 2503, 5 and 1 samples (K5 at K = 2,
+             1,001 and all samples permuted; K6 at R = 626 and 2 with 65,536
+             variants); kernel and plain times at the paths' block shape,
+             CUDA events, median of 10
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
              chr22-scale fixtures made by tools/make_fixtures.py in a
              subprocess: full 1000 Genomes chr22 (1,103,547 variants x 2504
@@ -21,11 +23,22 @@ Phases, each printing its own lines:
              sha256 (and the .tbi's) against the same CLI with --device cpu,
              whose plain PyTorch text the CPU tests hold byte for byte against
              pgen_tpu's providers. K2 and K3 must have launched.
+  5 pgen out the port's CLI filter --out-format pgen --keep FILE (1,001
+             samples drawn with the seed) on the full chr22 fixture: the
+             .pgen body equal to a numpy re-pack of the fixture's records,
+             the .pgen/.pvar/.psam sha256-equal to --device cpu. K5 must have
+             launched.
+  6 import   the port's CLI import of a keep-all VCF of a 50,001-variant
+             fixture, written by the port's own filter: the .pgen body equal
+             to the fixture's records (2504 % 4 == 0: no pad bits), the three
+             files sha256-equal to --device cpu. K4 must have launched.
 
 The script imports no jax and nothing of pgen_tpu itself; the port uses
 pgen_tpu's jax-free host layers, and a last check fails if jax was loaded.
 
-Then one JSON line of the path's kernels, and as the last line
+Each path's launch counts are set to 0 just before its cuda run and read
+just after. Then one JSON line of the seven kernels (launches summed over
+phases 4-6), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
@@ -50,6 +63,19 @@ BLOCK_ROWS = 1 << 16  # pgen_tpu.pipeline.filter.DEFAULT_BLOCK_VARIANTS
 WIDTHS = (2504, 2503, 5, 1)
 CHR22_VARIANTS = 1_103_547
 RAGGED_VARIANTS = 140_001
+IMPORT_VARIANTS = 50_001
+KEEP_SAMPLES = 1001  # odd, so the last byte of each re-packed record has pad bits
+SOURCE = "pgen_tpu_torch/csrc/genotype.cu"
+# each kernel's wrapper -> the Pallas kernel (or XLA code) it replaces
+KERNELS = {
+    "unpack_codes": "pgen_tpu/ops/unpack.py:62",
+    "genotype_text": "pgen_tpu/ops/gt_text.py:45",
+    "subset_text_from_packed": "pgen_tpu/ops/gt_text.py:109",
+    "pack_codes": "pgen_tpu/ops/pack.py:28",
+    "subset_repack": "pgen_tpu/pipeline/pgen_out.py:47",
+    "genotype_text_transposed": "tools/fused_text_lab.py:37",
+    "genotype_text_from_codes": "pgen_tpu/ops/gt_text.py:45",
+}
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -120,20 +146,30 @@ def phase_build() -> float:
 
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns per-kernel errors and
-    times at the filter's block shape (2504 samples, 65,536 rows)."""
+    times at the paths' block shapes (2504 samples, 65,536 rows)."""
     import torch
 
     from pgen_tpu_torch.ops.gt_text import (
         genotype_text,
+        genotype_text_from_codes,
         genotype_text_plain,
+        genotype_text_transposed,
+        genotype_text_transposed_plain,
         subset_text_from_packed,
         subset_text_plain,
+        text_from_codes_plain,
+    )
+    from pgen_tpu_torch.ops.pack import (
+        pack_codes,
+        pack_codes_plain,
+        subset_repack,
+        subset_repack_plain,
     )
     from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    err = {"unpack_codes": 0, "genotype_text": 0, "subset_text_from_packed": 0}
+    err = {name: 0 for name in KERNELS}
     for s in WIDTHS:
         rec = (s + 3) // 4
         # 65,536 random rows, then 256 rows that each repeat one byte value,
@@ -141,9 +177,22 @@ def phase_kernels() -> dict:
         packed = torch.randint(0, 256, (BLOCK_ROWS + 256, rec), dtype=torch.uint8,
                                device=dev, generator=gen)
         packed[BLOCK_ROWS:] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+        # codes of any byte value (the pack masks each to 2 bits), then 256
+        # rows in which column j of row r holds (r + j) % 256
+        codes = torch.randint(0, 256, (BLOCK_ROWS + 256, s), dtype=torch.uint8,
+                              device=dev, generator=gen)
+        codes[BLOCK_ROWS:] = ((torch.arange(256, device=dev)[:, None]
+                               + torch.arange(s, device=dev)[None, :]) % 256).to(torch.uint8)
+        # (R, 65,536) records, transposed; the last 256 columns repeat one byte
+        packed_t = packed[256:].T.contiguous()
         pairs = [
             ("unpack_codes", unpack_codes(packed, s), unpack_codes_plain(packed, s)),
             ("genotype_text", genotype_text(packed, s), genotype_text_plain(packed, s)),
+            ("pack_codes", pack_codes(codes), pack_codes_plain(codes)),
+            ("genotype_text_transposed", genotype_text_transposed(packed_t),
+             genotype_text_transposed_plain(packed_t)),
+            ("genotype_text_from_codes", genotype_text_from_codes(codes),
+             text_from_codes_plain(codes)),
         ]
         for k in sorted({min(2, s), min(1000, s)}):
             sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
@@ -152,20 +201,31 @@ def phase_kernels() -> dict:
                 subset_text_from_packed(packed, sel),
                 subset_text_plain(packed, sel),
             ))
+        # K = 2, 1,001 and all s in a random order
+        for k in sorted({min(2, s), min(KEEP_SAMPLES, s), s}):
+            sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
+            pairs.append(("subset_repack", subset_repack(packed, sel),
+                          subset_repack_plain(packed, sel)))
         torch.cuda.synchronize()
         for name, got, want in pairs:
             e = _max_abs_err(got, want)
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} differs from its plain version at S={s}: max |err| {e}")
             err[name] = max(err[name], e)
-        print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}): "
-              f"K1, K2, K3 x{len(pairs) - 2} equal to their plain versions")
+        n_k3 = sum(name == "subset_text_from_packed" for name, _, _ in pairs)
+        n_k5 = sum(name == "subset_repack" for name, _, _ in pairs)
+        print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}; K6 at ({rec}, {BLOCK_ROWS})): "
+              f"K1, K2, K3 x{n_k3}, K4, K5 x{n_k5}, K6, K7 equal to their plain versions")
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
     packed = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
+    codes = torch.randint(0, 4, (BLOCK_ROWS, s), dtype=torch.uint8, device=dev, generator=gen)
+    packed_t = packed.T.contiguous()
     sel2 = torch.randperm(s, generator=gen, device=dev)[:2].to(torch.int32)
     sel1000 = torch.randperm(s, generator=gen, device=dev)[:1000].to(torch.int32)
+    keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values.to(torch.int32)
+    keep_rec = (KEEP_SAMPLES + 3) // 4
     cases = {
         "unpack_codes": (lambda: unpack_codes(packed, s), lambda: unpack_codes_plain(packed, s),
                          packed.numel() * 5),
@@ -177,6 +237,18 @@ def phase_kernels() -> dict:
         "subset_text_from_packed K=1000": (lambda: subset_text_from_packed(packed, sel1000),
                                            lambda: subset_text_plain(packed, sel1000),
                                            BLOCK_ROWS * 1000 * 5),
+        "pack_codes": (lambda: pack_codes(codes), lambda: pack_codes_plain(codes),
+                       codes.numel() + packed.numel()),
+        "subset_repack": (lambda: subset_repack(packed, keep),
+                          lambda: subset_repack_plain(packed, keep),
+                          BLOCK_ROWS * (KEEP_SAMPLES + keep_rec)),
+        "subset_repack K=2": (lambda: subset_repack(packed, sel2),
+                              lambda: subset_repack_plain(packed, sel2), BLOCK_ROWS * 3),
+        "genotype_text_transposed": (lambda: genotype_text_transposed(packed_t),
+                                     lambda: genotype_text_transposed_plain(packed_t),
+                                     packed.numel() * 17),
+        "genotype_text_from_codes": (lambda: genotype_text_from_codes(codes),
+                                     lambda: text_from_codes_plain(codes), codes.numel() * 5),
     }
     times = {}
     for name, (kernel, plain, nbytes) in cases.items():
@@ -184,7 +256,8 @@ def phase_kernels() -> dict:
         p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
         ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
         times[name] = (ms, plain_ms)
-        print(f"[3 kernels] {name} at ({BLOCK_ROWS}, {rec}) S={s}: kernel {ms:.4f} ms "
+        shape = f"({rec}, {BLOCK_ROWS})" if name == "genotype_text_transposed" else f"({BLOCK_ROWS}, {rec})"
+        print(f"[3 kernels] {name} at {shape} S={s}: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB moved), "
               f"plain {plain_ms:.4f} ms")
     return {"err": err, "times": times}
@@ -219,23 +292,27 @@ def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
             raise AssertionError(f"{vcf.name}: GT text of body row {bad} differs from the .pgen")
 
 
-def _port_filter(prefix, argv, out: Path, device: str) -> float:
-    """One filter through the port's CLI; returns its wall seconds and
-    prints the --stats stage report for the cuda run."""
+def _port_cli(args: list, out: Path, device: str) -> float:
+    """One run of the port's CLI (``args`` is the subcommand and its input,
+    then its flags) with ``-o out``; returns its wall seconds and prints the
+    --stats stage report for the cuda run."""
     from pgen_tpu_torch.cli import main as port_main
 
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        rc = port_main(["filter", str(prefix), *argv, "-o", str(out), "--device", device,
-                        "--stats"])
+        rc = port_main([*map(str, args), "-o", str(out), "--device", device, "--stats"])
     seconds = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"port CLI on {device} returned {rc}\n{err.getvalue()}")
+        raise AssertionError(f"port CLI {args[0]} on {device} returned {rc}\n{err.getvalue()}")
     if device == "cuda":
         for line in err.getvalue().strip().splitlines():
             print(f"    {line}")
     return seconds
+
+
+def _port_filter(prefix, argv, out: Path, device: str) -> float:
+    return _port_cli(["filter", prefix, *argv], out, device)
 
 
 def _gunzip_sha256(path: Path) -> str:
@@ -265,101 +342,237 @@ def _read_fileset(prefix: Path):
     return iids, pos, packed
 
 
-def phase_filter() -> dict:
+def _wrappers() -> dict:
+    """Each kernel's wrapper by name; its ``launches`` counts its kernel's
+    launches."""
+    from pgen_tpu_torch.ops import gt_text, pack, unpack
+
+    mods = (unpack, gt_text, pack)
+    return {name: next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS}
+
+
+def _reset_launches() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _read_launches() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def make_fixtures(tmp: Path) -> dict:
+    """The chr22-scale filesets, made by tools/make_fixtures.py in a
+    subprocess: full, ragged (phase 4) and import (phase 6)."""
+    t0 = time.perf_counter()
+    make = (
+        "import sys; from pathlib import Path; sys.path.insert(0, 'tools')\n"
+        "from make_fixtures import ensure_chr22\n"
+        "for sub, n in zip(('full', 'ragged', 'import'), sys.argv[2:]):\n"
+        "    print(ensure_chr22(out_dir=Path(sys.argv[1]) / sub, num_variants=int(n),"
+        " uniform_bytes=True))\n"
+    )
+    made = subprocess.run(
+        [sys.executable, "-c", make, str(tmp), str(CHR22_VARIANTS), str(RAGGED_VARIANTS),
+         str(IMPORT_VARIANTS)],
+        cwd=ROOT, capture_output=True, text=True, check=True,
+    ).stdout.split()
+    full, ragged, imp = (Path(m) for m in made)
+    print(f"[4 filter] fixtures in {time.perf_counter() - t0:.1f} s: "
+          f"{CHR22_VARIANTS}, {RAGGED_VARIANTS} and {IMPORT_VARIANTS} variants x 2504 samples, "
+          f"{Path(f'{full}.pgen').stat().st_size} B .pgen")
+    return {"full": full, "ragged": ragged, "import": imp}
+
+
+def phase_filter(tmp: Path, full: Path, ragged: Path) -> dict:
     """The port's CLI on cuda for each configuration (launch counts read
     around these runs only), each output checked with numpy against the
     .pgen; then the same CLI on cpu, whose plain PyTorch text the CPU tests
     hold byte for byte against pgen_tpu, as the sha256 reference."""
     import numpy as np
 
-    from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
-    from pgen_tpu_torch.ops.unpack import unpack_codes
+    iids, pos, packed = _read_fileset(full)
+    _, _, ragged_packed = _read_fileset(ragged)
+    two = np.array([7, 2000])
+    region_lo, region_hi = pos[len(pos) // 4], pos[3 * len(pos) // 4]
+    in_region = np.flatnonzero((pos >= region_lo) & (pos <= region_hi))
+    names = f"{iids[two[0]]},{iids[two[1]]}"
+    every = np.arange(len(iids))
+    runs = [
+        # label, fileset, argv, output name, (packed, kept rows, kept samples)
+        ("chr22 keep-two", full, ["--samples", names], "k2.vcf",
+         (packed, np.arange(len(pos)), two)),
+        (f"chr22 keep-two -r 22:{region_lo}-{region_hi}", full,
+         ["--samples", names, "-r", f"22:{region_lo}-{region_hi}"], "r2.vcf",
+         (packed, in_region, two)),
+        (f"{RAGGED_VARIANTS}-variant keep-all", ragged, [], "ka.vcf",
+         (ragged_packed, np.arange(RAGGED_VARIANTS), every)),
+        (f"{RAGGED_VARIANTS}-variant keep-all .vcf.gz --index", ragged, ["--index"],
+         "ka.vcf.gz", None),
+    ]
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        make = (
-            "import sys; from pathlib import Path; sys.path.insert(0, 'tools')\n"
-            "from make_fixtures import ensure_chr22\n"
-            "for sub, n in (('full', int(sys.argv[2])), ('ragged', int(sys.argv[3]))):\n"
-            "    print(ensure_chr22(out_dir=Path(sys.argv[1]) / sub, num_variants=n,"
-            " uniform_bytes=True))\n"
-        )
-        made = subprocess.run(
-            [sys.executable, "-c", make, str(tmp), str(CHR22_VARIANTS), str(RAGGED_VARIANTS)],
-            cwd=ROOT, capture_output=True, text=True, check=True,
-        ).stdout.split()
-        full, ragged = Path(made[0]), Path(made[1])
-        print(f"[4 filter] fixtures in {time.perf_counter() - t0:.1f} s: "
-              f"{CHR22_VARIANTS} and {RAGGED_VARIANTS} variants x 2504 samples, "
-              f"{Path(f'{full}.pgen').stat().st_size} B .pgen")
-        iids, pos, packed = _read_fileset(full)
-        _, _, ragged_packed = _read_fileset(ragged)
-        two = np.array([7, 2000])
-        region_lo, region_hi = pos[len(pos) // 4], pos[3 * len(pos) // 4]
-        in_region = np.flatnonzero((pos >= region_lo) & (pos <= region_hi))
-        names = f"{iids[two[0]]},{iids[two[1]]}"
-        every = np.arange(len(iids))
-        runs = [
-            # label, fileset, argv, output name, (packed, kept rows, kept samples)
-            ("chr22 keep-two", full, ["--samples", names], "k2.vcf",
-             (packed, np.arange(len(pos)), two)),
-            (f"chr22 keep-two -r 22:{region_lo}-{region_hi}", full,
-             ["--samples", names, "-r", f"22:{region_lo}-{region_hi}"], "r2.vcf",
-             (packed, in_region, two)),
-            (f"{RAGGED_VARIANTS}-variant keep-all", ragged, [], "ka.vcf",
-             (ragged_packed, np.arange(RAGGED_VARIANTS), every)),
-            (f"{RAGGED_VARIANTS}-variant keep-all .vcf.gz --index", ragged, ["--index"],
-             "ka.vcf.gz", None),
-        ]
+    # untimed: the first filter of a process builds pgen_tpu's C++ host
+    # runtime (cached by source hash), which is no part of a filter's wall
+    t0 = time.perf_counter()
+    _port_filter(ragged, ["-r", "22:1-1"], tmp / "warm.vcf", "cpu")
+    print(f"[4 filter] warm-up filter (builds the host runtime): "
+          f"{time.perf_counter() - t0:.3f} s")
 
-        # untimed: the first filter of a process builds pgen_tpu's C++ host
-        # runtime (cached by source hash), which is no part of a filter's wall
-        t0 = time.perf_counter()
-        _port_filter(ragged, ["-r", "22:1-1"], tmp / "warm.vcf", "cpu")
-        print(f"[4 filter] warm-up filter (builds the host runtime): "
-              f"{time.perf_counter() - t0:.3f} s")
+    results = []
+    walls = []
+    # every launch counted from here to the read below is the main path's
+    _reset_launches()
+    for label, prefix, argv, name, expect in runs:
+        out = tmp / f"cuda.{name}"
+        print(f"[4 filter] {label} on cuda:")
+        walls.append(_port_filter(prefix, argv, out, "cuda"))
+        files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
+        results.append(([_sha256(f) for f in files], out.stat().st_size))
+        if expect is not None:
+            _check_gt_text(out, *expect)
+        elif _gunzip_sha256(out) != results[2][0][0]:
+            # BGZF must hold the plain keep-all output, byte for byte
+            raise AssertionError(f"{name} does not decompress to the plain keep-all VCF")
+        for f in files:
+            f.unlink()
+    launches = _read_launches()
 
-        results = []
-        walls = []
-        # every launch counted from here to the read below is the main path's
-        for w in (unpack_codes, genotype_text, subset_text_from_packed):
-            w.launches = 0
-        for label, prefix, argv, name, expect in runs:
-            out = tmp / f"cuda.{name}"
-            print(f"[4 filter] {label} on cuda:")
-            walls.append(_port_filter(prefix, argv, out, "cuda"))
-            files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
-            results.append(([_sha256(f) for f in files], out.stat().st_size))
-            if expect is not None:
-                _check_gt_text(out, *expect)
-            elif _gunzip_sha256(out) != results[2][0][0]:
-                # BGZF must hold the plain keep-all output, byte for byte
-                raise AssertionError(f"{name} does not decompress to the plain keep-all VCF")
-            for f in files:
-                f.unlink()
-        launches = {
-            "unpack_codes": unpack_codes.launches,
-            "genotype_text": genotype_text.launches,
-            "subset_text_from_packed": subset_text_from_packed.launches,
-        }
-
-        for (label, prefix, argv, name, _), (hashes, size), cuda_s in zip(runs, results, walls):
-            out = tmp / f"cpu.{name}"
-            cpu_s = _port_filter(prefix, argv, out, "cpu")
-            files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
-            for f, want in zip(files, hashes):
-                if _sha256(f) != want:
-                    raise AssertionError(f"{label}: the cuda run's {f.suffix} differs from the cpu run's")
-                f.unlink()
-            print(f"[4 filter] {label}: {size} B, sha256 equal on cuda and cpu"
-                  f"{' (+ .tbi)' if len(files) > 1 else ''}, GT text equal to numpy's "
-                  f"decode of the .pgen{' after gunzip' if '--index' in argv else ''}; "
-                  f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s")
+    for (label, prefix, argv, name, _), (hashes, size), cuda_s in zip(runs, results, walls):
+        out = tmp / f"cpu.{name}"
+        cpu_s = _port_filter(prefix, argv, out, "cpu")
+        files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
+        for f, want in zip(files, hashes):
+            if _sha256(f) != want:
+                raise AssertionError(f"{label}: the cuda run's {f.suffix} differs from the cpu run's")
+            f.unlink()
+        print(f"[4 filter] {label}: {size} B, sha256 equal on cuda and cpu"
+              f"{' (+ .tbi)' if len(files) > 1 else ''}, GT text equal to numpy's "
+              f"decode of the .pgen{' after gunzip' if '--index' in argv else ''}; "
+              f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s")
     print(f"[4 filter] main-path launches: {launches}")
     for name in ("genotype_text", "subset_text_from_packed"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    return launches
+
+
+def _check_fileset_header(pgen: Path, n_var: int, n_samples: int) -> None:
+    import struct
+
+    with open(pgen, "rb") as f:
+        head = f.read(12)
+    if head[:3] != b"\x6c\x1b\x02" or struct.unpack("<II", head[3:11]) != (n_var, n_samples):
+        raise AssertionError(f"{pgen.name}: header {head.hex()} is not mode 0x02 "
+                             f"with {n_var} variants x {n_samples} samples")
+
+
+def _repack_numpy(packed, keep):
+    """Records of the kept samples, re-packed with numpy (LSB-first 2-bit
+    codes, pad bits zero), sharing no code with the port."""
+    import numpy as np
+
+    codes = (packed[:, keep >> 2] >> (2 * (keep & 3)).astype(np.uint8)) & 3
+    out_rec = (len(keep) + 3) // 4
+    quads = np.zeros((len(packed), 4 * out_rec), dtype=np.uint8)
+    quads[:, : len(keep)] = codes
+    q = quads.reshape(len(packed), out_rec, 4)
+    return q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
+
+
+def _fileset_sha256(prefix: Path) -> list:
+    return [_sha256(Path(f"{prefix}{suf}")) for suf in (".pgen", ".pvar", ".psam")]
+
+
+def phase_pgen_out(tmp: Path, full: Path) -> dict:
+    """filter --out-format pgen --keep (1,001 samples drawn with the seed) on
+    the full chr22 fixture through the port's CLI on cuda (launch counts read
+    around that run only). The .pgen body must equal a numpy re-pack of the
+    fixture's records at the kept samples; the three files must be
+    sha256-equal to the same CLI with --device cpu."""
+    import numpy as np
+
+    iids, pos, packed = _read_fileset(full)
+    keep = np.sort(np.random.default_rng(SEED).choice(len(iids), KEEP_SAMPLES, replace=False))
+    keep_file = tmp / "keep.txt"
+    keep_file.write_text("".join(f"{iids[i]}\n" for i in keep))
+    argv = ["--out-format", "pgen", "--keep", str(keep_file)]
+
+    print(f"[5 pgen out] chr22 --keep {KEEP_SAMPLES} samples --out-format pgen on cuda:")
+    _reset_launches()
+    cuda_s = _port_filter(full, argv, tmp / "cuda_keep", "cuda")
+    launches = _read_launches()
+
+    out = tmp / "cuda_keep"
+    _check_fileset_header(Path(f"{out}.pgen"), len(pos), KEEP_SAMPLES)
+    out_rec = (KEEP_SAMPLES + 3) // 4
+    body = np.memmap(f"{out}.pgen", dtype=np.uint8, mode="r", offset=12,
+                     shape=(len(pos), out_rec))
+    for lo in range(0, len(pos), BLOCK_ROWS):
+        hi = min(lo + BLOCK_ROWS, len(pos))
+        if not np.array_equal(body[lo:hi], _repack_numpy(packed[lo:hi], keep)):
+            raise AssertionError(f"{out.name}.pgen: records [{lo}, {hi}) differ from numpy's re-pack")
+    del body
+    if Path(f"{out}.psam").read_text().count("\n") != KEEP_SAMPLES + 1:
+        raise AssertionError(f"{out.name}.psam does not hold the {KEEP_SAMPLES} kept samples")
+    hashes = _fileset_sha256(out)
+    size = Path(f"{out}.pgen").stat().st_size
+
+    cpu_s = _port_filter(full, argv, tmp / "cpu_keep", "cpu")
+    if _fileset_sha256(tmp / "cpu_keep") != hashes:
+        raise AssertionError("pgen output: the cuda run's fileset differs from the cpu run's")
+    for prefix in (out, tmp / "cpu_keep"):
+        for suf in (".pgen", ".pvar", ".psam"):
+            Path(f"{prefix}{suf}").unlink()
+    print(f"[5 pgen out] chr22 --keep {KEEP_SAMPLES}: {size} B .pgen, records equal to numpy's "
+          f"re-pack, .pgen/.pvar/.psam sha256 equal on cuda and cpu; "
+          f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s")
+    print(f"[5 pgen out] path launches: {launches}")
+    if launches["subset_repack"] <= 0:
+        raise AssertionError("subset_repack never launched on the pgen output path")
+    return launches
+
+
+def phase_import(tmp: Path, fixture: Path) -> dict:
+    """The keep-all VCF of a 50,001-variant fixture, written by the port's
+    own VCF filter, imported through the port's CLI on cuda (launch counts
+    read around the import only). 2504 % 4 == 0, so the records have no pad
+    bits and the imported .pgen body must equal the fixture's records; the
+    three files must be sha256-equal to the same import with --device cpu."""
+    import numpy as np
+
+    iids, pos, packed = _read_fileset(fixture)
+    vcf = tmp / "import.vcf"
+    t0 = time.perf_counter()
+    _port_filter(fixture, [], vcf, "cuda")
+    print(f"[6 import] keep-all VCF of {len(pos)} variants written by the port's filter in "
+          f"{time.perf_counter() - t0:.3f} s: {vcf.stat().st_size} B")
+
+    print("[6 import] import of that VCF on cuda:")
+    _reset_launches()
+    cuda_s = _port_cli(["import", vcf], tmp / "cuda_imp", "cuda")
+    launches = _read_launches()
+
+    out = tmp / "cuda_imp"
+    _check_fileset_header(Path(f"{out}.pgen"), len(pos), len(iids))
+    body = np.memmap(f"{out}.pgen", dtype=np.uint8, mode="r", offset=12, shape=packed.shape)
+    if not np.array_equal(body, packed):
+        bad = int(np.flatnonzero((body != packed).any(axis=1))[0])
+        raise AssertionError(f"{out.name}.pgen: record {bad} differs from the fixture's")
+    del body
+    hashes = _fileset_sha256(out)
+
+    cpu_s = _port_cli(["import", vcf], tmp / "cpu_imp", "cpu")
+    if _fileset_sha256(tmp / "cpu_imp") != hashes:
+        raise AssertionError("import: the cuda run's fileset differs from the cpu run's")
+    for prefix in (out, tmp / "cpu_imp"):
+        for suf in (".pgen", ".pvar", ".psam"):
+            Path(f"{prefix}{suf}").unlink()
+    vcf.unlink()
+    print(f"[6 import] {len(pos)} variants x {len(iids)} samples: records equal to the "
+          f"fixture's, .pgen/.pvar/.psam sha256 equal on cuda and cpu; "
+          f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s")
+    print(f"[6 import] path launches: {launches}")
+    if launches["pack_codes"] <= 0:
+        raise AssertionError("pack_codes never launched on the import path")
     return launches
 
 
@@ -374,27 +587,25 @@ def main() -> int:
     name = phase_device()
     phase_build()
     measured = phase_kernels()
-    launches = phase_filter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        fixtures = make_fixtures(tmp)
+        per_path = [
+            phase_filter(tmp, fixtures["full"], fixtures["ragged"]),
+            phase_pgen_out(tmp, fixtures["full"]),
+            phase_import(tmp, fixtures["import"]),
+        ]
     if "jax" in sys.modules:
         raise AssertionError("the port's run loaded jax")
 
-    source = "pgen_tpu_torch/csrc/genotype.cu"
-    replaces = {
-        "genotype_text": "pgen_tpu/ops/gt_text.py:45",
-        "subset_text_from_packed": "pgen_tpu/ops/gt_text.py:109",
-    }
     rows = []
-    for kname, where in replaces.items():
+    for kname, where in KERNELS.items():
         ms, plain_ms = measured["times"][kname]
         rows.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": where,
-            "launches": launches[kname], "max_abs_err": measured["err"][kname],
-            "ms": ms, "plain_ms": plain_ms,
+            "name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
+            "launches": sum(launches[kname] for launches in per_path),
+            "max_abs_err": measured["err"][kname], "ms": ms, "plain_ms": plain_ms,
         })
-    ms, plain_ms = measured["times"]["unpack_codes"]
-    print(f"[3 kernels] off the filter path: unpack_codes (K1, replaces "
-          f"pgen_tpu/ops/unpack.py:62) max |err| {measured['err']['unpack_codes']}, "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -9,9 +9,14 @@ that each counterpart is easy to find:
   kernels.py          nvcc build of csrc/ (sm_90a) at first use, ctypes load
   csrc/               the hand-written CUDA kernels
   ops/unpack.py       unpack_codes (K1)
-  ops/gt_text.py      genotype_text (K2), subset_text_from_packed (K3)
+  ops/gt_text.py      genotype_text (K2), subset_text_from_packed (K3),
+                      genotype_text_transposed (K6),
+                      genotype_text_from_codes (K7)
+  ops/pack.py         pack_codes (K4), subset_repack (K5)
   pipeline/filter.py  filter_to_vcf on one GPU
-  cli.py              python -m pgen_tpu_torch.cli filter ...
+  pipeline/pgen_out.py  filter_to_pgen (--out-format pgen) on one GPU
+  pipeline/vcf_import.py  import_vcf on one GPU
+  cli.py              python -m pgen_tpu_torch.cli filter|import ...
 
 The host layers are pgen_tpu's, reused by import and not copied: metadata
 and predicates, the output row layout, the C++ row assembler, BGZF and
@@ -29,7 +34,13 @@ _LAZY = {
     "unpack_codes": "pgen_tpu_torch.ops.unpack",
     "genotype_text": "pgen_tpu_torch.ops.gt_text",
     "subset_text_from_packed": "pgen_tpu_torch.ops.gt_text",
+    "genotype_text_from_codes": "pgen_tpu_torch.ops.gt_text",
+    "genotype_text_transposed": "pgen_tpu_torch.ops.gt_text",
+    "pack_codes": "pgen_tpu_torch.ops.pack",
+    "subset_repack": "pgen_tpu_torch.ops.pack",
     "filter_to_vcf": "pgen_tpu_torch.pipeline.filter",
+    "filter_to_pgen": "pgen_tpu_torch.pipeline.pgen_out",
+    "import_vcf": "pgen_tpu_torch.pipeline.vcf_import",
 }
 
 __all__ = [*_LAZY, "__version__"]

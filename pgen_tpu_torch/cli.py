@@ -1,16 +1,18 @@
-"""Command line of the port: ``python -m pgen_tpu_torch.cli filter PREFIX ...``.
+"""Command line of the port: ``python -m pgen_tpu_torch.cli filter|import ...``.
 
 It takes pgen_tpu's argument parser (``pgen_tpu.cli.build_arg_parser``) and
 adds ``--device cuda|cpu`` (default ``cuda``, which must be available) to
-``filter``. The query flags compose exactly as in ``pgen_tpu.cli.main``,
-through the same host composers: ``--keep/--remove``, ``-r/-R``,
-``--exclude-var/--exclude-sam``, ``--samples``, ``--extract/--exclude-ids``,
-the ``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup
-force-first|exclude-all``.
+``filter`` and ``import``. The query flags compose exactly as in
+``pgen_tpu.cli.main``, through the same host composers: ``--keep/--remove``,
+``-r/-R``, ``--exclude-var/--exclude-sam``, ``--samples``,
+``--extract/--exclude-ids``, the ``--maf/--max-maf/--geno/--hwe/--mind``
+sugar and ``--rm-dup force-first|exclude-all``.
 
-What this slice does not serve is refused with the ROADMAP.md item that
-will serve it: every subcommand but ``filter``, and the filter flags listed
-in ``_UNSERVED``.
+``filter`` writes a VCF, or with ``--out-format pgen`` the fileset
+``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``import`` reads a ``.vcf`` or
+``.vcf.gz``. What the port does not serve yet is refused with the ROADMAP.md
+item that will serve it: every other subcommand, and the flags and inputs
+listed in ``_UNSERVED`` and ``_UNSERVED_IMPORT``.
 """
 
 from __future__ import annotations
@@ -43,9 +45,8 @@ _UNSERVED = {
         "--profile: the torch.profiler trace is ROADMAP §1 item 6",
     ),
     "out_format": (
-        lambda v: v != "vcf",
-        "--out-format pgen|bed: the pack kernel and fileset output are "
-        "ROADMAP §1 item 7",
+        lambda v: v == "bed",
+        "--out-format bed: PLINK1 .bed output is ROADMAP §1 item 14",
     ),
     "provider": (
         lambda v: v != "auto",
@@ -64,19 +65,33 @@ _UNSERVED = {
     ),
 }
 
+_UNSERVED_IMPORT = {
+    "provider": (
+        lambda v: v != "auto",
+        "import --provider: the port's import (ROADMAP §1 item 7) has one "
+        "path, chosen with --device; pgen_tpu's host providers stay pgen_tpu's",
+    ),
+    "vcf_file": (
+        lambda v: v.endswith(".bed"),
+        "import X.bed: PLINK1 .bed import is ROADMAP §1 item 14",
+    ),
+}
+
 
 def build_torch_arg_parser() -> argparse.ArgumentParser:
-    """pgen_tpu's parser with ``--device`` on ``filter``."""
+    """pgen_tpu's parser with ``--device`` on ``filter`` and ``import``."""
     p = build_arg_parser()
     p.prog = "pgen-tpu-torch"
     sub = next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
-    sub.choices["filter"].add_argument(
-        "--device",
-        choices=["cuda", "cpu"],
-        default="cuda",
-        help="Device for the genotype text: cuda (default; must be available, "
-        "never replaced by the CPU) or cpu (the kernels' plain PyTorch versions).",
-    )
+    for command in ("filter", "import"):
+        sub.choices[command].add_argument(
+            "--device",
+            choices=["cuda", "cpu"],
+            default="cuda",
+            help="Device for the genotype kernels: cuda (default; must be "
+            "available, never replaced by the CPU) or cpu (the kernels' plain "
+            "PyTorch versions).",
+        )
     return p
 
 
@@ -124,26 +139,66 @@ def _compose_queries(args) -> None:
         args.var_query = f"{fn}(({inner}))"
 
 
+def _refuse_unserved(parser, args, unserved: dict) -> None:
+    for dest, (test, why) in unserved.items():
+        if test(getattr(args, dest)):
+            parser.error(why)
+
+
+def _import(parser, args) -> int:
+    _refuse_unserved(parser, args, _UNSERVED_IMPORT)
+    from pgen_tpu_torch.pipeline.vcf_import import import_vcf
+
+    result = import_vcf(args.vcf_file, out_prefix=args.out_prefix, device=args.device)
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"imported {result.num_variants} variants x "
+        f"{result.num_samples} samples -> {result.out_prefix}.pgen",
+        file=sys.stderr,
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_torch_arg_parser()
     args = parser.parse_args(argv)
+    if args.command == "import":
+        return _import(parser, args)
     if args.command != "filter":
         parser.error(
-            f"{args.command}: the port serves only filter so far; the other "
-            "subcommands are ROADMAP §1 item 13"
+            f"{args.command}: the port serves only filter and import so far; "
+            "the other subcommands are ROADMAP §1 item 13"
         )
-    for dest, (unserved, why) in _UNSERVED.items():
-        if unserved(getattr(args, dest)):
-            parser.error(why)
+    _refuse_unserved(parser, args, _UNSERVED)
     if args.hwe_midp and args.hwe is None:
         parser.error("--hwe-midp requires --hwe X")
+    if args.out_file == "-" and args.out_format != "vcf":
+        parser.error("-o - (stdout) supports VCF output only")
     if args.index and not str(args.out_file or "").endswith(".gz"):
         parser.error("--index requires -o out.vcf.gz")
+    if args.index and args.out_format != "vcf":
+        parser.error("--index applies to VCF output only")
     _compose_queries(args)
+
+    kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
+    if args.out_format == "pgen":
+        from pgen_tpu_torch.pipeline.pgen_out import filter_to_pgen
+
+        result = filter_to_pgen(
+            args.pfile_prefix,
+            var_query=args.var_query,
+            sam_query=args.sam_query,
+            out_prefix=args.out_file,
+            device=args.device,
+            **kwargs,
+        )
+        if args.stats:
+            print(result.timer.report(), file=sys.stderr)
+        return 0
 
     from pgen_tpu_torch.pipeline.filter import filter_to_vcf
 
-    kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
     result = filter_to_vcf(
         args.pfile_prefix,
         var_query=args.var_query,

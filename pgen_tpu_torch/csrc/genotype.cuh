@@ -17,6 +17,15 @@ __device__ __forceinline__ uint32_t unpack_byte(uint32_t x) {
          (((x & 0xCCu) * 0x40040u) & 0x03000300u);
 }
 
+// The inverse of unpack_byte: a u32 whose little-endian bytes are four codes
+// -> one packed byte, code k at bits 2k..2k+1. Each code is masked to its low
+// two bits before the shift, as pgen_tpu/ops/pack.py:_pack_kernel does
+// (byte = sum_k ((w >> 8k) & 3) << 2k), so any input byte packs as P3 packs it.
+__device__ __forceinline__ uint32_t pack_word(uint32_t w) {
+  return (w & 0x3u) | ((w >> 6) & 0xCu) | ((w >> 12) & 0x30u) |
+         ((w >> 18) & 0xC0u);
+}
+
 // Code (0..3) -> the four VCF text bytes of one sample as a little-endian
 // u32: '\t', b0, '/', b1 gives "\t0/0", "\t0/1", "\t1/1", "\t./.", as
 // pgen_tpu/ops/gt_text.py:_text_word.

@@ -31,3 +31,11 @@ def resolve_device(name: str | torch.device) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(name)!r}: use cuda or cpu")
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on dev's current stream (none on the CPU).
+    The block loops call it after each device stage, so that each stage's
+    time is its own."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()

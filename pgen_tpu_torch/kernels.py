@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("genotype.cu", "genotype.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pgen_tpu_torch"
@@ -81,16 +83,35 @@ def load() -> ctypes.CDLL:
     lib.pgen_unpack_codes.argtypes = [ptr, ptr, i64, i64, ptr]
     lib.pgen_genotype_text.argtypes = [ptr, ptr, i64, i64, i64, ptr]
     lib.pgen_subset_text.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
-    for fn in (lib.pgen_unpack_codes, lib.pgen_genotype_text, lib.pgen_subset_text):
+    lib.pgen_pack_codes.argtypes = [ptr, ptr, i64, i64, ptr]
+    lib.pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.pgen_genotype_text_transposed.argtypes = [ptr, ptr, i64, i64, ptr]
+    lib.pgen_text_from_codes.argtypes = [ptr, ptr, i64, i64, ptr]
+    for fn in (
+        lib.pgen_unpack_codes, lib.pgen_genotype_text, lib.pgen_subset_text,
+        lib.pgen_pack_codes, lib.pgen_subset_repack,
+        lib.pgen_genotype_text_transposed, lib.pgen_text_from_codes,
+    ):
         fn.restype = ctypes.c_int
     lib.pgen_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pgen_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def check_launch(status: int, kernel: str) -> None:
-    """Raise if a launcher reported a CUDA error (a refused launch never
-    runs, and a later synchronise would not report it)."""
+def launch(wrapper, symbol: str, t: torch.Tensor, *args) -> None:
+    """Launch ``wrapper``'s kernel through the library function ``symbol``
+    with ``args`` and PyTorch's current stream on t's card, and count it on
+    ``wrapper.launches``.
+
+    The launchers run on the calling thread's current device, so t's device
+    is made current around the call. A launcher that reports a CUDA error
+    raises here: a refused launch never runs, and a later synchronise would
+    not report it.
+    """
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        status = getattr(load(), symbol)(*args, stream)
     if status != 0:
         msg = load().pgen_cuda_error_string(status).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")
+        raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error {status} ({msg})")
+    wrapper.launches += 1

@@ -7,42 +7,58 @@ reads byte ``s // 4`` and extracts ``(byte >> (2 * (s % 4))) & 3``. Codes:
 ``unpack_codes`` dispatches on the tensor's device: on a CUDA tensor it
 launches K1 (``csrc/genotype.cu:unpack_codes_kernel``, the counterpart of the
 Pallas ``_unpack_kernel``), on a CPU tensor it runs ``unpack_codes_plain``.
-There is no fallback between the two. The filter path does not call it: K2
-and K3 decode inside their own kernels. It stands alone for the analytics
-that reuse the decode.
+There is no fallback between the two. No path calls it: K2, K3 and K5
+decode inside their own kernels. It stands alone for the analytics that
+reuse the decode. The input checks shared by every wrapper live here too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pgen_tpu_torch.kernels import check_launch, load
+from pgen_tpu_torch.kernels import launch
 
 
-def check_packed(packed, num_samples: int | None = None) -> tuple[int, int]:
-    """Validate a (V, R) u8 record matrix on the CPU or a CUDA device and,
-    when given, that ``num_samples`` fits its 4R slots; returns (V, R)."""
+def check_packed(packed, num_samples: int | None = None, name: str = "packed") -> tuple[int, int]:
+    """Validate a 2-D contiguous u8 matrix (records, or codes when ``name``
+    says so) on the CPU or a CUDA device and, when given, that
+    ``num_samples`` fits its 4R slots; returns its shape."""
     if not isinstance(packed, torch.Tensor):
-        raise TypeError(f"packed must be a torch.Tensor, got {type(packed).__name__}")
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(packed).__name__}")
     if packed.dtype != torch.uint8:
-        raise TypeError(f"packed must be uint8, got {packed.dtype}")
+        raise TypeError(f"{name} must be uint8, got {packed.dtype}")
     if packed.dim() != 2:
-        raise ValueError(f"packed must be 2-D (variants, record bytes), got {tuple(packed.shape)}")
+        raise ValueError(f"{name} must be 2-D, got {tuple(packed.shape)}")
     if not packed.is_contiguous():
-        raise ValueError("packed must be contiguous")
+        raise ValueError(f"{name} must be contiguous")
     if packed.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"packed must be on the CPU or a CUDA device, got {packed.device}")
+        raise ValueError(f"{name} must be on the CPU or a CUDA device, got {packed.device}")
     n_var, rec = packed.shape
     if num_samples is not None and not 0 <= num_samples <= 4 * rec:
         raise ValueError(f"num_samples={num_samples} does not fit records of {rec} bytes")
     return n_var, rec
 
 
-def current_stream(t: torch.Tensor) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on t's device. The
-    launchers run on the calling thread's current device, so each wrapper
-    makes t's device current around its launch."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def check_sel(sel, packed: torch.Tensor) -> int:
+    """Validate kept sample ids for the subset kernels (K3, K5): a 1-D
+    contiguous int32 tensor on ``packed``'s device; returns K. The ids' range
+    is checked by the kernel's device-side assert, or by ``check_sel_range``
+    in the plain versions."""
+    if not isinstance(sel, torch.Tensor) or sel.dtype != torch.int32 or sel.dim() != 1:
+        raise TypeError("sel must be a 1-D int32 torch.Tensor")
+    if not sel.is_contiguous():
+        raise ValueError("sel must be contiguous")
+    if sel.device != packed.device:
+        raise ValueError(f"sel is on {sel.device}, packed on {packed.device}")
+    return sel.shape[0]
+
+
+def check_sel_range(sel: torch.Tensor, rec: int) -> None:
+    """Raise IndexError for a sample id outside [0, 4 * rec), the plain
+    versions' counterpart of the kernels' device-side assert (a negative id
+    would otherwise index from the end)."""
+    if sel.numel() and (int(sel.min()) < 0 or int(sel.max()) >= 4 * rec):
+        raise IndexError(f"sample ids must lie in [0, {4 * rec})")
 
 
 def unpack_codes_plain(packed: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -62,12 +78,8 @@ def unpack_codes(packed: torch.Tensor, num_samples: int) -> torch.Tensor:
     if packed.device.type == "cpu":
         return unpack_codes_plain(packed, num_samples)
     codes = torch.empty((n_var, 4 * rec), dtype=torch.uint8, device=packed.device)
-    with torch.cuda.device(packed.device):
-        status = load().pgen_unpack_codes(
-            packed.data_ptr(), codes.data_ptr(), n_var, rec, current_stream(packed)
-        )
-    check_launch(status, "unpack_codes")
-    unpack_codes.launches += 1
+    launch(unpack_codes, "pgen_unpack_codes", packed,
+           packed.data_ptr(), codes.data_ptr(), n_var, rec)
     return codes[:, :num_samples]
 
 

@@ -48,7 +48,7 @@ from pgen_tpu.pipeline.filter import (
 )
 from pgen_tpu.utils.log import get_logger
 from pgen_tpu.utils.timer import StageTimer
-from pgen_tpu_torch.device import resolve_device
+from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
 
 log = get_logger("torch.filter")
@@ -80,10 +80,6 @@ class _BlockRows:
             else None
         )
 
-    def _sync(self) -> None:
-        if self.cuda:
-            torch.cuda.current_stream(self.dev).synchronize()
-
     def _text(self, lo: int, hi: int) -> np.ndarray:
         """GT text of kept rows [lo, hi) as a (hi-lo, 4*n_samples) u8 host array."""
         n, t = hi - lo, self.timer
@@ -92,18 +88,18 @@ class _BlockRows:
             np.copyto(packed_np[:n], _gather_rows(self.lay.records, self.lay.var_idx[lo:hi]))
         with t.stage("h2d", nbytes=n * packed_np.shape[1]):
             packed = self.staging[:n].to(self.dev, non_blocking=True)
-            self._sync()
+            synchronize(self.dev)
         with t.stage("kernel", nbytes=n * 4 * self.n_samples):
             if self.sel is None:
                 text = genotype_text(packed, self.n_samples)
             else:
                 text = subset_text_from_packed(packed, self.sel)
-            self._sync()
+            synchronize(self.dev)
         if not self.cuda:
             return text.numpy()
         with t.stage("d2h", nbytes=text.numel()):
             self.text_host[:n].copy_(text, non_blocking=True)
-            self._sync()
+            synchronize(self.dev)
         return self.text_host[:n].numpy()
 
     def write(self, lo: int, hi: int, out: np.ndarray) -> None:

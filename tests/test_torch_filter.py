@@ -165,23 +165,26 @@ def test_cli_matches_pgen_tpu(tmp_path, argv):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--workers", "2"],
-        ["--shards", "2"],
-        ["--out-format", "pgen"],
-        ["--out-format", "bed"],
-        ["--profile", "prof"],
-        ["--provider", "native"],
-        ["--rm-dup", "list"],
-        ["--threads", "2"],
+        ["filter", "{prefix}", "--workers", "2"],
+        ["filter", "{prefix}", "--shards", "2"],
+        ["filter", "{prefix}", "--out-format", "bed"],
+        ["filter", "{prefix}", "--profile", "prof"],
+        ["filter", "{prefix}", "--provider", "native"],
+        ["filter", "{prefix}", "--rm-dup", "list"],
+        ["filter", "{prefix}", "--threads", "2"],
+        ["import", "{prefix}.bed"],
+        ["import", "{dir}/in.vcf", "--provider", "native"],
     ],
 )
 def test_cli_refuses_unserved_flags_naming_roadmap(tmp_path, capsys, argv):
     prefix = _fileset(tmp_path, 4, 4, seed=4)
+    (tmp_path / "in.vcf").write_text("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\ts0\n")
+    argv = [arg.format(prefix=prefix, dir=tmp_path) for arg in argv]
     with pytest.raises(SystemExit) as e:
-        port_main(["filter", prefix, *argv, "--device", "cpu", "-o", str(tmp_path / "x.vcf")])
+        port_main([*argv, "--device", "cpu", "-o", str(tmp_path / "x.vcf")])
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
-    assert not (tmp_path / "x.vcf").exists()
+    assert not list(tmp_path.glob("x.vcf*"))
 
 
 def test_cli_refuses_other_subcommands(tmp_path, capsys):
@@ -204,24 +207,33 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_port_never_loads_jax(tmp_path):
-    """Importing the port and running a filter (GT_* sugar included) keeps
-    jax out of the process. A subprocess, since this test process has jax."""
+    """Importing the port and running a filter to VCF (GT_* sugar included),
+    a filter to a pgen fileset and an import of the VCF keeps jax out of the
+    process. A subprocess, since this test process has jax."""
     prefix = _fileset(tmp_path, 12, 6, seed=12)
     code = (
         "import sys\n"
         "import pgen_tpu_torch, pgen_tpu_torch.pipeline.filter, pgen_tpu_torch.cli\n"
-        "import pgen_tpu_torch.kernels, pgen_tpu_torch.device\n"
+        "import pgen_tpu_torch.pipeline.pgen_out, pgen_tpu_torch.pipeline.vcf_import\n"
+        "import pgen_tpu_torch.ops.pack, pgen_tpu_torch.kernels, pgen_tpu_torch.device\n"
         "assert 'jax' not in sys.modules, 'import loaded jax'\n"
         "from pgen_tpu_torch.cli import main\n"
-        "assert main(['filter', sys.argv[1], '--device', 'cpu', '--maf', '0.1',\n"
-        "             '--samples', 's1,s2', '-o', sys.argv[2]]) == 0\n"
+        "prefix, out = sys.argv[1:]\n"
+        "assert main(['filter', prefix, '--device', 'cpu', '--maf', '0.1',\n"
+        "             '--samples', 's1,s2', '-o', out + '.vcf']) == 0\n"
         "assert 'jax' not in sys.modules, 'filter loaded jax'\n"
+        "assert main(['filter', prefix, '--out-format', 'pgen', '--device', 'cpu',\n"
+        "             '--samples', 's1,s2,s5', '-o', out + '.sub']) == 0\n"
+        "assert 'jax' not in sys.modules, 'filter --out-format pgen loaded jax'\n"
+        "assert main(['import', out + '.vcf', '-o', out + '.imp', '--device', 'cpu']) == 0\n"
+        "assert 'jax' not in sys.modules, 'import loaded jax'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     r = subprocess.run(
-        [sys.executable, "-c", code, prefix, str(tmp_path / "o.vcf")],
+        [sys.executable, "-c", code, prefix, str(tmp_path / "o")],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr
-    assert (tmp_path / "o.vcf").stat().st_size > 0
+    for name in ("o.vcf", "o.sub.pgen", "o.imp.pgen"):
+        assert (tmp_path / name).stat().st_size > 12

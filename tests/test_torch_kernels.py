@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a card, against their plain PyTorch versions
-and against pgen_tpu's numpy oracles (``unpack_codes_reference`` and
-``emit_rows_numpy``), so the kernels are held to the reference package
-directly, not only through their twins.
+and against pgen_tpu's numpy oracles (``unpack_codes_reference``,
+``emit_rows_numpy`` and ``formats.writer.pack_codes``), so the kernels are
+held to the reference package directly, not only through their twins.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode. The file imports no jax (both oracles are numpy only), so
@@ -16,18 +16,30 @@ import numpy as np
 import pytest
 import torch
 
+from pgen_tpu.formats.writer import pack_codes as writer_pack_codes
 from pgen_tpu.ops.unpack_host import unpack_codes_reference
 from pgen_tpu.pipeline.vcf import emit_rows_numpy
 from pgen_tpu_torch.ops.gt_text import (
     genotype_text,
+    genotype_text_from_codes,
     genotype_text_plain,
+    genotype_text_transposed,
+    genotype_text_transposed_plain,
     subset_text_from_packed,
     subset_text_plain,
+    text_from_codes_plain,
+)
+from pgen_tpu_torch.ops.pack import (
+    pack_codes,
+    pack_codes_plain,
+    subset_repack,
+    subset_repack_plain,
 )
 from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
 WIDTHS = [1, 2, 3, 4, 5, 2503, 2504]
 WRAPPERS = (unpack_codes, genotype_text, subset_text_from_packed)
+NEW_WRAPPERS = (pack_codes, subset_repack, genotype_text_transposed, genotype_text_from_codes)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +94,67 @@ def test_kernels_match_plain(cuda_device, n_samples):
     assert [w.launches for w in WRAPPERS] == [counts[0] + 1, counts[1] + 1, counts[2] + n_subsets]
 
 
+def _all_byte_codes(n_samples):
+    """256 rows of codes in which column s of row r holds (r + s) % 256, so
+    every byte value sits at every position of a packed word."""
+    r = np.arange(256)[:, None] + np.arange(n_samples)[None, :]
+    return (r % 256).astype(np.uint8)
+
+
+@pytest.mark.parametrize("n_samples", WIDTHS)
+def test_pack_kernels_match_plain_and_oracles(cuda_device, n_samples):
+    rng = np.random.default_rng(n_samples)
+    codes_np = rng.integers(0, 4, size=(300, n_samples), dtype=np.uint8)
+    codes = torch.from_numpy(codes_np).to(cuda_device)
+    wild = torch.from_numpy(_all_byte_codes(n_samples)).to(cuda_device)
+    packed = _packed(300, n_samples, n_samples, cuda_device)
+    host = packed.cpu().numpy()
+    rec = host.shape[1]
+    counts = [w.launches for w in NEW_WRAPPERS]
+
+    got = pack_codes(codes)
+    assert torch.equal(got, pack_codes_plain(codes))
+    np.testing.assert_array_equal(got.cpu().numpy(), writer_pack_codes(codes_np))
+    assert torch.equal(pack_codes(wild), pack_codes_plain(wild))
+
+    sizes = sorted({min(k, n_samples) for k in (1, 2, 3, 5, 1001)} | {n_samples})
+    for k in sizes:
+        sel_np = rng.permutation(n_samples)[:k].astype(np.int32)
+        sel = torch.from_numpy(sel_np).to(cuda_device)
+        got = subset_repack(packed, sel)
+        assert torch.equal(got, subset_repack_plain(packed, sel))
+        want = writer_pack_codes(unpack_codes_reference(host, 4 * rec)[:, sel_np])
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+    packed_t = packed.T.contiguous()
+    got = genotype_text_transposed(packed_t)
+    assert torch.equal(got, genotype_text_transposed_plain(packed_t))
+    np.testing.assert_array_equal(got.cpu().numpy(), _oracle_text(host, None, 4 * rec).T)
+
+    got = genotype_text_from_codes(codes)
+    assert torch.equal(got, text_from_codes_plain(codes))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), _oracle_text(writer_pack_codes(codes_np), None, n_samples)
+    )
+    assert torch.equal(genotype_text_from_codes(wild), text_from_codes_plain(wild))
+    torch.cuda.synchronize()
+    assert [w.launches for w in NEW_WRAPPERS] == [
+        counts[0] + 2, counts[1] + len(sizes), counts[2] + 1, counts[3] + 2,
+    ]
+
+
+@pytest.mark.parametrize("n_var", [1, 31, 33, 1000])
+@pytest.mark.parametrize("rec", [1, 2, 626])
+def test_transposed_text_ragged_shapes(cuda_device, rec, n_var):
+    """K6 at variant counts that are not a multiple of a warp, and R = 1."""
+    packed_t = torch.from_numpy(
+        np.random.default_rng(rec + n_var).integers(0, 256, size=(rec, n_var), dtype=np.uint8)
+    ).to(cuda_device)
+    got = genotype_text_transposed(packed_t)
+    assert got.shape == (16 * rec, n_var)
+    assert torch.equal(got, genotype_text_transposed_plain(packed_t))
+
+
 def test_zero_sized_launch_nothing(cuda_device):
     counts = [w.launches for w in WRAPPERS]
     empty = torch.empty((0, 5), dtype=torch.uint8, device=cuda_device)
@@ -92,12 +165,19 @@ def test_zero_sized_launch_nothing(cuda_device):
     sel = torch.empty(0, dtype=torch.int32, device=cuda_device)
     assert subset_text_from_packed(packed, sel).shape == (259, 0)
     assert [w.launches for w in WRAPPERS] == counts
+    new_counts = [w.launches for w in NEW_WRAPPERS]
+    assert pack_codes(empty).shape == (0, 2)
+    assert subset_repack(packed, sel).shape == (259, 0)
+    assert genotype_text_transposed(empty).shape == (0, 5)
+    assert genotype_text_from_codes(empty).shape == (0, 20)
+    assert [w.launches for w in NEW_WRAPPERS] == new_counts
 
 
 def test_sel_on_another_device_is_refused(cuda_device):
     packed = _packed(3, 17, 0, cuda_device)
-    with pytest.raises(ValueError):
-        subset_text_from_packed(packed, torch.tensor([1, 2], dtype=torch.int32))
+    for wrapper in (subset_text_from_packed, subset_repack):
+        with pytest.raises(ValueError):
+            wrapper(packed, torch.tensor([1, 2], dtype=torch.int32))
 
 
 @pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two CUDA cards")
@@ -109,18 +189,23 @@ def test_launch_on_a_card_that_is_not_current():
     sel = torch.tensor([2502, 0, 7], dtype=torch.int32, device=dev)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
+    codes = unpack_codes_plain(packed, 2503).contiguous()
     with torch.cuda.stream(side), torch.cuda.device(0):
         assert torch.cuda.current_device() == 0
         got = [
             unpack_codes(packed, 2503),
             genotype_text(packed, 2503),
             subset_text_from_packed(packed, sel),
+            pack_codes(codes),
+            subset_repack(packed, sel),
         ]
     side.synchronize()
     want = [
         unpack_codes_plain(packed, 2503),
         genotype_text_plain(packed, 2503),
         subset_text_plain(packed, sel),
+        pack_codes_plain(codes),
+        subset_repack_plain(packed, sel),
     ]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
