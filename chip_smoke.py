@@ -50,6 +50,7 @@ import contextlib
 import hashlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -75,6 +76,8 @@ KERNELS = {
     "subset_repack": "pgen_tpu/pipeline/pgen_out.py:47",
     "genotype_text_transposed": "tools/fused_text_lab.py:37",
     "genotype_text_from_codes": "pgen_tpu/ops/gt_text.py:45",
+    "gt_counts_device": "pgen_tpu/ops/gt_stats.py:65",
+    "sample_counts_device": "pgen_tpu/ops/gt_stats.py:216",
 }
 
 
@@ -159,6 +162,12 @@ def phase_kernels() -> dict:
         subset_text_plain,
         text_from_codes_plain,
     )
+    from pgen_tpu_torch.ops.gt_stats import (
+        gt_counts_device,
+        gt_counts_plain,
+        sample_counts_device,
+        sample_counts_plain,
+    )
     from pgen_tpu_torch.ops.pack import (
         pack_codes,
         pack_codes_plain,
@@ -193,6 +202,9 @@ def phase_kernels() -> dict:
              genotype_text_transposed_plain(packed_t)),
             ("genotype_text_from_codes", genotype_text_from_codes(codes),
              text_from_codes_plain(codes)),
+            ("gt_counts_device", gt_counts_device(packed, s), gt_counts_plain(packed, s)),
+            ("sample_counts_device", sample_counts_device(packed, s),
+             sample_counts_plain(packed, s)),
         ]
         for k in sorted({min(2, s), min(1000, s)}):
             sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
@@ -215,7 +227,7 @@ def phase_kernels() -> dict:
         n_k3 = sum(name == "subset_text_from_packed" for name, _, _ in pairs)
         n_k5 = sum(name == "subset_repack" for name, _, _ in pairs)
         print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}; K6 at ({rec}, {BLOCK_ROWS})): "
-              f"K1, K2, K3 x{n_k3}, K4, K5 x{n_k5}, K6, K7 equal to their plain versions")
+              f"K1, K2, K3 x{n_k3}, K4, K5 x{n_k5}, K6, K7, K8, K9 equal to their plain versions")
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
@@ -249,6 +261,10 @@ def phase_kernels() -> dict:
                                      packed.numel() * 17),
         "genotype_text_from_codes": (lambda: genotype_text_from_codes(codes),
                                      lambda: text_from_codes_plain(codes), codes.numel() * 5),
+        "gt_counts_device": (lambda: gt_counts_device(packed, s),
+                             lambda: gt_counts_plain(packed, s), packed.numel() + BLOCK_ROWS * 16),
+        "sample_counts_device": (lambda: sample_counts_device(packed, s),
+                                 lambda: sample_counts_plain(packed, s), packed.numel() + s * 16),
     }
     times = {}
     for name, (kernel, plain, nbytes) in cases.items():
@@ -292,10 +308,10 @@ def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
             raise AssertionError(f"{vcf.name}: GT text of body row {bad} differs from the .pgen")
 
 
-def _port_cli(args: list, out: Path, device: str) -> float:
+def _port_cli(args: list, out: Path, device: str) -> tuple:
     """One run of the port's CLI (``args`` is the subcommand and its input,
-    then its flags) with ``-o out``; returns its wall seconds and prints the
-    --stats stage report for the cuda run."""
+    then its flags) with ``-o out``; returns its wall seconds and its stderr
+    (the --stats report), which it prints for the cuda run."""
     from pgen_tpu_torch.cli import main as port_main
 
     err = io.StringIO()
@@ -308,11 +324,12 @@ def _port_cli(args: list, out: Path, device: str) -> float:
     if device == "cuda":
         for line in err.getvalue().strip().splitlines():
             print(f"    {line}")
-    return seconds
+    return seconds, err.getvalue()
 
 
 def _port_filter(prefix, argv, out: Path, device: str) -> float:
-    return _port_cli(["filter", prefix, *argv], out, device)
+    """Wall seconds of one port filter."""
+    return _port_cli(["filter", prefix, *argv], out, device)[0]
 
 
 def _gunzip_sha256(path: Path) -> str:
@@ -326,8 +343,8 @@ def _gunzip_sha256(path: Path) -> str:
 
 
 def _read_fileset(prefix: Path):
-    """IIDs, POS and the packed records of a mode-0x02 fileset, read with
-    numpy alone (the .pgen header is 12 bytes)."""
+    """IIDs, POS, ALT and the packed records of a mode-0x02 fileset, read
+    with numpy alone (the .pgen header is 12 bytes)."""
     import numpy as np
 
     lines = Path(f"{prefix}.psam").read_text().splitlines()
@@ -335,19 +352,21 @@ def _read_fileset(prefix: Path):
     iids = [line.split("\t")[col] for line in lines[1:] if line]
     body = [ln for ln in Path(f"{prefix}.pvar").read_bytes().split(b"\n")
             if ln and not ln.startswith(b"#")]
-    pos = np.array([int(ln.split(b"\t", 2)[1]) for ln in body], dtype=np.int64)
+    fields = [ln.split(b"\t", 5) for ln in body]
+    pos = np.array([int(f[1]) for f in fields], dtype=np.int64)
+    alt = np.array([f[4] for f in fields])
     rec = (2 * len(iids) + 7) // 8
     packed = np.memmap(f"{prefix}.pgen", dtype=np.uint8, mode="r", offset=12,
                        shape=(len(pos), rec))
-    return iids, pos, packed
+    return iids, pos, alt, packed
 
 
 def _wrappers() -> dict:
     """Each kernel's wrapper by name; its ``launches`` counts its kernel's
     launches."""
-    from pgen_tpu_torch.ops import gt_text, pack, unpack
+    from pgen_tpu_torch.ops import gt_stats, gt_text, pack, unpack
 
-    mods = (unpack, gt_text, pack)
+    mods = (unpack, gt_text, pack, gt_stats)
     return {name: next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS}
 
 
@@ -390,8 +409,8 @@ def phase_filter(tmp: Path, full: Path, ragged: Path) -> dict:
     hold byte for byte against pgen_tpu, as the sha256 reference."""
     import numpy as np
 
-    iids, pos, packed = _read_fileset(full)
-    _, _, ragged_packed = _read_fileset(ragged)
+    iids, pos, _, packed = _read_fileset(full)
+    _, _, _, ragged_packed = _read_fileset(ragged)
     two = np.array([7, 2000])
     region_lo, region_hi = pos[len(pos) // 4], pos[3 * len(pos) // 4]
     in_region = np.flatnonzero((pos >= region_lo) & (pos <= region_hi))
@@ -490,7 +509,7 @@ def phase_pgen_out(tmp: Path, full: Path) -> dict:
     sha256-equal to the same CLI with --device cpu."""
     import numpy as np
 
-    iids, pos, packed = _read_fileset(full)
+    iids, pos, _, packed = _read_fileset(full)
     keep = np.sort(np.random.default_rng(SEED).choice(len(iids), KEEP_SAMPLES, replace=False))
     keep_file = tmp / "keep.txt"
     keep_file.write_text("".join(f"{iids[i]}\n" for i in keep))
@@ -539,7 +558,7 @@ def phase_import(tmp: Path, fixture: Path) -> dict:
     three files must be sha256-equal to the same import with --device cpu."""
     import numpy as np
 
-    iids, pos, packed = _read_fileset(fixture)
+    iids, pos, _, packed = _read_fileset(fixture)
     vcf = tmp / "import.vcf"
     t0 = time.perf_counter()
     _port_filter(fixture, [], vcf, "cuda")
@@ -548,7 +567,7 @@ def phase_import(tmp: Path, fixture: Path) -> dict:
 
     print("[6 import] import of that VCF on cuda:")
     _reset_launches()
-    cuda_s = _port_cli(["import", vcf], tmp / "cuda_imp", "cuda")
+    cuda_s = _port_cli(["import", vcf], tmp / "cuda_imp", "cuda")[0]
     launches = _read_launches()
 
     out = tmp / "cuda_imp"
@@ -560,7 +579,7 @@ def phase_import(tmp: Path, fixture: Path) -> dict:
     del body
     hashes = _fileset_sha256(out)
 
-    cpu_s = _port_cli(["import", vcf], tmp / "cpu_imp", "cpu")
+    cpu_s = _port_cli(["import", vcf], tmp / "cpu_imp", "cpu")[0]
     if _fileset_sha256(tmp / "cpu_imp") != hashes:
         raise AssertionError("import: the cuda run's fileset differs from the cpu run's")
     for prefix in (out, tmp / "cpu_imp"):
@@ -575,8 +594,244 @@ def phase_import(tmp: Path, fixture: Path) -> dict:
         raise AssertionError("pack_codes never launched on the import path")
     return launches
 
+REGION_VARIANTS = 5000  # variants of the -r region of phase 7 (b) and (d)
 
-def main() -> int:
+
+def _variant_counts_numpy(packed, rows):
+    """(len(rows), 4) code counts of the given records over all 4R slots
+    (2504 samples: no pad slots), with a 256 x 4 table of per-byte counts."""
+    import numpy as np
+
+    b = np.arange(256)
+    lut = np.zeros((256, 4), dtype=np.int64)
+    for k in range(4):
+        np.add.at(lut, (b, (b >> (2 * k)) & 3), 1)
+    return lut[packed[rows]].sum(axis=1)
+
+
+def _sample_missing_numpy(packed):
+    """Per-slot count of code 3 (./.) over every record, block by block."""
+    import numpy as np
+
+    missing = np.zeros(4 * packed.shape[1], dtype=np.int64)
+    for lo in range(0, len(packed), BLOCK_ROWS):
+        blk = np.asarray(packed[lo : lo + BLOCK_ROWS])
+        both = blk & (blk >> 1)  # bit 2k set where slot k holds code 3
+        for k in range(4):
+            missing[k::4] += ((both >> (2 * k)) & 1).sum(axis=0, dtype=np.int64)
+    return missing
+
+
+def _trace_shares(path: Path, wall_s: float) -> str:
+    """Kernel and copy busy time against the span of a torch.profiler
+    Chrome trace and against the traced run's wall, and the largest
+    kernels by time."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if isinstance(e, dict) and e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in events)
+    span = max(e["ts"] + e["dur"] for e in events) - t0
+
+    def busy(cat):
+        total, end = 0.0, float("-inf")
+        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == cat):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    kern, copy = busy("kernel"), busy("gpu_memcpy")
+    return (f"traced span {span / 1e3:.3f} ms: kernels busy {kern / 1e3:.3f} ms "
+            f"({100 * kern / span:.2f}% of the span, {kern / 1e4 / wall_s:.3f}% of the wall), "
+            f"copies {copy / 1e3:.3f} ms ({100 * copy / span:.2f}% of the span); "
+            f"largest kernels (ms): "
+            + ", ".join(f"{name[:48]} {dur / 1e3:.3f}" for name, dur in top))
+
+
+def _route(stderr: str) -> str:
+    for line in stderr.splitlines():
+        if line.startswith("predicate route: "):
+            return line[len("predicate route: "):]
+    raise AssertionError("the --stats report names no predicate route")
+
+
+def _argv_a(iids):
+    return ["--include-var", 'ALT == "G"', "--samples", f"{iids[7]},{iids[2000]}"]
+
+
+def phase_device_provider(tmp: Path, full: Path, ragged: Path) -> tuple:
+    """filter --provider device through the port's CLI on cuda, on a real
+    one-rank NCCL group (launch counts read around these runs only):
+    (a) full chr22 ALT == "G" keep-two, a device-lowered predicate then K3;
+    (b) full chr22 --maf and --mind over a region, thresholds at the median
+    so that about half pass, their counts K8 and K9; (c) 140,001-variant
+    keep-all ALT == "G" as .vcf and .vcf.gz --index, K2; (d) a region
+    keep-two, the host mask after a DeviceFallback. Each output is checked
+    with numpy against the .pgen, then by sha256 against the same CLI with
+    --device cpu and (uncompressed) against the single-GPU filter. One more
+    run of (a) takes a torch.profiler trace. Returns the launch counts and
+    (a)'s sha256."""
+    import numpy as np
+
+    from pgen_tpu_torch.pipeline.mesh_filter import ROUTE_DEVICE, ROUTE_FALLBACK, ROUTE_HOST
+
+    iids, pos, alt, packed = _read_fileset(full)
+    _, _, ragged_alt, ragged_packed = _read_fileset(ragged)
+    two, every = np.array([7, 2000]), np.arange(len(iids))
+    first = len(pos) // 2
+    lo_pos, hi_pos = pos[first], pos[first + REGION_VARIANTS - 1]
+    region = f"22:{lo_pos}-{hi_pos}"
+    in_region = np.flatnonzero((pos >= lo_pos) & (pos <= hi_pos))
+
+    c = _variant_counts_numpy(packed, in_region)
+    ac, nobs = c[:, 1] + 2 * c[:, 2], len(iids) - c[:, 3]
+    af = np.where(nobs > 0, ac / np.maximum(2 * nobs, 1), 0.0)
+    maf = np.minimum(af, 1.0 - af)
+    maf_thr = float(f"{np.median(maf):.6f}")
+    maf_rows = in_region[maf >= maf_thr]
+    missing_rate = _sample_missing_numpy(packed)[: len(iids)] / len(pos)
+    mind_thr = float(f"{np.median(missing_rate):.8f}")
+    mind_samples = np.flatnonzero(missing_rate <= mind_thr)
+    print(f"[7 device provider] --maf {maf_thr} keeps {len(maf_rows)} of the region's "
+          f"{len(in_region)} variants; --mind {mind_thr} keeps {len(mind_samples)} of "
+          f"{len(iids)} samples (numpy's counts of the .pgen)")
+    for flag, kept, of in (("--maf", len(maf_rows), len(in_region)),
+                           ("--mind", len(mind_samples), len(iids))):
+        if not 0.1 * of <= kept <= 0.9 * of:
+            raise AssertionError(f"{flag} keeps {kept} of {of}, outside 10-90%")
+
+    argv_a = _argv_a(iids)
+    runs = [
+        # label, fileset, argv, output name, route, (packed, kept rows, kept samples)
+        ("(a) chr22 ALT == G keep-two", full, argv_a, "a.vcf", ROUTE_DEVICE,
+         (packed, np.flatnonzero(alt == b"G"), two)),
+        (f"(b) chr22 --maf {maf_thr} -r {region}", full, ["--maf", str(maf_thr), "-r", region],
+         "b_maf.vcf", ROUTE_HOST, (packed, maf_rows, every)),
+        (f"(b) chr22 --mind {mind_thr} -r {region}", full, ["--mind", str(mind_thr), "-r", region],
+         "b_mind.vcf", ROUTE_HOST, (packed, in_region, mind_samples)),
+        (f"(c) {RAGGED_VARIANTS}-variant keep-all ALT == G", ragged, ["--include-var", 'ALT == "G"'],
+         "c.vcf", ROUTE_DEVICE, (ragged_packed, np.flatnonzero(ragged_alt == b"G"), every)),
+        (f"(c) {RAGGED_VARIANTS}-variant keep-all ALT == G .vcf.gz --index", ragged,
+         ["--include-var", 'ALT == "G"', "--index"], "c.vcf.gz", ROUTE_DEVICE, None),
+        (f"(d) chr22 -r {region} keep-two", full, ["-r", region, "--samples", argv_a[3]],
+         "d.vcf", ROUTE_FALLBACK, (packed, in_region, two)),
+    ]
+
+    def device_run(prefix, argv, out, device):
+        return _port_cli(["filter", prefix, *argv, "--provider", "device"], out, device)
+
+    results, walls = [], []
+    _reset_launches()
+    for label, prefix, argv, name, route, expect in runs:
+        out = tmp / f"cuda.{name}"
+        print(f"[7 device provider] {label} on cuda:")
+        seconds, err = device_run(prefix, argv, out, "cuda")
+        walls.append(seconds)
+        if _route(err) != route:
+            raise AssertionError(f"{label}: route {_route(err)!r}, expected {route!r}")
+        files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
+        results.append(([_sha256(f) for f in files], out.stat().st_size))
+        if expect is not None:
+            _check_gt_text(out, *expect)
+        elif _gunzip_sha256(out) != results[3][0][0]:
+            raise AssertionError(f"{name} does not decompress to the plain (c) output")
+        for f in files:
+            f.unlink()
+    prof = tmp / "profile"
+    prof_s, _ = device_run(full, [*argv_a, "--profile", str(prof)], tmp / "cuda.prof.vcf", "cuda")
+    print(f"[7 device provider] (a) once more under --profile, wall {prof_s:.3f} s: "
+          f"{_trace_shares(prof / 'rank0.trace.json', prof_s)}")
+    launches = _read_launches()
+
+    for (label, prefix, argv, name, route, expect), (hashes, size), cuda_s in zip(runs, results, walls):
+        out = tmp / f"cpu.{name}"
+        cpu_s, _ = device_run(prefix, argv, out, "cpu")
+        files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
+        for f, want in zip(files, hashes):
+            if _sha256(f) != want:
+                raise AssertionError(f"{label}: the cuda run's {f.suffix} differs from the cpu run's")
+            f.unlink()
+        single = ""
+        if expect is not None:
+            out = tmp / f"single.{name}"
+            single_s = _port_filter(prefix, argv, out, "cuda")
+            if _sha256(out) != hashes[0]:
+                raise AssertionError(f"{label}: differs from the single-GPU filter's output")
+            out.unlink()
+            single = f", single-GPU filter {single_s:.3f} s"
+        print(f"[7 device provider] {label}: {size} B, route {route}, sha256 equal on cuda and "
+              f"cpu{' (+ .tbi)' if len(files) > 1 else ''}"
+              f"{' and to the single-GPU filter' if expect is not None else ''}, GT text equal "
+              f"to numpy's decode of the .pgen{' after gunzip' if expect is None else ''}; "
+              f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s{single}")
+    print(f"[7 device provider] path launches: {launches}")
+    for name in ("genotype_text", "subset_text_from_packed", "gt_counts_device",
+                 "sample_counts_device"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the device provider's path")
+    return launches, results[0][0][0]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_ranks(tmp: Path, full: Path, want_sha: str) -> None:
+    """(a) again as 2 ranks (and 4, where four cards are visible, with
+    LOCAL_RANK reversed: rank r on card 3 - r), each rank a torchrun-style
+    process of the port's CLI; the output must be sha256-equal to the
+    one-rank run's."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[7 device provider] (a) on 2 and 4 ranks: skipped, {n} card visible "
+              "(one process per card needs two or more)")
+        return
+    iids, _, _, _ = _read_fileset(full)
+    for world in (2, 4) if n >= 4 else (2,):
+        out = tmp / f"ranks{world}.vcf"
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+               "WORLD_SIZE": str(world)}
+        cmd = [sys.executable, "-m", "pgen_tpu_torch.cli", "filter", str(full), *_argv_a(iids),
+               "--provider", "device", "--device", "cuda", "--stats", "-o", str(out)]
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                local = world - 1 - r if world == 4 else r
+                procs.append(subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                    env={**env, "RANK": str(r), "LOCAL_RANK": str(local)},
+                ))
+            errs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        seconds = time.perf_counter() - t0
+        for r, (p, err) in enumerate(zip(procs, errs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of {world} exited {p.returncode}\n{err[-3000:]}")
+        if _sha256(out) != want_sha:
+            raise AssertionError(f"(a) on {world} ranks differs from the one-rank run")
+        print(f"[7 device provider] (a) on {world} ranks{' (LOCAL_RANK reversed)' if world == 4 else ''}: "
+              f"sha256 equal to the one-rank run; wall {seconds:.3f} s (process start included); "
+              "rank 0's report:")
+        for line in errs[0].strip().splitlines():
+            print(f"    {line}")
+        out.unlink()
+
+
+def main(argv: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -586,27 +841,44 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     name = phase_device()
     phase_build()
-    measured = phase_kernels()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        tmp = Path(tmp)
-        fixtures = make_fixtures(tmp)
-        per_path = [
-            phase_filter(tmp, fixtures["full"], fixtures["ragged"]),
-            phase_pgen_out(tmp, fixtures["full"]),
-            phase_import(tmp, fixtures["import"]),
-        ]
+    if argv == ["--ranks"]:
+        # the device provider across cards, and what it is compared with
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            tmp = Path(tmp)
+            full = make_fixtures(tmp)["full"]
+            iids, _, _, _ = _read_fileset(full)
+            print("[7 device provider] (a) on one rank:")
+            _port_cli(["filter", full, *_argv_a(iids), "--provider", "device"], tmp / "a.vcf", "cuda")
+            phase_ranks(tmp, full, _sha256(tmp / "a.vcf"))
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}; takes none, or --ranks", file=sys.stderr)
+        return 2
+    else:
+        measured = phase_kernels()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            tmp = Path(tmp)
+            fixtures = make_fixtures(tmp)
+            per_path = [
+                phase_filter(tmp, fixtures["full"], fixtures["ragged"]),
+                phase_pgen_out(tmp, fixtures["full"]),
+                phase_import(tmp, fixtures["import"]),
+            ]
+            launches, sha_a = phase_device_provider(tmp, fixtures["full"], fixtures["ragged"])
+            per_path.append(launches)
+            phase_ranks(tmp, fixtures["full"], sha_a)
     if "jax" in sys.modules:
         raise AssertionError("the port's run loaded jax")
 
-    rows = []
-    for kname, where in KERNELS.items():
-        ms, plain_ms = measured["times"][kname]
-        rows.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
-            "launches": sum(launches[kname] for launches in per_path),
-            "max_abs_err": measured["err"][kname], "ms": ms, "plain_ms": plain_ms,
-        })
-    print(json.dumps({"kernels": rows}))
+    if not argv:
+        rows = []
+        for kname, where in KERNELS.items():
+            ms, plain_ms = measured["times"][kname]
+            rows.append({
+                "name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
+                "launches": sum(launches[kname] for launches in per_path),
+                "max_abs_err": measured["err"][kname], "ms": ms, "plain_ms": plain_ms,
+            })
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))
@@ -614,4 +886,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,7 +13,15 @@ that each counterpart is easy to find:
                       genotype_text_transposed (K6),
                       genotype_text_from_codes (K7)
   ops/pack.py         pack_codes (K4), subset_repack (K5)
-  pipeline/filter.py  filter_to_vcf on one GPU
+  ops/gt_stats.py     gt_counts_device (K8), sample_counts_device (K9)
+  query/compile_device.py  lower_device: predicates as torch ops on the
+                      device over padded column tensors
+  parallel/distributed.py  the process group: one process per GPU
+  parallel/mesh.py    the rank-local block step and its all-gathers
+  pipeline/filter.py  filter_to_vcf on one GPU; compute_masks with the
+                      genotype counts on the device
+  pipeline/mesh_filter.py  filter_to_vcf_mesh (--provider device) on one
+                      or more GPUs
   pipeline/pgen_out.py  filter_to_pgen (--out-format pgen) on one GPU
   pipeline/vcf_import.py  import_vcf on one GPU
   cli.py              python -m pgen_tpu_torch.cli filter|import ...
@@ -38,7 +46,11 @@ _LAZY = {
     "genotype_text_transposed": "pgen_tpu_torch.ops.gt_text",
     "pack_codes": "pgen_tpu_torch.ops.pack",
     "subset_repack": "pgen_tpu_torch.ops.pack",
+    "gt_counts_device": "pgen_tpu_torch.ops.gt_stats",
+    "sample_counts_device": "pgen_tpu_torch.ops.gt_stats",
+    "lower_device": "pgen_tpu_torch.query.compile_device",
     "filter_to_vcf": "pgen_tpu_torch.pipeline.filter",
+    "filter_to_vcf_mesh": "pgen_tpu_torch.pipeline.mesh_filter",
     "filter_to_pgen": "pgen_tpu_torch.pipeline.pgen_out",
     "import_vcf": "pgen_tpu_torch.pipeline.vcf_import",
 }

@@ -9,7 +9,12 @@ adds ``--device cuda|cpu`` (default ``cuda``, which must be available) to
 sugar and ``--rm-dup force-first|exclude-all``.
 
 ``filter`` writes a VCF, or with ``--out-format pgen`` the fileset
-``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``import`` reads a ``.vcf`` or
+``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``--provider device`` routes a
+VCF to ``pipeline/mesh_filter.py`` (one process per GPU, a one-rank group
+when run alone; N cards: ``torchrun --nproc-per-node N -m
+pgen_tpu_torch.cli filter ... --provider device``) and makes the genotype
+counts of ``--out-format pgen``'s predicates on the device. ``--profile DIR``
+writes a torch.profiler trace per rank. ``import`` reads a ``.vcf`` or
 ``.vcf.gz``. What the port does not serve yet is refused with the ROADMAP.md
 item that will serve it: every other subcommand, and the flags and inputs
 listed in ``_UNSERVED`` and ``_UNSERVED_IMPORT``.
@@ -18,6 +23,8 @@ listed in ``_UNSERVED`` and ``_UNSERVED_IMPORT``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 from pgen_tpu.cli import build_arg_parser
@@ -26,33 +33,30 @@ from pgen_tpu.cli import build_arg_parser
 _UNSERVED = {
     "workers": (
         lambda v: v is not None,
-        "--workers: multi-process filtering is ROADMAP §1 item 6 (multi-GPU filter)",
+        "--workers: pgen_tpu's host multi-process filter is ROADMAP §1 item 15; "
+        "--provider device runs one process per GPU",
     ),
     "shards": (
         lambda v: v is not None,
-        "--shards: variant sharding is ROADMAP §1 item 6 (multi-GPU filter)",
+        "--shards: pgen_tpu's host shard path is ROADMAP §1 item 15; "
+        "--provider device shards variants over the GPUs",
     ),
     "shard_index": (
         lambda v: v is not None,
-        "--shard-index: variant sharding is ROADMAP §1 item 6 (multi-GPU filter)",
+        "--shard-index: pgen_tpu's host shard path is ROADMAP §1 item 15",
     ),
     "resume": (
         lambda v: v,
-        "--resume: multi-process filtering is ROADMAP §1 item 6 (multi-GPU filter)",
-    ),
-    "profile": (
-        lambda v: v is not None,
-        "--profile: the torch.profiler trace is ROADMAP §1 item 6",
+        "--resume: pgen_tpu's host multi-process filter is ROADMAP §1 item 15",
     ),
     "out_format": (
         lambda v: v == "bed",
         "--out-format bed: PLINK1 .bed output is ROADMAP §1 item 14",
     ),
     "provider": (
-        lambda v: v != "auto",
-        "--provider: the port has one device path, chosen with --device; "
-        "pgen_tpu's mesh provider is ROADMAP §1 item 6 and its host providers "
-        "stay pgen_tpu's",
+        lambda v: v not in ("auto", "device"),
+        "--provider native|numpy: the port serves auto (one GPU) and device "
+        "(ROADMAP §1 item 6, done); pgen_tpu's host providers stay pgen_tpu's",
     ),
     "threads": (
         lambda v: v is not None,
@@ -145,6 +149,28 @@ def _refuse_unserved(parser, args, unserved: dict) -> None:
             parser.error(why)
 
 
+@contextlib.contextmanager
+def _profile(out_dir, device: str):
+    """With ``--profile DIR``, a torch.profiler trace of the run (CPU
+    activity, and CUDA activity on a card) written as the Chrome trace
+    ``DIR/rank{R}.trace.json``, R this process's rank; pgen_tpu maps the
+    flag to jax.profiler."""
+    if out_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from pgen_tpu_torch.parallel.distributed import env_rank
+
+    activities = [ProfilerActivity.CPU]
+    if device.startswith("cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, f"rank{env_rank()}.trace.json"))
+
+
 def _import(parser, args) -> int:
     _refuse_unserved(parser, args, _UNSERVED_IMPORT)
     from pgen_tpu_torch.pipeline.vcf_import import import_vcf
@@ -179,36 +205,55 @@ def main(argv=None) -> int:
         parser.error("--index requires -o out.vcf.gz")
     if args.index and args.out_format != "vcf":
         parser.error("--index applies to VCF output only")
+    if args.provider == "device" and args.out_file == "-":
+        parser.error(
+            "-o - (stdout) requires the single-process filter "
+            "(drop --workers/--shards/--provider device)"
+        )
     _compose_queries(args)
 
     kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
-    if args.out_format == "pgen":
-        from pgen_tpu_torch.pipeline.pgen_out import filter_to_pgen
+    with _profile(args.profile, args.device):
+        if args.out_format == "pgen":
+            from pgen_tpu_torch.pipeline.pgen_out import filter_to_pgen
 
-        result = filter_to_pgen(
-            args.pfile_prefix,
-            var_query=args.var_query,
-            sam_query=args.sam_query,
-            out_prefix=args.out_file,
-            device=args.device,
-            **kwargs,
-        )
-        if args.stats:
-            print(result.timer.report(), file=sys.stderr)
-        return 0
+            result = filter_to_pgen(
+                args.pfile_prefix,
+                var_query=args.var_query,
+                sam_query=args.sam_query,
+                out_prefix=args.out_file,
+                device=args.device,
+                provider=args.provider,
+                **kwargs,
+            )
+        elif args.provider == "device":
+            from pgen_tpu_torch.pipeline.mesh_filter import filter_to_vcf_mesh
 
-    from pgen_tpu_torch.pipeline.filter import filter_to_vcf
+            result = filter_to_vcf_mesh(
+                args.pfile_prefix,
+                var_query=args.var_query,
+                sam_query=args.sam_query,
+                out_file=args.out_file,
+                device=args.device,
+                index=args.index,
+                index_format=args.index_format,
+                **kwargs,
+            )
+            if args.stats:
+                print(f"predicate route: {result.route}", file=sys.stderr)
+        else:
+            from pgen_tpu_torch.pipeline.filter import filter_to_vcf
 
-    result = filter_to_vcf(
-        args.pfile_prefix,
-        var_query=args.var_query,
-        sam_query=args.sam_query,
-        out_file=args.out_file,
-        device=args.device,
-        index=args.index,
-        index_format=args.index_format,
-        **kwargs,
-    )
+            result = filter_to_vcf(
+                args.pfile_prefix,
+                var_query=args.var_query,
+                sam_query=args.sam_query,
+                out_file=args.out_file,
+                device=args.device,
+                index=args.index,
+                index_format=args.index_format,
+                **kwargs,
+            )
     if args.stats:
         print(result.timer.report(), file=sys.stderr)
     return 0

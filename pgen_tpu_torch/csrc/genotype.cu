@@ -1,5 +1,6 @@
 // Genotype kernels for Hopper (sm_90a): packed 2-bit records <-> codes, a
-// sample subset of records re-packed, and records or codes -> VCF GT text.
+// sample subset of records re-packed, records or codes -> VCF GT text, and
+// records -> per-variant and per-sample code counts.
 // Built by pgen_tpu_torch/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes.
 //
@@ -217,6 +218,99 @@ __global__ void text_from_codes_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// K8. Replaces pgen_tpu/ops/gt_stats.py:gt_counts_device: the Pallas
+// _unpack_kernel (ops/unpack.py) then an XLA one-hot sum over the samples.
+// (V, R) u8 records -> (V, 4) int32: counts[v][c] = #{s < S : code(v, s) == c}.
+// Bound: memory, one read of each record byte and 16 B written per row.
+// Design: one warp per row; lane l takes bytes l, l+32, ... (a warp's load
+// is 32 consecutive bytes) and counts the byte's four codes with popcounts
+// on its low and high code bits, so codes never reach device memory. Slots
+// at or past S (the pad codes of a row's last byte, arbitrary bits in real
+// files) are masked out of both bit sets before counting. A shuffle tree
+// then sums the lanes' counts.
+__global__ void gt_counts_kernel(const uint8_t* __restrict__ packed,
+                                 int32_t* __restrict__ counts, int64_t n_var,
+                                 int64_t rec, int64_t n_samples) {
+  constexpr int kWarp = 32;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
+  const int64_t used = (n_samples + 3) / 4;  // bytes that hold samples
+  // v is the same for every lane of a warp, so the whole warp takes part in
+  // each shuffle below
+  for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
+    const uint8_t* row = packed + v * rec;
+    uint32_t c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+    for (int64_t j = lane; j < used; j += kWarp) {
+      const uint32_t b = row[j];
+      const int64_t left = n_samples - 4 * j;  // samples from this byte on
+      const uint32_t slots =
+          left >= 4 ? 0x55u : 0x55u & ((1u << (2 * left)) - 1u);
+      const uint32_t lo = b & slots;         // bit 0 of each counted code
+      const uint32_t hi = (b >> 1) & slots;  // bit 1
+      c1 += __popc(lo & ~hi);
+      c2 += __popc(hi & ~lo);
+      c3 += __popc(lo & hi);
+      c0 += __popc(slots & ~(lo | hi));
+    }
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      c0 += __shfl_down_sync(0xFFFFFFFFu, c0, off);
+      c1 += __shfl_down_sync(0xFFFFFFFFu, c1, off);
+      c2 += __shfl_down_sync(0xFFFFFFFFu, c2, off);
+      c3 += __shfl_down_sync(0xFFFFFFFFu, c3, off);
+    }
+    if (lane == 0) {
+      int32_t* out = counts + 4 * v;
+      out[0] = static_cast<int32_t>(c0);
+      out[1] = static_cast<int32_t>(c1);
+      out[2] = static_cast<int32_t>(c2);
+      out[3] = static_cast<int32_t>(c3);
+    }
+  }
+}
+
+// Rows one K9 thread counts before it adds its sums to the output; each
+// count then fits the 16-bit field it is kept in.
+constexpr int64_t kCountRows = 256;
+
+// K9. Replaces pgen_tpu/ops/gt_stats.py:sample_counts_device: the Pallas
+// _unpack_kernel then an XLA one-hot sum over the variants.
+// (V, R) u8 records -> (4R, 4) int32 added into counts (zeroed by the
+// wrapper, which cuts it to S rows): counts[4j+k][c] = #{v : code of slot k
+// of byte j == c}. Pad slots are counted into rows >= S and cut away.
+// Bound: memory, one read of each record byte. Design: one thread per
+// record-byte column j over a chunk of kCountRows rows, so a warp's load is
+// 32 consecutive bytes of one row. Each thread keeps its 16 counts (4 slots
+// x 4 codes) as four u64 registers of four 16-bit fields, one add per slot
+// and byte, then adds them to the output with one atomic per non-zero
+// count. Chunks (blockIdx.y, grid-stride) run in parallel; V < 2^31 rows,
+// so no int32 sum overflows.
+__global__ void sample_counts_kernel(const uint8_t* __restrict__ packed,
+                                     int32_t* __restrict__ counts,
+                                     int64_t n_var, int64_t rec) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= rec) return;
+  for (int64_t r0 = static_cast<int64_t>(blockIdx.y) * kCountRows; r0 < n_var;
+       r0 += static_cast<int64_t>(gridDim.y) * kCountRows) {
+    const int64_t r1 = r0 + kCountRows < n_var ? r0 + kCountRows : n_var;
+    uint64_t acc[4] = {0, 0, 0, 0};  // slot k: code c's count at bits 16c
+    for (int64_t v = r0; v < r1; ++v) {
+      const uint32_t b = packed[v * rec + j];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[k] += 1ull << (16 * ((b >> (2 * k)) & 3u));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = static_cast<int>((acc[k] >> (16 * c)) & 0xFFFFu);
+        if (n) atomicAdd(counts + 4 * (4 * j + k) + c, n);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,6 +391,30 @@ int pgen_text_from_codes(const void* codes, void* text, int64_t n_var,
   text_from_codes_kernel<<<grid_for(n), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<uint32_t*>(text), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_gt_counts(const void* packed, void* counts, int64_t n_var,
+                   int64_t rec, int64_t n_samples, void* stream) {
+  if (n_var <= 0 || n_samples <= 0) return 0;
+  const int64_t rows_per_block = kThreads / 32;
+  const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
+  gt_counts_kernel<<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
+                     kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<int32_t*>(counts), n_var,
+      rec, n_samples);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_sample_counts(const void* packed, void* counts, int64_t n_var,
+                       int64_t rec, void* stream) {
+  if (n_var <= 0 || rec <= 0) return 0;
+  const int64_t chunks = (n_var + kCountRows - 1) / kCountRows;
+  const dim3 grid(static_cast<unsigned>((rec + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(chunks < 65535 ? chunks : 65535));
+  sample_counts_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<int32_t*>(counts), n_var,
+      rec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,9 +4,10 @@
 Everything but the genotype text is pgen_tpu's host code, reused by import:
 ``derive_row_layout`` (metadata, predicates, the byte layout of every output
 row), ``_gather_rows``, ``materialize_prefixes``, the C++ row assembler
-``native.assemble_rows_buf``, BGZF and tabix. The predicates stay on the host
-by design: they run on pgen_tpu's ``native`` provider, or ``numpy`` without a
-C++ toolchain, never its ``device`` provider, which is jax.
+``native.assemble_rows_buf``, BGZF and tabix. This path's predicates run on
+pgen_tpu's ``native`` provider, or ``numpy`` without a C++ toolchain.
+``compute_masks`` below is the device provider's (``--provider device``):
+pgen_tpu's, with its genotype counts made on the device (K8, K9).
 
 The records are pgen_tpu's memory-mapped ``.pgen`` matrix; what reaches the
 device is each block's kept rows, copied into a staging tensor. Per block:
@@ -117,6 +118,76 @@ class _BlockRows:
                 n = _assemble_rows_numpy(text, pbuf, off, out)
         if n != out.nbytes:
             raise RuntimeError(f"rows [{lo},{hi}) took {n} bytes, layout says {out.nbytes}")
+
+
+def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
+    """pgen_tpu's ``compute_masks`` with ``provider="device"``
+    (``pgen_tpu/pipeline/filter.py``), its genotype counts made on
+    ``device``: the variant and sample masks of the two include-predicates.
+
+    ``GT_*`` variables bind per-variant code histograms in the variant query
+    (K8 ``gt_counts_device``) and per-sample ones over all variants in the
+    sample query (K9 ``sample_counts_device``; plink2's ``--mind``
+    convention). With a GT_* sample query the sample mask comes first, and
+    when it keeps a subset the variant counts cover only the kept samples:
+    those cohort-aware counts stay on the host, as pgen_tpu's device
+    provider keeps them (``gt_counts_subset``). Everything else is
+    pgen_tpu's host code: GT()/GT_TEXT()/GT_ROW indexing, DUP_* variables
+    and the predicate compiler.
+    """
+    from pgen_tpu.ops.gt_stats import GT_VARIABLE_NAMES, gt_counts_subset, gt_variables
+    from pgen_tpu.pipeline.filter import _maybe_gt_index_masks
+    from pgen_tpu.query import compile_predicate, parse
+    from pgen_tpu.query.ast import variables
+    from pgen_tpu.query.dup import dup_variables
+    from pgen_tpu_torch.ops.gt_stats import gt_counts, sample_counts
+
+    var_node = parse(var_query) if isinstance(var_query, str) else var_query
+    sam_node = parse(sam_query) if isinstance(sam_query, str) else sam_query
+    var_node, sam_node, var_idx_extra, sam_idx_extra = _maybe_gt_index_masks(
+        var_node, sam_node, pvar, psam, header, records
+    )
+    var_used = variables(var_node) & set(GT_VARIABLE_NAMES) if var_node is not None else set()
+    sam_used = variables(sam_node) & set(GT_VARIABLE_NAMES) if sam_node is not None else set()
+    dup_extra = dup_variables(pvar, variables(var_node)) if var_node is not None else None
+    if var_idx_extra:
+        dup_extra = {**(dup_extra or {}), **var_idx_extra}
+    if not var_used and not sam_used:
+        return (
+            compile_predicate(var_node, pvar, dup_extra),
+            compile_predicate(sam_node, psam, sam_idx_extra),
+        )
+    if sam_used:
+        if psam.num_rows > header.num_samples:
+            raise ValueError(
+                f"{psam.path} has {psam.num_rows} rows but the pgen holds "
+                f"{header.num_samples} samples (GT_* stats require matching counts)"
+            )
+        sc = sample_counts(records, header.num_samples, device)
+        sam_extra = gt_variables(sc, header.num_variants, sam_used)
+        sam_extra = {k: v[: psam.num_rows] for k, v in sam_extra.items()}
+        if sam_idx_extra:
+            sam_extra = {**sam_extra, **sam_idx_extra}
+        sam_mask = compile_predicate(sam_node, psam, sam_extra)
+    else:
+        sam_mask = compile_predicate(sam_node, psam, sam_idx_extra)
+    if not var_used:
+        return compile_predicate(var_node, pvar, dup_extra), sam_mask
+    sam_idx = np.flatnonzero(sam_mask)
+    if len(sam_idx) == header.num_samples:
+        counts = gt_counts(records, header.num_samples, device)
+    else:
+        counts = gt_counts_subset(records, sam_idx.astype(np.int32), "native")
+    extra = gt_variables(counts, len(sam_idx), var_used)
+    if pvar.num_rows > header.num_variants:
+        raise ValueError(
+            f"{pvar.path} has {pvar.num_rows} rows but the pgen holds "
+            f"{header.num_variants} variant records (GT_* stats require matching counts)"
+        )
+    extra = {k: v[: pvar.num_rows] for k, v in extra.items()}
+    if dup_extra:
+        extra = {**extra, **dup_extra}
+    return compile_predicate(var_node, pvar, extra), sam_mask
 
 
 def _bgzf(pool: ThreadPoolExecutor, threads: int, data: np.ndarray) -> list:

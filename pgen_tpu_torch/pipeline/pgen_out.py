@@ -4,7 +4,9 @@
 Everything but the sample re-pack is pgen_tpu's host code, reused by
 import: the header and metadata readers, ``compute_masks`` (on pgen_tpu's
 ``native`` provider, or ``numpy`` without a C++ toolchain, never its jax
-``device`` provider), ``_gather_rows`` and ``_write_meta_subset``.
+``device`` provider), ``_gather_rows`` and ``_write_meta_subset``. With
+``provider="device"`` the masks come from the port's ``compute_masks``
+instead, whose genotype counts run on the device (K8, K9).
 
 When every sample is kept the records are copied verbatim, with no device
 work, as pgen_tpu does. Otherwise, per block of kept variants:
@@ -42,6 +44,7 @@ from pgen_tpu.utils.log import get_logger
 from pgen_tpu.utils.timer import StageTimer
 from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.ops.pack import subset_repack
+from pgen_tpu_torch.pipeline.filter import compute_masks as device_masks
 
 log = get_logger("torch.pgen_out")
 
@@ -84,13 +87,20 @@ def filter_to_pgen(
     out_prefix: str | None = None,
     device: str | torch.device = "cuda",
     block_variants: int = DEFAULT_BLOCK,
+    provider: str = "auto",
 ) -> PgenFilterResult:
     """Filter a pgen fileset to OUT_PREFIX.pgen/.pvar/.psam with the sample
     re-pack on ``device`` (``"cuda"``, which must be available, or ``"cpu"``).
 
     Same arguments and output bytes as pgen_tpu's ``filter_to_pgen``;
-    ``out_prefix`` defaults to ``{prefix}.pgen-rs``.
+    ``out_prefix`` defaults to ``{prefix}.pgen-rs``. ``provider="auto"``
+    evaluates the predicates on the host (pgen_tpu's ``native`` provider, or
+    ``numpy`` without a C++ toolchain); ``"device"`` makes their genotype
+    counts on ``device`` (the port's ``compute_masks``), as pgen_tpu's
+    device provider makes them on its device.
     """
+    if provider not in ("auto", "device"):
+        raise ValueError(f"provider must be auto or device, got {provider!r}")
     from pgen_tpu.native import HAVE_NATIVE
 
     dev = resolve_device(device)
@@ -112,10 +122,15 @@ def filter_to_pgen(
     records = pgen_mm[12 : 12 + header.num_variants * rec].reshape(header.num_variants, rec)
 
     with timer.stage("predicates"):
-        var_mask, sam_mask = compute_masks(
-            var_query, sam_query, pvar, psam, header, records,
-            "native" if HAVE_NATIVE else "numpy",
-        )
+        if provider == "device":
+            var_mask, sam_mask = device_masks(
+                var_query, sam_query, pvar, psam, header, records, dev
+            )
+        else:
+            var_mask, sam_mask = compute_masks(
+                var_query, sam_query, pvar, psam, header, records,
+                "native" if HAVE_NATIVE else "numpy",
+            )
     var_idx = np.flatnonzero(var_mask)
     sam_idx = np.flatnonzero(sam_mask)
     n_kept = len(sam_idx)

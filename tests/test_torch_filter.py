@@ -7,6 +7,7 @@ the kernels' plain PyTorch versions make the text; pgen_tpu runs its numpy
 provider and its device provider (JAX on the CPU).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -168,7 +169,6 @@ def test_cli_matches_pgen_tpu(tmp_path, argv):
         ["filter", "{prefix}", "--workers", "2"],
         ["filter", "{prefix}", "--shards", "2"],
         ["filter", "{prefix}", "--out-format", "bed"],
-        ["filter", "{prefix}", "--profile", "prof"],
         ["filter", "{prefix}", "--provider", "native"],
         ["filter", "{prefix}", "--rm-dup", "list"],
         ["filter", "{prefix}", "--threads", "2"],
@@ -185,6 +185,19 @@ def test_cli_refuses_unserved_flags_naming_roadmap(tmp_path, capsys, argv):
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
     assert not list(tmp_path.glob("x.vcf*"))
+
+
+@pytest.mark.parametrize("provider", ["auto", "device"])
+def test_cli_profile_writes_a_trace(tmp_path, provider):
+    """--profile DIR: a torch.profiler Chrome trace of the run, named by
+    rank, beside the same output as without it."""
+    prefix = _fileset(tmp_path, 9, 6, seed=9)
+    argv = ["filter", prefix, "--samples", "s1,s4", "--provider", provider, "--device", "cpu"]
+    assert port_main([*argv, "--profile", str(tmp_path / "prof"), "-o", str(tmp_path / "a.vcf")]) == 0
+    assert port_main([*argv, "-o", str(tmp_path / "b.vcf")]) == 0
+    assert _read(tmp_path / "a.vcf") == _read(tmp_path / "b.vcf")
+    trace = json.loads((tmp_path / "prof" / "rank0.trace.json").read_text())
+    assert any(e.get("cat") == "cpu_op" for e in trace["traceEvents"])
 
 
 def test_cli_refuses_other_subcommands(tmp_path, capsys):
@@ -208,14 +221,16 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 def test_port_never_loads_jax(tmp_path):
     """Importing the port and running a filter to VCF (GT_* sugar included),
-    a filter to a pgen fileset and an import of the VCF keeps jax out of the
-    process. A subprocess, since this test process has jax."""
+    a filter to a pgen fileset, an import of the VCF and two filters with
+    --provider device (--maf's K8 counts, a device-lowered predicate) keeps
+    jax out of the process. A subprocess, since this test process has jax."""
     prefix = _fileset(tmp_path, 12, 6, seed=12)
     code = (
         "import sys\n"
         "import pgen_tpu_torch, pgen_tpu_torch.pipeline.filter, pgen_tpu_torch.cli\n"
         "import pgen_tpu_torch.pipeline.pgen_out, pgen_tpu_torch.pipeline.vcf_import\n"
         "import pgen_tpu_torch.ops.pack, pgen_tpu_torch.kernels, pgen_tpu_torch.device\n"
+        "import pgen_tpu_torch.pipeline.mesh_filter, pgen_tpu_torch.ops.gt_stats\n"
         "assert 'jax' not in sys.modules, 'import loaded jax'\n"
         "from pgen_tpu_torch.cli import main\n"
         "prefix, out = sys.argv[1:]\n"
@@ -227,6 +242,11 @@ def test_port_never_loads_jax(tmp_path):
         "assert 'jax' not in sys.modules, 'filter --out-format pgen loaded jax'\n"
         "assert main(['import', out + '.vcf', '-o', out + '.imp', '--device', 'cpu']) == 0\n"
         "assert 'jax' not in sys.modules, 'import loaded jax'\n"
+        "assert main(['filter', prefix, '--provider', 'device', '--device', 'cpu', '--maf', '0.1',\n"
+        "             '--include-var', 'ALT == \"G\"', '-o', out + '.dev.vcf']) == 0\n"
+        "assert main(['filter', prefix, '--provider', 'device', '--device', 'cpu',\n"
+        "             '--include-var', 'ALT != \"C\"', '-o', out + '.low.vcf']) == 0\n"
+        "assert 'jax' not in sys.modules, 'filter --provider device loaded jax'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -235,5 +255,5 @@ def test_port_never_loads_jax(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr
-    for name in ("o.vcf", "o.sub.pgen", "o.imp.pgen"):
+    for name in ("o.vcf", "o.sub.pgen", "o.imp.pgen", "o.dev.vcf", "o.low.vcf"):
         assert (tmp_path / name).stat().st_size > 12

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card, against their plain PyTorch versions
 and against pgen_tpu's numpy oracles (``unpack_codes_reference``,
-``emit_rows_numpy`` and ``formats.writer.pack_codes``), so the kernels are
+``emit_rows_numpy``, ``formats.writer.pack_codes``, ``gt_counts_reference``
+and ``sample_counts_reference``), so the kernels are
 held to the reference package directly, not only through their twins.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from pgen_tpu.formats.writer import pack_codes as writer_pack_codes
+from pgen_tpu.ops.gt_stats import gt_counts_reference, sample_counts_reference
 from pgen_tpu.ops.unpack_host import unpack_codes_reference
 from pgen_tpu.pipeline.vcf import emit_rows_numpy
 from pgen_tpu_torch.ops.gt_text import (
@@ -29,6 +31,13 @@ from pgen_tpu_torch.ops.gt_text import (
     subset_text_plain,
     text_from_codes_plain,
 )
+from pgen_tpu_torch import kernels
+from pgen_tpu_torch.ops.gt_stats import (
+    gt_counts_device,
+    gt_counts_plain,
+    sample_counts_device,
+    sample_counts_plain,
+)
 from pgen_tpu_torch.ops.pack import (
     pack_codes,
     pack_codes_plain,
@@ -40,6 +49,7 @@ from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 WIDTHS = [1, 2, 3, 4, 5, 2503, 2504]
 WRAPPERS = (unpack_codes, genotype_text, subset_text_from_packed)
 NEW_WRAPPERS = (pack_codes, subset_repack, genotype_text_transposed, genotype_text_from_codes)
+COUNT_WRAPPERS = (gt_counts_device, sample_counts_device)
 
 pytestmark = pytest.mark.cuda
 
@@ -143,6 +153,52 @@ def test_pack_kernels_match_plain_and_oracles(cuda_device, n_samples):
     ]
 
 
+@pytest.mark.parametrize("n_samples", [2504, 2503, 5, 1])
+def test_count_kernels_match_plain_and_oracles(cuda_device, n_samples):
+    """K8 and K9 on random records whose pad slots hold random codes, with
+    every byte value at every position, and on a row count that is not a
+    multiple of K9's row chunk."""
+    packed = _packed(300, n_samples, n_samples, cuda_device)
+    host = packed.cpu().numpy()
+    counts = [w.launches for w in COUNT_WRAPPERS]
+    got = gt_counts_device(packed, n_samples)
+    assert torch.equal(got, gt_counts_plain(packed, n_samples))
+    np.testing.assert_array_equal(got.cpu().numpy(), gt_counts_reference(host, n_samples))
+    got = sample_counts_device(packed, n_samples)
+    assert got.shape == (n_samples, 4)
+    assert torch.equal(got, sample_counts_plain(packed, n_samples))
+    np.testing.assert_array_equal(got.cpu().numpy(), sample_counts_reference(host, n_samples))
+    torch.cuda.synchronize()
+    assert [w.launches for w in COUNT_WRAPPERS] == [counts[0] + 1, counts[1] + 1]
+
+
+def test_count_kernels_count_fewer_samples_than_slots(cuda_device):
+    """num_samples below 4R - 3: whole trailing bytes are pad, as in the
+    unpack's [:, :S] cut."""
+    packed = _packed(40, 40, 3, cuda_device)
+    for s in (0, 1, 17, 37, 40):
+        assert torch.equal(gt_counts_device(packed, s), gt_counts_plain(packed, s))
+        assert torch.equal(sample_counts_device(packed, s), sample_counts_plain(packed, s))
+
+
+def test_count_kernel_launch_error_raises(cuda_device, monkeypatch):
+    """A launcher that reports a CUDA error raises and is not counted."""
+
+    class RefusingLibrary:
+        def __getattr__(self, name):
+            if name == "pgen_cuda_error_string":
+                return lambda status: b"invalid argument"
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    packed = _packed(3, 17, 0, cuda_device)
+    counts = [w.launches for w in COUNT_WRAPPERS]
+    monkeypatch.setattr(kernels, "load", RefusingLibrary)
+    for wrapper in COUNT_WRAPPERS:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            wrapper(packed, 17)
+    assert [w.launches for w in COUNT_WRAPPERS] == counts
+
+
 @pytest.mark.parametrize("n_var", [1, 31, 33, 1000])
 @pytest.mark.parametrize("rec", [1, 2, 626])
 def test_transposed_text_ragged_shapes(cuda_device, rec, n_var):
@@ -171,6 +227,12 @@ def test_zero_sized_launch_nothing(cuda_device):
     assert genotype_text_transposed(empty).shape == (0, 5)
     assert genotype_text_from_codes(empty).shape == (0, 20)
     assert [w.launches for w in NEW_WRAPPERS] == new_counts
+    count_launches = [w.launches for w in COUNT_WRAPPERS]
+    assert gt_counts_device(empty, 17).shape == (0, 4)
+    assert sample_counts_device(empty, 17).shape == (17, 4)
+    assert gt_counts_device(packed, 0).shape == (259, 4)
+    assert sample_counts_device(packed, 0).shape == (0, 4)
+    assert [w.launches for w in COUNT_WRAPPERS] == count_launches
 
 
 def test_sel_on_another_device_is_refused(cuda_device):
@@ -198,6 +260,8 @@ def test_launch_on_a_card_that_is_not_current():
             subset_text_from_packed(packed, sel),
             pack_codes(codes),
             subset_repack(packed, sel),
+            gt_counts_device(packed, 2503),
+            sample_counts_device(packed, 2503),
         ]
     side.synchronize()
     want = [
@@ -206,6 +270,8 @@ def test_launch_on_a_card_that_is_not_current():
         subset_text_plain(packed, sel),
         pack_codes_plain(codes),
         subset_repack_plain(packed, sel),
+        gt_counts_plain(packed, 2503),
+        sample_counts_plain(packed, 2503),
     ]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
