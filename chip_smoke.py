@@ -8,11 +8,14 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K7 against their plain PyTorch versions on the card
+  3 kernels  K1-K11 against their plain PyTorch versions on the card
              (torch.equal) at widths 2504, 2503, 5 and 1 samples (K5 at K = 2,
              1,001 and all samples permuted; K6 at R = 626 and 2 with 65,536
-             variants); kernel and plain times at the paths' block shape,
-             CUDA events, median of 10
+             variants; K10 at P = 2 and 3 and K11 with and without mean
+             imputation, each with and without a sample selection holding a
+             gap and a duplicate, on 16,640 rows); kernel and plain times at
+             the paths' block shapes (65,536 rows; K10/K11 16,384 rows at
+             K = 2504 and at a selection of 2,454), CUDA events, median of 10
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
              chr22-scale fixtures made by tools/make_fixtures.py in a
              subprocess: full 1000 Genomes chr22 (1,103,547 variants x 2504
@@ -32,16 +35,39 @@ Phases, each printing its own lines:
              fixture, written by the port's own filter: the .pgen body equal
              to the fixture's records (2504 % 4 == 0: no pad bits), the three
              files sha256-equal to --device cpu. K4 must have launched.
+  7 device   filter --provider device on a one-rank NCCL group: (a) chr22
+    provider ALT == "G" keep-two (device predicate, K3), (b) --maf / --mind
+             at median thresholds over a 5,000-variant region (K8 / K9),
+             (c) 140,001-variant ALT == "G" keep-all .vcf and .vcf.gz --index
+             (K2), (d) a region keep-two (host mask after DeviceFallback);
+             each checked with numpy, then by sha256 against --device cpu and
+             the single-GPU filter; (a) once more under --profile; (a) on 2
+             (and 4) ranks where the cards exist. K2, K3, K8, K9 must have
+             launched.
+  8 GWAS     glm and score through the port's CLI on the full chr22 fixture,
+             with a seeded --pheno table (QT: effects planted on 10 variants,
+             2% NA; QT0: no NA; CC: 1/2 case/control, 2% NA) and a --covar
+             table (C1, C2): (a) linear QT ~ C1 + C2 over all variants against
+             a numpy f64 least-squares oracle on 2,000 seeded variants, the
+             planted variants the 10 smallest P; (b) --modifier genotypic and
+             --interaction with QT0 over a 50,000-variant region and (c)
+             logistic CC over a 20,000-variant region, each against
+             --device cpu; (d) score with three weight columns on every 10th
+             variant, half the effect alleles REF, with and without
+             --no-mean-imputation, against a numpy f64 oracle. K10 and K11
+             must have launched.
 
 The script imports no jax and nothing of pgen_tpu itself; the port uses
 pgen_tpu's jax-free host layers, and a last check fails if jax was loaded.
 
-Each path's launch counts are set to 0 just before its cuda run and read
-just after. Then one JSON line of the seven kernels (launches summed over
-phases 4-6), and as the last line
+Each path's launch counts are set to 0 just before its cuda runs and read
+just after. Then one JSON line of the eleven kernels (launches summed over
+phases 4-8), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
+
+    python3 chip_smoke.py --ranks   # on 2 or 4 cards: phase 7 (a) across ranks only
 """
 
 from __future__ import annotations
@@ -78,7 +104,11 @@ KERNELS = {
     "genotype_text_from_codes": "pgen_tpu/ops/gt_text.py:45",
     "gt_counts_device": "pgen_tpu/ops/gt_stats.py:65",
     "sample_counts_device": "pgen_tpu/ops/gt_stats.py:216",
+    "glm_planes": "pgen_tpu/ops/glm.py:168",
+    "score_dosage": "pgen_tpu/ops/score.py:133",
 }
+GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
+COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -98,13 +128,15 @@ def _time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def _max_abs_err(a, b) -> int:
+def _max_abs_err(a, b):
     import torch
 
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max())
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
 
 
@@ -174,9 +206,12 @@ def phase_kernels() -> dict:
         subset_repack,
         subset_repack_plain,
     )
+    from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS, glm_planes, glm_planes_plain
+    from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
     from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
     dev = torch.device("cuda", 0)
+    luts = [torch.tensor(t, dtype=torch.float32, device=dev) for t in (LUT_MOMENTS, LUT_GENO)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     err = {name: 0 for name in KERNELS}
     for s in WIDTHS:
@@ -218,6 +253,20 @@ def phase_kernels() -> dict:
             sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
             pairs.append(("subset_repack", subset_repack(packed, sel),
                           subset_repack_plain(packed, sel)))
+        # K10 and K11 on the last 16,640 rows (the byte-value rows included),
+        # without a selection and with one that drops 2% of the samples,
+        # repeats the first id and so leaves a gap
+        ops = packed[BLOCK_ROWS - GLM_ROWS:]
+        flip = torch.randint(0, 2, (ops.shape[0],), dtype=torch.uint8, device=dev, generator=gen)
+        perm = torch.randperm(s, generator=gen, device=dev)[: max(1, s - s // 50)]
+        for sel in (None, torch.cat([perm, perm[:1]]).to(torch.int32)):
+            for lut in luts:
+                got, want = glm_planes(ops, s, lut, sel), glm_planes_plain(ops, s, lut, sel)
+                pairs += [("glm_planes", got[0], want[0]), ("glm_planes", got[1], want[1])]
+            for mean_impute in (True, False):
+                got = score_dosage(ops, s, flip, mean_impute, sel)
+                want = score_dosage_plain(ops, s, flip, mean_impute, sel)
+                pairs += [("score_dosage", got[0], want[0]), ("score_dosage", got[1], want[1])]
         torch.cuda.synchronize()
         for name, got, want in pairs:
             e = _max_abs_err(got, want)
@@ -226,8 +275,9 @@ def phase_kernels() -> dict:
             err[name] = max(err[name], e)
         n_k3 = sum(name == "subset_text_from_packed" for name, _, _ in pairs)
         n_k5 = sum(name == "subset_repack" for name, _, _ in pairs)
-        print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}; K6 at ({rec}, {BLOCK_ROWS})): "
-              f"K1, K2, K3 x{n_k3}, K4, K5 x{n_k5}, K6, K7, K8, K9 equal to their plain versions")
+        print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}; K6 at ({rec}, {BLOCK_ROWS}); "
+              f"K10, K11 at V={ops.shape[0]}): K1, K2, K3 x{n_k3}, K4, K5 x{n_k5}, K6, K7, K8, K9, "
+              "K10 x4 (P = 2, 3), K11 x4 equal to their plain versions")
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
@@ -238,6 +288,12 @@ def phase_kernels() -> dict:
     sel1000 = torch.randperm(s, generator=gen, device=dev)[:1000].to(torch.int32)
     keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values.to(torch.int32)
     keep_rec = (KEEP_SAMPLES + 3) // 4
+    # K10/K11 at the GWAS paths' block: 16,384 rows, all 2504 samples or a
+    # sorted cohort of 2,454 (phase 8's QT)
+    ops = packed[:GLM_ROWS]
+    cohort = torch.randperm(s, generator=gen, device=dev)[:COHORT].sort().values.to(torch.int32)
+    flip = torch.randint(0, 2, (GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
+    lut2, lut3 = luts
     cases = {
         "unpack_codes": (lambda: unpack_codes(packed, s), lambda: unpack_codes_plain(packed, s),
                          packed.numel() * 5),
@@ -265,6 +321,18 @@ def phase_kernels() -> dict:
                              lambda: gt_counts_plain(packed, s), packed.numel() + BLOCK_ROWS * 16),
         "sample_counts_device": (lambda: sample_counts_device(packed, s),
                                  lambda: sample_counts_plain(packed, s), packed.numel() + s * 16),
+        "glm_planes": (lambda: glm_planes(ops, s, lut2, cohort),
+                       lambda: glm_planes_plain(ops, s, lut2, cohort),
+                       ops.numel() + GLM_ROWS * (2 * 4 * COHORT + 16)),
+        "glm_planes P=3 K=2504": (lambda: glm_planes(ops, s, lut3),
+                                  lambda: glm_planes_plain(ops, s, lut3),
+                                  ops.numel() + GLM_ROWS * (3 * 4 * s + 16)),
+        "score_dosage": (lambda: score_dosage(ops, s, flip),
+                         lambda: score_dosage_plain(ops, s, flip),
+                         2 * ops.numel() + GLM_ROWS * (4 * s + 5)),
+        "score_dosage K=2454": (lambda: score_dosage(ops, s, flip, True, cohort),
+                                lambda: score_dosage_plain(ops, s, flip, True, cohort),
+                                2 * ops.numel() + GLM_ROWS * (4 * COHORT + 5)),
     }
     times = {}
     for name, (kernel, plain, nbytes) in cases.items():
@@ -272,7 +340,12 @@ def phase_kernels() -> dict:
         p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
         ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
         times[name] = (ms, plain_ms)
-        shape = f"({rec}, {BLOCK_ROWS})" if name == "genotype_text_transposed" else f"({BLOCK_ROWS}, {rec})"
+        if name == "genotype_text_transposed":
+            shape = f"({rec}, {BLOCK_ROWS})"
+        elif name.startswith(("glm_planes", "score_dosage")):
+            shape = f"({GLM_ROWS}, {rec})"
+        else:
+            shape = f"({BLOCK_ROWS}, {rec})"
         print(f"[3 kernels] {name} at {shape} S={s}: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB moved), "
               f"plain {plain_ms:.4f} ms")
@@ -364,9 +437,9 @@ def _read_fileset(prefix: Path):
 def _wrappers() -> dict:
     """Each kernel's wrapper by name; its ``launches`` counts its kernel's
     launches."""
-    from pgen_tpu_torch.ops import gt_stats, gt_text, pack, unpack
+    from pgen_tpu_torch.ops import glm, gt_stats, gt_text, pack, score, unpack
 
-    mods = (unpack, gt_text, pack, gt_stats)
+    mods = (unpack, gt_text, pack, gt_stats, glm, score)
     return {name: next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS}
 
 
@@ -831,12 +904,334 @@ def phase_ranks(tmp: Path, full: Path, want_sha: str) -> None:
         out.unlink()
 
 
+GWAS_REGION = 50_000  # variants of phase 8 (b)
+LOGISTIC_REGION = 20_000  # variants of phase 8 (c)
+ORACLE_VARIANTS = 2000  # variants of phase 8 (a) held against numpy's least squares
+PLANTED = 10  # variants with an effect on QT, QT0 and CC
+SCORE_EVERY = 10  # phase 8 (d) scores every 10th variant
+
+
+def _codes_numpy(packed, rows):
+    """(len(rows), 4R) codes of the given records, every slot, decoded with
+    a numpy byte table (LSB-first 2-bit codes), sharing no code with the
+    port."""
+    import numpy as np
+
+    b = np.arange(256)
+    table = np.stack([(b >> (2 * k)) & 3 for k in range(4)], axis=1).astype(np.uint8)
+    return table[np.asarray(packed[rows])].reshape(len(rows), -1)
+
+
+def _gwas_tables(tmp: Path, iids, packed) -> dict:
+    """The seeded --pheno table (QT: normal around effects of 0.4 per allele
+    planted on 10 variants plus the covariates, 2% NA; QT0: the same model
+    with new noise and no NA; CC: 2 where the same model with logistic noise
+    lies in its top 40%, else 1, 2% NA) and the --covar table (C1 normal, C2
+    normal around 50 with sd 8). Returns the paths, the planted rows and the
+    values as written (NaN for NA)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    n = len(iids)
+    planted = np.sort(rng.choice(packed.shape[0], PLANTED, replace=False))
+    codes = _codes_numpy(packed, planted)[:, :n].astype(np.float64)
+    called = codes != 3
+    g = np.where(called, codes, 0.0)
+    mean = g.sum(axis=1, keepdims=True) / np.maximum(called.sum(axis=1, keepdims=True), 1)
+    signal = (np.where(called, g, mean) - mean).sum(axis=0)
+    c1, c2 = rng.normal(size=n), rng.normal(50.0, 8.0, size=n)
+    model = 0.4 * signal + 0.3 * c1 + 0.02 * c2
+    qt, qt0 = model + rng.normal(size=n), model + rng.normal(size=n)
+    liability = model + rng.logistic(size=n)
+    cc = np.where(liability > np.quantile(liability, 0.6), 2.0, 1.0)
+    qt[rng.random(n) < 0.02] = np.nan
+    cc[rng.random(n) < 0.02] = np.nan
+    # what the files hold, read back as the port reads them
+    values = {k: np.array([float(f"{x:.9g}") for x in v])
+              for k, v in (("QT", qt), ("QT0", qt0), ("CC", cc), ("C1", c1), ("C2", c2))}
+
+    def write(path, names):
+        cells = ["\t".join(["#IID", *names])]
+        for i, iid in enumerate(iids):
+            cells.append("\t".join([iid] + ["NA" if np.isnan(values[k][i]) else f"{values[k][i]:.9g}"
+                                            for k in names]))
+        path.write_text("\n".join(cells) + "\n")
+
+    write(tmp / "pheno.tsv", ("QT", "QT0", "CC"))
+    write(tmp / "covar.tsv", ("C1", "C2"))
+    return {"pheno": tmp / "pheno.tsv", "covar": tmp / "covar.tsv", "planted": planted,
+            "values": values}
+
+
+def _glm_table(path: Path) -> tuple:
+    """A .glm table as (header, the 8 leading columns of each row, (rows, 4)
+    f64 numbers with NaN for NA)."""
+    import numpy as np
+
+    lines = path.read_text().splitlines()
+    rows = [ln.split("\t") for ln in lines[1:]]
+    nums = np.array([[np.nan if c == "NA" else float(c) for c in r[8:12]] for r in rows])
+    return lines[0], [r[:8] for r in rows], nums.reshape(len(rows), 4)
+
+
+def _ols_oracle(packed, rows, cohort, y, covars) -> tuple:
+    """numpy f64 least squares of y on [1, covars, g] over each variant's
+    called samples of the cohort: (OBS_CT, BETA, SE, T) of g, NaN where the
+    design is not estimable (fewer than one residual degree of freedom, or
+    no dosage variance)."""
+    import numpy as np
+
+    codes = _codes_numpy(packed, rows)[:, cohort]
+    out = np.full((len(rows), 4), np.nan)
+    for i, c in enumerate(codes):
+        m = c != 3
+        g = c[m].astype(np.float64)
+        x = np.column_stack([np.ones(m.sum()), covars[m], g])
+        out[i, 0] = m.sum()
+        df = m.sum() - x.shape[1]
+        if df < 1 or g.var() <= 1e-9:
+            continue
+        xtx_inv = np.linalg.inv(x.T @ x)
+        beta = xtx_inv @ (x.T @ y[m])
+        rss = float(((y[m] - x @ beta) ** 2).sum())
+        se = np.sqrt(rss / df * xtx_inv[-1, -1])
+        out[i, 1:] = beta[-1], se, beta[-1] / se
+    return out
+
+
+def _worst(got, want, rtol: float, atol) -> float:
+    """The largest |got - want| / (atol + rtol |want|) where want is a
+    number (atol may be an array shaped as want)."""
+    import numpy as np
+
+    ok = ~np.isnan(want)
+    atol = np.broadcast_to(atol, want.shape)[ok]
+    ratio = np.abs(got[ok] - want[ok]) / (atol + rtol * np.abs(want[ok]))
+    return float(ratio.max()) if ratio.size else 0.0
+
+
+def _assert_close(label: str, got, want, rtol: float, atol) -> float:
+    """np.isclose(got, want, rtol, atol) everywhere both are numbers, the
+    same NaN cells; returns the largest |got - want| / (atol + rtol |want|)."""
+    import numpy as np
+
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{label}: NA cells differ")
+    worst = _worst(got, want, rtol, atol)
+    if worst > 1.0:
+        raise AssertionError(f"{label}: off by {worst:.3g} x the tolerance (rtol {rtol})")
+    return worst
+
+
+def _compare_glm_runs(label: str, got: Path, want: Path, rtol: float, atol: float,
+                      logistic: bool = False) -> str:
+    """Two .glm tables of one design: the same header, leading columns
+    (TEST and OBS_CT included) and NA cells; SE within rtol/atol, BETA (log
+    OR) within atol + rtol max(|BETA|, SE), the statistic and P within
+    pgen_tpu's 1e-2 / 1e-3. BETA's bound scales with its SE because a BETA
+    far below its SE carries the f32 rounding of larger terms: the
+    interaction design's ADD term is reported at covariates 0, a difference
+    of terms 50 times its size where C2 sits near 50. The report also gives
+    the worst BETA against atol + rtol |BETA| alone."""
+    import numpy as np
+
+    hg, lg, ng = _glm_table(got)
+    hw, lw, nw = _glm_table(want)
+    if hg != hw or lg != lw:
+        raise AssertionError(f"{label}: header or leading columns differ")
+    if logistic:
+        ng[:, 0], nw[:, 0] = np.log(ng[:, 0]), np.log(nw[:, 0])
+    se_want = np.nan_to_num(nw[:, 1])
+    beta = _assert_close(f"{label} BETA", ng[:, 0], nw[:, 0], rtol, atol + rtol * se_want)
+    beta_alone = _worst(ng[:, 0], nw[:, 0], rtol, atol)
+    se = _assert_close(f"{label} SE", ng[:, 1], nw[:, 1], rtol, atol)
+    stat = _assert_close(f"{label} statistic/P", ng[:, 2:], nw[:, 2:], 1e-2, 1e-3)
+    return (f"{len(lg)} rows, {int(np.isnan(nw[:, 0]).sum())} NA; worst BETA {beta:.3g} of "
+            f"its tolerance ({beta_alone:.3g} against rtol {rtol} atol {atol} alone), SE "
+            f"{se:.3g}, statistic/P {stat:.3g}")
+
+
+def _score_oracle(packed, rows, flip, weights, mean_impute: bool, n_samples: int) -> tuple:
+    """numpy f64 scores over every sample: (sums (S, Kw), dosage sums,
+    ALLELE_CT), with plink2's mean imputation or 0 for a missing call."""
+    import numpy as np
+
+    sums = np.zeros((n_samples, weights.shape[1]))
+    dosage = np.zeros(n_samples)
+    called_ct = np.zeros(n_samples, dtype=np.int64)
+    used = 0
+    for lo in range(0, len(rows), GLM_ROWS):
+        hi = min(lo + GLM_ROWS, len(rows))
+        c = _codes_numpy(packed, rows[lo:hi])[:, :n_samples].astype(np.float64)
+        called = c != 3
+        d = np.where(flip[lo:hi, None], 2.0 - c, c) * called
+        n_called = called.sum(axis=1)
+        used += int((n_called > 0).sum())
+        if mean_impute:
+            fill = d.sum(axis=1) / np.maximum(n_called, 1)
+            d = np.where(called, d, fill[:, None])
+        sums += d.T @ weights[lo:hi]
+        dosage += d.sum(axis=0)
+        called_ct += called.sum(axis=0)
+    allele_ct = np.full(n_samples, 2 * used) if mean_impute else 2 * called_ct
+    return sums, dosage, allele_ct
+
+
+def _sscore(path: Path) -> tuple:
+    import numpy as np
+
+    lines = path.read_text().splitlines()
+    rows = [ln.split("\t") for ln in lines[1:]]
+    return lines[0].split("\t"), [r[0] for r in rows], np.array([r[1:] for r in rows], dtype=np.float64)
+
+
+def phase_gwas(tmp: Path, full: Path, device: str = "cuda") -> dict:
+    """glm and score through the port's CLI on ``device`` (launch counts
+    read around those runs only), on the full chr22 fixture with seeded
+    phenotype, covariate and weight tables: (a) linear QT ~ C1 + C2 over all
+    variants against numpy's f64 least squares on 2,000 seeded variants
+    (BETA/SE rtol 1e-3 atol 1e-5 and T rtol 1e-2 atol 1e-3, pgen_tpu's
+    device-vs-numpy bounds; OBS_CT exact; the same NA cells) and the planted
+    variants the 10 smallest P; (b) --modifier genotypic and --interaction
+    with QT0 over a 50,000-variant region against --device cpu (rtol 2e-4
+    atol 1e-6, pgen_tpu's interaction provider bound, on SE, and on BETA
+    scaled by max(|BETA|, SE): see _compare_glm_runs); (c) logistic CC over
+    a 20,000-variant region against --device cpu (the same at rtol 2e-3
+    atol 2e-5 on log OR); (d) score of three weight columns on every 10th variant,
+    half the effect alleles REF, with and without --no-mean-imputation,
+    against numpy's f64 sums (ALLELE_CT exact, |d sum| <= 1e-4 max|sum|)."""
+    import numpy as np
+
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, n = len(pos), len(iids)
+    t0 = time.perf_counter()
+    tables = _gwas_tables(tmp, iids, packed)
+    ph, cv, planted, values = tables["pheno"], tables["covar"], tables["planted"], tables["values"]
+    rng = np.random.default_rng(SEED + 8)
+    score_rows = np.arange(0, n_var, SCORE_EVERY)
+    flip = rng.random(len(score_rows)) < 0.5
+    weights = np.array([[float(f"{w:.6g}") for w in r] for r in rng.normal(size=(len(score_rows), 3))])
+    pvar = [ln.split(b"\t", 5) for ln in Path(f"{full}.pvar").read_bytes().split(b"\n")
+            if ln and not ln.startswith(b"#")]
+    with open(tmp / "weights.tsv", "w") as fh:
+        fh.write("ID\tA1\tW1\tW2\tW3\n")
+        for r, f, w in zip(score_rows, flip, weights):
+            fields = pvar[r]
+            fh.write(f"{fields[2].decode()}\t{fields[3 if f else 4].decode()}\t"
+                     f"{w[0]:.6g}\t{w[1]:.6g}\t{w[2]:.6g}\n")
+    del pvar
+    print(f"[8 GWAS] tables in {time.perf_counter() - t0:.1f} s: --pheno QT, QT0, CC and --covar "
+          f"C1, C2 over {n} samples, effects planted on variants {planted.tolist()}; "
+          f"{len(score_rows)} score lines, {int(flip.sum())} with the effect allele REF")
+
+    def region(first, count):
+        return f"22:{pos[first]}-{pos[first + count - 1]}"
+
+    region_b = region(n_var // 2 - GWAS_REGION // 2, GWAS_REGION)
+    region_c = region(n_var // 4, LOGISTIC_REGION)
+    tabs = ["--pheno", ph, "--covar", cv, "--covar-name", "C1,C2"]
+    runs = [
+        # label, argv, output name, compared with --device cpu
+        ("(a) linear QT ~ C1 + C2, every variant", ["glm", full, *tabs, "--pheno-name", "QT"],
+         "a.glm", False),
+        (f"(b) --modifier genotypic QT0 -r {region_b}",
+         ["glm", full, *tabs, "--pheno-name", "QT0", "--modifier", "genotypic", "-r", region_b],
+         "b_geno.glm", True),
+        (f"(b) --interaction QT0 -r {region_b}",
+         ["glm", full, *tabs, "--pheno-name", "QT0", "--interaction", "-r", region_b],
+         "b_int.glm", True),
+        (f"(c) logistic CC -r {region_c}", ["glm", full, *tabs, "--pheno-name", "CC", "-r", region_c],
+         "c.glm", True),
+        ("(d) score, mean imputation", ["score", full, "--score", tmp / "weights.tsv",
+                                        "--score-col-nums", "3-5", "--score-sums"], "d.sscore", False),
+        ("(d) score --no-mean-imputation", ["score", full, "--score", tmp / "weights.tsv",
+                                            "--score-col-nums", "3-5", "--score-sums",
+                                            "--no-mean-imputation"], "d_nm.sscore", False),
+    ]
+    walls = {}
+    _reset_launches()
+    for label, argv, name, _ in runs:
+        print(f"[8 GWAS] {label} on {device}:")
+        walls[name] = _port_cli(argv, tmp / f"{device}.{name}", device)[0]
+    launches = _read_launches()
+
+    # (a) against numpy's least squares, and the planted variants on top
+    head, lead, nums = _glm_table(tmp / f"{device}.a.glm")
+    if head.split("\t")[6:9] != ["TEST", "OBS_CT", "BETA"] or len(lead) != n_var:
+        raise AssertionError(f"(a): {len(lead)} rows under {head!r}; expected {n_var} ADD rows")
+    if any(r[1] != str(p) or r[6] != "ADD" for r, p in zip(lead, pos)):
+        raise AssertionError("(a): rows are not the fileset's variants in order")
+    p = nums[:, 3]
+    top = np.argsort(np.where(np.isnan(p), np.inf, p), kind="stable")[:PLANTED]
+    if set(top.tolist()) != set(planted.tolist()):
+        raise AssertionError(f"(a): the 10 smallest P are at {sorted(top.tolist())}, "
+                             f"effects were planted at {planted.tolist()}")
+    pick = np.union1d(np.sort(rng.choice(n_var, ORACLE_VARIANTS - PLANTED, replace=False)), planted)
+    cohort = np.flatnonzero(~np.isnan(values["QT"]))
+    want = _ols_oracle(packed, pick, cohort, values["QT"][cohort],
+                       np.column_stack([values["C1"], values["C2"]])[cohort])
+    obs = np.array([int(lead[v][7]) for v in pick])
+    if not np.array_equal(obs, want[:, 0]):
+        raise AssertionError("(a): OBS_CT differs from numpy's called counts")
+    est = _assert_close("(a) BETA/SE", nums[pick, :2], want[:, 1:3], 1e-3, 1e-5)
+    stat = _assert_close("(a) T_STAT", nums[pick, 2], want[:, 3], 1e-2, 1e-3)
+    (tmp / f"{device}.a.glm").unlink()
+    print(f"[8 GWAS] (a) {n_var} ADD rows over {len(cohort)} samples: the planted variants are "
+          f"the {PLANTED} smallest P (largest of them {np.nanmax(p[planted]):.3g}, next "
+          f"{np.sort(p[~np.isin(np.arange(n_var), planted)])[0]:.3g}); on {len(pick)} seeded "
+          f"variants OBS_CT equal to numpy's, BETA/SE within {est:.3g} and T within {stat:.3g} "
+          f"of their tolerances against numpy's f64 least squares; wall {walls['a.glm']:.3f} s")
+
+    # (b), (c) against --device cpu
+    for label, argv, name, vs_cpu in runs:
+        if not vs_cpu:
+            continue
+        cpu_s = _port_cli(argv, tmp / f"vs_cpu.{name}", "cpu")[0]
+        logistic = name == "c.glm"
+        rtol, atol = (2e-3, 2e-5) if logistic else (2e-4, 1e-6)
+        report = _compare_glm_runs(label, tmp / f"{device}.{name}", tmp / f"vs_cpu.{name}", rtol,
+                                   atol, logistic)
+        for out in (f"{device}.{name}", f"vs_cpu.{name}"):
+            (tmp / out).unlink()
+        print(f"[8 GWAS] {label}: {device} equal to cpu in header, leading columns and NA "
+              f"cells; {report}; wall {device} {walls[name]:.3f} s, cpu {cpu_s:.3f} s")
+
+    # (d) against numpy's f64 sums
+    for name, mean_impute in (("d.sscore", True), ("d_nm.sscore", False)):
+        head, got_iids, got = _sscore(tmp / f"{device}.{name}")
+        sums, dosage, allele_ct = _score_oracle(packed, score_rows, flip, weights, mean_impute, n)
+        if got_iids != list(iids) or head[:3] != ["#IID", "ALLELE_CT", "DOSAGE_SUM"]:
+            raise AssertionError(f"(d) {name}: samples or header differ")
+        if not np.array_equal(got[:, 0], allele_ct):
+            raise AssertionError(f"(d) {name}: ALLELE_CT differs from numpy's")
+        drift = []
+        for col, want_col in ((got[:, 1], dosage), *zip(got[:, 5:8].T, sums.T)):
+            d = float(np.abs(col - want_col).max() / np.abs(want_col).max())
+            if d > 1e-4:
+                raise AssertionError(f"(d) {name}: |d sum| {d:.3g} of max|sum|, over 1e-4")
+            drift.append(d)
+        avg = got[:, 2:5] - sums / np.maximum(allele_ct, 1)[:, None]
+        if np.abs(avg).max() > 1e-4 * np.abs(sums / np.maximum(allele_ct, 1)[:, None]).max():
+            raise AssertionError(f"(d) {name}: averages differ from numpy's")
+        (tmp / f"{device}.{name}").unlink()
+        print(f"[8 GWAS] (d) {name}: {n} samples x {len(score_rows)} variants, ALLELE_CT equal to "
+              f"numpy's, |d sum| / max|sum| against numpy's f64: DOSAGE_SUM {drift[0]:.3g}, "
+              f"W1-W3 {drift[1]:.3g} {drift[2]:.3g} {drift[3]:.3g}; wall {walls[name]:.3f} s")
+    print(f"[8 GWAS] path launches: {launches}")
+    return launches
+
+
 def main(argv: list) -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
               file=sys.stderr)
+        return 1
+    if not (ROOT / "pgen_tpu_torch" / "csrc").is_dir() or not (ROOT / "tools").is_dir():
+        print(f"chip_smoke: {ROOT} holds no checkout of the repository (pgen_tpu_torch/, "
+              "tools/); run it from the root of one", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     name = phase_device()
@@ -866,6 +1261,13 @@ def main(argv: list) -> int:
             launches, sha_a = phase_device_provider(tmp, fixtures["full"], fixtures["ragged"])
             per_path.append(launches)
             phase_ranks(tmp, fixtures["full"], sha_a)
+            t0 = time.perf_counter()
+            per_path.append(phase_gwas(tmp, fixtures["full"]))
+            print(f"[8 GWAS] phase 8 took {time.perf_counter() - t0:.1f} s")
+            for kname in ("glm_planes", "score_dosage"):
+                if per_path[-1][kname] <= 0:
+                    raise AssertionError(f"{kname} never launched on the GWAS path")
+    print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     if "jax" in sys.modules:
         raise AssertionError("the port's run loaded jax")
 

@@ -14,6 +14,10 @@ that each counterpart is easy to find:
                       genotype_text_from_codes (K7)
   ops/pack.py         pack_codes (K4), subset_repack (K5)
   ops/gt_stats.py     gt_counts_device (K8), sample_counts_device (K9)
+  ops/glm.py          glm_planes (K10); the GWAS moments and the f64 solves
+  ops/score.py        score_dosage (K11); polygenic score sums
+  ops/logistic.py     the logistic IRLS (pgen_tpu's) with fp32 products
+                      on the device
   query/compile_device.py  lower_device: predicates as torch ops on the
                       device over padded column tensors
   parallel/distributed.py  the process group: one process per GPU
@@ -24,7 +28,9 @@ that each counterpart is easy to find:
                       or more GPUs
   pipeline/pgen_out.py  filter_to_pgen (--out-format pgen) on one GPU
   pipeline/vcf_import.py  import_vcf on one GPU
-  cli.py              python -m pgen_tpu_torch.cli filter|import ...
+  pipeline/glm.py     glm_pfile (--glm) on one GPU
+  pipeline/score.py   score_pfile (--score) on one GPU
+  cli.py              python -m pgen_tpu_torch.cli filter|import|glm|score ...
 
 The host layers are pgen_tpu's, reused by import and not copied: metadata
 and predicates, the output row layout, the C++ row assembler, BGZF and
@@ -48,11 +54,15 @@ _LAZY = {
     "subset_repack": "pgen_tpu_torch.ops.pack",
     "gt_counts_device": "pgen_tpu_torch.ops.gt_stats",
     "sample_counts_device": "pgen_tpu_torch.ops.gt_stats",
+    "glm_planes": "pgen_tpu_torch.ops.glm",
+    "score_dosage": "pgen_tpu_torch.ops.score",
     "lower_device": "pgen_tpu_torch.query.compile_device",
     "filter_to_vcf": "pgen_tpu_torch.pipeline.filter",
     "filter_to_vcf_mesh": "pgen_tpu_torch.pipeline.mesh_filter",
     "filter_to_pgen": "pgen_tpu_torch.pipeline.pgen_out",
     "import_vcf": "pgen_tpu_torch.pipeline.vcf_import",
+    "glm_pfile": "pgen_tpu_torch.pipeline.glm",
+    "score_pfile": "pgen_tpu_torch.pipeline.score",
 }
 
 __all__ = [*_LAZY, "__version__"]

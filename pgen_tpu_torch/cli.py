@@ -1,8 +1,8 @@
-"""Command line of the port: ``python -m pgen_tpu_torch.cli filter|import ...``.
+"""Command line of the port: ``python -m pgen_tpu_torch.cli filter|import|glm|score ...``.
 
 It takes pgen_tpu's argument parser (``pgen_tpu.cli.build_arg_parser``) and
 adds ``--device cuda|cpu`` (default ``cuda``, which must be available) to
-``filter`` and ``import``. The query flags compose exactly as in
+``filter``, ``import``, ``glm`` and ``score``. The query flags compose exactly as in
 ``pgen_tpu.cli.main``, through the same host composers: ``--keep/--remove``,
 ``-r/-R``, ``--exclude-var/--exclude-sam``, ``--samples``,
 ``--extract/--exclude-ids``, the ``--maf/--max-maf/--geno/--hwe/--mind``
@@ -15,9 +15,12 @@ when run alone; N cards: ``torchrun --nproc-per-node N -m
 pgen_tpu_torch.cli filter ... --provider device``) and makes the genotype
 counts of ``--out-format pgen``'s predicates on the device. ``--profile DIR``
 writes a torch.profiler trace per rank. ``import`` reads a ``.vcf`` or
-``.vcf.gz``. What the port does not serve yet is refused with the ROADMAP.md
-item that will serve it: every other subcommand, and the flags and inputs
-listed in ``_UNSERVED`` and ``_UNSERVED_IMPORT``.
+``.vcf.gz``. ``glm`` and ``score`` run on one GPU (``--provider auto`` or
+``device``), as ``pgen_tpu.cli.main`` serves them: the multi-phenotype
+loop, ``-o -``, the same query composers and the closing stderr line. What
+the port does not serve yet is refused with the ROADMAP.md item that will
+serve it: every other subcommand, and the flags and inputs listed in
+``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
 """
 
 from __future__ import annotations
@@ -82,12 +85,25 @@ _UNSERVED_IMPORT = {
 }
 
 
+_UNSERVED_ANALYTICS = {
+    "provider": (
+        lambda v: v not in ("auto", "device"),
+        "--provider native|numpy: the port's glm and score run on one GPU "
+        "(auto or device, ROADMAP §1 item 9, done); pgen_tpu's host providers "
+        "stay pgen_tpu's",
+    ),
+}
+
+ANALYTICS = ("glm", "score")
+
+
 def build_torch_arg_parser() -> argparse.ArgumentParser:
-    """pgen_tpu's parser with ``--device`` on ``filter`` and ``import``."""
+    """pgen_tpu's parser with ``--device`` on ``filter``, ``import``, ``glm``
+    and ``score``."""
     p = build_arg_parser()
     p.prog = "pgen-tpu-torch"
     sub = next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
-    for command in ("filter", "import"):
+    for command in ("filter", "import", *ANALYTICS):
         sub.choices[command].add_argument(
             "--device",
             choices=["cuda", "cpu"],
@@ -104,27 +120,30 @@ def _and_cond(query, cond):
 
 
 def _compose_queries(args) -> None:
-    """Fold the query flags into args.var_query / args.sam_query, as
-    pgen_tpu.cli.main does for filter."""
+    """Fold the query flags of every served subcommand (--keep/--remove,
+    -r/-R, --exclude-var/--exclude-sam, --samples) into args.var_query /
+    args.sam_query, as pgen_tpu.cli.main does."""
     from pgen_tpu.query.exclude import apply_exclude
-    from pgen_tpu.query.idlist import apply_id_lists
     from pgen_tpu.query.regions import apply_regions
     from pgen_tpu.query.samples import apply_keep_remove, apply_samples
 
     if args.keep or args.remove:
         args.sam_query = apply_keep_remove(args.sam_query, args.keep, args.remove)
-    args.var_query = apply_id_lists(
-        apply_exclude(
-            apply_regions(args.var_query, args.regions, args.regions_file),
-            args.var_exclude,
-        ),
-        args.extract,
-        args.exclude_ids,
+    args.var_query = apply_exclude(
+        apply_regions(args.var_query, args.regions, args.regions_file), args.var_exclude
     )
     args.sam_query = apply_exclude(
-        apply_samples(args.sam_query, args.samples, args.samples_file),
-        args.sam_exclude,
+        apply_samples(args.sam_query, args.samples, args.samples_file), args.sam_exclude
     )
+
+
+def _compose_filter_queries(args) -> None:
+    """The common query flags, then filter's own: --extract/--exclude-ids,
+    the --maf/--max-maf/--geno/--hwe/--mind sugar and --rm-dup."""
+    from pgen_tpu.query.idlist import apply_id_lists
+
+    _compose_queries(args)
+    args.var_query = apply_id_lists(args.var_query, args.extract, args.exclude_ids)
     if args.maf is not None:
         args.var_query = _and_cond(args.var_query, f"GT_MAF >= {args.maf!r}")
     if args.max_maf is not None:
@@ -171,6 +190,121 @@ def _profile(out_dir, device: str):
     prof.export_chrome_trace(os.path.join(out_dir, f"rank{env_rank()}.trace.json"))
 
 
+def _score(args) -> int:
+    from pgen_tpu.pipeline.score import parse_col_nums
+    from pgen_tpu_torch.pipeline.score import score_pfile
+
+    result = score_pfile(
+        args.pfile_prefix,
+        args.score_file,
+        var_id_col=args.variant_id_col,
+        allele_col=args.allele_col,
+        weight_cols=parse_col_nums(args.score_col_nums),
+        header_row=args.header_row,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_file=None if args.out_file == "-" else args.out_file,
+        out=sys.stdout if args.out_file == "-" else None,
+        device=args.device,
+        mean_impute=args.mean_impute,
+        write_sums=args.score_sums,
+        block_variants=args.block_variants,
+        q_score_range=args.q_score_range,
+        q_data_col=args.q_data_col,
+        center=args.center,
+        variance_standardize=args.variance_standardize,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    dest = "stdout" if args.out_file == "-" else result.out_path
+    print(
+        f"score: {len(result.names)} score(s) x {result.num_scored} variants over "
+        f"{result.num_samples} samples -> {dest}"
+        + (f" ({result.num_unmatched} unmatched, {result.num_mismatched} allele-mismatched)"
+           if result.num_unmatched or result.num_mismatched else ""),
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _split_names(text) -> list:
+    return [c.strip() for c in (text or "").split(",") if c.strip()]
+
+
+def _glm(parser, args) -> int:
+    from pgen_tpu_torch.ops.glm import MODIFIER_TESTS
+    from pgen_tpu_torch.pipeline.glm import glm_pfile
+
+    covars = _split_names(args.covar_name)
+    condition = _split_names(args.condition)
+    if args.condition_list:
+        with open(args.condition_list) as fh:
+            condition += [
+                ln.strip() for ln in fh if ln.strip() and not ln.strip().startswith("#")
+            ]
+    # plink2 runs every named phenotype and writes one
+    # {base}.{pheno}.glm.{model} per phenotype
+    phenos = _split_names(args.pheno_name)
+    if len(phenos) > 1 and args.out_file == "-":
+        parser.error("glm: multiple phenotypes write one file each; use a file -o, not '-'")
+    for pheno in phenos:
+        out_base = out_file = None
+        if len(phenos) > 1 and args.out_file:
+            out_base = f"{args.out_file}.{pheno}"  # glm_pfile appends .glm.{model}
+        elif args.out_file != "-":
+            out_file = args.out_file
+        result = glm_pfile(
+            args.pfile_prefix,
+            pheno_name=pheno,
+            covar_names=covars,
+            model=args.model,
+            var_query=args.var_query,
+            sam_query=args.sam_query,
+            out_file=out_file,
+            out=sys.stdout if args.out_file == "-" else None,
+            device=args.device,
+            block_variants=args.block_variants,
+            firth=args.firth,
+            pheno_file=args.pheno_file,
+            covar_file=args.covar_file,
+            condition=condition,
+            interaction=args.interaction,
+            adjust=args.adjust,
+            adjust_lambda=args.adjust_lambda,
+            covar_variance_standardize=args.covar_vs,
+            out_base=out_base,
+            modifier=args.modifier,
+        )
+        if args.stats:
+            print(result.timer.report(), file=sys.stderr)
+        dest = "stdout" if args.out_file == "-" else result.out_path
+        if args.modifier:
+            design = "+".join(MODIFIER_TESTS[args.modifier])
+        elif args.interaction:
+            design = "ADD+ADDxC"
+        else:
+            design = "ADD"
+        print(
+            f"glm: {result.model} {result.pheno_name} ~ {design}"
+            + (f" + {len(covars)} covar(s)" if covars else "")
+            + f" over {result.num_variants} variants x {result.num_samples} samples -> {dest}",
+            file=sys.stderr,
+        )
+    return 0
+
+
+def _analytics(parser, args) -> int:
+    _refuse_unserved(parser, args, _UNSERVED_ANALYTICS)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        parser.error(
+            f"{args.command} under WORLD_SIZE={os.environ['WORLD_SIZE']}: the port's "
+            f"{args.command} runs on one GPU; multi-GPU analytics (the mesh steps) are "
+            "ROADMAP §1 item 17"
+        )
+    _compose_queries(args)
+    return _score(args) if args.command == "score" else _glm(parser, args)
+
+
 def _import(parser, args) -> int:
     _refuse_unserved(parser, args, _UNSERVED_IMPORT)
     from pgen_tpu_torch.pipeline.vcf_import import import_vcf
@@ -191,10 +325,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.command == "import":
         return _import(parser, args)
+    if args.command in ANALYTICS:
+        return _analytics(parser, args)
     if args.command != "filter":
         parser.error(
-            f"{args.command}: the port serves only filter and import so far; "
-            "the other subcommands are ROADMAP §1 item 13"
+            f"{args.command}: the port serves only filter, import, glm and score so "
+            "far; the other subcommands are ROADMAP §1 item 13"
         )
     _refuse_unserved(parser, args, _UNSERVED)
     if args.hwe_midp and args.hwe is None:
@@ -210,7 +346,7 @@ def main(argv=None) -> int:
             "-o - (stdout) requires the single-process filter "
             "(drop --workers/--shards/--provider device)"
         )
-    _compose_queries(args)
+    _compose_filter_queries(args)
 
     kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
     with _profile(args.profile, args.device):

@@ -1,6 +1,7 @@
 // Genotype kernels for Hopper (sm_90a): packed 2-bit records <-> codes, a
-// sample subset of records re-packed, records or codes -> VCF GT text, and
-// records -> per-variant and per-sample code counts.
+// sample subset of records re-packed, records or codes -> VCF GT text,
+// records -> per-variant and per-sample code counts, and records -> the f32
+// operands of the GWAS moment and polygenic score products.
 // Built by pgen_tpu_torch/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes.
 //
@@ -29,6 +30,11 @@ constexpr int64_t kMaxBlocks = 8192;
 unsigned grid_for(int64_t n) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+// One block per row, grid-stride past kMaxBlocks rows.
+unsigned row_grid(int64_t n_var) {
+  return static_cast<unsigned>(n_var < kMaxBlocks ? n_var : kMaxBlocks);
 }
 
 __device__ __forceinline__ int64_t first_index() {
@@ -311,6 +317,161 @@ __global__ void sample_counts_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+// The operand kernels hold each row's code counts as four 16-bit fields of
+// one u64 per thread; a thread sees at most ceil(K / kThreads) codes of a
+// row, so K < 2^24 keeps every field below 2^16 (the wrappers cap K lower).
+__device__ __forceinline__ uint64_t count_code(uint64_t acc, uint32_t code) {
+  return acc + (1ull << (16 * code));
+}
+
+// Sums the block's per-thread code counts (16-bit fields of acc) into
+// out[0..3] for thread 0; every thread of the block must call it.
+// `scratch` holds 4 x (kThreads / 32) u32. Ends with a barrier, so the
+// caller may reuse scratch and read what thread 0 wrote to shared memory
+// after its own barrier.
+__device__ __forceinline__ void block_code_counts(uint64_t acc, uint32_t* scratch,
+                                                  uint32_t* out) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  uint32_t c[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c[k] = static_cast<uint32_t>((acc >> (16 * k)) & 0xFFFFu);
+    for (int off = 16; off > 0; off /= 2) {
+      c[k] += __shfl_down_sync(0xFFFFFFFFu, c[k], off);
+    }
+    if (lane == 0) scratch[k * kWarps + warp] = c[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t total = 0;
+      for (int w = 0; w < kWarps; ++w) total += scratch[k * kWarps + w];
+      out[k] = total;
+    }
+  }
+  __syncthreads();
+}
+
+// Code of selected column j of a row: sample sel[j] (or j when sel is null),
+// which must lie in [0, n_samples): pgen_tpu cuts the codes to S before its
+// take, so a pad slot is never a valid id.
+__device__ __forceinline__ uint32_t selected_code(const uint8_t* row, const int32_t* sel,
+                                                  int64_t j, int64_t n_samples) {
+  int64_t s = j;
+  if (sel != nullptr) {
+    s = sel[j];
+    assert(s >= 0 && s < n_samples);
+  }
+  return (static_cast<uint32_t>(row[s >> 2]) >> (2 * (s & 3))) & 3u;
+}
+
+constexpr int kMaxPlanes = 3;
+
+// K10. Replaces the decode legs of pgen_tpu/ops/glm.py's three device scans
+// (_glm_moments_device_jit :168-184, _glm_geno_moments_device_jit :613-626,
+// _glm_int_moments_device_jit :1006-1022): the Pallas _unpack_kernel, the
+// XLA take of the cohort's columns and the f32 mask/dosage/indicator
+// planes that feed the moment products (torch.matmul in the wrapper's
+// caller, as pgen_tpu leaves them to jnp.matmul).
+// (V, R) u8 records + sel (K) int32 ids (or null: K = S) + lut (P, 4) f32
+// -> planes (P, V, K) f32, planes[p][v][j] = lut[p][code(v, sel[j])], and
+// hist (V, 4) int32, the counts of the K selected codes of each row.
+// Bound: memory, 4P B written per selected sample against a quarter byte
+// read: a 16,384-row block at K = 2,504 and P = 3 writes 492 MB. Design:
+// one block per row; thread t takes columns t, t + 256, ..., so a warp's
+// stores to each plane are 32 consecutive floats; the row's bytes come
+// through L1. The LUT lives in shared memory. Codes are counted in
+// registers on the way and summed once per row, so n, sum g and sum g^2
+// come out exact from hist (pgen_tpu's f32 sums of 0/1/2/4 are exact too).
+__global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
+                                  const int32_t* __restrict__ sel,
+                                  const float* __restrict__ lut,
+                                  float* __restrict__ planes,
+                                  int32_t* __restrict__ hist, int64_t n_var,
+                                  int64_t rec, int64_t n_samples,
+                                  int64_t n_kept, int n_planes) {
+  __shared__ float table[kMaxPlanes * 4];
+  __shared__ uint32_t scratch[4 * (kThreads / 32)];
+  __shared__ uint32_t counts[4];
+  if (static_cast<int>(threadIdx.x) < 4 * n_planes) table[threadIdx.x] = lut[threadIdx.x];
+  __syncthreads();
+  const int64_t plane = n_var * n_kept;
+  for (int64_t v = blockIdx.x; v < n_var; v += gridDim.x) {
+    const uint8_t* row = packed + v * rec;
+    float* out = planes + v * n_kept;
+    uint64_t acc = 0;
+    for (int64_t j = threadIdx.x; j < n_kept; j += blockDim.x) {
+      const uint32_t code = selected_code(row, sel, j, n_samples);
+      acc = count_code(acc, code);
+      for (int p = 0; p < n_planes; ++p) {
+        out[p * plane + j] = table[4 * p + code];
+      }
+    }
+    block_code_counts(acc, scratch, counts);
+    if (threadIdx.x < 4) {
+      hist[4 * v + threadIdx.x] = static_cast<int32_t>(counts[threadIdx.x]);
+    }
+    __syncthreads();  // counts is rewritten for the next row
+  }
+}
+
+// K11. Replaces the decode leg of pgen_tpu/ops/score.py:_score_device_jit
+// (:133-158): the Pallas _unpack_kernel, the XLA take, the effect-allele
+// flip and the mean imputation of missing calls, before the f32 product
+// with the weights (torch.matmul in the caller).
+// (V, R) u8 records + sel (K) int32 ids (or null: K = S) + flip (V) u8 ->
+// db (V, K) f32 effect dosages and n_called (V) int32. A called code c gives
+// c, or 2 - c on a flipped row; a missing call gives 0, or with
+// mean_impute, in a row with n_called > 0, the row's mean dosage
+// (row sum) / n_called in f32. The row sum is the exact integer
+// c1 + 2 c2 (2 c0 + c1 flipped) of the row's code counts, so the mean is
+// bitwise the reference's jnp.sum(db) / jnp.maximum(n_called, 1).
+// Bound: memory, 4 B written per selected sample. Design: one block per
+// row, two passes over its columns: count (codes in registers, summed
+// once per row), then write, consecutive threads on consecutive floats.
+// The per-sample called counts that ALLELE_CT needs without mean
+// imputation are K9's (ops/score.py says why).
+__global__ void score_dosage_kernel(const uint8_t* __restrict__ packed,
+                                    const int32_t* __restrict__ sel,
+                                    const uint8_t* __restrict__ flip,
+                                    float* __restrict__ db,
+                                    int32_t* __restrict__ n_called,
+                                    int64_t n_var, int64_t rec,
+                                    int64_t n_samples, int64_t n_kept,
+                                    int mean_impute) {
+  __shared__ uint32_t scratch[4 * (kThreads / 32)];
+  __shared__ uint32_t counts[4];
+  __shared__ float fill;
+  for (int64_t v = blockIdx.x; v < n_var; v += gridDim.x) {
+    const uint8_t* row = packed + v * rec;
+    const bool flipped = flip[v] != 0;
+    uint64_t acc = 0;
+    for (int64_t j = threadIdx.x; j < n_kept; j += blockDim.x) {
+      acc = count_code(acc, selected_code(row, sel, j, n_samples));
+    }
+    block_code_counts(acc, scratch, counts);
+    if (threadIdx.x == 0) {
+      const uint32_t called = counts[0] + counts[1] + counts[2];
+      const uint32_t sum = flipped ? 2 * counts[0] + counts[1] : counts[1] + 2 * counts[2];
+      n_called[v] = static_cast<int32_t>(called);
+      fill = mean_impute && called > 0
+                 ? static_cast<float>(sum) / static_cast<float>(called)
+                 : 0.0f;
+    }
+    __syncthreads();
+    float* out = db + v * n_kept;
+    const float missing = fill;
+    for (int64_t j = threadIdx.x; j < n_kept; j += blockDim.x) {
+      const uint32_t code = selected_code(row, sel, j, n_samples);
+      out[j] = code == 3u ? missing
+                          : static_cast<float>(flipped ? 2u - code : code);
+    }
+    __syncthreads();  // fill and counts are rewritten for the next row
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,6 +576,33 @@ int pgen_sample_counts(const void* packed, void* counts, int64_t n_var,
   sample_counts_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), static_cast<int32_t*>(counts), n_var,
       rec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_glm_planes(const void* packed, const void* sel, const void* lut,
+                    void* planes, void* hist, int64_t n_var, int64_t rec,
+                    int64_t n_samples, int64_t n_kept, int64_t n_planes,
+                    void* stream) {
+  if (n_var <= 0) return 0;
+  if (n_planes < 1 || n_planes > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  glm_planes_kernel<<<row_grid(n_var), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
+      static_cast<const float*>(lut), static_cast<float*>(planes),
+      static_cast<int32_t*>(hist), n_var, rec, n_samples, n_kept,
+      static_cast<int>(n_planes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_score_dosage(const void* packed, const void* sel, const void* flip,
+                      void* db, void* n_called, int64_t n_var, int64_t rec,
+                      int64_t n_samples, int64_t n_kept, int64_t mean_impute,
+                      void* stream) {
+  if (n_var <= 0) return 0;
+  score_dosage_kernel<<<row_grid(n_var), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
+      static_cast<const uint8_t*>(flip), static_cast<float*>(db),
+      static_cast<int32_t*>(n_called), n_var, rec, n_samples, n_kept,
+      static_cast<int>(mean_impute != 0));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -90,7 +90,7 @@ gt_counts_device.launches = 0
 sample_counts_device.launches = 0
 
 
-def _blocks(records: np.ndarray, dev: torch.device, block_rows: int):
+def stage_blocks(records: np.ndarray, dev: torch.device, block_rows: int):
     """Yield (lo, hi, the records' rows [lo, hi) on dev), copied through one
     staging tensor, pinned when dev is CUDA."""
     n_var, rec = records.shape
@@ -111,7 +111,7 @@ def gt_counts(records: np.ndarray, num_samples: int, device,
     int64 per-variant code histogram, counted on ``device``."""
     dev = resolve_device(device)
     out = np.zeros((records.shape[0], 4), dtype=np.int64)
-    for lo, hi, block in _blocks(records, dev, block_rows):
+    for lo, hi, block in stage_blocks(records, dev, block_rows):
         out[lo:hi] = gt_counts_device(block, num_samples).cpu().numpy()
     return out
 
@@ -123,6 +123,6 @@ def sample_counts(records: np.ndarray, num_samples: int, device,
     ``device``; the blocks' int32 counts add up in int64."""
     dev = resolve_device(device)
     total = torch.zeros((num_samples, 4), dtype=torch.int64, device=dev)
-    for _, _, block in _blocks(records, dev, block_rows):
+    for _, _, block in stage_blocks(records, dev, block_rows):
         total += sample_counts_device(block, num_samples)
     return total.cpu().numpy()

@@ -221,10 +221,15 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 def test_port_never_loads_jax(tmp_path):
     """Importing the port and running a filter to VCF (GT_* sugar included),
-    a filter to a pgen fileset, an import of the VCF and two filters with
-    --provider device (--maf's K8 counts, a device-lowered predicate) keeps
-    jax out of the process. A subprocess, since this test process has jax."""
-    prefix = _fileset(tmp_path, 12, 6, seed=12)
+    a filter to a pgen fileset, an import of the VCF, two filters with
+    --provider device (--maf's K8 counts, a device-lowered predicate), a
+    linear and a logistic glm and two scores keeps jax out of the process. A
+    subprocess, since this test process has jax."""
+    prefix = _fileset(tmp_path, 12, 20, seed=12)
+    rng = np.random.default_rng(12)
+    (tmp_path / "ph.tsv").write_text("#IID\tQT\tCC\tC1\n" + "".join(
+        f"s{i}\t{rng.normal():.5g}\t{1 + i % 2}\t{rng.normal():.5g}\n" for i in range(20)))
+    (tmp_path / "w.tsv").write_text("".join(f"rs{i}\tA\t{rng.normal():.4g}\n" for i in range(8)))
     code = (
         "import sys\n"
         "import pgen_tpu_torch, pgen_tpu_torch.pipeline.filter, pgen_tpu_torch.cli\n"
@@ -247,6 +252,16 @@ def test_port_never_loads_jax(tmp_path):
         "assert main(['filter', prefix, '--provider', 'device', '--device', 'cpu',\n"
         "             '--include-var', 'ALT != \"C\"', '-o', out + '.low.vcf']) == 0\n"
         "assert 'jax' not in sys.modules, 'filter --provider device loaded jax'\n"
+        "ph = prefix.rsplit('/', 1)[0] + '/ph.tsv'\n"
+        "for pheno in ('QT', 'CC'):\n"
+        "    assert main(['glm', prefix, '--pheno', ph, '--pheno-name', pheno, '--covar', ph,\n"
+        "                 '--covar-name', 'C1', '--device', 'cpu', '-o', out + '.' + pheno]) == 0\n"
+        "assert 'jax' not in sys.modules, 'glm loaded jax'\n"
+        "w = prefix.rsplit('/', 1)[0] + '/w.tsv'\n"
+        "assert main(['score', prefix, '--score', w, '--device', 'cpu', '-o', out + '.ss']) == 0\n"
+        "assert main(['score', prefix, '--score', w, '--no-mean-imputation', '--samples',\n"
+        "             's1,s4,s7', '--device', 'cpu', '-o', out + '.nm']) == 0\n"
+        "assert 'jax' not in sys.modules, 'score loaded jax'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -255,5 +270,6 @@ def test_port_never_loads_jax(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr
-    for name in ("o.vcf", "o.sub.pgen", "o.imp.pgen", "o.dev.vcf", "o.low.vcf"):
+    for name in ("o.vcf", "o.sub.pgen", "o.imp.pgen", "o.dev.vcf", "o.low.vcf", "o.QT", "o.CC",
+                 "o.ss", "o.nm"):
         assert (tmp_path / name).stat().st_size > 12

@@ -2,7 +2,8 @@
 and against pgen_tpu's numpy oracles (``unpack_codes_reference``,
 ``emit_rows_numpy``, ``formats.writer.pack_codes``, ``gt_counts_reference``
 and ``sample_counts_reference``), so the kernels are
-held to the reference package directly, not only through their twins.
+held to the reference package directly, not only through their twins. The
+GWAS moments on the card are held against an f64 numpy product here.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
 has no CPU mode. The file imports no jax (both oracles are numpy only), so
@@ -44,12 +45,24 @@ from pgen_tpu_torch.ops.pack import (
     subset_repack,
     subset_repack_plain,
 )
+from pgen_tpu_torch.ops.glm import (
+    LUT_GENO,
+    LUT_INT,
+    LUT_MOMENTS,
+    _centered,
+    _moment_columns,
+    glm_moments,
+    glm_planes,
+    glm_planes_plain,
+)
+from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
 from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
 WIDTHS = [1, 2, 3, 4, 5, 2503, 2504]
 WRAPPERS = (unpack_codes, genotype_text, subset_text_from_packed)
 NEW_WRAPPERS = (pack_codes, subset_repack, genotype_text_transposed, genotype_text_from_codes)
 COUNT_WRAPPERS = (gt_counts_device, sample_counts_device)
+OPERAND_WRAPPERS = (glm_planes, score_dosage)
 
 pytestmark = pytest.mark.cuda
 
@@ -235,6 +248,22 @@ def test_zero_sized_launch_nothing(cuda_device):
     assert [w.launches for w in COUNT_WRAPPERS] == count_launches
 
 
+def test_operand_kernels_launch_nothing_when_empty(cuda_device):
+    counts = [w.launches for w in OPERAND_WRAPPERS]
+    lut = torch.tensor(LUT_MOMENTS, dtype=torch.float32, device=cuda_device)
+    empty = torch.empty((0, 5), dtype=torch.uint8, device=cuda_device)
+    planes, hist = glm_planes(empty, 17, lut)
+    assert planes.shape == (2, 0, 17) and hist.shape == (0, 4)
+    packed = _packed(3, 17, 0, cuda_device)
+    sel = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    planes, hist = glm_planes(packed, 17, lut, sel)
+    assert planes.shape == (2, 259, 0) and not hist.any()
+    flip = torch.zeros(259, dtype=torch.uint8, device=cuda_device)
+    db, n_called = score_dosage(packed, 17, flip, True, sel)
+    assert db.shape == (259, 0) and not n_called.any()
+    assert [w.launches for w in OPERAND_WRAPPERS] == counts
+
+
 def test_sel_on_another_device_is_refused(cuda_device):
     packed = _packed(3, 17, 0, cuda_device)
     for wrapper in (subset_text_from_packed, subset_repack):
@@ -275,3 +304,86 @@ def test_launch_on_a_card_that_is_not_current():
     ]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _cohorts(n_samples, rng, device):
+    """No sel, and a sel with a gap, a duplicate and the last sample."""
+    ids = rng.permutation(n_samples)[: max(1, (9 * n_samples) // 10)]
+    ids = np.concatenate([ids, ids[:1], [n_samples - 1]]).astype(np.int32)
+    return [None, torch.from_numpy(ids).to(device)]
+
+
+@pytest.mark.parametrize("n_samples", [2504, 2503, 5, 1])
+def test_operand_kernels_match_plain(cuda_device, n_samples):
+    """K10 (P = 2 and 3, each LUT) and K11 (flipped and not, with and
+    without mean imputation), with and without sel, on random records whose
+    pad slots hold random codes, every byte value at every position."""
+    rng = np.random.default_rng(n_samples)
+    packed = _packed(300, n_samples, n_samples, cuda_device)
+    host = packed.cpu().numpy()
+    flip = torch.from_numpy(rng.integers(0, 2, packed.shape[0], dtype=np.uint8)).to(cuda_device)
+    counts = [w.launches for w in OPERAND_WRAPPERS]
+    runs = 0
+    for sel in _cohorts(n_samples, rng, cuda_device):
+        for table in (LUT_MOMENTS, LUT_GENO, LUT_INT):
+            lut = torch.tensor(table, dtype=torch.float32, device=cuda_device)
+            planes, hist = glm_planes(packed, n_samples, lut, sel)
+            want_planes, want_hist = glm_planes_plain(packed, n_samples, lut, sel)
+            assert torch.equal(planes, want_planes) and torch.equal(hist, want_hist)
+            if sel is None:
+                np.testing.assert_array_equal(hist.cpu().numpy(),
+                                              gt_counts_reference(host, n_samples))
+            runs += 1
+        for mean_impute in (True, False):
+            db, n_called = score_dosage(packed, n_samples, flip, mean_impute, sel)
+            want_db, want_called = score_dosage_plain(packed, n_samples, flip, mean_impute, sel)
+            assert torch.equal(db, want_db) and torch.equal(n_called, want_called)
+    torch.cuda.synchronize()
+    assert [w.launches for w in OPERAND_WRAPPERS] == [counts[0] + runs, counts[1] + 4]
+
+
+def test_operand_kernels_write_into_out(cuda_device):
+    """A flat buffer given as out holds the planes (dosages) of a smaller
+    block at its front, as the block loops reuse it."""
+    packed = _packed(40, 2503, 4, cuda_device)
+    lut = torch.tensor(LUT_INT, dtype=torch.float32, device=cuda_device)
+    buf = torch.full((3 * 400 * 2503,), float("nan"), device=cuda_device)
+    planes, _ = glm_planes(packed, 2503, lut, out=buf)
+    assert planes.data_ptr() == buf.data_ptr()
+    assert torch.equal(planes, glm_planes_plain(packed, 2503, lut)[0])
+    flip = torch.zeros(packed.shape[0], dtype=torch.uint8, device=cuda_device)
+    db, _ = score_dosage(packed, 2503, flip, out=buf)
+    assert torch.equal(db, score_dosage_plain(packed, 2503, flip)[0])
+
+
+def test_glm_moments_with_tf32_on_match_f64(cuda_device):
+    """With TF32 switched on for the whole process, the port's moment
+    products still run in full fp32: the moments of 2,504 samples agree
+    with an f64 numpy product at 2e-5 (TF32's ~1e-3 would not)."""
+    rng = np.random.default_rng(7)
+    n_samples = 2504
+    host = _packed(600, n_samples, 7, "cpu").numpy()
+    y = rng.normal(size=n_samples) * 3.0 + 1.0
+    covars = rng.normal(size=(n_samples, 2)) * [1.0, 10.0]
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = glm_moments(host, n_samples, y, covars, "cuda", block_variants=256)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    codes = unpack_codes_reference(host, n_samples)
+    mask = (codes != 3).astype(np.float64)
+    g = np.where(codes == 3, 0, codes).astype(np.float64)
+    yc, cc = _centered(y, covars)
+    for moments, a, b in ((got.mp, mask, _moment_columns(yc, cc)),
+                          (got.gq, g, np.column_stack([yc, cc]))):
+        # 2e-5 of each sum, or of its terms' l2 norm where the signed terms
+        # cancel: f32 accumulation stays near 1e-6 of that norm, while TF32's
+        # 10-bit rounding of the columns puts it near 3e-4. A row with no
+        # called sample (byte 0xFF) has no terms: its sums must be 0 exactly.
+        want = a @ b
+        scale = np.maximum(np.abs(want), np.sqrt((a * a) @ (b * b)))
+        err = np.abs(moments - want) / np.maximum(scale, np.finfo(np.float64).tiny)
+        assert err.max() <= 2e-5, f"max error {err.max():.3g} of the sums' scale"
+    np.testing.assert_array_equal(got.sg2, (g * g).sum(axis=1))
