@@ -9,16 +9,21 @@ Phases, each printing its own lines:
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
   3 kernels  K1-K11 against their plain PyTorch versions on the card
-             (torch.equal) at widths 2504, 2503, 5 and 1 samples (K5 at K = 2,
+             (torch.equal) at widths 2504, 2503, 5 and 1 samples (K2 also into
+             an output 4 B past a 16-B boundary; K3 at K = 2, 1000 and 20,000
+             ids, reversed and repeated, each also 4 B past; K5 at K = 2,
              1,001 and all samples permuted; K6 at R = 626 and 2 with 65,536
              variants; K10 at P = 2 and 3 and K11 with and without mean
              imputation, each with and without a sample selection holding a
              gap and a duplicate, on 16,640 rows); kernel and plain times at
              the paths' block shapes (65,536 rows; K10/K11 16,384 rows at
-             K = 2504 and at a selection of 2,454), CUDA events, median of 10
+             K = 2504 and at a selection of 2,454), CUDA events, median of 10,
+             each beside its bound (the bytes it must move at 3.35 TB/s) and,
+             for K1, K2 and K7, one PyTorch call of the same function (a
+             table gather, held torch.equal to the kernel)
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
-             chr22-scale fixtures made by tools/make_fixtures.py in a
-             subprocess: full 1000 Genomes chr22 (1,103,547 variants x 2504
+             chr22-scale fixtures made by the port's copy of
+             tools/make_fixtures.py: full 1000 Genomes chr22 (1,103,547 variants x 2504
              samples) keep-two and region keep-two, and a 140,001-variant
              keep-all as plain VCF and as .vcf.gz with a tabix index. Each
              output's GT text is checked with numpy against the .pgen bytes
@@ -57,8 +62,9 @@ Phases, each printing its own lines:
              --no-mean-imputation, against a numpy f64 oracle. K10 and K11
              must have launched.
 
-The script imports no jax and nothing of pgen_tpu itself; the port uses
-pgen_tpu's jax-free host layers, and a last check fails if jax was loaded.
+The script imports no jax and nothing of pgen_tpu, and neither does the
+port, which keeps its own copies of the jax-free host layers it runs; a
+last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
 just after. Then one JSON line of the eleven kernels (launches summed over
@@ -86,7 +92,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 2504
-BLOCK_ROWS = 1 << 16  # pgen_tpu.pipeline.filter.DEFAULT_BLOCK_VARIANTS
+BLOCK_ROWS = 1 << 16  # pgen_tpu_torch.pipeline.filter_host.DEFAULT_BLOCK_VARIANTS
 WIDTHS = (2504, 2503, 5, 1)
 CHR22_VARIANTS = 1_103_547
 RAGGED_VARIANTS = 140_001
@@ -109,6 +115,11 @@ KERNELS = {
 }
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
+BIG_K = 20_000  # K3's kept samples past one tile (2^14)
+# H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: every
+# kernel here moves bytes with a few integer or f32 ops per byte, so bytes
+# bound them all
+HBM_BYTES_PER_MS = 3.35e9
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -138,6 +149,34 @@ def _max_abs_err(a, b):
     if a.is_floating_point():
         return float((a.double() - b.double()).abs().max())
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+
+
+def _subset_bytes(rows: int, sel) -> int:
+    """Bytes a kernel over kept samples must read: in each of ``rows``
+    records the bytes that hold a kept sample, and the ids themselves."""
+    import torch
+
+    return rows * int(torch.unique(sel.to(torch.int64) >> 2).numel()) + 4 * sel.numel()
+
+
+def _launch_at_offset(wrapper, symbol, packed, sel, width, offset):
+    """Run ``wrapper``'s launcher with its (V, width) u8 output starting
+    ``offset`` bytes into a buffer (the wrappers allocate 16-B aligned
+    outputs themselves); returns that output."""
+    import torch
+
+    from pgen_tpu_torch import kernels
+
+    n_var, rec = packed.shape
+    buf = torch.zeros(n_var * width + offset + 16, dtype=torch.uint8, device=packed.device)
+    out = buf[offset : offset + n_var * width].view(n_var, width)
+    if sel is None:
+        kernels.launch(wrapper, symbol, packed, packed.data_ptr(), out.data_ptr(), n_var, rec,
+                       width // 4)
+    else:
+        kernels.launch(wrapper, symbol, packed, packed.data_ptr(), sel.data_ptr(), out.data_ptr(),
+                       n_var, rec, sel.shape[0])
+    return out
 
 
 def _sha256(path: Path) -> str:
@@ -241,13 +280,23 @@ def phase_kernels() -> dict:
             ("sample_counts_device", sample_counts_device(packed, s),
              sample_counts_plain(packed, s)),
         ]
-        for k in sorted({min(2, s), min(1000, s)}):
-            sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
-            pairs.append((
-                "subset_text_from_packed",
-                subset_text_from_packed(packed, sel),
-                subset_text_plain(packed, sel),
-            ))
+        # K2 also into an output 4 bytes past a 16-B boundary (its word form)
+        pairs.append(("genotype_text", _launch_at_offset(genotype_text, "pgen_genotype_text",
+                                                         packed, None, 4 * s, 4),
+                      genotype_text_plain(packed, s)))
+        # K3 at K = 2 and 1000 (random ids), and K = 20,000, past one tile:
+        # every id in reversed order, then random repeats (on the last 4,096
+        # rows, the byte-value rows among them: 80 KB of text a row)
+        big = torch.cat([torch.arange(s - 1, -1, -1, device=dev),
+                         torch.randint(0, s, (BIG_K,), generator=gen, device=dev)])[:BIG_K]
+        for rows, sel in [(packed, torch.randperm(s, generator=gen, device=dev)[:k])
+                          for k in sorted({min(2, s), min(1000, s)})] + [(packed[-4096:], big)]:
+            sel = sel.to(torch.int32)
+            want = subset_text_plain(rows, sel)
+            pairs.append(("subset_text_from_packed", subset_text_from_packed(rows, sel), want))
+            pairs.append(("subset_text_from_packed",
+                          _launch_at_offset(subset_text_from_packed, "pgen_subset_text", rows,
+                                            sel, 4 * sel.shape[0], 4), want))
         # K = 2, 1,001 and all s in a random order
         for k in sorted({min(2, s), min(KEEP_SAMPLES, s), s}):
             sel = torch.randperm(s, generator=gen, device=dev)[:k].to(torch.int32)
@@ -276,8 +325,10 @@ def phase_kernels() -> dict:
         n_k3 = sum(name == "subset_text_from_packed" for name, _, _ in pairs)
         n_k5 = sum(name == "subset_repack" for name, _, _ in pairs)
         print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}; K6 at ({rec}, {BLOCK_ROWS}); "
-              f"K10, K11 at V={ops.shape[0]}): K1, K2, K3 x{n_k3}, K4, K5 x{n_k5}, K6, K7, K8, K9, "
-              "K10 x4 (P = 2, 3), K11 x4 equal to their plain versions")
+              f"K10, K11 at V={ops.shape[0]}): K1, K2 x2 (its output 16-B aligned and 4 B "
+              f"past), K3 x{n_k3} (K = 2, 1000, {BIG_K} with repeats; each also 4 B past), K4, "
+              f"K5 x{n_k5}, K6, K7, K8, K9, K10 x4 (P = 2, 3), K11 x4 equal to their plain "
+              "versions")
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
@@ -294,61 +345,104 @@ def phase_kernels() -> dict:
     cohort = torch.randperm(s, generator=gen, device=dev)[:COHORT].sort().values.to(torch.int32)
     flip = torch.randint(0, 2, (GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
     lut2, lut3 = luts
+    # one PyTorch call for the same function, where there is one: a gather
+    # of a byte-value table (K1, K2) or a code table (K7), cast included
+    word_lut = unpack_codes_plain(torch.arange(256, dtype=torch.uint8, device=dev)[:, None], 4)
+    word_lut = word_lut.contiguous().view(torch.int32).reshape(256)
+    text_lut = genotype_text_plain(torch.arange(256, dtype=torch.uint8, device=dev)[:, None], 4)
+    text_lut = text_lut.contiguous().view(torch.int64)  # (256, 2)
+    code_lut = text_from_codes_plain(torch.arange(4, dtype=torch.uint8, device=dev)[None, :])
+    code_lut = code_lut.view(torch.int32).reshape(4)
+
+    def library_unpack():
+        words = torch.index_select(word_lut, 0, packed.view(-1).to(torch.int64))
+        return words.view(torch.uint8).view(BLOCK_ROWS, 4 * rec)[:, :s]
+
+    def library_text():
+        quads = torch.index_select(text_lut, 0, packed.view(-1).to(torch.int64))
+        return quads.view(torch.uint8).view(BLOCK_ROWS, 16 * rec)
+
+    def library_text_from_codes():
+        words = torch.index_select(code_lut, 0, codes.view(-1).to(torch.int64))
+        return words.view(torch.uint8).view(BLOCK_ROWS, 4 * s)
+
+    s_odd = s - 1  # 2503: K2's word form on the same records
     cases = {
+        # name: kernel, plain, library call or None, bytes the function must
+        # move (each input byte read once, each output byte written once)
         "unpack_codes": (lambda: unpack_codes(packed, s), lambda: unpack_codes_plain(packed, s),
-                         packed.numel() * 5),
+                         library_unpack, packed.numel() + BLOCK_ROWS * s),
         "genotype_text": (lambda: genotype_text(packed, s), lambda: genotype_text_plain(packed, s),
-                          packed.numel() + BLOCK_ROWS * 4 * s),
+                          library_text, packed.numel() + BLOCK_ROWS * 4 * s),
+        "genotype_text S=2503": (lambda: genotype_text(packed, s_odd),
+                                 lambda: genotype_text_plain(packed, s_odd), None,
+                                 packed.numel() + BLOCK_ROWS * 4 * s_odd),
         "subset_text_from_packed": (lambda: subset_text_from_packed(packed, sel2),
-                                    lambda: subset_text_plain(packed, sel2),
-                                    BLOCK_ROWS * 2 * 5),
+                                    lambda: subset_text_plain(packed, sel2), None,
+                                    _subset_bytes(BLOCK_ROWS, sel2) + BLOCK_ROWS * 2 * 4),
         "subset_text_from_packed K=1000": (lambda: subset_text_from_packed(packed, sel1000),
-                                           lambda: subset_text_plain(packed, sel1000),
-                                           BLOCK_ROWS * 1000 * 5),
-        "pack_codes": (lambda: pack_codes(codes), lambda: pack_codes_plain(codes),
+                                           lambda: subset_text_plain(packed, sel1000), None,
+                                           _subset_bytes(BLOCK_ROWS, sel1000) + BLOCK_ROWS * 4000),
+        "pack_codes": (lambda: pack_codes(codes), lambda: pack_codes_plain(codes), None,
                        codes.numel() + packed.numel()),
         "subset_repack": (lambda: subset_repack(packed, keep),
-                          lambda: subset_repack_plain(packed, keep),
-                          BLOCK_ROWS * (KEEP_SAMPLES + keep_rec)),
+                          lambda: subset_repack_plain(packed, keep), None,
+                          _subset_bytes(BLOCK_ROWS, keep) + BLOCK_ROWS * keep_rec),
         "subset_repack K=2": (lambda: subset_repack(packed, sel2),
-                              lambda: subset_repack_plain(packed, sel2), BLOCK_ROWS * 3),
+                              lambda: subset_repack_plain(packed, sel2), None,
+                              _subset_bytes(BLOCK_ROWS, sel2) + BLOCK_ROWS),
         "genotype_text_transposed": (lambda: genotype_text_transposed(packed_t),
-                                     lambda: genotype_text_transposed_plain(packed_t),
+                                     lambda: genotype_text_transposed_plain(packed_t), None,
                                      packed.numel() * 17),
         "genotype_text_from_codes": (lambda: genotype_text_from_codes(codes),
-                                     lambda: text_from_codes_plain(codes), codes.numel() * 5),
+                                     lambda: text_from_codes_plain(codes),
+                                     library_text_from_codes, codes.numel() * 5),
         "gt_counts_device": (lambda: gt_counts_device(packed, s),
-                             lambda: gt_counts_plain(packed, s), packed.numel() + BLOCK_ROWS * 16),
+                             lambda: gt_counts_plain(packed, s), None,
+                             packed.numel() + BLOCK_ROWS * 16),
         "sample_counts_device": (lambda: sample_counts_device(packed, s),
-                                 lambda: sample_counts_plain(packed, s), packed.numel() + s * 16),
+                                 lambda: sample_counts_plain(packed, s), None,
+                                 packed.numel() + s * 16),
         "glm_planes": (lambda: glm_planes(ops, s, lut2, cohort),
-                       lambda: glm_planes_plain(ops, s, lut2, cohort),
-                       ops.numel() + GLM_ROWS * (2 * 4 * COHORT + 16)),
+                       lambda: glm_planes_plain(ops, s, lut2, cohort), None,
+                       _subset_bytes(GLM_ROWS, cohort) + GLM_ROWS * (2 * 4 * COHORT + 16)),
         "glm_planes P=3 K=2504": (lambda: glm_planes(ops, s, lut3),
-                                  lambda: glm_planes_plain(ops, s, lut3),
+                                  lambda: glm_planes_plain(ops, s, lut3), None,
                                   ops.numel() + GLM_ROWS * (3 * 4 * s + 16)),
         "score_dosage": (lambda: score_dosage(ops, s, flip),
-                         lambda: score_dosage_plain(ops, s, flip),
-                         2 * ops.numel() + GLM_ROWS * (4 * s + 5)),
+                         lambda: score_dosage_plain(ops, s, flip), None,
+                         ops.numel() + GLM_ROWS * (4 * s + 5)),
         "score_dosage K=2454": (lambda: score_dosage(ops, s, flip, True, cohort),
-                                lambda: score_dosage_plain(ops, s, flip, True, cohort),
-                                2 * ops.numel() + GLM_ROWS * (4 * COHORT + 5)),
+                                lambda: score_dosage_plain(ops, s, flip, True, cohort), None,
+                                _subset_bytes(GLM_ROWS, cohort) + GLM_ROWS * (4 * COHORT + 5)),
     }
     times = {}
-    for name, (kernel, plain, nbytes) in cases.items():
-        # alternate plain, kernel, kernel, plain so drift hits both alike
+    for name, (kernel, plain, library, nbytes) in cases.items():
+        # alternate plain, kernel, kernel, plain (and library, library) so
+        # drift hits them alike
         p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
         ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
-        times[name] = (ms, plain_ms)
+        library_ms = None
+        if library is not None:
+            if not torch.equal(library(), kernel()):
+                raise AssertionError(f"{name}: the PyTorch call differs from the kernel")
+            library_ms = statistics.median([_time_ms(library), _time_ms(library)])
+        bound_ms = nbytes / HBM_BYTES_PER_MS
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms}
         if name == "genotype_text_transposed":
             shape = f"({rec}, {BLOCK_ROWS})"
         elif name.startswith(("glm_planes", "score_dosage")):
             shape = f"({GLM_ROWS}, {rec})"
         else:
             shape = f"({BLOCK_ROWS}, {rec})"
-        print(f"[3 kernels] {name} at {shape} S={s}: kernel {ms:.4f} ms "
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        width = s_odd if name.endswith("S=2503") else s
+        print(f"[3 kernels] {name} at {shape} S={width}: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB moved), "
               f"plain {plain_ms:.4f} ms")
+        print(f"[3 kernels] {name}: bound {bound_ms:.4f} ms (bytes at 3.35 TB/s), kernel at "
+              f"{100 * bound_ms / ms:.1f}% of it; one PyTorch call {lib}")
     return {"err": err, "times": times}
 
 
@@ -453,26 +547,20 @@ def _read_launches() -> dict:
 
 
 def make_fixtures(tmp: Path) -> dict:
-    """The chr22-scale filesets, made by tools/make_fixtures.py in a
-    subprocess: full, ragged (phase 4) and import (phase 6)."""
+    """The chr22-scale filesets, made by the port's own copy of
+    tools/make_fixtures.py's ensure_chr22 (uniform record bytes, seed 22):
+    full, ragged (phase 4) and import (phase 6)."""
+    from pgen_tpu_torch.formats.fixtures import ensure_chr22
+
     t0 = time.perf_counter()
-    make = (
-        "import sys; from pathlib import Path; sys.path.insert(0, 'tools')\n"
-        "from make_fixtures import ensure_chr22\n"
-        "for sub, n in zip(('full', 'ragged', 'import'), sys.argv[2:]):\n"
-        "    print(ensure_chr22(out_dir=Path(sys.argv[1]) / sub, num_variants=int(n),"
-        " uniform_bytes=True))\n"
-    )
-    made = subprocess.run(
-        [sys.executable, "-c", make, str(tmp), str(CHR22_VARIANTS), str(RAGGED_VARIANTS),
-         str(IMPORT_VARIANTS)],
-        cwd=ROOT, capture_output=True, text=True, check=True,
-    ).stdout.split()
-    full, ragged, imp = (Path(m) for m in made)
+    made = {sub: ensure_chr22(tmp / sub, num_variants=n, uniform_bytes=True)
+            for sub, n in (("full", CHR22_VARIANTS), ("ragged", RAGGED_VARIANTS),
+                           ("import", IMPORT_VARIANTS))}
+    size = Path(f"{made['full']}.pgen").stat().st_size
     print(f"[4 filter] fixtures in {time.perf_counter() - t0:.1f} s: "
           f"{CHR22_VARIANTS}, {RAGGED_VARIANTS} and {IMPORT_VARIANTS} variants x 2504 samples, "
-          f"{Path(f'{full}.pgen').stat().st_size} B .pgen")
-    return {"full": full, "ragged": ragged, "import": imp}
+          f"{size} B .pgen")
+    return made
 
 
 def phase_filter(tmp: Path, full: Path, ragged: Path) -> dict:
@@ -502,7 +590,7 @@ def phase_filter(tmp: Path, full: Path, ragged: Path) -> dict:
          "ka.vcf.gz", None),
     ]
 
-    # untimed: the first filter of a process builds pgen_tpu's C++ host
+    # untimed: the first filter of a process builds the port's C++ host
     # runtime (cached by source hash), which is no part of a filter's wall
     t0 = time.perf_counter()
     _port_filter(ragged, ["-r", "22:1-1"], tmp / "warm.vcf", "cpu")
@@ -1229,9 +1317,9 @@ def main(argv: list) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
               file=sys.stderr)
         return 1
-    if not (ROOT / "pgen_tpu_torch" / "csrc").is_dir() or not (ROOT / "tools").is_dir():
-        print(f"chip_smoke: {ROOT} holds no checkout of the repository (pgen_tpu_torch/, "
-              "tools/); run it from the root of one", file=sys.stderr)
+    if not (ROOT / "pgen_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} holds no checkout of the repository (pgen_tpu_torch/); "
+              "run it from the root of one", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     name = phase_device()
@@ -1268,17 +1356,19 @@ def main(argv: list) -> int:
                 if per_path[-1][kname] <= 0:
                     raise AssertionError(f"{kname} never launched on the GWAS path")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
-    if "jax" in sys.modules:
-        raise AssertionError("the port's run loaded jax")
+    loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
+    if loaded:
+        raise AssertionError(f"the port's run loaded {loaded[:5]}")
 
     if not argv:
         rows = []
         for kname, where in KERNELS.items():
-            ms, plain_ms = measured["times"][kname]
+            m = measured["times"][kname]
             rows.append({
                 "name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
                 "launches": sum(launches[kname] for launches in per_path),
-                "max_abs_err": measured["err"][kname], "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": measured["err"][kname], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": "bytes", "library_ms": m["library_ms"],
             })
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

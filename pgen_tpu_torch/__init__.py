@@ -32,10 +32,18 @@ that each counterpart is easy to find:
   pipeline/score.py   score_pfile (--score) on one GPU
   cli.py              python -m pgen_tpu_torch.cli filter|import|glm|score ...
 
-The host layers are pgen_tpu's, reused by import and not copied: metadata
-and predicates, the output row layout, the C++ row assembler, BGZF and
-tabix. The system has no model and no weights; its state is the fileset,
-which both packages read through the shared ``pgen_tpu.formats`` loaders.
+The package imports nothing of pgen_tpu. The jax-free host layers its entry
+points run are copies of pgen_tpu's, each naming its source and differing
+only in its imports (the exceptions say so in their docstrings), at the
+same paths: formats/ (header, metadata, tabix, writer; fixtures.py copies
+tools/make_fixtures.py's ensure_chr22), query/ (the expression engine),
+native/ (the C++ host runtime, built with g++ into build/pgen_tpu_torch/),
+utils/, ops/adjust.py, ops/hwe.py, ops/unpack_host.py, pipeline/vcf.py and
+cli_parser.py; a module that is only partly copied, because the rest runs
+jax or is pgen_tpu's own pipeline, is copied as X_host.py beside the port's
+X.py (pipeline/filter_host.py, vcf_import_host.py, pgen_out_host.py,
+glm_host.py, score_host.py, ops/gt_stats_host.py, ops/logistic_host.py).
+The system has no model and no weights; its state is the fileset.
 
 Imports are lazy (PEP 562), as in ``pgen_tpu.ops``: importing the package
 loads neither torch nor the kernel library, and no module of it loads jax.

@@ -1,9 +1,11 @@
 """Command line of the port: ``python -m pgen_tpu_torch.cli filter|import|glm|score ...``.
 
-It takes pgen_tpu's argument parser (``pgen_tpu.cli.build_arg_parser``) and
-adds ``--device cuda|cpu`` (default ``cuda``, which must be available) to
-``filter``, ``import``, ``glm`` and ``score``. The query flags compose exactly as in
-``pgen_tpu.cli.main``, through the same host composers: ``--keep/--remove``,
+It takes the port's copy of pgen_tpu's argument parser
+(``cli_parser.build_arg_parser``, every subcommand) and adds ``--device
+cuda|cpu`` (default ``cuda``, which must be available) to ``filter``,
+``import``, ``glm`` and ``score``. The query flags compose exactly as in
+``pgen_tpu.cli.main``, through the port's copies of its host composers
+(``query/``): ``--keep/--remove``,
 ``-r/-R``, ``--exclude-var/--exclude-sam``, ``--samples``,
 ``--extract/--exclude-ids``, the ``--maf/--max-maf/--geno/--hwe/--mind``
 sugar and ``--rm-dup force-first|exclude-all``.
@@ -30,7 +32,7 @@ import contextlib
 import os
 import sys
 
-from pgen_tpu.cli import build_arg_parser
+from pgen_tpu_torch.cli_parser import build_arg_parser
 
 # flag dest -> (test on its parsed value, refusal naming the ROADMAP item)
 _UNSERVED = {
@@ -123,9 +125,9 @@ def _compose_queries(args) -> None:
     """Fold the query flags of every served subcommand (--keep/--remove,
     -r/-R, --exclude-var/--exclude-sam, --samples) into args.var_query /
     args.sam_query, as pgen_tpu.cli.main does."""
-    from pgen_tpu.query.exclude import apply_exclude
-    from pgen_tpu.query.regions import apply_regions
-    from pgen_tpu.query.samples import apply_keep_remove, apply_samples
+    from pgen_tpu_torch.query.exclude import apply_exclude
+    from pgen_tpu_torch.query.regions import apply_regions
+    from pgen_tpu_torch.query.samples import apply_keep_remove, apply_samples
 
     if args.keep or args.remove:
         args.sam_query = apply_keep_remove(args.sam_query, args.keep, args.remove)
@@ -140,7 +142,7 @@ def _compose_queries(args) -> None:
 def _compose_filter_queries(args) -> None:
     """The common query flags, then filter's own: --extract/--exclude-ids,
     the --maf/--max-maf/--geno/--hwe/--mind sugar and --rm-dup."""
-    from pgen_tpu.query.idlist import apply_id_lists
+    from pgen_tpu_torch.query.idlist import apply_id_lists
 
     _compose_queries(args)
     args.var_query = apply_id_lists(args.var_query, args.extract, args.exclude_ids)
@@ -191,7 +193,7 @@ def _profile(out_dir, device: str):
 
 
 def _score(args) -> int:
-    from pgen_tpu.pipeline.score import parse_col_nums
+    from pgen_tpu_torch.pipeline.score_host import parse_col_nums
     from pgen_tpu_torch.pipeline.score import score_pfile
 
     result = score_pfile(

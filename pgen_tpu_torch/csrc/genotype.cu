@@ -60,60 +60,133 @@ __global__ void unpack_codes_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+// Row-tiled kernels (K2, K3): thread x of a block takes a column of the
+// output row (a packed byte, a text word or a kept sample), blockIdx.x a tile
+// of columns, and the block's rows start at blockIdx.y and step by gridDim.y
+// (at most 65,535), so no thread divides a flat index by the row length.
+constexpr int kTileThreads = 128;
+
+// The grid for n_var rows of n_cols columns, kTileThreads per block (times
+// rows_per_block rows of threads): all column tiles, and enough row blocks
+// for about kMaxBlocks blocks in all.
+dim3 tile_grid(int64_t n_var, int64_t n_cols, int64_t cols_per_block,
+               int64_t rows_per_block) {
+  const int64_t gx = (n_cols + cols_per_block - 1) / cols_per_block;
+  const int64_t rows = (n_var + rows_per_block - 1) / rows_per_block;
+  int64_t gy = kMaxBlocks / gx;
+  if (gy < 1) gy = 1;
+  if (gy > rows) gy = rows;
+  if (gy > 65535) gy = 65535;
+  return dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+}
+
 // K2. Replaces the Pallas pair pgen_tpu/ops/gt_text.py:_codes_kernel after
 // ops/unpack.py:_unpack_kernel (the fused genotype_text), and on the
 // keep-all filter path the plane form planes_from_packed, whose four planes
 // exist only because Mosaic cannot interleave lanes.
 // (V, R) u8 records -> (V, 4S) u8 text; sample s owns bytes 4s..4s+3.
 // Bound: memory, 1 B read and 16 B written per packed byte; one chr22 block
-// of 65,536 x 626 B reads 41 MB and writes 656 MB. End to end this kernel is
-// not the bound: the PCIe copy of its output to the host and the host's row
-// assembly each take longer (PERF.md). Design: one thread per (row, packed
-// byte j) decodes the byte once and writes the text words of samples
-// 4j..4j+3 straight into the interleaved row, so codes never reach device
-// memory. The row stride is 4S bytes: u32 stores are
-// always aligned, 16 B stores only when S % 4 == 0, so they are not used.
-// Codes past S in a row's last byte are padding (arbitrary bits in real
-// files) and are never written.
-__global__ void genotype_text_kernel(const uint8_t* __restrict__ packed,
-                                     uint32_t* __restrict__ text,
-                                     int64_t n_var, int64_t rec,
-                                     int64_t n_samples) {
-  const int64_t n = n_var * rec;
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int64_t v = i / rec;
-    const int64_t s0 = 4 * (i - v * rec);
-    const uint32_t codes = unpack_byte(packed[i]);
-    uint32_t* row = text + v * n_samples;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (s0 + k < n_samples) {
-        row[s0 + k] = text_word((codes >> (8 * k)) & 0xFFu);
-      }
-    }
+// of 65,536 x 626 B reads 41 MB and writes 656 MB, 0.208 ms at 3.35 TB/s.
+// Codes never reach device memory, and codes past S in a row's last byte
+// (padding, arbitrary bits in real files) are never written. Two forms,
+// chosen by the launcher:
+// - aligned (S % 4 == 0, output 16-B aligned, so every row starts on 16 B):
+//   one thread per packed byte j < S/4 decodes it once and writes its four
+//   samples' text as one 16 B store; consecutive threads write consecutive
+//   16 B, so a warp's store is 512 contiguous bytes, every sector full.
+// - words (any S, output 4-B aligned): one thread per sample s writes its
+//   text word; consecutive threads write consecutive words (a warp's store
+//   is 128 contiguous bytes) and the four threads of a byte read it from L1.
+// Each thread loads two rows' bytes before it stores either, so two loads
+// are in flight.
+__device__ __forceinline__ uint4 text_quad(uint32_t byte) {
+  const uint32_t codes = unpack_byte(byte);
+  return make_uint4(text_word(codes & 0xFFu), text_word((codes >> 8) & 0xFFu),
+                    text_word((codes >> 16) & 0xFFu), text_word(codes >> 24));
+}
+
+__global__ void genotype_text_quad_kernel(const uint8_t* __restrict__ packed,
+                                          uint4* __restrict__ text,
+                                          int64_t n_var, int64_t rec,
+                                          int64_t n_quads) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n_quads) return;
+  const int64_t step = gridDim.y;
+  int64_t v = blockIdx.y;
+  for (; v + step < n_var; v += 2 * step) {
+    const uint32_t a = __ldg(packed + v * rec + j);
+    const uint32_t b = __ldg(packed + (v + step) * rec + j);
+    text[v * n_quads + j] = text_quad(a);
+    text[(v + step) * n_quads + j] = text_quad(b);
+  }
+  if (v < n_var) text[v * n_quads + j] = text_quad(__ldg(packed + v * rec + j));
+}
+
+__global__ void genotype_text_words_kernel(const uint8_t* __restrict__ packed,
+                                           uint32_t* __restrict__ text,
+                                           int64_t n_var, int64_t rec,
+                                           int64_t n_samples) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= n_samples) return;
+  const int64_t byte = s >> 2;
+  const int shift = 2 * static_cast<int>(s & 3);
+  const int64_t step = gridDim.y;
+  int64_t v = blockIdx.y;
+  for (; v + step < n_var; v += 2 * step) {
+    const uint32_t a = __ldg(packed + v * rec + byte);
+    const uint32_t b = __ldg(packed + (v + step) * rec + byte);
+    text[v * n_samples + s] = text_word((a >> shift) & 3u);
+    text[(v + step) * n_samples + s] = text_word((b >> shift) & 3u);
+  }
+  if (v < n_var) {
+    text[v * n_samples + s] = text_word((__ldg(packed + v * rec + byte) >> shift) & 3u);
   }
 }
 
 // K3. Replaces pgen_tpu/ops/gt_text.py:_subset_words (XLA gather + text
 // word, behind subset_text_from_packed) on the sample-subset filter path.
-// (V, R) u8 records + sel (K) int32 sample ids, any order -> (V, 4K) u8
-// text in sel order.
-// Bound: memory, 4 B written per kept sample and one record byte read; for
-// a keep-two filter the whole block is a few hundred KB, so launch latency
-// and the host around it dominate. Design: one thread per (row, kept k)
-// reads only the byte holding its sample; K u32 words per row is what the
-// host copies back, instead of the full 16 B per record byte.
+// (V, R) u8 records + sel (K) int32 sample ids, any order, repeats allowed
+// -> (V, 4K) u8 text in sel order.
+// Bound: memory, one record byte read per kept sample and 4 B written per
+// kept sample; at K = 1000 a 65,536-row block reads 41 MB (every row's
+// bytes) and writes 262 MB, 0.090 ms at 3.35 TB/s. For a keep-two filter
+// the block is a few hundred KB, so launch latency and the host around it
+// dominate.
+// Design: a block takes a tile of kept samples (blockIdx.x, threadIdx.x)
+// over rows of threads (threadIdx.y) that step through the rows. Each
+// thread reads its ids from sel once, as (byte, shift) pairs kept in
+// registers for every row, so K has no limit but the grid's. Per row it
+// reads its record bytes through L1 (the block's threads share the row)
+// and writes consecutive words: one 16 B store of four kept samples when
+// K % 4 == 0 and the output is 16-B aligned (the quad form), else one u32.
+template <int kPer>
 __global__ void subset_text_kernel(const uint8_t* __restrict__ packed,
                                    const int32_t* __restrict__ sel,
                                    uint32_t* __restrict__ text, int64_t n_var,
                                    int64_t rec, int64_t n_kept) {
-  const int64_t n = n_var * n_kept;
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int64_t v = i / n_kept;
-    const int32_t s = sel[i - v * n_kept];
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kPer * c >= n_kept) return;
+  int64_t byte[kPer];
+  int shift[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int32_t s = sel[kPer * c + m];
     assert(s >= 0 && static_cast<int64_t>(s) < 4 * rec);
-    const uint32_t b = packed[v * rec + (s >> 2)];
-    text[i] = text_word((b >> (2 * (s & 3))) & 3u);
+    byte[m] = s >> 2;
+    shift[m] = 2 * (s & 3);
+  }
+  const int64_t step = static_cast<int64_t>(gridDim.y) * blockDim.y;
+  for (int64_t v = static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y; v < n_var;
+       v += step) {
+    const uint8_t* row = packed + v * rec;
+    uint32_t w[kPer];
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) w[m] = text_word((__ldg(row + byte[m]) >> shift[m]) & 3u);
+    if constexpr (kPer == 4) {
+      reinterpret_cast<uint4*>(text + v * n_kept)[c] = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      text[v * n_kept + c] = w[0];
+    }
   }
 }
 
@@ -488,24 +561,48 @@ int pgen_unpack_codes(const void* packed, void* words, int64_t n_var,
 
 int pgen_genotype_text(const void* packed, void* text, int64_t n_var,
                        int64_t rec, int64_t n_samples, void* stream) {
-  const int64_t n = n_var * rec;
-  if (n <= 0 || n_samples <= 0) return 0;
-  genotype_text_kernel<<<grid_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<uint32_t*>(text), n_var,
-      rec, n_samples);
+  if (n_var <= 0 || n_samples <= 0) return 0;
+  const auto at = reinterpret_cast<uintptr_t>(text);
+  if (at % 4 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const uint8_t*>(packed);
+  if (n_samples % 4 == 0 && at % 16 == 0) {
+    const int64_t n_quads = n_samples / 4;
+    genotype_text_quad_kernel<<<tile_grid(n_var, n_quads, kTileThreads, 1),
+                                kTileThreads, 0, s>>>(
+        in, static_cast<uint4*>(text), n_var, rec, n_quads);
+  } else {
+    genotype_text_words_kernel<<<tile_grid(n_var, n_samples, kTileThreads, 1),
+                                 kTileThreads, 0, s>>>(
+        in, static_cast<uint32_t*>(text), n_var, rec, n_samples);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int pgen_subset_text(const void* packed, const void* sel, void* text,
                      int64_t n_var, int64_t rec, int64_t n_kept,
                      void* stream) {
-  const int64_t n = n_var * n_kept;
-  if (n <= 0) return 0;
-  subset_text_kernel<<<grid_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
-      static_cast<uint32_t*>(text), n_var, rec, n_kept);
+  if (n_var <= 0 || n_kept <= 0) return 0;
+  const auto at = reinterpret_cast<uintptr_t>(text);
+  if (at % 4 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  const bool quad = n_kept % 4 == 0 && at % 16 == 0;
+  const int64_t cols = quad ? n_kept / 4 : n_kept;
+  // threads on columns: one warp or more, the rest of 256 on rows
+  int64_t tx = (cols + 31) / 32 * 32;
+  if (tx > 256) tx = 256;
+  const int64_t ty = 256 / tx;
+  const dim3 block(static_cast<unsigned>(tx), static_cast<unsigned>(ty));
+  const dim3 grid = tile_grid(n_var, cols, tx, ty);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const uint8_t*>(packed);
+  const auto ids = static_cast<const int32_t*>(sel);
+  if (quad) {
+    subset_text_kernel<4><<<grid, block, 0, s>>>(in, ids, static_cast<uint32_t*>(text),
+                                                 n_var, rec, n_kept);
+  } else {
+    subset_text_kernel<1><<<grid, block, 0, s>>>(in, ids, static_cast<uint32_t*>(text),
+                                                 n_var, rec, n_kept);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

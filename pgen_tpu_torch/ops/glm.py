@@ -893,7 +893,7 @@ def t_sf2(t, df):
     out = np.asarray(betainc_reg(df / 2.0, 0.5, x))
     big = np.broadcast_to(df >= 1e8, out.shape)
     if big.any():
-        from pgen_tpu.ops.logistic import normal_sf2
+        from pgen_tpu_torch.ops.logistic_host import normal_sf2
 
         tb = np.broadcast_to(t, out.shape)
         out = np.where(big, normal_sf2(tb), out)

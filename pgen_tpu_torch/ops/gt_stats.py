@@ -21,8 +21,8 @@ launches the kernel, a CPU tensor runs the plain PyTorch version beside it.
 matrix through one staging tensor (pinned when the device is CUDA), block by
 block, and return int64 numpy as pgen_tpu's ``gt_counts``/``sample_counts``
 do with ``provider="device"``. The host helpers (``gt_variables``,
-``gt_counts_subset``, ``GT_VARIABLE_NAMES``, the HWE test) are pgen_tpu's,
-used by import.
+``gt_counts_subset``, ``GT_VARIABLE_NAMES``, the HWE test) are the port's
+copies of pgen_tpu's (``ops/gt_stats_host.py``, ``ops/hwe.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.kernels import launch
 from pgen_tpu_torch.ops.unpack import check_packed, unpack_codes_plain
 
-# Rows per staged block: pgen_tpu.pipeline.filter.DEFAULT_BLOCK_VARIANTS.
+# Rows per staged block: pipeline/filter_host.py's DEFAULT_BLOCK_VARIANTS.
 COUNT_BLOCK_ROWS = 1 << 16
 # The kernels count in int32; a call of fewer rows cannot overflow one.
 _MAX_ROWS = (1 << 31) - 1

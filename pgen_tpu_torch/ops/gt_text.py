@@ -9,10 +9,12 @@ Four entry points, each dispatching on the tensor's device, with no fallback
 between the two: a CUDA tensor launches the kernel, a CPU tensor runs the
 plain PyTorch version beside it.
 
-- ``genotype_text`` (keep-all): K2, ``csrc/genotype.cu:genotype_text_kernel``,
-  one kernel for what the Pallas pair ``_unpack_kernel`` then
-  ``_codes_kernel`` computes. It writes the interleaved text directly, so the
-  TPU's four-plane form (``planes_from_packed``) has no counterpart here.
+- ``genotype_text`` (keep-all): K2, ``csrc/genotype.cu``'s
+  ``genotype_text_quad_kernel`` (16 B stores, S % 4 == 0) and
+  ``genotype_text_words_kernel`` (any S), one kernel for what the Pallas
+  pair ``_unpack_kernel`` then ``_codes_kernel`` computes. It writes the
+  interleaved text directly, so the TPU's four-plane form
+  (``planes_from_packed``) has no counterpart here.
 - ``subset_text_from_packed`` (kept samples): K3,
   ``csrc/genotype.cu:subset_text_kernel``, the counterpart of the XLA gather
   ``_subset_words``. Unlike pgen_tpu's, it returns a tensor on the input's

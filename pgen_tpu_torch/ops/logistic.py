@@ -6,8 +6,9 @@ pgen_tpu's IRLS is host code that imports no jax; its device provider only
 hands it ``_device_matmul`` (:841-857), a closure that runs each
 iteration's (V, S) x (S, P) moment products on the accelerator in f32.
 This module ports that closure (``device_matmul``: ``torch.matmul`` in full
-fp32 on ``device``, the result back as f64) and reuses the IRLS by import,
-with the device provider's step tolerance of at least 1e-5. A given
+fp32 on ``device``, the result back as f64) and runs the port's copy of the
+IRLS (``ops/logistic_host.py``) with it, at the device provider's step
+tolerance of at least 1e-5. A given
 ``matmul`` skips pgen_tpu's sufficient-statistics paths, exactly as its
 device provider does. Each iteration ships its host arrays to the card and
 back, as pgen_tpu's does.
@@ -22,12 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pgen_tpu.ops.logistic import (
+from pgen_tpu_torch.ops.logistic_host import (
     LogisticModResult,
     _logistic_fit_multi,
     glm_logistic_numpy,
 )
-from pgen_tpu.ops.logistic import glm_logistic_interaction as _glm_logistic_interaction
+from pgen_tpu_torch.ops.logistic_host import glm_logistic_interaction as _glm_logistic_interaction
 from pgen_tpu_torch.device import matmul_fp32, resolve_device
 from pgen_tpu_torch.ops.glm import MODIFIER_COLS, check_sample_ids
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import synchronize
 from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
 from pgen_tpu_torch.parallel.distributed import all_gather

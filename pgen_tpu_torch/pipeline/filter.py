@@ -1,15 +1,16 @@
 """Filter a pgen fileset to VCF on one GPU: the port of pgen_tpu's
 ``device`` provider (``pgen_tpu/pipeline/filter.py:_emit_block``).
 
-Everything but the genotype text is pgen_tpu's host code, reused by import:
+Everything but the genotype text is the port's copy of pgen_tpu's host
+code (``pipeline/filter_host.py``, ``formats/``, ``query/``, ``native/``):
 ``derive_row_layout`` (metadata, predicates, the byte layout of every output
 row), ``_gather_rows``, ``materialize_prefixes``, the C++ row assembler
 ``native.assemble_rows_buf``, BGZF and tabix. This path's predicates run on
-pgen_tpu's ``native`` provider, or ``numpy`` without a C++ toolchain.
+the ``native`` provider, or ``numpy`` without a C++ toolchain.
 ``compute_masks`` below is the device provider's (``--provider device``):
 pgen_tpu's, with its genotype counts made on the device (K8, K9).
 
-The records are pgen_tpu's memory-mapped ``.pgen`` matrix; what reaches the
+The records are the memory-mapped ``.pgen`` matrix; what reaches the
 device is each block's kept rows, copied into a staging tensor. Per block:
 
   gather    host gather of the kept rows into the staging tensor (pinned
@@ -35,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pgen_tpu.pipeline.filter import (
+from pgen_tpu_torch.pipeline.filter_host import (
     BGZF_EOF,
     DEFAULT_BLOCK_VARIANTS,
     FilterResult,
@@ -47,8 +48,8 @@ from pgen_tpu.pipeline.filter import (
     emit_tabix_index,
     materialize_prefixes,
 )
-from pgen_tpu.utils.log import get_logger
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.utils.log import get_logger
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
 
@@ -105,7 +106,7 @@ class _BlockRows:
 
     def write(self, lo: int, hi: int, out: np.ndarray) -> None:
         """pvar prefix + GT text + newline of kept rows [lo, hi), filling out."""
-        from pgen_tpu.native import HAVE_NATIVE, native
+        from pgen_tpu_torch.native import HAVE_NATIVE, native
 
         text = self._text(lo, hi)
         with self.timer.stage("assemble", nbytes=out.nbytes):
@@ -131,15 +132,15 @@ def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
     convention). With a GT_* sample query the sample mask comes first, and
     when it keeps a subset the variant counts cover only the kept samples:
     those cohort-aware counts stay on the host, as pgen_tpu's device
-    provider keeps them (``gt_counts_subset``). Everything else is
-    pgen_tpu's host code: GT()/GT_TEXT()/GT_ROW indexing, DUP_* variables
-    and the predicate compiler.
+    provider keeps them (``gt_counts_subset``). Everything else is the
+    port's copy of pgen_tpu's host code: GT()/GT_TEXT()/GT_ROW indexing,
+    DUP_* variables and the predicate compiler.
     """
-    from pgen_tpu.ops.gt_stats import GT_VARIABLE_NAMES, gt_counts_subset, gt_variables
-    from pgen_tpu.pipeline.filter import _maybe_gt_index_masks
-    from pgen_tpu.query import compile_predicate, parse
-    from pgen_tpu.query.ast import variables
-    from pgen_tpu.query.dup import dup_variables
+    from pgen_tpu_torch.ops.gt_stats_host import GT_VARIABLE_NAMES, gt_counts_subset, gt_variables
+    from pgen_tpu_torch.pipeline.filter_host import _maybe_gt_index_masks
+    from pgen_tpu_torch.query import compile_predicate, parse
+    from pgen_tpu_torch.query.ast import variables
+    from pgen_tpu_torch.query.dup import dup_variables
     from pgen_tpu_torch.ops.gt_stats import gt_counts, sample_counts
 
     var_node = parse(var_query) if isinstance(var_query, str) else var_query
@@ -193,7 +194,7 @@ def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
 def _bgzf(pool: ThreadPoolExecutor, threads: int, data: np.ndarray) -> list:
     """BGZF members of data, compressed in slices across the pool's threads
     (the C call releases the GIL)."""
-    from pgen_tpu.native import native
+    from pgen_tpu_torch.native import native
 
     nparts = min(threads, max(1, data.nbytes // (4 << 20)))
     if nparts == 1:
@@ -222,7 +223,7 @@ def filter_to_vcf(
     stdout, a ``.gz`` name writes BGZF, and ``index`` (``.gz`` only) also
     writes a tabix index (``index_format`` tbi, csi or auto).
     """
-    from pgen_tpu.native import HAVE_NATIVE
+    from pgen_tpu_torch.native import HAVE_NATIVE
 
     dev = resolve_device(device)
     if block_variants < 1:

@@ -10,7 +10,8 @@ host gather of the kept rows, then each design's moments and solve,
 emission (``.6g`` cells, one row per test, the GENO_2DF rows of the 2-df
 modifiers) and ``--adjust``. Every moment product and IRLS product runs on
 ``device`` through the port's ops (``ops/glm.py``, ``ops/logistic.py``);
-the jax-free helpers are pgen_tpu's, used by import.
+the jax-free helpers are the port's copies of pgen_tpu's
+(``pipeline/glm_host.py``).
 
 Stages (``GlmRunResult.timer``): predicates, phenotypes, gather, then
 moments and solve (linear) or irls (logistic), emit and adjust.
@@ -22,17 +23,17 @@ import contextlib
 
 import numpy as np
 
-from pgen_tpu.formats.header import read_pgen_header
-from pgen_tpu.formats.metadata import read_metadata
-from pgen_tpu.pipeline.filter import _gather_rows
-from pgen_tpu.pipeline.glm import (
+from pgen_tpu_torch.formats.header import read_pgen_header
+from pgen_tpu_torch.formats.metadata import read_metadata
+from pgen_tpu_torch.pipeline.filter_host import _gather_rows
+from pgen_tpu_torch.pipeline.glm_host import (
     GlmRunResult,
     _external_column,
     detect_model,
     parse_numeric_column,
 )
-from pgen_tpu.utils.log import get_logger
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.utils.log import get_logger
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.ops import glm as ops_glm
 from pgen_tpu_torch.ops import logistic as ops_logistic
@@ -74,7 +75,7 @@ def _phenotypes(pheno_name, covar_names, pheno_file, covar_file, psam, sam_mask,
 def _condition_dosages(condition, pvar, records, header, sam_idx) -> np.ndarray:
     """(K, n_cond) alt dosages of the --condition variants over the cohort,
     missing calls mean-imputed (pgen_tpu's pinned spec)."""
-    from pgen_tpu.ops.unpack_host import unpack_codes_numpy
+    from pgen_tpu_torch.ops.unpack_host import unpack_codes_numpy
 
     row_of = {}
     for row, vid in enumerate(pvar.get_column_strs("ID")):
@@ -347,7 +348,7 @@ def glm_pfile(
             with cm as fh:
                 _emit(fh, pvar, var_idx, tests, multi, res, joint_stat, joint_p, model)
     if adjust:
-        from pgen_tpu.ops.adjust import adjust_pvalues
+        from pgen_tpu_torch.ops.adjust import adjust_pvalues
 
         with timer.stage("adjust"):
             adj = adjust_pvalues(res.p, res.t_stat, lambda_gc=adjust_lambda)

@@ -17,7 +17,7 @@ one-rank group, so one card runs the same collectives as N. Per block of
                 the rank-local step and its all-gathers
                 (``parallel/mesh.py``)
     d2h         the kept rows' text into a pinned host buffer
-    assemble    pvar prefixes + text + newline (pgen_tpu's C++ assembler)
+    assemble    pvar prefixes + text + newline (the C++ row assembler)
     compress    BGZF, for a .gz output, in slices across the host's cores
                 (the same members as one call)
     pwrite      the rank's rows at their arithmetic offset; for .gz an
@@ -46,9 +46,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pgen_tpu.formats.header import read_pgen_header
-from pgen_tpu.formats.metadata import read_metadata
-from pgen_tpu.pipeline.filter import (
+from pgen_tpu_torch.formats.header import read_pgen_header
+from pgen_tpu_torch.formats.metadata import read_metadata
+from pgen_tpu_torch.pipeline.filter_host import (
     BGZF_EOF,
     DEFAULT_BLOCK_VARIANTS,
     FilterResult,
@@ -58,11 +58,11 @@ from pgen_tpu.pipeline.filter import (
     emit_tabix_index,
     materialize_prefixes,
 )
-from pgen_tpu.pipeline.vcf import DEFAULT_SOURCE_TAG, vcf_header_bytes
-from pgen_tpu.query import ExprError, compile_predicate, parse
-from pgen_tpu.query.ast import variables
-from pgen_tpu.utils.log import get_logger
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.pipeline.vcf import DEFAULT_SOURCE_TAG, vcf_header_bytes
+from pgen_tpu_torch.query import ExprError, compile_predicate, parse
+from pgen_tpu_torch.query.ast import variables
+from pgen_tpu_torch.utils.log import get_logger
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import synchronize
 from pgen_tpu_torch.parallel.distributed import barrier, process_group
 from pgen_tpu_torch.parallel.mesh import mesh_pipeline_step
@@ -113,7 +113,7 @@ def _merge_gz_parts(out_file: str, header_bytes: bytes, rank: int, dev) -> int:
     rank 0 writes the compressed header, the parts in (block, rank) order
     and the EOF marker. BGZF members concatenate losslessly. Returns the
     bytes rank 0 wrote (0 on the other ranks)."""
-    from pgen_tpu.native import native
+    from pgen_tpu_torch.native import native
 
     barrier(dev)
     if rank != 0:
@@ -182,7 +182,7 @@ def filter_to_vcf_mesh(
 
 def _filter(pfile_prefix, var_query, sam_query, out_file, rank, world, dev,
             block_variants, source_tag, index, index_format, timer) -> MeshFilterResult:
-    from pgen_tpu.native import HAVE_NATIVE
+    from pgen_tpu_torch.native import HAVE_NATIVE
 
     if out_file is None:
         out_file = f"{pfile_prefix}.pgen-rs.vcf"
@@ -213,7 +213,7 @@ def _filter(pfile_prefix, var_query, sam_query, out_file, rank, world, dev,
         if cols is not None and isinstance(sam_query, str):
             # a GT_* sample query (--mind) needs compute_masks' per-sample
             # counts: host masks, as in pgen_tpu
-            from pgen_tpu.ops.gt_stats import GT_VARIABLE_NAMES
+            from pgen_tpu_torch.ops.gt_stats_host import GT_VARIABLE_NAMES
 
             if variables(parse(sam_query)) & set(GT_VARIABLE_NAMES):
                 cols = None
@@ -303,7 +303,7 @@ def _filter(pfile_prefix, var_query, sam_query, out_file, rank, world, dev,
 
     def write_rows(bi, n, text, block_mask, counts, rows_blk, ls_blk, le_blk, fd):
         """This rank's kept rows of block bi, at their offsets."""
-        from pgen_tpu.native import native
+        from pgen_tpu_torch.native import native
 
         kept_blk = np.flatnonzero(block_mask[:n])
         nk = len(kept_blk)
@@ -370,7 +370,7 @@ def _filter(pfile_prefix, var_query, sam_query, out_file, rank, world, dev,
     pool = ThreadPoolExecutor(threads, thread_name_prefix="pgen-bgzf")
     try:
         if gz and world == 1:
-            from pgen_tpu.native import native
+            from pgen_tpu_torch.native import native
 
             comp = native.bgzf_compress(np.frombuffer(header_bytes, dtype=np.uint8))
             _write_all(fd, memoryview(comp))

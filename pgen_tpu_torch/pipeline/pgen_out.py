@@ -1,12 +1,13 @@
 """Filter to a .pgen fileset on one GPU: the port of
 ``pgen_tpu/pipeline/pgen_out.py`` (``filter --out-format pgen``).
 
-Everything but the sample re-pack is pgen_tpu's host code, reused by
-import: the header and metadata readers, ``compute_masks`` (on pgen_tpu's
-``native`` provider, or ``numpy`` without a C++ toolchain, never its jax
-``device`` provider), ``_gather_rows`` and ``_write_meta_subset``. With
-``provider="device"`` the masks come from the port's ``compute_masks``
-instead, whose genotype counts run on the device (K8, K9).
+Everything but the sample re-pack is the port's copy of pgen_tpu's host
+code: the header and metadata readers (``formats/``), ``compute_masks``
+(``pipeline/filter_host.py``, on the ``native`` provider, or ``numpy``
+without a C++ toolchain), ``_gather_rows`` and ``_write_meta_subset``
+(``pipeline/pgen_out_host.py``). With ``provider="device"`` the masks come
+from the port's ``compute_masks`` (``pipeline/filter.py``) instead, whose
+genotype counts run on the device (K8, K9).
 
 When every sample is kept the records are copied verbatim, with no device
 work, as pgen_tpu does. Otherwise, per block of kept variants:
@@ -30,18 +31,18 @@ import struct
 import numpy as np
 import torch
 
-from pgen_tpu.formats.header import (
+from pgen_tpu_torch.formats.header import (
     FIXED_WIDTH_STORAGE_MODE,
     MODE2_FORMAT_BYTE,
     PGEN_MAGIC,
     read_pgen_header,
     variant_record_size,
 )
-from pgen_tpu.formats.metadata import read_metadata
-from pgen_tpu.pipeline.filter import _gather_rows, compute_masks
-from pgen_tpu.pipeline.pgen_out import DEFAULT_BLOCK, PgenFilterResult, _write_meta_subset
-from pgen_tpu.utils.log import get_logger
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.formats.metadata import read_metadata
+from pgen_tpu_torch.pipeline.filter_host import _gather_rows, compute_masks
+from pgen_tpu_torch.pipeline.pgen_out_host import DEFAULT_BLOCK, PgenFilterResult, _write_meta_subset
+from pgen_tpu_torch.utils.log import get_logger
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.ops.pack import subset_repack
 from pgen_tpu_torch.pipeline.filter import compute_masks as device_masks
@@ -101,7 +102,7 @@ def filter_to_pgen(
     """
     if provider not in ("auto", "device"):
         raise ValueError(f"provider must be auto or device, got {provider!r}")
-    from pgen_tpu.native import HAVE_NATIVE
+    from pgen_tpu_torch.native import HAVE_NATIVE
 
     dev = resolve_device(device)
     if block_variants < 1:

@@ -9,8 +9,8 @@ matched rows, the score products on ``device`` (``ops/score.py``: K11 and
 ``--q-score-range`` range. ``--center``/``--variance-standardize`` reduce
 to a weight rescale and a per-score offset, from the matched variants'
 genotype counts: the port's K8 counts on ``device``, or with a sample
-subset pgen_tpu's host counts over the cohort (ROADMAP §1 item 16). The
-table parsers are pgen_tpu's, used by import.
+subset the host counts over the cohort (ROADMAP §1 item 16). The table
+parsers are the port's copies of pgen_tpu's (``pipeline/score_host.py``).
 
 Stages (``ScoreRunResult.timer``): score_file, predicates, match, gather,
 moments (the counts of --center/--variance-standardize), score, emit.
@@ -22,17 +22,17 @@ import contextlib
 
 import numpy as np
 
-from pgen_tpu.formats.header import read_pgen_header
-from pgen_tpu.formats.metadata import read_metadata
-from pgen_tpu.pipeline.filter import _gather_rows
-from pgen_tpu.pipeline.score import (
+from pgen_tpu_torch.formats.header import read_pgen_header
+from pgen_tpu_torch.formats.metadata import read_metadata
+from pgen_tpu_torch.pipeline.filter_host import _gather_rows
+from pgen_tpu_torch.pipeline.score_host import (
     ScoreRunResult,
     read_q_data,
     read_q_ranges,
     read_score_file,
 )
-from pgen_tpu.utils.log import get_logger
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.utils.log import get_logger
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.ops.score import score
 from pgen_tpu_torch.pipeline.filter import compute_masks
@@ -81,7 +81,7 @@ def _effect_means(kept, num_samples, subset, flip, weights, variance_standardize
 
         cts = gt_counts(kept, num_samples, dev)
     else:
-        from pgen_tpu.ops.gt_stats import gt_counts_subset
+        from pgen_tpu_torch.ops.gt_stats_host import gt_counts_subset
 
         cts = gt_counts_subset(kept, subset)
     n_called = cts[:, :3].sum(axis=1).astype(np.float64)

@@ -1,11 +1,11 @@
 """VCF -> PGEN import on one GPU: the port of
 ``pgen_tpu/pipeline/vcf_import.py`` with its ``device`` provider.
 
-Everything but the pack is pgen_tpu's host code, reused by import: the
-BGZF windows, the header parse, the newline-aligned chunking and the
-vectorized GT parse ``_parse_chunk_numpy`` (the host half of pgen_tpu's
-``device`` provider). A malformed row raises pgen_tpu's ``VcfImportError``,
-naming the same row. The .psam and .pvar are written as pgen_tpu writes
+Everything but the pack is the port's copy of pgen_tpu's host code
+(``pipeline/vcf_import_host.py``): the BGZF windows, the header parse, the
+newline-aligned chunking and the vectorized GT parse ``_parse_chunk_numpy``
+(the host half of pgen_tpu's ``device`` provider). A malformed row raises
+the copy's ``VcfImportError`` with pgen_tpu's message, naming the same row. The .psam and .pvar are written as pgen_tpu writes
 them, and the .pgen's variant count is patched at the end.
 
 Per chunk:
@@ -29,12 +29,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pgen_tpu.formats.header import (
+from pgen_tpu_torch.formats.header import (
     FIXED_WIDTH_STORAGE_MODE,
     MODE2_FORMAT_BYTE,
     PGEN_MAGIC,
 )
-from pgen_tpu.pipeline.vcf_import import (
+from pgen_tpu_torch.pipeline.vcf_import_host import (
     DEFAULT_CHUNK_BYTES,
     VCF_FIXED_COLUMNS,
     ImportResult,
@@ -45,8 +45,8 @@ from pgen_tpu.pipeline.vcf_import import (
     _parse_header,
     _stream_chunks,
 )
-from pgen_tpu.utils.log import get_logger
-from pgen_tpu.utils.timer import StageTimer
+from pgen_tpu_torch.utils.log import get_logger
+from pgen_tpu_torch.utils.timer import StageTimer
 from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.ops.pack import pack_codes
 

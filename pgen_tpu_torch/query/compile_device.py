@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pgen_tpu.query import Binary, ExprError, Lit, Unary, Var, parse
+from pgen_tpu_torch.query import Binary, ExprError, Lit, Unary, Var, parse
 
 
 class DeviceFallback(Exception):
@@ -101,7 +101,7 @@ def lower_device(node, cols: dict) -> torch.Tensor:
 
 def compile_predicate_device(expr, table, device="cpu") -> torch.Tensor:
     """Evaluate expr on ``device`` over a MetadataTable's padded columns."""
-    from pgen_tpu.query.ast import variables
+    from pgen_tpu_torch.query.ast import variables
 
     node = parse(expr) if isinstance(expr, str) else expr
     cols = {

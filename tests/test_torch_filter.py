@@ -223,8 +223,9 @@ def test_port_never_loads_jax(tmp_path):
     """Importing the port and running a filter to VCF (GT_* sugar included),
     a filter to a pgen fileset, an import of the VCF, two filters with
     --provider device (--maf's K8 counts, a device-lowered predicate), a
-    linear and a logistic glm and two scores keeps jax out of the process. A
-    subprocess, since this test process has jax."""
+    linear and a logistic glm and two scores keeps jax, and pgen_tpu, out of
+    the process, though the repository root is on its path. A subprocess,
+    since this test process has both."""
     prefix = _fileset(tmp_path, 12, 20, seed=12)
     rng = np.random.default_rng(12)
     (tmp_path / "ph.tsv").write_text("#IID\tQT\tCC\tC1\n" + "".join(
@@ -232,36 +233,39 @@ def test_port_never_loads_jax(tmp_path):
     (tmp_path / "w.tsv").write_text("".join(f"rs{i}\tA\t{rng.normal():.4g}\n" for i in range(8)))
     code = (
         "import sys\n"
+        "def clean(what):\n"
+        "    loaded = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'pgen_tpu'))\n"
+        "    assert not loaded, f'{what} loaded {loaded[:5]}'\n"
         "import pgen_tpu_torch, pgen_tpu_torch.pipeline.filter, pgen_tpu_torch.cli\n"
         "import pgen_tpu_torch.pipeline.pgen_out, pgen_tpu_torch.pipeline.vcf_import\n"
         "import pgen_tpu_torch.ops.pack, pgen_tpu_torch.kernels, pgen_tpu_torch.device\n"
         "import pgen_tpu_torch.pipeline.mesh_filter, pgen_tpu_torch.ops.gt_stats\n"
-        "assert 'jax' not in sys.modules, 'import loaded jax'\n"
+        "clean('import')\n"
         "from pgen_tpu_torch.cli import main\n"
         "prefix, out = sys.argv[1:]\n"
         "assert main(['filter', prefix, '--device', 'cpu', '--maf', '0.1',\n"
         "             '--samples', 's1,s2', '-o', out + '.vcf']) == 0\n"
-        "assert 'jax' not in sys.modules, 'filter loaded jax'\n"
+        "clean('filter')\n"
         "assert main(['filter', prefix, '--out-format', 'pgen', '--device', 'cpu',\n"
         "             '--samples', 's1,s2,s5', '-o', out + '.sub']) == 0\n"
-        "assert 'jax' not in sys.modules, 'filter --out-format pgen loaded jax'\n"
+        "clean('filter --out-format pgen')\n"
         "assert main(['import', out + '.vcf', '-o', out + '.imp', '--device', 'cpu']) == 0\n"
-        "assert 'jax' not in sys.modules, 'import loaded jax'\n"
+        "clean('import')\n"
         "assert main(['filter', prefix, '--provider', 'device', '--device', 'cpu', '--maf', '0.1',\n"
         "             '--include-var', 'ALT == \"G\"', '-o', out + '.dev.vcf']) == 0\n"
         "assert main(['filter', prefix, '--provider', 'device', '--device', 'cpu',\n"
         "             '--include-var', 'ALT != \"C\"', '-o', out + '.low.vcf']) == 0\n"
-        "assert 'jax' not in sys.modules, 'filter --provider device loaded jax'\n"
+        "clean('filter --provider device')\n"
         "ph = prefix.rsplit('/', 1)[0] + '/ph.tsv'\n"
         "for pheno in ('QT', 'CC'):\n"
         "    assert main(['glm', prefix, '--pheno', ph, '--pheno-name', pheno, '--covar', ph,\n"
         "                 '--covar-name', 'C1', '--device', 'cpu', '-o', out + '.' + pheno]) == 0\n"
-        "assert 'jax' not in sys.modules, 'glm loaded jax'\n"
+        "clean('glm')\n"
         "w = prefix.rsplit('/', 1)[0] + '/w.tsv'\n"
         "assert main(['score', prefix, '--score', w, '--device', 'cpu', '-o', out + '.ss']) == 0\n"
         "assert main(['score', prefix, '--score', w, '--no-mean-imputation', '--samples',\n"
         "             's1,s4,s7', '--device', 'cpu', '-o', out + '.nm']) == 0\n"
-        "assert 'jax' not in sys.modules, 'score loaded jax'\n"
+        "clean('score')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

@@ -23,6 +23,7 @@ from pgen_tpu.pipeline.vcf_import import import_vcf as tpu_import
 from pgen_tpu_torch.cli import main as port_main
 from pgen_tpu_torch.pipeline.filter import filter_to_vcf as port_filter
 from pgen_tpu_torch.pipeline.vcf_import import import_vcf as port_import
+from pgen_tpu_torch.pipeline.vcf_import_host import VcfImportError as PortVcfImportError
 from test_torch_filter import _fileset, _read
 
 SUFFIXES = (".pgen", ".pvar", ".psam")
@@ -130,7 +131,7 @@ def test_malformed_row_raises_as_pgen_tpu(tmp_path, bad, chunk_bytes):
         with pytest.raises(VcfImportError) as e:
             tpu_import(vcf, tmp_path / provider, provider=provider, chunk_bytes=chunk_bytes)
         messages.append(str(e.value))
-    with pytest.raises(VcfImportError) as e:
+    with pytest.raises(PortVcfImportError) as e:
         port_import(vcf, tmp_path / "port", device="cpu", chunk_bytes=chunk_bytes)
     assert "data row 6" in str(e.value)
     assert [str(e.value)] * len(messages) == messages

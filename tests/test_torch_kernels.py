@@ -117,6 +117,65 @@ def test_kernels_match_plain(cuda_device, n_samples):
     assert [w.launches for w in WRAPPERS] == [counts[0] + 1, counts[1] + 1, counts[2] + n_subsets]
 
 
+def _launch_at_offset(wrapper, symbol, packed, sel, width, offset):
+    """Run ``wrapper``'s launcher with its (V, width) u8 output starting
+    ``offset`` bytes into a buffer (the wrappers allocate 16-B aligned
+    outputs themselves); returns that output."""
+    n_var, rec = packed.shape
+    buf = torch.zeros(n_var * width + offset + 16, dtype=torch.uint8, device=packed.device)
+    out = buf[offset : offset + n_var * width].view(n_var, width)
+    if sel is None:
+        kernels.launch(wrapper, symbol, packed, packed.data_ptr(), out.data_ptr(), n_var, rec,
+                       width // 4)
+    else:
+        kernels.launch(wrapper, symbol, packed, packed.data_ptr(), sel.data_ptr(), out.data_ptr(),
+                       n_var, rec, sel.shape[0])
+    return out
+
+
+@pytest.mark.parametrize("n_samples", [2504, 2503, 8, 5, 4, 1])
+def test_keep_all_text_both_forms(cuda_device, n_samples):
+    """K2 in its 16-B form (S % 4 == 0, aligned output) and its word form
+    (any other S, or an output 4 or 12 bytes past a 16-B boundary), on more
+    rows than one launch holds in flight, all equal to the plain version."""
+    packed = _packed(20_000, n_samples, n_samples + 1, cuda_device)
+    want = genotype_text_plain(packed, n_samples)
+    assert torch.equal(genotype_text(packed, n_samples), want)
+    for offset in (4, 12):
+        got = _launch_at_offset(genotype_text, "pgen_genotype_text", packed, None,
+                                4 * n_samples, offset)
+        assert torch.equal(got, want)
+
+
+def test_text_launchers_refuse_an_unaligned_output(cuda_device):
+    packed = _packed(3, 17, 0, cuda_device)
+    sel = torch.tensor([3, 1], dtype=torch.int32, device=cuda_device)
+    counts = [genotype_text.launches, subset_text_from_packed.launches]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch_at_offset(genotype_text, "pgen_genotype_text", packed, None, 68, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch_at_offset(subset_text_from_packed, "pgen_subset_text", packed, sel, 8, 2)
+    assert [genotype_text.launches, subset_text_from_packed.launches] == counts
+
+
+@pytest.mark.parametrize("n_kept", [2, 3, 1000, 1001, 20_000])
+def test_subset_text_any_ids(cuda_device, n_kept):
+    """K3 with ids in reversed order, repeated, and (at K = 20,000) past
+    2^14, more than one tile of kept samples holds; in its 16-B form (K % 4
+    == 0) and its word form (odd K, or an output 4 bytes past a 16-B
+    boundary)."""
+    n_samples = 2503
+    packed = _packed(3000, n_samples, n_kept, cuda_device)
+    rng = np.random.default_rng(n_kept)
+    ids = np.concatenate([np.arange(n_samples)[::-1], rng.integers(0, n_samples, n_kept)])
+    sel = torch.from_numpy(ids[:n_kept].astype(np.int32)).to(cuda_device)
+    want = subset_text_plain(packed, sel)
+    assert torch.equal(subset_text_from_packed(packed, sel), want)
+    got = _launch_at_offset(subset_text_from_packed, "pgen_subset_text", packed, sel,
+                            4 * n_kept, 4)
+    assert torch.equal(got, want)
+
+
 def _all_byte_codes(n_samples):
     """256 rows of codes in which column s of row r holds (r + s) % 256, so
     every byte value sits at every position of a packed word."""

@@ -35,7 +35,7 @@ from pgen_tpu.ops.unpack_host import unpack_codes_reference
 from pgen_tpu.parallel.mesh import make_mesh
 from pgen_tpu.pipeline.filter import filter_to_vcf as tpu_filter
 from pgen_tpu.pipeline.mesh_filter import filter_to_vcf_mesh as tpu_mesh
-from pgen_tpu.query import ExprError, parse
+from pgen_tpu.query import ExprError
 from pgen_tpu_torch.cli import main as port_main
 from pgen_tpu_torch.parallel.mesh import (
     build_sharded_filter_step,
@@ -48,6 +48,8 @@ from pgen_tpu_torch.pipeline.mesh_filter import (
     ROUTE_HOST,
     filter_to_vcf_mesh,
 )
+from pgen_tpu_torch.query import ExprError as PortExprError
+from pgen_tpu_torch.query import parse
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -171,7 +173,7 @@ def test_gt_sample_query_takes_the_host_route(filesets, tmp_path):
 def test_type_errors_raise_as_on_the_host(filesets, tmp_path, vq):
     with pytest.raises(ExprError):
         tpu_mesh(filesets["m"], var_query=vq, out_file=str(tmp_path / "j.vcf"))
-    with pytest.raises(ExprError):
+    with pytest.raises(PortExprError):
         filter_to_vcf_mesh(filesets["m"], var_query=vq, out_file=tmp_path / "p.vcf", device="cpu")
     assert not dist.is_initialized()
 
@@ -272,7 +274,7 @@ import json, sys
 import numpy as np
 import torch
 import torch.distributed as dist
-from pgen_tpu.query import parse
+from pgen_tpu_torch.query import parse
 from pgen_tpu_torch.parallel.distributed import initialize_from_env
 from pgen_tpu_torch.parallel.mesh import (
     build_sharded_filter_step,
@@ -301,7 +303,8 @@ cols = {"ALT": (torch.from_numpy(inputs["mat"][sl]), torch.from_numpy(inputs["le
 _, pcounts, _ = step(packed, cols)
 np.savez(f"{spec_path}.rank{rank}.npz", text=text.numpy(), counts=counts, offsets=offsets,
          pcounts=pcounts)
-assert "jax" not in sys.modules
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pgen_tpu"))
+assert not loaded, f"a rank loaded {loaded[:5]}"
 dist.destroy_process_group()
 """
 

@@ -18,6 +18,8 @@ from pgen_tpu.formats.metadata import read_metadata
 from pgen_tpu.query import ExprError, compile_predicate, parse
 from pgen_tpu.query import compile_device as jax_lowering
 from pgen_tpu.query.interp import eval_boolean
+from pgen_tpu_torch.query import ExprError as PortExprError
+from pgen_tpu_torch.query import parse as port_parse
 from pgen_tpu_torch.query.compile_device import (
     DeviceFallback,
     columns_to_device,
@@ -40,12 +42,13 @@ def table(tmp_path):
 
 
 def _outcome(fn):
-    """('mask', bool array) | ('fallback', None) | ('error', None)."""
+    """('mask', bool array) | ('fallback', None) | ('error', None); an
+    ExprError of either package (the port has its own copy of the class)."""
     try:
         return "mask", np.asarray(fn()).astype(bool)
     except (DeviceFallback, jax_lowering.DeviceFallback):
         return "fallback", None
-    except ExprError:
+    except (ExprError, PortExprError):
         return "error", None
 
 
@@ -94,7 +97,7 @@ def test_same_outcome_as_pgen_tpu(table, expr, kind):
     names = {"CHROM", "POS", "ID", "REF", "ALT"}
     np_cols = {n: table.get_column_padded(n) for n in names}
     node = parse(expr)
-    port = _outcome(lambda: lower_device(node, columns_to_device(np_cols, "cpu")))
+    port = _outcome(lambda: lower_device(port_parse(expr), columns_to_device(np_cols, "cpu")))
     jax_cols = {n: (jax_lowering.jnp.asarray(m), jax_lowering.jnp.asarray(ln)) for n, (m, ln) in np_cols.items()}
     want = _outcome(lambda: jax_lowering.lower_device(node, jax_cols))
     assert port[0] == kind
@@ -156,7 +159,7 @@ def test_lowering_matches_interpreter(a, b_extra, expr):
     b = [v[:2] for v in b]
     np_cols = {"A": _padded(a), "B": _padded(b)}
     node = parse(expr)
-    port = _outcome(lambda: lower_device(node, columns_to_device(np_cols, "cpu")))
+    port = _outcome(lambda: lower_device(port_parse(expr), columns_to_device(np_cols, "cpu")))
     jax_cols = {n: (jax_lowering.jnp.asarray(m), jax_lowering.jnp.asarray(ln)) for n, (m, ln) in np_cols.items()}
     _same(port, _outcome(lambda: jax_lowering.lower_device(node, jax_cols)))
     rows = [{"A": x, "B": y} for x, y in zip(a, b)]
