@@ -1,0 +1,286 @@
+#!/usr/bin/env python3
+"""Diagnostics of the PyTorch/CUDA port (pgen_tpu_torch) on one NVIDIA H100,
+beside chip_smoke.py, whose fixtures, timer and oracles they use.
+
+    python3 chip_diag.py --ab DIR      # K4, K10, K11 against the kernels of the checkout at DIR
+    python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
+
+--ab builds the kernel sources of another checkout (the parent commit's,
+unpacked with git archive) beside this one's and times both in one process
+on the same tensors. --precision shows which part of an f32 moment product
+costs each GWAS design its accuracy against pgen_tpu's tolerances. Both
+import no jax and nothing of pgen_tpu, and exit non-zero without CUDA.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import (  # noqa: E402
+    BLOCK_ROWS,
+    BURST,
+    COHORT,
+    GLM_ROWS,
+    GWAS_REGION,
+    SEED,
+    WIDE,
+    WIDE_GLM_ROWS,
+    WIDE_PACK_ROWS,
+    WIDTHS,
+    _gwas_tables,
+    _read_fileset,
+    _time_ms,
+    _worst,
+    make_fixtures,
+    phase_build,
+    phase_device,
+)
+
+
+def _scan_products(packed, n_samples, lut, products, modes) -> tuple:
+    """K10's planes of every 16,384-row block on the card, then each
+    planes[p] @ cols of ``products`` in each of ``modes``: "f32" (the
+    port's full-fp32 product with f32 columns), "split" (the columns as
+    hi + lo f32 halves, two fp32 products summed in f64: exact columns, f32
+    accumulation) and "f64" (an f64 product). Returns the (V, 4) code counts
+    and {mode: [(V, cols) f64 per product]}."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.ops import glm
+    from pgen_tpu_torch.ops.gt_stats import stage_blocks
+
+    dev = torch.device("cuda", 0)
+    lut_t = torch.tensor(lut, dtype=torch.float32, device=dev)
+    c64 = [torch.from_numpy(np.ascontiguousarray(c, dtype=np.float64)).to(dev) for _, c in products]
+    hi = [c.float() for c in c64]
+    lo = [(c - h.double()).float() for c, h in zip(c64, hi)]
+    wide = torch.empty(glm.F64_CHUNK_ROWS * n_samples, dtype=torch.float64, device=dev)
+    hist = np.empty((packed.shape[0], 4), dtype=np.int64)
+    outs = {m: [np.empty((packed.shape[0], c.shape[1])) for c in c64] for m in modes}
+    for a, b, block in stage_blocks(packed, dev, GLM_ROWS):
+        planes, h = glm.glm_planes(block, n_samples, lut_t)
+        hist[a:b] = h.cpu().numpy()
+        for i, (p, _) in enumerate(products):
+            for m in modes:
+                if m == "f32":
+                    prod = matmul_fp32(planes[p], hi[i]).double()
+                elif m == "split":
+                    prod = (matmul_fp32(planes[p], hi[i]).double()
+                            + matmul_fp32(planes[p], lo[i]).double())
+                else:
+                    prod = glm._matmul_fp64(planes[p], c64[i], wide)
+                outs[m][i][a:b] = prod.cpu().numpy()
+    return hist, outs
+
+
+def phase_precision(tmp: Path, full: Path) -> None:
+    """Which part of an f32 moment product costs the GWAS designs their
+    accuracy on the card, with phase 8's seeded QT0, C1 and C2 (C2 near 50):
+    each design's moments with f32, split-column and f64 products, solved by
+    the port's f64 solves, BETA and SE held against the f64 products'. X3
+    (the interaction design) over phase 8 (b)'s 50,000-variant region at
+    pgen_tpu's rtol 2e-4 atol 1e-6; X1 (linear) and X2 (genotypic) over
+    every chr22 variant at their rtol 1e-3 atol 1e-5."""
+    import numpy as np
+
+    from pgen_tpu_torch.ops import glm
+
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, n = len(pos), len(iids)
+    values = _gwas_tables(tmp, iids, packed)["values"]
+    y = values["QT0"]
+    covars = np.column_stack([values["C1"], values["C2"]])
+    k = covars.shape[1]
+    yc, cc = glm._centered(y, covars)
+    pcols = glm._moment_columns(yc, cc)
+
+    def report(design, rows, got, want, rtol, atol):
+        for what, g, w in (("BETA", got.beta, want.beta), ("SE", got.se, want.se)):
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                raise AssertionError(f"{design}: NA cells differ")
+            print(f"[precision] {design}, {rows} variants: worst {what} {_worst(g, w, rtol, atol):.4g} "
+                  f"of rtol {rtol} atol {atol} on the value alone, against the f64 products")
+
+    first = n_var // 2 - GWAS_REGION // 2
+    region = packed[first : first + GWAS_REGION]
+    t0 = time.perf_counter()
+    hist, outs = _scan_products(region, n, glm.LUT_INT, [(0, pcols), (1, pcols), (2, pcols)],
+                                ("f32", "split", "f64"))
+    solved = {m: glm.glm_solve_interaction(
+        glm.GlmIntMoments(glm._row_sums(hist)[0], *outs[m]), k, covar_means=covars.mean(axis=0))
+        for m in outs}
+    for m in ("f32", "split"):
+        report(f"X3 interaction, {m} products", GWAS_REGION, solved[m], solved["f64"], 2e-4, 1e-6)
+    print(f"[precision] X3 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    q = np.concatenate([yc[:, None], cc], axis=1)
+    hist, outs = _scan_products(packed, n, glm.LUT_MOMENTS, [(0, pcols), (1, q)], ("f32", "f64"))
+    nn, sg, sg2 = glm._row_sums(hist)
+    solved = {m: glm.glm_solve(glm.GlmMoments(nn, *outs[m], sg, sg2), k) for m in outs}
+    report("X1 linear, f32 products", n_var, solved["f32"], solved["f64"], 1e-3, 1e-5)
+    print(f"[precision] X1 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gcols, q2 = glm._geno_moment_inputs(y, covars)
+    hist, outs = _scan_products(packed, n, glm.LUT_GENO, [(0, gcols), (1, q2), (2, q2)],
+                                ("f32", "f64"))
+    solved = {m: glm.glm_solve_modifier(glm.GlmGenoMoments(glm._row_sums(hist)[0], *outs[m]), k,
+                                        "genotypic") for m in outs}
+    report("X2 genotypic, f32 products", n_var, solved["f32"], solved["f64"], 1e-3, 1e-5)
+    print(f"[precision] X2 took {time.perf_counter() - t0:.1f} s")
+
+
+def _build_other(csrc: Path) -> Path:
+    """nvcc build of another checkout's kernel sources with this checkout's
+    flags, into this checkout's build directory under a name of its own."""
+    from pgen_tpu_torch import kernels
+
+    h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+    for name in kernels.SOURCES:
+        h.update((csrc / name).read_bytes())
+    so = kernels.BUILD_DIR / f"libpgen_kernels_other_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+                                           / "bin" / "nvcc")
+        subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-o", str(so), str(csrc / "genotype.cu")],
+                       check=True, capture_output=True, text=True)
+    return so
+
+
+def phase_ab(other_root: Path) -> None:
+    """K4, K10 and K11 of this checkout against the same launchers built
+    from another checkout's sources (the parent commit's, unpacked at
+    ``other_root``), in one process on one card: each case timed other,
+    this, this, other on the same tensors at the paths' block shapes, the
+    launchers alone (no wrapper), CUDA events, median of 10 pairs, once with
+    one launch and once with 4 launches in each pair; outputs held
+    torch.equal. The C signatures below are those of both checkouts'
+    launchers: a launcher whose signature differs between the two needs
+    its own."""
+    import ctypes
+
+    import torch
+
+    from pgen_tpu_torch import kernels
+    from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS
+
+    this = kernels.load()
+    other = ctypes.CDLL(str(_build_other(other_root / "pgen_tpu_torch" / "csrc")))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    other.pgen_pack_codes.argtypes = [ptr, ptr, i64, i64, ptr]
+    other.pgen_glm_planes.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+    other.pgen_score_dosage.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = WIDTHS[0]
+    rec = (s + 3) // 4
+    codes = torch.randint(0, 4, (BLOCK_ROWS, s), dtype=torch.uint8, device=dev, generator=gen)
+    codes_odd = codes[:, : s - 1].contiguous()
+    codes_wide = torch.randint(0, 4, (WIDE_PACK_ROWS, WIDE), dtype=torch.uint8, device=dev,
+                               generator=gen)
+    ops = torch.randint(0, 256, (GLM_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
+    ops_wide = torch.randint(0, 256, (WIDE_GLM_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
+                             device=dev, generator=gen)
+    cohort = torch.randperm(s, generator=gen, device=dev)[:COHORT].sort().values.to(torch.int32)
+    sel_wide = torch.randperm(WIDE, generator=gen, device=dev)[: WIDE - 3].sort().values
+    sel_wide = sel_wide.to(torch.int32)
+    flip = torch.randint(0, 2, (GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
+    lut2, lut3 = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (LUT_MOMENTS, LUT_GENO))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def pack_case(c):
+        out = torch.empty((c.shape[0], (c.shape[1] + 3) // 4), dtype=torch.uint8, device=dev)
+        return [out], lambda lib: lib.pgen_pack_codes(c.data_ptr(), out.data_ptr(), c.shape[0],
+                                                      c.shape[1], stream)
+
+    def planes_case(records, n_samples, lut, sel):
+        n_var, n_rec = records.shape
+        kept = n_samples if sel is None else sel.shape[0]
+        planes = torch.empty((lut.shape[0], n_var, kept), dtype=torch.float32, device=dev)
+        hist = torch.zeros((n_var, 4), dtype=torch.int32, device=dev)
+        return [planes, hist], lambda lib: lib.pgen_glm_planes(
+            records.data_ptr(), None if sel is None else sel.data_ptr(), lut.data_ptr(),
+            planes.data_ptr(), hist.data_ptr(), n_var, n_rec, n_samples, kept, lut.shape[0],
+            stream)
+
+    def score_case():
+        db = torch.empty((GLM_ROWS, s), dtype=torch.float32, device=dev)
+        called = torch.zeros(GLM_ROWS, dtype=torch.int32, device=dev)
+        return [db, called], lambda lib: lib.pgen_score_dosage(
+            ops.data_ptr(), None, flip.data_ptr(), db.data_ptr(), called.data_ptr(), GLM_ROWS,
+            rec, s, s, 1, stream)
+
+    cases = {
+        "K4 pack_codes S=2504": pack_case(codes),
+        "K4 pack_codes S=2503": pack_case(codes_odd),
+        f"K4 pack_codes S={WIDE} V={WIDE_PACK_ROWS}": pack_case(codes_wide),
+        "K10 glm_planes P=2 K=2454 sel": planes_case(ops, s, lut2, cohort),
+        "K10 glm_planes P=3 K=2504": planes_case(ops, s, lut3, None),
+        f"K10 glm_planes P=2 K={WIDE - 3} sel of S={WIDE} V={WIDE_GLM_ROWS}":
+            planes_case(ops_wide, WIDE, lut2, sel_wide),
+        "K11 score_dosage K=2504": score_case(),
+    }
+    for name, (outs, call) in cases.items():
+        def run(lib):
+            status = call(lib)
+            if status != 0:
+                raise AssertionError(f"{name}: launch failed with CUDA error {status}")
+
+        run(other)
+        torch.cuda.synchronize()
+        want = [o.clone() for o in outs]
+        for o in outs:
+            o.fill_(0)
+        run(this)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            raise AssertionError(f"{name}: this checkout's kernel differs from the other's")
+        for burst in (1, BURST):
+            o1 = _time_ms(lambda: run(other), burst=burst)
+            t1 = _time_ms(lambda: run(this), burst=burst)
+            t2 = _time_ms(lambda: run(this), burst=burst)
+            o2 = _time_ms(lambda: run(other), burst=burst)
+            print(f"[ab] {name}, {burst} launch(es) per event pair: other {o1:.4f} / {o2:.4f} ms, "
+                  f"this {t1:.4f} / {t2:.4f} ms (other, this, this, other; outputs equal): "
+                  f"{statistics.median([o1, o2]) / statistics.median([t1, t2]):.2f}x")
+
+
+def main(argv: list) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_diag: torch.cuda.is_available() is False; needs one CUDA card",
+              file=sys.stderr)
+        return 1
+    phase_device()
+    phase_build()
+    if argv == ["--precision"]:
+        with tempfile.TemporaryDirectory(prefix="chip_diag_") as tmp:
+            tmp = Path(tmp)
+            phase_precision(tmp, make_fixtures(tmp)["full"])
+    elif len(argv) == 2 and argv[0] == "--ab":
+        phase_ab(Path(argv[1]).resolve())
+    else:
+        print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT or --precision",
+              file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -15,10 +15,17 @@ Phases, each printing its own lines:
              1,001 and all samples permuted; K6 at R = 626 and 2 with 65,536
              variants; K10 at P = 2 and 3 and K11 with and without mean
              imputation, each with and without a sample selection holding a
-             gap and a duplicate, on 16,640 rows); kernel and plain times at
+             gap and a duplicate, on 16,640 rows; K4 also at S = 2502 and 2501
+             and with its codes 1, 4 and 8 B past a 16-B boundary; K10 also
+             with sel of 2,454 and 2,456 ids sorted, reversed and repeated;
+             K4 and K10 also at 40,003 samples, past their 16,384- and
+             8,192-column tiles, where they are timed too);
+             kernel and plain times at
              the paths' block shapes (65,536 rows; K10/K11 16,384 rows at
-             K = 2504 and at a selection of 2,454), CUDA events, median of 10,
-             each beside its bound (the bytes it must move at 3.35 TB/s) and,
+             K = 2504 and at a selection of 2,454), CUDA events, median of 10
+             pairs around one launch each, two alternated sets (the wrapper's
+             host time lies inside; beside it burst_ms, 4 launches queued in
+             each pair), each beside its bound (the bytes it must move at 3.35 TB/s) and,
              for K1, K2 and K7, one PyTorch call of the same function (a
              table gather, held torch.equal to the kernel)
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
@@ -40,7 +47,8 @@ Phases, each printing its own lines:
              fixture, written by the port's own filter: the .pgen body equal
              to the fixture's records (2504 % 4 == 0: no pad bits), the three
              files sha256-equal to --device cpu. K4 must have launched.
-  7 device   filter --provider device on a one-rank NCCL group: (a) chr22
+  7 device   filter --provider device as a lone process, which makes no
+             process group (its process_group stage is printed): (a) chr22
     provider ALT == "G" keep-two (device predicate, K3), (b) --maf / --mind
              at median thresholds over a 5,000-variant region (K8 / K9),
              (c) 140,001-variant ALT == "G" keep-all .vcf and .vcf.gz --index
@@ -57,7 +65,10 @@ Phases, each printing its own lines:
              planted variants the 10 smallest P; (b) --modifier genotypic and
              --interaction with QT0 over a 50,000-variant region and (c)
              logistic CC over a 20,000-variant region, each against
-             --device cpu; (d) score with three weight columns on every 10th
+             --device cpu, BETA and SE within rtol 2e-4 atol 1e-6 of the
+             value alone (logistic 2e-3 / 2e-5), --interaction (its products
+             f64) also against a numpy f64 oracle on 1,500 variants at that
+             bound; (d) score with three weight columns on every 10th
              variant, half the effect alleles REF, with and without
              --no-mean-imputation, against a numpy f64 oracle. K10 and K11
              must have launched.
@@ -74,6 +85,9 @@ non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
 
     python3 chip_smoke.py --ranks   # on 2 or 4 cards: phase 7 (a) across ranks only
+
+chip_diag.py beside this script compares the kernels with another checkout's
+in one process (--ab DIR) and the GWAS products' precisions (--precision).
 """
 
 from __future__ import annotations
@@ -113,17 +127,31 @@ KERNELS = {
     "glm_planes": "pgen_tpu/ops/glm.py:168",
     "score_dosage": "pgen_tpu/ops/score.py:133",
 }
+# kernels whose registers and spills phase 2 prints from ptxas' report
+PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel", "glm_planes_kernel",
+                 "score_dosage_kernel")
+PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
 BIG_K = 20_000  # K3's kept samples past one tile (2^14)
+WIDE = 40_003  # samples past K4's 16,384- and K10's 8,192-column tiles
+WIDE_PACK_ROWS = 4096  # 164 MB of codes, as a 65,536 x 2504 block holds
+WIDE_GLM_ROWS = 1024  # P = 2: 328 MB of planes, as a 16,384 x 2,454 block holds
 # H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: every
 # kernel here moves bytes with a few integer or f32 ops per byte, so bytes
 # bound them all
 HBM_BYTES_PER_MS = 3.35e9
+BURST = 4  # launches queued back to back inside each event pair of burst_ms
 
 
-def _time_ms(fn, reps: int = 10) -> float:
-    """Median device time of fn in ms, one CUDA event pair per call."""
+def _time_ms(fn, reps: int = 10, burst: int = 1) -> float:
+    """Median device time of fn in ms, one CUDA event pair per call: the
+    kernels' ``ms``, ``plain_ms`` and ``library_ms``. With ``burst`` > 1 each
+    pair is around that many calls queued back to back and the time is per
+    call (``burst_ms``): with one call per pair the card is idle while the
+    wrapper's host work runs, and that time lies between the events too; a
+    burst keeps the card busy where a launch costs the host less than it
+    does the card."""
     import torch
 
     fn()
@@ -132,10 +160,11 @@ def _time_ms(fn, reps: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -215,7 +244,112 @@ def phase_build() -> float:
     kernels.load()
     seconds = time.perf_counter() - t0
     print(f"[2 build] {seconds:.3f} s: {so.relative_to(ROOT)} (nvcc {' '.join(kernels.NVCC_FLAGS)})")
+    log = so.with_suffix(".log")
+    if log.exists():  # written by the build; absent when the library was cached
+        lines = log.read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(k in line for k in PTXAS_KERNELS):
+                name = next(k for k in PTXAS_KERNELS if k in line)
+                print(f"[2 build] ptxas {name}: {lines[i + 2].strip()}; "
+                      f"{lines[i + 3].split(':', 1)[1].strip()}")
     return seconds
+
+
+def _equal_or_raise(name: str, what: str, got, want):
+    import torch
+
+    e = _max_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} differs from its plain version at {what}: max |err| {e}")
+    return e
+
+
+def _pack_cases(dev, gen):
+    """K4 beyond the WIDTHS loop: S = 2502 and 2501 (with 2504 and 2503
+    every S % 4, so every row-end shape of its staged form), and its codes
+    starting 1, 4 and 8 B past a 16-B boundary at S = 2504, 2503 and 5 (a
+    view into a larger buffer: the staged form's lead bytes), 65,792 rows;
+    then 301 rows wider than a tile. Codes of any byte value. Returns the
+    largest |err| (0)."""
+    import torch
+
+    from pgen_tpu_torch import kernels
+    from pgen_tpu_torch.ops.pack import pack_codes, pack_codes_plain
+
+    worst = 0
+    rows = BLOCK_ROWS + 256
+    for s in PACK_WIDTHS:
+        codes = torch.randint(0, 256, (rows, s), dtype=torch.uint8, device=dev, generator=gen)
+        worst = max(worst, _equal_or_raise("pack_codes", f"S={s}", pack_codes(codes),
+                                           pack_codes_plain(codes)))
+    for s in (2504, 2503, 5):
+        rec = (s + 3) // 4
+        for offset in (1, 4, 8):
+            buf = torch.randint(0, 256, (rows * s + 32,), dtype=torch.uint8, device=dev,
+                                generator=gen)
+            codes = buf[offset : offset + rows * s].view(rows, s)
+            if codes.data_ptr() % 16 != offset:
+                raise AssertionError("the offset view does not start where it should")
+            out = torch.empty((rows, rec), dtype=torch.uint8, device=dev)
+            kernels.launch(pack_codes, "pgen_pack_codes", codes, codes.data_ptr(), out.data_ptr(),
+                           rows, s)
+            worst = max(worst, _equal_or_raise("pack_codes", f"S={s}, codes {offset} B past a "
+                                               "16-B boundary", out, pack_codes_plain(codes)))
+    # rows wider than a tile, in column tiles: S % 4 == 3 and (4 B past a
+    # 16-B boundary, where the flat form does not apply) S % 4 == 0
+    for s, offset in ((WIDE, 0), (WIDE + 1, 4)):
+        buf = torch.randint(0, 256, (301 * s + 32,), dtype=torch.uint8, device=dev, generator=gen)
+        codes = buf[offset : offset + 301 * s].view(301, s)
+        worst = max(worst, _equal_or_raise("pack_codes", f"S={s}, codes {offset} B past",
+                                           pack_codes(codes), pack_codes_plain(codes)))
+    torch.cuda.synchronize()
+    print(f"[3 kernels] K4 also at S={PACK_WIDTHS[0]} and {PACK_WIDTHS[1]}, with its codes 1, "
+          f"4 and 8 B past a 16-B boundary at S=2504, 2503 and 5 (V={rows}), and at S={WIDE} and "
+          f"{WIDE + 1} (V=301, column tiles): equal to its plain version")
+    return worst
+
+
+def _plane_cases(dev, gen, luts):
+    """K10 beyond the WIDTHS loop, on 16,640 rows of 2504 samples, P = 2 and
+    3: ``sel`` of K = 2,454 and 2,456 ids (K % 4 = 2 and 0, so a tile's
+    span of floats starts on and off a 16-B boundary) sorted, reversed and
+    with repeats. Returns the largest |err| (0)."""
+    import torch
+
+    from pgen_tpu_torch.ops.glm import glm_planes, glm_planes_plain
+
+    s = WIDTHS[0]
+    packed = torch.randint(0, 256, (GLM_ROWS + 256, (s + 3) // 4), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    packed[GLM_ROWS:] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+    worst = 0
+    for k in (COHORT, COHORT + 2):
+        ascending = torch.randperm(s, generator=gen, device=dev)[:k].sort().values
+        orders = {"sorted": ascending, "reversed": ascending.flip(0),
+                  "repeated": torch.randint(0, s, (k,), generator=gen, device=dev)}
+        for order, ids in orders.items():
+            sel = ids.to(torch.int32).contiguous()
+            for lut in luts:
+                got, want = glm_planes(packed, s, lut, sel), glm_planes_plain(packed, s, lut, sel)
+                for g, w in zip(got, want):
+                    worst = max(worst, _equal_or_raise(
+                        "glm_planes", f"K={k} {order} ids, P={lut.shape[0]}", g, w))
+    # K past one block's 8,192 columns: column chunks, counts by atomic adds
+    wide = torch.randint(0, 256, (301, (WIDE + 3) // 4), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    ids = torch.randint(0, WIDE, (WIDE - 5,), generator=gen, device=dev).to(torch.int32)
+    for sel in (None, ids):
+        for lut in luts:
+            got, want = glm_planes(wide, WIDE, lut, sel), glm_planes_plain(wide, WIDE, lut, sel)
+            for g, w in zip(got, want):
+                worst = max(worst, _equal_or_raise(
+                    "glm_planes", f"S={WIDE}, sel {sel is not None}, P={lut.shape[0]}", g, w))
+    torch.cuda.synchronize()
+    print(f"[3 kernels] K10 also with sel of K={COHORT} and {COHORT + 2} sorted, reversed and "
+          f"repeated ids, P = 2 and 3 (V={packed.shape[0]}), and at S={WIDE} with all and with "
+          f"{WIDE - 5} repeated ids (V=301, column chunks): planes and counts equal to its plain "
+          "version")
+    return worst
 
 
 def phase_kernels() -> dict:
@@ -330,6 +464,9 @@ def phase_kernels() -> dict:
               f"K5 x{n_k5}, K6, K7, K8, K9, K10 x4 (P = 2, 3), K11 x4 equal to their plain "
               "versions")
 
+    err["pack_codes"] = max(err["pack_codes"], _pack_cases(dev, gen))
+    err["glm_planes"] = max(err["glm_planes"], _plane_cases(dev, gen, luts))
+
     s = WIDTHS[0]
     rec = (s + 3) // 4
     packed = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
@@ -366,7 +503,23 @@ def phase_kernels() -> dict:
         words = torch.index_select(code_lut, 0, codes.view(-1).to(torch.int64))
         return words.view(torch.uint8).view(BLOCK_ROWS, 4 * s)
 
-    s_odd = s - 1  # 2503: K2's word form on the same records
+    s_odd = s - 1  # 2503: K2's word form on the same records, K4's staged form
+    codes_odd = codes[:, :s_odd].contiguous()
+    # K4 and K10 on rows wider than their tiles, the bytes of a path's block
+    codes_wide = torch.randint(0, 4, (WIDE_PACK_ROWS, WIDE), dtype=torch.uint8, device=dev,
+                               generator=gen)
+    ops_wide = torch.randint(0, 256, (WIDE_GLM_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
+                             device=dev, generator=gen)
+    sel_wide = torch.randperm(WIDE, generator=gen, device=dev)[: WIDE - 3].sort().values
+    sel_wide = sel_wide.to(torch.int32)
+    shapes = {
+        "genotype_text_transposed": f"({rec}, {BLOCK_ROWS}) S={s}",
+        "genotype_text S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
+        "pack_codes S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
+        f"pack_codes S={WIDE}": f"({WIDE_PACK_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
+        f"glm_planes K={WIDE - 3} of S={WIDE}":
+            f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
+    }
     cases = {
         # name: kernel, plain, library call or None, bytes the function must
         # move (each input byte read once, each output byte written once)
@@ -385,6 +538,11 @@ def phase_kernels() -> dict:
                                            _subset_bytes(BLOCK_ROWS, sel1000) + BLOCK_ROWS * 4000),
         "pack_codes": (lambda: pack_codes(codes), lambda: pack_codes_plain(codes), None,
                        codes.numel() + packed.numel()),
+        "pack_codes S=2503": (lambda: pack_codes(codes_odd), lambda: pack_codes_plain(codes_odd),
+                              None, codes_odd.numel() + BLOCK_ROWS * rec),
+        f"pack_codes S={WIDE}": (lambda: pack_codes(codes_wide),
+                                 lambda: pack_codes_plain(codes_wide), None,
+                                 codes_wide.numel() + WIDE_PACK_ROWS * ((WIDE + 3) // 4)),
         "subset_repack": (lambda: subset_repack(packed, keep),
                           lambda: subset_repack_plain(packed, keep), None,
                           _subset_bytes(BLOCK_ROWS, keep) + BLOCK_ROWS * keep_rec),
@@ -409,6 +567,10 @@ def phase_kernels() -> dict:
         "glm_planes P=3 K=2504": (lambda: glm_planes(ops, s, lut3),
                                   lambda: glm_planes_plain(ops, s, lut3), None,
                                   ops.numel() + GLM_ROWS * (3 * 4 * s + 16)),
+        f"glm_planes K={WIDE - 3} of S={WIDE}": (
+            lambda: glm_planes(ops_wide, WIDE, lut2, sel_wide),
+            lambda: glm_planes_plain(ops_wide, WIDE, lut2, sel_wide), None,
+            _subset_bytes(WIDE_GLM_ROWS, sel_wide) + WIDE_GLM_ROWS * (2 * 4 * (WIDE - 3) + 16)),
         "score_dosage": (lambda: score_dosage(ops, s, flip),
                          lambda: score_dosage_plain(ops, s, flip), None,
                          ops.numel() + GLM_ROWS * (4 * s + 5)),
@@ -422,6 +584,7 @@ def phase_kernels() -> dict:
         # drift hits them alike
         p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
         ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+        burst_ms = _time_ms(kernel, burst=BURST)
         library_ms = None
         if library is not None:
             if not torch.equal(library(), kernel()):
@@ -429,20 +592,17 @@ def phase_kernels() -> dict:
             library_ms = statistics.median([_time_ms(library), _time_ms(library)])
         bound_ms = nbytes / HBM_BYTES_PER_MS
         times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms}
-        if name == "genotype_text_transposed":
-            shape = f"({rec}, {BLOCK_ROWS})"
-        elif name.startswith(("glm_planes", "score_dosage")):
-            shape = f"({GLM_ROWS}, {rec})"
-        else:
-            shape = f"({BLOCK_ROWS}, {rec})"
+                       "bound_ms": bound_ms, "burst_ms": burst_ms}
+        rows = GLM_ROWS if name.startswith(("glm_planes", "score_dosage")) else BLOCK_ROWS
+        shape = shapes.get(name, f"({rows}, {rec}) S={s}")
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        width = s_odd if name.endswith("S=2503") else s
-        print(f"[3 kernels] {name} at {shape} S={width}: kernel {ms:.4f} ms "
+        print(f"[3 kernels] {name} at {shape}: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB moved), "
               f"plain {plain_ms:.4f} ms")
         print(f"[3 kernels] {name}: bound {bound_ms:.4f} ms (bytes at 3.35 TB/s), kernel at "
               f"{100 * bound_ms / ms:.1f}% of it; one PyTorch call {lib}")
+        print(f"[3 kernels] {name}: {BURST} launches per event pair {burst_ms:.4f} ms a launch, "
+              f"{100 * bound_ms / burst_ms:.1f}% of the bound")
     return {"err": err, "times": times}
 
 
@@ -820,13 +980,23 @@ def _route(stderr: str) -> str:
     raise AssertionError("the --stats report names no predicate route")
 
 
+def _stage_ms(stderr: str, stage: str) -> float:
+    """A stage's milliseconds from a --stats report."""
+    for line in stderr.splitlines():
+        if line.startswith(f"{stage}: "):
+            return float(line.split()[1])
+    raise AssertionError(f"the --stats report has no {stage} stage")
+
+
 def _argv_a(iids):
     return ["--include-var", 'ALT == "G"', "--samples", f"{iids[7]},{iids[2000]}"]
 
 
 def phase_device_provider(tmp: Path, full: Path, ragged: Path) -> tuple:
-    """filter --provider device through the port's CLI on cuda, on a real
-    one-rank NCCL group (launch counts read around these runs only):
+    """filter --provider device through the port's CLI on cuda, as a lone
+    process that makes no process group (launch counts read around these
+    runs only; each run's process_group stage is printed and must stay
+    under 50 ms):
     (a) full chr22 ALT == "G" keep-two, a device-lowered predicate then K3;
     (b) full chr22 --maf and --mind over a region, thresholds at the median
     so that about half pass, their counts K8 and K9; (c) 140,001-variant
@@ -885,13 +1055,18 @@ def phase_device_provider(tmp: Path, full: Path, ragged: Path) -> tuple:
     def device_run(prefix, argv, out, device):
         return _port_cli(["filter", prefix, *argv, "--provider", "device"], out, device)
 
-    results, walls = [], []
+    results, walls, groups = [], [], []
     _reset_launches()
     for label, prefix, argv, name, route, expect in runs:
         out = tmp / f"cuda.{name}"
         print(f"[7 device provider] {label} on cuda:")
         seconds, err = device_run(prefix, argv, out, "cuda")
         walls.append(seconds)
+        group_ms = _stage_ms(err, "process_group")
+        groups.append(group_ms)
+        if group_ms > 50.0:
+            raise AssertionError(f"{label}: process_group took {group_ms} ms in a lone process, "
+                                 "which makes no group")
         if _route(err) != route:
             raise AssertionError(f"{label}: route {_route(err)!r}, expected {route!r}")
         files = [out] + ([Path(f"{out}.tbi")] if "--index" in argv else [])
@@ -929,6 +1104,12 @@ def phase_device_provider(tmp: Path, full: Path, ragged: Path) -> tuple:
               f"{' and to the single-GPU filter' if expect is not None else ''}, GT text equal "
               f"to numpy's decode of the .pgen{' after gunzip' if expect is None else ''}; "
               f"wall cuda {cuda_s:.3f} s, cpu {cpu_s:.3f} s{single}")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise AssertionError("a lone device-provider run left a process group behind")
+    print(f"[7 device provider] process_group stage of the lone cuda runs (no group is made), ms: "
+          f"{groups}")
     print(f"[7 device provider] path launches: {launches}")
     for name in ("genotype_text", "subset_text_from_packed", "gt_counts_device",
                  "sample_counts_device"):
@@ -995,6 +1176,7 @@ def phase_ranks(tmp: Path, full: Path, want_sha: str) -> None:
 GWAS_REGION = 50_000  # variants of phase 8 (b)
 LOGISTIC_REGION = 20_000  # variants of phase 8 (c)
 ORACLE_VARIANTS = 2000  # variants of phase 8 (a) held against numpy's least squares
+INT_ORACLE_VARIANTS = 1500  # variants of (b) --interaction held against the same
 PLANTED = 10  # variants with an effect on QT, QT0 and CC
 SCORE_EVERY = 10  # phase 8 (d) scores every 10th variant
 
@@ -1114,13 +1296,9 @@ def _assert_close(label: str, got, want, rtol: float, atol) -> float:
 def _compare_glm_runs(label: str, got: Path, want: Path, rtol: float, atol: float,
                       logistic: bool = False) -> str:
     """Two .glm tables of one design: the same header, leading columns
-    (TEST and OBS_CT included) and NA cells; SE within rtol/atol, BETA (log
-    OR) within atol + rtol max(|BETA|, SE), the statistic and P within
-    pgen_tpu's 1e-2 / 1e-3. BETA's bound scales with its SE because a BETA
-    far below its SE carries the f32 rounding of larger terms: the
-    interaction design's ADD term is reported at covariates 0, a difference
-    of terms 50 times its size where C2 sits near 50. The report also gives
-    the worst BETA against atol + rtol |BETA| alone."""
+    (TEST and OBS_CT included) and NA cells; BETA (log OR) and SE within
+    atol + rtol |value| (pgen_tpu's own form), the statistic and P within
+    pgen_tpu's 1e-2 / 1e-3."""
     import numpy as np
 
     hg, lg, ng = _glm_table(got)
@@ -1129,14 +1307,48 @@ def _compare_glm_runs(label: str, got: Path, want: Path, rtol: float, atol: floa
         raise AssertionError(f"{label}: header or leading columns differ")
     if logistic:
         ng[:, 0], nw[:, 0] = np.log(ng[:, 0]), np.log(nw[:, 0])
-    se_want = np.nan_to_num(nw[:, 1])
-    beta = _assert_close(f"{label} BETA", ng[:, 0], nw[:, 0], rtol, atol + rtol * se_want)
-    beta_alone = _worst(ng[:, 0], nw[:, 0], rtol, atol)
+    beta = _assert_close(f"{label} BETA", ng[:, 0], nw[:, 0], rtol, atol)
     se = _assert_close(f"{label} SE", ng[:, 1], nw[:, 1], rtol, atol)
     stat = _assert_close(f"{label} statistic/P", ng[:, 2:], nw[:, 2:], 1e-2, 1e-3)
     return (f"{len(lg)} rows, {int(np.isnan(nw[:, 0]).sum())} NA; worst BETA {beta:.3g} of "
-            f"its tolerance ({beta_alone:.3g} against rtol {rtol} atol {atol} alone), SE "
-            f"{se:.3g}, statistic/P {stat:.3g}")
+            f"its tolerance (rtol {rtol} atol {atol} on |BETA| alone), SE {se:.3g}, "
+            f"statistic/P {stat:.3g}")
+
+
+def _interaction_oracle(packed, rows, cohort, y, covars) -> tuple:
+    """numpy f64 least squares of y on [1, covars, g, g * covars] over each
+    variant's called samples: (OBS_CT (rows,), BETA and SE (rows, 1 + k)) of
+    g and of each g * covariate, at the covariates as given (plink2's raw
+    parameterisation); NaN where the design is not estimable."""
+    import numpy as np
+
+    k = covars.shape[1]
+    codes = _codes_numpy(packed, rows)[:, cohort]
+    obs = np.zeros(len(rows))
+    beta = np.full((len(rows), 1 + k), np.nan)
+    se = np.full((len(rows), 1 + k), np.nan)
+    for i, c in enumerate(codes):
+        m = c != 3
+        g = c[m].astype(np.float64)
+        x = np.column_stack([np.ones(m.sum()), covars[m], g, g[:, None] * covars[m]])
+        obs[i] = m.sum()
+        df = m.sum() - x.shape[1]
+        if df < 1 or g.var() <= 1e-9:
+            continue
+        # centred covariates condition the solve; the raw ADD term follows
+        # from beta_g - sum_i mean_i beta_gci and the same map on the covariance
+        mean = covars[m].mean(axis=0)
+        xc = np.column_stack([np.ones(m.sum()), covars[m] - mean, g, g[:, None] * (covars[m] - mean)])
+        inv = np.linalg.inv(xc.T @ xc)
+        b = inv @ (xc.T @ y[m])
+        rss = float(((y[m] - xc @ b) ** 2).sum())
+        w = np.zeros((1 + k, x.shape[1]))  # rows: ADD raw, then each ADDxC
+        w[0, 1 + k] = 1.0
+        w[0, 2 + k:] = -mean
+        w[1:, 2 + k:] = np.eye(k)
+        beta[i] = w @ b
+        se[i] = np.sqrt(rss / df * np.einsum("tj,jk,tk->t", w, inv, w))
+    return obs, beta, se
 
 
 def _score_oracle(packed, rows, flip, weights, mean_impute: bool, n_samples: int) -> tuple:
@@ -1182,8 +1394,9 @@ def phase_gwas(tmp: Path, full: Path, device: str = "cuda") -> dict:
     device-vs-numpy bounds; OBS_CT exact; the same NA cells) and the planted
     variants the 10 smallest P; (b) --modifier genotypic and --interaction
     with QT0 over a 50,000-variant region against --device cpu (rtol 2e-4
-    atol 1e-6, pgen_tpu's interaction provider bound, on SE, and on BETA
-    scaled by max(|BETA|, SE): see _compare_glm_runs); (c) logistic CC over
+    atol 1e-6 on BETA and on SE, each alone: pgen_tpu's interaction
+    provider bound), the interaction table also against numpy's f64 least
+    squares on 1,500 seeded variants at the same bound; (c) logistic CC over
     a 20,000-variant region against --device cpu (the same at rtol 2e-3
     atol 2e-5 on log OR); (d) score of three weight columns on every 10th variant,
     half the effect alleles REF, with and without --no-mean-imputation,
@@ -1270,6 +1483,28 @@ def phase_gwas(tmp: Path, full: Path, device: str = "cuda") -> dict:
           f"variants OBS_CT equal to numpy's, BETA/SE within {est:.3g} and T within {stat:.3g} "
           f"of their tolerances against numpy's f64 least squares; wall {walls['a.glm']:.3f} s")
 
+    # (b) --interaction against numpy's f64 least squares too, BETA and SE
+    # at pgen_tpu's interaction bound alone
+    head, lead, nums = _glm_table(tmp / f"{device}.b_int.glm")
+    first_b = n_var // 2 - GWAS_REGION // 2
+    if len(lead) != 3 * GWAS_REGION or [r[6] for r in lead[:3]] != ["ADD", "ADDxC1", "ADDxC2"]:
+        raise AssertionError(f"(b) --interaction: {len(lead)} rows, tests {[r[6] for r in lead[:3]]}")
+    pick_b = np.sort(rng.choice(GWAS_REGION, INT_ORACLE_VARIANTS, replace=False))
+    everyone = np.arange(n)
+    obs, want_beta, want_se = _interaction_oracle(
+        packed, first_b + pick_b, everyone, values["QT0"],
+        np.column_stack([values["C1"], values["C2"]]))
+    at = (3 * pick_b[:, None] + np.arange(3)[None, :]).reshape(-1)
+    if not np.array_equal(np.array([int(lead[i][7]) for i in at[::3]]), obs):
+        raise AssertionError("(b) --interaction: OBS_CT differs from numpy's called counts")
+    int_beta = _assert_close("(b) --interaction BETA vs f64", nums[at, 0], want_beta.reshape(-1),
+                             2e-4, 1e-6)
+    int_se = _assert_close("(b) --interaction SE vs f64", nums[at, 1], want_se.reshape(-1),
+                           2e-4, 1e-6)
+    print(f"[8 GWAS] (b) --interaction on {device} against numpy's f64 least squares on "
+          f"{INT_ORACLE_VARIANTS} seeded variants (ADD, ADDxC1, ADDxC2): OBS_CT equal, worst BETA "
+          f"{int_beta:.3g} and SE {int_se:.3g} of rtol 2e-4 atol 1e-6 on the value alone")
+
     # (b), (c) against --device cpu
     for label, argv, name, vs_cpu in runs:
         if not vs_cpu:
@@ -1334,7 +1569,7 @@ def main(argv: list) -> int:
             _port_cli(["filter", full, *_argv_a(iids), "--provider", "device"], tmp / "a.vcf", "cuda")
             phase_ranks(tmp, full, _sha256(tmp / "a.vcf"))
     elif argv:
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or --ranks", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv}; takes none or --ranks", file=sys.stderr)
         return 2
     else:
         measured = phase_kernels()
@@ -1369,6 +1604,7 @@ def main(argv: list) -> int:
                 "launches": sum(launches[kname] for launches in per_path),
                 "max_abs_err": measured["err"][kname], "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": "bytes", "library_ms": m["library_ms"],
+                "burst_ms": m["burst_ms"],
             })
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

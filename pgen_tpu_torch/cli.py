@@ -12,14 +12,17 @@ sugar and ``--rm-dup force-first|exclude-all``.
 
 ``filter`` writes a VCF, or with ``--out-format pgen`` the fileset
 ``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``--provider device`` routes a
-VCF to ``pipeline/mesh_filter.py`` (one process per GPU, a one-rank group
-when run alone; N cards: ``torchrun --nproc-per-node N -m
+VCF to ``pipeline/mesh_filter.py`` (one process per GPU; run alone it needs
+no launcher and makes no process group; N cards: ``torchrun --nproc-per-node N -m
 pgen_tpu_torch.cli filter ... --provider device``) and makes the genotype
 counts of ``--out-format pgen``'s predicates on the device. ``--profile DIR``
 writes a torch.profiler trace per rank. ``import`` reads a ``.vcf`` or
 ``.vcf.gz``. ``glm`` and ``score`` run on one GPU (``--provider auto`` or
 ``device``), as ``pgen_tpu.cli.main`` serves them: the multi-phenotype
-loop, ``-o -``, the same query composers and the closing stderr line. What
+loop, ``-o -``, the same query composers and the closing stderr line. It
+exits as ``pgen_tpu.cli.main`` does: 141 on a broken pipe, 1 with the one
+stderr line ``pgen-tpu: error: ...`` on any other exception, 2 on an
+argument error. What
 the port does not serve yet is refused with the ROADMAP.md item that will
 serve it: every other subcommand, and the flags and inputs listed in
 ``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
@@ -139,9 +142,10 @@ def _compose_queries(args) -> None:
     )
 
 
-def _compose_filter_queries(args) -> None:
+def _compose_filter_queries(args) -> int:
     """The common query flags, then filter's own: --extract/--exclude-ids,
-    the --maf/--max-maf/--geno/--hwe/--mind sugar and --rm-dup."""
+    the --maf/--max-maf/--geno/--hwe/--mind sugar and --rm-dup. Returns 0,
+    or 2 after pgen_tpu's stderr line for --hwe-midp without --hwe."""
     from pgen_tpu_torch.query.idlist import apply_id_lists
 
     _compose_queries(args)
@@ -152,6 +156,9 @@ def _compose_filter_queries(args) -> None:
         args.var_query = _and_cond(args.var_query, f"GT_MAF <= {args.max_maf!r}")
     if args.geno is not None:
         args.var_query = _and_cond(args.var_query, f"GT_MISSING_RATE <= {args.geno!r}")
+    if args.hwe_midp and args.hwe is None:
+        print("filter: error: --hwe-midp requires --hwe X", file=sys.stderr)
+        return 2
     if args.hwe is not None:
         hwe_var = "GT_HWE_MIDP" if args.hwe_midp else "GT_HWE_P"
         args.var_query = _and_cond(args.var_query, f"{hwe_var} >= {args.hwe!r}")
@@ -162,6 +169,7 @@ def _compose_filter_queries(args) -> None:
         fn = "dup_first_within" if args.rm_dup == "force-first" else "dup_unique_within"
         inner = args.var_query if args.var_query is not None else "true"
         args.var_query = f"{fn}(({inner}))"
+    return 0
 
 
 def _refuse_unserved(parser, args, unserved: dict) -> None:
@@ -233,7 +241,7 @@ def _split_names(text) -> list:
     return [c.strip() for c in (text or "").split(",") if c.strip()]
 
 
-def _glm(parser, args) -> int:
+def _glm(args) -> int:
     from pgen_tpu_torch.ops.glm import MODIFIER_TESTS
     from pgen_tpu_torch.pipeline.glm import glm_pfile
 
@@ -248,7 +256,9 @@ def _glm(parser, args) -> int:
     # {base}.{pheno}.glm.{model} per phenotype
     phenos = _split_names(args.pheno_name)
     if len(phenos) > 1 and args.out_file == "-":
-        parser.error("glm: multiple phenotypes write one file each; use a file -o, not '-'")
+        print("glm: error: multiple phenotypes write one file each; use a file -o, not '-'",
+              file=sys.stderr)
+        return 2
     for pheno in phenos:
         out_base = out_file = None
         if len(phenos) > 1 and args.out_file:
@@ -304,7 +314,7 @@ def _analytics(parser, args) -> int:
             "ROADMAP §1 item 17"
         )
     _compose_queries(args)
-    return _score(args) if args.command == "score" else _glm(parser, args)
+    return _score(args) if args.command == "score" else _glm(args)
 
 
 def _import(parser, args) -> int:
@@ -322,33 +332,24 @@ def _import(parser, args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = build_torch_arg_parser()
-    args = parser.parse_args(argv)
-    if args.command == "import":
-        return _import(parser, args)
-    if args.command in ANALYTICS:
-        return _analytics(parser, args)
-    if args.command != "filter":
-        parser.error(
-            f"{args.command}: the port serves only filter, import, glm and score so "
-            "far; the other subcommands are ROADMAP §1 item 13"
-        )
-    _refuse_unserved(parser, args, _UNSERVED)
-    if args.hwe_midp and args.hwe is None:
-        parser.error("--hwe-midp requires --hwe X")
-    if args.out_file == "-" and args.out_format != "vcf":
-        parser.error("-o - (stdout) supports VCF output only")
-    if args.index and not str(args.out_file or "").endswith(".gz"):
-        parser.error("--index requires -o out.vcf.gz")
-    if args.index and args.out_format != "vcf":
-        parser.error("--index applies to VCF output only")
-    if args.provider == "device" and args.out_file == "-":
-        parser.error(
-            "-o - (stdout) requires the single-process filter "
-            "(drop --workers/--shards/--provider device)"
-        )
-    _compose_filter_queries(args)
+def _filter(args) -> int:
+    rc = _compose_filter_queries(args)
+    if rc:
+        return rc
+    # pgen_tpu raises these as ValueError: exit code 1 through main's wrapper
+    if args.out_file == "-":
+        if args.out_format != "vcf":
+            raise ValueError("-o - (stdout) supports VCF output only")
+        if args.provider == "device":
+            raise ValueError(
+                "-o - (stdout) requires the single-process filter "
+                "(drop --workers/--shards/--provider device)"
+            )
+    if args.index:
+        if not str(args.out_file or "").endswith(".gz"):
+            raise ValueError("--index requires -o out.vcf.gz")
+        if args.out_format != "vcf":
+            raise ValueError("--index applies to VCF output only")
 
     kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
     with _profile(args.profile, args.device):
@@ -395,6 +396,34 @@ def main(argv=None) -> int:
     if args.stats:
         print(result.timer.report(), file=sys.stderr)
     return 0
+
+
+def main(argv=None) -> int:
+    """Run one subcommand; the exit code. Argument errors, argparse's own
+    and the port's refusals of what it does not serve, exit with 2 through
+    ``parser.error``. Past them the run fails fast as pgen_tpu's does: a
+    broken pipe returns 141, any other exception prints one line to stderr
+    and returns 1."""
+    parser = build_torch_arg_parser()
+    args = parser.parse_args(argv)
+    if args.command not in ("filter", "import", *ANALYTICS):
+        parser.error(
+            f"{args.command}: the port serves only filter, import, glm and score so "
+            "far; the other subcommands are ROADMAP §1 item 13"
+        )
+    if args.command == "filter":
+        _refuse_unserved(parser, args, _UNSERVED)
+    try:
+        if args.command == "import":
+            return _import(parser, args)
+        if args.command in ANALYTICS:
+            return _analytics(parser, args)
+        return _filter(args)
+    except BrokenPipeError:
+        return 141
+    except Exception as e:  # fail-fast semantics, clean exit
+        print(f"pgen-tpu: error: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

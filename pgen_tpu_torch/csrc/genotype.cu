@@ -193,29 +193,182 @@ __global__ void subset_text_kernel(const uint8_t* __restrict__ packed,
 // K4. Replaces the Pallas kernel pgen_tpu/ops/pack.py:_pack_kernel
 // (launched by pack_codes_device) on the VCF import path.
 // (V, S) u8 codes -> (V, R) u8 records, R = ceil(S/4); byte j of a row packs
-// codes 4j..4j+3.
-// Bound: memory, 4 B read and 1 B written per record byte. Design: one
-// thread per output byte reads its (up to) four codes and makes one byte
-// store. The loads are bytes: the row stride is S, so a u32 load of four
-// codes would be aligned only when S % 4 == 0. A row's last byte reads only
-// codes < S, so its pad bits are zero, as P3's zero padding (pack.py:42-43)
-// makes them.
-__global__ void pack_codes_kernel(const uint8_t* __restrict__ codes,
-                                  uint8_t* __restrict__ packed, int64_t n_var,
-                                  int64_t n_samples, int64_t rec) {
-  const int64_t n = n_var * rec;
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int64_t v = i / rec;
-    const int64_t s0 = 4 * (i - v * rec);
-    const uint8_t* row = codes + v * n_samples;
-    uint32_t w = 0;
+// codes 4j..4j+3, each masked to two bits; codes past S in a row's last byte
+// are zero, as P3's zero padding (pack.py:42-43) makes them.
+// Bound: memory, 4 B read and 1 B written per record byte: 65,536 x 2504
+// codes read 164 MB and write 41 MB, 0.061 ms at 3.35 TB/s. Two forms,
+// chosen by the launcher from S and the two pointers:
+// - flat (S % 4 == 0, codes 16-B and records 4-B aligned; 1000 Genomes'
+//   2504): rows have no pad codes, so the matrix is one flat array and
+//   record word i packs codes 16i..16i+15. A thread loads 16 B and stores
+//   one u32; a warp reads 512 and writes 128 contiguous bytes. Each thread
+//   has four loads in flight before its first store.
+// - staged (any other S or alignment): a tile of rows (of one row's columns
+//   [c, c + kPackTileBytes) where a row is wider than kPackTileBytes; one
+//   division per tile finds its row) is one contiguous span of the codes
+//   and one of the records. The
+//   block copies the code span into shared memory with 16-B cp.async from
+//   the first 16-B boundary inside it (the few bytes before and after go
+//   one by one, so nothing outside the tensor is read), two tiles in
+//   flight; packs from shared memory (two aligned words and a funnel shift
+//   per record byte, the codes past the row's end masked off); and writes
+//   the record span from shared memory with 16-B stores, its ragged ends
+//   byte by byte. Tiles come from blockIdx.x and a stride loop; no thread
+//   divides a flat index.
+__device__ __forceinline__ uint32_t pack_quad(uint4 c) {
+  return pack_word(c.x) | (pack_word(c.y) << 8) | (pack_word(c.z) << 16) |
+         (pack_word(c.w) << 24);
+}
+
+constexpr int kPackUnroll = 4;
+
+__global__ void pack_codes_flat_kernel(const uint4* __restrict__ codes,
+                                       uint32_t* __restrict__ words,
+                                       int64_t n_words, int64_t n_bytes) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x * kPackUnroll;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x * kPackUnroll + threadIdx.x;
+       i < n_words; i += step) {
+    uint4 c[kPackUnroll];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (s0 + k < n_samples) {
-        w |= static_cast<uint32_t>(row[s0 + k]) << (8 * k);
+    for (int k = 0; k < kPackUnroll; ++k) {
+      const int64_t at = i + static_cast<int64_t>(k) * blockDim.x;
+      if (at < n_words) c[k] = __ldg(codes + at);
+    }
+#pragma unroll
+    for (int k = 0; k < kPackUnroll; ++k) {
+      const int64_t at = i + static_cast<int64_t>(k) * blockDim.x;
+      if (at < n_words) words[at] = pack_quad(c[k]);
+    }
+  }
+  // the up to three record bytes past the last whole word
+  if (blockIdx.x == 0 && threadIdx.x < n_bytes - 4 * n_words) {
+    const int64_t b = 4 * n_words + threadIdx.x;
+    const uint32_t w = reinterpret_cast<const uint32_t*>(codes)[b];
+    reinterpret_cast<uint8_t*>(words)[b] = static_cast<uint8_t>(pack_word(w));
+  }
+}
+
+// Code bytes of one staged tile (two such buffers and the record tile of a
+// quarter of it fit a block's 48 KB), and the blocks that share the card.
+constexpr int64_t kPackTileBytes = 16384;
+constexpr int64_t kPackMaxTileRows = 64;
+constexpr int kStagedBlocks = 132 * 6;
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* global) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(global));
+}
+
+// Starts the copy of the n global bytes at src into tile, at the offset
+// src has from a 16-B boundary: whole 16-B pieces by cp.async, the bytes
+// before the first and after the last piece by plain loads.
+__device__ __forceinline__ void stage_span(uint8_t* tile, const uint8_t* src, int64_t n) {
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const uint8_t* base = src - lead;  // 16-B aligned; tile[k] mirrors base[k]
+  const int64_t end = lead + n;
+  const int64_t first = lead ? 16 : 0;  // first whole piece
+  const int64_t last = end & ~int64_t{15};  // end of the last whole piece
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y;
+  for (int64_t at = first + 16 * tid; at < last; at += 16 * threads) {
+    cp_async_16(tile + at, base + at);
+  }
+  if (last <= first) {  // no whole piece: every byte on its own
+    for (int64_t at = lead + tid; at < end; at += threads) tile[at] = base[at];
+  } else {
+    if (lead + tid < first) tile[lead + tid] = base[lead + tid];
+    if (last + tid < end) tile[last + tid] = base[last + tid];
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One staged tile: `rows` rows of `width` codes, contiguous from src, to
+// rows of `rec` record bytes, contiguous from dst.
+struct PackTile {
+  const uint8_t* src;
+  uint8_t* dst;
+  int rows, width, rec;
+};
+
+__global__ void pack_codes_staged_kernel(const uint8_t* __restrict__ codes,
+                                         uint8_t* __restrict__ packed,
+                                         int64_t n_var, int64_t n_samples, int64_t rec,
+                                         int tile_rows, int in_bytes, int64_t n_tiles,
+                                         int col_tiles) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // two code buffers of in_bytes (a multiple of 16, with room for the lead
+  // bytes and the word a funnel shift reads past the span), then the record
+  // tile
+  uint8_t* out_tile = smem + 2 * in_bytes;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y;
+  int64_t tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  auto tile_of = [&](int64_t t) {
+    PackTile g;
+    if (col_tiles == 1) {  // tile_rows whole rows
+      const int64_t v0 = t * tile_rows;
+      g.rows = static_cast<int>(n_var - v0 < tile_rows ? n_var - v0 : tile_rows);
+      g.width = static_cast<int>(n_samples);
+      g.rec = static_cast<int>(rec);
+      g.src = codes + v0 * n_samples;
+      g.dst = packed + v0 * rec;
+    } else {  // kPackTileBytes columns (a multiple of 4) of one row
+      const int64_t v = t / col_tiles;
+      const int64_t at = (t - v * col_tiles) * kPackTileBytes;
+      g.rows = 1;
+      g.width = static_cast<int>(n_samples - at < kPackTileBytes ? n_samples - at : kPackTileBytes);
+      g.rec = (g.width + 3) / 4;
+      g.src = codes + v * n_samples + at;
+      g.dst = packed + v * rec + at / 4;
+    }
+    return g;
+  };
+  PackTile g = tile_of(tile);
+  stage_span(smem, g.src, static_cast<int64_t>(g.rows) * g.width);
+  int buf = 0;
+  for (; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const int64_t next = tile + gridDim.x;
+    PackTile g_next = g;
+    if (next < n_tiles) {
+      g_next = tile_of(next);
+      stage_span(smem + (buf ^ 1) * in_bytes, g_next.src,
+                 static_cast<int64_t>(g_next.rows) * g_next.width);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // this tile's codes are in shared memory
+    const uint32_t* in32 = reinterpret_cast<const uint32_t*>(smem + buf * in_bytes);
+    const int in_lead = static_cast<int>(reinterpret_cast<uintptr_t>(g.src) & 15);
+    const int out_lead = static_cast<int>(reinterpret_cast<uintptr_t>(g.dst) & 15);
+    for (int r = threadIdx.y; r < g.rows; r += blockDim.y) {
+      const int row_at = in_lead + r * g.width;
+      for (int j = threadIdx.x; j < g.rec; j += blockDim.x) {
+        const int at = row_at + 4 * j;
+        uint32_t w = __funnelshift_r(in32[at >> 2], in32[(at >> 2) + 1], 8 * (at & 3));
+        const int left = g.width - 4 * j;  // codes of this row from byte j on
+        if (left < 4) w &= (1u << (8 * left)) - 1u;
+        out_tile[out_lead + r * g.rec + j] = static_cast<uint8_t>(pack_word(w));
       }
     }
-    packed[i] = static_cast<uint8_t>(pack_word(w));
+    __syncthreads();  // the record tile is complete
+    const int64_t end = out_lead + static_cast<int64_t>(g.rows) * g.rec;
+    const int64_t first = out_lead ? 16 : 0;
+    const int64_t last = end & ~int64_t{15};
+    uint8_t* base = g.dst - out_lead;
+    for (int64_t at = first + 16 * tid; at < last; at += 16 * threads) {
+      *reinterpret_cast<uint4*>(base + at) = *reinterpret_cast<const uint4*>(out_tile + at);
+    }
+    if (last <= first) {
+      for (int64_t at = out_lead + tid; at < end; at += threads) base[at] = out_tile[at];
+    } else {
+      if (out_lead + tid < first) base[out_lead + tid] = out_tile[out_lead + tid];
+      if (last + tid < end) base[last + tid] = out_tile[last + tid];
+    }
+    __syncthreads();  // before the next tile overwrites the record tile
+    g = g_next;
   }
 }
 
@@ -450,43 +603,116 @@ constexpr int kMaxPlanes = 3;
 // caller, as pgen_tpu leaves them to jnp.matmul).
 // (V, R) u8 records + sel (K) int32 ids (or null: K = S) + lut (P, 4) f32
 // -> planes (P, V, K) f32, planes[p][v][j] = lut[p][code(v, sel[j])], and
-// hist (V, 4) int32, the counts of the K selected codes of each row.
+// hist (V, 4) int32, the counts of the K selected codes of each row, so n,
+// sum g and sum g^2 come out exact (pgen_tpu's f32 sums of 0/1/2/4 are
+// exact too).
 // Bound: memory, 4P B written per selected sample against a quarter byte
-// read: a 16,384-row block at K = 2,504 and P = 3 writes 492 MB. Design:
-// one block per row; thread t takes columns t, t + 256, ..., so a warp's
-// stores to each plane are 32 consecutive floats; the row's bytes come
-// through L1. The LUT lives in shared memory. Codes are counted in
-// registers on the way and summed once per row, so n, sum g and sum g^2
-// come out exact from hist (pgen_tpu's f32 sums of 0/1/2/4 are exact too).
+// read: a 16,384-row block at K = 2,504 and P = 3 writes 492 MB, 0.150 ms
+// at 3.35 TB/s. Design: a tile is rows of the K columns, fewer as K grows;
+// past kPlaneChunk columns it is one row of a chunk of them and blockIdx.y
+// names the chunk, so the ids and codes of a block always fit
+// kPlaneSmemBytes. Where a row's counts come from several warps or chunks
+// they meet in hist by atomic adds (the launcher clears it first).
+// - A block copies its chunk's ids into shared memory once (range-checked
+//   there) and keeps them for every tile of its stride loop. Decode: one
+//   warp per row (8, 4 or 2 where a tile has 1, 2 or up to 4 rows), its
+//   lanes striding over the K columns, reads the row's bytes through L1,
+//   writes the codes, one byte each, into a shared tile and counts them in
+//   registers (16-bit fields; a lane sees at most kPlaneChunk / 32 codes);
+//   a shuffle tree sums them and lane 0 writes the row's four counts as one
+//   16 B store (or adds them). One barrier. Store: each plane's part of
+//   the tile is the contiguous span [v0 K, v1 K) of floats (of one row's
+//   chunk, [v K + c0, v K + c0 + kc)),
+//   whatever K % 4 is; the block writes it with 16 B streaming stores from
+//   the span's first 16-B boundary (the planes pass the 50 MB L2 long
+//   before the product reads them), each taking its four codes from shared
+//   memory with two aligned word loads and a funnel shift, then the look-up
+//   table; at most 3 floats before and 3 after go one by one.
+constexpr int64_t kPlaneSmemBytes = 96 * 1024;
+constexpr int64_t kPlaneChunk = 8192;  // columns of one block: 32 KB of ids
+constexpr int64_t kPlaneTileBytes = 20 * 1024;  // codes of one tile, when K allows
+constexpr int64_t kPlaneMaxTileRows = 16;
+
 __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
-                                  const int32_t* __restrict__ sel,
-                                  const float* __restrict__ lut,
-                                  float* __restrict__ planes,
-                                  int32_t* __restrict__ hist, int64_t n_var,
-                                  int64_t rec, int64_t n_samples,
-                                  int64_t n_kept, int n_planes) {
+                                        const int32_t* __restrict__ sel,
+                                        const float* __restrict__ lut,
+                                        float* __restrict__ planes,
+                                        int32_t* __restrict__ hist, int64_t n_var,
+                                        int64_t rec, int n_samples, int n_kept,
+                                        int n_planes, int tile_rows, int chunk,
+                                        int row_warps) {
+  extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float table[kMaxPlanes * 4];
-  __shared__ uint32_t scratch[4 * (kThreads / 32)];
-  __shared__ uint32_t counts[4];
-  if (static_cast<int>(threadIdx.x) < 4 * n_planes) table[threadIdx.x] = lut[threadIdx.x];
+  // the chunk's ids (when given), then the tile's codes, row-major, and a
+  // word of slack for the funnel shift's second load
+  int32_t* ids = reinterpret_cast<int32_t*>(smem);
+  uint8_t* tile = smem + (sel != nullptr ? (4 * chunk + 15) / 16 * 16 : 0);
+  const int c0 = blockIdx.y * chunk;  // this block's columns [c0, c0 + kc)
+  const int kc = n_kept - c0 < chunk ? n_kept - c0 : chunk;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  if (tid < 4 * n_planes) table[tid] = lut[tid];
+  if (sel != nullptr) {
+    for (int j = tid; j < kc; j += blockDim.x) {
+      const int32_t s = sel[c0 + j];
+      assert(s >= 0 && s < n_samples);
+      ids[j] = s;
+    }
+  }
   __syncthreads();
   const int64_t plane = n_var * n_kept;
-  for (int64_t v = blockIdx.x; v < n_var; v += gridDim.x) {
-    const uint8_t* row = packed + v * rec;
-    float* out = planes + v * n_kept;
-    uint64_t acc = 0;
-    for (int64_t j = threadIdx.x; j < n_kept; j += blockDim.x) {
-      const uint32_t code = selected_code(row, sel, j, n_samples);
-      acc = count_code(acc, code);
-      for (int p = 0; p < n_planes; ++p) {
-        out[p * plane + j] = table[4 * p + code];
+  const int64_t n_tiles = (n_var + tile_rows - 1) / tile_rows;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t v0 = t * tile_rows;
+    const int rows = static_cast<int>(n_var - v0 < tile_rows ? n_var - v0 : tile_rows);
+    // row_warps warps share a row where a tile has fewer rows than warps
+    for (int r = warp / row_warps; r < rows; r += warps / row_warps) {
+      const uint8_t* row = packed + (v0 + r) * rec;
+      uint8_t* out = tile + r * kc;
+      uint64_t acc = 0;
+      for (int j = (warp % row_warps) * 32 + lane; j < kc; j += 32 * row_warps) {
+        const int s = sel != nullptr ? ids[j] : c0 + j;
+        const uint32_t code = (static_cast<uint32_t>(__ldg(row + (s >> 2))) >> (2 * (s & 3))) & 3u;
+        out[j] = static_cast<uint8_t>(code);
+        acc = count_code(acc, code);
+      }
+      uint32_t c[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        c[k] = static_cast<uint32_t>((acc >> (16 * k)) & 0xFFFFu);
+        for (int off = 16; off > 0; off /= 2) c[k] += __shfl_down_sync(0xFFFFFFFFu, c[k], off);
+      }
+      if (lane == 0 && gridDim.y == 1 && row_warps == 1) {
+        reinterpret_cast<int4*>(hist)[v0 + r] =
+            make_int4(static_cast<int>(c[0]), static_cast<int>(c[1]), static_cast<int>(c[2]),
+                      static_cast<int>(c[3]));
+      } else if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) atomicAdd(hist + 4 * (v0 + r) + k, static_cast<int>(c[k]));
       }
     }
-    block_code_counts(acc, scratch, counts);
-    if (threadIdx.x < 4) {
-      hist[4 * v + threadIdx.x] = static_cast<int32_t>(counts[threadIdx.x]);
+    __syncthreads();  // the tile's codes are complete
+    const int n = rows * kc;  // floats of each plane's span
+    const uint32_t* tile32 = reinterpret_cast<const uint32_t*>(tile);
+    for (int p = 0; p < n_planes; ++p) {
+      float* span = planes + p * plane + v0 * n_kept + c0;
+      const float* tab = table + 4 * p;
+      // floats before the first 16-B boundary (span is 4-B aligned)
+      int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(span) & 15)) & 15) / 4;
+      if (head > n) head = n;
+      const int quads = (n - head) / 4;
+      const int tail_at = head + 4 * quads;
+      if (tid < head) span[tid] = tab[tile[tid]];
+      if (tid < n - tail_at) span[tail_at + tid] = tab[tile[tail_at + tid]];
+      float4* out4 = reinterpret_cast<float4*>(span + head);
+      for (int q = tid; q < quads; q += blockDim.x) {
+        const int at = head + 4 * q;
+        const uint32_t w = __funnelshift_r(tile32[at >> 2], tile32[(at >> 2) + 1], 8 * (at & 3));
+        __stcs(out4 + q, make_float4(tab[w & 3u], tab[(w >> 8) & 3u], tab[(w >> 16) & 3u],
+                                     tab[w >> 24]));
+      }
     }
-    __syncthreads();  // counts is rewritten for the next row
+    __syncthreads();  // before the next tile's codes overwrite these
   }
 }
 
@@ -611,10 +837,39 @@ int pgen_pack_codes(const void* codes, void* packed, int64_t n_var,
   const int64_t rec = (n_samples + 3) / 4;
   const int64_t n = n_var * rec;
   if (n <= 0) return 0;
-  pack_codes_kernel<<<grid_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<uint8_t*>(packed), n_var,
-      n_samples, rec);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const uint8_t*>(codes);
+  const auto out = static_cast<uint8_t*>(packed);
+  if (n_samples % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(packed) % 4 == 0) {
+    const int64_t n_words = n / 4;
+    const int64_t per_block = kThreads * kPackUnroll;
+    int64_t blocks = (n_words + per_block - 1) / per_block;
+    if (blocks < 1) blocks = 1;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    pack_codes_flat_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        reinterpret_cast<const uint4*>(in), reinterpret_cast<uint32_t*>(out), n_words, n);
+  } else {
+    // whole rows per tile, or column tiles of a row wider than a tile
+    const int64_t col_tiles = (n_samples + kPackTileBytes - 1) / kPackTileBytes;
+    const int64_t width = col_tiles == 1 ? n_samples : kPackTileBytes;
+    int64_t tile_rows = kPackTileBytes / width;
+    if (tile_rows > kPackMaxTileRows) tile_rows = kPackMaxTileRows;
+    if (tile_rows > n_var) tile_rows = n_var;
+    // the span, up to 15 lead bytes and 8 B of slack, in whole 16 B
+    const int64_t in_bytes = (tile_rows * width + 15 + 8 + 15) / 16 * 16;
+    const int64_t out_bytes = (tile_rows * ((width + 3) / 4) + 15 + 15) / 16 * 16;
+    const int64_t tiles =
+        col_tiles == 1 ? (n_var + tile_rows - 1) / tile_rows : n_var * col_tiles;
+    // threads on record bytes: one warp or more, the rest of 256 on rows
+    int64_t tx = ((width + 3) / 4 + 31) / 32 * 32;
+    if (tx > 128) tx = 128;
+    const dim3 block(static_cast<unsigned>(tx), static_cast<unsigned>(kThreads / tx));
+    pack_codes_staged_kernel<<<static_cast<unsigned>(tiles < kStagedBlocks ? tiles : kStagedBlocks),
+                               block, static_cast<size_t>(2 * in_bytes + out_bytes), s>>>(
+        in, out, n_var, n_samples, rec, static_cast<int>(tile_rows),
+        static_cast<int>(in_bytes), tiles, static_cast<int>(col_tiles));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -682,11 +937,48 @@ int pgen_glm_planes(const void* packed, const void* sel, const void* lut,
                     void* stream) {
   if (n_var <= 0) return 0;
   if (n_planes < 1 || n_planes > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
-  glm_planes_kernel<<<row_grid(n_var), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
-      static_cast<const float*>(lut), static_cast<float*>(planes),
-      static_cast<int32_t*>(hist), n_var, rec, n_samples, n_kept,
-      static_cast<int>(n_planes));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const uint8_t*>(packed);
+  const auto ids = static_cast<const int32_t*>(sel);
+  const auto tab = static_cast<const float*>(lut);
+  const auto out = static_cast<float*>(planes);
+  const auto counts = static_cast<int32_t*>(hist);
+  if (reinterpret_cast<uintptr_t>(planes) % 4 != 0 || reinterpret_cast<uintptr_t>(hist) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (n_kept <= 0) return 0;
+  // shared memory: a chunk's ids, then tile_rows rows of its codes and 8 B
+  // of slack; the rows shrink as K grows, and a chunked tile is one row
+  const int64_t chunk = n_kept < kPlaneChunk ? n_kept : kPlaneChunk;
+  const int64_t chunks = (n_kept + chunk - 1) / chunk;
+  const int64_t id_bytes = ids != nullptr ? (4 * chunk + 15) / 16 * 16 : 0;
+  int64_t tile_rows = chunks > 1 ? 1 : kPlaneTileBytes / chunk;
+  if (tile_rows > kPlaneMaxTileRows) tile_rows = kPlaneMaxTileRows;
+  if (tile_rows > n_var) tile_rows = n_var;
+  const int64_t smem = id_bytes + (tile_rows * chunk + 8 + 15) / 16 * 16;
+  // per device, so on every launch; above 48 KB only wide cohorts
+  const cudaError_t opted = cudaFuncSetAttribute(
+      glm_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPlaneSmemBytes));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  int row_warps = 1;  // a power of two, so that it divides the block's warps
+  while (2 * row_warps * tile_rows <= kThreads / 32) row_warps *= 2;
+  if (chunks > 1 || row_warps > 1) {  // several warps or chunks add a row's counts
+    const cudaError_t cleared = cudaMemsetAsync(counts, 0, 16 * n_var, s);
+    if (cleared != cudaSuccess) return static_cast<int>(cleared);
+  }
+  // a block per tile up to kMaxBlocks: the ids a block re-reads (from L2)
+  // are a thirtieth of what its tile writes; a chunked tile is one row, so
+  // fewer blocks each take several
+  const int64_t tiles = (n_var + tile_rows - 1) / tile_rows;
+  int64_t blocks = kMaxBlocks / (chunks > 1 ? 4 * chunks : 1);
+  if (blocks < 1) blocks = 1;
+  if (blocks > tiles) blocks = tiles;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
+  glm_planes_kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(
+      in, ids, tab, out, counts, n_var, rec, static_cast<int>(n_samples),
+      static_cast<int>(n_kept), static_cast<int>(n_planes), static_cast<int>(tile_rows),
+      static_cast<int>(chunk), row_warps);
   return static_cast<int>(cudaGetLastError());
 }
 

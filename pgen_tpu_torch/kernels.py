@@ -10,7 +10,9 @@ the root of the checkout, keyed by a hash of the sources and the flags (as
 ``pgen_tpu/native/lib.py`` keys its C++ build); a changed source builds a
 new file. Each build writes a temporary file and renames it into place, so
 concurrent first uses never load a half-written library. A failed build
-raises with nvcc's stderr: there is no fallback.
+raises with nvcc's stderr: there is no fallback. ptxas' report of each
+kernel's registers, shared memory and spills (``-Xptxas -v``) is kept beside
+the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ SOURCES = ("genotype.cu", "genotype.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pgen_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -66,6 +68,7 @@ def build() -> Path:
                 f"nvcc failed with exit code {r.returncode}: {' '.join(cmd)}\n"
                 f"{r.stderr}"
             )
+        so.with_suffix(".log").write_text(r.stderr)
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):

@@ -15,7 +15,8 @@ Each is a blocked loop over a staged (V, R) record matrix (``stage_blocks``,
 pinned when the device is CUDA). Per block K10 (``glm_planes``,
 ``csrc/genotype.cu:glm_planes_kernel``) decodes the records straight into
 the planes and each row's code histogram, and ``torch.matmul`` in full fp32
-(``matmul_fp32``) makes the products, as pgen_tpu makes them with
+(``matmul_fp32``; in f64 for X3, see ``glm_int_moments``) makes the
+products, as pgen_tpu makes them with
 ``jnp.matmul(precision=HIGHEST)`` after its Pallas unpack. The planes'
 device memory is allocated once per call. ``n``, ``sum g`` and ``sum g^2``
 come from the histogram: integers, exact in both packages, so the
@@ -187,9 +188,9 @@ def glm_planes(packed: torch.Tensor, num_samples: int, lut: torch.Tensor, sel=No
     if packed.device.type == "cpu":
         return glm_planes_plain(packed, num_samples, lut, sel)
     planes = scratch_view(out, (n_planes, n_var, n_kept), packed.device)
-    hist = torch.zeros((n_var, 4), dtype=torch.int32, device=packed.device)
     if n_var == 0 or n_kept == 0:
-        return planes, hist
+        return planes, torch.zeros((n_var, 4), dtype=torch.int32, device=packed.device)
+    hist = torch.empty((n_var, 4), dtype=torch.int32, device=packed.device)  # every row is written
     launch(glm_planes, "pgen_glm_planes", packed,
            packed.data_ptr(), None if sel is None else sel.data_ptr(), lut.data_ptr(),
            planes.data_ptr(), hist.data_ptr(), n_var, rec, num_samples, n_kept, n_planes)
@@ -208,29 +209,55 @@ def device_sel(sample_idx, num_samples: int, dev: torch.device):
     return torch.from_numpy(np.ascontiguousarray(sample_idx, dtype=np.int32)).to(dev)
 
 
+# Rows of a plane cast to f64 at a time for an f64 product: a bound scratch
+# (2,048 x 2,504 x 8 B = 41 MB) instead of a second, twice as large plane.
+F64_CHUNK_ROWS = 1 << 11
+
+
+def _matmul_fp64(plane: torch.Tensor, cols: torch.Tensor, scratch: torch.Tensor) -> torch.Tensor:
+    """``plane @ cols`` in f64: (V, K) f32 plane, (K, C) f64 columns ->
+    (V, C) f64. The plane is cast in chunks of F64_CHUNK_ROWS rows through
+    ``scratch`` (at least F64_CHUNK_ROWS * K f64 values on the plane's
+    device)."""
+    n_var, n_kept = plane.shape
+    out = torch.empty((n_var, cols.shape[1]), dtype=torch.float64, device=plane.device)
+    for r0 in range(0, n_var, F64_CHUNK_ROWS):
+        r1 = min(r0 + F64_CHUNK_ROWS, n_var)
+        wide = scratch[: (r1 - r0) * n_kept].view(r1 - r0, n_kept)
+        wide.copy_(plane[r0:r1])
+        torch.matmul(wide, cols, out=out[r0:r1])
+    return out
+
+
 def _plane_products(packed, num_samples: int, lut, products, device,
-                    block_variants: int, sample_idx) -> tuple:
+                    block_variants: int, sample_idx, fp64: bool = False) -> tuple:
     """The blocked scan shared by the three moment functions: per staged
     block, K10's planes and counts, then planes[p] @ cols for each
-    (p, cols) of ``products``. Returns the (V, 4) int64 code counts and the
+    (p, cols) of ``products``, in full fp32 or, with ``fp64``, in f64 (the
+    planes hold 0/1/2/4 exactly, so an f64 product carries only the f64
+    rounding of its sum). Returns the (V, 4) int64 code counts and the
     (V, cols) f64 products."""
     dev = resolve_device(device)
     n_var = packed.shape[0]
     sel = device_sel(sample_idx, num_samples, dev)
     n_kept = num_samples if sel is None else sel.shape[0]
     lut_t = torch.tensor(lut, dtype=torch.float32, device=dev)
-    cols = [(p, torch.from_numpy(np.ascontiguousarray(c, dtype=np.float32)).to(dev))
+    col_type = np.float64 if fp64 else np.float32
+    cols = [(p, torch.from_numpy(np.ascontiguousarray(c, dtype=col_type)).to(dev))
             for p, c in products]
     rows = min(block_variants, n_var)
     scratch = (torch.empty(len(lut) * rows * n_kept, dtype=torch.float32, device=dev)
                if dev.type == "cuda" else None)
+    wide = (torch.empty(min(rows, F64_CHUNK_ROWS) * n_kept, dtype=torch.float64, device=dev)
+            if fp64 else None)
     hist = np.empty((n_var, 4), dtype=np.int64)
     outs = [np.empty((n_var, c.shape[1]), dtype=np.float64) for _, c in cols]
     for lo, hi, block in stage_blocks(packed, dev, block_variants):
         planes, h = glm_planes(block, num_samples, lut_t, sel, out=scratch)
         hist[lo:hi] = h.cpu().numpy()
         for o, (p, c) in zip(outs, cols):
-            o[lo:hi] = matmul_fp32(planes[p], c).cpu().numpy()
+            prod = _matmul_fp64(planes[p], c, wide) if fp64 else matmul_fp32(planes[p], c)
+            o[lo:hi] = prod.cpu().numpy()
     return hist, outs
 
 
@@ -623,7 +650,15 @@ def glm_int_moments(packed, num_samples: int, y, covars, device,
                     block_variants: int = DEFAULT_BLOCK_VARIANTS,
                     sample_idx=None) -> GlmIntMoments:
     """X3 on ``device``: pgen_tpu's ``glm_int_moments(provider="device")``,
-    the mask, dosage and dosage^2 moments of the interaction design."""
+    the mask, dosage and dosage^2 moments of the interaction design.
+
+    The three products run in f64, unlike X1's and X2's fp32. The ADD term
+    is reported at covariates 0: beta_g minus the covariate means times the
+    ADDxC betas, a difference of terms up to the means' size larger than
+    itself, so the f32 rounding of the moment columns and of the sums over
+    the cohort (about 2,500 terms) left BETA outside pgen_tpu's rtol 2e-4
+    on the card at 50,000 variants. The f64 sums cost three more passes
+    over the planes per block and hold it on both devices."""
     y = np.asarray(y, dtype=np.float64)
     covars = np.asarray(covars, dtype=np.float64)
     _check_cohort(y, covars, num_samples, sample_idx)
@@ -635,7 +670,7 @@ def glm_int_moments(packed, num_samples: int, y, covars, device,
         return GlmIntMoments(z, zp, zp.copy(), zp.copy())
     hist, (mp, gp, g2p) = _plane_products(
         packed, num_samples, LUT_INT, [(0, pcols), (1, pcols), (2, pcols)],
-        device, block_variants, sample_idx,
+        device, block_variants, sample_idx, fp64=True,
     )
     return GlmIntMoments(_row_sums(hist)[0], mp, gp, g2p)
 

@@ -9,8 +9,10 @@ Two entry points, each dispatching on the tensor's device, with no fallback
 between the two: a CUDA tensor launches the kernel, a CPU tensor runs the
 plain PyTorch version beside it.
 
-- ``pack_codes``: K4, ``csrc/genotype.cu:pack_codes_kernel``, the
-  counterpart of ``pack_codes_device``. The VCF import path runs it.
+- ``pack_codes``: K4, ``csrc/genotype.cu:pack_codes_flat_kernel`` (S % 4 ==
+  0 and aligned pointers) or ``pack_codes_staged_kernel`` (any other S or
+  alignment), the launcher choosing; the counterpart of ``pack_codes_device``. The VCF
+  import path runs it.
 - ``subset_repack`` (packed records in, the kept samples' records out): K5,
   ``csrc/genotype.cu:subset_repack_kernel``, one kernel for the device
   branch of ``pgen_tpu/pipeline/pgen_out.py:_subset_block`` (unpack, take of
@@ -50,7 +52,8 @@ def subset_repack_plain(packed: torch.Tensor, sel: torch.Tensor) -> torch.Tensor
 
 
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:
-    """(V, S) u8 codes -> (V, ceil(S/4)) u8 records on the input's device."""
+    """(V, S) u8 codes -> (V, ceil(S/4)) u8 records on the input's device. A
+    contiguous view that starts at any byte of a larger buffer is taken."""
     n_var, n_samples = check_packed(codes, name="codes")
     rec = (n_samples + 3) // 4
     if n_var == 0 or n_samples == 0:

@@ -10,8 +10,11 @@ launcher sets it:
   ``MASTER_PORT``;
 - pgen_tpu's variables: ``PGEN_TPU_COORDINATOR`` (host:port),
   ``PGEN_TPU_NUM_PROCS``, ``PGEN_TPU_PROC_ID``;
-- neither: a one-rank group on an in-process store, so that one card goes
-  through the same collectives as N.
+- neither: no group at all. A lone process is rank 0 of 1 on its device,
+  every gather is the local tensor and the barrier returns at once, as
+  pgen_tpu's one-process mesh filter sets up no distributed runtime. (An
+  explicit one-rank group, the caller's or a launcher's ``WORLD_SIZE=1``,
+  still runs the collectives.)
 
 pgen_tpu's ``run_distributed_filter`` (the host shard path,
 ``parallel/shard.py``) is not ported: ROADMAP.md §1 item 15.
@@ -41,7 +44,8 @@ def initialize_from_env(device="cuda") -> tuple:
     """Initialise the default process group from the environment; returns
     (rank, world_size, device). On CUDA each rank takes ``cuda:LOCAL_RANK``
     (without LOCAL_RANK, its rank modulo the visible cards) and makes it
-    current before any launch; ``device="cpu"`` uses gloo."""
+    current before any launch; ``device="cpu"`` uses gloo. An environment
+    that names no ranks makes no group: (0, 1, device)."""
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -51,8 +55,7 @@ def initialize_from_env(device="cuda") -> tuple:
         rank, world = int(os.environ["PGEN_TPU_PROC_ID"]), int(os.environ["PGEN_TPU_NUM_PROCS"])
         kwargs = {"init_method": f"tcp://{os.environ['PGEN_TPU_COORDINATOR']}"}
     else:
-        rank, world = 0, 1
-        kwargs = {"store": dist.HashStore()}
+        return 0, 1, dev
     if dev.type == "cuda":
         local = os.environ.get("LOCAL_RANK")
         index = int(local) if local is not None else (
@@ -70,7 +73,8 @@ def process_group(device="cuda"):
     """Yield (rank, world_size, device) of the default process group: the
     caller's when one is initialised (its device is this rank's card, or the
     CPU for gloo), else one initialised from the environment here and
-    destroyed on exit."""
+    destroyed on exit. A lone process, whose environment names no ranks,
+    gets (0, 1, device) and no group."""
     if dist.is_initialized():
         dev = resolve_device(device)
         if dev.type == "cuda" and dist.get_backend() == "nccl":
@@ -81,10 +85,12 @@ def process_group(device="cuda"):
     try:
         yield rank, world, dev
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def barrier(dev: torch.device) -> None:
-    """Wait for every rank (nothing to wait for in a one-rank group)."""
-    if dist.get_world_size() > 1:
+    """Wait for every rank (nothing to wait for without a group or in a
+    one-rank group)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
         dist.barrier(device_ids=[dev.index] if dev.type == "cuda" else None)

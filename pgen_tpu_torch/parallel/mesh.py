@@ -16,7 +16,8 @@ its own card:
     fetch       all-gather of the kept counts (int64) and of the shard
                 masks (uint8): every rank learns the whole block's mask,
                 hence every kept row's output offset, so the ordered write
-                is arithmetic; then both to the host
+                is arithmetic; then both to the host (a lone process
+                without a process group gathers nothing)
 
 The genotype text never crosses ranks. The plane form of pgen_tpu
 (``_local_pipeline_planes``) exists because Mosaic cannot interleave lanes
@@ -47,7 +48,10 @@ def pad_to_multiple(arr: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray
 
 
 def _gather_shards(local: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's equally sized ``local``, concatenated in rank order."""
+    """Every rank's equally sized ``local``, concatenated in rank order; a
+    lone process without a process group is the only rank."""
+    if not dist.is_initialized():
+        return local
     out = torch.empty((dist.get_world_size(group) * local.shape[0], *local.shape[1:]),
                       dtype=local.dtype, device=local.device)
     all_gather(out, local.contiguous(), group=group)

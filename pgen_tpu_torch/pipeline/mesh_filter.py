@@ -1,13 +1,14 @@
 """Filter to VCF with the device provider on one or more GPUs: the port of
 ``pgen_tpu/pipeline/mesh_filter.py`` (``filter --provider device``).
 
-One process per GPU (``parallel/distributed.py``); a lone process is a
-one-rank group, so one card runs the same collectives as N. Per block of
+One process per GPU (``parallel/distributed.py``); a lone process, whose
+environment names no ranks, is rank 0 of 1 and makes no process group, as
+pgen_tpu's one-process mesh filter sets up no distributed runtime. Per block of
 ``vb`` rows (``vb`` a multiple of the world size; rank d owns rows
 [d*per, (d+1)*per) of every block):
 
     process_group  (once) the group's set-up and teardown, when the call
-                makes it
+                makes it (a lone process makes none: near zero)
     stage_read  a reader thread gathers this rank's rows (only its own)
                 into one of two staging tensors, pinned on CUDA, while the
                 main thread works on the block before
@@ -151,8 +152,9 @@ def filter_to_vcf_mesh(
 ) -> MeshFilterResult:
     """Filter a pgen fileset to a VCF with the device provider, as this
     rank of the default process group (``device`` "cuda", which must be
-    available, or "cpu" over gloo; without a group, a one-rank group made
-    from the environment for the call).
+    available, or "cpu" over gloo; without a group, one made from the
+    environment for the call where it names ranks, else this process alone
+    with no group).
 
     Same arguments and output bytes as pgen_tpu's ``filter_to_vcf_mesh``
     (``device`` in place of its ``mesh``): ``out_file`` defaults to

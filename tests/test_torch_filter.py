@@ -208,15 +208,69 @@ def test_cli_refuses_other_subcommands(tmp_path, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
+def test_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):
     prefix = _fileset(tmp_path, 4, 4, seed=4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "x.vcf"
     with pytest.raises(RuntimeError, match="is_available"):
         port_filter(prefix, out_file=out, device="cuda")
-    with pytest.raises(RuntimeError, match="is_available"):
-        port_main(["filter", prefix, "-o", str(out)])  # --device defaults to cuda
+    # --device defaults to cuda; the CLI fails fast with one stderr line
+    assert port_main(["filter", prefix, "-o", str(out)]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("pgen-tpu: error: ") and "is_available" in err and err.count("\n") == 1
     assert not out.exists()
+
+
+def _closed_pipe_run(module: str, argv: list) -> tuple:
+    """``python -m module argv`` with stdout a pipe whose read end is closed;
+    (exit code, stderr)."""
+    r, w = os.pipe()
+    os.close(r)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    try:
+        p = subprocess.run([sys.executable, "-m", module, *argv], stdout=w, env=env,
+                           stderr=subprocess.PIPE, text=True, timeout=300)
+    finally:
+        os.close(w)
+    return p.returncode, p.stderr
+
+
+CLI_ERRORS = {
+    "parse_error": ["filter", "{prefix}", "--include-var", "POS >", "-o", "{dir}/x.vcf"],
+    "missing_fileset": ["filter", "{dir}/none", "-o", "{dir}/x.vcf"],
+    "stdout_pgen": ["filter", "{prefix}", "--out-format", "pgen", "-o", "-"],
+    "stdout_provider_device": ["filter", "{prefix}", "--provider", "device", "-o", "-"],
+    "index_without_gz": ["filter", "{prefix}", "--index", "-o", "{dir}/x.vcf"],
+    "index_pgen": ["filter", "{prefix}", "--index", "--out-format", "pgen", "-o", "{dir}/x.vcf.gz"],
+    "hwe_midp_without_hwe": ["filter", "{prefix}", "--hwe-midp", "-o", "{dir}/x.vcf"],
+    "missing_keep_file": ["glm", "{prefix}", "--pheno-name", "QT", "--samples-file", "{dir}/none.txt"],
+    "glm_stdout_two_phenotypes": ["glm", "{prefix}", "--pheno-name", "A,B", "-o", "-"],
+    "closed_stdout_pipe": ["filter", "{prefix}", "-o", "-"],
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_ERRORS))
+def test_cli_exits_as_pgen_tpu(tmp_path, capsys, case):
+    """The port's exit code and its stderr equal pgen_tpu.cli.main's: one
+    ``pgen-tpu: error: ...`` line and 1 for an exception (a query that does
+    not parse, a missing fileset, pgen_tpu's ValueError checks), its
+    ``filter: error:`` / ``glm: error:`` lines and 2, and 141 with nothing on
+    stderr when stdout is a closed pipe."""
+    prefix = _fileset(tmp_path, 12, 6, seed=12)
+    argv = [a.format(prefix=prefix, dir=tmp_path) for a in CLI_ERRORS[case]]
+    if case == "closed_stdout_pipe":
+        got = _closed_pipe_run("pgen_tpu_torch.cli", [*argv, "--device", "cpu"])
+        assert got == _closed_pipe_run("pgen_tpu.cli", argv) == (141, "")
+        return
+    rc = port_main([*argv, "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert tpu_main(argv) == rc
+    assert capsys.readouterr().err == err
+    assert rc == (2 if case in ("hwe_midp_without_hwe", "glm_stdout_two_phenotypes") else 1)
+    assert err.count("\n") == 1 and "Traceback" not in err
+    assert err.startswith("pgen-tpu: error: " if rc == 1 else f"{argv[0]}: error: ")
+    assert not list(tmp_path.glob("x.vcf*"))
 
 
 def test_port_never_loads_jax(tmp_path):

@@ -194,6 +194,77 @@ def test_linear_entry_points_match_pgen_tpu_device(design):
         np.testing.assert_allclose(getattr(got, name), getattr(want, name), equal_nan=True, **tol)
 
 
+def test_interaction_beta_within_pgen_tpu_tolerance_with_a_covariate_near_50():
+    """X3 over a few thousand variants with a covariate around 50, where the
+    ADD term (reported at covariates 0) is a difference of terms 50 times
+    its size: BETA alone stays inside pgen_tpu's interaction bound (rtol
+    2e-4, atol 1e-6; tests/test_glm_interaction.py:101) against pgen_tpu's
+    numpy provider (f64), SE too, over ragged blocks and a cohort with a
+    gap. The port's X3 products run in f64."""
+    rng = np.random.default_rng(50)
+    n_var, n_samples = 3000, 301
+    packed = _packed(n_var, n_samples, 50)[:n_var]
+    idx = np.flatnonzero(rng.random(n_samples) > 0.02).astype(np.int32)
+    c1, c2 = rng.normal(size=len(idx)), rng.normal(50.0, 8.0, size=len(idx))
+    y = 0.3 * c1 + 0.02 * c2 + rng.normal(size=len(idx))
+    covars = np.column_stack([c1, c2])
+    got = port_glm.glm_linear_interaction(packed, n_samples, y, covars, "cpu",
+                                          block_variants=1 << 11, sample_idx=idx)
+    want = tpu_glm.glm_linear_interaction(packed, n_samples, y, covars, provider="numpy",
+                                          sample_idx=idx)
+    np.testing.assert_array_equal(got.n_obs, want.n_obs)
+    assert np.isfinite(want.beta).all(axis=1).sum() > n_var // 2
+    # some ADD betas lie far below their SE: the case the bound has to hold
+    assert (np.abs(want.beta[:, 0]) < 0.01 * want.se[:, 0]).sum() >= 5
+    np.testing.assert_allclose(got.beta, want.beta, rtol=2e-4, atol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(got.se, want.se, rtol=2e-4, atol=1e-6, equal_nan=True)
+
+
+def test_interaction_products_run_in_f64(monkeypatch):
+    """X3's three products are f64 (K x C f64 columns, the planes cast in
+    row chunks through a bound scratch); X1's and X2's stay f32."""
+    seen = []
+    real = torch.matmul
+
+    def spy(a, b, **kw):
+        seen.append((a.dtype, b.dtype, a.shape[0]))
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(torch, "matmul", spy)
+    monkeypatch.setattr(port_glm, "F64_CHUNK_ROWS", 64)
+    packed = _packed(100, 9, 2)[:100]
+    y, covars = _inputs(9, 2)
+    port_glm.glm_int_moments(packed, 9, y, covars, "cpu")
+    assert {d for d, _, _ in seen} == {torch.float64} == {d for _, d, _ in seen}
+    assert [rows for _, _, rows in seen] == [64, 36] * 3
+    seen.clear()
+    port_glm.glm_moments(packed, 9, y, covars, "cpu")
+    port_glm.glm_geno_moments(packed, 9, y, covars, "cpu")
+    assert {d for d, _, _ in seen} == {torch.float32}
+
+
+@pytest.mark.parametrize("n_kept", [1, 2, 3, 5, 6, 7, 2453, 2454, 2455])
+def test_glm_planes_selected_widths_match_pgen_tpu_legs(n_kept):
+    """K10's plain version with ``sel`` at every K % 4, small and at the
+    cohort's width, against pgen_tpu's reference decode legs: the unpack,
+    the take of the cohort's columns and the f32 mask / dosage / dosage^2
+    planes of its device scans (ops/glm.py:168-184, 1006-1022)."""
+    n_samples = max(9, n_kept + 50)
+    packed = _packed(7, n_samples, n_kept)
+    rng = np.random.default_rng(n_kept)
+    idx = rng.permutation(n_samples)[:n_kept].astype(np.int32)
+    codes = np.take(unpack_codes_reference(packed, n_samples), idx, axis=1)
+    mask = (codes != 3).astype(np.float32)
+    g = np.where(codes != 3, codes, 0).astype(np.float32)
+    for table, want in ((port_glm.LUT_MOMENTS, [mask, g]), (port_glm.LUT_INT, [mask, g, g * g])):
+        lut = torch.tensor(table, dtype=torch.float32)
+        planes, hist = port_glm.glm_planes(torch.from_numpy(packed), n_samples, lut,
+                                           torch.from_numpy(idx))
+        np.testing.assert_array_equal(planes.numpy(), np.stack(want))
+        np.testing.assert_array_equal(hist.numpy(),
+                                      np.stack([(codes == c).sum(1) for c in range(4)], 1))
+
+
 def test_products_force_full_fp32(monkeypatch):
     """The port's products run with the float32 matmul precision at
     "highest" whatever the caller set (TF32 on cuBLAS, bf16 on oneDNN
@@ -409,10 +480,18 @@ def test_cli_glm_multi_pheno_and_stdout(tmp_path, capsys):
 )
 def test_cli_glm_refusals(tmp_path, capsys, argv):
     prefix = _fileset(tmp_path, n_var=4)
-    with pytest.raises(SystemExit) as e:
-        port_main(["glm", prefix, "--pheno-name", "QT", *argv, "--device", "cpu"]
-                  + ([] if "-o" in argv else ["-o", str(tmp_path / "x.glm")]))
-    assert e.value.code == 2
+    full = ["glm", prefix, "--pheno-name", "QT", *argv, "--device", "cpu"] + (
+        [] if "-o" in argv else ["-o", str(tmp_path / "x.glm")])
+    if "-o" in argv:
+        # pgen_tpu's own refusal: its stderr line and exit code 2
+        assert port_main(full) == 2
+        err = capsys.readouterr().err
+        assert tpu_main(["glm", prefix, "--pheno-name", "QT", *argv]) == 2
+        assert capsys.readouterr().err == err and err.startswith("glm: error: ")
+    else:
+        with pytest.raises(SystemExit) as e:
+            port_main(full)
+        assert e.value.code == 2
     assert not list(tmp_path.glob("x.glm*"))
 
 
@@ -430,9 +509,10 @@ def test_cli_analytics_refuse_several_ranks(tmp_path, capsys, monkeypatch, comma
     assert "ROADMAP §1 item 17" in capsys.readouterr().err
 
 
-def test_glm_cuda_without_a_card_raises(tmp_path, monkeypatch):
+def test_glm_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):
     prefix = _fileset(tmp_path, n_var=4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="is_available"):
-        port_main(["glm", prefix, "--pheno-name", "QT", "-o", str(tmp_path / "x.glm")])
+    assert port_main(["glm", prefix, "--pheno-name", "QT", "-o", str(tmp_path / "x.glm")]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("pgen-tpu: error: ") and "is_available" in err and err.count("\n") == 1
     assert not (tmp_path / "x.glm").exists()

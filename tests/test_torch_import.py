@@ -181,11 +181,13 @@ def test_cli_default_output_prefix(tmp_path):
     _assert_same_fileset(tmp_path / "in", tmp_path / "tpu")
 
 
-def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
+def test_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):
     vcf = _vcf(tmp_path, _vcf_text(4, 4, seed=4))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         port_import(vcf, tmp_path / "x", device="cuda")
-    with pytest.raises(RuntimeError, match="is_available"):
-        port_main(["import", str(vcf), "-o", str(tmp_path / "x")])  # --device defaults to cuda
+    # --device defaults to cuda; the CLI fails fast with one stderr line
+    assert port_main(["import", str(vcf), "-o", str(tmp_path / "x")]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("pgen-tpu: error: ") and "is_available" in err and err.count("\n") == 1
     assert not list(tmp_path.glob("x*"))

@@ -6,8 +6,10 @@ held to the reference package directly, not only through their twins. The
 GWAS moments on the card are held against an f64 numpy product here.
 
 Every test here is marked ``cuda`` and skips without a card: a CUDA kernel
-has no CPU mode. The file imports no jax (both oracles are numpy only), so
-on a machine with a card and without jax it runs on its own:
+has no CPU mode. The file imports no jax (these oracles are numpy only), so
+on a machine with a card and without jax it runs on its own, all but the
+interaction test, which holds the card's BETA against pgen_tpu's numpy GWAS
+provider and imports it (and with it jax, kept on the CPU) when it runs:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -446,3 +448,153 @@ def test_glm_moments_with_tf32_on_match_f64(cuda_device):
         err = np.abs(moments - want) / np.maximum(scale, np.finfo(np.float64).tiny)
         assert err.max() <= 2e-5, f"max error {err.max():.3g} of the sums' scale"
     np.testing.assert_array_equal(got.sg2, (g * g).sum(axis=1))
+
+
+# -- K4 and K10 in their tiled forms ----------------------------------------
+
+
+def _codes(n_var, n_samples, seed, device):
+    """Codes of any byte value (the pack masks each to two bits)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (n_var, n_samples), dtype=np.uint8)).to(device)
+
+
+def _pack_at_offset(codes, in_offset, out_offset):
+    """pack_codes' launcher on a copy of ``codes`` that starts ``in_offset``
+    bytes past a 16-B boundary, into records ``out_offset`` bytes past one."""
+    n_var, n_samples = codes.shape
+    rec = (n_samples + 3) // 4
+    src = torch.zeros(codes.numel() + in_offset + 16, dtype=torch.uint8, device=codes.device)
+    view = src[in_offset : in_offset + codes.numel()].view(n_var, n_samples)
+    view.copy_(codes)
+    # guard bytes around the records: the kernel must leave them alone
+    buf = torch.full((n_var * rec + out_offset + 16,), 0xA5, dtype=torch.uint8,
+                     device=codes.device)
+    out = buf[out_offset : out_offset + n_var * rec].view(n_var, rec)
+    kernels.launch(pack_codes, "pgen_pack_codes", view, view.data_ptr(), out.data_ptr(), n_var,
+                   n_samples)
+    torch.cuda.synchronize()
+    assert bool((buf[:out_offset] == 0xA5).all()) and bool((buf[out_offset + n_var * rec:] == 0xA5).all())
+    return out
+
+
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2502, 2501, 5, 1])
+def test_pack_codes_every_row_end(cuda_device, n_samples):
+    """K4's flat form (S % 4 == 0) and its staged form at every S % 4: a
+    row's last record byte holds zeros past S, never the next row's codes;
+    against the plain version and pgen_tpu's host pack of the masked
+    codes."""
+    codes = _codes(700, n_samples, n_samples, cuda_device)
+    got = pack_codes(codes)
+    assert torch.equal(got, pack_codes_plain(codes))
+    np.testing.assert_array_equal(got.cpu().numpy(), writer_pack_codes(codes.cpu().numpy() & 3))
+
+
+@pytest.mark.parametrize("in_offset,out_offset", [(1, 0), (4, 0), (8, 0), (0, 1), (0, 4), (3, 7)])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 5])
+def test_pack_codes_unaligned_spans(cuda_device, n_samples, in_offset, out_offset):
+    """Codes or records that start off a 16-B boundary (a view into a larger
+    buffer) take the staged form: equal to the plain version, nothing
+    written outside the records."""
+    codes = _codes(300, n_samples, 7 * n_samples + in_offset, cuda_device)
+    assert torch.equal(_pack_at_offset(codes, in_offset, out_offset), pack_codes_plain(codes))
+
+
+@pytest.mark.parametrize("n_var", [1, 5, 6, 7, 63, 64, 65, 65_537])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 5, 1])
+def test_pack_codes_ragged_tiles(cuda_device, n_samples, n_var):
+    """Row counts around the staged form's tile (6 rows at S = 2503, 64 at
+    S <= 256) and past one pass of its blocks; the flat form's last bytes
+    when V * R is no multiple of 4."""
+    codes = _codes(n_var, n_samples, n_var + n_samples, cuda_device)
+    assert torch.equal(pack_codes(codes), pack_codes_plain(codes))
+
+
+@pytest.mark.parametrize("n_samples,in_offset", [(16_385, 0), (16_387, 0), (32_768, 4),
+                                                 (40_003, 3)])
+def test_pack_codes_rows_wider_than_a_tile(cuda_device, n_samples, in_offset):
+    """S past the staged form's tile (16,384 codes) goes in column tiles of
+    one row each: a last tile of 1 and of 3 codes, whole tiles off a 16-B
+    boundary (where S % 4 == 0 cannot take the flat form), and three tiles."""
+    codes = _codes(9, n_samples, 3, cuda_device)
+    assert torch.equal(_pack_at_offset(codes, in_offset, 0), pack_codes_plain(codes))
+
+
+def _ids(kind, n_kept, n_samples, rng):
+    if kind == "sorted":
+        return np.sort(rng.permutation(n_samples)[:n_kept])
+    if kind == "reversed":
+        return np.sort(rng.permutation(n_samples)[:n_kept])[::-1]
+    return rng.integers(0, n_samples, n_kept)  # repeats
+
+
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "repeated"])
+@pytest.mark.parametrize("n_kept", [1, 2, 3, 5, 2453, 2454, 2455, 2456])
+def test_glm_planes_selected_any_width_and_order(cuda_device, n_kept, kind):
+    """K10's tiled form with ``sel`` at every K % 4 (each plane's span of a
+    tile starts at any of four alignments), ids sorted, reversed and
+    repeated, P = 2 and 3: planes and counts equal to the plain version."""
+    rng = np.random.default_rng(n_kept)
+    packed = _packed(300, 2504, n_kept, cuda_device)
+    sel = torch.from_numpy(np.ascontiguousarray(_ids(kind, n_kept, 2504, rng), dtype=np.int32))
+    sel = sel.to(cuda_device)
+    for table in (LUT_MOMENTS, LUT_INT):
+        lut = torch.tensor(table, dtype=torch.float32, device=cuda_device)
+        planes, hist = glm_planes(packed, 2504, lut, sel)
+        want_planes, want_hist = glm_planes_plain(packed, 2504, lut, sel)
+        assert torch.equal(planes, want_planes) and torch.equal(hist, want_hist)
+
+
+@pytest.mark.parametrize("n_var", [1, 7, 8, 9, 15, 16, 17, 16_385])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 5, 1])
+def test_glm_planes_ragged_tiles(cuda_device, n_samples, n_var):
+    """Row counts around K10's tile (8 rows at K = 2504, 16 at small K) and
+    past one row per block, without ``sel``; a V * K that leaves the second
+    and third plane off a 16-B boundary."""
+    packed = _packed(n_var, n_samples, n_var, cuda_device)[:n_var]
+    lut = torch.tensor(LUT_GENO, dtype=torch.float32, device=cuda_device)
+    planes, hist = glm_planes(packed, n_samples, lut)
+    want_planes, want_hist = glm_planes_plain(packed, n_samples, lut)
+    assert torch.equal(planes, want_planes) and torch.equal(hist, want_hist)
+    np.testing.assert_array_equal(hist.cpu().numpy(),
+                                  gt_counts_reference(packed.cpu().numpy(), n_samples))
+
+
+@pytest.mark.parametrize("sel", [False, True])
+def test_glm_planes_wide_cohorts(cuda_device, sel):
+    """K past one block's 8,192 columns goes in column chunks of one row
+    each (a last chunk of 1 column, then of many), the chunks' counts added
+    in hist; from 2,561 columns on a tile has fewer rows than the block has
+    warps, and several warps share a row."""
+    for n_samples in (2_561 + 7, 5_121 + 7, 8_193 + 7, 21_001, 30_003, 120_001):
+        packed = _packed(20, n_samples, n_samples, cuda_device)[:37]
+        ids = None
+        if sel:
+            ids = torch.from_numpy(np.random.default_rng(1).permutation(n_samples)[: n_samples - 7]
+                                   .astype(np.int32)).to(cuda_device)
+        lut = torch.tensor(LUT_MOMENTS, dtype=torch.float32, device=cuda_device)
+        planes, hist = glm_planes(packed, n_samples, lut, ids)
+        want_planes, want_hist = glm_planes_plain(packed, n_samples, lut, ids)
+        assert torch.equal(planes, want_planes) and torch.equal(hist, want_hist)
+
+
+def test_interaction_beta_on_the_card_within_pgen_tpu_tolerance(cuda_device, monkeypatch):
+    """X3 on the card (f64 products) against pgen_tpu's numpy provider (f64
+    host moments) on the same inputs: BETA and SE inside pgen_tpu's rtol
+    2e-4, atol 1e-6 alone, with a covariate near 50."""
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")  # before pgen_tpu.ops.glm imports jax
+    from pgen_tpu.ops.glm import glm_linear_interaction as tpu_interaction
+    from pgen_tpu_torch.ops.glm import glm_linear_interaction
+
+    rng = np.random.default_rng(50)
+    n_var, n_samples = 4000, 2504
+    host = _packed(n_var, n_samples, 50, "cpu").numpy()[:n_var]
+    c1, c2 = rng.normal(size=n_samples), rng.normal(50.0, 8.0, size=n_samples)
+    y = 0.3 * c1 + 0.02 * c2 + rng.normal(size=n_samples)
+    covars = np.column_stack([c1, c2])
+    got = glm_linear_interaction(host, n_samples, y, covars, "cuda")
+    want = tpu_interaction(host, n_samples, y, covars, provider="numpy")
+    np.testing.assert_array_equal(got.n_obs, want.n_obs)
+    assert (np.abs(want.beta[:, 0]) < 0.01 * want.se[:, 0]).sum() >= 5
+    np.testing.assert_allclose(got.beta, want.beta, rtol=2e-4, atol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(got.se, want.se, rtol=2e-4, atol=1e-6, equal_nan=True)

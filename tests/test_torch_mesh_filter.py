@@ -1,8 +1,9 @@
 """The port's device provider (pgen_tpu_torch.pipeline.mesh_filter,
 ``filter --provider device``) against pgen_tpu's, byte for byte.
 
-The port runs with device="cpu" over gloo, its kernels' plain PyTorch
-versions making the text: in this process as a one-rank group, and as 2 and
+The port runs with device="cpu", its kernels' plain PyTorch versions
+making the text: in this process alone (no process group; also inside an
+explicit one-rank gloo group), and over gloo as 2 and
 3 ranks spawned as torchrun-style subprocesses (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT), and 3 ranks named by pgen_tpu's
 variables (PGEN_TPU_COORDINATOR, ...), started in reverse with LOCAL_RANK
@@ -134,7 +135,7 @@ def test_one_rank_matches_pgen_tpu(filesets, host_outputs, tmp_path, case):
     got = _read(tmp_path / "port.vcf")
     assert got == _read(tmp_path / "mesh.vcf") == host_outputs[case]
     assert res.bytes_written == len(got)
-    assert not dist.is_initialized()  # the one-rank group does not outlive the call
+    assert not dist.is_initialized()  # a lone call makes no group
 
 
 ROUTES = [
@@ -198,6 +199,73 @@ def test_one_rank_edge_filesets(filesets, host_outputs, tmp_path):
     assert _read(tmp_path / "p.vcf") == host_outputs["prime"]
     filter_to_vcf_mesh(filesets["zero"], out_file=tmp_path / "z.vcf", device="cpu")
     assert _read(tmp_path / "z.vcf") == host_outputs["zero"]
+
+
+_RANK_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "PGEN_TPU_COORDINATOR", "PGEN_TPU_NUM_PROCS", "PGEN_TPU_PROC_ID")
+
+
+@pytest.mark.parametrize("case", [0, 2, 6, 8], ids=["all", "device_subset", "host_gt", "fallback"])
+def test_lone_process_makes_no_process_group(filesets, tmp_path, monkeypatch, case):
+    """A lone ``--provider device`` call (no rank variables) never
+    initialises torch.distributed, as pgen_tpu's one-process mesh filter
+    sets up no distributed runtime; the bytes are pgen_tpu's."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a lone process initialised a process group")
+
+    monkeypatch.setattr(dist, "init_process_group", refuse)
+    for name in _RANK_VARS:
+        monkeypatch.delenv(name, raising=False)
+    vq, sq = CONFIGS[case]
+    argv = (["--include-var", vq] if vq else []) + (["--include-sam", sq] if sq else [])
+    argv += ["--provider", "device", "--block-variants", str(BLOCK)]
+    a, b = tmp_path / "port.vcf", tmp_path / "tpu.vcf"
+    assert port_main(["filter", filesets["m"], *argv, "--device", "cpu", "-o", str(a)]) == 0
+    assert not dist.is_initialized()
+    assert tpu_main(["filter", filesets["m"], *argv, "-o", str(b)]) == 0
+    assert _read(a) == _read(b)
+
+
+def test_lone_process_stage_timer_keeps_process_group(filesets, tmp_path, monkeypatch):
+    for name in _RANK_VARS:
+        monkeypatch.delenv(name, raising=False)
+    res = filter_to_vcf_mesh(filesets["m"], out_file=tmp_path / "p.vcf", device="cpu")
+    assert "process_group" in res.timer.report()
+
+
+@pytest.mark.parametrize("how", ["callers_group", "world_size_1_env"])
+def test_explicit_one_rank_group_still_works(filesets, host_outputs, tmp_path, monkeypatch, how):
+    """A caller's one-rank gloo group is used and left alone; RANK=0 and
+    WORLD_SIZE=1 (a one-process launcher) make a group for the call."""
+    made = []
+    real = dist.init_process_group
+
+    def counted(*args, **kwargs):
+        made.append(kwargs.get("world_size"))
+        return real(*args, **kwargs)
+
+    for name in _RANK_VARS:
+        monkeypatch.delenv(name, raising=False)
+    if how == "callers_group":
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    else:
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("WORLD_SIZE", "1")
+        monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+        monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setattr(dist, "init_process_group", counted)
+    try:
+        vq, sq = CONFIGS[2]
+        filter_to_vcf_mesh(filesets["m"], var_query=vq, sam_query=sq,
+                           out_file=tmp_path / "p.vcf", device="cpu", block_variants=BLOCK)
+        assert _read(tmp_path / "p.vcf") == host_outputs[2]
+        if how == "callers_group":
+            assert dist.is_initialized() and made == []
+        else:
+            assert not dist.is_initialized() and made == [1]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_stale_longer_output_is_trimmed(filesets, host_outputs, tmp_path):
@@ -453,16 +521,20 @@ def test_cli_provider_device_pgen_output_matches_pgen_tpu(filesets, tmp_path):
 
 
 def test_cli_provider_device_refuses_stdout(filesets, capsys):
-    with pytest.raises(SystemExit) as e:
-        port_main(["filter", filesets["m"], "--provider", "device", "--device", "cpu", "-o", "-"])
-    assert e.value.code == 2
-    assert "--provider device" in capsys.readouterr().err
+    argv = ["filter", filesets["m"], "--provider", "device", "-o", "-"]
+    assert port_main([*argv, "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert tpu_main(argv) == 1
+    assert err == capsys.readouterr().err
+    assert err.startswith("pgen-tpu: error: ") and "--provider device" in err
 
 
-def test_cli_provider_device_without_a_card_raises(filesets, tmp_path, monkeypatch):
+def test_cli_provider_device_without_a_card_raises(filesets, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="is_available"):
-        port_main(["filter", filesets["m"], "--provider", "device", "-o", str(tmp_path / "x.vcf")])
+    assert port_main(["filter", filesets["m"], "--provider", "device",
+                      "-o", str(tmp_path / "x.vcf")]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("pgen-tpu: error: ") and "is_available" in err and err.count("\n") == 1
     assert not dist.is_initialized()
     assert not (tmp_path / "x.vcf").exists()
 

@@ -40,7 +40,7 @@ from pgen_tpu_torch.ops.pack import (
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 from fused_text_lab import genotype_text_transposed as jax_text_transposed  # noqa: E402
 
-WIDTHS = [1, 3, 4, 5, 30, 2503, 2504]
+WIDTHS = [1, 3, 4, 5, 30, 2501, 2502, 2503, 2504]
 WRAPPERS = (pack_codes, subset_repack, genotype_text_from_codes, genotype_text_transposed)
 
 

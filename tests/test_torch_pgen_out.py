@@ -132,21 +132,22 @@ def test_cli_default_output_prefix(tmp_path):
 def test_cli_refuses_what_pgen_tpu_refuses(tmp_path, capsys, argv, message):
     prefix = _fileset(tmp_path, 4, 4, seed=4)
     argv = [arg.format(dir=tmp_path) for arg in argv]
-    with pytest.raises(SystemExit) as e:
-        port_main(["filter", prefix, "--out-format", "pgen", *argv, "--device", "cpu"])
-    assert e.value.code == 2
-    assert message in capsys.readouterr().err
+    assert port_main(["filter", prefix, "--out-format", "pgen", *argv, "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert err == f"pgen-tpu: error: {message}\n"
     assert tpu_main(["filter", prefix, "--out-format", "pgen", *argv]) == 1
-    assert message in capsys.readouterr().err
+    assert capsys.readouterr().err == err
     assert not list(tmp_path.glob("x*"))
 
 
-def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
+def test_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):
     prefix = _fileset(tmp_path, 4, 4, seed=4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "x"
     with pytest.raises(RuntimeError, match="is_available"):
         port_filter_to_pgen(prefix, sam_query='IID == "s1"', out_prefix=out, device="cuda")
-    with pytest.raises(RuntimeError, match="is_available"):
-        port_main(["filter", prefix, "--out-format", "pgen", "-o", str(out)])
+    # the CLI fails fast: one stderr line and exit code 1, never the CPU
+    assert port_main(["filter", prefix, "--out-format", "pgen", "-o", str(out)]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("pgen-tpu: error: ") and "is_available" in err and err.count("\n") == 1
     assert not list(tmp_path.glob("x*"))

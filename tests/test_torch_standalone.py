@@ -1,9 +1,9 @@
 """pgen_tpu_torch stands alone: it imports nothing of pgen_tpu, and its
 copies of pgen_tpu's jax-free host code give pgen_tpu's results.
 
-- An AST scan: no module of the port, and not ``chip_smoke.py``, imports
-  pgen_tpu at any level, and no string of ``chip_smoke.py`` names a
-  pgen_tpu module.
+- An AST scan: no module of the port, and neither ``chip_smoke.py`` nor
+  ``chip_diag.py``, imports pgen_tpu at any level, and no string of those
+  two scripts names a pgen_tpu module.
 - Each entry point of the port in a subprocess that could import pgen_tpu
   (the repository root on ``sys.path``), after which neither pgen_tpu nor
   jax is loaded.
@@ -30,7 +30,8 @@ from pgen_tpu_torch.formats.fixtures import ensure_chr22
 from test_torch_filter import _fileset
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "pgen_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+CHIP_SCRIPTS = [REPO / "chip_smoke.py", REPO / "chip_diag.py"]
+PORT_FILES = sorted((REPO / "pgen_tpu_torch").rglob("*.py")) + CHIP_SCRIPTS
 
 
 def _imports_pgen_tpu(node) -> bool:
@@ -47,11 +48,11 @@ def test_no_import_of_pgen_tpu(path):
     tree = ast.parse(path.read_text(), str(path))
     bad = [n.lineno for n in ast.walk(tree) if _imports_pgen_tpu(n)]
     assert not bad, f"{path.name} imports pgen_tpu at lines {bad}"
-    if path.name == "chip_smoke.py":
+    if path in CHIP_SCRIPTS:
         named = [n.lineno for n in ast.walk(tree)
                  if isinstance(n, ast.Constant) and isinstance(n.value, str)
                  and "pgen_tpu." in n.value]
-        assert not named, f"chip_smoke.py names a pgen_tpu module in strings at lines {named}"
+        assert not named, f"{path.name} names a pgen_tpu module in strings at lines {named}"
 
 
 # -- each entry point in a subprocess --------------------------------------
