@@ -2,12 +2,16 @@
 """Diagnostics of the PyTorch/CUDA port (pgen_tpu_torch) on one NVIDIA H100,
 beside chip_smoke.py, whose fixtures, timer and oracles they use.
 
-    python3 chip_diag.py --ab DIR      # K4, K10, K11 against the kernels of the checkout at DIR
+    python3 chip_diag.py --ab DIR      # K4, K9, K10, K11 against the kernels of the checkout at DIR
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
+    python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time
 
 --ab builds the kernel sources of another checkout (the parent commit's,
 unpacked with git archive) beside this one's and times both in one process
-on the same tensors. --precision shows which part of an f32 moment product
+on the same tensors. --trace runs this checkout's launchers of the same
+cases under torch.profiler and prints each device operation's time per
+launch (kernels and memsets), which CUDA events around a launch cannot
+separate from the host's enqueue time. --precision shows which part of an f32 moment product
 costs each GWAS design its accuracy against pgen_tpu's tolerances. Both
 import no jax and nothing of pgen_tpu, and exit non-zero without CUDA.
 """
@@ -162,29 +166,14 @@ def _build_other(csrc: Path) -> Path:
     return so
 
 
-def phase_ab(other_root: Path) -> None:
-    """K4, K10 and K11 of this checkout against the same launchers built
-    from another checkout's sources (the parent commit's, unpacked at
-    ``other_root``), in one process on one card: each case timed other,
-    this, this, other on the same tensors at the paths' block shapes, the
-    launchers alone (no wrapper), CUDA events, median of 10 pairs, once with
-    one launch and once with 4 launches in each pair; outputs held
-    torch.equal. The C signatures below are those of both checkouts'
-    launchers: a launcher whose signature differs between the two needs
-    its own."""
-    import ctypes
-
+def _kernel_cases(other) -> dict:
+    """The launcher cases of --ab and --trace: {name: (outputs, call(lib))}
+    at the paths' block shapes, on tensors made from SEED. ``other`` is the
+    other checkout's library (None for --trace)."""
     import torch
 
-    from pgen_tpu_torch import kernels
     from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS
 
-    this = kernels.load()
-    other = ctypes.CDLL(str(_build_other(other_root / "pgen_tpu_torch" / "csrc")))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    other.pgen_pack_codes.argtypes = [ptr, ptr, i64, i64, ptr]
-    other.pgen_glm_planes.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
-    other.pgen_score_dosage.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     s = WIDTHS[0]
@@ -200,6 +189,8 @@ def phase_ab(other_root: Path) -> None:
     sel_wide = torch.randperm(WIDE, generator=gen, device=dev)[: WIDE - 3].sort().values
     sel_wide = sel_wide.to(torch.int32)
     flip = torch.randint(0, 2, (GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
+    flip_wide = torch.randint(0, 2, (WIDE_GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
+    records = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
     lut2, lut3 = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (LUT_MOMENTS, LUT_GENO))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -218,12 +209,28 @@ def phase_ab(other_root: Path) -> None:
             planes.data_ptr(), hist.data_ptr(), n_var, n_rec, n_samples, kept, lut.shape[0],
             stream)
 
-    def score_case():
-        db = torch.empty((GLM_ROWS, s), dtype=torch.float32, device=dev)
-        called = torch.zeros(GLM_ROWS, dtype=torch.int32, device=dev)
-        return [db, called], lambda lib: lib.pgen_score_dosage(
-            ops.data_ptr(), None, flip.data_ptr(), db.data_ptr(), called.data_ptr(), GLM_ROWS,
-            rec, s, s, 1, stream)
+    def score_case(records, n_samples, flips, sel, offset=0):
+        """K11 into dosages ``offset`` bytes past a 16-B boundary (4: the
+        tiled form where the flat one would run)."""
+        n_var, n_rec = records.shape
+        kept = n_samples if sel is None else sel.shape[0]
+        buf = torch.empty(n_var * kept + 4, dtype=torch.float32, device=dev)
+        db = buf[offset // 4 : offset // 4 + n_var * kept]
+        called = torch.zeros(2 * n_var, dtype=torch.int32, device=dev)
+        return [db, called[:n_var]], lambda lib: lib.pgen_score_dosage(
+            records.data_ptr(), None if sel is None else sel.data_ptr(), flips.data_ptr(),
+            db.data_ptr(), called.data_ptr(), n_var, n_rec, n_samples, kept, 1, stream)
+
+    def counts_case(records):
+        counts = torch.empty((4 * rec, 4), dtype=torch.int32, device=dev)
+
+        def call(lib):
+            if lib is other:
+                counts.zero_()
+            return lib.pgen_sample_counts(records.data_ptr(), counts.data_ptr(), records.shape[0],
+                                          rec, stream)
+
+        return [counts], call
 
     cases = {
         "K4 pack_codes S=2504": pack_case(codes),
@@ -233,9 +240,73 @@ def phase_ab(other_root: Path) -> None:
         "K10 glm_planes P=3 K=2504": planes_case(ops, s, lut3, None),
         f"K10 glm_planes P=2 K={WIDE - 3} sel of S={WIDE} V={WIDE_GLM_ROWS}":
             planes_case(ops_wide, WIDE, lut2, sel_wide),
-        "K11 score_dosage K=2504": score_case(),
+        f"K9 sample_counts V={BLOCK_ROWS}": counts_case(records),
+        f"K9 sample_counts V={GLM_ROWS}": counts_case(records[:GLM_ROWS]),
+        "K11 score_dosage K=2504": score_case(ops, s, flip, None),
+        "K11 score_dosage K=2504, output 4 B past 16 (tiled)": score_case(ops, s, flip, None, 4),
+        "K11 score_dosage K=2454 sel": score_case(ops, s, flip, cohort),
+        f"K11 score_dosage K={WIDE - 3} sel of S={WIDE} V={WIDE_GLM_ROWS}":
+            score_case(ops_wide, WIDE, flip_wide, sel_wide),
     }
-    for name, (outs, call) in cases.items():
+    return cases
+
+
+def phase_trace() -> None:
+    """This checkout's launcher of each --ab case, 10 launches under
+    torch.profiler after one untimed: each device operation's time per
+    launch (kernels by name, and the memsets a launcher issues), without
+    the host's enqueue time that CUDA events around a launch hold."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pgen_tpu_torch import kernels
+
+    this = kernels.load()
+    for name, (_, call) in _kernel_cases(None).items():
+        call(this)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                if call(this) != 0:
+                    raise AssertionError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0)
+            if us > 0:
+                kernel = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+                ops[kernel.strip() or e.key[:40]] = us / 10 / 1000
+        shown = "; ".join(f"{k} {ms:.4f} ms" for k, ms in ops.items()) or "no events"
+        print(f"[trace] {name}: device {sum(ops.values()):.4f} ms a launch ({shown})")
+
+
+def phase_ab(other_root: Path) -> None:
+    """K4, K9, K10 and K11 of this checkout against the same launchers built
+    from another checkout's sources (the parent commit's, unpacked at
+    ``other_root``), in one process on one card: each case timed other,
+    this, this, other on the same tensors at the paths' block shapes, the
+    launchers alone (no wrapper), CUDA events, median of 10 pairs, once with
+    one launch and once with 4 launches in each pair; outputs held
+    torch.equal. The C signatures below are those of both checkouts'
+    launchers: a launcher whose signature differs between the two needs
+    its own. K9's launcher before this checkout added into counts its
+    wrapper had zeroed: its calls here zero them first, as that wrapper
+    did. K11's called counts get 2V ints, as this checkout's launcher
+    takes them (the other reads V)."""
+    import ctypes
+
+    import torch
+
+    from pgen_tpu_torch import kernels
+
+    this = kernels.load()
+    other = ctypes.CDLL(str(_build_other(other_root / "pgen_tpu_torch" / "csrc")))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    other.pgen_pack_codes.argtypes = [ptr, ptr, i64, i64, ptr]
+    other.pgen_glm_planes.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+    other.pgen_score_dosage.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+    other.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
+    for name, (outs, call) in _kernel_cases(other).items():
         def run(lib):
             status = call(lib)
             if status != 0:
@@ -275,8 +346,11 @@ def main(argv: list) -> int:
             phase_precision(tmp, make_fixtures(tmp)["full"])
     elif len(argv) == 2 and argv[0] == "--ab":
         phase_ab(Path(argv[1]).resolve())
+    elif argv == ["--trace"]:
+        phase_trace()
     else:
-        print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT or --precision",
+        print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace or "
+              "--precision",
               file=sys.stderr)
         return 2
     return 0

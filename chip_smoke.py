@@ -19,10 +19,15 @@ Phases, each printing its own lines:
              and with its codes 1, 4 and 8 B past a 16-B boundary; K10 also
              with sel of 2,454 and 2,456 ids sorted, reversed and repeated;
              K4 and K10 also at 40,003 samples, past their 16,384- and
-             8,192-column tiles, where they are timed too);
+             8,192-column tiles, where they are timed too; K9 also at
+             16,384 rows and at R % 4 = 1, 3 and 0; K11 also in its tiled
+             form without sel (its output 4 B past a 16-B boundary), with
+             sel of 2,454 and 2,456 ids sorted, reversed and repeated, at
+             40,003 samples in column chunks, flip random, none and all);
              kernel and plain times at
-             the paths' block shapes (65,536 rows; K10/K11 16,384 rows at
-             K = 2504 and at a selection of 2,454), CUDA events, median of 10
+             the paths' block shapes (65,536 rows; K9 also at score's 16,384;
+             K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
+             K11 also tiled and at 40,000 of 40,003), CUDA events, median of 10
              pairs around one launch each, two alternated sets (the wrapper's
              host time lies inside; beside it burst_ms, 4 launches queued in
              each pair), each beside its bound (the bytes it must move at 3.35 TB/s) and,
@@ -128,8 +133,9 @@ KERNELS = {
     "score_dosage": "pgen_tpu/ops/score.py:133",
 }
 # kernels whose registers and spills phase 2 prints from ptxas' report
-PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel", "glm_planes_kernel",
-                 "score_dosage_kernel")
+PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel", "sample_counts_kernel",
+                 "glm_planes_kernel", "score_dosage_flat_kernel", "score_dosage_kernel",
+                 "score_counts_kernel")
 PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
@@ -137,6 +143,7 @@ BIG_K = 20_000  # K3's kept samples past one tile (2^14)
 WIDE = 40_003  # samples past K4's 16,384- and K10's 8,192-column tiles
 WIDE_PACK_ROWS = 4096  # 164 MB of codes, as a 65,536 x 2504 block holds
 WIDE_GLM_ROWS = 1024  # P = 2: 328 MB of planes, as a 16,384 x 2,454 block holds
+COUNT_WIDTHS = (2497, 2505, 2509)  # K9 at R % 4 = 1, 3, 0 (WIDTHS give 2 and 1)
 # H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: every
 # kernel here moves bytes with a few integer or f32 ops per byte, so bytes
 # bound them all
@@ -206,6 +213,28 @@ def _launch_at_offset(wrapper, symbol, packed, sel, width, offset):
         kernels.launch(wrapper, symbol, packed, packed.data_ptr(), sel.data_ptr(), out.data_ptr(),
                        n_var, rec, sel.shape[0])
     return out
+
+
+def _score_at_offset(packed, n_samples, flip, offset, mean_impute=True):
+    """K11's launcher, without sel, into dosages that start ``offset`` bytes
+    past a 16-B boundary (its tiled form where the flat form would run);
+    returns (a call that launches it, the dosages, the called counts)."""
+    import torch
+
+    from pgen_tpu_torch import kernels
+    from pgen_tpu_torch.ops.score import score_dosage
+
+    n_var, rec = packed.shape
+    buf = torch.zeros(n_var * n_samples + 8, dtype=torch.float32, device=packed.device)
+    db = buf[offset // 4 : offset // 4 + n_var * n_samples].view(n_var, n_samples)
+    called = torch.zeros((2, n_var), dtype=torch.int32, device=packed.device)
+
+    def run():
+        kernels.launch(score_dosage, "pgen_score_dosage", packed, packed.data_ptr(), None,
+                       flip.data_ptr(), db.data_ptr(), called.data_ptr(), n_var, rec, n_samples,
+                       n_samples, int(mean_impute))
+
+    return run, db, called[0]
 
 
 def _sha256(path: Path) -> str:
@@ -352,6 +381,80 @@ def _plane_cases(dev, gen, luts):
     return worst
 
 
+def _score_cases(dev, gen):
+    """K11 beyond the WIDTHS loop, on 16,640 rows of 2504 samples (the last
+    256 repeat one byte value; 0xFF is a row with no called sample), flip
+    random, none and all, with and without mean imputation: ``sel`` of K =
+    2,454 and 2,456 ids sorted, reversed and repeated (the tiled form), and
+    at 40,003 samples all and 40,000 repeated ids (column chunks after a
+    count pass). Returns the largest |err| (0)."""
+    import torch
+
+    from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
+
+    s = WIDTHS[0]
+    packed = torch.randint(0, 256, (GLM_ROWS + 256, (s + 3) // 4), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    packed[GLM_ROWS:] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+    wide = torch.randint(0, 256, (301, (WIDE + 3) // 4), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    wide[-256:] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+    worst = 0
+
+    def hold(what, records, n_samples, sel):
+        nonlocal worst
+        n = records.shape[0]
+        flips = {"random": torch.randint(0, 2, (n,), dtype=torch.uint8, device=dev, generator=gen),
+                 "none": torch.zeros(n, dtype=torch.uint8, device=dev),
+                 "all": torch.ones(n, dtype=torch.uint8, device=dev)}
+        for fname, flip in flips.items():
+            for mean_impute in (True, False):
+                got = score_dosage(records, n_samples, flip, mean_impute, sel)
+                want = score_dosage_plain(records, n_samples, flip, mean_impute, sel)
+                for g, w in zip(got, want):
+                    worst = max(worst, _equal_or_raise(
+                        "score_dosage", f"{what}, flip {fname}, mean_impute {mean_impute}", g, w))
+
+    for k in (COHORT, COHORT + 2):
+        ascending = torch.randperm(s, generator=gen, device=dev)[:k].sort().values
+        orders = {"sorted": ascending, "reversed": ascending.flip(0),
+                  "repeated": torch.randint(0, s, (k,), generator=gen, device=dev)}
+        for order, ids in orders.items():
+            hold(f"K={k} {order} ids", packed, s, ids.to(torch.int32).contiguous())
+    ids = torch.randint(0, WIDE, (WIDE - 3,), generator=gen, device=dev).to(torch.int32)
+    for sel in (None, ids):
+        hold(f"S={WIDE}, sel {sel is not None}", wide, WIDE, sel)
+    torch.cuda.synchronize()
+    print(f"[3 kernels] K11 also with sel of K={COHORT} and {COHORT + 2} sorted, reversed and "
+          f"repeated ids (V={packed.shape[0]}), and at S={WIDE} with all and with {WIDE - 3} "
+          "repeated ids (V=301, column chunks), each with flip random, none and all and both "
+          "mean-imputation modes: dosages and called counts equal to its plain version")
+    return worst
+
+
+def _count_cases(dev, gen):
+    """K9 beyond the WIDTHS loop: R % 4 = 1, 3 and 0 (COUNT_WIDTHS) on
+    65,792 rows, the last 256 repeating one byte value, and one row.
+    Returns the largest |err| (0)."""
+    import torch
+
+    from pgen_tpu_torch.ops.gt_stats import sample_counts_device, sample_counts_plain
+
+    worst = 0
+    for s in COUNT_WIDTHS:
+        packed = torch.randint(0, 256, (BLOCK_ROWS + 256, (s + 3) // 4), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        packed[BLOCK_ROWS:] = torch.arange(256, dtype=torch.uint8, device=dev)[:, None]
+        for rows in (packed, packed[-1:]):
+            worst = max(worst, _equal_or_raise(
+                "sample_counts_device", f"S={s}, V={rows.shape[0]}",
+                sample_counts_device(rows, s), sample_counts_plain(rows, s)))
+    torch.cuda.synchronize()
+    print(f"[3 kernels] K9 also at S={', '.join(map(str, COUNT_WIDTHS))} (R % 4 = 1, 3, 0) on "
+          f"V={BLOCK_ROWS + 256} and V=1: equal to its plain version")
+    return worst
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns per-kernel errors and
     times at the paths' block shapes (2504 samples, 65,536 rows)."""
@@ -413,6 +516,8 @@ def phase_kernels() -> dict:
             ("gt_counts_device", gt_counts_device(packed, s), gt_counts_plain(packed, s)),
             ("sample_counts_device", sample_counts_device(packed, s),
              sample_counts_plain(packed, s)),
+            ("sample_counts_device", sample_counts_device(packed[:GLM_ROWS], s),
+             sample_counts_plain(packed[:GLM_ROWS], s)),
         ]
         # K2 also into an output 4 bytes past a 16-B boundary (its word form)
         pairs.append(("genotype_text", _launch_at_offset(genotype_text, "pgen_genotype_text",
@@ -450,6 +555,10 @@ def phase_kernels() -> dict:
                 got = score_dosage(ops, s, flip, mean_impute, sel)
                 want = score_dosage_plain(ops, s, flip, mean_impute, sel)
                 pairs += [("score_dosage", got[0], want[0]), ("score_dosage", got[1], want[1])]
+                if sel is None:  # the tiled form where the flat one would run
+                    run, db, called = _score_at_offset(ops, s, flip, 4, mean_impute)
+                    run()
+                    pairs += [("score_dosage", db, want[0]), ("score_dosage", called, want[1])]
         torch.cuda.synchronize()
         for name, got, want in pairs:
             e = _max_abs_err(got, want)
@@ -461,11 +570,13 @@ def phase_kernels() -> dict:
         print(f"[3 kernels] S={s} (R={rec}, V={BLOCK_ROWS + 256}; K6 at ({rec}, {BLOCK_ROWS}); "
               f"K10, K11 at V={ops.shape[0]}): K1, K2 x2 (its output 16-B aligned and 4 B "
               f"past), K3 x{n_k3} (K = 2, 1000, {BIG_K} with repeats; each also 4 B past), K4, "
-              f"K5 x{n_k5}, K6, K7, K8, K9, K10 x4 (P = 2, 3), K11 x4 equal to their plain "
-              "versions")
+              f"K5 x{n_k5}, K6, K7, K8, K9 x2 (also at {GLM_ROWS} rows), K10 x4 (P = 2, 3), "
+              "K11 x6 (also tiled, its output 4 B past) equal to their plain versions")
 
     err["pack_codes"] = max(err["pack_codes"], _pack_cases(dev, gen))
     err["glm_planes"] = max(err["glm_planes"], _plane_cases(dev, gen, luts))
+    err["score_dosage"] = max(err["score_dosage"], _score_cases(dev, gen))
+    err["sample_counts_device"] = max(err["sample_counts_device"], _count_cases(dev, gen))
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
@@ -512,6 +623,8 @@ def phase_kernels() -> dict:
                              device=dev, generator=gen)
     sel_wide = torch.randperm(WIDE, generator=gen, device=dev)[: WIDE - 3].sort().values
     sel_wide = sel_wide.to(torch.int32)
+    flip_wide = torch.randint(0, 2, (WIDE_GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
+    score_tiled, _, _ = _score_at_offset(ops, s, flip, 4)
     shapes = {
         "genotype_text_transposed": f"({rec}, {BLOCK_ROWS}) S={s}",
         "genotype_text S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
@@ -519,6 +632,8 @@ def phase_kernels() -> dict:
         f"pack_codes S={WIDE}": f"({WIDE_PACK_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
         f"glm_planes K={WIDE - 3} of S={WIDE}":
             f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
+        f"sample_counts_device V={GLM_ROWS}": f"({GLM_ROWS}, {rec}) S={s}",
+        f"score_dosage K={WIDE - 3} of S={WIDE}": f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
     }
     cases = {
         # name: kernel, plain, library call or None, bytes the function must
@@ -561,6 +676,9 @@ def phase_kernels() -> dict:
         "sample_counts_device": (lambda: sample_counts_device(packed, s),
                                  lambda: sample_counts_plain(packed, s), None,
                                  packed.numel() + s * 16),
+        f"sample_counts_device V={GLM_ROWS}": (lambda: sample_counts_device(ops, s),
+                                               lambda: sample_counts_plain(ops, s), None,
+                                               ops.numel() + s * 16),
         "glm_planes": (lambda: glm_planes(ops, s, lut2, cohort),
                        lambda: glm_planes_plain(ops, s, lut2, cohort), None,
                        _subset_bytes(GLM_ROWS, cohort) + GLM_ROWS * (2 * 4 * COHORT + 16)),
@@ -574,9 +692,17 @@ def phase_kernels() -> dict:
         "score_dosage": (lambda: score_dosage(ops, s, flip),
                          lambda: score_dosage_plain(ops, s, flip), None,
                          ops.numel() + GLM_ROWS * (4 * s + 5)),
+        # the tiled form on the same work: its output 4 B past a 16-B boundary,
+        # through kernels.launch (no wrapper checks or allocations inside)
+        "score_dosage tiled": (score_tiled, lambda: score_dosage_plain(ops, s, flip), None,
+                               ops.numel() + GLM_ROWS * (4 * s + 5)),
         "score_dosage K=2454": (lambda: score_dosage(ops, s, flip, True, cohort),
                                 lambda: score_dosage_plain(ops, s, flip, True, cohort), None,
                                 _subset_bytes(GLM_ROWS, cohort) + GLM_ROWS * (4 * COHORT + 5)),
+        f"score_dosage K={WIDE - 3} of S={WIDE}": (
+            lambda: score_dosage(ops_wide, WIDE, flip_wide, True, sel_wide),
+            lambda: score_dosage_plain(ops_wide, WIDE, flip_wide, True, sel_wide), None,
+            _subset_bytes(WIDE_GLM_ROWS, sel_wide) + WIDE_GLM_ROWS * (4 * (WIDE - 3) + 5)),
     }
     times = {}
     for name, (kernel, plain, library, nbytes) in cases.items():

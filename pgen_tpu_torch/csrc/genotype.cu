@@ -32,11 +32,6 @@ unsigned grid_for(int64_t n) {
   return static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
-// One block per row, grid-stride past kMaxBlocks rows.
-unsigned row_grid(int64_t n_var) {
-  return static_cast<unsigned>(n_var < kMaxBlocks ? n_var : kMaxBlocks);
-}
-
 __device__ __forceinline__ int64_t first_index() {
   return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
@@ -459,138 +454,206 @@ __global__ void text_from_codes_kernel(const uint8_t* __restrict__ codes,
 // on its low and high code bits, so codes never reach device memory. Slots
 // at or past S (the pad codes of a row's last byte, arbitrary bits in real
 // files) are masked out of both bit sets before counting. A shuffle tree
-// then sums the lanes' counts.
+// then sums the lanes' counts. K11's flat form and its count pass count
+// their rows the same way (row_code_counts).
+constexpr int kWarp = 32;
+
+// Code counts c[0..3] of samples [0, n_samples) of one row, for lane 0 of
+// the calling warp; every lane of the warp must call it.
+__device__ __forceinline__ void row_code_counts(const uint8_t* __restrict__ row,
+                                                int64_t n_samples, int lane, uint32_t c[4]) {
+  const int64_t used = (n_samples + 3) / 4;  // bytes that hold samples
+  uint32_t c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+  for (int64_t j = lane; j < used; j += kWarp) {
+    const uint32_t b = __ldg(row + j);
+    const int64_t left = n_samples - 4 * j;  // samples from this byte on
+    const uint32_t slots =
+        left >= 4 ? 0x55u : 0x55u & ((1u << (2 * left)) - 1u);
+    const uint32_t lo = b & slots;         // bit 0 of each counted code
+    const uint32_t hi = (b >> 1) & slots;  // bit 1
+    c1 += __popc(lo & ~hi);
+    c2 += __popc(hi & ~lo);
+    c3 += __popc(lo & hi);
+    c0 += __popc(slots & ~(lo | hi));
+  }
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    c0 += __shfl_down_sync(0xFFFFFFFFu, c0, off);
+    c1 += __shfl_down_sync(0xFFFFFFFFu, c1, off);
+    c2 += __shfl_down_sync(0xFFFFFFFFu, c2, off);
+    c3 += __shfl_down_sync(0xFFFFFFFFu, c3, off);
+  }
+  c[0] = c0;
+  c[1] = c1;
+  c[2] = c2;
+  c[3] = c3;
+}
+
 __global__ void gt_counts_kernel(const uint8_t* __restrict__ packed,
                                  int32_t* __restrict__ counts, int64_t n_var,
                                  int64_t rec, int64_t n_samples) {
-  constexpr int kWarp = 32;
   const int lane = threadIdx.x % kWarp;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
-  const int64_t used = (n_samples + 3) / 4;  // bytes that hold samples
   // v is the same for every lane of a warp, so the whole warp takes part in
   // each shuffle below
   for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
-    const uint8_t* row = packed + v * rec;
-    uint32_t c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-    for (int64_t j = lane; j < used; j += kWarp) {
-      const uint32_t b = row[j];
-      const int64_t left = n_samples - 4 * j;  // samples from this byte on
-      const uint32_t slots =
-          left >= 4 ? 0x55u : 0x55u & ((1u << (2 * left)) - 1u);
-      const uint32_t lo = b & slots;         // bit 0 of each counted code
-      const uint32_t hi = (b >> 1) & slots;  // bit 1
-      c1 += __popc(lo & ~hi);
-      c2 += __popc(hi & ~lo);
-      c3 += __popc(lo & hi);
-      c0 += __popc(slots & ~(lo | hi));
-    }
-    for (int off = kWarp / 2; off > 0; off /= 2) {
-      c0 += __shfl_down_sync(0xFFFFFFFFu, c0, off);
-      c1 += __shfl_down_sync(0xFFFFFFFFu, c1, off);
-      c2 += __shfl_down_sync(0xFFFFFFFFu, c2, off);
-      c3 += __shfl_down_sync(0xFFFFFFFFu, c3, off);
-    }
+    uint32_t c[4];
+    row_code_counts(packed + v * rec, n_samples, lane, c);
     if (lane == 0) {
       int32_t* out = counts + 4 * v;
-      out[0] = static_cast<int32_t>(c0);
-      out[1] = static_cast<int32_t>(c1);
-      out[2] = static_cast<int32_t>(c2);
-      out[3] = static_cast<int32_t>(c3);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[k] = static_cast<int32_t>(c[k]);
     }
   }
 }
 
-// Rows one K9 thread counts before it adds its sums to the output; each
-// count then fits the 16-bit field it is kept in.
-constexpr int64_t kCountRows = 256;
-
 // K9. Replaces pgen_tpu/ops/gt_stats.py:sample_counts_device: the Pallas
 // _unpack_kernel then an XLA one-hot sum over the variants.
-// (V, R) u8 records -> (4R, 4) int32 added into counts (zeroed by the
-// wrapper, which cuts it to S rows): counts[4j+k][c] = #{v : code of slot k
-// of byte j == c}. Pad slots are counted into rows >= S and cut away.
-// Bound: memory, one read of each record byte. Design: one thread per
-// record-byte column j over a chunk of kCountRows rows, so a warp's load is
-// 32 consecutive bytes of one row. Each thread keeps its 16 counts (4 slots
-// x 4 codes) as four u64 registers of four 16-bit fields, one add per slot
-// and byte, then adds them to the output with one atomic per non-zero
-// count. Chunks (blockIdx.y, grid-stride) run in parallel; V < 2^31 rows,
-// so no int32 sum overflows.
-__global__ void sample_counts_kernel(const uint8_t* __restrict__ packed,
-                                     int32_t* __restrict__ counts,
-                                     int64_t n_var, int64_t rec) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= rec) return;
-  for (int64_t r0 = static_cast<int64_t>(blockIdx.y) * kCountRows; r0 < n_var;
-       r0 += static_cast<int64_t>(gridDim.y) * kCountRows) {
-    const int64_t r1 = r0 + kCountRows < n_var ? r0 + kCountRows : n_var;
-    uint64_t acc[4] = {0, 0, 0, 0};  // slot k: code c's count at bits 16c
-    for (int64_t v = r0; v < r1; ++v) {
-      const uint32_t b = packed[v * rec + j];
+// (V, R) u8 records -> (4R, 4) int32 counts (cleared by the launcher; the
+// wrapper cuts them to S rows): counts[4j+k][c] = #{v : code of slot k of
+// byte j == c}. Pad slots are counted into rows >= S and cut away.
+// Bound: memory, one read of each record byte: a 65,536-row block of 626 B
+// reads 41 MB, 0.0123 ms at 3.35 TB/s; at score's 16,384 rows 0.0031 ms,
+// which launch latency passes.
+// Design: a thread counts one word column (record bytes 4w..4w+3, 16
+// slots) over rows. A block takes a chunk of rows [r0, r1) (blockIdx.y)
+// and up to kCountMaxSegs segments of 32 columns (blockIdx.x; one block
+// holds a whole 1000 Genomes row, 5 segments): warp y takes segment
+// y % segs and rows r0 + y / segs + groups j, groups = 16 / segs, so the
+// block's warps read consecutive whole rows together: its first form, a
+// 128-B column slice of rows in each of five blocks, read them several
+// times slower.
+// - Loads: a row starts at any byte (R % 4 != 0 at 2503 samples), so each
+//   word comes from two aligned loads and a funnel shift (record_word);
+//   eight rows' loads are in flight at once.
+// - Counts, bit-parallel: with L, H and B the rows in which a slot's low
+//   bit, high bit, or both are set, c1 = L - B, c2 = H - B, c3 = B and
+//   c0 = rows - L - H + B. Six masks of 4-bit fields (L, H and B of the
+//   even and of the odd slots, one slot a field) take one AND and one add
+//   each a row; every 8 rows they spread into 8-bit fields, and every 248
+//   rows those are added to the block's shared totals of the column (a
+//   shared atomic per field, at most 16-way).
+// - At the end each block adds its (c0, c1) and (c2, c3) of every slot as
+//   two 64-bit atomics (no carry: each count < 2^31). A block holds whole
+//   rows, so each of the grid's row chunks adds to every pair: 264 64-bit
+//   atomics per pair at 65,536 rows (two blocks per SM, kCountBlocks),
+//   where the thread-per-byte form made 256 per int. Summing 8 chunks in a
+//   thread block cluster first (32 atomics a pair) ran slower, even with
+//   the grid cut to the 32 clusters of 8 blocks an H100 runs at once.
+constexpr int kCountWarps = 16;             // warps of a K9 block
+constexpr int kCountBlocks = 2 * 132;       // two blocks on each of the card's SMs
+constexpr int64_t kCountMinRows = 32;       // rows of a warp at the least
+constexpr int kCountUnroll = 8;             // rows of a warp in flight
+constexpr int64_t kCountMaxSegs = 16;       // 32-column segments of a block: 2 KB of a row
+constexpr uint32_t kNibbles = 0x11111111u;  // bit 0 of each 4-bit field
+
+// Record bytes [at, at + 4) of a row (at < rec) as a little-endian u32: the
+// aligned word that holds byte `at` and the next one, funnel-shifted. The
+// next word is clamped to `last`, the tensor's last aligned word, so every
+// load holds a byte of the tensor; bytes past the row's end are whatever
+// follows it, and their slots lie at or past 4R, never written.
+__device__ __forceinline__ uint32_t record_word(const uint8_t* row, int64_t at,
+                                                const uint32_t* last) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(row + at);
+  const uint32_t* word = reinterpret_cast<const uint32_t*>(p & ~uintptr_t{3});
+  const uint32_t* next = word + 1 <= last ? word + 1 : last;
+  return __funnelshift_r(__ldg(word), __ldg(next), 8 * static_cast<int>(p & 3));
+}
+
+// Adds the 8-bit fields of byt (quantity q: 0 L, 1 H of the even slots, 2 L,
+// 3 H of the odd slots, 4 B even, 5 B odd; byt[q][h] byte j is 4-bit field
+// 2j + h, the slot 2 (2j + h) or one more) to one word column's shared
+// totals, (slot, L/H/B) at 3 slot + t.
+__device__ __forceinline__ void spill_counts(uint32_t* column, const uint32_t byt[6][2]) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        acc[k] += 1ull << (16 * ((b >> (2 * k)) & 3u));
+  for (int q = 0; q < 6; ++q) {
+    const int odd = q == 2 || q == 3 || q == 5;
+    const int t = q < 4 ? q % 2 : 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t n = (byt[q][h] >> (8 * j)) & 0xFFu;
+        if (n) atomicAdd(column + 3 * (2 * (2 * j + h) + odd) + t, n);
       }
     }
+  }
+}
+
+__global__ void __launch_bounds__(kWarp * kCountWarps, 2)
+    sample_counts_kernel(const uint8_t* __restrict__ packed, int32_t* __restrict__ counts,
+                         int64_t n_var, int64_t rec, int64_t chunk_rows, int segs) {
+  // per column of the block and slot: L, H, B
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(smem);
+  const int tx = threadIdx.x, wy = threadIdx.y, tid = wy * kWarp + tx;
+  const int cols = segs * kWarp;  // columns of the block
+  for (int i = tid; i < cols * 48; i += kWarp * kCountWarps) cnt[i] = 0;
+  __syncthreads();
+  const int groups = kCountWarps / segs, seg = wy % segs, g = wy / segs;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * cols;  // the block's first column
+  const int64_t col = col0 + seg * kWarp + tx;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * chunk_rows;
+  const int64_t r1 = r0 + chunk_rows < n_var ? r0 + chunk_rows : n_var;
+  const uint32_t* last = reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<uintptr_t>(packed + n_var * rec - 1) & ~uintptr_t{3});
+  if (g < groups && col < (rec + 3) / 4) {
+    uint32_t* column = cnt + 48 * (seg * kWarp + tx);
+    uint32_t nib[6] = {0, 0, 0, 0, 0, 0};
+    uint32_t byt[6][2] = {{0, 0}, {0, 0}, {0, 0}, {0, 0}, {0, 0}, {0, 0}};
+    int in_byt = 0;  // rows held in the 8-bit fields
+    for (int64_t v = r0 + g; v < r1; v += kCountUnroll * groups) {
+      uint32_t x[kCountUnroll];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < kCountUnroll; ++k) {
+        const int64_t r = v + k * groups;
+        // a row past r1 adds nothing: a zero word sets no bit
+        x[k] = r < r1 ? record_word(packed + r * rec, 4 * col, last) : 0u;
+      }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = static_cast<int>((acc[k] >> (16 * c)) & 0xFFFFu);
-        if (n) atomicAdd(counts + 4 * (4 * j + k) + c, n);
+      for (int k = 0; k < kCountUnroll; ++k) {
+        const uint32_t a = x[k], a1 = a >> 1, a2 = a >> 2, a3 = a >> 3;
+        nib[0] += a & kNibbles;
+        nib[1] += a1 & kNibbles;
+        nib[2] += a2 & kNibbles;
+        nib[3] += a3 & kNibbles;
+        nib[4] += a & a1 & kNibbles;
+        nib[5] += a2 & a3 & kNibbles;
+      }
+      // 8 rows into the 4-bit fields (at most 15 each), then into the 8-bit
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        byt[q][0] += nib[q] & 0x0F0F0F0Fu;
+        byt[q][1] += (nib[q] >> 4) & 0x0F0F0F0Fu;
+        nib[q] = 0;
+      }
+      if ((in_byt += kCountUnroll) == 248) {  // at most 255 each
+        spill_counts(column, byt);
+#pragma unroll
+        for (int q = 0; q < 6; ++q) byt[q][0] = byt[q][1] = 0;
+        in_byt = 0;
       }
     }
+    spill_counts(column, byt);
+  }
+  __syncthreads();
+  // two 64-bit atomics per slot: (c0, c1) and (c2, c3)
+  const uint64_t rows = static_cast<uint64_t>(r1 - r0);
+  for (int i = tid; i < cols * 16; i += kWarp * kCountWarps) {
+    const int64_t slot = 16 * col0 + i;
+    if (slot >= 4 * rec) break;
+    const uint32_t* c = cnt + 3 * i;
+    const uint64_t l = c[0], h = c[1], b = c[2];
+    auto* out = reinterpret_cast<unsigned long long*>(counts + 4 * slot);
+    atomicAdd(out, static_cast<unsigned long long>((rows - l - h + b) | ((l - b) << 32)));
+    atomicAdd(out + 1, static_cast<unsigned long long>((h - b) | (b << 32)));
   }
 }
 
 // The operand kernels hold each row's code counts as four 16-bit fields of
-// one u64 per thread; a thread sees at most ceil(K / kThreads) codes of a
-// row, so K < 2^24 keeps every field below 2^16 (the wrappers cap K lower).
+// one u64 per thread; a thread sees at most kPlaneChunk / 32 codes of a
+// row, so every field stays below 2^16.
 __device__ __forceinline__ uint64_t count_code(uint64_t acc, uint32_t code) {
   return acc + (1ull << (16 * code));
-}
-
-// Sums the block's per-thread code counts (16-bit fields of acc) into
-// out[0..3] for thread 0; every thread of the block must call it.
-// `scratch` holds 4 x (kThreads / 32) u32. Ends with a barrier, so the
-// caller may reuse scratch and read what thread 0 wrote to shared memory
-// after its own barrier.
-__device__ __forceinline__ void block_code_counts(uint64_t acc, uint32_t* scratch,
-                                                  uint32_t* out) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  uint32_t c[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    c[k] = static_cast<uint32_t>((acc >> (16 * k)) & 0xFFFFu);
-    for (int off = 16; off > 0; off /= 2) {
-      c[k] += __shfl_down_sync(0xFFFFFFFFu, c[k], off);
-    }
-    if (lane == 0) scratch[k * kWarps + warp] = c[k];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t total = 0;
-      for (int w = 0; w < kWarps; ++w) total += scratch[k * kWarps + w];
-      out[k] = total;
-    }
-  }
-  __syncthreads();
-}
-
-// Code of selected column j of a row: sample sel[j] (or j when sel is null),
-// which must lie in [0, n_samples): pgen_tpu cuts the codes to S before its
-// take, so a pad slot is never a valid id.
-__device__ __forceinline__ uint32_t selected_code(const uint8_t* row, const int32_t* sel,
-                                                  int64_t j, int64_t n_samples) {
-  int64_t s = j;
-  if (sel != nullptr) {
-    s = sel[j];
-    assert(s >= 0 && s < n_samples);
-  }
-  return (static_cast<uint32_t>(row[s >> 2]) >> (2 * (s & 3))) & 3u;
 }
 
 constexpr int kMaxPlanes = 3;
@@ -628,10 +691,109 @@ constexpr int kMaxPlanes = 3;
 //   before the product reads them), each taking its four codes from shared
 //   memory with two aligned word loads and a funnel shift, then the look-up
 //   table; at most 3 floats before and 3 after go one by one.
+// The tiling (operand_tiles), the id copy (stage_ids), the decode
+// (decode_row) and the store (store_span) are shared with K11, whose tile
+// bytes carry the row beside the code.
 constexpr int64_t kPlaneSmemBytes = 96 * 1024;
 constexpr int64_t kPlaneChunk = 8192;  // columns of one block: 32 KB of ids
 constexpr int64_t kPlaneTileBytes = 20 * 1024;  // codes of one tile, when K allows
 constexpr int64_t kPlaneMaxTileRows = 16;
+
+// The tiling that K10 and K11 share, from V rows of K selected columns: the
+// column chunk, the rows of a tile, the block's shared memory, the warps
+// that share a row, and the grid.
+struct OperandTiles {
+  int64_t chunk, chunks, tile_rows, smem;
+  int row_warps;
+  dim3 grid;
+};
+
+OperandTiles operand_tiles(int64_t n_var, int64_t n_kept, bool with_ids) {
+  OperandTiles t;
+  // shared memory: a chunk's ids, then tile_rows rows of its codes and 8 B
+  // of slack; the rows shrink as K grows, and a chunked tile is one row
+  t.chunk = n_kept < kPlaneChunk ? n_kept : kPlaneChunk;
+  t.chunks = (n_kept + t.chunk - 1) / t.chunk;
+  const int64_t id_bytes = with_ids ? (4 * t.chunk + 15) / 16 * 16 : 0;
+  t.tile_rows = t.chunks > 1 ? 1 : kPlaneTileBytes / t.chunk;
+  if (t.tile_rows > kPlaneMaxTileRows) t.tile_rows = kPlaneMaxTileRows;
+  if (t.tile_rows > n_var) t.tile_rows = n_var;
+  t.smem = id_bytes + (t.tile_rows * t.chunk + 8 + 15) / 16 * 16;
+  t.row_warps = 1;  // a power of two, so that it divides the block's warps
+  while (2 * t.row_warps * t.tile_rows <= kThreads / 32) t.row_warps *= 2;
+  // a block per tile up to kMaxBlocks: the ids a block re-reads (from L2)
+  // are a thirtieth of what its tile writes; a chunked tile is one row, so
+  // fewer blocks each take several
+  const int64_t tiles = (n_var + t.tile_rows - 1) / t.tile_rows;
+  int64_t blocks = kMaxBlocks / (t.chunks > 1 ? 4 * t.chunks : 1);
+  if (blocks < 1) blocks = 1;
+  if (blocks > tiles) blocks = tiles;
+  t.grid = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(t.chunks));
+  return t;
+}
+
+// Copies ids [c0, c0 + kc) of sel into shared memory, each checked to lie in
+// [0, n_samples): pgen_tpu cuts the codes to S before its take, so a pad
+// slot is never a valid id.
+__device__ __forceinline__ void stage_ids(const int32_t* __restrict__ sel, int32_t* ids, int c0,
+                                          int kc, int n_samples) {
+  for (int j = threadIdx.x; j < kc; j += blockDim.x) {
+    const int32_t s = sel[c0 + j];
+    assert(s >= 0 && s < n_samples);
+    ids[j] = s;
+  }
+}
+
+// Decodes columns first, first + step, ... < kc of one row (sample ids[j],
+// or c0 + j where ids is null) into out[j] = tag | code; returns their code
+// counts as the 16-bit fields of count_code.
+__device__ __forceinline__ uint64_t decode_row(const uint8_t* __restrict__ row,
+                                               const int32_t* ids, int c0, int kc,
+                                               uint8_t* out, uint32_t tag, int first,
+                                               int step) {
+  uint64_t acc = 0;
+  for (int j = first; j < kc; j += step) {
+    const int s = ids != nullptr ? ids[j] : c0 + j;
+    const uint32_t code = (static_cast<uint32_t>(__ldg(row + (s >> 2))) >> (2 * (s & 3))) & 3u;
+    out[j] = static_cast<uint8_t>(tag | code);
+    acc = count_code(acc, code);
+  }
+  return acc;
+}
+
+// The warp's sums of the 16-bit fields of acc, for lane 0.
+__device__ __forceinline__ void warp_code_counts(uint64_t acc, uint32_t c[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c[k] = static_cast<uint32_t>((acc >> (16 * k)) & 0xFFFFu);
+    for (int off = 16; off > 0; off /= 2) c[k] += __shfl_down_sync(0xFFFFFFFFu, c[k], off);
+  }
+}
+
+// Writes the n floats tab[tile[i]] to span (4-B aligned) with the block's
+// threads: 16 B streaming stores from the span's first 16-B boundary, each
+// taking its four tile bytes with two aligned word loads and a funnel shift;
+// at most 3 floats before and 3 after go one by one. The tile holds a word
+// of slack past its n bytes.
+__device__ __forceinline__ void store_span(float* span, int n, const uint8_t* tile,
+                                           const float* tab) {
+  const int tid = threadIdx.x;
+  // floats before the first 16-B boundary
+  int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(span) & 15)) & 15) / 4;
+  if (head > n) head = n;
+  const int quads = (n - head) / 4;
+  const int tail_at = head + 4 * quads;
+  if (tid < head) span[tid] = tab[tile[tid]];
+  if (tid < n - tail_at) span[tail_at + tid] = tab[tile[tail_at + tid]];
+  const uint32_t* tile32 = reinterpret_cast<const uint32_t*>(tile);
+  float4* out4 = reinterpret_cast<float4*>(span + head);
+  for (int q = tid; q < quads; q += blockDim.x) {
+    const int at = head + 4 * q;
+    const uint32_t w = __funnelshift_r(tile32[at >> 2], tile32[(at >> 2) + 1], 8 * (at & 3));
+    __stcs(out4 + q, make_float4(tab[w & 0xFFu], tab[(w >> 8) & 0xFFu], tab[(w >> 16) & 0xFFu],
+                                 tab[w >> 24]));
+  }
+}
 
 __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
                                         const int32_t* __restrict__ sel,
@@ -652,13 +814,7 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
   if (tid < 4 * n_planes) table[tid] = lut[tid];
-  if (sel != nullptr) {
-    for (int j = tid; j < kc; j += blockDim.x) {
-      const int32_t s = sel[c0 + j];
-      assert(s >= 0 && s < n_samples);
-      ids[j] = s;
-    }
-  }
+  if (sel != nullptr) stage_ids(sel, ids, c0, kc, n_samples);
   __syncthreads();
   const int64_t plane = n_var * n_kept;
   const int64_t n_tiles = (n_var + tile_rows - 1) / tile_rows;
@@ -667,21 +823,11 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
     const int rows = static_cast<int>(n_var - v0 < tile_rows ? n_var - v0 : tile_rows);
     // row_warps warps share a row where a tile has fewer rows than warps
     for (int r = warp / row_warps; r < rows; r += warps / row_warps) {
-      const uint8_t* row = packed + (v0 + r) * rec;
-      uint8_t* out = tile + r * kc;
-      uint64_t acc = 0;
-      for (int j = (warp % row_warps) * 32 + lane; j < kc; j += 32 * row_warps) {
-        const int s = sel != nullptr ? ids[j] : c0 + j;
-        const uint32_t code = (static_cast<uint32_t>(__ldg(row + (s >> 2))) >> (2 * (s & 3))) & 3u;
-        out[j] = static_cast<uint8_t>(code);
-        acc = count_code(acc, code);
-      }
+      const uint64_t acc = decode_row(packed + (v0 + r) * rec, sel != nullptr ? ids : nullptr, c0,
+                                      kc, tile + r * kc, 0u, (warp % row_warps) * 32 + lane,
+                                      32 * row_warps);
       uint32_t c[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        c[k] = static_cast<uint32_t>((acc >> (16 * k)) & 0xFFFFu);
-        for (int off = 16; off > 0; off /= 2) c[k] += __shfl_down_sync(0xFFFFFFFFu, c[k], off);
-      }
+      warp_code_counts(acc, c);
       if (lane == 0 && gridDim.y == 1 && row_warps == 1) {
         reinterpret_cast<int4*>(hist)[v0 + r] =
             make_int4(static_cast<int>(c[0]), static_cast<int>(c[1]), static_cast<int>(c[2]),
@@ -692,25 +838,8 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
       }
     }
     __syncthreads();  // the tile's codes are complete
-    const int n = rows * kc;  // floats of each plane's span
-    const uint32_t* tile32 = reinterpret_cast<const uint32_t*>(tile);
     for (int p = 0; p < n_planes; ++p) {
-      float* span = planes + p * plane + v0 * n_kept + c0;
-      const float* tab = table + 4 * p;
-      // floats before the first 16-B boundary (span is 4-B aligned)
-      int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(span) & 15)) & 15) / 4;
-      if (head > n) head = n;
-      const int quads = (n - head) / 4;
-      const int tail_at = head + 4 * quads;
-      if (tid < head) span[tid] = tab[tile[tid]];
-      if (tid < n - tail_at) span[tail_at + tid] = tab[tile[tail_at + tid]];
-      float4* out4 = reinterpret_cast<float4*>(span + head);
-      for (int q = tid; q < quads; q += blockDim.x) {
-        const int at = head + 4 * q;
-        const uint32_t w = __funnelshift_r(tile32[at >> 2], tile32[(at >> 2) + 1], 8 * (at & 3));
-        __stcs(out4 + q, make_float4(tab[w & 3u], tab[(w >> 8) & 3u], tab[(w >> 16) & 3u],
-                                     tab[w >> 24]));
-      }
+      store_span(planes + p * plane + v0 * n_kept + c0, rows * kc, tile, table + 4 * p);
     }
     __syncthreads();  // before the next tile's codes overwrite these
   }
@@ -721,53 +850,173 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 // flip and the mean imputation of missing calls, before the f32 product
 // with the weights (torch.matmul in the caller).
 // (V, R) u8 records + sel (K) int32 ids (or null: K = S) + flip (V) u8 ->
-// db (V, K) f32 effect dosages and n_called (V) int32. A called code c gives
-// c, or 2 - c on a flipped row; a missing call gives 0, or with
-// mean_impute, in a row with n_called > 0, the row's mean dosage
-// (row sum) / n_called in f32. The row sum is the exact integer
-// c1 + 2 c2 (2 c0 + c1 flipped) of the row's code counts, so the mean is
-// bitwise the reference's jnp.sum(db) / jnp.maximum(n_called, 1).
-// Bound: memory, 4 B written per selected sample. Design: one block per
-// row, two passes over its columns: count (codes in registers, summed
-// once per row), then write, consecutive threads on consecutive floats.
-// The per-sample called counts that ALLELE_CT needs without mean
-// imputation are K9's (ops/score.py says why).
+// db (V, K) f32 effect dosages and called (2V) int32, whose first V hold
+// each row's called count n_called (every row is written; the second V are
+// the chunked form's scratch). A called code c gives c, or 2 - c on a
+// flipped row; a missing call gives 0, or with mean_impute, in a row with
+// n_called > 0, the row's mean dosage (row sum) / n_called in f32. The row
+// sum is the exact integer c1 + 2 c2 (2 c0 + c1 flipped) of the row's code
+// counts, so the mean is bitwise the reference's
+// jnp.sum(db) / jnp.maximum(n_called, 1).
+// Bound: memory, 4 B written per selected sample against a quarter byte
+// read: a 16,384-row block of 2504 samples writes 164 MB, 0.0521 ms at
+// 3.35 TB/s. The fill needs the row's complete counts before its first
+// store, so every form counts a row before it writes it. Three forms,
+// chosen by the launcher:
+// - flat (no sel, S % 4 == 0, db 16-B aligned; every sample scored, 1000
+//   Genomes' 2504): rows have no pad codes and every row starts on 16 B.
+//   One warp per row counts its bytes by popcount (row_code_counts, as K8),
+//   broadcasts the fill, then writes each byte's four dosages as one 16 B
+//   streaming store (the dosages pass the 50 MB L2 before the product reads
+//   them), the bytes again from L1: no shared memory, no barrier.
+// - tiled (any other K or alignment, K <= kPlaneChunk): K10's tiles
+//   (operand_tiles, stage_ids, decode_row, store_span). Each tile byte is
+//   (row << 2) | code, and a (tile_rows x 4) table in shared memory maps it
+//   to c0 -> 0 or 2, c1 -> 1, c2 -> 2 or 0, c3 -> the row's fill, so the
+//   store pass is K10's single-plane store. The warps add each row's counts
+//   into shared memory; one barrier, then one thread per row makes its
+//   table row and writes n_called; a second barrier, then the store.
+// - chunked (K > kPlaneChunk: blockIdx.y takes a chunk of the ids, as K10):
+//   a chunk's block cannot see the row's other columns, so a count pass
+//   (score_counts_kernel) runs first on the same grid of (rows, chunks):
+//   each block keeps its chunk's ids in shared memory, one warp a row
+//   counts the chunk's codes (a quarter byte read per selected sample,
+//   from L2 or L1, against the 4 B the store writes), and lane 0 adds them
+//   into n_called and the row sum (cleared by the launcher). Counting the
+//   whole row in every chunk's block instead would read every id once per
+//   chunk; one warp per row over all K ids (its first form) left a
+//   1,024-row block with too few warps in flight: 0.4 ms. The tiled kernel
+//   then reads each row's table from the sums.
+__global__ void score_dosage_flat_kernel(const uint8_t* __restrict__ packed,
+                                         const uint8_t* __restrict__ flip,
+                                         float4* __restrict__ db, int32_t* __restrict__ called,
+                                         int64_t n_var, int64_t rec, int64_t n_quads,
+                                         int mean_impute) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
+  for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
+    const uint8_t* row = packed + v * rec;
+    const bool flipped = flip[v] != 0;
+    uint32_t c[4];
+    row_code_counts(row, 4 * n_quads, lane, c);
+    float fill = 0.0f;
+    if (lane == 0) {
+      const uint32_t n = c[0] + c[1] + c[2];
+      const uint32_t sum = flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
+      called[v] = static_cast<int32_t>(n);
+      if (mean_impute && n > 0) fill = static_cast<float>(sum) / static_cast<float>(n);
+    }
+    fill = __shfl_sync(0xFFFFFFFFu, fill, 0);
+    const float d0 = flipped ? 2.0f : 0.0f, d2 = flipped ? 0.0f : 2.0f;
+    auto dose = [&](uint32_t code) {
+      return code == 0u ? d0 : (code == 1u ? 1.0f : (code == 2u ? d2 : fill));
+    };
+    float4* out = db + v * n_quads;
+    for (int64_t j = lane; j < n_quads; j += kWarp) {
+      const uint32_t b = __ldg(row + j);
+      __stcs(out + j, make_float4(dose(b & 3u), dose((b >> 2) & 3u), dose((b >> 4) & 3u),
+                                  dose(b >> 6)));
+    }
+  }
+}
+
+__global__ void score_counts_kernel(const uint8_t* __restrict__ packed,
+                                    const int32_t* __restrict__ sel,
+                                    const uint8_t* __restrict__ flip,
+                                    int32_t* __restrict__ called, int64_t n_var, int64_t rec,
+                                    int n_samples, int n_kept, int chunk) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* ids = reinterpret_cast<int32_t*>(smem);
+  const int c0 = blockIdx.y * chunk;  // this block's columns [c0, c0 + kc)
+  const int kc = n_kept - c0 < chunk ? n_kept - c0 : chunk;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  if (sel != nullptr) stage_ids(sel, ids, c0, kc, n_samples);
+  __syncthreads();
+  for (int64_t v = static_cast<int64_t>(blockIdx.x) * warps + warp; v < n_var;
+       v += static_cast<int64_t>(gridDim.x) * warps) {
+    const uint8_t* row = packed + v * rec;
+    uint32_t c[4];
+    if (sel == nullptr) {  // chunk is a multiple of 4: whole bytes
+      row_code_counts(row + c0 / 4, kc, lane, c);
+    } else {
+      uint64_t acc = 0;
+      for (int j = lane; j < kc; j += kWarp) {
+        const int s = ids[j];
+        acc = count_code(acc, (static_cast<uint32_t>(__ldg(row + (s >> 2))) >> (2 * (s & 3))) & 3u);
+      }
+      warp_code_counts(acc, c);
+    }
+    if (lane == 0) {
+      const bool flipped = flip[v] != 0;
+      atomicAdd(called + v, static_cast<int>(c[0] + c[1] + c[2]));
+      atomicAdd(called + n_var + v,
+                static_cast<int>(flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2]));
+    }
+  }
+}
+
 __global__ void score_dosage_kernel(const uint8_t* __restrict__ packed,
                                     const int32_t* __restrict__ sel,
                                     const uint8_t* __restrict__ flip,
-                                    float* __restrict__ db,
-                                    int32_t* __restrict__ n_called,
-                                    int64_t n_var, int64_t rec,
-                                    int64_t n_samples, int64_t n_kept,
-                                    int mean_impute) {
-  __shared__ uint32_t scratch[4 * (kThreads / 32)];
-  __shared__ uint32_t counts[4];
-  __shared__ float fill;
-  for (int64_t v = blockIdx.x; v < n_var; v += gridDim.x) {
-    const uint8_t* row = packed + v * rec;
-    const bool flipped = flip[v] != 0;
-    uint64_t acc = 0;
-    for (int64_t j = threadIdx.x; j < n_kept; j += blockDim.x) {
-      acc = count_code(acc, selected_code(row, sel, j, n_samples));
+                                    float* __restrict__ db, int32_t* __restrict__ called,
+                                    int64_t n_var, int64_t rec, int n_samples, int n_kept,
+                                    int mean_impute, int tile_rows, int chunk, int row_warps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // per tile row: its dosage of each code, and the counts its warps add
+  __shared__ float table[4 * kPlaneMaxTileRows];
+  __shared__ uint32_t counts[4 * kPlaneMaxTileRows];
+  int32_t* ids = reinterpret_cast<int32_t*>(smem);
+  uint8_t* tile = smem + (sel != nullptr ? (4 * chunk + 15) / 16 * 16 : 0);
+  const int c0 = blockIdx.y * chunk;  // this block's columns [c0, c0 + kc)
+  const int kc = n_kept - c0 < chunk ? n_kept - c0 : chunk;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  const bool chunked = gridDim.y > 1;  // the counts come from score_counts_kernel
+  if (tid < 4 * kPlaneMaxTileRows) counts[tid] = 0;
+  if (sel != nullptr) stage_ids(sel, ids, c0, kc, n_samples);
+  __syncthreads();
+  const int64_t n_tiles = (n_var + tile_rows - 1) / tile_rows;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t v0 = t * tile_rows;
+    const int rows = static_cast<int>(n_var - v0 < tile_rows ? n_var - v0 : tile_rows);
+    for (int r = warp / row_warps; r < rows; r += warps / row_warps) {
+      const uint64_t acc = decode_row(packed + (v0 + r) * rec, sel != nullptr ? ids : nullptr, c0,
+                                      kc, tile + r * kc, static_cast<uint32_t>(r) << 2,
+                                      (warp % row_warps) * 32 + lane, 32 * row_warps);
+      if (!chunked) {
+        uint32_t c[4];
+        warp_code_counts(acc, c);
+        if (lane == 0) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) atomicAdd(counts + 4 * r + k, c[k]);
+        }
+      }
     }
-    block_code_counts(acc, scratch, counts);
-    if (threadIdx.x == 0) {
-      const uint32_t called = counts[0] + counts[1] + counts[2];
-      const uint32_t sum = flipped ? 2 * counts[0] + counts[1] : counts[1] + 2 * counts[2];
-      n_called[v] = static_cast<int32_t>(called);
-      fill = mean_impute && called > 0
-                 ? static_cast<float>(sum) / static_cast<float>(called)
-                 : 0.0f;
+    __syncthreads();  // the tile's codes and its rows' counts are complete
+    if (tid < rows) {
+      const int64_t v = v0 + tid;
+      const bool flipped = flip[v] != 0;
+      uint32_t n, sum;
+      if (chunked) {
+        n = static_cast<uint32_t>(called[v]);
+        sum = static_cast<uint32_t>(called[n_var + v]);
+      } else {
+        uint32_t* c = counts + 4 * tid;
+        n = c[0] + c[1] + c[2];
+        sum = flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
+        called[v] = static_cast<int32_t>(n);
+        c[0] = c[1] = c[2] = c[3] = 0;  // for the next tile, after two barriers
+      }
+      float* tab = table + 4 * tid;
+      tab[0] = flipped ? 2.0f : 0.0f;
+      tab[1] = 1.0f;
+      tab[2] = flipped ? 0.0f : 2.0f;
+      tab[3] = mean_impute && n > 0 ? static_cast<float>(sum) / static_cast<float>(n) : 0.0f;
     }
-    __syncthreads();
-    float* out = db + v * n_kept;
-    const float missing = fill;
-    for (int64_t j = threadIdx.x; j < n_kept; j += blockDim.x) {
-      const uint32_t code = selected_code(row, sel, j, n_samples);
-      out[j] = code == 3u ? missing
-                          : static_cast<float>(flipped ? 2u - code : code);
-    }
-    __syncthreads();  // fill and counts are rewritten for the next row
+    __syncthreads();  // the rows' tables are complete
+    store_span(db + v0 * n_kept + c0, rows * kc, tile, table);
+    __syncthreads();  // before the next tile's codes overwrite these
   }
 }
 
@@ -922,12 +1171,34 @@ int pgen_gt_counts(const void* packed, void* counts, int64_t n_var,
 int pgen_sample_counts(const void* packed, void* counts, int64_t n_var,
                        int64_t rec, void* stream) {
   if (n_var <= 0 || rec <= 0) return 0;
-  const int64_t chunks = (n_var + kCountRows - 1) / kCountRows;
-  const dim3 grid(static_cast<unsigned>((rec + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(chunks < 65535 ? chunks : 65535));
-  sample_counts_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<int32_t*>(counts), n_var,
-      rec);
+  if (reinterpret_cast<uintptr_t>(counts) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  // every block adds its counts into the (4R, 4) ints
+  const cudaError_t cleared = cudaMemsetAsync(counts, 0, 64 * rec, s);
+  if (cleared != cudaSuccess) return static_cast<int>(cleared);
+  // whole rows in a block up to kCountMaxSegs segments; row chunks for
+  // about kCountBlocks blocks in all, each warp kCountMinRows rows or more
+  const int64_t n_segs = ((rec + 3) / 4 + kWarp - 1) / kWarp;
+  const int64_t segs = n_segs < kCountMaxSegs ? n_segs : kCountMaxSegs;
+  const int64_t gx = (n_segs + segs - 1) / segs;
+  const int64_t groups = kCountWarps / segs;
+  int64_t gy = kCountBlocks / gx;
+  const int64_t most = (n_var + groups * kCountMinRows - 1) / (groups * kCountMinRows);
+  if (gy > most) gy = most;
+  if (gy > 65535) gy = 65535;
+  if (gy < 1) gy = 1;
+  const int64_t chunk = (n_var + gy - 1) / gy;
+  gy = (n_var + chunk - 1) / chunk;  // no block without rows
+  const int smem = static_cast<int>(segs * kWarp * 48 * 4);  // 96 KB at most
+  const cudaError_t opted = cudaFuncSetAttribute(
+      sample_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  sample_counts_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+                         dim3(kWarp, kCountWarps), smem, s>>>(
+      static_cast<const uint8_t*>(packed), static_cast<int32_t*>(counts), n_var, rec, chunk,
+      static_cast<int>(segs));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,51 +1218,74 @@ int pgen_glm_planes(const void* packed, const void* sel, const void* lut,
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   if (n_kept <= 0) return 0;
-  // shared memory: a chunk's ids, then tile_rows rows of its codes and 8 B
-  // of slack; the rows shrink as K grows, and a chunked tile is one row
-  const int64_t chunk = n_kept < kPlaneChunk ? n_kept : kPlaneChunk;
-  const int64_t chunks = (n_kept + chunk - 1) / chunk;
-  const int64_t id_bytes = ids != nullptr ? (4 * chunk + 15) / 16 * 16 : 0;
-  int64_t tile_rows = chunks > 1 ? 1 : kPlaneTileBytes / chunk;
-  if (tile_rows > kPlaneMaxTileRows) tile_rows = kPlaneMaxTileRows;
-  if (tile_rows > n_var) tile_rows = n_var;
-  const int64_t smem = id_bytes + (tile_rows * chunk + 8 + 15) / 16 * 16;
+  const OperandTiles t = operand_tiles(n_var, n_kept, ids != nullptr);
   // per device, so on every launch; above 48 KB only wide cohorts
   const cudaError_t opted = cudaFuncSetAttribute(
       glm_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kPlaneSmemBytes));
   if (opted != cudaSuccess) return static_cast<int>(opted);
-  int row_warps = 1;  // a power of two, so that it divides the block's warps
-  while (2 * row_warps * tile_rows <= kThreads / 32) row_warps *= 2;
-  if (chunks > 1 || row_warps > 1) {  // several warps or chunks add a row's counts
+  if (t.chunks > 1 || t.row_warps > 1) {  // several warps or chunks add a row's counts
     const cudaError_t cleared = cudaMemsetAsync(counts, 0, 16 * n_var, s);
     if (cleared != cudaSuccess) return static_cast<int>(cleared);
   }
-  // a block per tile up to kMaxBlocks: the ids a block re-reads (from L2)
-  // are a thirtieth of what its tile writes; a chunked tile is one row, so
-  // fewer blocks each take several
-  const int64_t tiles = (n_var + tile_rows - 1) / tile_rows;
-  int64_t blocks = kMaxBlocks / (chunks > 1 ? 4 * chunks : 1);
-  if (blocks < 1) blocks = 1;
-  if (blocks > tiles) blocks = tiles;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
-  glm_planes_kernel<<<grid, kThreads, static_cast<size_t>(smem), s>>>(
+  glm_planes_kernel<<<t.grid, kThreads, static_cast<size_t>(t.smem), s>>>(
       in, ids, tab, out, counts, n_var, rec, static_cast<int>(n_samples),
-      static_cast<int>(n_kept), static_cast<int>(n_planes), static_cast<int>(tile_rows),
-      static_cast<int>(chunk), row_warps);
+      static_cast<int>(n_kept), static_cast<int>(n_planes), static_cast<int>(t.tile_rows),
+      static_cast<int>(t.chunk), t.row_warps);
   return static_cast<int>(cudaGetLastError());
 }
 
 int pgen_score_dosage(const void* packed, const void* sel, const void* flip,
-                      void* db, void* n_called, int64_t n_var, int64_t rec,
+                      void* db, void* called, int64_t n_var, int64_t rec,
                       int64_t n_samples, int64_t n_kept, int64_t mean_impute,
                       void* stream) {
   if (n_var <= 0) return 0;
-  score_dosage_kernel<<<row_grid(n_var), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
-      static_cast<const uint8_t*>(flip), static_cast<float*>(db),
-      static_cast<int32_t*>(n_called), n_var, rec, n_samples, n_kept,
-      static_cast<int>(mean_impute != 0));
+  const auto at = reinterpret_cast<uintptr_t>(db);
+  if (at % 4 != 0 || reinterpret_cast<uintptr_t>(called) % 4 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (n_kept <= 0) return 0;  // nothing is called: the wrapper returns zeros
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const uint8_t*>(packed);
+  const auto ids = static_cast<const int32_t*>(sel);
+  const auto fl = static_cast<const uint8_t*>(flip);
+  const auto n_called = static_cast<int32_t*>(called);
+  const int impute = mean_impute != 0;
+  if (ids == nullptr && n_kept % 4 == 0 && at % 16 == 0) {
+    const int64_t rows_per_block = kThreads / kWarp;
+    const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
+    score_dosage_flat_kernel<<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
+                               kThreads, 0, s>>>(
+        in, fl, static_cast<float4*>(db), n_called, n_var, rec, n_kept / 4, impute);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const OperandTiles t = operand_tiles(n_var, n_kept, ids != nullptr);
+  const cudaError_t opted = cudaFuncSetAttribute(
+      score_dosage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPlaneSmemBytes));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if (t.chunks > 1) {  // each row's counts before any chunk's block writes it
+    const cudaError_t cleared = cudaMemsetAsync(n_called, 0, 8 * n_var, s);
+    if (cleared != cudaSuccess) return static_cast<int>(cleared);
+    // about four blocks an SM in all: each stages its chunk's ids once for
+    // its rows (a block per tile, as the store takes, would stage them per
+    // row: 67 MB of L2 reads at 1,024 x 40,000)
+    const int64_t rows_per_block = kThreads / kWarp;
+    int64_t gx = (n_var + rows_per_block - 1) / rows_per_block;
+    const int64_t most = 4 * 132 / t.chunks > 1 ? 4 * 132 / t.chunks : 1;
+    if (gx > most) gx = most;
+    const int64_t id_bytes = ids != nullptr ? 4 * t.chunk : 0;  // 32 KB at most
+    score_counts_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(t.chunks)),
+                          kThreads, static_cast<size_t>(id_bytes), s>>>(
+        in, ids, fl, n_called, n_var, rec, static_cast<int>(n_samples),
+        static_cast<int>(n_kept), static_cast<int>(t.chunk));
+    const cudaError_t counted = cudaGetLastError();
+    if (counted != cudaSuccess) return static_cast<int>(counted);
+  }
+  score_dosage_kernel<<<t.grid, kThreads, static_cast<size_t>(t.smem), s>>>(
+      in, ids, fl, static_cast<float*>(db), n_called, n_var, rec, static_cast<int>(n_samples),
+      static_cast<int>(n_kept), impute, static_cast<int>(t.tile_rows), static_cast<int>(t.chunk),
+      t.row_warps);
   return static_cast<int>(cudaGetLastError());
 }
 

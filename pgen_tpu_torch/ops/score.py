@@ -15,6 +15,18 @@ for every sample; without, a variant counts for the samples called there.
   ``matmul_fp32``       sums += db.T @ w (torch.matmul in full fp32)
   ``db.sum(0)``         the per-sample dosage sums
 
+K11 (``csrc/genotype.cu:score_dosage_*``) replaces the decode leg of
+pgen_tpu's ``_score_device_jit`` (:133-158): the Pallas unpack, the cohort
+take, the effect-allele flip and the mean imputation. It writes 4 B a
+selected sample against a quarter byte read, so bytes bound it (164 MB a
+16,384-row block of 2504 samples). A missing call's fill needs the row's
+counts before its first store, so each form counts a row before it
+writes it: with every sample scored and S % 4 == 0 one warp per row counts
+its bytes by popcount and writes each byte's four dosages as one 16 B
+store (the flat form); otherwise K10's tiles, each byte (row, code) mapped
+through a per-row table; past 8,192 ids a count pass runs first and the
+tiles take column chunks.
+
 The sums and dosage sums add up across blocks in f32 on the device, as
 ``_score_device_jit`` carries them (:160-166), and come back as f64.
 Without mean imputation ALLELE_CT needs, per sample, the number of rows in
@@ -90,14 +102,16 @@ def score_dosage(packed: torch.Tensor, num_samples: int, flip: torch.Tensor,
     if packed.device.type == "cpu":
         return score_dosage_plain(packed, num_samples, flip, mean_impute, sel)
     db = scratch_view(out, (n_var, n_kept), packed.device)
-    n_called = torch.zeros(n_var, dtype=torch.int32, device=packed.device)
     if n_var == 0 or n_kept == 0:
-        return db, n_called
+        return db, torch.zeros(n_var, dtype=torch.int32, device=packed.device)
+    # row v's called count at [0, v] (the kernel writes every row); row
+    # [1] is the chunked form's scratch for the row sums
+    called = torch.empty((2, n_var), dtype=torch.int32, device=packed.device)
     launch(score_dosage, "pgen_score_dosage", packed,
            packed.data_ptr(), None if sel is None else sel.data_ptr(), flip.data_ptr(),
-           db.data_ptr(), n_called.data_ptr(), n_var, rec, num_samples, n_kept,
+           db.data_ptr(), called.data_ptr(), n_var, rec, num_samples, n_kept,
            int(bool(mean_impute)))
-    return db, n_called
+    return db, called[0]
 
 
 score_dosage.launches = 0

@@ -30,7 +30,9 @@ from pgen_tpu_torch.ops.gt_stats import (
 )
 from pgen_tpu_torch.pipeline.filter import compute_masks
 
-WIDTHS = [1, 2, 3, 4, 5, 6, 7, 33, 2503, 2504]
+# every S % 4, and records of 625-628 bytes (R % 4 = 1, 2, 3, 0), the word
+# columns K9 reads its rows by
+WIDTHS = [1, 2, 3, 4, 5, 6, 7, 33, 2503, 2504, 2497, 2501, 2502, 2505, 2509]
 
 
 def _packed(n_var, n_samples, seed):
@@ -55,13 +57,17 @@ def test_gt_counts_matches_pallas_and_oracle(n_samples):
 
 @pytest.mark.parametrize("n_samples", WIDTHS)
 def test_sample_counts_matches_pallas_and_oracle(n_samples):
+    """267 rows, then 1 and 333 (no multiple of K9's 16 warps, its 4-row
+    loads or its 12-row fields)."""
     packed = _packed(11, n_samples, seed=50 + n_samples)
-    got = sample_counts_device(torch.from_numpy(packed), n_samples)
-    assert got.dtype == torch.int32 and got.shape == (n_samples, 4)
-    want = jax_gt_stats.sample_counts_device(jnp.asarray(packed), n_samples, interpret=True)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    np.testing.assert_array_equal(got.numpy(), jax_gt_stats.sample_counts_reference(packed, n_samples))
-    assert (got.sum(1) == packed.shape[0]).all()
+    for rows in (packed, packed[-1:], np.concatenate([packed, packed[:66]])):
+        got = sample_counts_device(torch.from_numpy(rows), n_samples)
+        assert got.dtype == torch.int32 and got.shape == (n_samples, 4)
+        want = jax_gt_stats.sample_counts_device(jnp.asarray(rows), n_samples, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(),
+                                      jax_gt_stats.sample_counts_reference(rows, n_samples))
+        assert (got.sum(1) == rows.shape[0]).all()
 
 
 def test_counts_of_fewer_samples_than_slots():

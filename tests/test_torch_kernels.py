@@ -227,12 +227,15 @@ def test_pack_kernels_match_plain_and_oracles(cuda_device, n_samples):
     ]
 
 
-@pytest.mark.parametrize("n_samples", [2504, 2503, 5, 1])
-def test_count_kernels_match_plain_and_oracles(cuda_device, n_samples):
+@pytest.mark.parametrize("n_var", [300, 1, 16_384, 65_536 + 5])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2497, 2505, 5, 1])
+def test_count_kernels_match_plain_and_oracles(cuda_device, n_samples, n_var):
     """K8 and K9 on random records whose pad slots hold random codes, with
-    every byte value at every position, and on a row count that is not a
-    multiple of K9's row chunk."""
-    packed = _packed(300, n_samples, n_samples, cuda_device)
+    every byte value at every position: R % 4 = 0, 1, 2 and 3 (K9's rows
+    start off a word boundary), and row counts that are no multiple of K9's
+    warps, its 4-row loads or its row chunks, at score's and filter's block
+    shapes."""
+    packed = _packed(n_var, n_samples, n_samples, cuda_device)
     host = packed.cpu().numpy()
     counts = [w.launches for w in COUNT_WRAPPERS]
     got = gt_counts_device(packed, n_samples)
@@ -374,17 +377,38 @@ def _cohorts(n_samples, rng, device):
     return [None, torch.from_numpy(ids).to(device)]
 
 
-@pytest.mark.parametrize("n_samples", [2504, 2503, 5, 1])
-def test_operand_kernels_match_plain(cuda_device, n_samples):
-    """K10 (P = 2 and 3, each LUT) and K11 (flipped and not, with and
-    without mean imputation), with and without sel, on random records whose
-    pad slots hold random codes, every byte value at every position."""
+def _score_at_offset(packed, n_samples, flip, mean_impute, offset):
+    """K11's launcher, without sel, into dosages ``offset`` bytes past a
+    16-B boundary: its tiled form where the flat form would run."""
+    n_var, rec = packed.shape
+    buf = torch.full((n_var * n_samples + 8,), float("nan"), device=packed.device)
+    db = buf[offset // 4 : offset // 4 + n_var * n_samples].view(n_var, n_samples)
+    called = torch.full((2, n_var), -1, dtype=torch.int32, device=packed.device)
+    kernels.launch(score_dosage, "pgen_score_dosage", packed, packed.data_ptr(), None,
+                   flip.data_ptr(), db.data_ptr(), called.data_ptr(), n_var, rec, n_samples,
+                   n_samples, int(mean_impute))
+    return db, called[0]
+
+
+@pytest.mark.parametrize("flips", ["random", "none", "all"])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2502, 2501, 8, 5, 1, 9_001])
+def test_operand_kernels_match_plain(cuda_device, n_samples, flips):
+    """K10 (P = 2 and 3, each LUT) and K11 (flip random, none and all, with
+    and without mean imputation; without sel also in its tiled form, its
+    output 4 B past a 16-B boundary), with and without sel, on random
+    records whose pad slots hold random codes, every byte value at every
+    position (0xFF: a row with no called sample): K11's flat form (S % 4 ==
+    0), its tiled form at every S % 4, and past 8,192 ids its column chunks
+    after a count pass."""
     rng = np.random.default_rng(n_samples)
     packed = _packed(300, n_samples, n_samples, cuda_device)
     host = packed.cpu().numpy()
-    flip = torch.from_numpy(rng.integers(0, 2, packed.shape[0], dtype=np.uint8)).to(cuda_device)
+    flip = {"random": torch.from_numpy(rng.integers(0, 2, packed.shape[0], dtype=np.uint8)),
+            "none": torch.zeros(packed.shape[0], dtype=torch.uint8),
+            "all": torch.ones(packed.shape[0], dtype=torch.uint8)}[flips].to(cuda_device)
     counts = [w.launches for w in OPERAND_WRAPPERS]
     runs = 0
+    score_runs = 0
     for sel in _cohorts(n_samples, rng, cuda_device):
         for table in (LUT_MOMENTS, LUT_GENO, LUT_INT):
             lut = torch.tensor(table, dtype=torch.float32, device=cuda_device)
@@ -399,22 +423,33 @@ def test_operand_kernels_match_plain(cuda_device, n_samples):
             db, n_called = score_dosage(packed, n_samples, flip, mean_impute, sel)
             want_db, want_called = score_dosage_plain(packed, n_samples, flip, mean_impute, sel)
             assert torch.equal(db, want_db) and torch.equal(n_called, want_called)
+            score_runs += 1
+            if sel is None:
+                db, n_called = _score_at_offset(packed, n_samples, flip, mean_impute, 4)
+                assert torch.equal(db, want_db) and torch.equal(n_called, want_called)
+                score_runs += 1
     torch.cuda.synchronize()
-    assert [w.launches for w in OPERAND_WRAPPERS] == [counts[0] + runs, counts[1] + 4]
+    assert [w.launches for w in OPERAND_WRAPPERS] == [counts[0] + runs, counts[1] + score_runs]
 
 
-def test_operand_kernels_write_into_out(cuda_device):
+@pytest.mark.parametrize("n_samples", [2503, 2504])
+def test_operand_kernels_write_into_out(cuda_device, n_samples):
     """A flat buffer given as out holds the planes (dosages) of a smaller
-    block at its front, as the block loops reuse it."""
-    packed = _packed(40, 2503, 4, cuda_device)
+    block at its front, as the block loops reuse it (K11's tiled form at
+    2503 samples, its flat form at 2504)."""
+    packed = _packed(40, n_samples, 4, cuda_device)
     lut = torch.tensor(LUT_INT, dtype=torch.float32, device=cuda_device)
-    buf = torch.full((3 * 400 * 2503,), float("nan"), device=cuda_device)
-    planes, _ = glm_planes(packed, 2503, lut, out=buf)
+    buf = torch.full((3 * 400 * n_samples,), float("nan"), device=cuda_device)
+    planes, _ = glm_planes(packed, n_samples, lut, out=buf)
     assert planes.data_ptr() == buf.data_ptr()
-    assert torch.equal(planes, glm_planes_plain(packed, 2503, lut)[0])
+    assert torch.equal(planes, glm_planes_plain(packed, n_samples, lut)[0])
     flip = torch.zeros(packed.shape[0], dtype=torch.uint8, device=cuda_device)
-    db, _ = score_dosage(packed, 2503, flip, out=buf)
-    assert torch.equal(db, score_dosage_plain(packed, 2503, flip)[0])
+    launches = score_dosage.launches
+    db, n_called = score_dosage(packed, n_samples, flip, out=buf)
+    assert db.data_ptr() == buf.data_ptr()
+    want_db, want_called = score_dosage_plain(packed, n_samples, flip)
+    assert torch.equal(db, want_db) and torch.equal(n_called, want_called)
+    assert score_dosage.launches == launches + 1
 
 
 def test_glm_moments_with_tf32_on_match_f64(cuda_device):

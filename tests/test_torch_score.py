@@ -60,28 +60,51 @@ def test_score_matches_pgen_tpu_device(n_samples, subset, mean_impute):
     assert got.sums.dtype == np.float64 and got.allele_ct.dtype == np.int64
 
 
-@pytest.mark.parametrize("n_samples", [1, 2, 3, 4, 5, 33, 2503])
+def _tpu_dosages(packed, n_samples, flip, mean_impute, idx):
+    """pgen_tpu's effect dosages (V, K) out of ``score_device`` (the Pallas
+    unpack in interpret mode): with the (V, V) identity as weights each
+    score sum is one dosage times 1, so the f32 product gives it exactly."""
+    n_var = packed.shape[0]
+    got = tpu_score.score_device(packed, n_samples, np.eye(n_var, dtype=np.float32),
+                                 flip.astype(bool), mean_impute=mean_impute, block_variants=128,
+                                 interpret=True, sample_idx=idx)
+    return got.sums.T.astype(np.float32), got.m_used
+
+
+# S % 4 = 0-3 at 1000 Genomes' width, and a cohort of 8,201 ids (past the
+# kernel's 8,192-id column chunk) out of 12,301 samples
+@pytest.mark.parametrize("n_samples", [1, 2, 3, 4, 5, 33, 2503, 2501, 2502, 2504, 12_301])
 def test_score_dosage_plain_matches_numpy(n_samples):
     """K11's plain version: dosages 0/1/2 (2 - code flipped), a missing call
     0 or the row's f32 mean (sum / called, IEEE division), exact called
-    counts; every byte value at every position, the pad slots never read."""
+    counts; every byte value at every position (0xFF: no called sample),
+    the pad slots never read; 265 rows (no multiple of a tile), flips
+    random, none and all. With random flips also bitwise against pgen_tpu's
+    score_device."""
     packed = _packed(9, n_samples, 60 + n_samples)
     codes = unpack_codes_reference(packed, n_samples).astype(np.int64)
-    flip = np.random.default_rng(n_samples).integers(0, 2, packed.shape[0]).astype(np.uint8)
+    n_var = packed.shape[0]
+    flips = {"random": np.random.default_rng(n_samples).integers(0, 2, n_var).astype(np.uint8),
+             "none": np.zeros(n_var, np.uint8), "all": np.ones(n_var, np.uint8)}
     for idx in (None, _cohort(n_samples) if n_samples > 1 else np.zeros(3, np.int32)):
         c = codes if idx is None else codes[:, idx]
         called = c != 3
-        d = np.where(flip[:, None] == 1, 2 - c, c) * called
         n_called = called.sum(1)
-        mean = np.float32(d.sum(1)) / np.float32(np.maximum(n_called, 1))
         sel = None if idx is None else torch.from_numpy(idx)
-        for mean_impute in (True, False):
-            db, nc = port_score.score_dosage(torch.from_numpy(packed), n_samples,
-                                             torch.from_numpy(flip), mean_impute, sel)
-            fill = np.where(n_called > 0, mean, 0) if mean_impute else np.zeros(len(c))
-            want = np.where(called, d, fill[:, None]).astype(np.float32)
-            np.testing.assert_array_equal(db.numpy(), want)
-            np.testing.assert_array_equal(nc.numpy(), n_called)
+        for kind, flip in flips.items():
+            d = np.where(flip[:, None] == 1, 2 - c, c) * called
+            mean = np.float32(d.sum(1)) / np.float32(np.maximum(n_called, 1))
+            for mean_impute in (True, False):
+                db, nc = port_score.score_dosage(torch.from_numpy(packed), n_samples,
+                                                 torch.from_numpy(flip), mean_impute, sel)
+                fill = np.where(n_called > 0, mean, 0) if mean_impute else np.zeros(len(c))
+                want = np.where(called, d, fill[:, None]).astype(np.float32)
+                np.testing.assert_array_equal(db.numpy(), want)
+                np.testing.assert_array_equal(nc.numpy(), n_called)
+                if kind == "random":
+                    tpu_db, m_used = _tpu_dosages(packed, n_samples, flip, mean_impute, idx)
+                    np.testing.assert_array_equal(db.numpy(), tpu_db)
+                    assert m_used == int((nc > 0).sum())
 
 
 def test_score_rejects_out_of_range_ids_and_bad_shapes():
