@@ -2,9 +2,10 @@
 """Diagnostics of the PyTorch/CUDA port (pgen_tpu_torch) on one NVIDIA H100,
 beside chip_smoke.py, whose fixtures, timer and oracles they use.
 
-    python3 chip_diag.py --ab DIR      # K4, K9, K10, K11 against the kernels of the checkout at DIR
+    python3 chip_diag.py --ab DIR      # K4, K5, K8-K11 against the kernels of the checkout at DIR
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
     python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time
+    python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
 
 --ab builds the kernel sources of another checkout (the parent commit's,
 unpacked with git archive) beside this one's and times both in one process
@@ -12,8 +13,12 @@ on the same tensors. --trace runs this checkout's launchers of the same
 cases under torch.profiler and prints each device operation's time per
 launch (kernels and memsets), which CUDA events around a launch cannot
 separate from the host's enqueue time. --precision shows which part of an f32 moment product
-costs each GWAS design its accuracy against pgen_tpu's tolerances. Both
-import no jax and nothing of pgen_tpu, and exit non-zero without CUDA.
+costs each GWAS design its accuracy against pgen_tpu's tolerances. --forms
+builds this checkout's kernels twice more, K5's launcher held to its direct
+form in one and to its staged form (wherever a row tile fits) in the other,
+and times both on the same records at a range of K: the readings its
+threshold (kRepackDenseRatio) is fixed from. All import no jax and nothing
+of pgen_tpu, and exit non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from chip_smoke import (  # noqa: E402
     BLOCK_ROWS,
     BURST,
     COHORT,
+    KEEP_SAMPLES,
     GLM_ROWS,
     GWAS_REGION,
     SEED,
@@ -148,12 +154,14 @@ def phase_precision(tmp: Path, full: Path) -> None:
     print(f"[precision] X2 took {time.perf_counter() - t0:.1f} s")
 
 
-def _build_other(csrc: Path) -> Path:
+def _build_other(csrc: Path, defines: tuple = ()) -> Path:
     """nvcc build of another checkout's kernel sources with this checkout's
-    flags, into this checkout's build directory under a name of its own."""
+    flags (and ``defines``, each a -D), into this checkout's build directory
+    under a name of its own."""
     from pgen_tpu_torch import kernels
 
-    h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+    flags = [*kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in kernels.SOURCES:
         h.update((csrc / name).read_bytes())
     so = kernels.BUILD_DIR / f"libpgen_kernels_other_{h.hexdigest()[:16]}.so"
@@ -161,7 +169,7 @@ def _build_other(csrc: Path) -> Path:
         kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
                                            / "bin" / "nvcc")
-        subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-o", str(so), str(csrc / "genotype.cu")],
+        subprocess.run([nvcc, *flags, "-o", str(so), str(csrc / "genotype.cu")],
                        check=True, capture_output=True, text=True)
     return so
 
@@ -191,6 +199,11 @@ def _kernel_cases(other) -> dict:
     flip = torch.randint(0, 2, (GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
     flip_wide = torch.randint(0, 2, (WIDE_GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
     records = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
+    records_wide = torch.randint(0, 256, (WIDE_PACK_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
+                                 device=dev, generator=gen)
+    keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values
+    keep = keep.to(torch.int32)
+    keep2 = torch.randperm(s, generator=gen, device=dev)[:2].to(torch.int32)
     lut2, lut3 = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (LUT_MOMENTS, LUT_GENO))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -221,6 +234,18 @@ def _kernel_cases(other) -> dict:
             records.data_ptr(), None if sel is None else sel.data_ptr(), flips.data_ptr(),
             db.data_ptr(), called.data_ptr(), n_var, n_rec, n_samples, kept, 1, stream)
 
+    def repack_case(records, sel):
+        n_var, n_rec = records.shape
+        out = torch.empty((n_var, (sel.shape[0] + 3) // 4), dtype=torch.uint8, device=dev)
+        return [out], lambda lib: lib.pgen_subset_repack(
+            records.data_ptr(), sel.data_ptr(), out.data_ptr(), n_var, n_rec, sel.shape[0], stream)
+
+    def gt_counts_case(records, n_samples):
+        counts = torch.empty((records.shape[0], 4), dtype=torch.int32, device=dev)
+        return [counts], lambda lib: lib.pgen_gt_counts(
+            records.data_ptr(), counts.data_ptr(), records.shape[0], records.shape[1], n_samples,
+            stream)
+
     def counts_case(records):
         counts = torch.empty((4 * rec, 4), dtype=torch.int32, device=dev)
 
@@ -240,6 +265,11 @@ def _kernel_cases(other) -> dict:
         "K10 glm_planes P=3 K=2504": planes_case(ops, s, lut3, None),
         f"K10 glm_planes P=2 K={WIDE - 3} sel of S={WIDE} V={WIDE_GLM_ROWS}":
             planes_case(ops_wide, WIDE, lut2, sel_wide),
+        f"K5 subset_repack K={KEEP_SAMPLES} sorted": repack_case(records, keep),
+        "K5 subset_repack K=2": repack_case(records, keep2),
+        f"K5 subset_repack K={WIDE - 3} sorted of S={WIDE} V={WIDE_PACK_ROWS} (column tiles)":
+            repack_case(records_wide, sel_wide),
+        f"K8 gt_counts V={BLOCK_ROWS}": gt_counts_case(records, s),
         f"K9 sample_counts V={BLOCK_ROWS}": counts_case(records),
         f"K9 sample_counts V={GLM_ROWS}": counts_case(records[:GLM_ROWS]),
         "K11 score_dosage K=2504": score_case(ops, s, flip, None),
@@ -281,7 +311,7 @@ def phase_trace() -> None:
 
 
 def phase_ab(other_root: Path) -> None:
-    """K4, K9, K10 and K11 of this checkout against the same launchers built
+    """K4, K5, K8-K11 of this checkout against the same launchers built
     from another checkout's sources (the parent commit's, unpacked at
     ``other_root``), in one process on one card: each case timed other,
     this, this, other on the same tensors at the paths' block shapes, the
@@ -306,6 +336,8 @@ def phase_ab(other_root: Path) -> None:
     other.pgen_glm_planes.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
     other.pgen_score_dosage.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
     other.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
+    other.pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    other.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
     for name, (outs, call) in _kernel_cases(other).items():
         def run(lib):
             status = call(lib)
@@ -331,6 +363,57 @@ def phase_ab(other_root: Path) -> None:
                   f"{statistics.median([o1, o2]) / statistics.median([t1, t2]):.2f}x")
 
 
+def phase_forms() -> None:
+    """K5's two forms on the same records: this checkout's sources built with
+    kRepackDenseRatio 0 (the direct form at every K) and with a ratio no K
+    reaches (the staged form wherever a row tile fits), each launcher alone
+    timed direct, staged, staged, direct (CUDA events, median of 10 pairs of
+    one launch, then of 4), outputs held torch.equal; 65,536 rows of 2504
+    samples at K sorted ids from 2 to all."""
+    import ctypes
+
+    import torch
+
+    csrc = ROOT / "pgen_tpu_torch" / "csrc"
+    libs = {}
+    for form, ratio in (("direct", 0), ("staged", 1 << 40)):
+        libs[form] = ctypes.CDLL(str(_build_other(csrc, (f"PGEN_REPACK_DENSE_RATIO={ratio}",))))
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        libs[form].pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s = WIDTHS[0]
+    records = torch.randint(0, 256, (BLOCK_ROWS, (s + 3) // 4), dtype=torch.uint8, device=dev,
+                            generator=gen)
+    for k in (2, 8, 32, 128, 256, 384, 512, 640, 768, KEEP_SAMPLES, s):
+        sel = torch.randperm(s, generator=gen, device=dev)[:k].sort().values
+        sel = sel.to(torch.int32)
+        n_var, n_rec = records.shape
+        outs = {f: torch.empty((n_var, (k + 3) // 4), dtype=torch.uint8, device=dev) for f in libs}
+
+        def run(form):
+            status = libs[form].pgen_subset_repack(records.data_ptr(), sel.data_ptr(),
+                                                   outs[form].data_ptr(), n_var, n_rec, k, stream)
+            if status != 0:
+                raise AssertionError(f"K5 {form} at K={k}: launch failed with CUDA error {status}")
+
+        run("direct")
+        run("staged")
+        torch.cuda.synchronize()
+        if not torch.equal(outs["direct"], outs["staged"]):
+            raise AssertionError(f"K5 at K={k}: the two forms differ")
+        for burst in (1, BURST):
+            d1 = _time_ms(lambda: run("direct"), burst=burst)
+            s1 = _time_ms(lambda: run("staged"), burst=burst)
+            s2 = _time_ms(lambda: run("staged"), burst=burst)
+            d2 = _time_ms(lambda: run("direct"), burst=burst)
+            print(f"[forms] K5 at ({n_var}, {n_rec}) S={s}, K={k} sorted, {burst} "
+                  f"launch(es) per event pair: direct {d1:.4f} / {d2:.4f} ms, staged {s1:.4f} / "
+                  f"{s2:.4f} ms (outputs equal): staged "
+                  f"{statistics.median([d1, d2]) / statistics.median([s1, s2]):.2f}x the direct")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -348,9 +431,11 @@ def main(argv: list) -> int:
         phase_ab(Path(argv[1]).resolve())
     elif argv == ["--trace"]:
         phase_trace()
+    elif argv == ["--forms"]:
+        phase_forms()
     else:
-        print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace or "
-              "--precision",
+        print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace, "
+              "--forms or --precision",
               file=sys.stderr)
         return 2
     return 0

@@ -23,9 +23,14 @@ Phases, each printing its own lines:
              16,384 rows and at R % 4 = 1, 3 and 0; K11 also in its tiled
              form without sel (its output 4 B past a 16-B boundary), with
              sel of 2,454 and 2,456 ids sorted, reversed and repeated, at
-             40,003 samples in column chunks, flip random, none and all);
+             40,003 samples in column chunks, flip random, none and all;
+             K5 and K8 also on records 1-15 B past a 16-B boundary, K5
+             with reversed, repeated and unsorted ids, past the 4,096 ids a
+             staged block holds and at 40,003 samples);
              kernel and plain times at
-             the paths' block shapes (65,536 rows; K9 also at score's 16,384;
+             the paths' block shapes (65,536 rows; K5 at K = 1,001 (its
+             staged form) and 2 (its direct form), and 4,096 rows at 40,000
+             of 40,003; K9 also at score's 16,384;
              K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
              K11 also tiled and at 40,000 of 40,003), CUDA events, median of 10
              pairs around one launch each, two alternated sets (the wrapper's
@@ -92,7 +97,8 @@ directory without the rest of the repository.
     python3 chip_smoke.py --ranks   # on 2 or 4 cards: phase 7 (a) across ranks only
 
 chip_diag.py beside this script compares the kernels with another checkout's
-in one process (--ab DIR) and the GWAS products' precisions (--precision).
+in one process (--ab DIR), traces their device time (--trace), times K5's two
+forms (--forms) and the GWAS products' precisions (--precision).
 """
 
 from __future__ import annotations
@@ -102,6 +108,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,9 +140,10 @@ KERNELS = {
     "score_dosage": "pgen_tpu/ops/score.py:133",
 }
 # kernels whose registers and spills phase 2 prints from ptxas' report
-PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel", "sample_counts_kernel",
-                 "glm_planes_kernel", "score_dosage_flat_kernel", "score_dosage_kernel",
-                 "score_counts_kernel")
+PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel",
+                 "subset_repack_staged_kernel", "subset_repack_direct_kernel", "gt_counts_kernel",
+                 "sample_counts_kernel", "glm_planes_kernel", "score_dosage_flat_kernel",
+                 "score_dosage_kernel", "score_counts_kernel")
 PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
@@ -279,6 +287,9 @@ def phase_build() -> float:
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(k in line for k in PTXAS_KERNELS):
                 name = next(k for k in PTXAS_KERNELS if k in line)
+                instance = re.search(r"ILi(\d+)E", line)  # a template's int argument
+                if instance:
+                    name = f"{name}<{instance.group(1)}>"
                 print(f"[2 build] ptxas {name}: {lines[i + 2].strip()}; "
                       f"{lines[i + 3].split(':', 1)[1].strip()}")
     return seconds
@@ -455,6 +466,64 @@ def _count_cases(dev, gen):
     return worst
 
 
+def _repack_cases(dev, gen):
+    """K5 and K8 beyond the WIDTHS loop. Records viewed at every byte offset
+    1-15 past a 16-B boundary, S = 2504 and 2503 on 65,792 rows: K5 at K =
+    1,001 sorted (staged form) and 2 (direct form), K8. K5 with ids reversed,
+    repeated and unsorted at K = 1,001 (staged), and 4,100 repeated ids
+    (past the 4,096 a staged block holds: the direct form's column tiles),
+    and at 40,003 samples with 40,000 sorted and repeated ids on 301 rows.
+    Returns the largest |err| of K5 and of K8 (0, 0)."""
+    import torch
+
+    from pgen_tpu_torch.ops.gt_stats import gt_counts_device, gt_counts_plain
+    from pgen_tpu_torch.ops.pack import subset_repack, subset_repack_plain
+
+    worst = {"subset_repack": 0, "gt_counts_device": 0}
+
+    def hold(name, what, got, want):
+        worst[name] = max(worst[name], _equal_or_raise(name, what, got, want))
+
+    rows = BLOCK_ROWS + 256
+    for s in WIDTHS[:2]:
+        rec = (s + 3) // 4
+        buf = torch.randint(0, 256, (rows * rec + 32,), dtype=torch.uint8, device=dev,
+                            generator=gen)
+        keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values
+        sels = (keep.to(torch.int32), keep[:2].flip(0).to(torch.int32).contiguous())
+        for offset in range(1, 16):
+            packed = buf[offset : offset + rows * rec].view(rows, rec)
+            for sel in sels:
+                hold("subset_repack", f"S={s}, K={sel.shape[0]}, records {offset} B past",
+                     subset_repack(packed, sel), subset_repack_plain(packed, sel))
+            hold("gt_counts_device", f"S={s}, records {offset} B past",
+                 gt_counts_device(packed, s), gt_counts_plain(packed, s))
+        for k in (KEEP_SAMPLES, 4100):
+            ascending = torch.randperm(s, generator=gen, device=dev)[: min(k, s)].sort().values
+            orders = {"reversed": ascending.flip(0),
+                      "repeated": torch.randint(0, s, (k,), generator=gen, device=dev),
+                      "unsorted": torch.randperm(s, generator=gen, device=dev)[: min(k, s)]}
+            packed = buf[: rows * rec].view(rows, rec)
+            for order, ids in orders.items():
+                sel = ids.to(torch.int32).contiguous()
+                hold("subset_repack", f"S={s}, K={sel.shape[0]} {order}",
+                     subset_repack(packed, sel), subset_repack_plain(packed, sel))
+    wide = torch.randint(0, 256, (301, (WIDE + 3) // 4), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    for sel in (torch.randperm(WIDE, generator=gen, device=dev)[: WIDE - 3].sort().values,
+                torch.randint(0, WIDE, (WIDE - 3,), generator=gen, device=dev)):
+        sel = sel.to(torch.int32)
+        hold("subset_repack", f"S={WIDE}, K={WIDE - 3}", subset_repack(wide, sel),
+             subset_repack_plain(wide, sel))
+    torch.cuda.synchronize()
+    print(f"[3 kernels] K5 and K8 also on records 1-15 B past a 16-B boundary (S=2504 and 2503, "
+          f"V={rows}; K5 at K={KEEP_SAMPLES} staged and K=2 direct); K5 with reversed, repeated "
+          f"and unsorted ids at K={KEEP_SAMPLES}, 4100 repeated ids (direct, column tiles), and "
+          f"at S={WIDE} with {WIDE - 3} sorted and repeated ids (V=301): equal to their plain "
+          "versions")
+    return worst["subset_repack"], worst["gt_counts_device"]
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns per-kernel errors and
     times at the paths' block shapes (2504 samples, 65,536 rows)."""
@@ -577,6 +646,9 @@ def phase_kernels() -> dict:
     err["glm_planes"] = max(err["glm_planes"], _plane_cases(dev, gen, luts))
     err["score_dosage"] = max(err["score_dosage"], _score_cases(dev, gen))
     err["sample_counts_device"] = max(err["sample_counts_device"], _count_cases(dev, gen))
+    k5_err, k8_err = _repack_cases(dev, gen)
+    err["subset_repack"] = max(err["subset_repack"], k5_err)
+    err["gt_counts_device"] = max(err["gt_counts_device"], k8_err)
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
@@ -624,12 +696,17 @@ def phase_kernels() -> dict:
     sel_wide = torch.randperm(WIDE, generator=gen, device=dev)[: WIDE - 3].sort().values
     sel_wide = sel_wide.to(torch.int32)
     flip_wide = torch.randint(0, 2, (WIDE_GLM_ROWS,), dtype=torch.uint8, device=dev, generator=gen)
+    # K5 at 40,000 of 40,003 samples: the records of a path's block
+    packed_wide = torch.randint(0, 256, (WIDE_PACK_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
+                                device=dev, generator=gen)
     score_tiled, _, _ = _score_at_offset(ops, s, flip, 4)
     shapes = {
         "genotype_text_transposed": f"({rec}, {BLOCK_ROWS}) S={s}",
         "genotype_text S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
         "pack_codes S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
         f"pack_codes S={WIDE}": f"({WIDE_PACK_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
+        f"subset_repack K={WIDE - 3} of S={WIDE}": f"({WIDE_PACK_ROWS}, {(WIDE + 3) // 4}) "
+                                                   f"S={WIDE}",
         f"glm_planes K={WIDE - 3} of S={WIDE}":
             f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
         f"sample_counts_device V={GLM_ROWS}": f"({GLM_ROWS}, {rec}) S={s}",
@@ -661,9 +738,14 @@ def phase_kernels() -> dict:
         "subset_repack": (lambda: subset_repack(packed, keep),
                           lambda: subset_repack_plain(packed, keep), None,
                           _subset_bytes(BLOCK_ROWS, keep) + BLOCK_ROWS * keep_rec),
+        # its direct form: a --keep of two samples
         "subset_repack K=2": (lambda: subset_repack(packed, sel2),
                               lambda: subset_repack_plain(packed, sel2), None,
                               _subset_bytes(BLOCK_ROWS, sel2) + BLOCK_ROWS),
+        f"subset_repack K={WIDE - 3} of S={WIDE}": (
+            lambda: subset_repack(packed_wide, sel_wide),
+            lambda: subset_repack_plain(packed_wide, sel_wide), None,
+            _subset_bytes(WIDE_PACK_ROWS, sel_wide) + WIDE_PACK_ROWS * ((WIDE - 3 + 3) // 4)),
         "genotype_text_transposed": (lambda: genotype_text_transposed(packed_t),
                                      lambda: genotype_text_transposed_plain(packed_t), None,
                                      packed.numel() * 17),

@@ -278,6 +278,30 @@ __device__ __forceinline__ void stage_span(uint8_t* tile, const uint8_t* src, in
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// Writes the n bytes of tile at dst's offset from a 16-B boundary (tile[k]
+// mirrors the 16-B aligned base dst - lead, as stage_span's tiles do) to
+// dst with the block's threads (at least 15): whole 16-B pieces as one
+// store each, the bytes before the first and after the last piece one by
+// one, so nothing outside [dst, dst + n) is written.
+__device__ __forceinline__ void unstage_span(uint8_t* dst, const uint8_t* tile, int64_t n) {
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  uint8_t* base = dst - lead;
+  const int64_t end = lead + n;
+  const int64_t first = lead ? 16 : 0;
+  const int64_t last = end & ~int64_t{15};
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y;
+  for (int64_t at = first + 16 * tid; at < last; at += 16 * threads) {
+    *reinterpret_cast<uint4*>(base + at) = *reinterpret_cast<const uint4*>(tile + at);
+  }
+  if (last <= first) {
+    for (int64_t at = lead + tid; at < end; at += threads) base[at] = tile[at];
+  } else {
+    if (lead + tid < first) base[lead + tid] = tile[lead + tid];
+    if (last + tid < end) base[last + tid] = tile[last + tid];
+  }
+}
+
 // One staged tile: `rows` rows of `width` codes, contiguous from src, to
 // rows of `rec` record bytes, contiguous from dst.
 struct PackTile {
@@ -296,8 +320,6 @@ __global__ void pack_codes_staged_kernel(const uint8_t* __restrict__ codes,
   // bytes and the word a funnel shift reads past the span), then the record
   // tile
   uint8_t* out_tile = smem + 2 * in_bytes;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int threads = blockDim.x * blockDim.y;
   int64_t tile = blockIdx.x;
   if (tile >= n_tiles) return;
   auto tile_of = [&](int64_t t) {
@@ -349,19 +371,7 @@ __global__ void pack_codes_staged_kernel(const uint8_t* __restrict__ codes,
       }
     }
     __syncthreads();  // the record tile is complete
-    const int64_t end = out_lead + static_cast<int64_t>(g.rows) * g.rec;
-    const int64_t first = out_lead ? 16 : 0;
-    const int64_t last = end & ~int64_t{15};
-    uint8_t* base = g.dst - out_lead;
-    for (int64_t at = first + 16 * tid; at < last; at += 16 * threads) {
-      *reinterpret_cast<uint4*>(base + at) = *reinterpret_cast<const uint4*>(out_tile + at);
-    }
-    if (last <= first) {
-      for (int64_t at = out_lead + tid; at < end; at += threads) base[at] = out_tile[at];
-    } else {
-      if (out_lead + tid < first) base[out_lead + tid] = out_tile[out_lead + tid];
-      if (last + tid < end) base[last + tid] = out_tile[last + tid];
-    }
+    unstage_span(g.dst, out_tile, static_cast<int64_t>(g.rows) * g.rec);
     __syncthreads();  // before the next tile overwrites the record tile
     g = g_next;
   }
@@ -370,35 +380,209 @@ __global__ void pack_codes_staged_kernel(const uint8_t* __restrict__ codes,
 // K5. Replaces the device branch of pgen_tpu/pipeline/pgen_out.py:
 // _subset_block, which runs the Pallas _unpack_kernel, an XLA take of the
 // kept columns, then the Pallas _pack_kernel.
-// (V, R) u8 records + sel (K) int32 sample ids, any order -> (V, ceil(K/4))
-// u8 records of the kept samples in sel order.
-// Bound: memory, one record byte read per kept sample and a quarter byte
-// written. Design: the three steps fused, so codes never reach device
-// memory: one thread per output byte j reads sel[4j..4j+3], the source byte
-// sel >> 2 of each and its code at bits 2 * (sel & 3), and packs them. Codes
-// past K in a row's last byte stay zero, and source pad codes are never
-// read, since only kept ids are.
-__global__ void subset_repack_kernel(const uint8_t* __restrict__ packed,
-                                     const int32_t* __restrict__ sel,
-                                     uint8_t* __restrict__ out, int64_t n_var,
-                                     int64_t rec, int64_t n_kept,
-                                     int64_t out_rec) {
-  const int64_t n = n_var * out_rec;
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int64_t v = i / out_rec;
-    const int64_t k0 = 4 * (i - v * out_rec);
-    const uint8_t* row = packed + v * rec;
-    uint32_t b = 0;
+// (V, R) u8 records + sel (K) int32 sample ids, any order, repeats allowed
+// -> (V, ceil(K/4)) u8 records of the kept samples in sel order. Codes past
+// K in a row's last byte are zero; source pad codes are never read, since
+// only kept ids are.
+// Bound: memory, the record bytes that hold a kept sample read once and a
+// quarter byte written per kept sample: at K = 1,001 sorted of 2504 a
+// 65,536-row block reads 36 MB (87% of its 41 MB) and writes 16 MB, 0.0157
+// ms at 3.35 TB/s. Its first form, a thread per output byte of a flat grid,
+// paid a 64-bit division and four id loads per byte and then four byte
+// gathers that waited on them, re-reading all K ids for every row: latency,
+// not bytes, bound it (12% of the bound). Both forms now hold each output
+// byte's ids in registers, read once per thread (range-checked there), as
+// a record byte and a rotation (repack_ids; each code one rotation and one
+// masked or), the pad slots of a last byte masked off, and walk rows; no
+// thread divides. Two forms, chosen by the launcher from K and R:
+// - staged (ids that touch most of a row: R <= kRepackDenseRatio * K, and
+//   K <= 4,096 and R <= kRepackTileBytes): a block takes tiles of
+//   consecutive rows, each one contiguous span of the records, and copies
+//   it into shared memory with 16-B cp.async (stage_span), the next tile's
+//   copy in flight while this tile is gathered (two barriers a tile; a
+//   third, or three and four buffers, ran slower); a thread owns 1 or 4
+//   output bytes of the row (kPer) and gathers their codes from shared
+//   memory, four rows at once, into a shared output tile: the tile's
+//   output, rows * ceil(K/4) contiguous bytes, goes out with 16-B stores
+//   (unstage_span). Whole rows are read, at most 1/0.87 of the bound's
+//   bytes at K = 1,001. The grid is the blocks the card holds at once. The
+//   gather's byte loads from shared memory and operations a code bind it.
+// - direct (any other shape: few ids, as a --keep of two samples, where
+//   staging rows would read 20 times the bytes the ids hold; more ids than
+//   a block's threads hold; rows wider than a tile): K3's grid. A block
+//   takes a column tile of output bytes (blockIdx.x, threadIdx.x) over rows
+//   of threads (threadIdx.y) that step through the rows, each gathering its
+//   four codes from global memory through L1, two rows' loads in flight
+//   before either store. The staged form has no column tiles: each would
+//   re-read whole rows, 10 times the record bytes at 40,000 of 40,003 ids.
+// record bytes of one staged tile, and output bytes: two record buffers and
+// the output tile stay under the 48 KB a block gets without opting in
+constexpr int64_t kRepackTileBytes = 15 * 1024;
+constexpr int64_t kRepackMaxTileRows = 64;
+constexpr int kRepackMaxPer = 4;  // output bytes a thread of the staged form owns
+// staged when R <= kRepackDenseRatio * K, so from K = 157 at R = 626.
+// chip_diag.py --forms builds the kernels with -DPGEN_REPACK_DENSE_RATIO=0
+// (direct at every K) and with a ratio no K reaches (staged wherever a row
+// tile fits) and times both: at 65,536 rows of 2504 samples the staged form
+// ran at 0.40-0.94x the direct form's speed at K = 2-32, 1.12-1.23x at 128
+// and 256, 1.21-1.49x at 384-768 and 1.62x at 1,001 (NVIDIA H100 80GB HBM3,
+// 700 W), so the crossover lies between K = 32 and 128.
+#ifndef PGEN_REPACK_DENSE_RATIO
+#define PGEN_REPACK_DENSE_RATIO 4
+#endif
+constexpr int64_t kRepackDenseRatio = PGEN_REPACK_DENSE_RATIO;
+
+// The ids sel[4j .. 4j + 3] of output byte j: each one's record byte, and
+// the right rotation that moves its code from bits 2 (s & 3) of that byte
+// to bits 2k of the output byte, (2 (s & 3) - 2k) mod 32 (a rotation left
+// where the code moves up; the bits rotated round land above bit 7 and are
+// masked off). Returns the mask of the byte's valid code bits: zero past K
+// and for j >= out_rec, whose ids read byte 0.
+__device__ __forceinline__ uint32_t repack_ids(const int32_t* __restrict__ sel, int64_t j,
+                                               int64_t n_kept, int64_t out_rec, int64_t rec,
+                                               int off[4], uint32_t rot[4]) {
+  uint32_t keep = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (k0 + k < n_kept) {
-        const int32_t s = sel[k0 + k];
-        assert(s >= 0 && static_cast<int64_t>(s) < 4 * rec);
-        b |= ((static_cast<uint32_t>(row[s >> 2]) >> (2 * (s & 3))) & 3u) << (2 * k);
+  for (int k = 0; k < 4; ++k) {
+    off[k] = 0;
+    rot[k] = 0;
+    const int64_t at = 4 * j + k;
+    if (j < out_rec && at < n_kept) {
+      const int32_t s = sel[at];
+      assert(s >= 0 && static_cast<int64_t>(s) < 4 * rec);
+      off[k] = s >> 2;
+      rot[k] = static_cast<uint32_t>(2 * (s & 3) - 2 * k) & 31u;
+      keep |= 3u << (2 * k);
+    }
+  }
+  return keep;
+}
+
+// One output byte from the record bytes x[k] of its four ids: a rotation
+// and a masked or a code.
+__device__ __forceinline__ uint32_t repack_byte(const uint32_t x[4], const uint32_t rot[4],
+                                                uint32_t keep) {
+  uint32_t b = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) b |= __funnelshift_r(x[k], x[k], rot[k]) & (3u << (2 * k));
+  return b & keep;
+}
+
+// Blocks of the staged form an SM holds by its registers (at most 64 a
+// thread with a byte a thread, 85 with four); its launch bounds.
+template <int kPer>
+constexpr int kRepackMinBlocks = kPer == kRepackMaxPer ? 3 : 4;
+
+template <int kPer>
+__global__ void __launch_bounds__(kThreads, kRepackMinBlocks<kPer>)
+    subset_repack_staged_kernel(const uint8_t* __restrict__ packed,
+                                const int32_t* __restrict__ sel, uint8_t* __restrict__ out,
+                                int64_t n_var, int64_t rec, int64_t n_kept, int tile_rows,
+                                int in_bytes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // two record buffers of in_bytes (a multiple of 16 with room for the lead
+  // bytes), then the output tile
+  uint8_t* out_tile = smem + 2 * in_bytes;
+  const int tid = threadIdx.x;
+  const int out_rec = static_cast<int>((n_kept + 3) / 4);  // at most kThreads * kPer
+  const int width = static_cast<int>(rec);
+  int off[kPer][4];
+  uint32_t rot[kPer][4], keep[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    keep[m] = repack_ids(sel, tid + m * kThreads, n_kept, out_rec, rec, off[m], rot[m]);
+  }
+  const int64_t n_tiles = (n_var + tile_rows - 1) / tile_rows;
+  int64_t t = blockIdx.x;
+  if (t >= n_tiles) return;
+  auto rows_of = [&](int64_t tt) {
+    const int64_t v0 = tt * tile_rows;
+    return static_cast<int>(n_var - v0 < tile_rows ? n_var - v0 : tile_rows);
+  };
+  stage_span(smem, packed + t * tile_rows * rec, static_cast<int64_t>(rows_of(t)) * width);
+  int buf = 0;
+  for (; t < n_tiles; t += gridDim.x, buf ^= 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // this tile's records are in shared memory, and the other buffer and
+    // the output tile were last read before this barrier
+    __syncthreads();
+    const int64_t next = t + gridDim.x;
+    if (next < n_tiles) {
+      stage_span(smem + (buf ^ 1) * in_bytes, packed + next * tile_rows * rec,
+                 static_cast<int64_t>(rows_of(next)) * width);
+    }
+    const int64_t v0 = t * tile_rows;
+    const int rows = rows_of(t);
+    const uint8_t* in = smem + buf * in_bytes +
+                        (reinterpret_cast<uintptr_t>(packed + v0 * rec) & 15);
+    uint8_t* dst = out + v0 * out_rec;
+    const int out_lead = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+    // four rows at once, row i in byte i of a u32: three byte permutes join
+    // the four rows' bytes of an id, and one rotation and one masked or
+    // place its code in all four output bytes (a third fewer instructions
+    // a code than a row at a time); then the last rows
+    int r = 0;
+    for (; r + 4 <= rows; r += 4) {
+      const uint8_t* row = in + r * width;
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) {
+        const int j = tid + m * kThreads;
+        if (j < out_rec) {
+          uint32_t acc = 0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint8_t* p = row + off[m][k];
+            const uint32_t x = __byte_perm(__byte_perm(p[0], p[width], 0x0040),
+                                           __byte_perm(p[2 * width], p[3 * width], 0x0040), 0x5410);
+            acc |= __funnelshift_r(x, x, rot[m][k]) & (0x03030303u << (2 * k));
+          }
+          acc &= keep[m] * 0x01010101u;
+          uint8_t* o = out_tile + out_lead + r * out_rec + j;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[i * out_rec] = static_cast<uint8_t>(acc >> (8 * i));
+        }
       }
     }
-    out[i] = static_cast<uint8_t>(b);
+    for (; r < rows; ++r) {
+      const uint8_t* row = in + r * width;
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) {
+        const int j = tid + m * kThreads;
+        if (j < out_rec) {
+          const uint32_t x[4] = {row[off[m][0]], row[off[m][1]], row[off[m][2]], row[off[m][3]]};
+          out_tile[out_lead + r * out_rec + j] =
+              static_cast<uint8_t>(repack_byte(x, rot[m], keep[m]));
+        }
+      }
+    }
+    __syncthreads();  // the output tile is complete
+    unstage_span(dst, out_tile, static_cast<int64_t>(rows) * out_rec);
   }
+}
+
+__global__ void subset_repack_direct_kernel(const uint8_t* __restrict__ packed,
+                                            const int32_t* __restrict__ sel,
+                                            uint8_t* __restrict__ out, int64_t n_var,
+                                            int64_t rec, int64_t n_kept, int64_t out_rec) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= out_rec) return;
+  int off[4];
+  uint32_t rot[4];
+  const uint32_t keep = repack_ids(sel, j, n_kept, out_rec, rec, off, rot);
+  const int64_t step = static_cast<int64_t>(gridDim.y) * blockDim.y;
+  int64_t v = static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y;
+  auto gather = [&](int64_t row) {
+    const uint8_t* p = packed + row * rec;
+    const uint32_t x[4] = {__ldg(p + off[0]), __ldg(p + off[1]), __ldg(p + off[2]),
+                           __ldg(p + off[3])};
+    return static_cast<uint8_t>(repack_byte(x, rot, keep));
+  };
+  for (; v + step < n_var; v += 2 * step) {
+    const uint8_t a = gather(v), b = gather(v + step);
+    out[v * out_rec + j] = a;
+    out[(v + step) * out_rec + j] = b;
+  }
+  if (v < n_var) out[v * out_rec + j] = gather(v);
 }
 
 // K6. Replaces the Pallas kernel tools/fused_text_lab.py:_fused_kernel
@@ -448,60 +632,147 @@ __global__ void text_from_codes_kernel(const uint8_t* __restrict__ codes,
 // K8. Replaces pgen_tpu/ops/gt_stats.py:gt_counts_device: the Pallas
 // _unpack_kernel (ops/unpack.py) then an XLA one-hot sum over the samples.
 // (V, R) u8 records -> (V, 4) int32: counts[v][c] = #{s < S : code(v, s) == c}.
-// Bound: memory, one read of each record byte and 16 B written per row.
-// Design: one warp per row; lane l takes bytes l, l+32, ... (a warp's load
-// is 32 consecutive bytes) and counts the byte's four codes with popcounts
-// on its low and high code bits, so codes never reach device memory. Slots
-// at or past S (the pad codes of a row's last byte, arbitrary bits in real
-// files) are masked out of both bit sets before counting. A shuffle tree
-// then sums the lanes' counts. K11's flat form and its count pass count
-// their rows the same way (row_code_counts).
+// Bound: memory, one read of each record byte that holds a sample and 16 B
+// written per row: 65,536 x 626 B reads 41 MB, 0.0126 ms at 3.35 TB/s.
+// Design: a warp takes two rows (row_code_counts). Counting does not depend
+// on byte order, so a lane loads whole aligned 16-B words: the words that
+// hold a byte of a row's used span [row, row + ceil(S/4)), lanes on
+// consecutive words, two words of each row a lane (a 626-B row is 40 or 41
+// words), all four issued before any popcount, so a warp load instruction
+// moves 512 B (its first form, lane l on bytes l, l+32, ..., moved 32 B and
+// left too few bytes in flight to near the card's rate). Per
+// word the slots outside [0, S) of the row, the bytes of the neighbouring
+// rows and the pad codes of the span's last byte, are masked off; no funnel
+// shift and no next-word load. Every load holds a byte of the tensor, and an
+// aligned 16-B word that holds a byte of an allocation lies inside it (CUDA
+// and PyTorch's caching allocator hand out blocks aligned to 512 B or more),
+// so no load leaves the tensor's allocation, at its last byte included.
+// Counts from popcounts on 32-bit lanes, with m the mask of the counted
+// slots' low bits: L = popc(x & m), H = popc((x >> 1) & m), B = popc(x &
+// (x >> 1) & m); c1 = L - B, c2 = H - B, c3 = B, c0 = S - L - H + B. The warp
+// sums L, H and B with three __reduce_add_sync. K11's flat form and its
+// count pass count their rows with the same row_code_counts.
 constexpr int kWarp = 32;
 
-// Code counts c[0..3] of samples [0, n_samples) of one row, for lane 0 of
-// the calling warp; every lane of the warp must call it.
-__device__ __forceinline__ void row_code_counts(const uint8_t* __restrict__ row,
-                                                int64_t n_samples, int lane, uint32_t c[4]) {
-  const int64_t used = (n_samples + 3) / 4;  // bytes that hold samples
-  uint32_t c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-  for (int64_t j = lane; j < used; j += kWarp) {
-    const uint32_t b = __ldg(row + j);
-    const int64_t left = n_samples - 4 * j;  // samples from this byte on
-    const uint32_t slots =
-        left >= 4 ? 0x55u : 0x55u & ((1u << (2 * left)) - 1u);
-    const uint32_t lo = b & slots;         // bit 0 of each counted code
-    const uint32_t hi = (b >> 1) & slots;  // bit 1
-    c1 += __popc(lo & ~hi);
-    c2 += __popc(hi & ~lo);
-    c3 += __popc(lo & hi);
-    c0 += __popc(slots & ~(lo | hi));
-  }
-  for (int off = kWarp / 2; off > 0; off /= 2) {
-    c0 += __shfl_down_sync(0xFFFFFFFFu, c0, off);
-    c1 += __shfl_down_sync(0xFFFFFFFFu, c1, off);
-    c2 += __shfl_down_sync(0xFFFFFFFFu, c2, off);
-    c3 += __shfl_down_sync(0xFFFFFFFFu, c3, off);
-  }
-  c[0] = c0;
-  c[1] = c1;
-  c[2] = c2;
-  c[3] = c3;
+// Bit 0 of each 2-bit slot of a u32 in [a, b), each clamped to [0, 16]:
+// the first n slots' bits are the top 2n bits of 0x55555555 shifted out of
+// a 64-bit pair, __funnelshift_lc, which is defined for every n up to 16 (a
+// shift of 32 included). Masks from plain shifts, (1u << 2n) - 1 behind a
+// test of n == 16, then from 64-bit shifts with 32-bit offsets, came out
+// wrong on the card (nvcc 12.8, sm_90a: slots of the neighbouring rows
+// counted, whole u32s of the row lost) where g++ computed them right.
+__device__ __forceinline__ uint32_t slot_bits(int a, int b) {
+  a = a < 0 ? 0 : (a > 16 ? 16 : a);
+  b = b < 0 ? 0 : (b > 16 ? 16 : b);
+  return __funnelshift_lc(0x55555555u, 0u, 2 * b) & ~__funnelshift_lc(0x55555555u, 0u, 2 * a);
 }
 
-__global__ void gt_counts_kernel(const uint8_t* __restrict__ packed,
-                                 int32_t* __restrict__ counts, int64_t n_var,
-                                 int64_t rec, int64_t n_samples) {
+// Adds the L, H and B of the slots [a, b) of one 16-B word (a, b clamped to
+// [0, 64]; every slot of a word inside the row's span: a = 0, b = 64). The
+// counted bits of a u32 sit at even positions, so two u32s' bits share one
+// popcount: popc(lo0 | lo1 << 1) = popc(lo0) + popc(lo1), six popcounts a
+// word where one a u32 and bit made twelve.
+__device__ __forceinline__ void count_word(uint4 x, int a, int b, uint32_t& l, uint32_t& h,
+                                           uint32_t& both) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t m[4];
+  if (a == 0 && b == 64) {
+    m[0] = m[1] = m[2] = m[3] = 0x55555555u;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[q] = slot_bits(a - 16 * q, b - 16 * q);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; q += 2) {
+    const uint32_t lo0 = w[q] & m[q], hi0 = (w[q] >> 1) & m[q];
+    const uint32_t lo1 = w[q + 1] & m[q + 1], hi1 = (w[q + 1] >> 1) & m[q + 1];
+    l += __popc(lo0 | (lo1 << 1));
+    h += __popc(hi0 | (hi1 << 1));
+    both += __popc((lo0 & hi0) | ((lo1 & hi1) << 1));
+  }
+}
+
+// Code counts c[r][0..3] of samples [0, n_samples) of kRows rows, rows[r] at
+// any byte address (a null row reads and counts nothing), for every lane of
+// the calling warp; every lane of the warp must call it. Each lane issues the
+// loads of all kRows rows' words before any popcount. Word indices are
+// 32-bit (rows under 2 GB): 64-bit ones took K8 from 64 to 72 registers
+// and 1.5x the time. The slot offsets stay 64-bit: with 32-bit ones the
+// card (nvcc 12.8, sm_90a) gave a lane's second word the first word's
+// clamped end slot, so a row's last word counted the next row's codes;
+// the same source computes right under g++.
+template <int kRows>
+__device__ __forceinline__ void row_code_counts(const uint8_t* const (&rows)[kRows],
+                                                int n_samples, int lane,
+                                                uint32_t (&c)[kRows][4]) {
+  const int used = (n_samples + 3) / 4;
+  const uint4* base[kRows];
+  int n_words[kRows];
+  int64_t first_slot[kRows];
+  int most = 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(rows[r]) & 15);
+    base[r] = reinterpret_cast<const uint4*>(rows[r] - lead);  // 16-B aligned
+    n_words[r] = rows[r] != nullptr ? (lead + used + 15) / 16 : 0;
+    first_slot[r] = 4 * lead;  // word w holds slots [64 w, 64 w + 64) from base
+    most = n_words[r] > most ? n_words[r] : most;
+  }
+  uint32_t l[kRows], h[kRows], both[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) l[r] = h[r] = both[r] = 0;
+  auto clamp64 = [](int64_t at) { return static_cast<int>(at < 0 ? 0 : (at > 64 ? 64 : at)); };
+  for (int w = lane; w < most; w += 2 * kWarp) {
+    uint4 x[kRows][2];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int at = w + k * kWarp;
+        x[r][k] = at < n_words[r] ? __ldg(base[r] + at) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int64_t a = first_slot[r] - int64_t{64} * (w + k * kWarp);
+        count_word(x[r][k], clamp64(a), clamp64(a + n_samples), l[r], h[r], both[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    l[r] = __reduce_add_sync(0xFFFFFFFFu, l[r]);
+    h[r] = __reduce_add_sync(0xFFFFFFFFu, h[r]);
+    both[r] = __reduce_add_sync(0xFFFFFFFFu, both[r]);
+    c[r][0] = static_cast<uint32_t>(n_samples) - l[r] - h[r] + both[r];
+    c[r][1] = l[r] - both[r];
+    c[r][2] = h[r] - both[r];
+    c[r][3] = both[r];
+  }
+}
+
+// Two rows a warp: rows 2g and 2g + 1 of warp g, then those a grid of warps
+// later. Four blocks an SM: 64 registers at most (uncapped, 72 ran slower).
+__global__ void __launch_bounds__(kThreads, 4)
+    gt_counts_kernel(const uint8_t* __restrict__ packed, int4* __restrict__ counts, int64_t n_var,
+                     int64_t rec, int n_samples) {
   const int lane = threadIdx.x % kWarp;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
   // v is the same for every lane of a warp, so the whole warp takes part in
-  // each shuffle below
-  for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
-    uint32_t c[4];
-    row_code_counts(packed + v * rec, n_samples, lane, c);
-    if (lane == 0) {
-      int32_t* out = counts + 4 * v;
+  // each reduction
+  for (int64_t v = 2 * (first_index() / kWarp); v < n_var; v += 2 * warps) {
+    const uint8_t* const rows[2] = {packed + v * rec,
+                                    v + 1 < n_var ? packed + (v + 1) * rec : nullptr};
+    uint32_t c[2][4];
+    row_code_counts<2>(rows, n_samples, lane, c);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) out[k] = static_cast<int32_t>(c[k]);
+    for (int r = 0; r < 2; ++r) {
+      if (lane == r && v + r < n_var) {
+        counts[v + r] = make_int4(static_cast<int>(c[r][0]), static_cast<int>(c[r][1]),
+                                  static_cast<int>(c[r][2]), static_cast<int>(c[r][3]));
+      }
     }
   }
 }
@@ -865,8 +1136,9 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 // chosen by the launcher:
 // - flat (no sel, S % 4 == 0, db 16-B aligned; every sample scored, 1000
 //   Genomes' 2504): rows have no pad codes and every row starts on 16 B.
-//   One warp per row counts its bytes by popcount (row_code_counts, as K8),
-//   broadcasts the fill, then writes each byte's four dosages as one 16 B
+//   One warp per row counts its bytes by popcount (row_code_counts, as K8;
+//   every lane gets the counts and so the fill), then writes each byte's
+//   four dosages as one 16 B
 //   streaming store (the dosages pass the 50 MB L2 before the product reads
 //   them), the bytes again from L1: no shared memory, no barrier.
 // - tiled (any other K or alignment, K <= kPlaneChunk): K10's tiles
@@ -897,16 +1169,16 @@ __global__ void score_dosage_flat_kernel(const uint8_t* __restrict__ packed,
   for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
     const uint8_t* row = packed + v * rec;
     const bool flipped = flip[v] != 0;
-    uint32_t c[4];
-    row_code_counts(row, 4 * n_quads, lane, c);
-    float fill = 0.0f;
-    if (lane == 0) {
-      const uint32_t n = c[0] + c[1] + c[2];
-      const uint32_t sum = flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
-      called[v] = static_cast<int32_t>(n);
-      if (mean_impute && n > 0) fill = static_cast<float>(sum) / static_cast<float>(n);
-    }
-    fill = __shfl_sync(0xFFFFFFFFu, fill, 0);
+    const uint8_t* const rows[1] = {row};
+    uint32_t counts[1][4];
+    // every lane holds the counts
+    row_code_counts<1>(rows, static_cast<int>(4 * n_quads), lane, counts);
+    const uint32_t* c = counts[0];
+    const uint32_t n = c[0] + c[1] + c[2];
+    const uint32_t sum = flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
+    if (lane == 0) called[v] = static_cast<int32_t>(n);
+    const float fill =
+        mean_impute && n > 0 ? static_cast<float>(sum) / static_cast<float>(n) : 0.0f;
     const float d0 = flipped ? 2.0f : 0.0f, d2 = flipped ? 0.0f : 2.0f;
     auto dose = [&](uint32_t code) {
       return code == 0u ? d0 : (code == 1u ? 1.0f : (code == 2u ? d2 : fill));
@@ -938,7 +1210,10 @@ __global__ void score_counts_kernel(const uint8_t* __restrict__ packed,
     const uint8_t* row = packed + v * rec;
     uint32_t c[4];
     if (sel == nullptr) {  // chunk is a multiple of 4: whole bytes
-      row_code_counts(row + c0 / 4, kc, lane, c);
+      const uint8_t* const rows[1] = {row + c0 / 4};
+      uint32_t counts[1][4];
+      row_code_counts<1>(rows, kc, lane, counts);
+      for (int k = 0; k < 4; ++k) c[k] = counts[0][k];
     } else {
       uint64_t acc = 0;
       for (int j = lane; j < kc; j += kWarp) {
@@ -1018,6 +1293,30 @@ __global__ void score_dosage_kernel(const uint8_t* __restrict__ packed,
     store_span(db + v0 * n_kept + c0, rows * kc, tile, table);
     __syncthreads();  // before the next tile's codes overwrite these
   }
+}
+
+// One block for each tile of rows up to as many as the card holds at once:
+// its SMs times the blocks an SM holds, the kernel's launch bounds (its
+// registers) or the shared memory (228 KB an SM, 1 KB of it reserved a
+// block), whichever is fewer.
+template <int kPer>
+int launch_repack_staged(const uint8_t* in, const int32_t* ids, uint8_t* dst, int64_t n_var,
+                         int64_t rec, int64_t n_kept, int64_t tile_rows, int64_t in_bytes,
+                         int64_t smem, cudaStream_t s) {
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int64_t per_sm = 228 * 1024 / (smem + 1024);
+  const int64_t by_registers = kRepackMinBlocks<kPer>;
+  if (per_sm > by_registers) per_sm = by_registers;
+  int64_t blocks = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int64_t row_tiles = (n_var + tile_rows - 1) / tile_rows;
+  if (blocks > row_tiles) blocks = row_tiles;
+  subset_repack_staged_kernel<kPer><<<static_cast<unsigned>(blocks), kThreads,
+                                      static_cast<size_t>(smem), s>>>(
+      in, ids, dst, n_var, rec, n_kept, static_cast<int>(tile_rows), static_cast<int>(in_bytes));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1126,12 +1425,40 @@ int pgen_subset_repack(const void* packed, const void* sel, void* out,
                        int64_t n_var, int64_t rec, int64_t n_kept,
                        void* stream) {
   const int64_t out_rec = (n_kept + 3) / 4;
-  const int64_t n = n_var * out_rec;
-  if (n <= 0) return 0;
-  subset_repack_kernel<<<grid_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
-      static_cast<uint8_t*>(out), n_var, rec, n_kept, out_rec);
+  if (n_var <= 0 || out_rec <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const uint8_t*>(packed);
+  const auto ids = static_cast<const int32_t*>(sel);
+  const auto dst = static_cast<uint8_t*>(out);
+  // a staged block's threads hold a row's output: a byte each up to K =
+  // 1,024, four bytes each up to 4,096
+  if (out_rec <= kThreads * kRepackMaxPer && rec <= kRepackTileBytes &&
+      rec <= kRepackDenseRatio * n_kept) {
+    // rows of a tile: their records, and their output, each within
+    // kRepackTileBytes
+    const int64_t widest = out_rec > rec ? out_rec : rec;
+    int64_t tile_rows = kRepackTileBytes / widest;
+    if (tile_rows > kRepackMaxTileRows) tile_rows = kRepackMaxTileRows;
+    if (tile_rows > n_var) tile_rows = n_var;
+    // the spans and up to 15 lead bytes, in whole 16 B
+    const int64_t in_bytes = (tile_rows * rec + 15 + 15) / 16 * 16;
+    const int64_t out_bytes = (tile_rows * out_rec + 15 + 15) / 16 * 16;
+    const int64_t smem = 2 * in_bytes + out_bytes;  // under 48 KB
+    if (out_rec <= kThreads) {
+      return launch_repack_staged<1>(in, ids, dst, n_var, rec, n_kept, tile_rows, in_bytes, smem,
+                                     s);
+    }
+    return launch_repack_staged<kRepackMaxPer>(in, ids, dst, n_var, rec, n_kept, tile_rows,
+                                               in_bytes, smem, s);
+  }
+  // threads on output bytes: a power of two up to 256 (past that, column
+  // tiles on blockIdx.x), the rest on rows
+  int64_t tx = 1;
+  while (tx < out_rec && tx < kThreads) tx *= 2;
+  const int64_t ty = kThreads / tx;
+  subset_repack_direct_kernel<<<tile_grid(n_var, out_rec, tx, ty),
+                                dim3(static_cast<unsigned>(tx), static_cast<unsigned>(ty)), 0,
+                                s>>>(in, ids, dst, n_var, rec, n_kept, out_rec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1159,12 +1486,15 @@ int pgen_text_from_codes(const void* codes, void* text, int64_t n_var,
 int pgen_gt_counts(const void* packed, void* counts, int64_t n_var,
                    int64_t rec, int64_t n_samples, void* stream) {
   if (n_var <= 0 || n_samples <= 0) return 0;
-  const int64_t rows_per_block = kThreads / 32;
+  if (reinterpret_cast<uintptr_t>(counts) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const int64_t rows_per_block = 2 * kThreads / kWarp;
   const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
   gt_counts_kernel<<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<int32_t*>(counts), n_var,
-      rec, n_samples);
+      static_cast<const uint8_t*>(packed), static_cast<int4*>(counts), n_var,
+      rec, static_cast<int>(n_samples));
   return static_cast<int>(cudaGetLastError());
 }
 

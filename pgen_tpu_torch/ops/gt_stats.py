@@ -13,7 +13,9 @@ on the tensor's device with no fallback between the two: a CUDA tensor
 launches the kernel, a CPU tensor runs the plain PyTorch version beside it.
 
 - ``gt_counts_device``: K8, ``csrc/genotype.cu:gt_counts_kernel``, for
-  pgen_tpu's ``gt_counts_device`` (the Pallas unpack, then a one-hot sum).
+  pgen_tpu's ``gt_counts_device`` (the Pallas unpack, then a one-hot sum). A
+  warp counts a row from the aligned 16-B words that hold its bytes, the
+  slots outside the row masked off, by popcount.
 - ``sample_counts_device``: K9, ``csrc/genotype.cu:sample_counts_kernel``,
   for pgen_tpu's ``sample_counts_device`` (the Pallas unpack, then a one-hot
   sum over the variants). It reads each record byte once, so bytes bound

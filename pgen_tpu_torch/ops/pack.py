@@ -14,9 +14,13 @@ plain PyTorch version beside it.
   alignment), the launcher choosing; the counterpart of ``pack_codes_device``. The VCF
   import path runs it.
 - ``subset_repack`` (packed records in, the kept samples' records out): K5,
-  ``csrc/genotype.cu:subset_repack_kernel``, one kernel for the device
-  branch of ``pgen_tpu/pipeline/pgen_out.py:_subset_block`` (unpack, take of
-  the kept columns, pack). The ``--out-format pgen`` path runs it.
+  ``csrc/genotype.cu:subset_repack_staged_kernel`` (ids that touch most of a
+  row: tiles of rows staged in shared memory) or
+  ``subset_repack_direct_kernel`` (few ids, or rows wider than a tile: a
+  gather from global memory), the launcher choosing from K and R; one kernel
+  for the device branch of ``pgen_tpu/pipeline/pgen_out.py:_subset_block``
+  (unpack, take of the kept columns, pack). Each thread reads its ids once.
+  The ``--out-format pgen`` path runs it.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.query import Binary, ExprError, Lit, Unary, Var, parse
 
 
@@ -99,10 +100,13 @@ def lower_device(node, cols: dict) -> torch.Tensor:
     return v
 
 
-def compile_predicate_device(expr, table, device="cpu") -> torch.Tensor:
-    """Evaluate expr on ``device`` over a MetadataTable's padded columns."""
+def compile_predicate_device(expr, table, device="cuda") -> torch.Tensor:
+    """Evaluate expr on ``device`` over a MetadataTable's padded columns: the
+    card unless the caller asks for the CPU, as pgen_tpu's runs on its
+    default device; without CUDA a call for the card raises."""
     from pgen_tpu_torch.query.ast import variables
 
+    device = resolve_device(device)
     node = parse(expr) if isinstance(expr, str) else expr
     cols = {
         name: table.get_column_padded(name)

@@ -82,6 +82,32 @@ def test_counts_of_fewer_samples_than_slots():
                                       jax_gt_stats.sample_counts_reference(packed, s))
 
 
+@pytest.mark.parametrize("offset", range(16))
+def test_gt_counts_offset_views_match_pallas(offset):
+    """Records that start at any byte of a buffer (a block cut from a
+    staging tensor), R % 4 = 0..3: the plain version equal to pgen_tpu's
+    gt_counts_device, the Pallas unpack in interpret mode."""
+    for n_samples in (2504, 2497, 2505, 2509, 5):
+        packed = _packed(5, n_samples, seed=offset + n_samples)
+        buf = torch.from_numpy(np.full(packed.size + 32, 0xA5, dtype=np.uint8))
+        view = buf[offset : offset + packed.size].view(packed.shape)
+        view.copy_(torch.from_numpy(packed))
+        got = gt_counts_device(view, n_samples)
+        want = jax_gt_stats.gt_counts_device(jnp.asarray(packed), n_samples, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n_samples", [1, 2, 17, 37, 157])
+def test_gt_counts_fewer_samples_than_slots_match_pallas(n_samples):
+    """S below 4R - 3 on 40-byte records: whole trailing bytes are pad, and
+    the plain version counts only [0, S), as pgen_tpu's Pallas path does."""
+    packed = _packed(5, 160, seed=n_samples)
+    got = gt_counts_device(torch.from_numpy(packed), n_samples)
+    want = jax_gt_stats.gt_counts_device(jnp.asarray(packed), n_samples, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.sum(1) == n_samples).all()
+
+
 def test_empty_and_plain_versions():
     empty = torch.empty((0, 3), dtype=torch.uint8)
     assert gt_counts_device(empty, 9).shape == (0, 4)

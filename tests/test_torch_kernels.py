@@ -258,6 +258,93 @@ def test_count_kernels_count_fewer_samples_than_slots(cuda_device):
         assert torch.equal(sample_counts_device(packed, s), sample_counts_plain(packed, s))
 
 
+def _records_at(host, offset, device):
+    """``host``'s records on the card, starting ``offset`` bytes past a 16-B
+    boundary and ending at the last byte of their buffer's storage."""
+    buf = torch.empty(offset + host.size, dtype=torch.uint8, device=device)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[offset:].view(host.shape)
+    view.copy_(torch.from_numpy(host))
+    assert view.data_ptr() + view.numel() == buf.data_ptr() + buf.untyped_storage().nbytes()
+    return view
+
+
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2497, 2505, 5, 1])
+def test_repack_and_counts_at_every_row_offset(cuda_device, n_samples, offset):
+    """K5 and K8 on records whose rows start at every byte offset from a
+    16-B boundary, R % 4 = 0..3 and S of 1 and 5 (a row shorter than one
+    word), in a tensor that ends at the end of its storage (its last row,
+    alone and among the others); K8 also at S < 4R - 3; K5 at K = 2 and
+    1,001 sorted, into records at an offset too, nothing written outside
+    them."""
+    host = _packed(300, n_samples, 16 * n_samples + offset, "cpu").numpy()
+    packed = _records_at(host, offset, cuda_device)
+    rec = host.shape[1]
+    for rows in (packed, packed[-1:]):
+        for s in sorted({n_samples, max(1, 4 * rec - 7), max(1, n_samples // 3)}):
+            got = gt_counts_device(rows, s)
+            assert torch.equal(got, gt_counts_plain(rows, s))
+            np.testing.assert_array_equal(got.cpu().numpy(), gt_counts_reference(
+                rows.cpu().numpy(), s))
+    ids = np.sort(np.random.default_rng(offset).permutation(n_samples)[: min(1001, n_samples)])
+    for k in sorted({min(2, n_samples), len(ids)}):
+        sel = torch.from_numpy(ids[:k].astype(np.int32)).to(cuda_device)
+        for rows in (packed, packed[-1:]):
+            want = subset_repack_plain(rows, sel)
+            assert torch.equal(subset_repack(rows, sel), want)
+            out_rec = want.shape[1]
+            guard = torch.full((rows.shape[0] * out_rec + 32,), 0xA5, dtype=torch.uint8,
+                               device=cuda_device)
+            out = guard[offset : offset + rows.shape[0] * out_rec].view(-1, out_rec)
+            kernels.launch(subset_repack, "pgen_subset_repack", rows, rows.data_ptr(),
+                           sel.data_ptr(), out.data_ptr(), rows.shape[0], rec, k)
+            assert torch.equal(out, want)
+            assert bool((guard[:offset] == 0xA5).all())
+            assert bool((guard[offset + out.numel():] == 0xA5).all())
+
+
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "repeated", "unsorted"])
+@pytest.mark.parametrize("n_kept", [1, 2, 5, 16, 40, 78, 79, 200, 1001, 2503, 4100, 9001])
+def test_subset_repack_any_ids_both_forms(cuda_device, n_kept, kind):
+    """K5 with ids sorted, reversed, repeated and unsorted, at K from 1 to
+    past S: few ids (the direct form), many (the staged form: one thread a
+    byte, two and four bytes a thread), past the 4,096 ids a staged block
+    holds (the direct form's column tiles), on rows of 2503 samples, more
+    rows than one pass of the staged form's blocks; against the plain
+    version and pgen_tpu's host pack of the unpacked columns."""
+    n_samples = 2503
+    rng = np.random.default_rng(n_kept)
+    packed = _packed(20_000, n_samples, n_kept, cuda_device)
+    host = packed.cpu().numpy()
+    if kind == "repeated" or n_kept > n_samples:
+        ids = rng.integers(0, n_samples, n_kept)
+    else:
+        ids = {"sorted": np.sort(rng.permutation(n_samples)[:n_kept]),
+               "reversed": np.sort(rng.permutation(n_samples)[:n_kept])[::-1],
+               "unsorted": rng.permutation(n_samples)[:n_kept]}[kind]
+    sel_np = np.ascontiguousarray(ids, dtype=np.int32)
+    sel = torch.from_numpy(sel_np).to(cuda_device)
+    got = subset_repack(packed, sel)
+    assert torch.equal(got, subset_repack_plain(packed, sel))
+    want = writer_pack_codes(unpack_codes_reference(host, 4 * host.shape[1])[:, sel_np])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("n_samples,n_kept", [(40_003, 40_000), (40_003, 300), (61_447, 61_447),
+                                              (8_003, 8_000)])
+def test_subset_repack_wide_rows(cuda_device, n_samples, n_kept):
+    """Rows past the staged form's 15 KB tile (61,447 samples: 15,362 B),
+    and wide rows of many ids in the direct form's column tiles (40,000 and
+    8,000 ids) or few (300), sorted and repeated ids: equal to the plain
+    version."""
+    rng = np.random.default_rng(n_samples)
+    packed = _packed(40, n_samples, n_kept, cuda_device)
+    for ids in (np.sort(rng.permutation(n_samples)[:n_kept]), rng.integers(0, n_samples, n_kept)):
+        sel = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+        assert torch.equal(subset_repack(packed, sel), subset_repack_plain(packed, sel))
+
+
 def test_count_kernel_launch_error_raises(cuda_device, monkeypatch):
     """A launcher that reports a CUDA error raises and is not counted."""
 

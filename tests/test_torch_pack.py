@@ -125,6 +125,47 @@ def test_subset_repack_repeats_and_pad_ids():
     )
 
 
+def _offset_view(host, offset):
+    """A CPU tensor view of ``host``'s bytes that starts ``offset`` bytes into
+    a larger buffer (a block cut from a staging tensor), same shape."""
+    buf = torch.from_numpy(np.full(host.size + 32, 0xA5, dtype=np.uint8))
+    view = buf[offset : offset + host.size].view(host.shape)
+    view.copy_(torch.from_numpy(host))
+    return view
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_subset_repack_offset_views_match_jax(offset):
+    """Records that start at any byte of a buffer, rows of R % 4 = 0..3 (S =
+    2504, 2497, 2505 and 2509 give R = 626, 625, 627 and 628), K = 1,001
+    sorted and 2 reversed: the plain version (what a CPU tensor runs) equal
+    to pgen_tpu's P1, take, P3."""
+    for n_samples in (2504, 2497, 2505, 2509):
+        packed = _packed(7, n_samples, seed=offset + n_samples)
+        ids = np.sort(np.random.default_rng(offset).permutation(n_samples)[:1001])
+        for sel in (ids.astype(np.int32), ids[:2][::-1].astype(np.int32).copy()):
+            got = subset_repack(_offset_view(packed, offset), torch.from_numpy(sel)).numpy()
+            np.testing.assert_array_equal(got, _jax_subset_repack(packed, sel))
+
+
+@pytest.mark.parametrize("kind", ["reversed", "repeated", "unsorted"])
+@pytest.mark.parametrize("n_samples", [1, 5, 2503, 2504])
+def test_subset_repack_id_orders_match_jax(n_samples, kind):
+    """Ids reversed, repeated (K past S, so K % 4 and out_rec past R too) and
+    unsorted, at S of 1 and 5 (a row shorter than a 16-B word) and chr22's
+    widths: equal to pgen_tpu's P1, take, P3."""
+    rng = np.random.default_rng(7 * n_samples)
+    ascending = np.sort(rng.permutation(n_samples)[: max(1, (3 * n_samples) // 4)])
+    sel = {"reversed": ascending[::-1],
+           "repeated": rng.integers(0, n_samples, n_samples + 7),
+           "unsorted": rng.permutation(n_samples)}[kind]
+    sel = np.ascontiguousarray(sel, dtype=np.int32)
+    packed = _packed(9, n_samples, seed=900 + n_samples)
+    got = _port_subset_repack(packed, sel)
+    assert got.shape == (9, (len(sel) + 3) // 4)
+    np.testing.assert_array_equal(got, _jax_subset_repack(packed, sel))
+
+
 def test_genotype_text_from_codes_all_byte_values():
     codes = np.arange(256, dtype=np.uint8).reshape(2, 128)
     got = genotype_text_from_codes(torch.from_numpy(codes)).numpy()

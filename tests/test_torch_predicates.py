@@ -66,6 +66,21 @@ def test_lowering_matches_pgen_tpu_and_host(table, expr):
     np.testing.assert_array_equal(got.numpy(), compile_predicate(expr, table))
 
 
+def test_default_device_is_the_card(table, monkeypatch):
+    """Without a device, compile_predicate_device runs on the card, as
+    pgen_tpu's runs on its default device: on a machine without CUDA the
+    call raises, and nothing is lowered on the CPU."""
+    import pgen_tpu_torch.query.compile_device as port_lowering
+
+    def lowered(*args):
+        raise AssertionError("lowered without a card")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(port_lowering, "lower_device", lowered)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        compile_predicate_device('ALT == "G"', table)
+
+
 OUTSIDE = [
     ('len(ID) == 3', "fallback"),  # builtin call
     ('num(POS) < 50', "fallback"),  # the -r region form
