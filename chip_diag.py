@@ -4,7 +4,8 @@ beside chip_smoke.py, whose fixtures, timer and oracles they use.
 
     python3 chip_diag.py --ab DIR      # K4, K5, K8-K11 against the kernels of the checkout at DIR
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
-    python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time
+    python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time,
+                                       # and K12, K13 and their products
     python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
 
 --ab builds the kernel sources of another checkout (the parent commit's,
@@ -12,7 +13,10 @@ unpacked with git archive) beside this one's and times both in one process
 on the same tensors. --trace runs this checkout's launchers of the same
 cases under torch.profiler and prints each device operation's time per
 launch (kernels and memsets), which CUDA events around a launch cannot
-separate from the host's enqueue time. --precision shows which part of an f32 moment product
+separate from the host's enqueue time; it also traces K12 and K13 and the
+library products beside them (one torch._int_mm Gram, one fp32 z'z and one
+--approx pass), which --ab leaves out: the parent checkout has no K12 or
+K13 to bind. --precision shows which part of an f32 moment product
 costs each GWAS design its accuracy against pgen_tpu's tolerances. --forms
 builds this checkout's kernels twice more, K5's launcher held to its direct
 form in one and to its staged form (wherever a row tile fits) in the other,
@@ -43,6 +47,7 @@ from chip_smoke import (  # noqa: E402
     KEEP_SAMPLES,
     GLM_ROWS,
     GWAS_REGION,
+    REL_ROWS,
     SEED,
     WIDE,
     WIDE_GLM_ROWS,
@@ -248,14 +253,8 @@ def _kernel_cases(other) -> dict:
 
     def counts_case(records):
         counts = torch.empty((4 * rec, 4), dtype=torch.int32, device=dev)
-
-        def call(lib):
-            if lib is other:
-                counts.zero_()
-            return lib.pgen_sample_counts(records.data_ptr(), counts.data_ptr(), records.shape[0],
-                                          rec, stream)
-
-        return [counts], call
+        return [counts], lambda lib: lib.pgen_sample_counts(
+            records.data_ptr(), counts.data_ptr(), records.shape[0], rec, stream)
 
     cases = {
         "K4 pack_codes S=2504": pack_case(codes),
@@ -281,6 +280,73 @@ def _kernel_cases(other) -> dict:
     return cases
 
 
+def _relatedness_cases() -> dict:
+    """K12 and K13 launchers and the products beside them, at the paths'
+    block shapes, for --trace only: {name: call(lib)}. K12 at 32,768 rows
+    of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the same;
+    one torch._int_mm Gram of the planes, one z'z in f64 (the exact GRM's)
+    and in full fp32 (pgen_tpu's), and one --approx pass's z'(z q), q of
+    18 columns."""
+    import torch
+
+    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.ops.pca import add_gram_fp64
+    from pgen_tpu_torch.ops.relatedness import plane_shape
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    s = WIDTHS[0]
+    rec = (s + 3) // 4
+    records = torch.randint(0, 256, (REL_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
+    keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values
+    keep = keep.to(torch.int32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def planes_case(rows, sel):
+        n_var, n_rec = rows.shape
+        kept = s if sel is None else sel.shape[0]
+        s_pad, v_pad = plane_shape(n_var, kept)
+        planes = torch.empty((4, s_pad, v_pad), dtype=torch.int8, device=dev)
+        return planes, lambda lib: lib.pgen_relatedness_planes(
+            rows.data_ptr(), None if sel is None else sel.data_ptr(), planes.data_ptr(), n_var,
+            n_rec, s, kept, s_pad, v_pad, stream)
+
+    def z_case(rows, sel):
+        n_var, n_rec = rows.shape
+        kept = s if sel is None else sel.shape[0]
+        z = torch.empty((n_var, kept), dtype=torch.float32, device=dev)
+        out = torch.empty((3, n_var), dtype=torch.int32, device=dev)
+        return z, lambda lib: lib.pgen_grm_z(rows.data_ptr(), None if sel is None else sel.data_ptr(),
+                                             z.data_ptr(), out.data_ptr(), n_var, n_rec, s, kept,
+                                             stream)
+
+    planes, k12 = planes_case(records, None)
+    _, k12_sel = planes_case(records, keep)
+    z, k13 = z_case(records[:GLM_ROWS], None)
+    _, k13_sel = z_case(records[:GLM_ROWS], keep)
+    q = torch.randn((s, 18), device=dev, generator=gen)
+    acc = torch.zeros((s, s), dtype=torch.float64, device=dev)
+
+    def product(fn):
+        def call(lib):
+            fn()
+            return 0
+        return call
+
+    return {
+        f"K12 relatedness_planes V={REL_ROWS} K=2504": k12,
+        f"K12 relatedness_planes V={REL_ROWS} K={KEEP_SAMPLES} sel": k12_sel,
+        f"K13 grm_z V={GLM_ROWS} K=2504": k13,
+        f"K13 grm_z V={GLM_ROWS} K={KEEP_SAMPLES} sel": k13_sel,
+        f"torch._int_mm Gram ({planes.shape[1]} x {planes.shape[2]} by its transpose)":
+            product(lambda: torch._int_mm(planes[0], planes[3].t())),
+        f"z'z f64 ({GLM_ROWS} x {s}, cast in chunks)": product(lambda: add_gram_fp64(acc, z)),
+        f"z'z fp32 ({GLM_ROWS} x {s})": product(lambda: matmul_fp32(z.T, z)),
+        f"z'(z q) fp32 ({GLM_ROWS} x {s}, q {s} x 18)":
+            product(lambda: matmul_fp32(z.T, matmul_fp32(z, q))),
+    }
+
+
 def phase_trace() -> None:
     """This checkout's launcher of each --ab case, 10 launches under
     torch.profiler after one untimed: each device operation's time per
@@ -292,7 +358,8 @@ def phase_trace() -> None:
     from pgen_tpu_torch import kernels
 
     this = kernels.load()
-    for name, (_, call) in _kernel_cases(None).items():
+    calls = {name: call for name, (_, call) in _kernel_cases(None).items()}
+    for name, call in {**calls, **_relatedness_cases()}.items():
         call(this)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -319,10 +386,8 @@ def phase_ab(other_root: Path) -> None:
     one launch and once with 4 launches in each pair; outputs held
     torch.equal. The C signatures below are those of both checkouts'
     launchers: a launcher whose signature differs between the two needs
-    its own. K9's launcher before this checkout added into counts its
-    wrapper had zeroed: its calls here zero them first, as that wrapper
-    did. K11's called counts get 2V ints, as this checkout's launcher
-    takes them (the other reads V)."""
+    its own (in both, K9's clears its counts itself and K11's takes 2V
+    called ints)."""
     import ctypes
 
     import torch
@@ -338,6 +403,8 @@ def phase_ab(other_root: Path) -> None:
     other.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
     other.pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     other.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
+    print("[ab] K12 relatedness_planes and K13 grm_z are left out: the other checkout has no "
+          "kernel of theirs to bind (--trace times them)")
     for name, (outs, call) in _kernel_cases(other).items():
         def run(lib):
             status = call(lib)

@@ -8,7 +8,7 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K11 against their plain PyTorch versions on the card
+  3 kernels  K1-K13 against their plain PyTorch versions on the card
              (torch.equal) at widths 2504, 2503, 5 and 1 samples (K2 also into
              an output 4 B past a 16-B boundary; K3 at K = 2, 1000 and 20,000
              ids, reversed and repeated, each also 4 B past; K5 at K = 2,
@@ -26,18 +26,24 @@ Phases, each printing its own lines:
              40,003 samples in column chunks, flip random, none and all;
              K5 and K8 also on records 1-15 B past a 16-B boundary, K5
              with reversed, repeated and unsorted ids, past the 4,096 ids a
-             staged block holds and at 40,003 samples);
+             staged block holds and at 40,003 samples; K12 and K13 on the
+             16,640 rows of K10/K11, with and without that sample
+             selection);
              kernel and plain times at
              the paths' block shapes (65,536 rows; K5 at K = 1,001 (its
              staged form) and 2 (its direct form), and 4,096 rows at 40,000
              of 40,003; K9 also at score's 16,384;
              K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
-             K11 also tiled and at 40,000 of 40,003), CUDA events, median of 10
+             K11 also tiled and at 40,000 of 40,003; K12 at 32,768 rows and
+             K13 at 16,384, each at K = 2504 and a sorted 1,001), CUDA
+             events, median of 10
              pairs around one launch each, two alternated sets (the wrapper's
              host time lies inside; beside it burst_ms, 4 launches queued in
              each pair), each beside its bound (the bytes it must move at 3.35 TB/s) and,
              for K1, K2 and K7, one PyTorch call of the same function (a
-             table gather, held torch.equal to the kernel)
+             table gather, held torch.equal to the kernel); then the library
+             products beside K12 and K13 (one torch._int_mm Gram, z'z in f64
+             and fp32, an --approx pass) against the card's dense peaks
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
              chr22-scale fixtures made by the port's copy of
              tools/make_fixtures.py: full 1000 Genomes chr22 (1,103,547 variants x 2504
@@ -82,14 +88,30 @@ Phases, each printing its own lines:
              variant, half the effect alleles REF, with and without
              --no-mean-imputation, against a numpy f64 oracle. K10 and K11
              must have launched.
+  9 related- king, genome and pca through the port's CLI on the full chr22
+    ness     fixture: (a) king over every variant (3,133,756 pairs), the
+             NSNP/HETHET/IBS0/KINSHIP text of 64 seeded pairs equal to a
+             numpy f64 oracle's; a 20,000-variant region with --samples-file
+             of 1,001 seeded IIDs, with all samples over --min-kinship at
+             that cohort's 99.9th-percentile kinship, and the cohort's
+             --cutoff there, each output sha256-equal to --device cpu; (b)
+             genome the same way (--min-pi-hat), IBS0/1/2 of the 64 pairs
+             equal to the oracle's; (c) pca -k 10 --make-rel bin, .rel.bin x
+             m_used on 64 seeded samples within 1e-6 max|GRM| of the
+             oracle's f64 GRM and m_used its polymorphic count, the region's
+             GRM within that bound of --device cpu's and its eigenvalues at
+             rtol 1e-3; (d) pca -k 10 --approx, orthonormal eigenvectors
+             (1e-6), eigenvalues at most (1 + 1e-3) x (c)'s and descending,
+             the region's at rtol 1e-3 of --device cpu's. K12 and K13 must
+             have launched.
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
 last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
-just after. Then one JSON line of the eleven kernels (launches summed over
-phases 4-8), and as the last line
+just after. Then the products' line, one JSON line of the thirteen kernels
+(launches summed over phases 4-9), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
@@ -138,12 +160,14 @@ KERNELS = {
     "sample_counts_device": "pgen_tpu/ops/gt_stats.py:216",
     "glm_planes": "pgen_tpu/ops/glm.py:168",
     "score_dosage": "pgen_tpu/ops/score.py:133",
+    "relatedness_planes": "pgen_tpu/ops/king.py:148",
+    "grm_z": "pgen_tpu/ops/pca.py:109",
 }
 # kernels whose registers and spills phase 2 prints from ptxas' report
 PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel",
                  "subset_repack_staged_kernel", "subset_repack_direct_kernel", "gt_counts_kernel",
-                 "sample_counts_kernel", "glm_planes_kernel", "score_dosage_flat_kernel",
-                 "score_dosage_kernel", "score_counts_kernel")
+                 "sample_counts_kernel", "glm_planes_kernel", "dosage_flat_kernel",
+                 "dosage_kernel", "dosage_counts_kernel", "relatedness_planes_kernel")
 PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
@@ -152,6 +176,12 @@ WIDE = 40_003  # samples past K4's 16,384- and K10's 8,192-column tiles
 WIDE_PACK_ROWS = 4096  # 164 MB of codes, as a 65,536 x 2504 block holds
 WIDE_GLM_ROWS = 1024  # P = 2: 328 MB of planes, as a 16,384 x 2,454 block holds
 COUNT_WIDTHS = (2497, 2505, 2509)  # K9 at R % 4 = 1, 3, 0 (WIDTHS give 2 and 1)
+REL_ROWS = 1 << 15  # pgen_tpu_torch.ops.king's block: K12's rows per launch
+# the card's dense peaks (NVIDIA's H100 SXM data sheet): int8 tensor-core
+# ops, f32 FLOP outside the tensor cores and f64 tensor-core FLOP, per ms
+INT8_OPS_PER_MS = 1979e12 / 1e3
+FP32_FLOP_PER_MS = 67e12 / 1e3
+FP64_FLOP_PER_MS = 67e12 / 1e3
 # H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: every
 # kernel here moves bytes with a few integer or f32 ops per byte, so bytes
 # bound them all
@@ -287,9 +317,10 @@ def phase_build() -> float:
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(k in line for k in PTXAS_KERNELS):
                 name = next(k for k in PTXAS_KERNELS if k in line)
-                instance = re.search(r"ILi(\d+)E", line)  # a template's int argument
+                # a template's int argument, or K11's and K13's row policy
+                instance = re.search(r"ILi(\d+)E|(ScoreRows|GrmRows)", line)
                 if instance:
-                    name = f"{name}<{instance.group(1)}>"
+                    name = f"{name}<{instance.group(1) or instance.group(2)}>"
                 print(f"[2 build] ptxas {name}: {lines[i + 2].strip()}; "
                       f"{lines[i + 3].split(':', 1)[1].strip()}")
     return seconds
@@ -552,6 +583,12 @@ def phase_kernels() -> dict:
         subset_repack_plain,
     )
     from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS, glm_planes, glm_planes_plain
+    from pgen_tpu_torch.ops.pca import grm_z, grm_z_plain
+    from pgen_tpu_torch.ops.relatedness import (
+        plane_shape,
+        relatedness_planes,
+        relatedness_planes_plain,
+    )
     from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
     from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
@@ -628,6 +665,12 @@ def phase_kernels() -> dict:
                     run, db, called = _score_at_offset(ops, s, flip, 4, mean_impute)
                     run()
                     pairs += [("score_dosage", db, want[0]), ("score_dosage", called, want[1])]
+            # K12 and K13 on the same rows: 0xFF rows all missing, pad slots
+            # of random codes never read
+            pairs.append(("relatedness_planes", relatedness_planes(ops, s, sel),
+                          relatedness_planes_plain(ops, s, sel)))
+            got, want = grm_z(ops, s, sel), grm_z_plain(ops, s, sel)
+            pairs += [("grm_z", got[0], want[0]), ("grm_z", got[1], want[1])]
         torch.cuda.synchronize()
         for name, got, want in pairs:
             e = _max_abs_err(got, want)
@@ -640,7 +683,8 @@ def phase_kernels() -> dict:
               f"K10, K11 at V={ops.shape[0]}): K1, K2 x2 (its output 16-B aligned and 4 B "
               f"past), K3 x{n_k3} (K = 2, 1000, {BIG_K} with repeats; each also 4 B past), K4, "
               f"K5 x{n_k5}, K6, K7, K8, K9 x2 (also at {GLM_ROWS} rows), K10 x4 (P = 2, 3), "
-              "K11 x6 (also tiled, its output 4 B past) equal to their plain versions")
+              "K11 x6 (also tiled, its output 4 B past), K12 x2 and K13 x2 (each with and "
+              "without sel) equal to their plain versions")
 
     err["pack_codes"] = max(err["pack_codes"], _pack_cases(dev, gen))
     err["glm_planes"] = max(err["glm_planes"], _plane_cases(dev, gen, luts))
@@ -700,6 +744,11 @@ def phase_kernels() -> dict:
     packed_wide = torch.randint(0, 256, (WIDE_PACK_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
                                 device=dev, generator=gen)
     score_tiled, _, _ = _score_at_offset(ops, s, flip, 4)
+    # K12 at the relatedness block: 32,768 rows, all samples or a sorted
+    # cohort of 1,001 (phase 9's --samples-file)
+    rel = packed[:REL_ROWS]
+    planes_bytes = 4 * plane_shape(REL_ROWS, s)[0] * plane_shape(REL_ROWS, s)[1]
+    keep_planes = 4 * plane_shape(REL_ROWS, KEEP_SAMPLES)[0] * plane_shape(REL_ROWS, KEEP_SAMPLES)[1]
     shapes = {
         "genotype_text_transposed": f"({rec}, {BLOCK_ROWS}) S={s}",
         "genotype_text S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
@@ -711,6 +760,8 @@ def phase_kernels() -> dict:
             f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
         f"sample_counts_device V={GLM_ROWS}": f"({GLM_ROWS}, {rec}) S={s}",
         f"score_dosage K={WIDE - 3} of S={WIDE}": f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
+        "relatedness_planes": f"({REL_ROWS}, {rec}) S={s}",
+        f"relatedness_planes K={KEEP_SAMPLES}": f"({REL_ROWS}, {rec}) S={s}",
     }
     cases = {
         # name: kernel, plain, library call or None, bytes the function must
@@ -785,6 +836,17 @@ def phase_kernels() -> dict:
             lambda: score_dosage(ops_wide, WIDE, flip_wide, True, sel_wide),
             lambda: score_dosage_plain(ops_wide, WIDE, flip_wide, True, sel_wide), None,
             _subset_bytes(WIDE_GLM_ROWS, sel_wide) + WIDE_GLM_ROWS * (4 * (WIDE - 3) + 5)),
+        # the planes' pad samples and variants are written too (as zeros)
+        "relatedness_planes": (lambda: relatedness_planes(rel, s),
+                               lambda: relatedness_planes_plain(rel, s), None,
+                               rel.numel() + planes_bytes),
+        f"relatedness_planes K={KEEP_SAMPLES}": (
+            lambda: relatedness_planes(rel, s, keep), lambda: relatedness_planes_plain(rel, s, keep),
+            None, _subset_bytes(REL_ROWS, keep) + keep_planes),
+        "grm_z": (lambda: grm_z(ops, s), lambda: grm_z_plain(ops, s), None,
+                  ops.numel() + GLM_ROWS * (4 * s + 4)),
+        f"grm_z K={KEEP_SAMPLES}": (lambda: grm_z(ops, s, keep), lambda: grm_z_plain(ops, s, keep),
+                                    None, _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 4)),
     }
     times = {}
     for name, (kernel, plain, library, nbytes) in cases.items():
@@ -801,7 +863,7 @@ def phase_kernels() -> dict:
         bound_ms = nbytes / HBM_BYTES_PER_MS
         times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound_ms, "burst_ms": burst_ms}
-        rows = GLM_ROWS if name.startswith(("glm_planes", "score_dosage")) else BLOCK_ROWS
+        rows = GLM_ROWS if name.startswith(("glm_planes", "score_dosage", "grm_z")) else BLOCK_ROWS
         shape = shapes.get(name, f"({rows}, {rec}) S={s}")
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"[3 kernels] {name} at {shape}: kernel {ms:.4f} ms "
@@ -811,7 +873,48 @@ def phase_kernels() -> dict:
               f"{100 * bound_ms / ms:.1f}% of it; one PyTorch call {lib}")
         print(f"[3 kernels] {name}: {BURST} launches per event pair {burst_ms:.4f} ms a launch, "
               f"{100 * bound_ms / burst_ms:.1f}% of the bound")
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "products": _time_products(rel, ops, s)}
+
+
+def _time_products(rel, ops, s) -> dict:
+    """The library products beside K12 and K13 at the paths' block shapes:
+    one torch._int_mm Gram of K12's planes (2 S^2 x 32,768 int8 ops), one
+    z'z in f64 as the exact GRM makes it (z cast in chunks of rows; 2 S^2 x
+    16,384 FLOP) and in full fp32 as pgen_tpu makes it, and one --approx
+    pass's z'(z q) (q of 18 columns), each against the card's dense peak
+    for its type."""
+    import torch
+
+    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.ops.pca import add_gram_fp64, grm_z
+    from pgen_tpu_torch.ops.relatedness import relatedness_planes
+
+    planes = relatedness_planes(rel, s)
+    z, _ = grm_z(ops, s)
+    q = torch.randn((s, 18), device=z.device)
+    acc = torch.zeros((s, s), dtype=torch.float64, device=z.device)
+    gram = torch._int_mm(planes[0], planes[3].t())
+    if not torch.equal(gram.double(), planes[0].double() @ planes[3].double().T):
+        raise AssertionError("torch._int_mm differs from the f64 product of the planes")
+    s_pad, v_pad = planes.shape[1:]
+    cases = {
+        "int_mm_gram": (lambda: torch._int_mm(planes[0], planes[3].t()), 2 * s_pad ** 2 * v_pad,
+                        INT8_OPS_PER_MS, "int8"),
+        "zz_fp64": (lambda: add_gram_fp64(acc, z), 2 * s ** 2 * ops.shape[0], FP64_FLOP_PER_MS,
+                    "fp64"),
+        "zz_fp32": (lambda: matmul_fp32(z.T, z), 2 * s ** 2 * ops.shape[0], FP32_FLOP_PER_MS,
+                    "fp32"),
+        "approx_pass_fp32": (lambda: matmul_fp32(z.T, matmul_fp32(z, q)),
+                             4 * s * 18 * ops.shape[0], FP32_FLOP_PER_MS, "fp32"),
+    }
+    out = {}
+    for name, (fn, ops_n, peak, kind) in cases.items():
+        ms = statistics.median([_time_ms(fn), _time_ms(fn)])
+        out[name] = {"ms": ms, "ops": ops_n, "share": ops_n / ms / peak}
+        print(f"[3 kernels] product {name}: {ms:.4f} ms for {ops_n:.4g} {kind} ops, "
+              f"{ops_n / ms / 1e9:.1f} TOP/s, {100 * ops_n / ms / peak:.1f}% of the card's "
+              f"dense {kind} peak ({peak * 1e3 / 1e12:.0f} T/s)")
+    return out
 
 
 def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
@@ -899,9 +1002,9 @@ def _read_fileset(prefix: Path):
 def _wrappers() -> dict:
     """Each kernel's wrapper by name; its ``launches`` counts its kernel's
     launches."""
-    from pgen_tpu_torch.ops import glm, gt_stats, gt_text, pack, score, unpack
+    from pgen_tpu_torch.ops import glm, gt_stats, gt_text, pack, pca, relatedness, score, unpack
 
-    mods = (unpack, gt_text, pack, gt_stats, glm, score)
+    mods = (unpack, gt_text, pack, gt_stats, glm, score, relatedness, pca)
     return {name: next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS}
 
 
@@ -1752,6 +1855,287 @@ def phase_gwas(tmp: Path, full: Path, device: str = "cuda") -> dict:
     return launches
 
 
+REL_REGION = 20_000  # variants of phase 9's region runs
+REL_COHORT = 1001  # samples of phase 9's --samples-file
+REL_PAIRS = 64  # sample pairs held against the numpy oracle
+REL_SAMPLES = 64  # samples whose GRM entries are held against it
+PCA_K = 10
+
+
+def _relatedness_oracle(packed, n_samples: int, pairs, samples) -> dict:
+    """numpy over every variant, sharing no code with the port: for each
+    (i, j) of ``pairs`` the both-called counts of het/het, i hom-ref with j
+    hom-alt and the reverse, hom-ref/hom-ref, hom-alt/hom-alt, i het and j
+    het; and the f64 GRM sum over ``samples`` (z from each row's alt
+    frequency over all samples, 0 on a missing call and a monomorphic row)
+    with the count of polymorphic rows. Rows' code counts by popcount over
+    16-bit words (S = 4R: no pad slots)."""
+    import numpy as np
+
+    rec = packed.shape[1]
+    if 4 * rec != n_samples or rec % 2:
+        raise AssertionError("the oracle counts whole 16-bit words: S = 4R with R even")
+    pc16 = np.array([bin(x).count("1") for x in range(1 << 16)], dtype=np.uint8)
+    keys = ("hethet", "ra", "ar", "rr", "aa", "het_i", "het_j", "nsnp")
+    counts = {k: np.zeros(len(pairs), dtype=np.int64) for k in keys}
+    gram = np.zeros((len(samples), len(samples)))
+    m_used = 0
+    union = np.union1d(samples, pairs.reshape(-1))
+    byte_of, shift = union >> 2, (2 * (union & 3)).astype(np.uint8)
+    at_z, at_i, at_j = (np.searchsorted(union, x) for x in (samples, pairs[:, 0], pairs[:, 1]))
+    for lo in range(0, packed.shape[0], BLOCK_ROWS):
+        blk = np.asarray(packed[lo : lo + BLOCK_ROWS])
+        words = blk.view(np.uint16)
+        low, high = words & 0x5555, (words >> 1) & 0x5555
+        n_l = pc16[low].sum(1, dtype=np.int64)
+        n_h = pc16[high].sum(1, dtype=np.int64)
+        n_b = pc16[low & high].sum(1, dtype=np.int64)
+        called = n_samples - n_b
+        ac = (n_l - n_b) + 2 * (n_h - n_b)
+        p = ac / np.maximum(2 * called, 1)
+        var = 2 * p * (1 - p)
+        used = var > 0
+        m_used += int(used.sum())
+        codes = (blk[:, byte_of] >> shift) & 3
+        g = codes[:, at_z]
+        ok = (g != 3) & used[:, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            z = np.where(ok, (g - 2 * p[:, None]) / np.sqrt(var)[:, None], 0.0)
+        gram += z.T @ z
+        ci, cj = codes[:, at_i], codes[:, at_j]
+        both = (ci != 3) & (cj != 3)
+        for key, hit in (("hethet", (ci == 1) & (cj == 1)), ("ra", (ci == 0) & (cj == 2)),
+                         ("ar", (ci == 2) & (cj == 0)), ("rr", (ci == 0) & (cj == 0)),
+                         ("aa", (ci == 2) & (cj == 2)), ("het_i", ci == 1), ("het_j", cj == 1),
+                         ("nsnp", both)):
+            counts[key] += (both & hit).sum(0)
+    return {"pairs": counts, "gram": gram, "m_used": m_used}
+
+
+def _table_rows(path: Path, rows) -> list:
+    """The lines at body indices ``rows`` (0 = the line after the header)
+    of a table, as lists of fields."""
+    lines = path.read_bytes().split(b"\n")
+    return [lines[1 + r].decode().split("\t") for r in rows]
+
+
+def _pair_row(i, j, n: int):
+    """Body index of pair (i, j), i < j, in the triu order the tables use."""
+    return i * (2 * n - i - 1) // 2 + (j - i - 1)
+
+
+def _last_column(path: Path):
+    """A table's last column (KINSHIP, PI_HAT) as floats."""
+    import numpy as np
+
+    body = path.read_bytes().split(b"\n")[1:-1]
+    return np.array([float(line.rsplit(b"\t", 1)[1]) for line in body])
+
+
+def _same_files(label: str, files) -> None:
+    """Each (cuda, cpu) pair of files sha256-equal; both deleted."""
+    for got, want in files:
+        if _sha256(got) != _sha256(want):
+            raise AssertionError(f"{label}: {got.name} differs from --device cpu's {want.name}")
+        got.unlink()
+        want.unlink()
+
+
+def _pca_outputs(prefix: Path, n_samples: int) -> tuple:
+    import numpy as np
+
+    vals = np.loadtxt(f"{prefix}.eigenval", ndmin=1)
+    vecs = np.loadtxt(f"{prefix}.eigenvec", skiprows=1, usecols=range(1, 1 + len(vals)), ndmin=2)
+    if vecs.shape != (n_samples, len(vals)):
+        raise AssertionError(f"{prefix.name}.eigenvec: shape {vecs.shape}")
+    return vals, vecs
+
+
+def _m_used(stderr: str) -> int:
+    found = re.search(r"x (\d+) polymorphic variants", stderr)
+    if not found:
+        raise AssertionError("pca's stderr names no polymorphic variant count")
+    return int(found.group(1))
+
+
+def phase_relatedness(tmp: Path, full: Path) -> dict:
+    """king, genome and pca through the port's CLI with --device cuda on
+    the full chr22 fixture (launch counts read around these runs only):
+    (a) king over every variant, NSNP/HETHET/IBS0/KINSHIP text of 64 seeded
+    pairs equal to a numpy f64 oracle's; then a 20,000-variant region with
+    --samples-file of 1,001 seeded IIDs, with all samples over --min-kinship
+    at the cohort's 99.9th-percentile kinship (about 0.1% of the 3.1M rows,
+    which the emission of every row would spend 10-22 s a run on), and the
+    cohort's --cutoff at that kinship (samples drop), each output
+    sha256-equal to --device cpu; (b) genome the same way (--min-pi-hat at
+    the cohort's 99.9th-percentile PI_HAT), IBS0/IBS1/IBS2 and NSNP of the
+    64 pairs equal to the oracle's; (c) pca -k 10
+    --make-rel bin over every variant: .rel.bin x m_used on 64 seeded
+    samples within 1e-6 max|GRM| of the oracle's f64 GRM and m_used its
+    count of polymorphic rows, the region's GRM within the same bound of
+    --device cpu's and its eigenvalues at rtol 1e-3; (d) pca -k 10
+    --approx: orthonormal eigenvectors (1e-6), each eigenvalue at most
+    (1 + 1e-3) times (c)'s, descending; the region's at rtol 1e-3 of
+    --device cpu's --approx."""
+    import numpy as np
+
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, n = len(pos), len(iids)
+    rng = np.random.default_rng(SEED + 9)
+    first = n_var // 2 - REL_REGION // 2
+    region = f"22:{pos[first]}-{pos[first + REL_REGION - 1]}"
+    cohort = np.sort(rng.choice(n, REL_COHORT, replace=False))
+    (tmp / "cohort.txt").write_text("".join(f"{iids[s]}\n" for s in cohort))
+    pairs = np.sort(rng.choice(n, (4 * REL_PAIRS, 2)), axis=1)
+    pairs = np.unique(pairs[pairs[:, 0] < pairs[:, 1]], axis=0)
+    pairs = pairs[rng.permutation(len(pairs))[:REL_PAIRS]]
+    samples = np.sort(rng.choice(n, REL_SAMPLES, replace=False))
+    region_args = ["-r", region]
+    cohort_args = [*region_args, "--samples-file", tmp / "cohort.txt"]
+    walls = {}
+
+    def run(label, argv, out, device="cuda"):
+        if device == "cuda":
+            print(f"[9 relatedness] {label} on cuda:")
+        seconds, err = _port_cli(argv, out, device)
+        walls[f"{label} {device}"] = seconds
+        return err
+
+    _reset_launches()
+    run("(a) king, every variant", ["king", full], tmp / "king.kin0")
+    run("(b) genome, every variant", ["genome", full], tmp / "genome.genome")
+    err_c = run("(c) pca -k 10 --make-rel bin, every variant",
+                ["pca", full, "-k", PCA_K, "--make-rel", "bin"], tmp / "pca_full")
+    run("(d) pca -k 10 --approx, every variant", ["pca", full, "-k", PCA_K, "--approx"],
+        tmp / "approx_full")
+    region_runs = [
+        ("(a) king -r --samples-file", ["king", full, *cohort_args], "king_c.kin0"),
+        ("(b) genome -r --samples-file", ["genome", full, *cohort_args], "genome_c.genome"),
+        ("(c) pca -r --make-rel bin", ["pca", full, *region_args, "-k", PCA_K, "--make-rel",
+                                       "bin"], "pca_r"),
+        ("(d) pca -r --approx", ["pca", full, *region_args, "-k", PCA_K, "--approx"], "approx_r"),
+    ]
+    for label, argv, name in region_runs:
+        run(label, argv, tmp / f"cuda.{name}")
+    # the cohort's 99.9th percentiles: --cutoff on the cohort, and the
+    # thresholds of the region's every-sample tables (whose 3.1M emitted
+    # rows would take 10-22 s a run on each device)
+    cutoff = float(f"{np.nanpercentile(_last_column(tmp / 'cuda.king_c.kin0'), 99.9):.6g}")
+    min_pi = float(f"{np.nanpercentile(_last_column(tmp / 'cuda.genome_c.genome'), 99.9):.4f}")
+    region_runs += [
+        (f"(a) king -r --min-kinship {cutoff}",
+         ["king", full, *region_args, "--min-kinship", cutoff], "king_r.kin0"),
+        (f"(b) genome -r --min-pi-hat {min_pi}",
+         ["genome", full, *region_args, "--min-pi-hat", min_pi], "genome_r.genome"),
+        (f"(a) king -r --samples-file --cutoff {cutoff}",
+         ["king", full, *cohort_args, "--cutoff", cutoff], "cut"),
+    ]
+    for label, argv, name in region_runs[-3:]:
+        run(label, argv, tmp / f"cuda.{name}")
+    launches = _read_launches()
+    for kname in ("relatedness_planes", "grm_z"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on the relatedness path")
+
+    t0 = time.perf_counter()
+    oracle = _relatedness_oracle(packed, n, pairs, samples)
+    print(f"[9 relatedness] numpy f64 oracle over {n_var} variants ({len(pairs)} pairs, "
+          f"{len(samples)} samples) in {time.perf_counter() - t0:.1f} s")
+
+    # (a), (b) over every variant against the oracle
+    o = oracle["pairs"]
+    rows = _table_rows(tmp / "king.kin0", [_pair_row(i, j, n) for i, j in pairs])
+    for k, ((i, j), got) in enumerate(zip(pairs, rows)):
+        nn = int(o["nsnp"][k])
+        ibs0 = float(o["ra"][k] + o["ar"][k])
+        den = float(o["het_i"][k] + o["het_j"][k])
+        kinship = (float(o["hethet"][k]) - 2.0 * ibs0) / den if den > 0 else float("nan")
+        want = [iids[i], iids[j], str(nn), f"{o['hethet'][k] / max(nn, 1):.6g}",
+                f"{ibs0 / max(nn, 1):.6g}", f"{kinship:.6g}"]
+        if got != want:
+            raise AssertionError(f"(a) king pair ({i}, {j}): {got} != oracle {want}")
+    rows = _table_rows(tmp / "genome.genome", [_pair_row(i, j, n) for i, j in pairs])
+    for k, ((i, j), got) in enumerate(zip(pairs, rows)):
+        ibs0 = int(o["ra"][k] + o["ar"][k])
+        ibs2 = int(o["rr"][k] + o["hethet"][k] + o["aa"][k])
+        want = [iids[i], iids[j], str(int(o["nsnp"][k])), str(ibs0),
+                str(int(o["nsnp"][k]) - ibs0 - ibs2), str(ibs2)]
+        if got[:6] != want:
+            raise AssertionError(f"(b) genome pair ({i}, {j}): {got[:6]} != oracle {want}")
+    n_rows = [len((tmp / f).read_bytes().split(b"\n")) - 2 for f in ("king.kin0", "genome.genome")]
+    if n_rows != [n * (n - 1) // 2] * 2:
+        raise AssertionError(f"(a), (b): {n_rows} rows, expected {n * (n - 1) // 2} each")
+    for f in ("king.kin0", "genome.genome"):
+        (tmp / f).unlink()
+    print(f"[9 relatedness] (a) king and (b) genome over {n_var} variants: {n_rows[0]} pairs "
+          f"each; NSNP, HETHET, IBS0, KINSHIP and IBS0/1/2 of {len(pairs)} seeded pairs equal "
+          f"to the oracle's text; walls {walls['(a) king, every variant cuda']:.3f} s and "
+          f"{walls['(b) genome, every variant cuda']:.3f} s")
+
+    # (c) over every variant against the oracle
+    m_used = _m_used(err_c)
+    if m_used != oracle["m_used"]:
+        raise AssertionError(f"(c) m_used {m_used} != the oracle's {oracle['m_used']}")
+    rel = np.fromfile(tmp / "pca_full.rel.bin", dtype="<f8").reshape(n, n)
+    got = rel[np.ix_(samples, samples)] * m_used
+    bound = 1e-6 * np.abs(oracle["gram"]).max()
+    worst = float(np.abs(got - oracle["gram"]).max())
+    if worst > bound:
+        raise AssertionError(f"(c) GRM x m_used off the oracle by {worst:.4g} > {bound:.4g}")
+    vals_c, _ = _pca_outputs(tmp / "pca_full", n)
+    print(f"[9 relatedness] (c) pca over {n_var} variants: m_used {m_used} equal to the "
+          f"oracle's; GRM x m_used on {len(samples)} samples within {worst:.4g} of the oracle's "
+          f"f64 (bound 1e-6 max|GRM| = {bound:.4g}); eigenvalues {np.round(vals_c, 4).tolist()}")
+    # (d) over every variant against (c)
+    vals_d, vecs_d = _pca_outputs(tmp / "approx_full", n)
+    ortho = float(np.abs(vecs_d.T @ vecs_d - np.eye(PCA_K)).max())
+    if ortho > 1e-6:
+        raise AssertionError(f"(d) eigenvectors off orthonormal by {ortho:.3g}")
+    if np.any(vals_d > (1 + 1e-3) * vals_c) or np.any(np.diff(vals_d) > 0):
+        raise AssertionError(f"(d) Rayleigh-Ritz values {vals_d} do not interlace (c)'s {vals_c}")
+    print(f"[9 relatedness] (d) --approx over {n_var} variants: eigenvectors orthonormal within "
+          f"{ortho:.3g}; eigenvalues at {np.round(vals_d / vals_c, 5).tolist()} of (c)'s")
+
+    # the region runs against --device cpu
+    for label, argv, name in region_runs:
+        run(label, argv, tmp / f"cpu.{name}", "cpu")
+    dropped = len((tmp / "cuda.cut.king.cutoff.out.id").read_text().split())
+    if not dropped:
+        raise AssertionError(f"(a) --cutoff {cutoff}: no sample dropped")
+    kept_rows = [len((tmp / f"cuda.{f}").read_bytes().split(b"\n")) - 2
+                 for f in ("king_r.kin0", "genome_r.genome")]
+    if min(kept_rows) < 1 or max(kept_rows) > n * (n - 1) // 50:
+        raise AssertionError(f"region tables over the thresholds kept {kept_rows} rows")
+    _same_files("(a), (b) region", [(tmp / f"cuda.{f}", tmp / f"cpu.{f}") for f in (
+        "king_r.kin0", "king_c.kin0", "genome_r.genome", "genome_c.genome",
+        "cut.king.cutoff.in.id", "cut.king.cutoff.out.id")])
+    rel_gpu = np.fromfile(tmp / "cuda.pca_r.rel.bin", dtype="<f8")
+    rel_cpu = np.fromfile(tmp / "cpu.pca_r.rel.bin", dtype="<f8")
+    bound_r = 1e-6 * np.abs(rel_cpu).max()
+    worst_r = float(np.abs(rel_gpu - rel_cpu).max())
+    if worst_r > bound_r:
+        raise AssertionError(f"(c) region GRM off --device cpu's by {worst_r:.4g} > {bound_r:.4g}")
+    ratios = []
+    for name in ("pca_r", "approx_r"):
+        got_vals, _ = _pca_outputs(tmp / f"cuda.{name}", n)
+        want_vals, _ = _pca_outputs(tmp / f"cpu.{name}", n)
+        ratio = float(np.abs(got_vals / want_vals - 1).max())
+        if ratio > 1e-3:
+            raise AssertionError(f"{name}: eigenvalues off --device cpu's by {ratio:.3g} (rtol 1e-3)")
+        ratios.append(ratio)
+    print(f"[9 relatedness] region {region} ({REL_REGION} variants): king and genome tables of "
+          f"{REL_COHORT} samples, of all samples over --min-kinship {cutoff} and --min-pi-hat "
+          f"{min_pi} ({kept_rows[0]} and {kept_rows[1]} rows), and the cohort's --cutoff {cutoff} "
+          f"id files ({dropped} samples dropped) sha256-equal to --device cpu; the GRM within "
+          f"{worst_r:.4g} of cpu's (bound "
+          f"{bound_r:.4g}), eigenvalues within {ratios[0]:.3g} (exact) and {ratios[1]:.3g} "
+          "(--approx) of cpu's, rtol 1e-3")
+    shown = "; ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"[9 relatedness] walls: {shown}")
+    print(f"[9 relatedness] path launches: {launches}")
+    return launches
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -1798,6 +2182,9 @@ def main(argv: list) -> int:
             for kname in ("glm_planes", "score_dosage"):
                 if per_path[-1][kname] <= 0:
                     raise AssertionError(f"{kname} never launched on the GWAS path")
+            t0 = time.perf_counter()
+            per_path.append(phase_relatedness(tmp, fixtures["full"]))
+            print(f"[9 relatedness] phase 9 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:
@@ -1814,6 +2201,7 @@ def main(argv: list) -> int:
                 "bound_ms": m["bound_ms"], "bound_by": "bytes", "library_ms": m["library_ms"],
                 "burst_ms": m["burst_ms"],
             })
+        print(f"[smoke] products beside K12 and K13: {json.dumps(measured['products'])}")
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,9 +1,9 @@
-"""Command line of the port: ``python -m pgen_tpu_torch.cli filter|import|glm|score ...``.
+"""Command line of the port: ``python -m pgen_tpu_torch.cli filter|import|glm|score|king|genome|pca ...``.
 
 It takes the port's copy of pgen_tpu's argument parser
 (``cli_parser.build_arg_parser``, every subcommand) and adds ``--device
 cuda|cpu`` (default ``cuda``, which must be available) to ``filter``,
-``import``, ``glm`` and ``score``. The query flags compose exactly as in
+``import``, ``glm``, ``score``, ``king``, ``genome`` and ``pca``. The query flags compose exactly as in
 ``pgen_tpu.cli.main``, through the port's copies of its host composers
 (``query/``): ``--keep/--remove``,
 ``-r/-R``, ``--exclude-var/--exclude-sam``, ``--samples``,
@@ -19,13 +19,16 @@ counts of ``--out-format pgen``'s predicates on the device. ``--profile DIR``
 writes a torch.profiler trace per rank. ``import`` reads a ``.vcf`` or
 ``.vcf.gz``. ``glm`` and ``score`` run on one GPU (``--provider auto`` or
 ``device``), as ``pgen_tpu.cli.main`` serves them: the multi-phenotype
-loop, ``-o -``, the same query composers and the closing stderr line. It
+loop, ``-o -``, the same query composers and the closing stderr line; so
+do ``king`` (with ``--min-kinship`` and ``--cutoff``), ``genome`` (with
+``--min-pi-hat``) and ``pca`` (``-k``, ``--make-rel``, ``--approx``). It
 exits as ``pgen_tpu.cli.main`` does: 141 on a broken pipe, 1 with the one
 stderr line ``pgen-tpu: error: ...`` on any other exception, 2 on an
 argument error. What
 the port does not serve yet is refused with the ROADMAP.md item that will
-serve it: every other subcommand, and the flags and inputs listed in
-``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
+serve it: every other subcommand (``_UNSERVED_COMMANDS``), and the flags
+and inputs listed in ``_UNSERVED``, ``_UNSERVED_IMPORT`` and
+``_UNSERVED_ANALYTICS``.
 """
 
 from __future__ import annotations
@@ -93,22 +96,30 @@ _UNSERVED_IMPORT = {
 _UNSERVED_ANALYTICS = {
     "provider": (
         lambda v: v not in ("auto", "device"),
-        "--provider native|numpy: the port's glm and score run on one GPU "
-        "(auto or device, ROADMAP §1 item 9, done); pgen_tpu's host providers "
-        "stay pgen_tpu's",
+        "--provider native|numpy: the port's glm and score (ROADMAP §1 item 9, done) "
+        "and king, genome and pca (item 10, done) run on one GPU (auto or device); "
+        "pgen_tpu's host providers stay pgen_tpu's",
     ),
 }
 
-ANALYTICS = ("glm", "score")
+SERVED = ("filter", "import", "glm", "score", "king", "genome", "pca")
+
+# each subcommand the port does not serve yet -> the ROADMAP §1 item that
+# will serve it; every other one is item 13's (query and the host-only
+# subcommands)
+_UNSERVED_COMMANDS = {
+    **dict.fromkeys(("ld", "prune"), "item 10 (LD: ld, prune and the LD report)"),
+    **dict.fromkeys(("stats", "freq", "missing", "hardy", "het", "gcount", "fst"),
+                    "item 8 (the reports)"),
+}
 
 
 def build_torch_arg_parser() -> argparse.ArgumentParser:
-    """pgen_tpu's parser with ``--device`` on ``filter``, ``import``, ``glm``
-    and ``score``."""
+    """pgen_tpu's parser with ``--device`` on every served subcommand."""
     p = build_arg_parser()
     p.prog = "pgen-tpu-torch"
     sub = next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
-    for command in ("filter", "import", *ANALYTICS):
+    for command in SERVED:
         sub.choices[command].add_argument(
             "--device",
             choices=["cuda", "cpu"],
@@ -305,7 +316,100 @@ def _glm(args) -> int:
     return 0
 
 
+def _king(args) -> int:
+    from pgen_tpu_torch.pipeline.king import king_table
+
+    result = king_table(
+        args.pfile_prefix,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_file=None if args.out_file == "-" else args.out_file,
+        out=sys.stdout if args.out_file == "-" else None,
+        device=args.device,
+        min_kinship=args.min_kinship,
+        block_variants=args.block_variants,
+        cutoff=args.cutoff,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    if args.cutoff is not None:
+        print(
+            f"king: kept {result.num_pairs} of "
+            f"{result.num_samples} samples at cutoff "
+            f"{args.cutoff} -> {result.out_path}.king.cutoff.*.id",
+            file=sys.stderr,
+        )
+        return 0
+    dest = "stdout" if args.out_file == "-" else result.out_path
+    print(
+        f"king: {result.num_pairs} pairs over {result.num_samples} "
+        f"samples x {result.num_variants} variants -> {dest}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _genome(args) -> int:
+    from pgen_tpu_torch.pipeline.genome import genome_table
+
+    result = genome_table(
+        args.pfile_prefix,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_file=None if args.out_file == "-" else args.out_file,
+        out=sys.stdout if args.out_file == "-" else None,
+        device=args.device,
+        min_pi_hat=args.min_pi_hat,
+        block_variants=args.block_variants,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    dest = "stdout" if args.out_file == "-" else result.out_path
+    print(
+        f"genome: {result.num_pairs} pairs over "
+        f"{result.num_samples} samples x {result.num_variants} "
+        f"variants -> {dest}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _pca(args) -> int:
+    from pgen_tpu_torch.pipeline.pca import pca
+
+    result = pca(
+        args.pfile_prefix,
+        k=args.k,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_prefix=args.out_prefix,
+        device=args.device,
+        block_variants=args.block_variants,
+        make_rel=args.make_rel,
+        approx=args.approx,
+        approx_iters=args.approx_iters,
+        seed=args.seed,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    wrote = (
+        f"{result.out_prefix}.eigenvec" if args.k
+        else f"{result.out_prefix}.rel.*"
+    )
+    print(
+        f"pca: {len(result.eigenvalues)} components over "
+        f"{result.num_samples} samples x {result.num_used} "
+        f"polymorphic variants -> {wrote}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+_RUNS = {"glm": _glm, "score": _score, "king": _king, "genome": _genome, "pca": _pca}
+
+
 def _analytics(parser, args) -> int:
+    """glm, score, king, genome and pca: one GPU, the common query flags."""
     _refuse_unserved(parser, args, _UNSERVED_ANALYTICS)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         parser.error(
@@ -314,7 +418,7 @@ def _analytics(parser, args) -> int:
             "ROADMAP §1 item 17"
         )
     _compose_queries(args)
-    return _score(args) if args.command == "score" else _glm(args)
+    return _RUNS[args.command](args)
 
 
 def _import(parser, args) -> int:
@@ -406,17 +510,19 @@ def main(argv=None) -> int:
     and returns 1."""
     parser = build_torch_arg_parser()
     args = parser.parse_args(argv)
-    if args.command not in ("filter", "import", *ANALYTICS):
+    if args.command not in SERVED:
+        item = _UNSERVED_COMMANDS.get(
+            args.command, "item 13 (query and the host-only subcommands)")
         parser.error(
-            f"{args.command}: the port serves only filter, import, glm and score so "
-            "far; the other subcommands are ROADMAP §1 item 13"
+            f"{args.command}: the port serves only {', '.join(SERVED)} so far; "
+            f"{args.command} is ROADMAP §1 {item}"
         )
     if args.command == "filter":
         _refuse_unserved(parser, args, _UNSERVED)
     try:
         if args.command == "import":
             return _import(parser, args)
-        if args.command in ANALYTICS:
+        if args.command in _RUNS:
             return _analytics(parser, args)
         return _filter(args)
     except BrokenPipeError:

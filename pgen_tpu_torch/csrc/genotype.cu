@@ -1,7 +1,8 @@
 // Genotype kernels for Hopper (sm_90a): packed 2-bit records <-> codes, a
 // sample subset of records re-packed, records or codes -> VCF GT text,
-// records -> per-variant and per-sample code counts, and records -> the f32
-// operands of the GWAS moment and polygenic score products.
+// records -> per-variant and per-sample code counts, records -> the f32
+// operands of the GWAS moment, polygenic score and GRM/PCA products, and
+// records -> the int8 indicator planes of the relatedness Grams.
 // Built by pgen_tpu_torch/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes.
 //
@@ -1133,12 +1134,12 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 // read: a 16,384-row block of 2504 samples writes 164 MB, 0.0521 ms at
 // 3.35 TB/s. The fill needs the row's complete counts before its first
 // store, so every form counts a row before it writes it. Three forms,
-// chosen by the launcher:
+// chosen by the launcher (launch_dosage, shared with K13):
 // - flat (no sel, S % 4 == 0, db 16-B aligned; every sample scored, 1000
 //   Genomes' 2504): rows have no pad codes and every row starts on 16 B.
 //   One warp per row counts its bytes by popcount (row_code_counts, as K8;
-//   every lane gets the counts and so the fill), then writes each byte's
-//   four dosages as one 16 B
+//   every lane gets the counts and so the row's table), then writes each
+//   byte's four dosages as one 16 B
 //   streaming store (the dosages pass the 50 MB L2 before the product reads
 //   them), the bytes again from L1: no shared memory, no barrier.
 // - tiled (any other K or alignment, K <= kPlaneChunk): K10's tiles
@@ -1150,7 +1151,7 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 //   table row and writes n_called; a second barrier, then the store.
 // - chunked (K > kPlaneChunk: blockIdx.y takes a chunk of the ids, as K10):
 //   a chunk's block cannot see the row's other columns, so a count pass
-//   (score_counts_kernel) runs first on the same grid of (rows, chunks):
+//   (dosage_counts_kernel) runs first on the same grid of (rows, chunks):
 //   each block keeps its chunk's ids in shared memory, one warp a row
 //   counts the chunk's codes (a quarter byte read per selected sample,
 //   from L2 or L1, against the 4 B the store writes), and lane 0 adds them
@@ -1159,44 +1160,101 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 //   chunk; one warp per row over all K ids (its first form) left a
 //   1,024-row block with too few warps in flight: 0.4 ms. The tiled kernel
 //   then reads each row's table from the sums.
-__global__ void score_dosage_flat_kernel(const uint8_t* __restrict__ packed,
-                                         const uint8_t* __restrict__ flip,
-                                         float4* __restrict__ db, int32_t* __restrict__ called,
-                                         int64_t n_var, int64_t rec, int64_t n_quads,
-                                         int mean_impute) {
+// The three kernels take the row's table from a policy (ScoreRows here,
+// GrmRows for K13), and write the policy's per-row int to row_out; the
+// chunked form's sums are (2V) ints at sums. K11 passes called for both:
+// in the chunked form its row_out value is the n_called already there.
+struct ScoreRows {
+  // a called code's effect dosage, a missing call's fill; the called count
+  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t sum, bool flipped,
+                                                  int mean_impute, float (&t)[4]) {
+    t[0] = flipped ? 2.0f : 0.0f;
+    t[1] = 1.0f;
+    t[2] = flipped ? 0.0f : 2.0f;
+    t[3] = mean_impute && n > 0 ? static_cast<float>(sum) / static_cast<float>(n) : 0.0f;
+    return static_cast<int32_t>(n);
+  }
+};
+
+// K13. Replaces the decode and standardization legs of pgen_tpu/ops/pca.py's
+// _grm_device_jit (:109) and _approx_pass_jit (:412): the Pallas
+// _unpack_kernel, the XLA take of the cohort's columns and
+// _standardize_block_jnp (:91), before the f32 products (torch.matmul in
+// full fp32 in the caller, as pgen_tpu pins Precision.HIGHEST).
+// (V, R) u8 records + sel (K) int32 ids (or null: K = S) -> z (V, K) f32
+// and rows (3V) int32, whose first V hold each row's used flag (var > 0;
+// the second and third V are the chunked form's scratch). Per row, over the
+// selected samples: n = called count, ac = c1 + 2 c2 (exact integers, as
+// the reference's f32 sums of 0/1/2 are below 2^24), p = ac / max(2n, 1)
+// (0 when n = 0), var = 2p (1 - p), inv_sd = 1 / sqrt(var) where var > 0
+// (else 0), then z = (g - 2p) inv_sd on a called entry and 0 on a missing
+// one, each in f32 in _standardize_block_jnp's order. 1 / sqrt is correctly
+// rounded here and in the plain version on either device; XLA's rsqrt on
+// the CPU is 1 ulp off it in about a third of values.
+// Bound: memory, K11's: 4 B written per selected sample against a quarter
+// byte read: a 16,384-row block of 2504 samples writes 164 MB, 0.052 ms at
+// 3.35 TB/s. Design: K11's three forms, whose per-row table of four floats
+// turns each code into z once the row's counts are known.
+struct GrmRows {
+  // z of codes 0, 1, 2 and of a missing call; the used flag
+  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t ac, bool, int,
+                                                  float (&t)[4]) {
+    const float nf = static_cast<float>(n);
+    const float p = n > 0 ? static_cast<float>(ac) / fmaxf(2.0f * nf, 1.0f) : 0.0f;
+    const float var = 2.0f * p * (1.0f - p);
+    const bool used = var > 0.0f;
+    const float inv_sd = used ? 1.0f / sqrtf(fmaxf(var, 1e-30f)) : 0.0f;
+    const float two_p = 2.0f * p;
+    t[0] = (0.0f - two_p) * inv_sd;
+    t[1] = (1.0f - two_p) * inv_sd;
+    t[2] = (2.0f - two_p) * inv_sd;
+    t[3] = 0.0f;
+    return used ? 1 : 0;
+  }
+};
+
+// A row's sum for the policies: the effect-allele dosage sum (flipped: 2 c0
+// + c1) for K11, the alt count for K13 (flip is null there).
+__device__ __forceinline__ uint32_t row_sum(const uint32_t c[4], bool flipped) {
+  return flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
+}
+
+template <class Rows>
+__global__ void dosage_flat_kernel(const uint8_t* __restrict__ packed,
+                                   const uint8_t* __restrict__ flip, float4* __restrict__ out,
+                                   int32_t* __restrict__ row_out, int64_t n_var, int64_t rec,
+                                   int64_t n_quads, int mean_impute) {
   const int lane = threadIdx.x % kWarp;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
   for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
     const uint8_t* row = packed + v * rec;
-    const bool flipped = flip[v] != 0;
+    const bool flipped = flip != nullptr && flip[v] != 0;
     const uint8_t* const rows[1] = {row};
     uint32_t counts[1][4];
     // every lane holds the counts
     row_code_counts<1>(rows, static_cast<int>(4 * n_quads), lane, counts);
     const uint32_t* c = counts[0];
-    const uint32_t n = c[0] + c[1] + c[2];
-    const uint32_t sum = flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
-    if (lane == 0) called[v] = static_cast<int32_t>(n);
-    const float fill =
-        mean_impute && n > 0 ? static_cast<float>(sum) / static_cast<float>(n) : 0.0f;
-    const float d0 = flipped ? 2.0f : 0.0f, d2 = flipped ? 0.0f : 2.0f;
+    float t[4];
+    const int32_t value = Rows::table(c[0] + c[1] + c[2], row_sum(c, flipped), flipped,
+                                      mean_impute, t);
+    if (lane == 0) row_out[v] = value;
     auto dose = [&](uint32_t code) {
-      return code == 0u ? d0 : (code == 1u ? 1.0f : (code == 2u ? d2 : fill));
+      return code == 0u ? t[0] : (code == 1u ? t[1] : (code == 2u ? t[2] : t[3]));
     };
-    float4* out = db + v * n_quads;
+    float4* dst = out + v * n_quads;
     for (int64_t j = lane; j < n_quads; j += kWarp) {
       const uint32_t b = __ldg(row + j);
-      __stcs(out + j, make_float4(dose(b & 3u), dose((b >> 2) & 3u), dose((b >> 4) & 3u),
+      __stcs(dst + j, make_float4(dose(b & 3u), dose((b >> 2) & 3u), dose((b >> 4) & 3u),
                                   dose(b >> 6)));
     }
   }
 }
 
-__global__ void score_counts_kernel(const uint8_t* __restrict__ packed,
-                                    const int32_t* __restrict__ sel,
-                                    const uint8_t* __restrict__ flip,
-                                    int32_t* __restrict__ called, int64_t n_var, int64_t rec,
-                                    int n_samples, int n_kept, int chunk) {
+__global__ void dosage_counts_kernel(const uint8_t* __restrict__ packed,
+                                     const int32_t* __restrict__ sel,
+                                     const uint8_t* __restrict__ flip,
+                                     int32_t* __restrict__ sums, int64_t n_var, int64_t rec,
+                                     int n_samples, int n_kept, int chunk) {
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* ids = reinterpret_cast<int32_t*>(smem);
   const int c0 = blockIdx.y * chunk;  // this block's columns [c0, c0 + kc)
@@ -1223,22 +1281,22 @@ __global__ void score_counts_kernel(const uint8_t* __restrict__ packed,
       warp_code_counts(acc, c);
     }
     if (lane == 0) {
-      const bool flipped = flip[v] != 0;
-      atomicAdd(called + v, static_cast<int>(c[0] + c[1] + c[2]));
-      atomicAdd(called + n_var + v,
-                static_cast<int>(flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2]));
+      atomicAdd(sums + v, static_cast<int>(c[0] + c[1] + c[2]));
+      atomicAdd(sums + n_var + v,
+                static_cast<int>(row_sum(c, flip != nullptr && flip[v] != 0)));
     }
   }
 }
 
-__global__ void score_dosage_kernel(const uint8_t* __restrict__ packed,
-                                    const int32_t* __restrict__ sel,
-                                    const uint8_t* __restrict__ flip,
-                                    float* __restrict__ db, int32_t* __restrict__ called,
-                                    int64_t n_var, int64_t rec, int n_samples, int n_kept,
-                                    int mean_impute, int tile_rows, int chunk, int row_warps) {
+template <class Rows>
+__global__ void dosage_kernel(const uint8_t* __restrict__ packed,
+                              const int32_t* __restrict__ sel,
+                              const uint8_t* __restrict__ flip, float* __restrict__ out,
+                              int32_t* row_out, const int32_t* sums, int64_t n_var, int64_t rec,
+                              int n_samples, int n_kept, int mean_impute, int tile_rows, int chunk,
+                              int row_warps) {
   extern __shared__ __align__(16) uint8_t smem[];
-  // per tile row: its dosage of each code, and the counts its warps add
+  // per tile row: its value of each code, and the counts its warps add
   __shared__ float table[4 * kPlaneMaxTileRows];
   __shared__ uint32_t counts[4 * kPlaneMaxTileRows];
   int32_t* ids = reinterpret_cast<int32_t*>(smem);
@@ -1247,7 +1305,7 @@ __global__ void score_dosage_kernel(const uint8_t* __restrict__ packed,
   const int kc = n_kept - c0 < chunk ? n_kept - c0 : chunk;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
-  const bool chunked = gridDim.y > 1;  // the counts come from score_counts_kernel
+  const bool chunked = gridDim.y > 1;  // the counts come from dosage_counts_kernel
   if (tid < 4 * kPlaneMaxTileRows) counts[tid] = 0;
   if (sel != nullptr) stage_ids(sel, ids, c0, kc, n_samples);
   __syncthreads();
@@ -1271,27 +1329,113 @@ __global__ void score_dosage_kernel(const uint8_t* __restrict__ packed,
     __syncthreads();  // the tile's codes and its rows' counts are complete
     if (tid < rows) {
       const int64_t v = v0 + tid;
-      const bool flipped = flip[v] != 0;
+      const bool flipped = flip != nullptr && flip[v] != 0;
       uint32_t n, sum;
       if (chunked) {
-        n = static_cast<uint32_t>(called[v]);
-        sum = static_cast<uint32_t>(called[n_var + v]);
+        n = static_cast<uint32_t>(sums[v]);
+        sum = static_cast<uint32_t>(sums[n_var + v]);
       } else {
         uint32_t* c = counts + 4 * tid;
         n = c[0] + c[1] + c[2];
-        sum = flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
-        called[v] = static_cast<int32_t>(n);
+        sum = row_sum(c, flipped);
         c[0] = c[1] = c[2] = c[3] = 0;  // for the next tile, after two barriers
       }
-      float* tab = table + 4 * tid;
-      tab[0] = flipped ? 2.0f : 0.0f;
-      tab[1] = 1.0f;
-      tab[2] = flipped ? 0.0f : 2.0f;
-      tab[3] = mean_impute && n > 0 ? static_cast<float>(sum) / static_cast<float>(n) : 0.0f;
+      float tab[4];
+      const int32_t value = Rows::table(n, sum, flipped, mean_impute, tab);
+      if (!chunked || blockIdx.y == 0) row_out[v] = value;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) table[4 * tid + k] = tab[k];
     }
     __syncthreads();  // the rows' tables are complete
-    store_span(db + v0 * n_kept + c0, rows * kc, tile, table);
+    store_span(out + v0 * n_kept + c0, rows * kc, tile, table);
     __syncthreads();  // before the next tile's codes overwrite these
+  }
+}
+
+// K12. Replaces the decode and plane legs of pgen_tpu/ops/king.py's
+// _king_counts_device_jit (:148) and _king_counts_device_sel_jit (:182),
+// body _device_block_grams (:134), and of ops/ibd.py's
+// _ibd_counts_device_jit (:156) and _ibd_counts_device_sel_jit (:185),
+// body _block_grams (:142): the Pallas _unpack_kernel, the XLA take of the
+// cohort's columns and the bf16 0/1 indicator planes H (code 1), R (code
+// 0), A (code 2) and C (code != 3) that feed the Grams (torch._int_mm in
+// the caller, as pgen_tpu leaves them to jnp.matmul).
+// (V, R) u8 records + sel (K) int32 ids (or null: K = S) -> planes (4,
+// S_pad, V_pad) int8, planes[p][j][v] = 1 where the code of sample sel[j]
+// (or j) in row v is plane p's, else 0. Each plane is sample-major, so a
+// Gram is one int8 product of a row-major plane and a column-major view of
+// another, with no copy. Rows j >= K and columns v >= V are 0 in every
+// plane: all missing, in no Gram, as pgen_tpu's 0xFF pad rows.
+// Bound: memory, 4 B written per (sample, variant) against a quarter byte
+// read: a 32,768-row block of 2504 samples reads 20.5 MB and writes 328 MB,
+// 0.104 ms at 3.35 TB/s. Design, a first form that is simple: a block takes a
+// tile of kRelTileVars variants by kRelTileSamples samples. Its threads
+// decode the tile, each its column's id read once and one byte load per
+// code (the tile's rows through L1), into shared memory transposed (a
+// sample's row of codes padded to 17 words, so a warp's writes of one
+// variant hit 32 banks); then each thread turns 16 consecutive variants of
+// one sample into 16 bytes of each plane, four codes a u32 (byte-wise: H =
+// lo & ~hi, R = ~(lo | hi), A = hi & ~lo, C = ~(lo & hi) of the code's two
+// bits), and writes them as one 16-B store a plane, K6's transposed writer
+// with the codes staged.
+constexpr int kRelTileVars = 64;
+constexpr int kRelTileSamples = 128;
+constexpr int kRelPitch = kRelTileVars + 4;  // bytes of a sample's codes in the tile
+
+__global__ void __launch_bounds__(kThreads)
+    relatedness_planes_kernel(const uint8_t* __restrict__ packed,
+                              const int32_t* __restrict__ sel, uint8_t* __restrict__ planes,
+                              int64_t n_var, int64_t rec, int n_samples, int n_kept,
+                              int64_t s_pad, int64_t v_pad) {
+  __shared__ __align__(16) uint8_t tile[kRelTileSamples * kRelPitch];
+  const int tid = threadIdx.x;
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kRelTileVars;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kRelTileSamples;
+  // decode: thread tid takes the tile's column tid % 128 and every second
+  // row from tid / 128
+  const int j = tid % kRelTileSamples;
+  const int64_t col = j0 + j;
+  int s = -1;  // no sample: a pad column
+  if (col < n_kept) {
+    s = sel != nullptr ? sel[col] : static_cast<int>(col);
+    assert(s >= 0 && s < n_samples);
+  }
+  const uint8_t* src = packed + (s >= 0 ? s >> 2 : 0);
+  const int shift = 2 * (s & 3);
+  constexpr int kRowStep = kThreads / kRelTileSamples;
+#pragma unroll 8
+  for (int i = 0; i < kRelTileVars / kRowStep; ++i) {
+    const int r = kRowStep * i + tid / kRelTileSamples;
+    const int64_t v = v0 + r;
+    uint32_t code = 3u;  // missing: 0 in every plane
+    if (s >= 0 && v < n_var) code = (static_cast<uint32_t>(__ldg(src + v * rec)) >> shift) & 3u;
+    tile[j * kRelPitch + r] = static_cast<uint8_t>(code);
+  }
+  __syncthreads();
+  const int64_t plane = s_pad * v_pad;
+  constexpr int kPieces = kRelTileVars / 16;  // 16-B pieces of a sample's row
+  for (int c = tid; c < kRelTileSamples * kPieces; c += kThreads) {
+    const int jj = c / kPieces, q = c % kPieces;
+    const int64_t row = j0 + jj;
+    const int64_t at = v0 + 16 * q;
+    if (row >= s_pad || at >= v_pad) continue;
+    const uint32_t* codes = reinterpret_cast<const uint32_t*>(tile + jj * kRelPitch + 16 * q);
+    uint32_t h[4], r[4], a[4], called[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t w = codes[k];
+      const uint32_t lo = w & 0x01010101u, hi = (w >> 1) & 0x01010101u;
+      h[k] = lo & ~hi;
+      r[k] = (lo | hi) ^ 0x01010101u;
+      a[k] = hi & ~lo;
+      called[k] = (lo & hi) ^ 0x01010101u;
+    }
+    uint8_t* dst = planes + row * v_pad + at;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(dst + plane) = make_uint4(r[0], r[1], r[2], r[3]);
+    *reinterpret_cast<uint4*>(dst + 2 * plane) = make_uint4(a[0], a[1], a[2], a[3]);
+    *reinterpret_cast<uint4*>(dst + 3 * plane) =
+        make_uint4(called[0], called[1], called[2], called[3]);
   }
 }
 
@@ -1316,6 +1460,51 @@ int launch_repack_staged(const uint8_t* in, const int32_t* ids, uint8_t* dst, in
   subset_repack_staged_kernel<kPer><<<static_cast<unsigned>(blocks), kThreads,
                                       static_cast<size_t>(smem), s>>>(
       in, ids, dst, n_var, rec, n_kept, static_cast<int>(tile_rows), static_cast<int>(in_bytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three forms of K11 and K13 (see K11's note): flat without sel at
+// S % 4 == 0 into a 16-B aligned output, else K10's tiles, after a count
+// pass into sums past kPlaneChunk ids.
+template <class Rows>
+int launch_dosage(const uint8_t* in, const int32_t* ids, const uint8_t* flip, void* out,
+                  int32_t* row_out, int32_t* sums, int64_t n_var, int64_t rec, int64_t n_samples,
+                  int64_t n_kept, int mean_impute, cudaStream_t s) {
+  if (ids == nullptr && n_kept % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    const int64_t rows_per_block = kThreads / kWarp;
+    const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
+    dosage_flat_kernel<Rows><<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
+                               kThreads, 0, s>>>(
+        in, flip, static_cast<float4*>(out), row_out, n_var, rec, n_kept / 4, mean_impute);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const OperandTiles t = operand_tiles(n_var, n_kept, ids != nullptr);
+  const cudaError_t opted = cudaFuncSetAttribute(
+      dosage_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPlaneSmemBytes));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if (t.chunks > 1) {  // each row's counts before any chunk's block writes it
+    const cudaError_t cleared = cudaMemsetAsync(sums, 0, 8 * n_var, s);
+    if (cleared != cudaSuccess) return static_cast<int>(cleared);
+    // about four blocks an SM in all: each stages its chunk's ids once for
+    // its rows (a block per tile, as the store takes, would stage them per
+    // row: 67 MB of L2 reads at 1,024 x 40,000)
+    const int64_t rows_per_block = kThreads / kWarp;
+    int64_t gx = (n_var + rows_per_block - 1) / rows_per_block;
+    const int64_t most = 4 * 132 / t.chunks > 1 ? 4 * 132 / t.chunks : 1;
+    if (gx > most) gx = most;
+    const int64_t id_bytes = ids != nullptr ? 4 * t.chunk : 0;  // 32 KB at most
+    dosage_counts_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(t.chunks)),
+                           kThreads, static_cast<size_t>(id_bytes), s>>>(
+        in, ids, flip, sums, n_var, rec, static_cast<int>(n_samples), static_cast<int>(n_kept),
+        static_cast<int>(t.chunk));
+    const cudaError_t counted = cudaGetLastError();
+    if (counted != cudaSuccess) return static_cast<int>(counted);
+  }
+  dosage_kernel<Rows><<<t.grid, kThreads, static_cast<size_t>(t.smem), s>>>(
+      in, ids, flip, static_cast<float*>(out), row_out, sums, n_var, rec,
+      static_cast<int>(n_samples), static_cast<int>(n_kept), mean_impute,
+      static_cast<int>(t.tile_rows), static_cast<int>(t.chunk), t.row_warps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1575,47 +1764,45 @@ int pgen_score_dosage(const void* packed, const void* sel, const void* flip,
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   if (n_kept <= 0) return 0;  // nothing is called: the wrapper returns zeros
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto in = static_cast<const uint8_t*>(packed);
-  const auto ids = static_cast<const int32_t*>(sel);
-  const auto fl = static_cast<const uint8_t*>(flip);
   const auto n_called = static_cast<int32_t*>(called);
-  const int impute = mean_impute != 0;
-  if (ids == nullptr && n_kept % 4 == 0 && at % 16 == 0) {
-    const int64_t rows_per_block = kThreads / kWarp;
-    const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
-    score_dosage_flat_kernel<<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
-                               kThreads, 0, s>>>(
-        in, fl, static_cast<float4*>(db), n_called, n_var, rec, n_kept / 4, impute);
-    return static_cast<int>(cudaGetLastError());
+  return launch_dosage<ScoreRows>(static_cast<const uint8_t*>(packed),
+                                  static_cast<const int32_t*>(sel),
+                                  static_cast<const uint8_t*>(flip), db, n_called, n_called,
+                                  n_var, rec, n_samples, n_kept, mean_impute != 0,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// rows: (3V) int32, the used flags then the chunked form's (2V) sums.
+int pgen_grm_z(const void* packed, const void* sel, void* z, void* rows, int64_t n_var,
+               int64_t rec, int64_t n_samples, int64_t n_kept, void* stream) {
+  if (n_var <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(z) % 4 != 0 || reinterpret_cast<uintptr_t>(rows) % 4 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const OperandTiles t = operand_tiles(n_var, n_kept, ids != nullptr);
-  const cudaError_t opted = cudaFuncSetAttribute(
-      score_dosage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kPlaneSmemBytes));
-  if (opted != cudaSuccess) return static_cast<int>(opted);
-  if (t.chunks > 1) {  // each row's counts before any chunk's block writes it
-    const cudaError_t cleared = cudaMemsetAsync(n_called, 0, 8 * n_var, s);
-    if (cleared != cudaSuccess) return static_cast<int>(cleared);
-    // about four blocks an SM in all: each stages its chunk's ids once for
-    // its rows (a block per tile, as the store takes, would stage them per
-    // row: 67 MB of L2 reads at 1,024 x 40,000)
-    const int64_t rows_per_block = kThreads / kWarp;
-    int64_t gx = (n_var + rows_per_block - 1) / rows_per_block;
-    const int64_t most = 4 * 132 / t.chunks > 1 ? 4 * 132 / t.chunks : 1;
-    if (gx > most) gx = most;
-    const int64_t id_bytes = ids != nullptr ? 4 * t.chunk : 0;  // 32 KB at most
-    score_counts_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(t.chunks)),
-                          kThreads, static_cast<size_t>(id_bytes), s>>>(
-        in, ids, fl, n_called, n_var, rec, static_cast<int>(n_samples),
-        static_cast<int>(n_kept), static_cast<int>(t.chunk));
-    const cudaError_t counted = cudaGetLastError();
-    if (counted != cudaSuccess) return static_cast<int>(counted);
+  if (n_kept <= 0) return 0;  // nothing is used: the wrapper returns zeros
+  const auto used = static_cast<int32_t*>(rows);
+  return launch_dosage<GrmRows>(static_cast<const uint8_t*>(packed),
+                                static_cast<const int32_t*>(sel), nullptr, z, used, used + n_var,
+                                n_var, rec, n_samples, n_kept, 0,
+                                static_cast<cudaStream_t>(stream));
+}
+
+int pgen_relatedness_planes(const void* packed, const void* sel, void* planes, int64_t n_var,
+                            int64_t rec, int64_t n_samples, int64_t n_kept, int64_t s_pad,
+                            int64_t v_pad, void* stream) {
+  if (s_pad <= 0 || v_pad <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(planes) % 16 != 0 || v_pad % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  score_dosage_kernel<<<t.grid, kThreads, static_cast<size_t>(t.smem), s>>>(
-      in, ids, fl, static_cast<float*>(db), n_called, n_var, rec, static_cast<int>(n_samples),
-      static_cast<int>(n_kept), impute, static_cast<int>(t.tile_rows), static_cast<int>(t.chunk),
-      t.row_warps);
+  if (s_pad < n_kept || v_pad < n_var) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t gx = (v_pad + kRelTileVars - 1) / kRelTileVars;
+  const int64_t gy = (s_pad + kRelTileSamples - 1) / kRelTileSamples;
+  if (gy > 65535 || gx > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  relatedness_planes_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+                              kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
+      static_cast<uint8_t*>(planes), n_var, rec, static_cast<int>(n_samples),
+      static_cast<int>(n_kept), s_pad, v_pad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,259 @@
+"""Principal components via the GRM on the GPU: the port of
+``pgen_tpu/ops/pca.py``.
+
+Each variant's calls are standardized over the called samples of the
+cohort, z = (g - 2p) / sqrt(2p(1 - p)) with p the row's alt frequency, 0 on
+a missing call and on a monomorphic row (which is not counted in m_used).
+Then GRM = Z^T Z / m_used, eigendecomposed on the host (``pca_from_grm``),
+or, with ``--approx``, the top of its spectrum by blocked subspace
+iteration without the S x S matrix (``pca_approx``).
+
+Per staged block (``stage_blocks``, pinned when the device is CUDA):
+
+  K13 ``grm_z``   records -> (V, K) f32 z and (V,) int32 used flags
+  exact GRM:      acc += z.T @ z in f64         (16,384 rows a block)
+  --approx pass:  y += z.T @ (z @ q) in fp32    (q: the (K, L) subspace)
+
+The --approx products are ``matmul_fp32`` (``torch.matmul`` in full fp32,
+TF32 off), as pgen_tpu pins ``Precision.HIGHEST`` in ``_approx_pass_jit``
+(:412), and y stays f32 on the device as pgen_tpu carries it. The exact
+GRM's z'z is f64 (z cast in chunks of rows) and sums in f64, where
+pgen_tpu's ``_grm_device_jit`` (:109) makes it in f32 and carries an f32
+sum: on the full chr22 fixture that f32 Gram came out 1.275 off an f64
+oracle's GRM x m_used, past 1e-6 of its largest entry (1.106; the card's
+own f32 accumulation over a block's 16,384 rows is most of it), and the
+f64 product is about as fast on the card (FP64 tensor cores; PERF.md). K13
+(``csrc/genotype.cu:dosage_*_kernel<GrmRows>``) replaces the Pallas unpack,
+the cohort take and ``_standardize_block_jnp`` (:91): each row's code counts
+first (its p needs them), then a per-row table of four floats turns each
+code into z, in K11's three forms. Its wrapper dispatches on the tensor's
+device with no fallback: a CUDA tensor launches K13, a CPU tensor runs
+``grm_z_plain``.
+
+``GrmResult``, ``pca_from_grm``, ``PcaApproxResult`` and ``pca_approx`` are
+copied from pgen_tpu (``ops/pca.py:42-45``, ``:206``, ``:243-317``), whose
+module imports jax at module level; ``pca_approx`` takes a device where
+pgen_tpu's takes a provider, and its pass is this module's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pgen_tpu_torch.device import matmul_fp32, resolve_device
+from pgen_tpu_torch.kernels import launch
+from pgen_tpu_torch.ops.glm import (
+    F64_CHUNK_ROWS,
+    code_hist,
+    device_sel,
+    kept_count,
+    scratch_view,
+    select_codes,
+)
+from pgen_tpu_torch.ops.gt_stats import stage_blocks
+from pgen_tpu_torch.ops.unpack import check_packed
+
+
+class GrmResult(NamedTuple):
+    grm_sum: np.ndarray  # (S, S) f64: sum of z^T z over used variants
+    m_used: int  # polymorphic (sd > 0) variant count
+
+
+def grm_z_plain(packed: torch.Tensor, num_samples: int, sel=None) -> tuple:
+    """Plain PyTorch K13: (V, K) f32 standardized dosages of the selected
+    samples and (V,) int32 used flags, in f32 in the order of pgen_tpu's
+    ``_standardize_block_jnp``; 1 / sqrt where it has rsqrt, each correctly
+    rounded on either device."""
+    codes = select_codes(packed, num_samples, sel)
+    hist = code_hist(codes)
+    n_called = (hist[:, 0] + hist[:, 1] + hist[:, 2]).float()
+    ac = (hist[:, 1] + 2 * hist[:, 2]).float()
+    p = torch.where(n_called > 0, ac / torch.clamp(2.0 * n_called, min=1.0), 0.0)
+    var = 2.0 * p * (1.0 - p)
+    used = var > 0
+    # the square root of an f32 value taken in f64 and rounded is correctly
+    # rounded, as the kernel's sqrtf is (torch's f32 sqrt on the CPU is not
+    # always)
+    root = torch.sqrt(torch.clamp(var, min=1e-30).double()).float()
+    inv_sd = torch.where(used, 1.0 / root, 0.0)
+    # z of codes 0, 1, 2 and of a missing call, per row
+    table = torch.stack([(g - 2.0 * p) * inv_sd for g in (0.0, 1.0, 2.0)]
+                        + [torch.zeros_like(p)], 1)
+    return table.gather(1, codes), used.to(torch.int32)
+
+
+def grm_z(packed: torch.Tensor, num_samples: int, sel=None, out=None) -> tuple:
+    """(V, R) u8 records -> (V, K) f32 standardized dosages z of the
+    selected samples (``sel``: a 1-D int32 tensor of ids in [0,
+    num_samples); all S without it) and (V,) int32 flags of the used
+    (polymorphic) rows, on the input's device. ``out`` is an optional flat
+    f32 device buffer for z."""
+    n_var, rec = check_packed(packed, num_samples)
+    n_kept = kept_count(packed, num_samples, sel)
+    if packed.device.type == "cpu":
+        return grm_z_plain(packed, num_samples, sel)
+    z = scratch_view(out, (n_var, n_kept), packed.device)
+    if n_var == 0 or n_kept == 0:
+        return z, torch.zeros(n_var, dtype=torch.int32, device=packed.device)
+    # row v's used flag at [0, v] (the kernel writes every row); rows [1]
+    # and [2] are the chunked form's count scratch
+    rows = torch.empty((3, n_var), dtype=torch.int32, device=packed.device)
+    launch(grm_z, "pgen_grm_z", packed,
+           packed.data_ptr(), None if sel is None else sel.data_ptr(), z.data_ptr(),
+           rows.data_ptr(), n_var, rec, num_samples, n_kept)
+    return z, rows[0]
+
+
+grm_z.launches = 0
+
+
+def grm_device(
+    packed,
+    num_samples: int,
+    device,
+    block_variants: int = 1 << 14,
+    sample_idx=None,
+) -> GrmResult:
+    """pgen_tpu's ``grm_device`` on ``device`` (``"cuda"`` or ``"cpu"``, the
+    kernels' plain versions): the sum of z^T z over blocks of the (V, R) u8
+    records (a memory map is read block by block), f64 on the device, and
+    the used-row count, over the samples of ``sample_idx`` (all S
+    without it)."""
+    dev = resolve_device(device)
+    ns = num_samples if sample_idx is None else len(sample_idx)
+    n_var = packed.shape[0]
+    if n_var == 0:
+        return GrmResult(np.zeros((ns, ns), dtype=np.float64), 0)
+    sel = device_sel(sample_idx, num_samples, dev)
+    acc = torch.zeros((ns, ns), dtype=torch.float64, device=dev)
+    m_used = torch.zeros((), dtype=torch.int64, device=dev)
+    scratch = (torch.empty(min(block_variants, n_var) * ns, dtype=torch.float32, device=dev)
+               if dev.type == "cuda" else None)
+    for _, _, block in stage_blocks(packed, dev, block_variants):
+        z, used = grm_z(block, num_samples, sel, out=scratch)
+        add_gram_fp64(acc, z)
+        m_used += used.sum()
+    return GrmResult(acc.cpu().numpy(), int(m_used))
+
+
+def add_gram_fp64(acc: torch.Tensor, z: torch.Tensor) -> None:
+    """acc += z.T @ z in f64: (V, K) f32 z cast F64_CHUNK_ROWS rows at a time
+    into a bounded scratch, each chunk's product added in place."""
+    for r0 in range(0, z.shape[0], F64_CHUNK_ROWS):
+        chunk = z[r0 : r0 + F64_CHUNK_ROWS].double()
+        acc.addmm_(chunk.T, chunk)
+
+
+def pca_from_grm(grm_sum: np.ndarray, m_used: int, k: int):
+    """Top-k eigenpairs of GRM = grm_sum / m_used, descending, sign-fixed.
+
+    Returns (eigenvalues (k,), eigenvectors (S, k)) with each column
+    scaled to unit norm; ties/negatives kept as eigh reports them.
+    """
+    if m_used <= 0:
+        raise ValueError("pca: no polymorphic variants after filtering")
+    g = grm_sum / float(m_used)
+    vals, vecs = np.linalg.eigh((g + g.T) / 2.0)  # symmetrize f32 noise
+    order = np.argsort(vals)[::-1][:k]
+    vals, vecs = vals[order], vecs[:, order]
+    # deterministic sign: the largest-|entry| component is positive
+    flip = np.sign(vecs[np.argmax(np.abs(vecs), axis=0), np.arange(vecs.shape[1])])
+    flip = np.where(flip == 0, 1.0, flip)
+    return vals, vecs * flip
+
+
+class PcaApproxResult(NamedTuple):
+    eigenvalues: np.ndarray  # (k,) Rayleigh-Ritz estimates, descending
+    eigenvectors: np.ndarray  # (S, k) unit-norm, sign-fixed
+    m_used: int
+
+
+def pca_approx(
+    packed,
+    num_samples: int,
+    k: int,
+    device,
+    block_variants: int | None = None,
+    sample_idx=None,
+    iters: int = 10,
+    oversample: int = 8,
+    seed: int = 1,
+) -> PcaApproxResult:
+    """Randomized top-k PCA WITHOUT materializing the S x S GRM.
+
+    Blocked subspace (power) iteration on the standardized dosage matrix Z
+    (M x S) — the FastPCA/plink2 `--pca approx` family (Galinsky 2016):
+
+        Q_0 = orth(Gaussian (S, L)),  L = k + oversample
+        Q_{t+1} = orth( Z^T (Z Q_t) / M )      x iters
+        C = Q^T (Z^T Z Q / M)  (L x L Rayleigh-Ritz),  eigh(C) -> (lam, W)
+        V = Q W[:, :k]
+
+    Every data touch is a tall-skinny matmul pair per variant block —
+    z_b @ Q (bv x L) then z_b^T @ that (S x L accumulate) — on ``device``
+    (``_make_approx_pass``); the only O(S) state is the (S, L) subspace.
+    Host-side QR between passes is (S, L) — milliseconds.
+
+    Deterministic for a fixed seed across devices up to f32 Gram noise.
+    """
+    packed = np.asarray(packed, dtype=np.uint8)
+    ns = num_samples if sample_idx is None else len(sample_idx)
+    if k < 1:
+        raise ValueError("pca approx: k must be >= 1")
+    L = min(ns, k + max(0, oversample))
+    if L < k:
+        raise ValueError(f"pca approx: k={k} exceeds {ns} samples")
+    rng = np.random.default_rng(seed)
+    q = np.linalg.qr(rng.standard_normal((ns, L)))[0]
+
+    pass_fn = _make_approx_pass(packed, num_samples, device, sample_idx, block_variants)
+
+    m_used = 0
+    y = None
+    for _ in range(max(1, iters)):
+        y, m_used = pass_fn(q)
+        if m_used <= 0:
+            raise ValueError("pca: no polymorphic variants after filtering")
+        y /= float(m_used)
+        q = np.linalg.qr(y)[0]
+    # Rayleigh-Ritz on the converged subspace: one more data pass
+    y, m_used = pass_fn(q)
+    y /= float(m_used)
+    c = q.T @ y
+    c = (c + c.T) / 2.0
+    vals, w = np.linalg.eigh(c)
+    order = np.argsort(vals)[::-1][:k]
+    vals = vals[order]
+    vecs = q @ w[:, order]
+    vecs /= np.linalg.norm(vecs, axis=0, keepdims=True)
+    flip = np.sign(vecs[np.argmax(np.abs(vecs), axis=0), np.arange(vecs.shape[1])])
+    flip = np.where(flip == 0, 1.0, flip)
+    return PcaApproxResult(vals, vecs * flip, int(m_used))
+
+
+def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants):
+    """pgen_tpu's ``_make_approx_pass_device`` on one device: each pass
+    streams the records through K13 and the two tall-skinny fp32 products,
+    y and the used count summed on the device; returns (y f64, m_used)."""
+    dev = resolve_device(device)
+    sel = device_sel(sample_idx, num_samples, dev)
+    nvar = int(packed.shape[0])
+    bv = min(block_variants or (1 << 14), max(nvar, 1))
+    ns = num_samples if sel is None else sel.shape[0]
+    scratch = (torch.empty(min(bv, nvar) * ns, dtype=torch.float32, device=dev)
+               if dev.type == "cuda" else None)
+
+    def pass_fn(q):
+        qd = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(dev)
+        y = torch.zeros((ns, q.shape[1]), dtype=torch.float32, device=dev)
+        m_used = torch.zeros((), dtype=torch.int64, device=dev)
+        for _, _, block in stage_blocks(packed, dev, bv):
+            z, used = grm_z(block, num_samples, sel, out=scratch)
+            y += matmul_fp32(z.T, matmul_fp32(z, qd))
+            m_used += used.sum()
+        return y.cpu().numpy().astype(np.float64), int(m_used)
+
+    return pass_fn

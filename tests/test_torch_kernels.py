@@ -13,7 +13,7 @@ provider and imports it (and with it jax, kept on the CPU) when it runs:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-(chip_smoke.py runs the same comparisons at the filter's block shape.)
+(chip_smoke.py runs the same comparisons at the paths' block shapes.)
 """
 
 import numpy as np
@@ -57,6 +57,9 @@ from pgen_tpu_torch.ops.glm import (
     glm_planes,
     glm_planes_plain,
 )
+from pgen_tpu_torch.ops.pca import grm_device, grm_z, grm_z_plain
+from pgen_tpu_torch.ops.relatedness import relatedness_planes, relatedness_planes_plain
+from pgen_tpu_torch.ops.king import king_counts_device
 from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
 from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
@@ -65,6 +68,7 @@ WRAPPERS = (unpack_codes, genotype_text, subset_text_from_packed)
 NEW_WRAPPERS = (pack_codes, subset_repack, genotype_text_transposed, genotype_text_from_codes)
 COUNT_WRAPPERS = (gt_counts_device, sample_counts_device)
 OPERAND_WRAPPERS = (glm_planes, score_dosage)
+RELATEDNESS_WRAPPERS = (relatedness_planes, grm_z)
 
 pytestmark = pytest.mark.cuda
 
@@ -698,6 +702,125 @@ def test_glm_planes_wide_cohorts(cuda_device, sel):
         planes, hist = glm_planes(packed, n_samples, lut, ids)
         want_planes, want_hist = glm_planes_plain(packed, n_samples, lut, ids)
         assert torch.equal(planes, want_planes) and torch.equal(hist, want_hist)
+
+
+def _relatedness_pairs(packed, n_samples, sel):
+    """K12 and K13 against their plain versions on the same records."""
+    planes = relatedness_planes(packed, n_samples, sel)
+    assert torch.equal(planes, relatedness_planes_plain(packed, n_samples, sel))
+    z, used = grm_z(packed, n_samples, sel)
+    want_z, want_used = grm_z_plain(packed, n_samples, sel)
+    assert torch.equal(z, want_z) and torch.equal(used, want_used)
+    return planes
+
+
+@pytest.mark.parametrize("n_samples", [2509, 2497, 2504, 2503, 2502, 2501, 2505, 17, 8, 5, 1,
+                                       9_001])
+def test_relatedness_kernels_match_plain(cuda_device, n_samples):
+    """K12 and K13 at R % 4 = 0 (2509), 1 (2497, 17, 1), 2 (2501-2504, 8, 5)
+    and 3 (2505, 9,001), every S % 4, S below 8 and past K13's 8,192-column
+    tiles, without and with a sel holding a
+    gap, a duplicate and the last sample, on records whose pad slots hold
+    random codes and every byte value sits at every position (0xFF: a row
+    with no called sample); V = 556 is no multiple of 8 or 16."""
+    rng = np.random.default_rng(n_samples)
+    packed = _packed(300, n_samples, n_samples, cuda_device)
+    counts = [w.launches for w in RELATEDNESS_WRAPPERS]
+    cohorts = _cohorts(n_samples, rng, cuda_device)
+    for sel in cohorts:
+        _relatedness_pairs(packed, n_samples, sel)
+    torch.cuda.synchronize()
+    assert [w.launches for w in RELATEDNESS_WRAPPERS] == [c + len(cohorts) for c in counts]
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4, 8, 15])
+@pytest.mark.parametrize("n_samples", [2509, 2504, 2503, 2505, 5])
+def test_relatedness_kernels_at_row_offsets(cuda_device, n_samples, offset):
+    """K12 and K13 on records 1-15 B past a 16-B boundary, ending at the end
+    of their storage; K13 also into z 4 B past a 16-B boundary (its tiled
+    form where its flat form would run), nothing written outside it."""
+    host = _packed(200, n_samples, 7 * n_samples + offset, "cpu").numpy()
+    packed = _records_at(host, offset, cuda_device)
+    for rows in (packed, packed[-1:], packed[:9]):
+        _relatedness_pairs(rows, n_samples, None)
+    n_var = packed.shape[0]
+    guard = torch.full((n_var * n_samples + 8,), float("nan"), device=cuda_device)
+    z = guard[1 : 1 + n_var * n_samples].view(n_var, n_samples)
+    rows = torch.full((3, n_var), -1, dtype=torch.int32, device=cuda_device)
+    kernels.launch(grm_z, "pgen_grm_z", packed, packed.data_ptr(), None, z.data_ptr(),
+                   rows.data_ptr(), n_var, host.shape[1], n_samples, n_samples)
+    want_z, want_used = grm_z_plain(packed, n_samples)
+    assert torch.equal(z, want_z) and torch.equal(rows[0], want_used)
+    assert torch.isnan(guard[0]) and bool(torch.isnan(guard[1 + z.numel():]).all())
+
+
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "repeated"])
+@pytest.mark.parametrize("n_kept", [1, 2, 17, 1001, 2504, 8_200])
+def test_relatedness_kernels_any_ids(cuda_device, n_kept, kind):
+    """K12 and K13 with sel sorted, reversed and repeated, K from 1 (one
+    sample) to past K13's 8,192-column tiles."""
+    rng = np.random.default_rng(n_kept)
+    packed = _packed(90, 2504, n_kept, cuda_device)
+    sel = torch.from_numpy(np.ascontiguousarray(_ids(kind, n_kept, 2504, rng), dtype=np.int32))
+    _relatedness_pairs(packed, 2504, sel.to(cuda_device))
+
+
+@pytest.mark.parametrize("sel", [False, True])
+def test_relatedness_kernels_wide_cohorts(cuda_device, sel):
+    """40,003 samples (a 32,768-row block's planes would be 5.2 GB: fewer
+    rows here), all of them or 40,000 repeated ids."""
+    packed = _packed(1000, 40_003, 4, cuda_device)
+    ids = None
+    if sel:
+        ids = torch.from_numpy(np.random.default_rng(2).integers(0, 40_003, 40_000)
+                               .astype(np.int32)).to(cuda_device)
+    _relatedness_pairs(packed, 40_003, ids)
+
+
+@pytest.mark.parametrize("n_samples", [2504, 37, 5])
+def test_int_mm_grams_equal_f64_grams(cuda_device, n_samples):
+    """torch._int_mm of K12's planes (a row-major plane by a column-major
+    view of another, no copy; at 5 samples the planes' 24 rows, past the
+    16 it requires) equals the f64 product of the plain planes;
+    king_counts_device on the card equals it on the CPU, in blocks."""
+    packed = _packed(3000, n_samples, 11, cuda_device)
+    planes = relatedness_planes(packed, n_samples)
+    plain = relatedness_planes_plain(packed, n_samples).double()
+    for x, y in ((0, 0), (1, 2), (0, 3), (3, 3), (1, 1), (2, 2)):
+        gram = torch._int_mm(planes[x], planes[y].t())
+        assert torch.equal(gram.double(), plain[x] @ plain[y].T)
+    host = packed.cpu().numpy()
+    got = king_counts_device(host, n_samples, "cuda", block_variants=1024)
+    want = king_counts_device(host, n_samples, "cpu", block_variants=1024)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_grm_on_the_card_matches_f64(cuda_device):
+    """grm_device on the card (K13, z'z and the sums over blocks of 1,000
+    rows in f64) against numpy's f64 product of the plain z: within 1e-9 of
+    the largest entry (a diagonal one); m_used exact."""
+    packed = _packed(3000, 2503, 12, cuda_device)
+    host = packed.cpu().numpy()
+    got = grm_device(host, 2503, "cuda", block_variants=1000)
+    z, used = grm_z_plain(packed.cpu(), 2503)
+    z = z.double().numpy()
+    assert got.m_used == int(used.sum())
+    want = z.T @ z
+    assert np.abs(got.grm_sum - want).max() <= 1e-9 * np.abs(want).max()
+
+
+def test_relatedness_kernels_launch_nothing_when_empty(cuda_device):
+    counts = [w.launches for w in RELATEDNESS_WRAPPERS]
+    packed = _packed(3, 17, 0, cuda_device)
+    sel = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    z, used = grm_z(packed, 17, sel)
+    assert z.shape == (259, 0) and not used.any()
+    z, used = grm_z(packed[:0], 17)
+    assert z.shape == (0, 17) and used.shape == (0,)
+    assert [w.launches for w in RELATEDNESS_WRAPPERS] == [counts[0], counts[1]]
+    planes = relatedness_planes(packed[:0], 17)  # all pad: one launch writes the zeros
+    assert planes.shape == (4, 24, 16) and not planes.any()
 
 
 def test_interaction_beta_on_the_card_within_pgen_tpu_tolerance(cuda_device, monkeypatch):

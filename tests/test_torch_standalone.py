@@ -77,6 +77,10 @@ ENTRY_POINTS = {
     "glm_logistic": [["glm", "{p}", "--pheno", "{d}/ph.tsv", "--pheno-name", "CC", "--covar",
                       "{d}/ph.tsv", "--covar-name", "C1", "-o", "{o}.log"]],
     "score": [["score", "{p}", "--score", "{d}/w.tsv", "--center", "-o", "{o}.ss"]],
+    "king": [["king", "{p}", "-o", "{o}.kin0"], ["king", "{p}", "--cutoff", "0.05", "-o", "{o}"]],
+    "genome": [["genome", "{p}", "--min-pi-hat", "0.0", "-o", "{o}.genome"]],
+    "pca": [["pca", "{p}", "-k", "3", "--make-rel", "-o", "{o}.exact"],
+            ["pca", "{p}", "-k", "2", "--approx", "-o", "{o}.approx"]],
 }
 
 
