@@ -5,7 +5,7 @@ beside chip_smoke.py, whose fixtures, timer and oracles they use.
     python3 chip_diag.py --ab DIR      # K4, K5, K8-K11 against the kernels of the checkout at DIR
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
     python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time,
-                                       # and K12, K13 and their products
+                                       # and K12, K13, their products and K14
     python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
 
 --ab builds the kernel sources of another checkout (the parent commit's,
@@ -15,8 +15,8 @@ cases under torch.profiler and prints each device operation's time per
 launch (kernels and memsets), which CUDA events around a launch cannot
 separate from the host's enqueue time; it also traces K12 and K13 and the
 library products beside them (one torch._int_mm Gram, one fp32 z'z and one
---approx pass), which --ab leaves out: the parent checkout has no K12 or
-K13 to bind. --precision shows which part of an f32 moment product
+--approx pass), and K14 at P = 1 and 5, which --ab leaves out: the parent
+checkout has no K12, K13 or K14 to bind. --precision shows which part of an f32 moment product
 costs each GWAS design its accuracy against pgen_tpu's tolerances. --forms
 builds this checkout's kernels twice more, K5's launcher held to its direct
 form in one and to its staged form (wherever a row tile fits) in the other,
@@ -44,6 +44,7 @@ from chip_smoke import (  # noqa: E402
     BLOCK_ROWS,
     BURST,
     COHORT,
+    COHORTS,
     KEEP_SAMPLES,
     GLM_ROWS,
     GWAS_REGION,
@@ -54,6 +55,7 @@ from chip_smoke import (  # noqa: E402
     WIDE_PACK_ROWS,
     WIDTHS,
     _gwas_tables,
+    _keep_masks,
     _read_fileset,
     _time_ms,
     _worst,
@@ -286,10 +288,12 @@ def _relatedness_cases() -> dict:
     of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the same;
     one torch._int_mm Gram of the planes, one z'z in f64 (the exact GRM's)
     and in full fp32 (pgen_tpu's), and one --approx pass's z'(z q), q of
-    18 columns."""
+    18 columns; K14 at 65,536 rows, P = 1 and 5 cohorts of 1,001."""
+    import numpy as np
     import torch
 
     from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.ops.gt_stats import slot_masks
     from pgen_tpu_torch.ops.pca import add_gram_fp64
     from pgen_tpu_torch.ops.relatedness import plane_shape
 
@@ -333,6 +337,17 @@ def _relatedness_cases() -> dict:
             return 0
         return call
 
+    block = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
+    rng = np.random.default_rng(SEED + 14)
+    cohorts = [rng.choice(s, KEEP_SAMPLES, replace=False) for _ in range(COHORTS)]
+
+    def masked_case(n_masks):
+        slots = slot_masks(_keep_masks(s, cohorts[:n_masks], dev))
+        counts = torch.empty((BLOCK_ROWS, n_masks, 4), dtype=torch.int32, device=dev)
+        return lambda lib: lib.pgen_gt_counts_masked(
+            block.data_ptr(), slots.data_ptr(), counts.data_ptr(), BLOCK_ROWS, rec, n_masks,
+            slots.shape[2] // 16, stream)
+
     return {
         f"K12 relatedness_planes V={REL_ROWS} K=2504": k12,
         f"K12 relatedness_planes V={REL_ROWS} K={KEEP_SAMPLES} sel": k12_sel,
@@ -344,6 +359,8 @@ def _relatedness_cases() -> dict:
         f"z'z fp32 ({GLM_ROWS} x {s})": product(lambda: matmul_fp32(z.T, z)),
         f"z'(z q) fp32 ({GLM_ROWS} x {s}, q {s} x 18)":
             product(lambda: matmul_fp32(z.T, matmul_fp32(z, q))),
+        f"K14 gt_counts_masked V={BLOCK_ROWS} P=1 K={KEEP_SAMPLES}": masked_case(1),
+        f"K14 gt_counts_masked V={BLOCK_ROWS} P={COHORTS} K={KEEP_SAMPLES}": masked_case(COHORTS),
     }
 
 

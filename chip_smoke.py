@@ -8,7 +8,7 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K13 against their plain PyTorch versions on the card
+  3 kernels  K1-K14 against their plain PyTorch versions on the card
              (torch.equal) at widths 2504, 2503, 5 and 1 samples (K2 also into
              an output 4 B past a 16-B boundary; K3 at K = 2, 1000 and 20,000
              ids, reversed and repeated, each also 4 B past; K5 at K = 2,
@@ -28,14 +28,18 @@ Phases, each printing its own lines:
              with reversed, repeated and unsorted ids, past the 4,096 ids a
              staged block holds and at 40,003 samples; K12 and K13 on the
              16,640 rows of K10/K11, with and without that sample
-             selection);
+             selection; K14 at every width with P = 1 and 5 keep masks
+             (a cohort of 1,001, all, none, gaps and a duplicate,
+             unsorted), at 2504 and 2503 also on records 1-15 B past a
+             16-B boundary);
              kernel and plain times at
              the paths' block shapes (65,536 rows; K5 at K = 1,001 (its
              staged form) and 2 (its direct form), and 4,096 rows at 40,000
              of 40,003; K9 also at score's 16,384;
              K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
              K11 also tiled and at 40,000 of 40,003; K12 at 32,768 rows and
-             K13 at 16,384, each at K = 2504 and a sorted 1,001), CUDA
+             K13 at 16,384, each at K = 2504 and a sorted 1,001; K14 at
+             65,536 rows with P = 1 and 5 cohorts of 1,001), CUDA
              events, median of 10
              pairs around one launch each, two alternated sets (the wrapper's
              host time lies inside; beside it burst_ms, 4 launches queued in
@@ -104,14 +108,29 @@ Phases, each printing its own lines:
              (1e-6), eigenvalues at most (1 + 1e-3) x (c)'s and descending,
              the region's at rtol 1e-3 of --device cpu's. K12 and K13 must
              have launched.
+ 10 counts   query, the reports, stats and fst through the port's CLI on
+             the full chr22 fixture: (a) a metadata-only query launches no
+             kernel; (b) a query binding GT_AF/GT_MISSING at median
+             thresholds (K8) and one under -s binding GT_NOBS (K9); (c)
+             freq, gcount, hardy, missing, het and stats --per-sample over
+             every variant, all samples (K8, K9, K1) and a --samples-file of
+             1,001 seeded IIDs (K14); (d) fst hudson and wc over a seeded
+             --pheno POP column of five labels with 2% NA (K14 at P = 5).
+             Held against a numpy oracle: 2,000 seeded variants' masked
+             counts (the .gcount, .afreq, .hardy and .vmiss rows, the
+             query's GT_AC), every sample's missing count (.smiss, stats'
+             MISSING, het's OBS_CT, the -s query's GT_NOBS) and the f64 fst
+             of those variants (-R, --report-variants); then every output
+             of (b)-(d) on a 20,000-variant region sha256-equal to --device
+             cpu's (het's E(HOM) and F at rtol 1e-12).
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
 last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
-just after. Then the products' line, one JSON line of the thirteen kernels
-(launches summed over phases 4-9), and as the last line
+just after. Then the products' line, one JSON line of the fourteen kernels
+(launches summed over phases 4-10), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
@@ -162,12 +181,14 @@ KERNELS = {
     "score_dosage": "pgen_tpu/ops/score.py:133",
     "relatedness_planes": "pgen_tpu/ops/king.py:148",
     "grm_z": "pgen_tpu/ops/pca.py:109",
+    "gt_counts_masked": "pgen_tpu/ops/gt_stats.py:90",
 }
 # kernels whose registers and spills phase 2 prints from ptxas' report
 PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel",
                  "subset_repack_staged_kernel", "subset_repack_direct_kernel", "gt_counts_kernel",
                  "sample_counts_kernel", "glm_planes_kernel", "dosage_flat_kernel",
-                 "dosage_kernel", "dosage_counts_kernel", "relatedness_planes_kernel")
+                 "dosage_kernel", "dosage_counts_kernel", "relatedness_planes_kernel",
+                 "gt_counts_masked_kernel")
 PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
@@ -177,6 +198,7 @@ WIDE_PACK_ROWS = 4096  # 164 MB of codes, as a 65,536 x 2504 block holds
 WIDE_GLM_ROWS = 1024  # P = 2: 328 MB of planes, as a 16,384 x 2,454 block holds
 COUNT_WIDTHS = (2497, 2505, 2509)  # K9 at R % 4 = 1, 3, 0 (WIDTHS give 2 and 1)
 REL_ROWS = 1 << 15  # pgen_tpu_torch.ops.king's block: K12's rows per launch
+COHORTS = 5  # K14's keep masks in phase 3's P = 5 cases and phase 10's fst
 # the card's dense peaks (NVIDIA's H100 SXM data sheet): int8 tensor-core
 # ops, f32 FLOP outside the tensor cores and f64 tensor-core FLOP, per ms
 INT8_OPS_PER_MS = 1979e12 / 1e3
@@ -231,6 +253,12 @@ def _subset_bytes(rows: int, sel) -> int:
     import torch
 
     return rows * int(torch.unique(sel.to(torch.int64) >> 2).numel()) + 4 * sel.numel()
+
+
+def _kept_bytes(rows: int, masks) -> int:
+    """Bytes K14 must read: in each of ``rows`` records the bytes that hold a
+    sample some mask keeps, and the masks themselves."""
+    return rows * int((masks != 0).any(0).sum()) + masks.numel()
 
 
 def _launch_at_offset(wrapper, symbol, packed, sel, width, offset):
@@ -555,9 +583,67 @@ def _repack_cases(dev, gen):
     return worst["subset_repack"], worst["gt_counts_device"]
 
 
+def _keep_masks(n_samples: int, sets, dev):
+    """(P, R) u8 keep masks of the id sets (4 bits a record byte, bit k
+    keeping slot k), built with numpy as pgen_tpu's sample_byte_masks builds
+    them, on dev."""
+    import numpy as np
+    import torch
+
+    masks = np.zeros((len(sets), (n_samples + 3) // 4), dtype=np.uint8)
+    for p, ids in enumerate(sets):
+        ids = np.asarray(ids, dtype=np.int64)
+        np.bitwise_or.at(masks[p], ids >> 2, (1 << (ids & 3)).astype(np.uint8))
+    return torch.from_numpy(masks).to(dev)
+
+
+def _cohort_sets(n_samples: int, rng) -> dict:
+    """K14's mask sets: P = 1 (a sorted cohort of 1,001) and P = 5 (that
+    cohort, every sample, none, a cohort with gaps and a duplicate, and an
+    unsorted one)."""
+    keep = rng.choice(n_samples, min(KEEP_SAMPLES, n_samples), replace=False)
+    gaps = [s for s in range(n_samples) if s % 5 != 2] + [0]
+    return {1: [sorted(keep)],
+            COHORTS: [sorted(keep), range(n_samples), [], gaps, rng.permutation(n_samples)[::2]]}
+
+
+def _masked_cases(dev, gen):
+    """K14 against its plain version (torch.equal): at every width of WIDTHS
+    on 65,792 rows (random records, then rows of every byte value), P = 1
+    and 5, each mask's slots past S empty; and at K8's offsets, records 1-15
+    B past a 16-B boundary at S = 2504 and 2503. Returns the largest |err|
+    (0)."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.ops.gt_stats import gt_counts_masked, gt_counts_masked_plain
+
+    rng = np.random.default_rng(SEED + 14)
+    worst = 0
+    rows = BLOCK_ROWS + 256
+    for s in WIDTHS:
+        rec = (s + 3) // 4
+        buf = torch.randint(0, 256, (rows * rec + 32,), dtype=torch.uint8, device=dev,
+                            generator=gen)
+        buf[: 256 * rec] = torch.arange(256, dtype=torch.uint8, device=dev).repeat_interleave(rec)
+        for n_masks, sets in _cohort_sets(s, rng).items():
+            masks = _keep_masks(s, sets, dev)
+            for offset in range(16) if s in WIDTHS[:2] else (0,):
+                packed = buf[offset : offset + rows * rec].view(rows, rec)
+                worst = max(worst, _equal_or_raise(
+                    "gt_counts_masked", f"S={s}, P={n_masks}, records {offset} B past",
+                    gt_counts_masked(packed, masks), gt_counts_masked_plain(packed, masks)))
+    torch.cuda.synchronize()
+    print(f"[3 kernels] K14 at S={', '.join(map(str, WIDTHS))} (V={rows}, P = 1 and {COHORTS}: a "
+          f"cohort of {KEEP_SAMPLES}, all, none, gaps with a duplicate, unsorted), at S=2504 and "
+          "2503 also on records 1-15 B past a 16-B boundary: equal to its plain version")
+    return worst
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns per-kernel errors and
     times at the paths' block shapes (2504 samples, 65,536 rows)."""
+    import numpy as np
     import torch
 
     from pgen_tpu_torch.ops.gt_text import (
@@ -572,9 +658,12 @@ def phase_kernels() -> dict:
     )
     from pgen_tpu_torch.ops.gt_stats import (
         gt_counts_device,
+        gt_counts_masked,
+        gt_counts_masked_plain,
         gt_counts_plain,
         sample_counts_device,
         sample_counts_plain,
+        slot_masks,
     )
     from pgen_tpu_torch.ops.pack import (
         pack_codes,
@@ -693,6 +782,7 @@ def phase_kernels() -> dict:
     k5_err, k8_err = _repack_cases(dev, gen)
     err["subset_repack"] = max(err["subset_repack"], k5_err)
     err["gt_counts_device"] = max(err["gt_counts_device"], k8_err)
+    err["gt_counts_masked"] = _masked_cases(dev, gen)
 
     s = WIDTHS[0]
     rec = (s + 3) // 4
@@ -747,6 +837,12 @@ def phase_kernels() -> dict:
     # K12 at the relatedness block: 32,768 rows, all samples or a sorted
     # cohort of 1,001 (phase 9's --samples-file)
     rel = packed[:REL_ROWS]
+    # K14 at the count paths' block: P = 1 (a cohort of 1,001) and P = 5
+    # cohorts of 1,001, their operand made once as the paths make it
+    rng = np.random.default_rng(SEED + 3)
+    cohort_sets = [sorted(rng.choice(s, KEEP_SAMPLES, replace=False)) for _ in range(COHORTS)]
+    masks1, masks5 = (_keep_masks(s, cohort_sets[:p], dev) for p in (1, COHORTS))
+    slots1, slots5 = slot_masks(masks1), slot_masks(masks5)
     planes_bytes = 4 * plane_shape(REL_ROWS, s)[0] * plane_shape(REL_ROWS, s)[1]
     keep_planes = 4 * plane_shape(REL_ROWS, KEEP_SAMPLES)[0] * plane_shape(REL_ROWS, KEEP_SAMPLES)[1]
     shapes = {
@@ -847,6 +943,15 @@ def phase_kernels() -> dict:
                   ops.numel() + GLM_ROWS * (4 * s + 4)),
         f"grm_z K={KEEP_SAMPLES}": (lambda: grm_z(ops, s, keep), lambda: grm_z_plain(ops, s, keep),
                                     None, _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 4)),
+        # the record bytes that hold a kept sample of any mask, the masks and
+        # the (V, P, 4) int32 counts
+        "gt_counts_masked": (lambda: gt_counts_masked(packed, masks1, slots1),
+                             lambda: gt_counts_masked_plain(packed, masks1), None,
+                             _kept_bytes(BLOCK_ROWS, masks1) + BLOCK_ROWS * 16),
+        f"gt_counts_masked P={COHORTS}": (lambda: gt_counts_masked(packed, masks5, slots5),
+                                          lambda: gt_counts_masked_plain(packed, masks5), None,
+                                          _kept_bytes(BLOCK_ROWS, masks5)
+                                          + BLOCK_ROWS * 16 * COHORTS),
     }
     times = {}
     for name, (kernel, plain, library, nbytes) in cases.items():
@@ -2136,6 +2241,325 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     return launches
 
 
+COUNT_REGION = 20_000  # variants of phase 10's runs against --device cpu
+COUNT_ORACLE_VARIANTS = 2000  # variants of phase 10 held against its numpy oracle
+POPS = ("AFR", "AMR", "EAS", "EUR", "SAS")  # phase 10's fst cohorts (COHORTS of them)
+# phase 10 (c), beside stats: each report and the extension of its -o file
+# (missing's -o is a prefix of .vmiss and .smiss)
+REPORTS = {"freq": ".afreq", "gcount": ".gcount", "hardy": ".hardy", "missing": "", "het": ".het"}
+
+
+def _port_stdout(argv: list, out: Path, device: str) -> tuple:
+    """One run of the port's CLI whose table goes to stdout (query, stats),
+    written to ``out``; returns its wall seconds and its stderr."""
+    from pgen_tpu_torch.cli import main as port_main
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with open(out, "w") as fh, contextlib.redirect_stdout(fh), contextlib.redirect_stderr(err):
+        rc = port_main([*map(str, argv), "--device", device])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"port CLI {argv[0]} on {device} returned {rc}\n{err.getvalue()}")
+    return seconds, err.getvalue()
+
+
+def _masked_counts_numpy(packed, rows, samples):
+    """(len(rows), 4) code counts of the given records over the given
+    samples (distinct ids), from numpy-decoded codes."""
+    import numpy as np
+
+    codes = _codes_numpy(packed, rows)[:, samples]
+    return np.stack([(codes == k).sum(1) for k in range(4)], 1)
+
+
+def _lines(path: Path) -> list:
+    """A table's lines after its header, as lists of fields."""
+    return [line.split("\t") for line in path.read_text().splitlines()[1:]]
+
+
+def _fst_oracle(c1, c2, method: str) -> tuple:
+    """Per-variant numerator, denominator and validity of Hudson's or Weir
+    and Cockerham's estimator from two cohorts' (V, 4) counts, numpy f64
+    (plink2's --fst formulas, written apart from the port's copy)."""
+    import numpy as np
+
+    n1, n2 = (c[:, :3].sum(1).astype(np.float64) for c in (c1, c2))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        p1, p2 = ((c[:, 1] + 2.0 * c[:, 2]) / (2.0 * m) for c, m in ((c1, n1), (c2, n2)))
+        if method == "hudson":
+            num = (p1 - p2) ** 2 - p1 * (1 - p1) / (2 * n1 - 1) - p2 * (1 - p2) / (2 * n2 - 1)
+            den = p1 * (1 - p2) + p2 * (1 - p1)
+            ok = (n1 >= 1) & (n2 >= 1)
+        else:
+            tot = n1 + n2
+            nbar = tot / 2
+            nc = tot - (n1 * n1 + n2 * n2) / tot
+            pbar = (n1 * p1 + n2 * p2) / tot
+            s2 = (n1 * (p1 - pbar) ** 2 + n2 * (p2 - pbar) ** 2) / nbar
+            hbar = (c1[:, 1] + c2[:, 1]) / tot
+            inner = pbar * (1 - pbar) - s2 / 2
+            a = nbar / nc * (s2 - (inner - hbar / 4) / (nbar - 1))
+            b = nbar / (nbar - 1) * (inner - (2 * nbar - 1) / (4 * nbar) * hbar)
+            num, den = a, a + b + hbar / 2
+            ok = (n1 >= 1) & (n2 >= 1) & (nbar > 1) & (nc > 0)
+    ok &= np.isfinite(num) & np.isfinite(den) & (den != 0)
+    return num, den, ok
+
+
+def _close_text(label: str, got: str, want: float) -> None:
+    """A .6g cell against an f64 value: within its six digits ("NA" where
+    the value is undefined)."""
+    import math
+
+    if got == "NA" or not math.isfinite(want):
+        if got != "NA" or math.isfinite(want):
+            raise AssertionError(f"{label}: {got} against the oracle's {want}")
+    elif abs(float(got) - want) > 1e-5 * abs(want) + 1e-12:
+        raise AssertionError(f"{label}: {got} against the oracle's {want:.9g}")
+
+
+def _same_het(label: str, got: Path, want: Path) -> float:
+    """Two het tables: every column bytewise but E(HOM) and F, those at rtol
+    1e-12 (f64 sums in another order); both files deleted. Returns the
+    largest relative difference."""
+    worst = 0.0
+    g, w = got.read_text().splitlines(), want.read_text().splitlines()
+    if g[0] != w[0] or len(g) != len(w):
+        raise AssertionError(f"{label}: {got.name} and {want.name} differ in shape")
+    for a, b in zip((ln.split("\t") for ln in g[1:]), (ln.split("\t") for ln in w[1:])):
+        if [a[0], a[1], a[3]] != [b[0], b[1], b[3]] or [a[2] == "NA", a[4] == "NA"] != [
+                b[2] == "NA", b[4] == "NA"]:
+            raise AssertionError(f"{label}: {a} != --device cpu's {b}")
+        for x, y in ((a[2], b[2]), (a[4], b[4])):
+            if x != "NA":
+                rel = abs(float(x) - float(y)) / max(abs(float(y)), 1e-300)
+                if rel > 1e-12:
+                    raise AssertionError(f"{label}: {a} != --device cpu's {b} (rtol 1e-12)")
+                worst = max(worst, rel)
+    got.unlink()
+    want.unlink()
+    return worst
+
+
+def phase_counts(tmp: Path, full: Path) -> list:
+    """query, the reports, stats and fst through the port's CLI on the full
+    chr22 fixture (launch counts read around each part's cuda runs):
+    (a) a metadata-only query launches no kernel, its rows those numpy
+    reads from the .pvar; (b) a query binding GT_AF and GT_MISSING at
+    median thresholds (K8) and one under -s binding GT_NOBS and
+    GT_MISSING_RATE (K9), against a numpy oracle (2,000 seeded variants'
+    counts; every sample's missing count); (c) freq, gcount, hardy,
+    missing, het and stats --per-sample over every variant, for all samples
+    (K8, K9, K1) and a --samples-file of 1,001 seeded IIDs (K14): the
+    .gcount, .afreq, .hardy counts and .vmiss rows of the 2,000 variants
+    equal to numpy's masked counts, .smiss, stats' MISSING/NOBS and .het's
+    OBS_CT to every sample's missing count; (d) fst hudson and wc over a
+    seeded --pheno POP column of five labels with 2% NA (K14 at P = 5), and
+    the same over the 2,000 variants (-R) with --report-variants, every cell
+    and summary within its six digits of a numpy f64 oracle. Then every
+    output of (b)-(d) on a 20,000-variant region, sha256-equal to --device
+    cpu's (het's E(HOM) and F at rtol 1e-12; the -s query takes no region).
+    Returns the launches of each part."""
+    import numpy as np
+
+    iids, pos, alt, packed = _read_fileset(full)
+    n_var, n = len(pos), len(iids)
+    rng = np.random.default_rng(SEED + 10)
+    first = n_var // 2 - COUNT_REGION // 2
+    region = ["-r", f"22:{pos[first]}-{pos[first + COUNT_REGION - 1]}"]
+    cohort = np.sort(rng.choice(n, KEEP_SAMPLES, replace=False))
+    (tmp / "samples_1001.txt").write_text("".join(f"{iids[s]}\n" for s in cohort))
+    labels = rng.integers(0, COHORTS, n)
+    na = rng.random(n) < 0.02
+    (tmp / "pops.tsv").write_text("#IID\tPOP\n" + "".join(
+        f"{iid}\t{'NA' if na[s] else POPS[labels[s]]}\n" for s, iid in enumerate(iids)))
+    rows = np.sort(rng.choice(n_var, COUNT_ORACLE_VARIANTS, replace=False))
+    (tmp / "oracle_rows.txt").write_text("".join(f"22\t{pos[r]}\n" for r in rows))
+    walls, launches, region_runs = {}, [], []
+
+    def timed(label, seconds):
+        walls[label] = seconds
+        print(f"[10 counts] {label}: {seconds:.3f} s")
+
+    def on_region(label, argv, stem, suffix="", stdout=False):
+        """The cuda run on the region now (its launches counted with its
+        part's), the --device cpu run and the comparison at the end: the
+        output (stdout, or -o) is {device}.{stem}{suffix}."""
+        (_port_stdout if stdout else _port_cli)([*argv, *region], tmp / f"cuda.{stem}{suffix}",
+                                                "cuda")
+        region_runs.append((label, argv, stem, suffix, stdout))
+
+    t0 = time.perf_counter()
+    oracle = {"all": _masked_counts_numpy(packed, rows, np.arange(n)),
+              "cohort": _masked_counts_numpy(packed, rows, cohort)}
+    missing = _sample_missing_numpy(packed)[:n]
+    print(f"[10 counts] numpy oracle ({len(rows)} variants' counts over all samples and the "
+          f"cohort; every sample's missing count) in {time.perf_counter() - t0:.1f} s")
+
+    # (a) metadata only: no kernel, the .pvar's rows
+    _reset_launches()
+    seconds, _ = _port_stdout(["query", full, "-f", "ID", "-i", 'ALT == "G"'], tmp / "a.txt",
+                              "cuda")
+    got = _read_launches()
+    if any(got.values()):
+        raise AssertionError(f"(a) a metadata-only query launched {got}")
+    want = "".join(f"snp{i}\n" for i in np.flatnonzero(alt == b"G"))
+    if (tmp / "a.txt").read_text() != want:
+        raise AssertionError("(a) the query's rows differ from the .pvar's ALT == G rows")
+    (tmp / "a.txt").unlink()
+    timed(f"(a) query -f ID -i 'ALT == \"G\"', {want.count(chr(10))} rows, no kernel", seconds)
+
+    # (b) GT_* on the variant axis (K8) and on the sample axis (K9)
+    c = oracle["all"]
+    ac = c[:, 1] + 2 * c[:, 2]
+    af = ac / (2 * c[:, :3].sum(1))
+    af_med, miss_med = float(np.median(af)), int(np.median(c[:, 3]))
+    rate = missing / n_var
+    rate_med = float(np.median(rate))
+    variant_query = ["query", full, "-f", 'ID + " " + str::from(GT_AC)',
+                     "-i", f"GT_AF > {af_med!r} && GT_MISSING < {miss_med}"]
+    _reset_launches()
+    seconds, _ = _port_stdout(variant_query, tmp / "b.txt", "cuda")
+    timed("(b) query GT_AF/GT_MISSING, every variant", seconds)
+    seconds, _ = _port_stdout(["query", full, "-s", "-f", 'IID + " " + str::from(GT_NOBS)',
+                               "-i", f"GT_MISSING_RATE < {rate_med!r}"], tmp / "b_s.txt", "cuda")
+    timed("(b) query -s GT_NOBS/GT_MISSING_RATE, every sample", seconds)
+    on_region("(b) query", variant_query, "b_r", ".txt", stdout=True)
+    launches.append(_read_launches())
+    for kname in ("gt_counts_device", "sample_counts_device"):
+        if launches[-1][kname] <= 0:
+            raise AssertionError(f"(b) {kname} never launched")
+    kept = dict(line.split(" ") for line in (tmp / "b.txt").read_text().splitlines())
+    for r, a, m, want_ac in zip(rows, af, c[:, 3], ac):
+        hit = kept.get(f"snp{r}")
+        if (hit is not None) != bool(a > af_med and m < miss_med) or (hit and int(hit) != want_ac):
+            raise AssertionError(f"(b) variant {r}: query row {hit} against the oracle's AF {a}, "
+                                 f"MISSING {m}, AC {want_ac}")
+    want = "".join(f"{iids[s]} {n_var - missing[s]}\n" for s in range(n) if rate[s] < rate_med)
+    if (tmp / "b_s.txt").read_text() != want:
+        raise AssertionError("(b) the -s query's rows differ from the oracle's")
+    (tmp / "b.txt").unlink()
+    (tmp / "b_s.txt").unlink()
+    print(f"[10 counts] (b) {len(kept)} variants at GT_AF > {af_med:.6g} && GT_MISSING < "
+          f"{miss_med}, the {len(rows)} oracle variants among them as numpy has them, GT_AC "
+          f"equal; {want.count(chr(10))} samples at GT_MISSING_RATE < {rate_med:.6g}, GT_NOBS "
+          "equal to the oracle's")
+
+    # (c) the reports over every variant: all samples, then the cohort
+    for who, samples, flags in (("all", np.arange(n), []),
+                                ("cohort", cohort, ["--samples-file", tmp / "samples_1001.txt"])):
+        _reset_launches()
+        for report, ext in REPORTS.items():
+            seconds, _ = _port_cli([report, full, *flags], tmp / f"{report}_{who}{ext}", "cuda")
+            timed(f"(c) {report}, every variant, {len(samples)} samples", seconds)
+            on_region(f"(c) {report} {who}", [report, full, *flags], f"{report}_{who}_r", ext)
+        stats = ["stats", full, "--per-sample", *flags]
+        seconds, _ = _port_stdout(stats, tmp / f"stats_{who}.txt", "cuda")
+        timed(f"(c) stats --per-sample, every variant, {len(samples)} samples", seconds)
+        on_region(f"(c) stats {who}", stats, f"stats_{who}_r", ".txt", stdout=True)
+        launches.append(_read_launches())
+        count = "gt_counts_device" if who == "all" else "gt_counts_masked"
+        for kname in (count, "sample_counts_device", "unpack_codes"):
+            if launches[-1][kname] <= 0:
+                raise AssertionError(f"(c) {kname} never launched over {who} samples")
+        # per-variant rows of the oracle's variants, per-sample rows of every kept sample
+        tables = {ext: _lines(tmp / f"{report}_{who}.{ext}") for report, ext in (
+            ("gcount", "gcount"), ("freq", "afreq"), ("hardy", "hardy"), ("missing", "vmiss"),
+            ("missing", "smiss"), ("het", "het"))}
+        for k, r in enumerate(rows):
+            hr, het, ha, mi = (int(x) for x in oracle[who][k])
+            an = 2 * (hr + het + ha)
+            freq = "NA" if an == 0 else f"{(het + 2 * ha) / an:.6g}"
+            gcount = tables["gcount"][r]
+            for got, want in (([gcount[1], *gcount[4:]], [f"snp{r}", *map(str, (hr, het, ha, mi))]),
+                              (tables["afreq"][r][4:], [freq, str(an)]),
+                              (tables["hardy"][r][4:7], [str(ha), str(het), str(hr)]),
+                              (tables["vmiss"][r][2:4], [str(mi), str(len(samples))])):
+                if got != want:
+                    raise AssertionError(f"(c) variant {r}, {who} samples: {got} != oracle {want}")
+        per_sample = (tmp / f"stats_{who}.txt").read_text().split("#IID")[1].splitlines()[1:]
+        for k, s in enumerate(samples):
+            called = str(n_var - missing[s])
+            st = per_sample[k].split("\t")
+            if (tables["smiss"][k][:3] != [iids[s], str(missing[s]), str(n_var)]
+                    or [tables["het"][k][0], tables["het"][k][3]] != [iids[s], called]
+                    or [st[0], st[4], st[5]] != [iids[s], str(missing[s]), called]):
+                raise AssertionError(f"(c) sample {iids[s]}: .smiss {tables['smiss'][k]}, .het "
+                                     f"{tables['het'][k]}, stats {st}: {missing[s]} missing")
+        if [len(tables["gcount"]), len(tables["smiss"]), len(tables["het"]), len(per_sample)] != [
+                n_var, len(samples), len(samples), len(samples)]:
+            raise AssertionError(f"(c) {who}: tables of {len(tables['gcount'])} variants and "
+                                 f"{len(tables['smiss'])} samples")
+        for f in tmp.glob(f"*_{who}.*"):
+            f.unlink()
+        print(f"[10 counts] (c) {who} samples ({len(samples)}): .gcount, .afreq, .hardy counts "
+              f"and .vmiss rows of {len(rows)} seeded variants equal to numpy's masked counts; "
+              ".smiss, stats --per-sample MISSING/NOBS and .het OBS_CT equal to every sample's "
+              "missing count")
+
+    # (d) fst over five cohorts (K14 at P = 5): every variant, then the oracle's
+    pops = {p: np.flatnonzero((labels == i) & ~na) for i, p in enumerate(POPS)}
+    per_pop = {p: _masked_counts_numpy(packed, rows, ids) for p, ids in pops.items()}
+    _reset_launches()
+    for method in ("hudson", "wc"):
+        fst = ["fst", full, "--pheno", tmp / "pops.tsv", "--pheno-name", "POP", "--method", method]
+        seconds, _ = _port_cli(fst, tmp / f"fst_{method}", "cuda")
+        timed(f"(d) fst --method {method}, every variant, {COHORTS} cohorts", seconds)
+        _port_cli([*fst, "-R", tmp / "oracle_rows.txt", "--report-variants"],
+                  tmp / f"fst_o_{method}", "cuda")
+        on_region(f"(d) fst {method}", [*fst, "--report-variants"], f"fst_{method}_r")
+    launches.append(_read_launches())
+    if launches[-1]["gt_counts_masked"] <= 0:
+        raise AssertionError("(d) gt_counts_masked never launched")
+    for method in ("hudson", "wc"):
+        summary = _lines(tmp / f"fst_{method}.fst.summary")
+        if len(summary) != COHORTS * (COHORTS - 1) // 2 or any(
+                not np.isfinite(float(r[2])) or int(r[3]) < n_var // 2 for r in summary):
+            raise AssertionError(f"(d) fst {method} over every variant: {summary}")
+        for p1, p2, cell, used in _lines(tmp / f"fst_o_{method}.fst.summary"):
+            num, den, ok = _fst_oracle(per_pop[p1], per_pop[p2], method)
+            if int(used) != int(ok.sum()):
+                raise AssertionError(f"(d) {method} {p1}/{p2}: VARIANT_CT {used} != {ok.sum()}")
+            _close_text(f"(d) {method} {p1}/{p2}", cell, num[ok].sum() / den[ok].sum())
+            cells = _lines(tmp / f"fst_o_{method}.{p1}.{p2}.fst.var")
+            for k, row in enumerate(cells):
+                obs = per_pop[p1][k, :3].sum() + per_pop[p2][k, :3].sum()
+                if row[2] != f"snp{rows[k]}" or int(row[3]) != obs or len(cells) != len(rows):
+                    raise AssertionError(f"(d) {method} {p1}/{p2}: {row} against the oracle")
+                _close_text(f"(d) {method} {p1}/{p2} {row[2]}", row[4],
+                            num[k] / den[k] if ok[k] else float("nan"))
+        print(f"[10 counts] (d) fst {method}: {len(summary)} cohort pairs over every variant, "
+              f"finite; over the {len(rows)} oracle variants each pair's summary and "
+              "per-variant cells within their six digits of the numpy f64 oracle, VARIANT_CT "
+              "and OBS_CT equal")
+    for f in tmp.glob("fst_*"):
+        f.unlink()
+
+    # every region run against --device cpu
+    het_rel = 0.0
+    for label, argv, stem, suffix, stdout in region_runs:
+        (_port_stdout if stdout else _port_cli)([*argv, *region], tmp / f"cpu.{stem}{suffix}",
+                                                "cpu")
+        outputs = sorted(tmp.glob(f"cuda.{stem}*"))
+        if not outputs:
+            raise AssertionError(f"{label}: no output on the region")
+        for got in outputs:
+            want = tmp / f"cpu.{got.name[len('cuda.'):]}"
+            if got.suffix == ".het":
+                het_rel = max(het_rel, _same_het(label, got, want))
+            else:
+                _same_files(label, [(got, want)])
+    print(f"[10 counts] region {region[1]} ({COUNT_REGION} variants): {len(region_runs)} runs of "
+          f"(b)-(d) on cuda equal to --device cpu's, sha256 (het's E(HOM) and F within "
+          f"{het_rel:.3g}, rtol 1e-12)")
+    shown = "; ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"[10 counts] walls: {shown}")
+    print(f"[10 counts] path launches: "
+          f"{ {k: sum(part[k] for part in launches) for k in launches[0]} }")
+    return launches
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -2185,6 +2609,9 @@ def main(argv: list) -> int:
             t0 = time.perf_counter()
             per_path.append(phase_relatedness(tmp, fixtures["full"]))
             print(f"[9 relatedness] phase 9 took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            per_path += phase_counts(tmp, fixtures["full"])
+            print(f"[10 counts] phase 10 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:

@@ -1,14 +1,16 @@
-"""Command line of the port: ``python -m pgen_tpu_torch.cli filter|import|glm|score|king|genome|pca ...``.
+"""Command line of the port: ``python -m pgen_tpu_torch.cli SUBCOMMAND ...``.
 
 It takes the port's copy of pgen_tpu's argument parser
 (``cli_parser.build_arg_parser``, every subcommand) and adds ``--device
-cuda|cpu`` (default ``cuda``, which must be available) to ``filter``,
-``import``, ``glm``, ``score``, ``king``, ``genome`` and ``pca``. The query flags compose exactly as in
-``pgen_tpu.cli.main``, through the port's copies of its host composers
-(``query/``): ``--keep/--remove``,
-``-r/-R``, ``--exclude-var/--exclude-sam``, ``--samples``,
-``--extract/--exclude-ids``, the ``--maf/--max-maf/--geno/--hwe/--mind``
-sugar and ``--rm-dup force-first|exclude-all``.
+cuda|cpu`` (default ``cuda``, which must be available) to each subcommand
+it serves (``SERVED``): ``filter``, ``import``, ``query``, ``glm``,
+``score``, ``king``, ``genome``, ``pca``, the reports ``freq``,
+``gcount``, ``missing``, ``hardy`` and ``het``, ``stats`` and ``fst``. The
+query flags compose exactly as in ``pgen_tpu.cli.main``, through the port's
+copies of its host composers (``query/``): ``--keep/--remove``, ``-r/-R``,
+``--exclude-var/--exclude-sam``, ``--samples``, ``--extract/--exclude-ids``,
+the ``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup
+force-first|exclude-all``.
 
 ``filter`` writes a VCF, or with ``--out-format pgen`` the fileset
 ``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``--provider device`` routes a
@@ -21,14 +23,16 @@ writes a torch.profiler trace per rank. ``import`` reads a ``.vcf`` or
 ``device``), as ``pgen_tpu.cli.main`` serves them: the multi-phenotype
 loop, ``-o -``, the same query composers and the closing stderr line; so
 do ``king`` (with ``--min-kinship`` and ``--cutoff``), ``genome`` (with
-``--min-pi-hat``) and ``pca`` (``-k``, ``--make-rel``, ``--approx``). It
-exits as ``pgen_tpu.cli.main`` does: 141 on a broken pipe, 1 with the one
-stderr line ``pgen-tpu: error: ...`` on any other exception, 2 on an
-argument error. What
-the port does not serve yet is refused with the ROADMAP.md item that will
-serve it: every other subcommand (``_UNSERVED_COMMANDS``), and the flags
-and inputs listed in ``_UNSERVED``, ``_UNSERVED_IMPORT`` and
-``_UNSERVED_ANALYTICS``.
+``--min-pi-hat``) and ``pca`` (``-k``, ``--make-rel``, ``--approx``), the
+reports (``freq --counts``, ``hardy --midp``, ``missing``'s out prefix),
+``stats`` (``--per-sample``) and ``fst``. ``query`` prints its rows to
+stdout as pgen_tpu's does: ``-e`` excludes, and ``-r``/``-R`` with ``-s``
+is an error (exit 1). It exits as ``pgen_tpu.cli.main`` does: 141 on a
+broken pipe, 1 with the one stderr line ``pgen-tpu: error: ...`` on any
+other exception, 2 on an argument error. What the port does not serve yet
+is refused with the ROADMAP.md item that will serve it: every other
+subcommand (``_UNSERVED_COMMANDS``), and the flags and inputs listed in
+``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
 """
 
 from __future__ import annotations
@@ -96,22 +100,19 @@ _UNSERVED_IMPORT = {
 _UNSERVED_ANALYTICS = {
     "provider": (
         lambda v: v not in ("auto", "device"),
-        "--provider native|numpy: the port's glm and score (ROADMAP §1 item 9, done) "
-        "and king, genome and pca (item 10, done) run on one GPU (auto or device); "
-        "pgen_tpu's host providers stay pgen_tpu's",
+        "--provider native|numpy: the port's glm and score (ROADMAP §1 item 9, done), "
+        "king, genome and pca (item 10, done), and the reports, stats and fst (item 8, "
+        "done) run on one GPU (auto or device); pgen_tpu's host providers stay pgen_tpu's",
     ),
 }
 
-SERVED = ("filter", "import", "glm", "score", "king", "genome", "pca")
+REPORTS = ("freq", "gcount", "missing", "hardy", "het")
+SERVED = ("filter", "import", "query", "glm", "score", "king", "genome", "pca", *REPORTS,
+          "stats", "fst")
 
 # each subcommand the port does not serve yet -> the ROADMAP §1 item that
-# will serve it; every other one is item 13's (query and the host-only
-# subcommands)
-_UNSERVED_COMMANDS = {
-    **dict.fromkeys(("ld", "prune"), "item 10 (LD: ld, prune and the LD report)"),
-    **dict.fromkeys(("stats", "freq", "missing", "hardy", "het", "gcount", "fst"),
-                    "item 8 (the reports)"),
-}
+# will serve it; every other one is item 13's (the host-only subcommands)
+_UNSERVED_COMMANDS = dict.fromkeys(("ld", "prune"), "item 10 (LD: ld, prune and the LD report)")
 
 
 def build_torch_arg_parser() -> argparse.ArgumentParser:
@@ -143,7 +144,7 @@ def _compose_queries(args) -> None:
     from pgen_tpu_torch.query.regions import apply_regions
     from pgen_tpu_torch.query.samples import apply_keep_remove, apply_samples
 
-    if args.keep or args.remove:
+    if getattr(args, "keep", None) or getattr(args, "remove", None):
         args.sam_query = apply_keep_remove(args.sam_query, args.keep, args.remove)
     args.var_query = apply_exclude(
         apply_regions(args.var_query, args.regions, args.regions_file), args.var_exclude
@@ -405,11 +406,115 @@ def _pca(args) -> int:
     return 0
 
 
-_RUNS = {"glm": _glm, "score": _score, "king": _king, "genome": _genome, "pca": _pca}
+def _report(args) -> int:
+    from pgen_tpu_torch.pipeline import reports
+
+    fn = {
+        "freq": reports.report_freq,
+        "missing": reports.report_missing,
+        "hardy": reports.report_hardy,
+        "het": reports.report_het,
+        "gcount": reports.report_gcount,
+    }[args.command]
+    kwargs = (
+        {"out_prefix": args.out_file}
+        if args.command == "missing"
+        else {"out_file": args.out_file}
+    )
+    if args.command == "freq":
+        kwargs["counts"] = args.counts
+    if args.command == "hardy":
+        kwargs["midp"] = args.midp
+    result = fn(
+        args.pfile_prefix,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        device=args.device,
+        **kwargs,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    dest = ", ".join(result.out_paths) or "stdout"
+    print(
+        f"{result.kind}: {result.num_variants} variants x "
+        f"{result.num_samples} samples -> {dest}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _stats(args) -> int:
+    from pgen_tpu_torch.pipeline.stats import genotype_stats
+
+    genotype_stats(
+        args.pfile_prefix,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        device=args.device,
+        per_sample=args.per_sample,
+    )
+    return 0
+
+
+def _fst(args) -> int:
+    from pgen_tpu_torch.pipeline.fst import fst_pfile
+
+    result = fst_pfile(
+        args.pfile_prefix,
+        pheno_name=args.pheno_name,
+        pheno_file=args.pheno_file,
+        within_file=args.within_file,
+        method=args.method,
+        report_variants=args.report_variants,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_file=args.out_file,
+        device=args.device,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"fst: {result.method} over {len(result.pairs)} cohort "
+        f"pair(s), {result.num_variants} variants x "
+        f"{result.num_samples} assigned samples"
+        + (
+            f" -> {result.out_paths[0]}"
+            if result.out_paths else ""
+        ),
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _query(args) -> int:
+    """query: the rows of the .pvar (or the .psam under -s) that -i keeps
+    and -e does not, one -f string each, on stdout."""
+    from pgen_tpu_torch.pipeline.query import query_metadata
+    from pgen_tpu_torch.query.exclude import apply_exclude
+    from pgen_tpu_torch.query.regions import apply_regions
+
+    if (args.regions or args.regions_file) and args.query_samples:
+        raise ValueError("--regions applies to variant queries, not -s")
+    query_metadata(
+        args.pfile_prefix,
+        query_fstring=args.query_fstring,
+        query=apply_exclude(
+            apply_regions(args.query, args.regions, args.regions_file),
+            args.query_exclude,
+        ),
+        query_samples=args.query_samples,
+        device=args.device,
+    )
+    return 0
+
+
+_RUNS = {"glm": _glm, "score": _score, "king": _king, "genome": _genome, "pca": _pca,
+         **dict.fromkeys(REPORTS, _report), "stats": _stats, "fst": _fst}
 
 
 def _analytics(parser, args) -> int:
-    """glm, score, king, genome and pca: one GPU, the common query flags."""
+    """glm, score, king, genome, pca, the reports, stats and fst: one GPU,
+    the common query flags."""
     _refuse_unserved(parser, args, _UNSERVED_ANALYTICS)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         parser.error(
@@ -511,8 +616,7 @@ def main(argv=None) -> int:
     parser = build_torch_arg_parser()
     args = parser.parse_args(argv)
     if args.command not in SERVED:
-        item = _UNSERVED_COMMANDS.get(
-            args.command, "item 13 (query and the host-only subcommands)")
+        item = _UNSERVED_COMMANDS.get(args.command, "item 13 (the host-only subcommands)")
         parser.error(
             f"{args.command}: the port serves only {', '.join(SERVED)} so far; "
             f"{args.command} is ROADMAP §1 {item}"
@@ -522,6 +626,8 @@ def main(argv=None) -> int:
     try:
         if args.command == "import":
             return _import(parser, args)
+        if args.command == "query":
+            return _query(args)
         if args.command in _RUNS:
             return _analytics(parser, args)
         return _filter(args)

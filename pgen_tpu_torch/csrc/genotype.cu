@@ -778,6 +778,100 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+// K14. Replaces the host count of a sample subset, pgen_tpu/ops/gt_stats.py:
+// gt_counts_subset (its 4-bit keep mask per record byte from
+// sample_byte_masks, then the native C++ or a 16 x 256 LUT), on every
+// cohort-aware path: the GT_* variables of a variant query under a sample
+// query, the reports with a sample query, fst's cohorts, score --center and
+// genome's frequencies on a cohort.
+// (V, R) u8 records and P keep masks -> (V, P, 4) int32:
+// counts[v][p][c] = #{slots s kept by mask p : code(v, s) == c}.
+// The masks arrive expanded (ops/gt_stats.py:slot_masks): bit k of a mask's
+// 4-bit byte as bit 2k, the low bit of its slot, so a counted slot is an
+// AND; and each mask 16 times, copy L with its byte j at offset L + j of a
+// zeroed row of W 16-B words. A row whose first byte lies L bytes past a
+// 16-B boundary reads its aligned 16-B word w and copy L's word w, which
+// holds the same row bytes' mask: no shift follows a row's offset, and the
+// bytes of the neighbouring rows, before the row's first and past its last
+// byte, meet zero mask bytes.
+// Bound: memory, one read of each record byte that holds a kept sample (the
+// masks, 16 P W bytes, stay in L1/L2): a 65,536-row block of 626 B reads at
+// most 41 MB, 0.0123 ms at 3.35 TB/s.
+// Design: K8's loads (a warp a row, lanes on consecutive aligned 16-B
+// words, two words a lane in flight) and its paired popcounts, with the
+// keep mask m in place of K8's slot mask: L = popc(x & m), H = popc((x >>
+// 1) & m), B = popc(x & (x >> 1) & m), K = popc(m); c0 = K - L - H + B,
+// c1 = L - B, c2 = H - B, c3 = B. A warp takes kMaskPass masks a pass over
+// its row (later passes read the row from L1), four sums each, reduced with
+// __reduce_add_sync. A simple form that is right: it reads the whole row
+// whatever the masks keep.
+constexpr int kMaskPass = 4;
+
+// Adds the K, L, H and B of the slots of one 16-B word x kept by the
+// expanded mask word m (bits at even positions only, so two u32s' bits
+// share one popcount as in count_word).
+__device__ __forceinline__ void count_masked_word(uint4 x, uint4 m, uint32_t& kept, uint32_t& l,
+                                                  uint32_t& h, uint32_t& both) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t k[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+  for (int q = 0; q < 4; q += 2) {
+    const uint32_t lo0 = w[q] & k[q], hi0 = (w[q] >> 1) & k[q];
+    const uint32_t lo1 = w[q + 1] & k[q + 1], hi1 = (w[q + 1] >> 1) & k[q + 1];
+    kept += __popc(k[q] | (k[q + 1] << 1));
+    l += __popc(lo0 | (lo1 << 1));
+    h += __popc(hi0 | (hi1 << 1));
+    both += __popc((lo0 & hi0) | ((lo1 & hi1) << 1));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    gt_counts_masked_kernel(const uint8_t* __restrict__ packed, const uint4* __restrict__ slots,
+                            int4* __restrict__ counts, int64_t n_var, int64_t rec, int n_masks,
+                            int64_t copy_words) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
+  // v is the same for every lane of a warp, so the whole warp takes part in
+  // each reduction
+  for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
+    const uint8_t* row = packed + v * rec;
+    const int64_t lead = static_cast<int64_t>(reinterpret_cast<uintptr_t>(row) & 15);
+    const uint4* base = reinterpret_cast<const uint4*>(row - lead);  // 16-B aligned
+    const int64_t n_words = (lead + rec + 15) / 16;
+    const uint4* copy = slots + lead * n_masks * copy_words;  // copy L of every mask
+    for (int p0 = 0; p0 < n_masks; p0 += kMaskPass) {
+      uint32_t kept[kMaskPass], l[kMaskPass], h[kMaskPass], both[kMaskPass];
+#pragma unroll
+      for (int q = 0; q < kMaskPass; ++q) kept[q] = l[q] = h[q] = both[q] = 0;
+      for (int64_t w = lane; w < n_words; w += 2 * kWarp) {
+        const bool second = w + kWarp < n_words;
+        const uint4 x0 = __ldg(base + w);
+        const uint4 x1 = second ? __ldg(base + w + kWarp) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int q = 0; q < kMaskPass; ++q) {
+          if (p0 + q < n_masks) {
+            const uint4* mask = copy + (p0 + q) * copy_words;
+            count_masked_word(x0, __ldg(mask + w), kept[q], l[q], h[q], both[q]);
+            if (second) count_masked_word(x1, __ldg(mask + w + kWarp), kept[q], l[q], h[q], both[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kMaskPass; ++q) {
+        kept[q] = __reduce_add_sync(0xFFFFFFFFu, kept[q]);
+        l[q] = __reduce_add_sync(0xFFFFFFFFu, l[q]);
+        h[q] = __reduce_add_sync(0xFFFFFFFFu, h[q]);
+        both[q] = __reduce_add_sync(0xFFFFFFFFu, both[q]);
+        if (lane == q && p0 + q < n_masks) {
+          counts[v * n_masks + p0 + q] = make_int4(
+              static_cast<int>(kept[q] - l[q] - h[q] + both[q]), static_cast<int>(l[q] - both[q]),
+              static_cast<int>(h[q] - both[q]), static_cast<int>(both[q]));
+        }
+      }
+    }
+  }
+}
+
 // K9. Replaces pgen_tpu/ops/gt_stats.py:sample_counts_device: the Pallas
 // _unpack_kernel then an XLA one-hot sum over the variants.
 // (V, R) u8 records -> (4R, 4) int32 counts (cleared by the launcher; the
@@ -1684,6 +1778,26 @@ int pgen_gt_counts(const void* packed, void* counts, int64_t n_var,
                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), static_cast<int4*>(counts), n_var,
       rec, static_cast<int>(n_samples));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pgen_gt_counts_masked(const void* packed, const void* slots, void* counts, int64_t n_var,
+                          int64_t rec, int64_t n_masks, int64_t copy_words, void* stream) {
+  if (n_var <= 0 || rec <= 0 || n_masks <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(counts) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(slots) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  // every row's words, at any lead, inside a copy
+  if (16 * copy_words < rec + 15 || n_masks > (int64_t{1} << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t rows_per_block = kThreads / kWarp;
+  const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
+  gt_counts_masked_kernel<<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
+                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const uint4*>(slots),
+      static_cast<int4*>(counts), n_var, rec, static_cast<int>(n_masks), copy_words);
   return static_cast<int>(cudaGetLastError());
 }
 

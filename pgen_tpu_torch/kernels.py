@@ -92,6 +92,7 @@ def load() -> ctypes.CDLL:
     lib.pgen_text_from_codes.argtypes = [ptr, ptr, i64, i64, ptr]
     lib.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
     lib.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
+    lib.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
     lib.pgen_glm_planes.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.pgen_score_dosage.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.pgen_grm_z.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
@@ -100,7 +101,8 @@ def load() -> ctypes.CDLL:
         lib.pgen_unpack_codes, lib.pgen_genotype_text, lib.pgen_subset_text,
         lib.pgen_pack_codes, lib.pgen_subset_repack,
         lib.pgen_genotype_text_transposed, lib.pgen_text_from_codes,
-        lib.pgen_gt_counts, lib.pgen_sample_counts, lib.pgen_glm_planes,
+        lib.pgen_gt_counts, lib.pgen_sample_counts, lib.pgen_gt_counts_masked,
+        lib.pgen_glm_planes,
         lib.pgen_score_dosage, lib.pgen_grm_z, lib.pgen_relatedness_planes,
     ):
         fn.restype = ctypes.c_int

@@ -25,12 +25,21 @@ launches the kernel, a CPU tensor runs the plain PyTorch version beside it.
   warps read whole consecutive rows, meet in shared memory, and add each
   sample's four counts as two 64-bit atomics.
 
-``gt_counts`` and ``sample_counts`` stream a memory-mapped (V, R) record
-matrix through one staging tensor (pinned when the device is CUDA), block by
-block, and return int64 numpy as pgen_tpu's ``gt_counts``/``sample_counts``
-do with ``provider="device"``. The host helpers (``gt_variables``,
-``gt_counts_subset``, ``GT_VARIABLE_NAMES``, the HWE test) are the port's
-copies of pgen_tpu's (``ops/gt_stats_host.py``, ``ops/hwe.py``).
+- ``gt_counts_masked``: K14, ``csrc/genotype.cu:gt_counts_masked_kernel``,
+  for pgen_tpu's host ``gt_counts_subset`` (a 4-bit keep mask per record
+  byte, ``sample_byte_masks``, then the native C++ or a LUT): each
+  variant's histogram over the samples each of P keep masks keeps, all P
+  from one read of the records (fst counts every cohort at once). K8's
+  loads and popcounts, the keep mask's expanded words (``slot_masks``) in
+  place of K8's slot masks.
+
+``gt_counts``, ``sample_counts`` and ``gt_counts_subset``/``gt_counts_subsets``
+stream a memory-mapped (V, R) record matrix through one staging tensor
+(pinned when the device is CUDA), block by block, and return int64 numpy as
+pgen_tpu's ``gt_counts``/``sample_counts``/``gt_counts_subset`` do. The
+other host helpers (``gt_variables``, ``sample_byte_masks``,
+``GT_VARIABLE_NAMES``, the HWE test) are the port's copies of pgen_tpu's
+(``ops/gt_stats_host.py``, ``ops/hwe.py``).
 """
 
 from __future__ import annotations
@@ -40,12 +49,16 @@ import torch
 
 from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.kernels import launch
+from pgen_tpu_torch.ops.gt_stats_host import sample_byte_masks
 from pgen_tpu_torch.ops.unpack import check_packed, unpack_codes_plain
 
 # Rows per staged block: pipeline/filter_host.py's DEFAULT_BLOCK_VARIANTS.
 COUNT_BLOCK_ROWS = 1 << 16
 # The kernels count in int32; a call of fewer rows cannot overflow one.
 _MAX_ROWS = (1 << 31) - 1
+# Keep masks a K14 launch counts: more sample sets go in several launches,
+# so a block's (rows, masks, 4) counts stay within 33 MB.
+MAX_MASKS = 32
 
 
 def gt_counts_plain(packed: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -94,8 +107,79 @@ def sample_counts_device(packed: torch.Tensor, num_samples: int) -> torch.Tensor
     return counts[:num_samples]
 
 
+def _check_masks(masks, packed: torch.Tensor) -> int:
+    """Validate K14's keep masks against ``packed``: a (P, R) contiguous u8
+    tensor on its device; returns P."""
+    if not isinstance(masks, torch.Tensor) or masks.dtype != torch.uint8 or masks.dim() != 2:
+        raise TypeError("masks must be a 2-D uint8 torch.Tensor")
+    if masks.shape[1] != packed.shape[1]:
+        raise ValueError(f"masks have {masks.shape[1]} bytes a row, records {packed.shape[1]}")
+    if not masks.is_contiguous():
+        raise ValueError("masks must be contiguous")
+    if masks.device != packed.device:
+        raise ValueError(f"masks are on {masks.device}, packed on {packed.device}")
+    return masks.shape[0]
+
+
+def slot_masks(masks: torch.Tensor) -> torch.Tensor:
+    """(P, R) u8 keep masks (bit k of byte j keeps slot k of record byte j,
+    as ``sample_byte_masks`` makes them) -> K14's (16, P, W) u8 operand,
+    W = 16 * ceil((R + 15) / 16): each bit k moved to bit 2k, its slot's
+    low bit, and copy L holding every mask at byte offset L of a zeroed
+    row, for the records whose first byte lies L bytes past a 16-B
+    boundary. Its W bytes cover such a record's aligned 16-B words."""
+    n_masks, rec = masks.shape
+    width = 16 * ((rec + 30) // 16)
+    spread = (masks & 1) | ((masks & 2) << 1) | ((masks & 4) << 2) | ((masks & 8) << 3)
+    out = torch.zeros((16, n_masks, width), dtype=torch.uint8, device=masks.device)
+    for lead in range(16):
+        out[lead, :, lead : lead + rec] = spread
+    return out
+
+
+def gt_counts_masked_plain(packed: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch per-variant counts over kept slots: (V, R) u8 records
+    and (P, R) u8 keep masks -> (V, P, 4) int32."""
+    n_var, rec = packed.shape
+    codes = unpack_codes_plain(packed, 4 * rec)
+    shifts = torch.arange(4, dtype=torch.int32, device=masks.device)
+    keep = ((masks.to(torch.int32).unsqueeze(-1) >> shifts) & 1).reshape(-1, 4 * rec).bool()
+    per_mask = [torch.stack([((codes == c) & k).sum(1, dtype=torch.int32) for c in range(4)], 1)
+                for k in keep]
+    return torch.stack(per_mask, 1).reshape(n_var, masks.shape[0], 4)
+
+
+def gt_counts_masked(packed: torch.Tensor, masks: torch.Tensor,
+                     slots: torch.Tensor | None = None) -> torch.Tensor:
+    """(V, R) u8 packed records and (P, R) u8 keep masks on one device ->
+    (V, P, 4) int32: counts[v, p, c] = #{slots kept by mask p whose code in
+    record v is c}, on the input's device. ``slots`` is ``slot_masks(masks)``
+    when the caller keeps it across calls (K14 reads it; the plain version
+    reads the masks)."""
+    n_var, rec = check_packed(packed)
+    n_masks = _check_masks(masks, packed)
+    if n_var > _MAX_ROWS:
+        raise ValueError(f"{n_var} rows: count at most {_MAX_ROWS} per call")
+    if n_var == 0 or n_masks == 0 or rec == 0:
+        return torch.zeros((n_var, n_masks, 4), dtype=torch.int32, device=packed.device)
+    if packed.device.type == "cpu":
+        return gt_counts_masked_plain(packed, masks)
+    if slots is None:
+        slots = slot_masks(masks)
+    width = 16 * ((rec + 30) // 16)
+    if (slots.dtype != torch.uint8 or tuple(slots.shape) != (16, n_masks, width)
+            or not slots.is_contiguous() or slots.device != packed.device):
+        raise ValueError(f"slots must be slot_masks(masks): contiguous (16, {n_masks}, {width}) "
+                         f"uint8 on {packed.device}")
+    counts = torch.empty((n_var, n_masks, 4), dtype=torch.int32, device=packed.device)
+    launch(gt_counts_masked, "pgen_gt_counts_masked", packed, packed.data_ptr(),
+           slots.data_ptr(), counts.data_ptr(), n_var, rec, n_masks, width // 16)
+    return counts
+
+
 gt_counts_device.launches = 0
 sample_counts_device.launches = 0
+gt_counts_masked.launches = 0
 
 
 def stage_blocks(records: np.ndarray, dev: torch.device, block_rows: int):
@@ -134,3 +218,32 @@ def sample_counts(records: np.ndarray, num_samples: int, device,
     for _, _, block in stage_blocks(records, dev, block_rows):
         total += sample_counts_device(block, num_samples)
     return total.cpu().numpy()
+
+
+def gt_counts_subsets(records: np.ndarray, sample_sets, device,
+                      block_rows: int = COUNT_BLOCK_ROWS) -> np.ndarray:
+    """(V, R) u8 records (a memory map is read block by block) and P sample
+    id sets -> (V, P, 4) int64: each variant's code histogram over each
+    set's samples, counted on ``device`` (K14, ``MAX_MASKS`` sets a launch).
+    A sample named twice in a set counts once, as in pgen_tpu's
+    ``gt_counts_subset`` (its keep mask is a bit per sample)."""
+    dev = resolve_device(device)
+    n_var, rec = records.shape
+    host_masks = np.zeros((len(sample_sets), rec), dtype=np.uint8)
+    for p, ids in enumerate(sample_sets):
+        host_masks[p] = sample_byte_masks(np.asarray(ids), rec)
+    masks = torch.from_numpy(host_masks).to(dev)
+    groups = [(a, min(a + MAX_MASKS, len(sample_sets))) for a in range(0, len(sample_sets), MAX_MASKS)]
+    slots = [slot_masks(masks[a:b]) if dev.type == "cuda" else None for a, b in groups]
+    out = np.zeros((n_var, len(sample_sets), 4), dtype=np.int64)
+    for lo, hi, block in stage_blocks(records, dev, block_rows):
+        for (a, b), group_slots in zip(groups, slots):
+            out[lo:hi, a:b] = gt_counts_masked(block, masks[a:b], group_slots).cpu().numpy()
+    return out
+
+
+def gt_counts_subset(records: np.ndarray, sample_idx, device,
+                     block_rows: int = COUNT_BLOCK_ROWS) -> np.ndarray:
+    """(V, R) u8 records and one sample id set -> (V, 4) int64 code
+    histogram over those samples, counted on ``device`` by K14."""
+    return gt_counts_subsets(records, [sample_idx], device, block_rows)[:, 0]

@@ -131,17 +131,18 @@ def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
     sample query (K9 ``sample_counts_device``; plink2's ``--mind``
     convention). With a GT_* sample query the sample mask comes first, and
     when it keeps a subset the variant counts cover only the kept samples:
-    those cohort-aware counts stay on the host, as pgen_tpu's device
-    provider keeps them (``gt_counts_subset``). Everything else is the
-    port's copy of pgen_tpu's host code: GT()/GT_TEXT()/GT_ROW indexing,
-    DUP_* variables and the predicate compiler.
+    K14 ``gt_counts_masked`` makes those cohort-aware counts on the device
+    too, where pgen_tpu's device provider makes them on the host
+    (``gt_counts_subset``). Everything else is the port's copy of
+    pgen_tpu's host code: GT()/GT_TEXT()/GT_ROW indexing, DUP_* variables
+    and the predicate compiler.
     """
-    from pgen_tpu_torch.ops.gt_stats_host import GT_VARIABLE_NAMES, gt_counts_subset, gt_variables
+    from pgen_tpu_torch.ops.gt_stats_host import GT_VARIABLE_NAMES, gt_variables
     from pgen_tpu_torch.pipeline.filter_host import _maybe_gt_index_masks
     from pgen_tpu_torch.query import compile_predicate, parse
     from pgen_tpu_torch.query.ast import variables
     from pgen_tpu_torch.query.dup import dup_variables
-    from pgen_tpu_torch.ops.gt_stats import gt_counts, sample_counts
+    from pgen_tpu_torch.ops.gt_stats import gt_counts, gt_counts_subset, sample_counts
 
     var_node = parse(var_query) if isinstance(var_query, str) else var_query
     sam_node = parse(sam_query) if isinstance(sam_query, str) else sam_query
@@ -178,7 +179,7 @@ def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
     if len(sam_idx) == header.num_samples:
         counts = gt_counts(records, header.num_samples, device)
     else:
-        counts = gt_counts_subset(records, sam_idx.astype(np.int32), "native")
+        counts = gt_counts_subset(records, sam_idx.astype(np.int32), device)
     extra = gt_variables(counts, len(sam_idx), var_used)
     if pvar.num_rows > header.num_variants:
         raise ValueError(

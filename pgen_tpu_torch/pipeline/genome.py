@@ -10,11 +10,11 @@ the method of moments from the kept cohort's ALT frequencies, then a
     #IID1 IID2 NSNP IBS0 IBS1 IBS2 DST Z0 Z1 Z2 PI_HAT
 
 one row per unordered sample pair (i < j, psam order); ``--min-pi-hat X``
-keeps rows with PI_HAT >= X. The frequencies are counted on the host by
-the port's copies of pgen_tpu's ``gt_counts``/``gt_counts_subset``
-(``ops/gt_stats_host.py``), as pgen_tpu counts them on the host for every
-provider. ``ibd_counts_chunked``, ``genome_table`` and ``_emit_rows`` are
-copied from pgen_tpu, with a device where pgen_tpu takes a provider.
+keeps rows with PI_HAT >= X. The frequencies are counted on ``device``
+too (K8 over every sample, K14 over a cohort), where pgen_tpu counts them
+on the host for every provider. ``ibd_counts_chunked``, ``genome_table``
+and ``_emit_rows`` are copied from pgen_tpu, with a device where pgen_tpu
+takes a provider.
 
 Stages (``GenomeResult.timer``): predicates, gather, ibd_grams, freqs,
 genome_emit.
@@ -29,7 +29,7 @@ import numpy as np
 from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.formats.header import read_pgen_header
 from pgen_tpu_torch.formats.metadata import read_metadata
-from pgen_tpu_torch.ops.gt_stats_host import gt_counts, gt_counts_subset
+from pgen_tpu_torch.ops.gt_stats import gt_counts, gt_counts_subset
 from pgen_tpu_torch.ops.ibd import IbdCounts, ibd_counts_device, ibd_estimates
 from pgen_tpu_torch.pipeline.filter import compute_masks
 from pgen_tpu_torch.pipeline.filter_host import _gather_rows
@@ -131,9 +131,9 @@ def genome_table(
     # cohort ALT frequencies of the kept variants feed the MoM expectations
     with timer.stage("freqs", kept.nbytes):
         if subset is None:
-            c = gt_counts(kept, header.num_samples, "native")
+            c = gt_counts(kept, header.num_samples, dev)
         else:
-            c = gt_counts_subset(kept, subset, "native")
+            c = gt_counts_subset(kept, subset, dev)
         an = 2.0 * (c[:, 0] + c[:, 1] + c[:, 2])
         with np.errstate(divide="ignore", invalid="ignore"):
             af = np.where(an > 0, (c[:, 1] + 2.0 * c[:, 2]) / np.maximum(an, 1),

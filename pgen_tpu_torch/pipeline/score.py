@@ -8,8 +8,8 @@ matched rows, the score products on ``device`` (``ops/score.py``: K11 and
 ``torch.matmul`` in full fp32), then the ``.sscore`` table, or one per
 ``--q-score-range`` range. ``--center``/``--variance-standardize`` reduce
 to a weight rescale and a per-score offset, from the matched variants'
-genotype counts: the port's K8 counts on ``device``, or with a sample
-subset the host counts over the cohort (ROADMAP §1 item 16). The table
+genotype counts on ``device``: K8 over every sample, K14 over a sample
+subset (``gt_counts_masked``). The table
 parsers are the port's copies of pgen_tpu's (``pipeline/score_host.py``).
 
 Stages (``ScoreRunResult.timer``): score_file, predicates, match, gather,
@@ -76,14 +76,12 @@ def _effect_means(kept, num_samples, subset, flip, weights, variance_standardize
     """plink2 ``center``/``variance-standardize`` under mean imputation:
     the (possibly rescaled) weights and each variant's effect-allele mean,
     from the kept rows' genotype counts."""
-    if subset is None:
-        from pgen_tpu_torch.ops.gt_stats import gt_counts
+    from pgen_tpu_torch.ops.gt_stats import gt_counts, gt_counts_subset
 
+    if subset is None:
         cts = gt_counts(kept, num_samples, dev)
     else:
-        from pgen_tpu_torch.ops.gt_stats_host import gt_counts_subset
-
-        cts = gt_counts_subset(kept, subset)
+        cts = gt_counts_subset(kept, subset, dev)
     n_called = cts[:, :3].sum(axis=1).astype(np.float64)
     used = n_called > 0
     safe_n = np.maximum(n_called, 1.0)

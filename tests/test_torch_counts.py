@@ -1,0 +1,356 @@
+"""The port's count family against pgen_tpu: K14's plain version, ``query``,
+the reports (``freq``, ``gcount``, ``missing``, ``hardy``, ``het``), ``stats``
+and ``fst``.
+
+- K14 ``gt_counts_masked``: its plain version (what a CPU tensor runs) and
+  the streaming ``gt_counts_subsets`` are held with exact equality against
+  pgen_tpu's ``gt_counts_subset`` with the native and the numpy provider,
+  for 1-8 sample sets: empty, one sample, all, duplicated, unsorted and
+  with gaps. Its operand (``slot_masks``) is held on the CPU by the
+  kernel's own indexing: a record 0-15 B past a 16-B boundary, read as
+  aligned 16-B words, AND-ed with copy L's words.
+- The CLI with ``--device cpu`` against ``pgen_tpu.cli.main``: query's
+  stdout (and rc and stderr on its errors) byte for byte; each report's
+  files and stats' stdout byte for byte against ``--provider numpy`` and
+  ``--provider device`` (JAX on the CPU); fst's summary and per-variant
+  tables the same way.
+
+Filesets are the port's synthetic chr22-shaped ones (``formats/fixtures.py``:
+realistic genotype frequencies, random codes in the pad slots) at S = 1,
+5, 2503 and 2504 samples and 48 variants.
+"""
+
+import contextlib
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from pgen_tpu.cli import main as tpu_main
+from pgen_tpu.ops.gt_stats import gt_counts_subset as tpu_gt_counts_subset
+from pgen_tpu_torch.cli import main as port_main
+from pgen_tpu_torch.formats.fixtures import ensure_chr22
+from pgen_tpu_torch.ops import gt_stats
+from pgen_tpu_torch.ops.gt_stats import (
+    MAX_MASKS,
+    gt_counts_masked,
+    gt_counts_masked_plain,
+    gt_counts_subset,
+    gt_counts_subsets,
+    slot_masks,
+)
+from pgen_tpu_torch.ops.gt_stats_host import sample_byte_masks
+
+WIDTHS = [1, 5, 2503, 2504]
+N_VAR = 48
+SET_KINDS = ["empty", "single", "all", "duplicated", "unsorted", "gaps", "reversed", "last"]
+
+
+def _records(n_samples, seed, n_var=300):
+    """Random records (random codes in the pad slots), then 256 rows that
+    each repeat one byte value."""
+    rec = (n_samples + 3) // 4
+    packed = np.random.default_rng(seed).integers(0, 256, (n_var + 256, rec), dtype=np.uint8)
+    packed[n_var:] = np.arange(256, dtype=np.uint8)[:, None]
+    return packed
+
+
+def _sample_set(kind, n_samples, rng):
+    everyone = np.arange(n_samples)
+    ids = {
+        "empty": everyone[:0],
+        "single": everyone[n_samples // 2 : n_samples // 2 + 1],
+        "all": everyone,
+        "duplicated": np.concatenate([everyone[::3], everyone[:2]]),
+        "unsorted": rng.permutation(n_samples)[: max(1, n_samples // 2)],
+        "gaps": everyone[everyone % 4 != 1],
+        "reversed": everyone[::-1],
+        "last": everyone[-1:],
+    }[kind]
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_sets", range(1, 9))
+@pytest.mark.parametrize("n_samples", WIDTHS)
+def test_masked_counts_match_pgen_tpu(n_samples, n_sets):
+    packed = _records(n_samples, seed=n_samples + n_sets)
+    rng = np.random.default_rng(n_sets)
+    sets = [_sample_set(SET_KINDS[(k + n_sets) % 8], n_samples, rng) for k in range(n_sets)]
+    masks = torch.from_numpy(np.stack([sample_byte_masks(ids, packed.shape[1]) for ids in sets]))
+    got = gt_counts_masked(torch.from_numpy(packed), masks)
+    assert got.dtype == torch.int32 and got.shape == (packed.shape[0], n_sets, 4)
+    assert torch.equal(got, gt_counts_masked_plain(torch.from_numpy(packed), masks))
+    streamed = gt_counts_subsets(packed, sets, "cpu", block_rows=64)
+    assert streamed.dtype == np.int64
+    for p, ids in enumerate(sets):
+        for provider in ("native", "numpy"):
+            want = tpu_gt_counts_subset(packed, ids, provider)
+            np.testing.assert_array_equal(got[:, p].numpy(), want)
+            np.testing.assert_array_equal(streamed[:, p], want)
+        np.testing.assert_array_equal(gt_counts_subset(packed, ids, "cpu", block_rows=100),
+                                      streamed[:, p])
+
+
+_POPC16 = np.array([bin(x).count("1") for x in range(1 << 16)], dtype=np.int64)
+
+
+def _popc(words):
+    words = words.astype(np.int64)
+    return _POPC16[words & 0xFFFF] + _POPC16[words >> 16]
+
+
+@pytest.mark.parametrize("n_samples", WIDTHS + [2497, 2505])
+def test_slot_masks_follow_each_rows_offset(n_samples):
+    """K14's indexing on the CPU: each record of a buffer whose rows start
+    0-15 B past a 16-B boundary read as the aligned 16-B words holding its
+    bytes (its neighbours' bytes too), each word AND-ed with copy L of the
+    expanded masks, L the row's offset, gives the plain counts."""
+    rec = (n_samples + 3) // 4
+    rng = np.random.default_rng(n_samples)
+    sets = [_sample_set(kind, n_samples, rng) for kind in SET_KINDS]
+    host_masks = np.stack([sample_byte_masks(ids, rec) for ids in sets])
+    slots = slot_masks(torch.from_numpy(host_masks)).numpy()
+    assert slots.shape == (16, len(sets), 16 * ((rec + 30) // 16))
+    n_var = 17
+    for offset in range(16):
+        buf = rng.integers(0, 256, offset + n_var * rec + 32, dtype=np.uint8)
+        packed = buf[offset : offset + n_var * rec].reshape(n_var, rec)
+        want = gt_counts_masked_plain(torch.from_numpy(np.ascontiguousarray(packed)),
+                                      torch.from_numpy(host_masks)).numpy()
+        for v in range(n_var):
+            first = offset + v * rec
+            lead = first % 16
+            n_words = (lead + rec + 15) // 16
+            x = buf[first - lead : first - lead + 16 * n_words].view("<u4")
+            for p in range(len(sets)):
+                m = slots[lead, p, : 16 * n_words].view("<u4")
+                lo, hi = x & m, (x >> 1) & m
+                k, low, high, both = (int(_popc(w).sum()) for w in (m, lo, hi, lo & hi))
+                assert [k - low - high + both, low - both, high - both, both] == list(want[v, p])
+
+
+def test_more_sets_than_one_launch_takes():
+    """Past MAX_MASKS sets the counts go in groups; each set's counts are
+    its own."""
+    packed = _records(37, seed=3, n_var=40)
+    rng = np.random.default_rng(3)
+    sets = [np.sort(rng.choice(37, int(rng.integers(0, 38)), replace=False)).astype(np.int32)
+            for _ in range(MAX_MASKS + 3)]
+    got = gt_counts_subsets(packed, sets, "cpu", block_rows=50)
+    assert got.shape == (packed.shape[0], MAX_MASKS + 3, 4)
+    for p, ids in enumerate(sets):
+        np.testing.assert_array_equal(got[:, p], tpu_gt_counts_subset(packed, ids, "numpy"))
+
+
+def test_masked_counts_check_their_inputs():
+    packed = torch.from_numpy(_records(9, seed=9, n_var=10))
+    rec = packed.shape[1]
+    with pytest.raises(ValueError, match="bytes a row"):
+        gt_counts_masked(packed, torch.zeros((2, rec + 1), dtype=torch.uint8))
+    with pytest.raises(TypeError, match="uint8"):
+        gt_counts_masked(packed, torch.zeros((2, rec), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        gt_counts_masked(packed, torch.zeros((rec, 2), dtype=torch.uint8).T)
+    assert gt_counts_masked(packed[:0], torch.zeros((3, rec), dtype=torch.uint8)).shape == (0, 3, 4)
+    assert gt_counts_masked(packed, torch.zeros((0, rec), dtype=torch.uint8)).shape == (266, 0, 4)
+    assert gt_counts_subsets(packed.numpy(), [], "cpu").shape == (266, 0, 4)
+
+
+# -- the CLI against pgen_tpu.cli.main ---------------------------------------
+
+@pytest.fixture(scope="module", params=WIDTHS)
+def fileset(request, tmp_path_factory):
+    """(dir, prefix, S) of a chr22-shaped fileset of 48 variants, with a
+    regions file, a samples file (unsorted, one IID twice), a --pheno table
+    with a POP column (five labels, one sample NA) and a --within file."""
+    n = request.param
+    d = tmp_path_factory.mktemp(f"counts{n}")
+    prefix = str(ensure_chr22(d, num_variants=N_VAR, num_samples=n, seed=n))
+    iids = [f"per{i}" for i in range(n)]
+    pos = [line.split("\t")[1] for line in open(f"{prefix}.pvar") if not line.startswith("#")]
+    (d / "regions.txt").write_text(f"22\t{pos[3]}\n22\t{pos[10]}\t{pos[20]}\n")
+    picked = [iids[i] for i in (4, 0, 2, 0) if i < n]
+    (d / "samples.txt").write_text("".join(f"{s}\n" for s in picked))
+    pops = ["AFR", "EUR", "EAS", "SAS", "AMR"]
+    (d / "pheno.tsv").write_text("#IID\tPOP\n" + "".join(
+        f"{iid}\t{'NA' if i == 1 else pops[i % 5]}\n" for i, iid in enumerate(iids)))
+    (d / "within.txt").write_text("".join(
+        f"{iid} {iid} C{i % 3}\n" for i, iid in enumerate(iids) if i % 7 != 6))
+    return d, prefix, n
+
+
+def _run(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+QUERY_ARGV = {
+    "metadata": ["-f", "ID"],
+    "include": ["-f", 'CHROM + ":" + POS + " " + REF + ">" + ALT', "-i", 'ALT == "G"'],
+    "exclude": ["-f", "ID", "-e", 'ALT == "G"'],
+    "include_exclude": ["-f", "ID", "-i", 'REF != "A"', "-e", 'ALT == "C"'],
+    "regions": ["-f", "ID", "-r", "22:10000-14000"],
+    "regions_file": ["-f", "POS", "-R", "{d}/regions.txt"],
+    "samples": ["-s", "-f", "IID", "-i", 'IID != "per1"'],
+    "gt_variants": ["-f", 'ID + " " + str::from(GT_AC) + " " + str::from(GT_MISSING)',
+                    "-i", "GT_MAF > 0.1"],
+    "gt_samples": ["-s", "-f", 'IID + " " + str::from(GT_NOBS) + " " + str::from(GT_HET)',
+                   "-i", "GT_MISSING_RATE < 0.1"],
+    "gt_iid": ["-f", 'ID + " " + str::from(GT("per0"))', "-i", 'GT("per0") >= 1'],
+    "gt_text": ["-f", 'ID + " " + GT_TEXT("per0")'],
+    "gt_row": ["-f", "GT_ROW", "-i", 'POS < "12000"'],
+    "gt_text_samples": ["-s", "-f", 'IID + " " + GT_TEXT("snp2")'],
+    "regions_with_samples": ["-s", "-f", "IID", "-r", "22:1-5"],
+    "bad_expression": ["-f", "ID", "-i", "NOSUCH == 1"],
+}
+
+
+@pytest.mark.parametrize("case", list(QUERY_ARGV))
+def test_query_matches_pgen_tpu(fileset, case):
+    d, prefix, _ = fileset
+    argv = ["query", prefix, *(a.format(d=d) for a in QUERY_ARGV[case])]
+    got = _run(port_main, [*argv, "--device", "cpu"])
+    want = _run(tpu_main, argv)
+    assert got == want
+    if case in ("regions_with_samples", "bad_expression"):
+        assert got[0] == 1 and got[2].startswith("pgen-tpu: error: ")
+    else:
+        assert got[0] == 0 and got[1]
+
+
+def _files(out_dir, stem):
+    return {p.name[len(stem):]: p.read_bytes() for p in sorted(out_dir.glob(f"{stem}*"))}
+
+
+SAMPLE_SETS = {
+    "all": [],
+    "gaps": ["--exclude-sam", 'IID == "per1" || IID == "per3"', "--include-var", 'ALT != "C"'],
+    "file": ["--samples-file", "{d}/samples.txt", "-r", "22:10000-18000"],
+}
+REPORTS = {
+    "freq": [], "freq_counts": ["--counts"], "gcount": [], "missing": [], "hardy": [],
+    "hardy_midp": ["--midp"], "het": [],
+}
+
+
+@pytest.mark.parametrize("samples", list(SAMPLE_SETS))
+@pytest.mark.parametrize("report", list(REPORTS))
+def test_report_files_match_pgen_tpu(fileset, tmp_path, report, samples):
+    """Each report's files byte for byte against pgen_tpu's numpy and
+    device providers; all samples (K8), or a subset (K14)."""
+    d, prefix, _ = fileset
+    command = report.split("_")[0]
+    argv = [command, prefix, *REPORTS[report], *(a.format(d=d) for a in SAMPLE_SETS[samples])]
+    runs = {
+        "port": (port_main, ["--device", "cpu"]),
+        "numpy": (tpu_main, ["--provider", "numpy"]),
+        "device": (tpu_main, ["--provider", "device"]),
+    }
+    files = {}
+    for name, (main, flags) in runs.items():
+        rc, _, err = _run(main, [*argv, *flags, "-o", str(tmp_path / name)])
+        assert rc == 0, err
+        files[name] = (_files(tmp_path, name), err.replace(str(tmp_path / name), "OUT"))
+    assert files["port"] == files["numpy"] == files["device"]
+    assert all(files["port"][0].values())
+
+
+@pytest.mark.parametrize("samples", list(SAMPLE_SETS))
+def test_stats_matches_pgen_tpu(fileset, samples):
+    d, prefix, _ = fileset
+    for extra in ([], ["--per-sample"]):
+        argv = ["stats", prefix, *extra, *(a.format(d=d) for a in SAMPLE_SETS[samples])]
+        got = _run(port_main, [*argv, "--device", "cpu"])
+        assert got[0] == 0 and got[1]
+        for provider in ("numpy", "device"):
+            assert got == _run(tpu_main, [*argv, "--provider", provider])
+
+
+FST_CASES = {
+    "hudson_pheno": ["--pheno", "{d}/pheno.tsv", "--pheno-name", "POP"],
+    "wc_pheno": ["--pheno", "{d}/pheno.tsv", "--pheno-name", "POP", "--method", "wc"],
+    "hudson_within_variants": ["--within", "{d}/within.txt", "--report-variants"],
+    "wc_within_variants": ["--within", "{d}/within.txt", "--method", "wc", "--report-variants",
+                           "--exclude-sam", 'IID == "per2"', "-r", "22:10000-18000"],
+    "stdout": ["--pheno", "{d}/pheno.tsv", "--pheno-name", "POP", "-o", "-"],
+}
+
+
+@pytest.mark.parametrize("case", list(FST_CASES))
+def test_fst_matches_pgen_tpu(fileset, tmp_path, case):
+    """fst's summary (and per-variant tables) byte for byte against
+    pgen_tpu's numpy and device providers; one K14 call counts every
+    cohort. One sample has no cohort (NA, or absent from --within)."""
+    d, prefix, n = fileset
+    argv = ["fst", prefix, *(a.format(d=d) for a in FST_CASES[case])]
+    results = {}
+    for name, main, flags in (("port", port_main, ["--device", "cpu"]),
+                              ("numpy", tpu_main, ["--provider", "numpy"]),
+                              ("device", tpu_main, ["--provider", "device"])):
+        out = [] if "-o" in argv else ["-o", str(tmp_path / name)]
+        rc, stdout, err = _run(main, [*argv, *flags, *out])
+        results[name] = (rc, stdout, err.replace(str(tmp_path / name), "OUT"),
+                         _files(tmp_path, name))
+    assert results["port"] == results["numpy"] == results["device"]
+    if n < 5:  # fewer than two cohorts
+        assert results["port"][0] == 1 and "need >= 2 cohorts" in results["port"][2]
+    else:
+        assert results["port"][0] == 0
+        assert results["port"][1] or results["port"][3]
+
+
+# -- the port's own rules ----------------------------------------------------
+
+COMMANDS = {
+    "query": ["-f", "ID"], "freq": [], "gcount": [], "missing": [], "hardy": [], "het": [],
+    "stats": [], "fst": ["--pheno", "{d}/pheno.tsv", "--pheno-name", "POP"],
+}
+
+
+@pytest.mark.parametrize("command", list(COMMANDS))
+def test_cuda_without_a_card_raises(fileset, tmp_path, monkeypatch, command):
+    """--device defaults to cuda, which must be there: one error line,
+    exit 1, no output (a metadata-only query included)."""
+    d, prefix, _ = fileset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = [] if command in ("query", "stats") else ["-o", str(tmp_path / "x")]
+    rc, stdout, err = _run(port_main, [command, prefix,
+                                       *(a.format(d=d) for a in COMMANDS[command]), *out])
+    assert rc == 1 and not stdout
+    assert err.startswith("pgen-tpu: error: ") and "is_available" in err and err.count("\n") == 1
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("command", [c for c in COMMANDS if c != "query"])
+def test_analytics_refusals(fileset, monkeypatch, capsys, command):
+    """pgen_tpu's host providers and several ranks are refused (exit 2),
+    naming the ROADMAP item."""
+    d, prefix, _ = fileset
+    argv = [command, prefix, *(a.format(d=d) for a in COMMANDS[command]), "--device", "cpu"]
+    with pytest.raises(SystemExit) as e:
+        port_main([*argv, "--provider", "numpy"])
+    assert e.value.code == 2 and "(item 8, done)" in capsys.readouterr().err
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit) as e:
+        port_main(argv)
+    assert e.value.code == 2 and "ROADMAP §1 item 17" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["metadata", "include", "exclude", "regions", "samples"])
+def test_metadata_query_counts_nothing(fileset, monkeypatch, case):
+    """A query without GT_* or a GT index reads only the .pvar/.psam (and
+    the .pgen header): no count or decode runs."""
+    d, prefix, _ = fileset
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a metadata-only query counted genotypes")
+
+    for name in ("gt_counts", "sample_counts", "gt_counts_subsets", "gt_counts_device",
+                 "sample_counts_device", "gt_counts_masked", "stage_blocks"):
+        monkeypatch.setattr(gt_stats, name, refuse)
+    argv = ["query", prefix, *(a.format(d=d) for a in QUERY_ARGV[case])]
+    got = _run(port_main, [*argv, "--device", "cpu"])
+    assert got[0] == 0 and got == _run(tpu_main, argv)

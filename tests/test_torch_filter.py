@@ -203,7 +203,7 @@ def test_cli_profile_writes_a_trace(tmp_path, provider):
 def test_cli_refuses_other_subcommands(tmp_path, capsys):
     prefix = _fileset(tmp_path, 4, 4, seed=4)
     with pytest.raises(SystemExit) as e:
-        port_main(["query", prefix, "-f", "ID"])
+        port_main(["describe", f"{prefix}.pgen"])
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
 

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from pgen_tpu.formats.writer import pack_codes as writer_pack_codes
-from pgen_tpu.ops.gt_stats import gt_counts_reference, sample_counts_reference
+from pgen_tpu.ops.gt_stats import gt_counts_reference, gt_counts_subset, sample_counts_reference
 from pgen_tpu.ops.unpack_host import unpack_codes_reference
 from pgen_tpu.pipeline.vcf import emit_rows_numpy
 from pgen_tpu_torch.ops.gt_text import (
@@ -37,10 +37,15 @@ from pgen_tpu_torch.ops.gt_text import (
 from pgen_tpu_torch import kernels
 from pgen_tpu_torch.ops.gt_stats import (
     gt_counts_device,
+    gt_counts_masked,
+    gt_counts_masked_plain,
     gt_counts_plain,
+    gt_counts_subsets,
     sample_counts_device,
     sample_counts_plain,
+    slot_masks,
 )
+from pgen_tpu_torch.ops.gt_stats_host import sample_byte_masks
 from pgen_tpu_torch.ops.pack import (
     pack_codes,
     pack_codes_plain,
@@ -379,6 +384,68 @@ def test_transposed_text_ragged_shapes(cuda_device, rec, n_var):
     assert torch.equal(got, genotype_text_transposed_plain(packed_t))
 
 
+def _keep_masks(n_samples, n_masks, seed, device):
+    """(id sets, their (P, R) keep masks on device): the first set every
+    sample, then sets with gaps, a duplicate and unsorted ids, one of them
+    empty when P > 2."""
+    rng = np.random.default_rng(seed)
+    rec = (n_samples + 3) // 4
+    sets = [np.arange(n_samples)]
+    for p in range(1, n_masks):
+        k = 0 if p == 2 else int(rng.integers(1, n_samples + 1))
+        ids = rng.permutation(n_samples)[:k]
+        sets.append(np.concatenate([ids, ids[:1]]))
+    masks = np.stack([sample_byte_masks(ids.astype(np.int32), rec) for ids in sets])
+    return sets, torch.from_numpy(masks).to(device)
+
+
+@pytest.mark.parametrize("n_masks", [1, 5])
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2497, 5, 1])
+def test_masked_counts_at_every_row_offset(cuda_device, n_samples, offset, n_masks):
+    """K14 on records whose rows start at every byte offset from a 16-B
+    boundary, S % 4 = 0, 3 and 1 (S of 1 and 5: a row shorter than one
+    word), in a tensor that ends at the end of its storage (its last row
+    alone too), P = 1 and 5 keep masks: equal to its plain version and to
+    pgen_tpu's gt_counts_subset."""
+    host = _packed(300, n_samples, 16 * n_samples + offset + n_masks, "cpu").numpy()
+    packed = _records_at(host, offset, cuda_device)
+    sets, masks = _keep_masks(n_samples, n_masks, offset, cuda_device)
+    before = gt_counts_masked.launches
+    for rows in (packed[-1:], packed):
+        got = gt_counts_masked(rows, masks)
+        assert got.shape == (rows.shape[0], n_masks, 4)
+        assert torch.equal(got, gt_counts_masked_plain(rows, masks))
+    torch.cuda.synchronize()
+    assert gt_counts_masked.launches == before + 2
+    for p, ids in enumerate(sets):
+        np.testing.assert_array_equal(got[:, p].cpu().numpy(),
+                                      gt_counts_subset(host, ids.astype(np.int32), "numpy"))
+
+
+@pytest.mark.parametrize("n_samples", [2504, 40_003])
+def test_masked_counts_stream_many_sets(cuda_device, n_samples):
+    """gt_counts_subsets on the card: 35 sets (two launches a block, past
+    MAX_MASKS), blocks of 1,000 rows, wide rows too; equal to the plain
+    counts and to pgen_tpu's."""
+    host = _packed(2_100, n_samples, 7, "cpu").numpy()
+    sets, masks = _keep_masks(n_samples, 35, 35, "cpu")
+    got = gt_counts_subsets(host, sets, cuda_device, block_rows=1000)
+    want = gt_counts_masked_plain(torch.from_numpy(host), masks).numpy()
+    np.testing.assert_array_equal(got, want)
+    for p in (0, 2, 34):
+        np.testing.assert_array_equal(got[:, p], gt_counts_subset(host, sets[p], "numpy"))
+
+
+def test_masked_counts_refuse_a_wrong_operand(cuda_device):
+    packed = _packed(3, 17, 0, cuda_device)
+    _, masks = _keep_masks(17, 3, 0, cuda_device)
+    with pytest.raises(ValueError, match="slot_masks"):
+        gt_counts_masked(packed, masks, slot_masks(masks[:2]))
+    with pytest.raises(ValueError, match="masks are on"):
+        gt_counts_masked(packed, masks.cpu())
+
+
 def test_zero_sized_launch_nothing(cuda_device):
     counts = [w.launches for w in WRAPPERS]
     empty = torch.empty((0, 5), dtype=torch.uint8, device=cuda_device)
@@ -401,6 +468,11 @@ def test_zero_sized_launch_nothing(cuda_device):
     assert gt_counts_device(packed, 0).shape == (259, 4)
     assert sample_counts_device(packed, 0).shape == (0, 4)
     assert [w.launches for w in COUNT_WRAPPERS] == count_launches
+    masked = gt_counts_masked.launches
+    _, masks = _keep_masks(17, 2, 0, cuda_device)
+    assert gt_counts_masked(packed[:0], masks).shape == (0, 2, 4)
+    assert gt_counts_masked(packed, masks[:0]).shape == (259, 0, 4)
+    assert gt_counts_masked.launches == masked
 
 
 def test_operand_kernels_launch_nothing_when_empty(cuda_device):
@@ -436,6 +508,7 @@ def test_launch_on_a_card_that_is_not_current():
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     codes = unpack_codes_plain(packed, 2503).contiguous()
+    _, masks = _keep_masks(2503, 5, 1, dev)
     with torch.cuda.stream(side), torch.cuda.device(0):
         assert torch.cuda.current_device() == 0
         got = [
@@ -446,6 +519,7 @@ def test_launch_on_a_card_that_is_not_current():
             subset_repack(packed, sel),
             gt_counts_device(packed, 2503),
             sample_counts_device(packed, 2503),
+            gt_counts_masked(packed, masks),
         ]
     side.synchronize()
     want = [
@@ -456,6 +530,7 @@ def test_launch_on_a_card_that_is_not_current():
         subset_repack_plain(packed, sel),
         gt_counts_plain(packed, 2503),
         sample_counts_plain(packed, 2503),
+        gt_counts_masked_plain(packed, masks),
     ]
     for g, w in zip(got, want):
         assert torch.equal(g, w)

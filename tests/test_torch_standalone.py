@@ -81,6 +81,12 @@ ENTRY_POINTS = {
     "genome": [["genome", "{p}", "--min-pi-hat", "0.0", "-o", "{o}.genome"]],
     "pca": [["pca", "{p}", "-k", "3", "--make-rel", "-o", "{o}.exact"],
             ["pca", "{p}", "-k", "2", "--approx", "-o", "{o}.approx"]],
+    "query": [["query", "{p}", "-f", 'ID + " " + str::from(GT_AC)', "-i", "GT_MAF > 0.05"],
+              ["query", "{p}", "-s", "-f", 'IID + " " + str::from(GT_NOBS)']],
+    **{report: [[report, "{p}", "--samples", "s1,s3,s4,s9", "-o", "{o}"]]
+       for report in ("freq", "gcount", "missing", "hardy", "het")},
+    "stats": [["stats", "{p}", "--per-sample", "--samples", "s1,s3,s4,s9"]],
+    "fst": [["fst", "{p}", "--pheno-name", "SEX", "--report-variants", "-o", "{o}"]],
 }
 
 
