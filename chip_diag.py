@@ -5,7 +5,8 @@ beside chip_smoke.py, whose fixtures, timer and oracles they use.
     python3 chip_diag.py --ab DIR      # K4, K5, K8-K11 against the kernels of the checkout at DIR
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
     python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time,
-                                       # and K12, K13, their products and K14
+                                       # and K12, K13, their products, K14, K15 and the LD
+                                       # tile Grams
     python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
 
 --ab builds the kernel sources of another checkout (the parent commit's,
@@ -15,8 +16,9 @@ cases under torch.profiler and prints each device operation's time per
 launch (kernels and memsets), which CUDA events around a launch cannot
 separate from the host's enqueue time; it also traces K12 and K13 and the
 library products beside them (one torch._int_mm Gram, one fp32 z'z and one
---approx pass), and K14 at P = 1 and 5, which --ab leaves out: the parent
-checkout has no K12, K13 or K14 to bind. --precision shows which part of an f32 moment product
+--approx pass), K14 at P = 1 and 5, and K15 and the fp32 tile Grams of
+ld (band 9) and prune (49), which --ab leaves out: the parent checkout
+has no K12-K15 to bind. --precision shows which part of an f32 moment product
 costs each GWAS design its accuracy against pgen_tpu's tolerances. --forms
 builds this checkout's kernels twice more, K5's launcher held to its direct
 form in one and to its staged form (wherever a row tile fits) in the other,
@@ -75,7 +77,8 @@ def _scan_products(packed, n_samples, lut, products, modes) -> tuple:
     import numpy as np
     import torch
 
-    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch import kernels
+    from pgen_tpu_torch.device import full_fp32, matmul_fp32
     from pgen_tpu_torch.ops import glm
     from pgen_tpu_torch.ops.gt_stats import stage_blocks
 
@@ -288,11 +291,15 @@ def _relatedness_cases() -> dict:
     of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the same;
     one torch._int_mm Gram of the planes, one z'z in f64 (the exact GRM's)
     and in full fp32 (pgen_tpu's), and one --approx pass's z'(z q), q of
-    18 columns; K14 at 65,536 rows, P = 1 and 5 cohorts of 1,001."""
+    18 columns; K14 at 65,536 rows, P = 1 and 5 cohorts of 1,001; K15 at
+    16,384 rows, all samples or the sorted 1,001, and the fp32 tile Grams
+    of a block at bands 9 and 49 (torch.bmm of each tile against its
+    overlapping window, as ops/ld.py makes them)."""
     import numpy as np
     import torch
 
-    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch import kernels
+    from pgen_tpu_torch.device import full_fp32, matmul_fp32
     from pgen_tpu_torch.ops.gt_stats import slot_masks
     from pgen_tpu_torch.ops.pca import add_gram_fp64
     from pgen_tpu_torch.ops.relatedness import plane_shape
@@ -323,6 +330,28 @@ def _relatedness_cases() -> dict:
         return z, lambda lib: lib.pgen_grm_z(rows.data_ptr(), None if sel is None else sel.data_ptr(),
                                              z.data_ptr(), out.data_ptr(), n_var, n_rec, s, kept,
                                              stream)
+
+    def ld_case(rows, sel):
+        n_var, n_rec = rows.shape
+        kept = s if sel is None else sel.shape[0]
+        c = torch.empty((n_var, kept), dtype=torch.float32, device=dev)
+        norm2 = torch.empty(n_var, dtype=torch.float64, device=dev)
+        out = torch.empty((3, n_var), dtype=torch.int32, device=dev)
+        return c, lambda lib: lib.pgen_ld_centered(
+            rows.data_ptr(), None if sel is None else sel.data_ptr(), c.data_ptr(),
+            norm2.data_ptr(), out.data_ptr(), n_var, n_rec, s, kept, stream)
+
+    def tile_grams(band):
+        tiles = GLM_ROWS // band
+        c, call = ld_case(records[: (tiles + 1) * band], None)
+        call(kernels.load())
+        a = c[: tiles * band].view(tiles, band, s)
+        w = c.as_strided((tiles, 2 * band, s), (band * s, s, 1)).transpose(1, 2)
+
+        def grams():
+            with full_fp32():
+                torch.bmm(a, w)
+        return grams
 
     planes, k12 = planes_case(records, None)
     _, k12_sel = planes_case(records, keep)
@@ -361,6 +390,10 @@ def _relatedness_cases() -> dict:
             product(lambda: matmul_fp32(z.T, matmul_fp32(z, q))),
         f"K14 gt_counts_masked V={BLOCK_ROWS} P=1 K={KEEP_SAMPLES}": masked_case(1),
         f"K14 gt_counts_masked V={BLOCK_ROWS} P={COHORTS} K={KEEP_SAMPLES}": masked_case(COHORTS),
+        f"K15 ld_centered V={GLM_ROWS} K=2504": ld_case(records[:GLM_ROWS], None)[1],
+        f"K15 ld_centered V={GLM_ROWS} K={KEEP_SAMPLES} sel": ld_case(records[:GLM_ROWS], keep)[1],
+        f"tile Grams fp32, band 9 ({GLM_ROWS // 9} tiles)": product(tile_grams(9)),
+        f"tile Grams fp32, band 49 ({GLM_ROWS // 49} tiles)": product(tile_grams(49)),
     }
 
 

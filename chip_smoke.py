@@ -8,7 +8,7 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K14 against their plain PyTorch versions on the card
+  3 kernels  K1-K15 against their plain PyTorch versions on the card
              (torch.equal) at widths 2504, 2503, 5 and 1 samples (K2 also into
              an output 4 B past a 16-B boundary; K3 at K = 2, 1000 and 20,000
              ids, reversed and repeated, each also 4 B past; K5 at K = 2,
@@ -28,7 +28,7 @@ Phases, each printing its own lines:
              with reversed, repeated and unsorted ids, past the 4,096 ids a
              staged block holds and at 40,003 samples; K12 and K13 on the
              16,640 rows of K10/K11, with and without that sample
-             selection; K14 at every width with P = 1 and 5 keep masks
+             selection, and K15 the same way; K14 at every width with P = 1 and 5 keep masks
              (a cohort of 1,001, all, none, gaps and a duplicate,
              unsorted), at 2504 and 2503 also on records 1-15 B past a
              16-B boundary);
@@ -38,7 +38,7 @@ Phases, each printing its own lines:
              of 40,003; K9 also at score's 16,384;
              K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
              K11 also tiled and at 40,000 of 40,003; K12 at 32,768 rows and
-             K13 at 16,384, each at K = 2504 and a sorted 1,001; K14 at
+             K13 and K15 at 16,384, each at K = 2504 and a sorted 1,001; K14 at
              65,536 rows with P = 1 and 5 cohorts of 1,001), CUDA
              events, median of 10
              pairs around one launch each, two alternated sets (the wrapper's
@@ -46,8 +46,10 @@ Phases, each printing its own lines:
              each pair), each beside its bound (the bytes it must move at 3.35 TB/s) and,
              for K1, K2 and K7, one PyTorch call of the same function (a
              table gather, held torch.equal to the kernel); then the library
-             products beside K12 and K13 (one torch._int_mm Gram, z'z in f64
-             and fp32, an --approx pass) against the card's dense peaks
+             products beside K12, K13 and K15 (one torch._int_mm Gram, z'z in
+             f64 and fp32, an --approx pass, the fp32 tile Grams of a block
+             at bands 9 and 49, traced for copies of their overlapping
+             windows) against the card's dense peaks
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
              chr22-scale fixtures made by the port's copy of
              tools/make_fixtures.py: full 1000 Genomes chr22 (1,103,547 variants x 2504
@@ -123,14 +125,31 @@ Phases, each printing its own lines:
              of those variants (-R, --report-variants); then every output
              of (b)-(d) on a 20,000-variant region sha256-equal to --device
              cpu's (het's E(HOM) and F at rtol 1e-12).
+ 11 ld       ld, prune --indep-pairwise and clump through the port's CLI on
+             a copy of the full chr22 fixture with LD planted (seeded groups
+             of 2-5 rows sharing all but 5%, 41% or 75% of their samples'
+             codes: r² about 0.90, 0.35, 0.06): (a) ld at the defaults over
+             every variant, the pairs of a seeded 20,000-variant region
+             exactly those of the port's banded_r2_numpy (f64) and their R2
+             within rtol 1e-4 atol 1e-6; (b) ld --ld-window 50
+             --ld-window-r2 0 --samples-file of 1,001 IIDs on the region
+             against --device cpu; (c) prune 50 5 0.2 over every variant, no
+             two kept variants of 2,000 seeded windows of its walk over 0.2
+             by the f64 oracle, then 50 5 0.2 and 100kb 1 0.5 with the cohort
+             on the region, each equal to greedy_prune on the oracle's band
+             and sha256-equal to --device cpu; (d) clump of the region with a
+             seeded P table, sha256-equal to --device cpu. Every oracle r²
+             lies at least 1e-3 from the thresholds used; each full-chr22
+             run's peak device memory is printed and held under 4 GB. K15
+             (and K8, K14 for prune's MAF) must have launched.
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
 last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
-just after. Then the products' line, one JSON line of the fourteen kernels
-(launches summed over phases 4-10), and as the last line
+just after. Then the products' line, one JSON line of the fifteen kernels
+(launches summed over phases 4-11), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
@@ -182,6 +201,7 @@ KERNELS = {
     "relatedness_planes": "pgen_tpu/ops/king.py:148",
     "grm_z": "pgen_tpu/ops/pca.py:109",
     "gt_counts_masked": "pgen_tpu/ops/gt_stats.py:90",
+    "ld_centered": "pgen_tpu/ops/ld.py:128",
 }
 # kernels whose registers and spills phase 2 prints from ptxas' report
 PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel",
@@ -672,6 +692,7 @@ def phase_kernels() -> dict:
         subset_repack_plain,
     )
     from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS, glm_planes, glm_planes_plain
+    from pgen_tpu_torch.ops.ld import ld_centered, ld_centered_plain
     from pgen_tpu_torch.ops.pca import grm_z, grm_z_plain
     from pgen_tpu_torch.ops.relatedness import (
         plane_shape,
@@ -760,6 +781,8 @@ def phase_kernels() -> dict:
                           relatedness_planes_plain(ops, s, sel)))
             got, want = grm_z(ops, s, sel), grm_z_plain(ops, s, sel)
             pairs += [("grm_z", got[0], want[0]), ("grm_z", got[1], want[1])]
+            got, want = ld_centered(ops, s, sel), ld_centered_plain(ops, s, sel)
+            pairs += [("ld_centered", got[0], want[0]), ("ld_centered", got[1], want[1])]
         torch.cuda.synchronize()
         for name, got, want in pairs:
             e = _max_abs_err(got, want)
@@ -772,8 +795,8 @@ def phase_kernels() -> dict:
               f"K10, K11 at V={ops.shape[0]}): K1, K2 x2 (its output 16-B aligned and 4 B "
               f"past), K3 x{n_k3} (K = 2, 1000, {BIG_K} with repeats; each also 4 B past), K4, "
               f"K5 x{n_k5}, K6, K7, K8, K9 x2 (also at {GLM_ROWS} rows), K10 x4 (P = 2, 3), "
-              "K11 x6 (also tiled, its output 4 B past), K12 x2 and K13 x2 (each with and "
-              "without sel) equal to their plain versions")
+              "K11 x6 (also tiled, its output 4 B past), K12 x2, K13 x2 and K15 x2 (each with "
+              "and without sel) equal to their plain versions")
 
     err["pack_codes"] = max(err["pack_codes"], _pack_cases(dev, gen))
     err["glm_planes"] = max(err["glm_planes"], _plane_cases(dev, gen, luts))
@@ -943,6 +966,12 @@ def phase_kernels() -> dict:
                   ops.numel() + GLM_ROWS * (4 * s + 4)),
         f"grm_z K={KEEP_SAMPLES}": (lambda: grm_z(ops, s, keep), lambda: grm_z_plain(ops, s, keep),
                                     None, _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 4)),
+        # c and the f64 norms
+        "ld_centered": (lambda: ld_centered(ops, s), lambda: ld_centered_plain(ops, s), None,
+                        ops.numel() + GLM_ROWS * (4 * s + 8)),
+        f"ld_centered K={KEEP_SAMPLES}": (
+            lambda: ld_centered(ops, s, keep), lambda: ld_centered_plain(ops, s, keep), None,
+            _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 8)),
         # the record bytes that hold a kept sample of any mask, the masks and
         # the (V, P, 4) int32 counts
         "gt_counts_masked": (lambda: gt_counts_masked(packed, masks1, slots1),
@@ -968,7 +997,8 @@ def phase_kernels() -> dict:
         bound_ms = nbytes / HBM_BYTES_PER_MS
         times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound_ms, "burst_ms": burst_ms}
-        rows = GLM_ROWS if name.startswith(("glm_planes", "score_dosage", "grm_z")) else BLOCK_ROWS
+        rows = (GLM_ROWS if name.startswith(("glm_planes", "score_dosage", "grm_z", "ld_centered"))
+                else BLOCK_ROWS)
         shape = shapes.get(name, f"({rows}, {rec}) S={s}")
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"[3 kernels] {name} at {shape}: kernel {ms:.4f} ms "
@@ -990,7 +1020,8 @@ def _time_products(rel, ops, s) -> dict:
     for its type."""
     import torch
 
-    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.device import full_fp32, matmul_fp32
+    from pgen_tpu_torch.ops.ld import ld_centered
     from pgen_tpu_torch.ops.pca import add_gram_fp64, grm_z
     from pgen_tpu_torch.ops.relatedness import relatedness_planes
 
@@ -1012,6 +1043,32 @@ def _time_products(rel, ops, s) -> dict:
         "approx_pass_fp32": (lambda: matmul_fp32(z.T, matmul_fp32(z, q)),
                              4 * s * 18 * ops.shape[0], FP32_FLOP_PER_MS, "fp32"),
     }
+    # K15's tile Grams as ops/ld.py makes them: tile t (band rows of c)
+    # against its overlapping window, rows [t band, t band + 2 band), at
+    # the bands of phase 11's ld (9) and prune (49), a 16,384-row block
+    for band in (9, 49):
+        tiles = GLM_ROWS // band
+        c, _ = ld_centered(rel[: (tiles + 1) * band], s)
+        a = c[: tiles * band].view(tiles, band, s)
+        w = c.as_strided((tiles, 2 * band, s), (band * s, s, 1)).transpose(1, 2)
+
+        def tile_grams(a=a, w=w):
+            with full_fp32():
+                return torch.bmm(a, w)
+
+        # within what a sequential f32 sum of s terms may round to (s ulps
+        # of the largest entry, a diagonal one): cuBLAS's kernel at band 49
+        # sums each entry in order, 2.4e-5 of it off on an H100
+        want = torch.bmm(a.double(), w.double())
+        err = float((tile_grams().double() - want).abs().max() / want.abs().max())
+        if err > s * 2.0 ** -24:
+            raise AssertionError(f"the band-{band} tile Grams are {err:.3g} off an f64 product")
+        copies = _copies_in(tile_grams)
+        print(f"[3 kernels] product bmm_band{band}: {tiles} tiles of {band} x {s} against "
+              f"windows of {2 * band} rows, {err:.2g} of max off an f64 product; copies of the "
+              f"overlapping windows in a trace: {copies or 'none'}")
+        cases[f"bmm_band{band}_fp32"] = (tile_grams, 4 * tiles * band * band * s,
+                                         FP32_FLOP_PER_MS, "fp32")
     out = {}
     for name, (fn, ops_n, peak, kind) in cases.items():
         ms = statistics.median([_time_ms(fn), _time_ms(fn)])
@@ -1020,6 +1077,20 @@ def _time_products(rel, ops, s) -> dict:
               f"{ops_n / ms / 1e9:.1f} TOP/s, {100 * ops_n / ms / peak:.1f}% of the card's "
               f"dense {kind} peak ({peak * 1e3 / 1e12:.0f} T/s)")
     return out
+
+
+def _copies_in(fn) -> list:
+    """Names of the copy operations and kernels one call of fn runs, from a
+    torch.profiler trace of the host and the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    return sorted(n for n in names if n in ("aten::clone", "aten::contiguous", "aten::copy_")
+                  or "copy" in n.lower() and not n.startswith("aten::"))
 
 
 def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
@@ -1107,9 +1178,10 @@ def _read_fileset(prefix: Path):
 def _wrappers() -> dict:
     """Each kernel's wrapper by name; its ``launches`` counts its kernel's
     launches."""
-    from pgen_tpu_torch.ops import glm, gt_stats, gt_text, pack, pca, relatedness, score, unpack
+    from pgen_tpu_torch.ops import (
+        glm, gt_stats, gt_text, ld, pack, pca, relatedness, score, unpack)
 
-    mods = (unpack, gt_text, pack, gt_stats, glm, score, relatedness, pca)
+    mods = (unpack, gt_text, pack, gt_stats, glm, score, relatedness, pca, ld)
     return {name: next(getattr(m, name) for m in mods if hasattr(m, name)) for name in KERNELS}
 
 
@@ -2560,6 +2632,293 @@ def phase_counts(tmp: Path, full: Path) -> list:
     return launches
 
 
+LD_REGION = 20_000  # variants of phase 11's region runs and of its f64 oracle
+LD_WINDOWS = 2000  # seeded windows of (c)'s every-variant check
+# phase 11's planted LD: groups of 2-5 rows whose followers copy the first
+# row with this share of its bytes redrawn (the same bytes for the whole
+# group), so two members' r² is about (1 - share)²: 0.90, 0.35 or 0.06,
+# the middle level halfway between the thresholds the phase uses, each at
+# least 5 standard deviations (the sampling noise, about 0.03 over a cohort
+# of 1,001) from them
+LD_SHARES = (0.05, 0.41, 0.75)
+LD_THRESHOLDS = (0.2, 0.5)
+LD_CLEARANCE = 1e-3  # the least distance of an oracle r² from a threshold
+LD_INDEX = 40  # phase 11 (d)'s planted index variants
+MEMORY_LIMIT = 4 << 30  # device bytes a full-chr22 LD run may hold
+
+
+def _ld_fileset(tmp: Path, full: Path, cohort) -> Path:
+    """A copy of the full chr22 fixture with LD planted (its uniform random
+    records give r² about 1/2504): seeded groups of 2-5 consecutive rows, in
+    each the followers a copy of the first row with the codes of a seeded
+    share (LD_SHARES) of its samples redrawn, the same samples for the whole
+    group (one of 64 seeded sets a share): exactly that share of ``cohort``
+    and of the other samples, so the level holds over either set."""
+    import shutil
+
+    import numpy as np
+
+    iids, _, _, packed = _read_fileset(full)
+    n_var, rec = packed.shape
+    rng = np.random.default_rng(SEED + 11)
+    starts = np.concatenate([[0], np.cumsum(rng.integers(2, 6, n_var // 2 + 1))])
+    starts = starts[starts < n_var]
+    level = rng.integers(0, len(LD_SHARES), len(starts))
+    pattern = rng.integers(0, 64, len(starts))
+    # the record-byte bits of each redrawn sample set: (shares, 64, R)
+    redraw = np.zeros((len(LD_SHARES), 64, 4 * rec), dtype=bool)
+    for ids in (np.asarray(cohort), np.setdiff1d(np.arange(len(iids)), cohort)):
+        for lv, share in enumerate(LD_SHARES):
+            for m in range(64):
+                redraw[lv, m, rng.permutation(ids)[: round(share * len(ids))]] = True
+    pool = (redraw.reshape(len(LD_SHARES), 64, rec, 4)
+            * np.array([3, 12, 48, 192], np.uint8)).sum(3, dtype=np.uint8)
+    group = np.repeat(np.arange(len(starts)), np.diff(np.append(starts, n_var)))
+    body = np.empty((n_var, rec), dtype=np.uint8)
+    for lo in range(0, n_var, 1 << 16):
+        hi = min(lo + (1 << 16), n_var)
+        g = group[lo:hi]
+        leader = starts[g]
+        bits = pool[level[g], pattern[g]] * (np.arange(lo, hi) != leader)[:, None].astype(np.uint8)
+        fresh = rng.integers(0, 256, (hi - lo, rec), dtype=np.uint8)
+        body[lo:hi] = (fresh & bits) | (np.asarray(packed[leader]) & ~bits)
+    prefix = tmp / "ld_chr22"
+    with open(f"{prefix}.pgen", "wb") as f:
+        f.write(Path(f"{full}.pgen").read_bytes()[:12])
+        body.tofile(f)
+    for ext in ("pvar", "psam"):
+        shutil.copyfile(f"{full}.{ext}", f"{prefix}.{ext}")
+    return prefix
+
+
+def _ld_pairs(path: Path, rows=None) -> dict:
+    """(i, j) -> R2 text of an .ld table's rows (IDs snp{i}), those whose
+    first variant lies in ``rows`` (a range) when given."""
+    pairs = {}
+    with open(path) as fh:
+        fh.readline()
+        for line in fh:
+            f = line.split("\t")
+            i = int(f[2][3:])
+            if rows is None or i in rows:
+                pairs[i, int(f[5][3:])] = f[6]
+    return pairs
+
+
+def _clear(label: str, band, thresholds=LD_THRESHOLDS) -> float:
+    """Every r² of an oracle band at least LD_CLEARANCE from each threshold;
+    returns the least distance."""
+    import numpy as np
+
+    least = min(float(np.abs(band - t).min()) for t in thresholds)
+    if least < LD_CLEARANCE:
+        raise AssertionError(f"{label}: an oracle r² lies {least:.3g} from a threshold "
+                             f"{thresholds}, within {LD_CLEARANCE}")
+    return least
+
+
+def _maf_numpy(counts):
+    """prune's MAF from (V, 4) code counts."""
+    import numpy as np
+
+    ac = counts[:, 1] + 2 * counts[:, 2]
+    an = 2 * (counts[:, 0] + counts[:, 1] + counts[:, 2])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        af = np.where(an > 0, ac / np.maximum(an, 1), 0.0)
+    return np.minimum(af, 1.0 - af)
+
+
+def _prune_ids(prefix: Path) -> tuple:
+    return tuple(Path(f"{prefix}.prune.{k}").read_text().split() for k in ("in", "out"))
+
+
+def phase_ld(tmp: Path, full: Path) -> list:
+    """ld, prune --indep-pairwise and clump through the port's CLI on a copy
+    of the full chr22 fixture with LD planted (``_ld_fileset``), launch
+    counts read around each part's cuda runs and the device's peak memory
+    printed for each full-chr22 run (under MEMORY_LIMIT): (a) ld over every
+    variant at the defaults (window 10, 1000 kb, r² 0.2), the pairs of a
+    seeded 20,000-variant region exactly those of the port's
+    banded_r2_numpy (f64) and their R2 within rtol 1e-4 atol 1e-6 (and six
+    digits); (b) ld --ld-window 50 --ld-window-r2 0 on the region with a
+    --samples-file of 1,001 IIDs (K15 with sel) against --device cpu, pairs
+    exact and R2 at that tolerance; (c) prune 50 5 0.2 over every variant:
+    on 2,000 seeded windows of its walk no two kept variants over r² 0.2 by
+    the f64 oracle; on the region prune 50 5 0.2, and 100kb 1 0.5 with the
+    cohort, each list equal to greedy_prune on the oracle's band and
+    sha256-equal to --device cpu; (d) clump of the region with a seeded P
+    table, sha256-equal to --device cpu. Every oracle r² of the region (and
+    of the windows) lies at least LD_CLEARANCE from 0.2 and 0.5. Returns the
+    launches of each part."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.ops.ld import banded_r2_numpy, centered_dosage_np, greedy_prune
+    from pgen_tpu_torch.pipeline.prune import window_extents
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    iids = _read_fileset(full)[0]
+    n = len(iids)
+    cohort = np.sort(rng.choice(n, KEEP_SAMPLES, replace=False))
+    (tmp / "ld_cohort.txt").write_text("".join(f"{iids[s]}\n" for s in cohort))
+    prefix = _ld_fileset(tmp, full, cohort)
+    _, pos, _, packed = _read_fileset(prefix)
+    n_var = len(pos)
+    print(f"[11 ld] fileset with planted LD written in {time.perf_counter() - t0:.1f} s")
+    first = int(rng.integers(0, n_var - LD_REGION - 64))
+    region_rows = range(first, first + LD_REGION)
+    region = ["-r", f"22:{pos[first]}-{pos[first + LD_REGION - 1]}"]
+    chrom = np.full(LD_REGION, b"22")
+    kb_extents = window_extents(chrom, pos[region_rows.start : region_rows.stop], 100, True)
+    kb_band = int(kb_extents.max()) - 1
+
+    t0 = time.perf_counter()
+    # the region and 49 rows past it: (a)'s pairs leave the region by up to 9
+    oracle = banded_r2_numpy(packed[first : first + LD_REGION + 49], n, 49)[:LD_REGION]
+    inside = np.arange(LD_REGION)[:, None] + 1 + np.arange(49)[None, :] < LD_REGION
+    oracle_kb = banded_r2_numpy(packed[region_rows.start : region_rows.stop], n, kb_band,
+                                sample_idx=cohort)
+    # the cohort's runs use 0.5 alone (its r² vary more: a third of the samples)
+    least = min(_clear("region", oracle), _clear("region, cohort, 100 kb", oracle_kb, (0.5,)))
+    counts = _masked_counts_numpy(packed, np.arange(first, first + LD_REGION), np.arange(n))
+    counts_cohort = _masked_counts_numpy(packed, np.arange(first, first + LD_REGION), cohort)
+    print(f"[11 ld] f64 oracle of the region ({LD_REGION} variants: band 49, and band "
+          f"{kb_band} over the cohort of {KEEP_SAMPLES}) in {time.perf_counter() - t0:.1f} s; "
+          f"every r² at least {least:.4f} from {LD_THRESHOLDS}; planted pairs over 0.2: "
+          f"{int((oracle[:, :9] >= 0.2).sum())} in (a)'s band")
+    walls, launches, memory = {}, [], {}
+
+    def timed(label, seconds):
+        walls[label] = seconds
+        print(f"[11 ld] {label}: {seconds:.3f} s")
+
+    def full_run(label, argv, out):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, _ = _port_cli(argv, out, "cuda")
+        memory[label] = torch.cuda.max_memory_allocated()
+        print(f"[11 ld] {label}: peak device memory {memory[label] / 1e6:.1f} MB")
+        if memory[label] > MEMORY_LIMIT:
+            raise AssertionError(f"{label} held {memory[label]} B of device memory")
+        timed(label, seconds)
+
+    # (a) ld over every variant at the defaults
+    _reset_launches()
+    full_run("(a) ld, every variant", ["ld", prefix], tmp / "a.ld")
+    launches.append(_read_launches())
+    if launches[-1]["ld_centered"] <= 0:
+        raise AssertionError("(a) ld_centered never launched")
+    n_rows = sum(1 for _ in open(tmp / "a.ld")) - 1
+    got = _ld_pairs(tmp / "a.ld", region_rows)
+    ii, dd = np.nonzero(oracle[:, :9] >= 0.2)
+    want = {(first + i, first + i + 1 + d): oracle[i, d] for i, d in zip(ii, dd)}
+    if set(got) != set(want):
+        raise AssertionError(f"(a) {len(got)} region pairs against the oracle's {len(want)}; "
+                             f"{sorted(set(got) ^ set(want))[:5]} differ")
+    worst = _assert_close("(a) R2 of the region", np.array([float(got[k]) for k in want]),
+                          np.array(list(want.values())), 1e-4, 1e-6)
+    (tmp / "a.ld").unlink()
+    print(f"[11 ld] (a) {n_rows} pairs over every variant; the region's {len(got)} pairs those "
+          f"of the f64 oracle, R2 at {worst:.3g} of rtol 1e-4 atol 1e-6")
+
+    # (b) a wide window over the cohort, all pairs, on the region
+    b_argv = ["ld", prefix, "--ld-window", "50", "--ld-window-r2", "0", "--samples-file",
+              tmp / "ld_cohort.txt", *region]
+    _reset_launches()
+    seconds, _ = _port_cli(b_argv, tmp / "cuda.b.ld", "cuda")
+    launches.append(_read_launches())
+    timed("(b) ld --ld-window 50 --ld-window-r2 0, cohort, region", seconds)
+    seconds, _ = _port_cli(b_argv, tmp / "cpu.b.ld", "cpu")
+    timed("(b) the same, --device cpu", seconds)
+    got, want = _ld_pairs(tmp / "cuda.b.ld"), _ld_pairs(tmp / "cpu.b.ld")
+    if set(got) != set(want) or len(got) != LD_REGION * 49 - 49 * 50 // 2:
+        raise AssertionError(f"(b) {len(got)} pairs on cuda, {len(want)} on cpu")
+    worst = _assert_close("(b) R2", np.array([float(got[k]) for k in want]),
+                          np.array([float(v) for v in want.values()]), 1e-4, 1e-6)
+    (tmp / "cuda.b.ld").unlink()
+    (tmp / "cpu.b.ld").unlink()
+    print(f"[11 ld] (b) {len(got)} pairs, the same on cuda and cpu, R2 at {worst:.3g} of "
+          "rtol 1e-4 atol 1e-6")
+
+    # (c) prune over every variant, then on the region against the oracle
+    _reset_launches()
+    full_run("(c) prune 50 5 0.2, every variant", ["prune", prefix, "--indep-pairwise", "50",
+                                                   "5", "0.2"], tmp / "c")
+    kept, removed = _prune_ids(tmp / "c")
+    alive = np.zeros(n_var, dtype=bool)
+    alive[[int(x[3:]) for x in kept]] = True
+    if len(kept) + len(removed) != n_var or not removed:
+        raise AssertionError(f"(c) {len(kept)} kept and {len(removed)} removed of {n_var}")
+    starts = 5 * rng.choice((n_var - 50) // 5, LD_WINDOWS, replace=False)
+    window_least, window_pairs = 1.0, 0
+    for s in starts:
+        c, norm = centered_dosage_np(_codes_numpy(packed, np.arange(s, s + 50))[:, :n])
+        den = norm[:, None] * norm[None, :]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r2 = np.triu(np.where(den > 0, (c @ c.T / np.maximum(den, 1e-300)) ** 2, 0.0), 1)
+        window_least = min(window_least, _clear(f"(c) window at {s}", r2, (0.2,)))
+        both = alive[s : s + 50, None] & alive[None, s : s + 50]
+        window_pairs += int((r2 > 0.2).sum())
+        if (r2[both] > 0.2).any():
+            raise AssertionError(f"(c) two kept variants of the window at {s} over r² 0.2")
+    for side in ("in", "out"):
+        Path(f"{tmp / 'c'}.prune.{side}").unlink()
+    print(f"[11 ld] (c) kept {len(kept)} of {n_var}; in {LD_WINDOWS} seeded windows of the walk "
+          f"({window_pairs} pairs over 0.2, every r² at least {window_least:.4f} from it) no two "
+          "kept variants over 0.2 by the f64 oracle")
+    ids = np.array([f"snp{i}" for i in region_rows])
+    for label, spec, flags, band, maf, extents, step, thr in (
+            ("50 5 0.2", ["50", "5", "0.2"], [], np.where(inside, oracle, 0.0),
+             _maf_numpy(counts), window_extents(chrom, None, 50, False), 5, 0.2),
+            ("100kb 1 0.5, cohort", ["100kb", "1", "0.5"],
+             ["--samples-file", tmp / "ld_cohort.txt"], oracle_kb, _maf_numpy(counts_cohort),
+             kb_extents, 1, 0.5)):
+        argv = ["prune", prefix, "--indep-pairwise", *spec, *flags, *region]
+        seconds, _ = _port_cli(argv, tmp / "cuda.c", "cuda")
+        timed(f"(c) prune {label}, region", seconds)
+        _port_cli(argv, tmp / "cpu.c", "cpu")
+        expect = greedy_prune(band[:, : int(extents.max()) - 1], maf, extents, step, thr)
+        if _prune_ids(tmp / "cuda.c") != (list(ids[expect]), list(ids[~expect])):
+            raise AssertionError(f"(c) prune {label} on the region differs from greedy_prune "
+                                 "on the oracle's band")
+        _same_files(f"(c) prune {label}", [(Path(f"{tmp / 'cuda.c'}.prune.{k}"),
+                                            Path(f"{tmp / 'cpu.c'}.prune.{k}")) for k in
+                                           ("in", "out")])
+        print(f"[11 ld] (c) prune {label} on the region: {int(expect.sum())} kept, equal to "
+              "greedy_prune on the f64 oracle's band and to --device cpu's (sha256)")
+    launches.append(_read_launches())
+    for kname in ("ld_centered", "gt_counts_device", "gt_counts_masked"):
+        if launches[-1][kname] <= 0:
+            raise AssertionError(f"(c) {kname} never launched")
+
+    # (d) clump of the region's variants
+    p = rng.uniform(1e-3, 1.0, LD_REGION)  # no index variant but the planted ones
+    p[rng.choice(LD_REGION, LD_INDEX, replace=False)] = 10.0 ** -rng.uniform(5, 10, LD_INDEX)
+    (tmp / "assoc.tsv").write_text("#ID\tP\n" + "".join(
+        f"snp{i}\t{q:.4g}\n" for i, q in zip(region_rows, p)))
+    _reset_launches()
+    seconds, err = _port_cli(["clump", prefix, "--clump", tmp / "assoc.tsv"], tmp / "cuda.clumps",
+                             "cuda")
+    launches.append(_read_launches())
+    timed("(d) clump, region", seconds)
+    _port_cli(["clump", prefix, "--clump", tmp / "assoc.tsv"], tmp / "cpu.clumps", "cpu")
+    n_clumps = (tmp / "cuda.clumps").read_text().count("\n") - 1
+    if not 0 < n_clumps <= LD_INDEX:
+        raise AssertionError(f"(d) {n_clumps} clumps from {LD_INDEX} index variants")
+    _same_files("(d) clump", [(tmp / "cuda.clumps", tmp / "cpu.clumps")])
+    print(f"[11 ld] (d) {n_clumps} clumps, equal to --device cpu's (sha256)")
+    shown = "; ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    print(f"[11 ld] walls: {shown}")
+    print(f"[11 ld] peak device memory: "
+          + "; ".join(f"{k} {v / 1e6:.1f} MB" for k, v in memory.items()))
+    print(f"[11 ld] path launches: "
+          f"{ {k: sum(part[k] for part in launches) for k in launches[0]} }")
+    for f in tmp.glob("ld_chr22.*"):
+        f.unlink()
+    return launches
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -2612,6 +2971,9 @@ def main(argv: list) -> int:
             t0 = time.perf_counter()
             per_path += phase_counts(tmp, fixtures["full"])
             print(f"[10 counts] phase 10 took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            per_path += phase_ld(tmp, fixtures["full"])
+            print(f"[11 ld] phase 11 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:
@@ -2628,7 +2990,7 @@ def main(argv: list) -> int:
                 "bound_ms": m["bound_ms"], "bound_by": "bytes", "library_ms": m["library_ms"],
                 "burst_ms": m["burst_ms"],
             })
-        print(f"[smoke] products beside K12 and K13: {json.dumps(measured['products'])}")
+        print(f"[smoke] products beside K12, K13 and K15: {json.dumps(measured['products'])}")
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -5,8 +5,9 @@ It takes the port's copy of pgen_tpu's argument parser
 cuda|cpu`` (default ``cuda``, which must be available) to each subcommand
 it serves (``SERVED``): ``filter``, ``import``, ``query``, ``glm``,
 ``score``, ``king``, ``genome``, ``pca``, the reports ``freq``,
-``gcount``, ``missing``, ``hardy`` and ``het``, ``stats`` and ``fst``. The
-query flags compose exactly as in ``pgen_tpu.cli.main``, through the port's
+``gcount``, ``missing``, ``hardy`` and ``het``, ``stats``, ``fst``, ``ld``,
+``prune`` and ``clump``. The query flags compose exactly as in
+``pgen_tpu.cli.main``, through the port's
 copies of its host composers (``query/``): ``--keep/--remove``, ``-r/-R``,
 ``--exclude-var/--exclude-sam``, ``--samples``, ``--extract/--exclude-ids``,
 the ``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup
@@ -25,14 +26,15 @@ loop, ``-o -``, the same query composers and the closing stderr line; so
 do ``king`` (with ``--min-kinship`` and ``--cutoff``), ``genome`` (with
 ``--min-pi-hat``) and ``pca`` (``-k``, ``--make-rel``, ``--approx``), the
 reports (``freq --counts``, ``hardy --midp``, ``missing``'s out prefix),
-``stats`` (``--per-sample``) and ``fst``. ``query`` prints its rows to
+``stats`` (``--per-sample``), ``fst``, ``ld`` (``-o -`` streams the table),
+``prune --indep-pairwise`` and ``clump``. ``query`` prints its rows to
 stdout as pgen_tpu's does: ``-e`` excludes, and ``-r``/``-R`` with ``-s``
 is an error (exit 1). It exits as ``pgen_tpu.cli.main`` does: 141 on a
 broken pipe, 1 with the one stderr line ``pgen-tpu: error: ...`` on any
 other exception, 2 on an argument error. What the port does not serve yet
 is refused with the ROADMAP.md item that will serve it: every other
-subcommand (``_UNSERVED_COMMANDS``), and the flags and inputs listed in
-``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
+subcommand (item 13, the host-only subcommands), and the flags and inputs
+listed in ``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
 """
 
 from __future__ import annotations
@@ -101,18 +103,15 @@ _UNSERVED_ANALYTICS = {
     "provider": (
         lambda v: v not in ("auto", "device"),
         "--provider native|numpy: the port's glm and score (ROADMAP §1 item 9, done), "
-        "king, genome and pca (item 10, done), and the reports, stats and fst (item 8, "
-        "done) run on one GPU (auto or device); pgen_tpu's host providers stay pgen_tpu's",
+        "king, genome, pca, ld and prune (item 10, done), and the reports, stats and fst "
+        "(item 8, done) run on one GPU (auto or device); pgen_tpu's host providers stay "
+        "pgen_tpu's",
     ),
 }
 
 REPORTS = ("freq", "gcount", "missing", "hardy", "het")
 SERVED = ("filter", "import", "query", "glm", "score", "king", "genome", "pca", *REPORTS,
-          "stats", "fst")
-
-# each subcommand the port does not serve yet -> the ROADMAP §1 item that
-# will serve it; every other one is item 13's (the host-only subcommands)
-_UNSERVED_COMMANDS = dict.fromkeys(("ld", "prune"), "item 10 (LD: ld, prune and the LD report)")
+          "stats", "fst", "ld", "prune", "clump")
 
 
 def build_torch_arg_parser() -> argparse.ArgumentParser:
@@ -139,7 +138,7 @@ def _and_cond(query, cond):
 def _compose_queries(args) -> None:
     """Fold the query flags of every served subcommand (--keep/--remove,
     -r/-R, --exclude-var/--exclude-sam, --samples) into args.var_query /
-    args.sam_query, as pgen_tpu.cli.main does."""
+    args.sam_query, as pgen_tpu.cli.main does (clump has no -r/-R)."""
     from pgen_tpu_torch.query.exclude import apply_exclude
     from pgen_tpu_torch.query.regions import apply_regions
     from pgen_tpu_torch.query.samples import apply_keep_remove, apply_samples
@@ -147,7 +146,9 @@ def _compose_queries(args) -> None:
     if getattr(args, "keep", None) or getattr(args, "remove", None):
         args.sam_query = apply_keep_remove(args.sam_query, args.keep, args.remove)
     args.var_query = apply_exclude(
-        apply_regions(args.var_query, args.regions, args.regions_file), args.var_exclude
+        apply_regions(args.var_query, getattr(args, "regions", None),
+                      getattr(args, "regions_file", None)),
+        args.var_exclude,
     )
     args.sam_query = apply_exclude(
         apply_samples(args.sam_query, args.samples, args.samples_file), args.sam_exclude
@@ -185,8 +186,10 @@ def _compose_filter_queries(args) -> int:
 
 
 def _refuse_unserved(parser, args, unserved: dict) -> None:
+    """parser.error for the first flag of ``unserved`` the subcommand has and
+    sets to a refused value (clump has no --provider)."""
     for dest, (test, why) in unserved.items():
-        if test(getattr(args, dest)):
+        if hasattr(args, dest) and test(getattr(args, dest)):
             parser.error(why)
 
 
@@ -486,6 +489,81 @@ def _fst(args) -> int:
     return 0
 
 
+def _ld(args) -> int:
+    from pgen_tpu_torch.pipeline.ld_report import ld_report
+
+    result = ld_report(
+        args.pfile_prefix,
+        out_file=None if args.out_file == "-" else args.out_file,
+        out=sys.stdout if args.out_file == "-" else None,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        device=args.device,
+        ld_window=args.ld_window,
+        ld_window_kb=args.ld_window_kb,
+        ld_window_r2=args.ld_window_r2,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    dest = "stdout" if args.out_file == "-" else result.out_path
+    print(
+        f"ld: {result.num_pairs} pairs over {result.num_variants} "
+        f"variants x {result.num_samples} samples -> {dest}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _prune(args) -> int:
+    from pgen_tpu_torch.pipeline.prune import prune
+
+    result = prune(
+        args.pfile_prefix,
+        args.indep_pairwise,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        out_prefix=args.out_prefix,
+        device=args.device,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"prune: kept {result.num_kept}, removed "
+        f"{result.num_removed} of {result.num_considered} variants "
+        f"-> {result.out_prefix}.prune.in/.prune.out",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _clump(args) -> int:
+    from pgen_tpu_torch.pipeline.clump import clump_pfile
+
+    result = clump_pfile(
+        args.pfile_prefix,
+        args.clump_file,
+        out_file=args.out_file,
+        p1=args.p1,
+        p2=args.p2,
+        r2=args.r2,
+        kb=args.kb,
+        id_field=args.id_field,
+        p_field=args.p_field,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        device=args.device,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"clump: {result.num_clumps} clump(s) absorbing "
+        f"{result.num_assigned} of {result.num_candidates} matched "
+        f"variants -> {result.out_path or 'stdout'}",
+        file=sys.stderr,
+    )
+    return 0
+
+
 def _query(args) -> int:
     """query: the rows of the .pvar (or the .psam under -s) that -i keeps
     and -e does not, one -f string each, on stdout."""
@@ -509,12 +587,13 @@ def _query(args) -> int:
 
 
 _RUNS = {"glm": _glm, "score": _score, "king": _king, "genome": _genome, "pca": _pca,
-         **dict.fromkeys(REPORTS, _report), "stats": _stats, "fst": _fst}
+         **dict.fromkeys(REPORTS, _report), "stats": _stats, "fst": _fst, "ld": _ld,
+         "prune": _prune, "clump": _clump}
 
 
 def _analytics(parser, args) -> int:
-    """glm, score, king, genome, pca, the reports, stats and fst: one GPU,
-    the common query flags."""
+    """glm, score, king, genome, pca, the reports, stats, fst, ld, prune and
+    clump: one GPU, the common query flags."""
     _refuse_unserved(parser, args, _UNSERVED_ANALYTICS)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         parser.error(
@@ -616,10 +695,9 @@ def main(argv=None) -> int:
     parser = build_torch_arg_parser()
     args = parser.parse_args(argv)
     if args.command not in SERVED:
-        item = _UNSERVED_COMMANDS.get(args.command, "item 13 (the host-only subcommands)")
         parser.error(
             f"{args.command}: the port serves only {', '.join(SERVED)} so far; "
-            f"{args.command} is ROADMAP §1 {item}"
+            f"{args.command} is ROADMAP §1 item 13 (the host-only subcommands)"
         )
     if args.command == "filter":
         _refuse_unserved(parser, args, _UNSERVED)

@@ -1,8 +1,8 @@
 // Genotype kernels for Hopper (sm_90a): packed 2-bit records <-> codes, a
 // sample subset of records re-packed, records or codes -> VCF GT text,
 // records -> per-variant and per-sample code counts, records -> the f32
-// operands of the GWAS moment, polygenic score and GRM/PCA products, and
-// records -> the int8 indicator planes of the relatedness Grams.
+// operands of the GWAS moment, polygenic score, GRM/PCA and LD products,
+// and records -> the int8 indicator planes of the relatedness Grams.
 // Built by pgen_tpu_torch/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes.
 //
@@ -1255,13 +1255,17 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 //   1,024-row block with too few warps in flight: 0.4 ms. The tiled kernel
 //   then reads each row's table from the sums.
 // The three kernels take the row's table from a policy (ScoreRows here,
-// GrmRows for K13), and write the policy's per-row int to row_out; the
-// chunked form's sums are (2V) ints at sums. K11 passes called for both:
-// in the chunked form its row_out value is the n_called already there.
+// GrmRows for K13, LdRows for K15), and write the policy's per-row value
+// (its Out: an int, K15's an f64 norm) to row_out; the chunked form's sums
+// are (kSums x V) ints at sums (n, the row sum, and for K15 c2). K11 passes
+// called for both: in the chunked form its row_out value is the n_called
+// already there.
 struct ScoreRows {
+  using Out = int32_t;
+  static constexpr int kSums = 2;  // the chunked form's sums: n, then the row sum
   // a called code's effect dosage, a missing call's fill; the called count
-  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t sum, bool flipped,
-                                                  int mean_impute, float (&t)[4]) {
+  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t sum, uint32_t,
+                                                  bool flipped, int mean_impute, float (&t)[4]) {
     t[0] = flipped ? 2.0f : 0.0f;
     t[1] = 1.0f;
     t[2] = flipped ? 0.0f : 2.0f;
@@ -1290,8 +1294,10 @@ struct ScoreRows {
 // 3.35 TB/s. Design: K11's three forms, whose per-row table of four floats
 // turns each code into z once the row's counts are known.
 struct GrmRows {
+  using Out = int32_t;
+  static constexpr int kSums = 2;
   // z of codes 0, 1, 2 and of a missing call; the used flag
-  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t ac, bool, int,
+  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t ac, uint32_t, bool, int,
                                                   float (&t)[4]) {
     const float nf = static_cast<float>(n);
     const float p = n > 0 ? static_cast<float>(ac) / fmaxf(2.0f * nf, 1.0f) : 0.0f;
@@ -1307,8 +1313,49 @@ struct GrmRows {
   }
 };
 
+// K15. Replaces the decode and centering legs of pgen_tpu/ops/ld.py's
+// banded_r2_device, inner _tiles (:128-137): the Pallas _unpack_kernel, the
+// XLA take of the cohort's columns, the f32 mean-imputed centered dosages c
+// and their squared norms, before the tile Grams (torch.bmm in full fp32 in
+// the caller, as pgen_tpu pins Precision.HIGHEST).
+// (V, R) u8 records + sel (K) int32 ids (or null: K = S) -> c (V, K) f32
+// and norm2 (V) f64. Per row, over the selected samples: n = called count,
+// ac = c1 + 2 c2, m = ac / max(n, 1) in f32 with IEEE division (the
+// reference's f32 sums of 0/1/2 are exact below 2^24), then c = g - m on a
+// called entry and 0 on a missing one; norm2 = sum_k n_k t_k^2 in f64 over
+// the codes' counts n_k and the row's table t = {0 - m, 1 - m, 2 - m}, each
+// product and sum rounded on its own (no fused multiply-add), so the plain
+// version's f64 ops give the same bits.
+// Bound: memory, K13's: 4 B written per selected sample against a quarter
+// byte read: a 16,384-row block of 2504 samples writes 164 MB, 0.052 ms at
+// 3.35 TB/s. Design: K11's three forms with this per-row table; the norm
+// needs the row's third count (c2), which the chunked form's count pass
+// sums as a third row of sums.
+struct LdRows {
+  using Out = double;
+  static constexpr int kSums = 3;
+  // c of codes 0, 1, 2 and of a missing call; the row's squared norm
+  __device__ static __forceinline__ double table(uint32_t n, uint32_t ac, uint32_t c2, bool, int,
+                                                 float (&t)[4]) {
+    const float m = __fdiv_rn(static_cast<float>(ac), fmaxf(static_cast<float>(n), 1.0f));
+    t[0] = 0.0f - m;
+    t[1] = 1.0f - m;
+    t[2] = 2.0f - m;
+    t[3] = 0.0f;
+    const uint32_t c1 = ac - 2 * c2;
+    const uint32_t counts[3] = {n - c1 - c2, c1, c2};
+    double norm2 = 0.0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const double tk = static_cast<double>(t[k]);
+      norm2 = __dadd_rn(norm2, __dmul_rn(static_cast<double>(counts[k]), __dmul_rn(tk, tk)));
+    }
+    return norm2;
+  }
+};
+
 // A row's sum for the policies: the effect-allele dosage sum (flipped: 2 c0
-// + c1) for K11, the alt count for K13 (flip is null there).
+// + c1) for K11, the alt count for K13 and K15 (flip is null there).
 __device__ __forceinline__ uint32_t row_sum(const uint32_t c[4], bool flipped) {
   return flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
 }
@@ -1316,8 +1363,8 @@ __device__ __forceinline__ uint32_t row_sum(const uint32_t c[4], bool flipped) {
 template <class Rows>
 __global__ void dosage_flat_kernel(const uint8_t* __restrict__ packed,
                                    const uint8_t* __restrict__ flip, float4* __restrict__ out,
-                                   int32_t* __restrict__ row_out, int64_t n_var, int64_t rec,
-                                   int64_t n_quads, int mean_impute) {
+                                   typename Rows::Out* __restrict__ row_out, int64_t n_var,
+                                   int64_t rec, int64_t n_quads, int mean_impute) {
   const int lane = threadIdx.x % kWarp;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
   for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
@@ -1329,8 +1376,8 @@ __global__ void dosage_flat_kernel(const uint8_t* __restrict__ packed,
     row_code_counts<1>(rows, static_cast<int>(4 * n_quads), lane, counts);
     const uint32_t* c = counts[0];
     float t[4];
-    const int32_t value = Rows::table(c[0] + c[1] + c[2], row_sum(c, flipped), flipped,
-                                      mean_impute, t);
+    const typename Rows::Out value = Rows::table(c[0] + c[1] + c[2], row_sum(c, flipped), c[2],
+                                                 flipped, mean_impute, t);
     if (lane == 0) row_out[v] = value;
     auto dose = [&](uint32_t code) {
       return code == 0u ? t[0] : (code == 1u ? t[1] : (code == 2u ? t[2] : t[3]));
@@ -1348,7 +1395,7 @@ __global__ void dosage_counts_kernel(const uint8_t* __restrict__ packed,
                                      const int32_t* __restrict__ sel,
                                      const uint8_t* __restrict__ flip,
                                      int32_t* __restrict__ sums, int64_t n_var, int64_t rec,
-                                     int n_samples, int n_kept, int chunk) {
+                                     int n_samples, int n_kept, int chunk, int n_sums) {
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* ids = reinterpret_cast<int32_t*>(smem);
   const int c0 = blockIdx.y * chunk;  // this block's columns [c0, c0 + kc)
@@ -1378,6 +1425,7 @@ __global__ void dosage_counts_kernel(const uint8_t* __restrict__ packed,
       atomicAdd(sums + v, static_cast<int>(c[0] + c[1] + c[2]));
       atomicAdd(sums + n_var + v,
                 static_cast<int>(row_sum(c, flip != nullptr && flip[v] != 0)));
+      if (n_sums > 2) atomicAdd(sums + 2 * n_var + v, static_cast<int>(c[2]));
     }
   }
 }
@@ -1386,9 +1434,9 @@ template <class Rows>
 __global__ void dosage_kernel(const uint8_t* __restrict__ packed,
                               const int32_t* __restrict__ sel,
                               const uint8_t* __restrict__ flip, float* __restrict__ out,
-                              int32_t* row_out, const int32_t* sums, int64_t n_var, int64_t rec,
-                              int n_samples, int n_kept, int mean_impute, int tile_rows, int chunk,
-                              int row_warps) {
+                              typename Rows::Out* row_out, const int32_t* sums, int64_t n_var,
+                              int64_t rec, int n_samples, int n_kept, int mean_impute,
+                              int tile_rows, int chunk, int row_warps) {
   extern __shared__ __align__(16) uint8_t smem[];
   // per tile row: its value of each code, and the counts its warps add
   __shared__ float table[4 * kPlaneMaxTileRows];
@@ -1424,18 +1472,20 @@ __global__ void dosage_kernel(const uint8_t* __restrict__ packed,
     if (tid < rows) {
       const int64_t v = v0 + tid;
       const bool flipped = flip != nullptr && flip[v] != 0;
-      uint32_t n, sum;
+      uint32_t n, sum, c2 = 0;
       if (chunked) {
         n = static_cast<uint32_t>(sums[v]);
         sum = static_cast<uint32_t>(sums[n_var + v]);
+        if (Rows::kSums > 2) c2 = static_cast<uint32_t>(sums[2 * n_var + v]);
       } else {
         uint32_t* c = counts + 4 * tid;
         n = c[0] + c[1] + c[2];
         sum = row_sum(c, flipped);
+        c2 = c[2];
         c[0] = c[1] = c[2] = c[3] = 0;  // for the next tile, after two barriers
       }
       float tab[4];
-      const int32_t value = Rows::table(n, sum, flipped, mean_impute, tab);
+      const typename Rows::Out value = Rows::table(n, sum, c2, flipped, mean_impute, tab);
       if (!chunked || blockIdx.y == 0) row_out[v] = value;
 #pragma unroll
       for (int k = 0; k < 4; ++k) table[4 * tid + k] = tab[k];
@@ -1562,8 +1612,8 @@ int launch_repack_staged(const uint8_t* in, const int32_t* ids, uint8_t* dst, in
 // pass into sums past kPlaneChunk ids.
 template <class Rows>
 int launch_dosage(const uint8_t* in, const int32_t* ids, const uint8_t* flip, void* out,
-                  int32_t* row_out, int32_t* sums, int64_t n_var, int64_t rec, int64_t n_samples,
-                  int64_t n_kept, int mean_impute, cudaStream_t s) {
+                  typename Rows::Out* row_out, int32_t* sums, int64_t n_var, int64_t rec,
+                  int64_t n_samples, int64_t n_kept, int mean_impute, cudaStream_t s) {
   if (ids == nullptr && n_kept % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
     const int64_t rows_per_block = kThreads / kWarp;
     const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
@@ -1578,7 +1628,7 @@ int launch_dosage(const uint8_t* in, const int32_t* ids, const uint8_t* flip, vo
       static_cast<int>(kPlaneSmemBytes));
   if (opted != cudaSuccess) return static_cast<int>(opted);
   if (t.chunks > 1) {  // each row's counts before any chunk's block writes it
-    const cudaError_t cleared = cudaMemsetAsync(sums, 0, 8 * n_var, s);
+    const cudaError_t cleared = cudaMemsetAsync(sums, 0, 4 * Rows::kSums * n_var, s);
     if (cleared != cudaSuccess) return static_cast<int>(cleared);
     // about four blocks an SM in all: each stages its chunk's ids once for
     // its rows (a block per tile, as the store takes, would stage them per
@@ -1591,7 +1641,7 @@ int launch_dosage(const uint8_t* in, const int32_t* ids, const uint8_t* flip, vo
     dosage_counts_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(t.chunks)),
                            kThreads, static_cast<size_t>(id_bytes), s>>>(
         in, ids, flip, sums, n_var, rec, static_cast<int>(n_samples), static_cast<int>(n_kept),
-        static_cast<int>(t.chunk));
+        static_cast<int>(t.chunk), Rows::kSums);
     const cudaError_t counted = cudaGetLastError();
     if (counted != cudaSuccess) return static_cast<int>(counted);
   }
@@ -1899,6 +1949,23 @@ int pgen_grm_z(const void* packed, const void* sel, void* z, void* rows, int64_t
                                 static_cast<const int32_t*>(sel), nullptr, z, used, used + n_var,
                                 n_var, rec, n_samples, n_kept, 0,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// rows: (3V) int32, the chunked form's n, alt count and c2 sums; norm2 (V)
+// f64, 8-B aligned.
+int pgen_ld_centered(const void* packed, const void* sel, void* c, void* norm2, void* rows,
+                     int64_t n_var, int64_t rec, int64_t n_samples, int64_t n_kept,
+                     void* stream) {
+  if (n_var <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(c) % 4 != 0 || reinterpret_cast<uintptr_t>(norm2) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(rows) % 4 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (n_kept <= 0) return 0;  // no sample: the wrapper returns zeros
+  return launch_dosage<LdRows>(static_cast<const uint8_t*>(packed),
+                               static_cast<const int32_t*>(sel), nullptr, c,
+                               static_cast<double*>(norm2), static_cast<int32_t*>(rows), n_var,
+                               rec, n_samples, n_kept, 0, static_cast<cudaStream_t>(stream));
 }
 
 int pgen_relatedness_planes(const void* packed, const void* sel, void* planes, int64_t n_var,

@@ -65,6 +65,7 @@ from pgen_tpu_torch.ops.glm import (
 from pgen_tpu_torch.ops.pca import grm_device, grm_z, grm_z_plain
 from pgen_tpu_torch.ops.relatedness import relatedness_planes, relatedness_planes_plain
 from pgen_tpu_torch.ops.king import king_counts_device
+from pgen_tpu_torch.ops.ld import banded_r2, banded_r2_numpy, ld_centered, ld_centered_plain
 from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
 from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
@@ -918,3 +919,98 @@ def test_interaction_beta_on_the_card_within_pgen_tpu_tolerance(cuda_device, mon
     assert (np.abs(want.beta[:, 0]) < 0.01 * want.se[:, 0]).sum() >= 5
     np.testing.assert_allclose(got.beta, want.beta, rtol=2e-4, atol=1e-6, equal_nan=True)
     np.testing.assert_allclose(got.se, want.se, rtol=2e-4, atol=1e-6, equal_nan=True)
+
+
+# ---- K15 ld_centered and the streamed band ----
+
+
+def _ld_pair(packed, n_samples, sel):
+    c, norm2 = ld_centered(packed, n_samples, sel)
+    want_c, want_norm2 = ld_centered_plain(packed, n_samples, sel)
+    assert torch.equal(c, want_c) and torch.equal(norm2, want_norm2)
+
+
+@pytest.mark.parametrize("n_samples", [2509, 2504, 2503, 2502, 2505, 17, 8, 5, 1, 9_001])
+def test_ld_centered_matches_plain(cuda_device, n_samples):
+    """K15 in its flat form (no sel, S % 4 == 0), its tiled form and, at
+    9,001 samples with sel, its chunked form (the count pass sums c2 as a
+    third row), on records whose every byte value sits at every position
+    (0xFF: a row with no called sample, c and norm 0): c and the f64 norms
+    bit-equal to the plain version's; one launch a call."""
+    rng = np.random.default_rng(n_samples)
+    packed = _packed(300, n_samples, 5 * n_samples, cuda_device)
+    before = ld_centered.launches
+    cohorts = _cohorts(n_samples, rng, cuda_device)
+    for sel in cohorts:
+        _ld_pair(packed, n_samples, sel)
+    assert ld_centered.launches == before + len(cohorts)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "repeated"])
+@pytest.mark.parametrize("n_kept", [1, 2, 1001, 8_200])
+def test_ld_centered_any_ids(cuda_device, n_kept, kind):
+    rng = np.random.default_rng(n_kept)
+    packed = _packed(90, 2504, n_kept, cuda_device)
+    sel = torch.from_numpy(np.ascontiguousarray(_ids(kind, n_kept, 2504, rng), dtype=np.int32))
+    _ld_pair(packed, 2504, sel.to(cuda_device))
+
+
+@pytest.mark.parametrize("offset", [1, 4, 15])
+def test_ld_centered_at_row_offsets(cuda_device, offset):
+    """Records 1-15 B past a 16-B boundary; c 4 B past one (the tiled form
+    where the flat form would run), nothing written outside it."""
+    host = _packed(200, 2504, offset, "cpu").numpy()
+    packed = _records_at(host, offset, cuda_device)
+    _ld_pair(packed, 2504, None)
+    n_var = packed.shape[0]
+    guard = torch.full((n_var * 2504 + 8,), float("nan"), device=cuda_device)
+    c = guard[1 : 1 + n_var * 2504].view(n_var, 2504)
+    norm2 = torch.full((n_var,), float("nan"), dtype=torch.float64, device=cuda_device)
+    rows = torch.full((3, n_var), -1, dtype=torch.int32, device=cuda_device)
+    kernels.launch(ld_centered, "pgen_ld_centered", packed, packed.data_ptr(), None,
+                   c.data_ptr(), norm2.data_ptr(), rows.data_ptr(), n_var, host.shape[1], 2504,
+                   2504)
+    want_c, want_norm2 = ld_centered_plain(packed, 2504)
+    assert torch.equal(c, want_c) and torch.equal(norm2, want_norm2)
+    assert torch.isnan(guard[0]) and bool(torch.isnan(guard[1 + c.numel():]).all())
+
+
+def test_ld_centered_wide_cohorts(cuda_device):
+    packed = _packed(300, 40_003, 4, cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 40_003, 40_000)
+                           .astype(np.int32)).to(cuda_device)
+    for sel in (None, ids):
+        _ld_pair(packed, 40_003, sel)
+
+
+def test_ld_centered_launches_nothing_when_empty(cuda_device):
+    before = ld_centered.launches
+    packed = _packed(3, 17, 0, cuda_device)
+    c, norm2 = ld_centered(packed, 17, torch.empty(0, dtype=torch.int32, device=cuda_device))
+    assert c.shape == (259, 0) and not norm2.any()
+    c, norm2 = ld_centered(packed[:0], 17)
+    assert c.shape == (0, 17) and norm2.shape == (0,)
+    assert ld_centered.launches == before
+
+
+@pytest.mark.parametrize("band,block_rows", [(9, 1000), (49, 500), (1, 64), (300, 700)])
+def test_banded_r2_on_the_card_matches_cpu(cuda_device, band, block_rows):
+    """The streamed band on the card (K15, fp32 bmm, f64 r²) against the
+    same on the CPU and against numpy's f64 band, at pgen_tpu's device
+    tolerance (rtol 1e-4, atol 1e-6), all samples and a cohort; 2,999 rows
+    with every 3rd a near copy of the one before, so no block ends on a
+    tile and the window of a block's last tile lies in the next."""
+    rng = np.random.default_rng(band)
+    host = _packed(2999 - 256, 2503, band, "cpu").numpy()
+    host[1::3] = host[0:-1:3][: len(host[1::3])]
+    host[1::3, :7] = rng.integers(0, 256, (len(host[1::3]), 7), dtype=np.uint8)
+    for idx in (None, np.sort(rng.choice(2503, 1001, replace=False)).astype(np.int32)):
+        before = ld_centered.launches
+        got = banded_r2(host, 2503, band, "cuda", sample_idx=idx, block_rows=block_rows)
+        rows = max(1, block_rows // band) * band
+        assert ld_centered.launches == before + -(-host.shape[0] // rows)
+        want = banded_r2(host, 2503, band, "cpu", sample_idx=idx, block_rows=block_rows)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+        oracle = banded_r2_numpy(host[:600], 2503, band, sample_idx=idx)
+        np.testing.assert_allclose(got[: 600 - band], oracle[: 600 - band], rtol=1e-4, atol=1e-6)
+        assert got[: 2999 - 256 : 3, 0].min() > 0.5  # the planted copies of random rows

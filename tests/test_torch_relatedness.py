@@ -357,11 +357,10 @@ def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):
 
 
 UNSERVED = {
-    "ld": "item 10", "prune": "item 10",
     "describe": "item 13", "index": "item 13", "view": "item 13",
     "export": "item 13", "split": "item 13", "concat": "item 13", "merge": "item 13",
     "sort": "item 13", "annotate": "item 13", "isec": "item 13", "diff": "item 13",
-    "roh": "item 13", "clump": "item 13",
+    "roh": "item 13",
 }
 
 

@@ -87,6 +87,11 @@ ENTRY_POINTS = {
        for report in ("freq", "gcount", "missing", "hardy", "het")},
     "stats": [["stats", "{p}", "--per-sample", "--samples", "s1,s3,s4,s9"]],
     "fst": [["fst", "{p}", "--pheno-name", "SEX", "--report-variants", "-o", "{o}"]],
+    "ld": [["ld", "{p}", "--ld-window", "4", "--ld-window-r2", "0", "--samples", "s1,s3,s4,s9",
+            "-o", "{o}.ld"]],
+    "prune": [["prune", "{p}", "--indep-pairwise", "4", "1", "0.1", "-o", "{o}"]],
+    "clump": [["clump", "{p}", "--clump", "{d}/assoc.tsv", "--clump-p1", "0.5", "--clump-r2",
+               "0.01", "-o", "{o}.clumps"]],
 }
 
 
@@ -99,6 +104,8 @@ def fileset(tmp_path_factory):
         f"s{i}\t{rng.normal():.5g}\t{1 + i % 2}\t{rng.normal():.5g}\n" for i in range(20)))
     (d / "w.tsv").write_text("".join(f"rs{i}\tA\t{rng.normal():.4g}\n" for i in range(8)))
     (d / "keep.txt").write_text("s3\ns1\ns7\n")
+    (d / "assoc.tsv").write_text("#ID\tP\n" + "".join(f"rs{i}\t{0.01 * (i + 1)}\n"
+                                                       for i in range(12)))
     return d, prefix
 
 
