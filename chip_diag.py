@@ -2,29 +2,33 @@
 """Diagnostics of the PyTorch/CUDA port (pgen_tpu_torch) on one NVIDIA H100,
 beside chip_smoke.py, whose fixtures, timer and oracles they use.
 
-    python3 chip_diag.py --ab DIR      # K4, K5, K8-K11 against the kernels of the checkout at DIR
+    python3 chip_diag.py --ab DIR      # K4, K5, K8-K11, K14 against the kernels of the checkout
+                                       # at DIR; K14's wrapper against that checkout's
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
     python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time,
-                                       # and K12, K13, their products, K14, K15 and the LD
-                                       # tile Grams
+                                       # and K12, K13, their products, K15 and the LD tile Grams
     python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
+    python3 chip_diag.py --rates       # popcount and .b1 mma.sync rates of the card
 
 --ab builds the kernel sources of another checkout (the parent commit's,
 unpacked with git archive) beside this one's and times both in one process
-on the same tensors. --trace runs this checkout's launchers of the same
-cases under torch.profiler and prints each device operation's time per
-launch (kernels and memsets), which CUDA events around a launch cannot
-separate from the host's enqueue time; it also traces K12 and K13 and the
-library products beside them (one torch._int_mm Gram, one fp32 z'z and one
---approx pass), K14 at P = 1 and 5, and K15 and the fp32 tile Grams of
-ld (band 9) and prune (49), which --ab leaves out: the parent checkout
-has no K12-K15 to bind. --precision shows which part of an f32 moment product
-costs each GWAS design its accuracy against pgen_tpu's tolerances. --forms
-builds this checkout's kernels twice more, K5's launcher held to its direct
-form in one and to its staged form (wherever a row tile fits) in the other,
-and times both on the same records at a range of K: the readings its
-threshold (kRepackDenseRatio) is fixed from. All import no jax and nothing
-of pgen_tpu, and exit non-zero without CUDA.
+on the same tensors; it then imports the other checkout's package beside
+this one's and times both K14 wrappers, host time included. --trace runs
+this checkout's launchers of the same cases under torch.profiler and prints
+each device operation's time per launch (kernels and memsets), which CUDA
+events around a launch cannot separate from the host's enqueue time; it also
+traces K12 and K13 and the library products beside them (one torch._int_mm
+Gram, one fp32 z'z and one --approx pass), and K15 and the fp32 tile Grams
+of ld (band 9) and prune (49), which --ab leaves out. --precision shows
+which part of an f32 moment product costs each GWAS design its accuracy
+against pgen_tpu's tolerances. --forms builds this checkout's kernels twice
+more, K5's launcher held to its direct form in one and to its staged form
+(wherever a row tile fits) in the other, and times both on the same records
+at a range of K: the readings its threshold (kRepackDenseRatio) is fixed
+from. --rates times the two instructions a per-mask count can rest on: a
+popcount on the CUDA cores and K14's .b1 AND-POPC product on the tensor
+cores. All import no jax and nothing of pgen_tpu, and exit non-zero without
+CUDA.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from chip_smoke import (  # noqa: E402
     COHORT,
     COHORTS,
     KEEP_SAMPLES,
+    POPULATIONS,
     GLM_ROWS,
     GWAS_REGION,
     REL_ROWS,
@@ -179,9 +184,40 @@ def _build_other(csrc: Path, defines: tuple = ()) -> Path:
         kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = shutil.which("nvcc") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
                                            / "bin" / "nvcc")
-        subprocess.run([nvcc, *flags, "-o", str(so), str(csrc / "genotype.cu")],
-                       check=True, capture_output=True, text=True)
+        r = subprocess.run([nvcc, *flags, "-o", str(so), str(csrc / "genotype.cu")],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n{r.stderr}")
     return so
+
+
+def _lead_copies(masks):
+    """K14's operand before its redesign, for the other checkout's launcher:
+    (P, R) u8 keep masks -> (16, P, W) u8, each bit k moved to bit 2k and
+    copy L holding every mask at byte offset L of a zeroed row of W = 16
+    ceil((R + 15) / 16) bytes."""
+    import torch
+
+    n_masks, rec = masks.shape
+    width = 16 * ((rec + 30) // 16)
+    spread = (masks & 1) | ((masks & 2) << 1) | ((masks & 4) << 2) | ((masks & 8) << 3)
+    out = torch.zeros((16, n_masks, width), dtype=torch.uint8, device=masks.device)
+    for lead in range(16):
+        out[lead, :, lead : lead + rec] = spread
+    return out
+
+
+def _masked_sets(n_samples: int) -> tuple:
+    """K14's sample sets at n_samples: COHORTS sorted cohorts (KEEP_SAMPLES
+    of 2504, the same share at other widths) and a seeded partition into
+    POPULATIONS labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 14)
+    size = n_samples * KEEP_SAMPLES // WIDTHS[0]
+    cohorts = [np.sort(rng.choice(n_samples, size, replace=False)) for _ in range(COHORTS)]
+    labels = rng.integers(0, POPULATIONS, n_samples)
+    return cohorts, [np.flatnonzero(labels == p) for p in range(POPULATIONS)]
 
 
 def _kernel_cases(other) -> dict:
@@ -191,6 +227,7 @@ def _kernel_cases(other) -> dict:
     import torch
 
     from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS
+    from pgen_tpu_torch.ops.gt_stats import kept_counts, mask_words
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -214,6 +251,9 @@ def _kernel_cases(other) -> dict:
     keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values
     keep = keep.to(torch.int32)
     keep2 = torch.randperm(s, generator=gen, device=dev)[:2].to(torch.int32)
+    # K14 at S = WIDE on the count paths' block (655 MB)
+    records_wide_block = torch.randint(0, 256, (BLOCK_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
+                                       device=dev, generator=gen)
     lut2, lut3 = (torch.tensor(t, dtype=torch.float32, device=dev) for t in (LUT_MOMENTS, LUT_GENO))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -261,6 +301,29 @@ def _kernel_cases(other) -> dict:
         return [counts], lambda lib: lib.pgen_sample_counts(
             records.data_ptr(), counts.data_ptr(), records.shape[0], rec, stream)
 
+    def masked_case(records, n_samples, sets):
+        """K14; the other checkout's launcher (the form before the tensor-
+        core redesign) takes its masks as 16 shifted copies (_lead_copies)
+        in place of their E words and kept counts."""
+        masks = _keep_masks(n_samples, sets, dev)
+        words, kept = mask_words(masks), kept_counts(masks)
+        copies = _lead_copies(masks) if other is not None else None
+        (n_var, n_rec), n_masks = records.shape, masks.shape[0]
+        counts = torch.empty((n_var, n_masks, 4), dtype=torch.int32, device=dev)
+
+        def call(lib):
+            if lib is other:
+                return lib.pgen_gt_counts_masked(records.data_ptr(), copies.data_ptr(),
+                                                 counts.data_ptr(), n_var, n_rec, n_masks,
+                                                 copies.shape[2] // 16, stream)
+            return lib.pgen_gt_counts_masked(records.data_ptr(), words.data_ptr(),
+                                             kept.data_ptr(), counts.data_ptr(), n_var, n_rec,
+                                             n_masks, stream)
+        return [counts], call
+
+    cohorts, partition = _masked_sets(s)
+    wide_cohorts, wide_partition = _masked_sets(WIDE)
+
     cases = {
         "K4 pack_codes S=2504": pack_case(codes),
         "K4 pack_codes S=2503": pack_case(codes_odd),
@@ -276,6 +339,20 @@ def _kernel_cases(other) -> dict:
         f"K8 gt_counts V={BLOCK_ROWS}": gt_counts_case(records, s),
         f"K9 sample_counts V={BLOCK_ROWS}": counts_case(records),
         f"K9 sample_counts V={GLM_ROWS}": counts_case(records[:GLM_ROWS]),
+        f"K14 gt_counts_masked V={BLOCK_ROWS} P=1 K={KEEP_SAMPLES}":
+            masked_case(records, s, cohorts[:1]),
+        f"K14 gt_counts_masked V={BLOCK_ROWS} P={COHORTS} K={KEEP_SAMPLES}":
+            masked_case(records, s, cohorts),
+        f"K14 gt_counts_masked V={BLOCK_ROWS} P={POPULATIONS} (a partition)":
+            masked_case(records, s, partition),
+        f"K14 gt_counts_masked S={WIDE} V={WIDE_PACK_ROWS} P=1 K={len(wide_cohorts[0])} (rows in "
+        "chunks)": masked_case(records_wide, WIDE, wide_cohorts[:1]),
+        f"K14 gt_counts_masked S={WIDE} V={WIDE_PACK_ROWS} P={POPULATIONS} (a partition, rows "
+        "in chunks)": masked_case(records_wide, WIDE, wide_partition),
+        f"K14 gt_counts_masked S={WIDE} V={BLOCK_ROWS} P=1 K={len(wide_cohorts[0])} (rows in "
+        "chunks)": masked_case(records_wide_block, WIDE, wide_cohorts[:1]),
+        f"K14 gt_counts_masked S={WIDE} V={BLOCK_ROWS} P={POPULATIONS} (a partition, rows in "
+        "chunks)": masked_case(records_wide_block, WIDE, wide_partition),
         "K11 score_dosage K=2504": score_case(ops, s, flip, None),
         "K11 score_dosage K=2504, output 4 B past 16 (tiled)": score_case(ops, s, flip, None, 4),
         "K11 score_dosage K=2454 sel": score_case(ops, s, flip, cohort),
@@ -291,8 +368,7 @@ def _relatedness_cases() -> dict:
     of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the same;
     one torch._int_mm Gram of the planes, one z'z in f64 (the exact GRM's)
     and in full fp32 (pgen_tpu's), and one --approx pass's z'(z q), q of
-    18 columns; K14 at 65,536 rows, P = 1 and 5 cohorts of 1,001; K15 at
-    16,384 rows, all samples or the sorted 1,001, and the fp32 tile Grams
+    18 columns; K15 at 16,384 rows, all samples or the sorted 1,001, and the fp32 tile Grams
     of a block at bands 9 and 49 (torch.bmm of each tile against its
     overlapping window, as ops/ld.py makes them)."""
     import numpy as np
@@ -300,7 +376,6 @@ def _relatedness_cases() -> dict:
 
     from pgen_tpu_torch import kernels
     from pgen_tpu_torch.device import full_fp32, matmul_fp32
-    from pgen_tpu_torch.ops.gt_stats import slot_masks
     from pgen_tpu_torch.ops.pca import add_gram_fp64
     from pgen_tpu_torch.ops.relatedness import plane_shape
 
@@ -366,17 +441,6 @@ def _relatedness_cases() -> dict:
             return 0
         return call
 
-    block = torch.randint(0, 256, (BLOCK_ROWS, rec), dtype=torch.uint8, device=dev, generator=gen)
-    rng = np.random.default_rng(SEED + 14)
-    cohorts = [rng.choice(s, KEEP_SAMPLES, replace=False) for _ in range(COHORTS)]
-
-    def masked_case(n_masks):
-        slots = slot_masks(_keep_masks(s, cohorts[:n_masks], dev))
-        counts = torch.empty((BLOCK_ROWS, n_masks, 4), dtype=torch.int32, device=dev)
-        return lambda lib: lib.pgen_gt_counts_masked(
-            block.data_ptr(), slots.data_ptr(), counts.data_ptr(), BLOCK_ROWS, rec, n_masks,
-            slots.shape[2] // 16, stream)
-
     return {
         f"K12 relatedness_planes V={REL_ROWS} K=2504": k12,
         f"K12 relatedness_planes V={REL_ROWS} K={KEEP_SAMPLES} sel": k12_sel,
@@ -388,8 +452,6 @@ def _relatedness_cases() -> dict:
         f"z'z fp32 ({GLM_ROWS} x {s})": product(lambda: matmul_fp32(z.T, z)),
         f"z'(z q) fp32 ({GLM_ROWS} x {s}, q {s} x 18)":
             product(lambda: matmul_fp32(z.T, matmul_fp32(z, q))),
-        f"K14 gt_counts_masked V={BLOCK_ROWS} P=1 K={KEEP_SAMPLES}": masked_case(1),
-        f"K14 gt_counts_masked V={BLOCK_ROWS} P={COHORTS} K={KEEP_SAMPLES}": masked_case(COHORTS),
         f"K15 ld_centered V={GLM_ROWS} K=2504": ld_case(records[:GLM_ROWS], None)[1],
         f"K15 ld_centered V={GLM_ROWS} K={KEEP_SAMPLES} sel": ld_case(records[:GLM_ROWS], keep)[1],
         f"tile Grams fp32, band 9 ({GLM_ROWS // 9} tiles)": product(tile_grams(9)),
@@ -427,6 +489,105 @@ def phase_trace() -> None:
         print(f"[trace] {name}: device {sum(ops.values()):.4f} ms a launch ({shown})")
 
 
+# Micro-timing kernels of --rates: each thread (each warp for the product)
+# runs independent chains of one instruction.
+_RATES_CU = r"""
+#include <cstdint>
+extern "C" __global__ void popc_rate(const uint32_t* in, uint32_t* out, int iters) {
+  uint32_t x[8], acc[8];
+  for (int k = 0; k < 8; ++k) { x[k] = in[(threadIdx.x + 7 * k) & 255]; acc[k] = 0; }
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      acc[k] += __popc(x[k] ^ acc[k]);
+      acc[k] += __popc(x[k] + acc[k]);
+    }
+  }
+  uint32_t s = 0;
+  for (int k = 0; k < 8; ++k) s += acc[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+extern "C" __global__ void mma_b1_rate(const uint32_t* in, uint32_t* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int k = 0; k < 4; ++k) a[k] = in[(threadIdx.x + k) & 255];
+  for (int k = 0; k < 2; ++k) b[k] = in[(threadIdx.x + 5 + k) & 255];
+  int c[4][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+r"(c[j][0]), "+r"(c[j][1]), "+r"(c[j][2]), "+r"(c[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
+  }
+  int s = 0;
+  for (int j = 0; j < 4; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = static_cast<uint32_t>(s);
+}
+
+#define RATE_LAUNCHER(name)                                                              \
+  extern "C" int run_##name(const void* in, void* out, int iters, int blocks, int threads, \
+                            void* stream) {                                              \
+    name<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(                      \
+        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), iters);            \
+    return static_cast<int>(cudaGetLastError());                                         \
+  }
+RATE_LAUNCHER(popc_rate)
+RATE_LAUNCHER(mma_b1_rate)
+"""
+
+
+def phase_rates() -> None:
+    """The card's rate of 32-bit population counts and of mma.sync
+    m16n8k256 .b1 AND-POPC (as 2 M N K operations): the grid's operations
+    over the kernel's time (CUDA events, median of 10 launches), eight
+    blocks an SM."""
+    import ctypes
+
+    import torch
+
+    from pgen_tpu_torch import kernels
+
+    src = kernels.BUILD_DIR / "rates.cu"
+    so = kernels.BUILD_DIR / "librates.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(_RATES_CU)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    r = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-o", str(so), str(src)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    ptr = ctypes.c_void_p
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    words = torch.randint(0, 1 << 31, (256,), dtype=torch.int64, device=dev).to(torch.int32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    iters = 4096
+    cases = (
+        # name, kernel, threads, operations a loop iteration a thread
+        ("popcounts", "popc_rate", 256, 16),
+        ("mma.sync b1 m16n8k256 operations", "mma_b1_rate", 128, 4 * 2 * 16 * 8 * 256 / 32),
+    )
+    for name, fn, threads, ops in cases:
+        blocks = 8 * sms
+        out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+        run = getattr(lib, f"run_{fn}")
+        run.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+
+        def launch(run=run, out=out, blocks=blocks, threads=threads, name=name):
+            if run(words.data_ptr(), out.data_ptr(), iters, blocks, threads, stream) != 0:
+                raise AssertionError(f"{name}: launch failed")
+
+        ms = _time_ms(launch)
+        total = ops * threads * blocks * iters
+        print(f"[rates] {name}: {total / ms / 1e9:.3f} T a second ({ms:.4f} ms for {total:.4g}, "
+              f"{blocks} blocks of {threads} on {sms} SMs)")
+
+
 def phase_ab(other_root: Path) -> None:
     """K4, K5, K8-K11 of this checkout against the same launchers built
     from another checkout's sources (the parent commit's, unpacked at
@@ -437,7 +598,9 @@ def phase_ab(other_root: Path) -> None:
     torch.equal. The C signatures below are those of both checkouts'
     launchers: a launcher whose signature differs between the two needs
     its own (in both, K9's clears its counts itself and K11's takes 2V
-    called ints)."""
+    called ints; K14's takes the parent's 16 shifted mask copies in place
+    of the masks' E words and kept counts). Each case's host time a call
+    follows; then K14's wrappers (_wrapper_ab)."""
     import ctypes
 
     import torch
@@ -453,8 +616,8 @@ def phase_ab(other_root: Path) -> None:
     other.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
     other.pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     other.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
-    print("[ab] K12 relatedness_planes and K13 grm_z are left out: the other checkout has no "
-          "kernel of theirs to bind (--trace times them)")
+    other.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    print("[ab] K12, K13 and K15 are left out (--trace times them)")
     for name, (outs, call) in _kernel_cases(other).items():
         def run(lib):
             status = call(lib)
@@ -470,14 +633,104 @@ def phase_ab(other_root: Path) -> None:
         torch.cuda.synchronize()
         if not all(torch.equal(o, w) for o, w in zip(outs, want)):
             raise AssertionError(f"{name}: this checkout's kernel differs from the other's")
-        for burst in (1, BURST):
-            o1 = _time_ms(lambda: run(other), burst=burst)
-            t1 = _time_ms(lambda: run(this), burst=burst)
-            t2 = _time_ms(lambda: run(this), burst=burst)
-            o2 = _time_ms(lambda: run(other), burst=burst)
-            print(f"[ab] {name}, {burst} launch(es) per event pair: other {o1:.4f} / {o2:.4f} ms, "
-                  f"this {t1:.4f} / {t2:.4f} ms (other, this, this, other; outputs equal): "
-                  f"{statistics.median([o1, o2]) / statistics.median([t1, t2]):.2f}x")
+        _print_ab("[ab]", name, lambda: run(other), lambda: run(this))
+    _wrapper_ab(other_root)
+
+
+def _host_us(fn, calls: int = 50, reps: int = 5) -> float:
+    """Median host time of one call of fn in us: perf_counter around
+    ``calls`` calls queued with no synchronisation between them (the card
+    runs behind), synchronised after each of ``reps`` sets."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _print_ab(tag: str, name: str, other_fn, this_fn) -> None:
+    """Times other_fn and this_fn other, this, this, other: CUDA events
+    with one call and with BURST calls in each pair, then host time a call."""
+    for burst in (1, BURST):
+        o1 = _time_ms(other_fn, burst=burst)
+        t1 = _time_ms(this_fn, burst=burst)
+        t2 = _time_ms(this_fn, burst=burst)
+        o2 = _time_ms(other_fn, burst=burst)
+        print(f"{tag} {name}, {burst} launch(es) per event pair: other {o1:.4f} / {o2:.4f} ms, "
+              f"this {t1:.4f} / {t2:.4f} ms (other, this, this, other; outputs equal): "
+              f"{statistics.median([o1, o2]) / statistics.median([t1, t2]):.2f}x")
+    o1, t1, t2, o2 = (_host_us(f) for f in (other_fn, this_fn, this_fn, other_fn))
+    print(f"{tag} {name}, host time a call: other {o1:.1f} / {o2:.1f} us, this {t1:.1f} / "
+          f"{t2:.1f} us")
+
+
+def _other_gt_stats(root: Path):
+    """The ops.gt_stats module of the checkout at ``root``, imported beside
+    this checkout's: while it loads, its pgen_tpu_torch modules stand in
+    sys.modules in place of this checkout's, which are put back after. Its
+    functions keep their own modules (and kernel library) as globals."""
+    import importlib
+
+    def ours():
+        return [k for k in sys.modules if k == "pgen_tpu_torch" or k.startswith("pgen_tpu_torch.")]
+
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(root))
+    try:
+        return importlib.import_module("pgen_tpu_torch.ops.gt_stats")
+    finally:
+        sys.path.remove(str(root))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+def _wrapper_ab(other_root: Path) -> None:
+    """K14's wrapper gt_counts_masked of this checkout against the other's,
+    as the callers run it (the operand made once and passed in), on the
+    --ab cases' records and masks: 65,536 rows of 2504 samples at P = 1, 5
+    and 26, 4,096 and 65,536 rows of 40,003 at P = 1 and 26; outputs held
+    torch.equal, each timed as the launchers are, host time included."""
+    import torch
+
+    from pgen_tpu_torch.ops import gt_stats
+
+    other = _other_gt_stats(other_root)
+    if Path(other.__file__).resolve().parent == Path(gt_stats.__file__).resolve().parent:
+        raise AssertionError("the other checkout's gt_stats is this one's")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    cases = {}
+    for n_samples, rows in ((WIDTHS[0], BLOCK_ROWS), (WIDE, WIDE_PACK_ROWS), (WIDE, BLOCK_ROWS)):
+        records = torch.randint(0, 256, (rows, (n_samples + 3) // 4), dtype=torch.uint8,
+                                device=dev, generator=gen)
+        cohorts, partition = _masked_sets(n_samples)
+        sets = {"P=1": cohorts[:1], f"P={POPULATIONS} (a partition)": partition}
+        if n_samples == WIDTHS[0]:
+            sets[f"P={COHORTS}"] = cohorts
+        for what, ids in sets.items():
+            cases[f"S={n_samples} V={rows} {what}"] = (records, _keep_masks(n_samples, ids, dev))
+    for name, (records, masks) in cases.items():
+        slots = other.slot_masks(masks)
+        words, kept = gt_stats.mask_words(masks), gt_stats.kept_counts(masks)
+
+        def other_fn(records=records, masks=masks, slots=slots):
+            return other.gt_counts_masked(records, masks, slots)
+
+        def this_fn(records=records, masks=masks, words=words, kept=kept):
+            return gt_stats.gt_counts_masked(records, masks, words, kept)
+
+        if not torch.equal(other_fn(), this_fn()):
+            raise AssertionError(f"K14 wrapper {name}: this checkout's counts differ from the "
+                                 "other's")
+        _print_ab("[ab wrapper]", f"K14 gt_counts_masked {name}", other_fn, this_fn)
 
 
 def phase_forms() -> None:
@@ -550,6 +803,8 @@ def main(argv: list) -> int:
         phase_trace()
     elif argv == ["--forms"]:
         phase_forms()
+    elif argv == ["--rates"]:
+        phase_rates()
     else:
         print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace, "
               "--forms or --precision",

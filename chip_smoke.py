@@ -219,6 +219,7 @@ WIDE_GLM_ROWS = 1024  # P = 2: 328 MB of planes, as a 16,384 x 2,454 block holds
 COUNT_WIDTHS = (2497, 2505, 2509)  # K9 at R % 4 = 1, 3, 0 (WIDTHS give 2 and 1)
 REL_ROWS = 1 << 15  # pgen_tpu_torch.ops.king's block: K12's rows per launch
 COHORTS = 5  # K14's keep masks in phase 3's P = 5 cases and phase 10's fst
+POPULATIONS = 26  # K14's keep masks in phase 3's P = 26 cases: 1000 Genomes' populations
 # the card's dense peaks (NVIDIA's H100 SXM data sheet): int8 tensor-core
 # ops, f32 FLOP outside the tensor cores and f64 tensor-core FLOP, per ms
 INT8_OPS_PER_MS = 1979e12 / 1e3
@@ -617,22 +618,33 @@ def _keep_masks(n_samples: int, sets, dev):
     return torch.from_numpy(masks).to(dev)
 
 
+def _partition(n_samples: int, rng) -> list:
+    """A seeded partition of the samples into POPULATIONS labels (1000
+    Genomes' populations, fst's everyday cohorts; some empty at S < 26)."""
+    import numpy as np
+
+    labels = rng.integers(0, POPULATIONS, n_samples)
+    return [np.flatnonzero(labels == p) for p in range(POPULATIONS)]
+
+
 def _cohort_sets(n_samples: int, rng) -> dict:
-    """K14's mask sets: P = 1 (a sorted cohort of 1,001) and P = 5 (that
+    """K14's mask sets: P = 1 (a sorted cohort of 1,001), P = 5 (that
     cohort, every sample, none, a cohort with gaps and a duplicate, and an
-    unsorted one)."""
+    unsorted one) and P = 26 (a partition)."""
     keep = rng.choice(n_samples, min(KEEP_SAMPLES, n_samples), replace=False)
     gaps = [s for s in range(n_samples) if s % 5 != 2] + [0]
     return {1: [sorted(keep)],
-            COHORTS: [sorted(keep), range(n_samples), [], gaps, rng.permutation(n_samples)[::2]]}
+            COHORTS: [sorted(keep), range(n_samples), [], gaps, rng.permutation(n_samples)[::2]],
+            POPULATIONS: _partition(n_samples, rng)}
 
 
 def _masked_cases(dev, gen):
     """K14 against its plain version (torch.equal): at every width of WIDTHS
-    on 65,792 rows (random records, then rows of every byte value), P = 1
-    and 5, each mask's slots past S empty; and at K8's offsets, records 1-15
-    B past a 16-B boundary at S = 2504 and 2503. Returns the largest |err|
-    (0)."""
+    on 65,792 rows (random records, then rows of every byte value), P = 1,
+    5 and 26, each mask's slots past S empty; at K8's offsets, records 1-15
+    B past a 16-B boundary at S = 2504 and 2503; and at S = WIDE on
+    WIDE_PACK_ROWS rows (rows counted in chunks, split over items that add
+    their counts), P = 1 and 26. Returns the largest |err| (0)."""
     import numpy as np
     import torch
 
@@ -653,10 +665,19 @@ def _masked_cases(dev, gen):
                 worst = max(worst, _equal_or_raise(
                     "gt_counts_masked", f"S={s}, P={n_masks}, records {offset} B past",
                     gt_counts_masked(packed, masks), gt_counts_masked_plain(packed, masks)))
+    packed = torch.randint(0, 256, (WIDE_PACK_ROWS, (WIDE + 3) // 4), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    for sets in (_cohort_sets(WIDE, rng)[1], _partition(WIDE, rng)):
+        masks = _keep_masks(WIDE, sets, dev)
+        worst = max(worst, _equal_or_raise(
+            "gt_counts_masked", f"S={WIDE}, V={WIDE_PACK_ROWS}, P={len(sets)}",
+            gt_counts_masked(packed, masks), gt_counts_masked_plain(packed, masks)))
     torch.cuda.synchronize()
-    print(f"[3 kernels] K14 at S={', '.join(map(str, WIDTHS))} (V={rows}, P = 1 and {COHORTS}: a "
-          f"cohort of {KEEP_SAMPLES}, all, none, gaps with a duplicate, unsorted), at S=2504 and "
-          "2503 also on records 1-15 B past a 16-B boundary: equal to its plain version")
+    print(f"[3 kernels] K14 at S={', '.join(map(str, WIDTHS))} (V={rows}, P = 1, {COHORTS} (a "
+          f"cohort of {KEEP_SAMPLES}, all, none, gaps with a duplicate, unsorted) and "
+          f"{POPULATIONS} (a partition)), at S=2504 and 2503 also on records 1-15 B past a 16-B "
+          f"boundary, and at S={WIDE} on {WIDE_PACK_ROWS} rows (P = 1 and {POPULATIONS}): equal "
+          "to its plain version")
     return worst
 
 
@@ -681,9 +702,10 @@ def phase_kernels() -> dict:
         gt_counts_masked,
         gt_counts_masked_plain,
         gt_counts_plain,
+        kept_counts,
+        mask_words,
         sample_counts_device,
         sample_counts_plain,
-        slot_masks,
     )
     from pgen_tpu_torch.ops.pack import (
         pack_codes,
@@ -860,12 +882,14 @@ def phase_kernels() -> dict:
     # K12 at the relatedness block: 32,768 rows, all samples or a sorted
     # cohort of 1,001 (phase 9's --samples-file)
     rel = packed[:REL_ROWS]
-    # K14 at the count paths' block: P = 1 (a cohort of 1,001) and P = 5
-    # cohorts of 1,001, their operand made once as the paths make it
+    # K14 at the count paths' block: P = 1 (a cohort of 1,001), P = 5
+    # cohorts of 1,001 and P = 26 (a partition), their E words and kept
+    # counts made once as the paths make them
     rng = np.random.default_rng(SEED + 3)
     cohort_sets = [sorted(rng.choice(s, KEEP_SAMPLES, replace=False)) for _ in range(COHORTS)]
     masks1, masks5 = (_keep_masks(s, cohort_sets[:p], dev) for p in (1, COHORTS))
-    slots1, slots5 = slot_masks(masks1), slot_masks(masks5)
+    masks26 = _keep_masks(s, _partition(s, rng), dev)
+    ops1, ops5, ops26 = ((mask_words(m), kept_counts(m)) for m in (masks1, masks5, masks26))
     planes_bytes = 4 * plane_shape(REL_ROWS, s)[0] * plane_shape(REL_ROWS, s)[1]
     keep_planes = 4 * plane_shape(REL_ROWS, KEEP_SAMPLES)[0] * plane_shape(REL_ROWS, KEEP_SAMPLES)[1]
     shapes = {
@@ -974,13 +998,17 @@ def phase_kernels() -> dict:
             _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 8)),
         # the record bytes that hold a kept sample of any mask, the masks and
         # the (V, P, 4) int32 counts
-        "gt_counts_masked": (lambda: gt_counts_masked(packed, masks1, slots1),
+        "gt_counts_masked": (lambda: gt_counts_masked(packed, masks1, *ops1),
                              lambda: gt_counts_masked_plain(packed, masks1), None,
                              _kept_bytes(BLOCK_ROWS, masks1) + BLOCK_ROWS * 16),
-        f"gt_counts_masked P={COHORTS}": (lambda: gt_counts_masked(packed, masks5, slots5),
+        f"gt_counts_masked P={COHORTS}": (lambda: gt_counts_masked(packed, masks5, *ops5),
                                           lambda: gt_counts_masked_plain(packed, masks5), None,
                                           _kept_bytes(BLOCK_ROWS, masks5)
                                           + BLOCK_ROWS * 16 * COHORTS),
+        f"gt_counts_masked P={POPULATIONS}": (lambda: gt_counts_masked(packed, masks26, *ops26),
+                                              lambda: gt_counts_masked_plain(packed, masks26), None,
+                                              _kept_bytes(BLOCK_ROWS, masks26)
+                                              + BLOCK_ROWS * 16 * POPULATIONS),
     }
     times = {}
     for name, (kernel, plain, library, nbytes) in cases.items():

@@ -784,91 +784,382 @@ __global__ void __launch_bounds__(kThreads, 4)
 // cohort-aware path: the GT_* variables of a variant query under a sample
 // query, the reports with a sample query, fst's cohorts, score --center and
 // genome's frequencies on a cohort.
-// (V, R) u8 records and P keep masks -> (V, P, 4) int32:
-// counts[v][p][c] = #{slots s kept by mask p : code(v, s) == c}.
-// The masks arrive expanded (ops/gt_stats.py:slot_masks): bit k of a mask's
-// 4-bit byte as bit 2k, the low bit of its slot, so a counted slot is an
-// AND; and each mask 16 times, copy L with its byte j at offset L + j of a
-// zeroed row of W 16-B words. A row whose first byte lies L bytes past a
-// 16-B boundary reads its aligned 16-B word w and copy L's word w, which
-// holds the same row bytes' mask: no shift follows a row's offset, and the
-// bytes of the neighbouring rows, before the row's first and past its last
-// byte, meet zero mask bytes.
-// Bound: memory, one read of each record byte that holds a kept sample (the
-// masks, 16 P W bytes, stay in L1/L2): a 65,536-row block of 626 B reads at
-// most 41 MB, 0.0123 ms at 3.35 TB/s.
-// Design: K8's loads (a warp a row, lanes on consecutive aligned 16-B
-// words, two words a lane in flight) and its paired popcounts, with the
-// keep mask m in place of K8's slot mask: L = popc(x & m), H = popc((x >>
-// 1) & m), B = popc(x & (x >> 1) & m), K = popc(m); c0 = K - L - H + B,
-// c1 = L - B, c2 = H - B, c3 = B. A warp takes kMaskPass masks a pass over
-// its row (later passes read the row from L1), four sums each, reduced with
-// __reduce_add_sync. A simple form that is right: it reads the whole row
-// whatever the masks keep.
-constexpr int kMaskPass = 4;
+// (V, R) u8 records, P <= 32 keep masks as E words (ops/gt_stats.py:
+// mask_words: bit k of mask byte j at bit 2k of byte j, the low bit of its
+// slot; each mask's row padded with zeros to a multiple of 32 B) and their
+// kept counts K_p -> (V, P, 4) int32: counts[v][p][c] =
+// #{slots s kept by mask p : code(v, s) == c}.
+// Bound: memory, one read of each record byte that holds a kept sample and
+// 16 P B of counts a row: a 65,536-row block of 626 B at P = 1 (a sorted
+// cohort of 1,001) moves 36.6 MB, 0.0109 ms at 3.35 TB/s; at P = 26 (a
+// partition of 2504 samples) 68.3 MB, 0.0204 ms.
+// Design: with L = #(kept, low bit set), H = #(kept, high bit set) and B =
+// #(kept, both set), c0 = K_p - L - H + B, c1 = L - B, c2 = H - B, c3 = B;
+// over a row's words x, L = popc(x & E_p), H = popc(x & E_p << 1) and B =
+// popc(x & x >> 1 & E_p): a binary product of the rows by the masks.
+// - Staging: a block takes tiles of kMaskedRows consecutive rows through
+//   kMaskedStages buffers in shared memory, filled by bulk copies (the
+//   tensor memory accelerator, completing on an mbarrier) that a producer
+//   warp issues up to kMaskedStages steps ahead of the four counting warps
+//   (full and empty barriers a stage, no block-wide barrier in the loop).
+//   Rows of up to kMaskedWholeRow bytes: one copy of the aligned 16-B
+//   words that hold a tile, the masks' E words copied once per block.
+//   Longer rows: kMaskedChunk-byte chunks of their columns, each row's
+//   chunk copied into a slot of its own, the masks' E words of the chunk
+//   beside it; a block counts the chunks of a tile in turn into the same
+//   registers (enough tiles: all of a tile's chunks, then plain stores;
+//   few: groups of chunks, each adding its counts to zeroed counts with
+//   atomics). A row is read at its byte offset by funnel shifts, so one
+//   copy of each mask's E words serves every row. Per-thread 16-B cp.async
+//   staging was slower at every P; with warp 0 both staging and counting
+//   and a __syncthreads a step, copies and counting barely overlapped (on
+//   rows of 40,003 samples at one mask the two together took about the
+//   sum of each alone, and lost to a warp a row reading global memory).
+// - Counting: a warp takes 16 rows and, per 32 record bytes and for each
+//   eight masks, three mma.sync m16n8k256 .b1 AND-POPC: the rows' words
+//   against (E_p, E_p << 1) of masks 0-3 and of masks 4-7 (L and H; the
+//   second skipped when P <= 4), and the rows' x & x >> 1 against E_p of
+//   all eight (B), its columns ordered so that each lane ends with L, H
+//   and B of the same two masks for two rows: every mask of the launch in
+//   one pass over the row, no reduction, no popcount. The kernel is built
+//   for one, two or four eights of masks, so few masks hold few registers.
+//   The card runs these products at 10 POPS (chip_diag.py --rates): they
+//   do not bind. A CUDA-core popcount form (6 popcounts a 16-B word and
+//   mask) only tied it at one mask and lost from two on.
+constexpr int kMaskedRows = 64;           // rows of a staged tile
+constexpr int kMaskedMaxMasks = 32;       // keep masks of one launch
+constexpr int64_t kMaskedWholeRow = 640;  // record bytes of a row staged whole
+constexpr int64_t kMaskedChunk = 512;     // record bytes of a chunk of a longer row
+constexpr int kMaskedStages = 2;          // tiles of a block in shared memory
+constexpr int kMaskedThreads = kWarp * kMaskedRows / 16;  // a warp for each 16 rows
+constexpr int kMaskedFits = 4;            // launch shapes the launcher keeps
 
-// Adds the K, L, H and B of the slots of one 16-B word x kept by the
-// expanded mask word m (bits at even positions only, so two u32s' bits
-// share one popcount as in count_word).
-__device__ __forceinline__ void count_masked_word(uint4 x, uint4 m, uint32_t& kept, uint32_t& l,
-                                                  uint32_t& h, uint32_t& both) {
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-  const uint32_t k[4] = {m.x, m.y, m.z, m.w};
-#pragma unroll
-  for (int q = 0; q < 4; q += 2) {
-    const uint32_t lo0 = w[q] & k[q], hi0 = (w[q] >> 1) & k[q];
-    const uint32_t lo1 = w[q + 1] & k[q + 1], hi1 = (w[q + 1] >> 1) & k[q + 1];
-    kept += __popc(k[q] | (k[q + 1] << 1));
-    l += __popc(lo0 | (lo1 << 1));
-    h += __popc(hi0 | (hi1 << 1));
-    both += __popc((lo0 & hi0) | ((lo1 & hi1) << 1));
+struct MaskedArgs {
+  const uint8_t* packed;
+  const uint32_t* words;  // (P, word_stride) E words of the masks
+  const int* kept;
+  int4* counts;
+  int64_t n_var, rec;
+  int n_items;             // an item: a tile's group of chunks
+  int n_masks, mask_rows;  // mask_rows: masks in shared memory (zero past n_masks)
+  int chunk, n_chunks;     // record bytes of a chunk (R when a row is whole), chunks a row
+  int group, n_groups;     // chunks an item counts, items a tile (more than one: atomics)
+  int pitch;               // bytes of a row's slot in shared memory (rows in chunks)
+  int tile_bytes;          // bytes of a staged tile
+  int word_stride;         // E words of a mask in the operand: 8 ceil(R / 32)
+  int mask_stride;         // u32 between masks in shared memory
+  int n_mbufs;             // mask buffers: 1 (whole rows) or kMaskedStages
+};
+
+// A launch shape the card was asked about: device, dynamic shared memory,
+// kernel and the blocks of that shape it holds at once.
+struct MaskedFit {
+  int device = -1, smem = 0;
+  void (*kernel)(MaskedArgs) = nullptr;
+  int64_t blocks = 0;
+};
+
+// A step of a block: chunk c of an item (tile `unit`, chunks [c0, end)),
+// the item's tile and range worked out once per item.
+struct MaskedStep {
+  int item, unit, c, end;
+  bool first;  // the item holds chunk 0 (it brings K_p)
+};
+
+__device__ __forceinline__ MaskedStep item_step(const MaskedArgs& a, int item) {
+  MaskedStep s;
+  const int group = a.n_groups == 1 ? 0 : item % a.n_groups;
+  s.item = item;
+  s.unit = a.n_groups == 1 ? item : item / a.n_groups;
+  s.c = group * a.group;
+  s.end = s.c + a.group < a.n_chunks ? s.c + a.group : a.n_chunks;
+  s.first = group == 0;
+  return s;
+}
+
+// The step after s in the block's order: the item's next chunk, else the
+// first chunk of the block's next item.
+__device__ __forceinline__ void next_step(const MaskedArgs& a, MaskedStep& s) {
+  if (++s.c == s.end) s = item_step(a, s.item + static_cast<int>(gridDim.x));
+}
+
+// Row v's chunk c: its first record byte, and its byte count.
+__device__ __forceinline__ const uint8_t* chunk_start(const MaskedArgs& a, int64_t v, int c) {
+  return a.packed + v * a.rec + static_cast<int64_t>(c) * a.chunk;
+}
+
+__device__ __forceinline__ int chunk_len(const MaskedArgs& a, int c) {
+  const int64_t left = a.rec - static_cast<int64_t>(c) * a.chunk;
+  return static_cast<int>(left < a.chunk ? left : a.chunk);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The stage's barrier expects `bytes` more of its copies, and the calling
+// thread arrives on it.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy (the tensor memory accelerator) of `bytes` (a multiple of
+// 16, both addresses 16-B aligned) that completes on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred ready;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 ready, [%0], %1;\n"
+      "@!ready bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Starts the copies of step s into a stage (tile, mbuf), completing on bar;
+// called by the producer warp. Whole rows: one copy of the aligned 16-B words that
+// hold the tile's rows, row r's first byte at row_offset. Rows in chunks:
+// each row's chunk into a slot of its own, one copy a row. The masks' E
+// words of the chunk, 32 ceil(len / 32) bytes of each mask (inside its
+// padded row of the operand), when `masks`. An aligned 16-B word holding a
+// byte of the tensor lies inside its allocation, as in K8.
+__device__ void stage_step(const MaskedArgs& a, uint8_t* tile, uint32_t* mbuf, MaskedStep s,
+                           bool masks, uint64_t* bar) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t v0 = static_cast<int64_t>(s.unit) * kMaskedRows;
+  const int64_t rows = a.n_var - v0 < kMaskedRows ? a.n_var - v0 : kMaskedRows;
+  const int len = chunk_len(a, s.c);
+  const uint32_t mask_bytes = static_cast<uint32_t>(32 * ((len + 31) / 32));
+  // whatever the stage held was read before the consumers released it
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const uint8_t* first = a.packed + v0 * a.rec;
+  const uint8_t* base = first - (reinterpret_cast<uintptr_t>(first) & 15);
+  uint32_t whole = 0, mine = 0;
+  if (a.n_chunks == 1) {
+    whole = static_cast<uint32_t>((first + rows * a.rec - base + 15) / 16 * 16);
+    mine = lane == 0 ? whole : 0;
+  } else {
+    for (int r = lane; r < rows; r += kWarp) {
+      const uint8_t* src = chunk_start(a, v0 + r, s.c);
+      mine += static_cast<uint32_t>(((reinterpret_cast<uintptr_t>(src) & 15) + len + 15) / 16 * 16);
+    }
+  }
+  if (masks) {
+    for (int p = lane; p < a.n_masks; p += kWarp) mine += mask_bytes;
+  }
+  const uint32_t total = __reduce_add_sync(0xFFFFFFFFu, mine);
+  if (lane == 0) expect_bytes(bar, total);
+  __syncwarp();
+  if (a.n_chunks == 1) {
+    if (lane == 0) bulk_copy(tile, base, whole, bar);
+  } else {
+    for (int r = lane; r < rows; r += kWarp) {
+      const uint8_t* src = chunk_start(a, v0 + r, s.c);
+      const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+      bulk_copy(tile + r * a.pitch, src - lead, static_cast<uint32_t>((lead + len + 15) / 16 * 16),
+                bar);
+    }
+  }
+  if (masks) {
+    for (int p = lane; p < a.n_masks; p += kWarp) {
+      bulk_copy(mbuf + p * a.mask_stride,
+                a.words + static_cast<int64_t>(p) * a.word_stride + s.c * (a.chunk / 4),
+                mask_bytes, bar);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    gt_counts_masked_kernel(const uint8_t* __restrict__ packed, const uint4* __restrict__ slots,
-                            int4* __restrict__ counts, int64_t n_var, int64_t rec, int n_masks,
-                            int64_t copy_words) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
-  // v is the same for every lane of a warp, so the whole warp takes part in
-  // each reduction
-  for (int64_t v = first_index() / kWarp; v < n_var; v += warps) {
-    const uint8_t* row = packed + v * rec;
-    const int64_t lead = static_cast<int64_t>(reinterpret_cast<uintptr_t>(row) & 15);
-    const uint4* base = reinterpret_cast<const uint4*>(row - lead);  // 16-B aligned
-    const int64_t n_words = (lead + rec + 15) / 16;
-    const uint4* copy = slots + lead * n_masks * copy_words;  // copy L of every mask
-    for (int p0 = 0; p0 < n_masks; p0 += kMaskPass) {
-      uint32_t kept[kMaskPass], l[kMaskPass], h[kMaskPass], both[kMaskPass];
+// Byte offset in its tile of row r's first byte of chunk c (unit's rows).
+__device__ __forceinline__ int row_offset(const MaskedArgs& a, int64_t unit, int c, int r) {
+  if (a.n_chunks == 1) {
+    const uint8_t* first = a.packed + unit * kMaskedRows * a.rec;
+    return static_cast<int>(reinterpret_cast<uintptr_t>(first) & 15) + r * static_cast<int>(a.rec);
+  }
+  const uint8_t* src = chunk_start(a, unit * kMaskedRows + r, c);
+  return r * a.pitch + static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+}
+
+// Word w of the row whose first byte is byte `off` of the tile: two
+// aligned u32 and a funnel shift.
+__device__ __forceinline__ uint32_t row_word(const uint32_t* tile, int off, int w) {
+  const int at = (off >> 2) + w;
+  return __funnelshift_r(tile[at], tile[at + 1], 8 * (off & 3));
+}
+
+// d += popc(A & B) over 256 bits: A 16 rows (a0, a2 row g; a1, a3 row g +
+// 8; words t and t + 4 of the 32 bytes), B 8 columns (b0, b1: column g,
+// words t and t + 4), lane = 4 g + t; d: rows g, g + 8 x columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const uint32_t (&x)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(b0), "r"(b1));
+}
+
+// The products' sums of a lane: L, H and B of kOcts eights of masks (1, 2
+// or 4) for two rows.
+template <int kOcts>
+using MaskedAcc = int[kOcts][3][4];
+
+template <int kOcts>
+__device__ __forceinline__ void clear_acc(MaskedAcc<kOcts>& acc) {
 #pragma unroll
-      for (int q = 0; q < kMaskPass; ++q) kept[q] = l[q] = h[q] = both[q] = 0;
-      for (int64_t w = lane; w < n_words; w += 2 * kWarp) {
-        const bool second = w + kWarp < n_words;
-        const uint4 x0 = __ldg(base + w);
-        const uint4 x1 = second ? __ldg(base + w + kWarp) : make_uint4(0u, 0u, 0u, 0u);
+  for (int m = 0; m < kOcts; ++m)
 #pragma unroll
-        for (int q = 0; q < kMaskPass; ++q) {
-          if (p0 + q < n_masks) {
-            const uint4* mask = copy + (p0 + q) * copy_words;
-            count_masked_word(x0, __ldg(mask + w), kept[q], l[q], h[q], both[q]);
-            if (second) count_masked_word(x1, __ldg(mask + w + kWarp), kept[q], l[q], h[q], both[q]);
+    for (int k = 0; k < 3; ++k) acc[m][k][0] = acc[m][k][1] = acc[m][k][2] = acc[m][k][3] = 0;
+}
+
+// Warp w adds the counts of chunk c of tile rows 16 w .. 16 w + 15 against
+// every mask to acc. Per eight masks 8m..8m+7 three products: columns
+// (E_p, E_p << 1) of masks 8m + 0..3 and of 8m + 4..7 give L and H,
+// columns E_p of masks 8m + (0, 4, 1, 5, 2, 6, 3, 7) against x & x >> 1
+// give B, so lane 4g + t holds L, H and B of masks 8m + t and 8m + 4 + t
+// for rows g and g + 8.
+template <int kOcts>
+__device__ __forceinline__ void count_masked(const MaskedArgs& a, const uint8_t* tile,
+                                             const uint32_t* mbuf, int64_t unit, int c,
+                                             MaskedAcc<kOcts>& acc) {
+  const int len = chunk_len(a, c);
+  const int lane = threadIdx.x % kWarp, g = lane / 4, t = lane % 4;
+  const int r = 16 * (threadIdx.x / kWarp) + g;
+  const int64_t v = unit * kMaskedRows + r;
+  const int off[2] = {v < a.n_var ? row_offset(a, unit, c, r) : 0,
+                      v + 8 < a.n_var ? row_offset(a, unit, c, r + 8) : 0};
+  const uint32_t* tile32 = reinterpret_cast<const uint32_t*>(tile);
+  const int n_oct = (a.n_masks + 7) / 8;
+  // B-plane columns: column g is mask 8m + g / 2 + 4 (g % 2)
+  const int lh0 = (g / 2) * a.mask_stride, lh1 = (4 + g / 2) * a.mask_stride;
+  const int bp = (g / 2 + 4 * (g % 2)) * a.mask_stride;
+  const int odd = g % 2;
+  for (int w = t; w < 8 * ((len + 31) / 32); w += 8) {
+    const uint32_t x[4] = {row_word(tile32, off[0], w), row_word(tile32, off[1], w),
+                           row_word(tile32, off[0], w + 4), row_word(tile32, off[1], w + 4)};
+    const uint32_t xb[4] = {x[0] & (x[0] >> 1), x[1] & (x[1] >> 1), x[2] & (x[2] >> 1),
+                            x[3] & (x[3] >> 1)};
+#pragma unroll
+    for (int m = 0; m < kOcts; ++m) {
+      if (m < n_oct) {
+        const uint32_t* e = mbuf + 8 * m * a.mask_stride + w;
+        mma_and_popc(acc[m][0], x, e[lh0] << odd, e[lh0 + 4] << odd);
+        // masks 4..7, none when P <= 4; tested only in the one-eight
+        // kernel, so the others keep their products free of branches
+        if (kOcts > 1 || 4 < a.n_masks) {
+          mma_and_popc(acc[m][1], x, e[lh1] << odd, e[lh1 + 4] << odd);
+        }
+        mma_and_popc(acc[m][2], xb, e[bp], e[bp + 4]);
+      }
+    }
+  }
+}
+
+// Stores (or, when a tile has several items, adds) the counts of this
+// lane's rows and masks from acc, then clears acc; the item holding chunk
+// 0 brings K_p.
+template <int kOcts>
+__device__ __forceinline__ void put_counts(const MaskedArgs& a, const MaskedStep& step,
+                                           MaskedAcc<kOcts>& acc) {
+  const int lane = threadIdx.x % kWarp, g = lane / 4, t = lane % 4;
+  const int64_t v0 = static_cast<int64_t>(step.unit) * kMaskedRows + 16 * (threadIdx.x / kWarp) + g;
+#pragma unroll
+  for (int m = 0; m < kOcts; ++m) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 8 * m + 4 * half + t;
+        const int64_t v = v0 + 8 * s;
+        if (p < a.n_masks && v < a.n_var) {
+          const int l = acc[m][half][2 * s], h = acc[m][half][2 * s + 1];
+          const int both = acc[m][2][2 * s + half];
+          const int k = step.first ? __ldg(a.kept + p) : 0;
+          const int4 out = make_int4(k - l - h + both, l - both, h - both, both);
+          int4* at = a.counts + v * a.n_masks + p;
+          if (a.n_groups == 1) {
+            *at = out;
+          } else {
+            int* sum = reinterpret_cast<int*>(at);
+            atomicAdd(sum, out.x);
+            atomicAdd(sum + 1, out.y);
+            atomicAdd(sum + 2, out.z);
+            atomicAdd(sum + 3, out.w);
           }
         }
       }
-#pragma unroll
-      for (int q = 0; q < kMaskPass; ++q) {
-        kept[q] = __reduce_add_sync(0xFFFFFFFFu, kept[q]);
-        l[q] = __reduce_add_sync(0xFFFFFFFFu, l[q]);
-        h[q] = __reduce_add_sync(0xFFFFFFFFu, h[q]);
-        both[q] = __reduce_add_sync(0xFFFFFFFFu, both[q]);
-        if (lane == q && p0 + q < n_masks) {
-          counts[v * n_masks + p0 + q] = make_int4(
-              static_cast<int>(kept[q] - l[q] - h[q] + both[q]), static_cast<int>(l[q] - both[q]),
-              static_cast<int>(h[q] - both[q]), static_cast<int>(both[q]));
-        }
-      }
     }
+  }
+  clear_acc(acc);
+}
+
+// kOcts: the eights of masks a launch counts, rounded up to 1, 2 or 4.
+// Warps 0-3 count (consumers), warp 4 only stages (the producer): stage k
+// is full when its copies land (full[k]) and empty when every consumer
+// warp has read it (empty[k]), so the copies run up to kMaskedStages steps
+// ahead of the counting and nothing else holds either side.
+template <int kOcts>
+__global__ void __launch_bounds__(kMaskedThreads + kWarp) gt_counts_masked_kernel(MaskedArgs a) {
+  // kMaskedStages tiles, n_mbufs buffers of the masks' E words, then the
+  // full and the empty barrier of each stage
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + kMaskedStages * a.tile_bytes);
+  const int mbuf_words = a.mask_rows * a.mask_stride;
+  uint64_t* full = reinterpret_cast<uint64_t*>(masks + a.n_mbufs * mbuf_words);
+  uint64_t* empty = full + kMaskedStages;
+  if (static_cast<int>(blockIdx.x) >= a.n_items) return;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kMaskedStages; ++k) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(full + k)));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(empty + k)),
+                   "r"(kMaskedThreads / kWarp));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the mask rows past n_masks, which no copy writes, count nothing
+  const int pad = (a.mask_rows - a.n_masks) * a.mask_stride;
+  for (int i = threadIdx.x; i < a.n_mbufs * pad; i += blockDim.x) {
+    masks[(i / pad) * mbuf_words + a.n_masks * a.mask_stride + i % pad] = 0;
+  }
+  __syncthreads();
+  const auto mbuf = [&](int stage) { return masks + (a.n_mbufs == 1 ? 0 : stage) * mbuf_words; };
+  // steps j = 0, 1, ... of the block, step j in stage j % kMaskedStages
+  const MaskedStep start = item_step(a, static_cast<int>(blockIdx.x));
+  if (threadIdx.x >= kMaskedThreads) {
+    MaskedStep fill = start;
+    for (int j = 0; fill.item < a.n_items; ++j) {
+      const int k = j % kMaskedStages;
+      // the consumers read this stage's step j - kMaskedStages
+      if (j >= kMaskedStages) {
+        wait_parity(empty + k, static_cast<uint32_t>((j / kMaskedStages - 1) & 1));
+      }
+      stage_step(a, smem + k * a.tile_bytes, mbuf(k), fill, a.n_chunks > 1 || j == 0, full + k);
+      next_step(a, fill);
+    }
+    return;
+  }
+  MaskedAcc<kOcts> acc;
+  clear_acc(acc);
+  MaskedStep cur = start;
+  for (int j = 0; cur.item < a.n_items; ++j) {
+    const int k = j % kMaskedStages;
+    wait_parity(full + k, static_cast<uint32_t>((j / kMaskedStages) & 1));
+    count_masked(a, smem + k * a.tile_bytes, mbuf(k), cur.unit, cur.c, acc);
+    __syncwarp();
+    if (threadIdx.x % kWarp == 0) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(empty + k))
+                   : "memory");
+    }
+    const MaskedStep done = cur;
+    next_step(a, cur);
+    if (cur.item != done.item) put_counts(a, done, acc);
   }
 }
 
@@ -1831,23 +2122,106 @@ int pgen_gt_counts(const void* packed, void* counts, int64_t n_var,
   return static_cast<int>(cudaGetLastError());
 }
 
-int pgen_gt_counts_masked(const void* packed, const void* slots, void* counts, int64_t n_var,
-                          int64_t rec, int64_t n_masks, int64_t copy_words, void* stream) {
+int pgen_gt_counts_masked(const void* packed, const void* words, const void* kept, void* counts,
+                          int64_t n_var, int64_t rec, int64_t n_masks, void* stream) {
   if (n_var <= 0 || rec <= 0 || n_masks <= 0) return 0;
   if (reinterpret_cast<uintptr_t>(counts) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(slots) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(words) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(kept) % 4 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  // every row's words, at any lead, inside a copy
-  if (16 * copy_words < rec + 15 || n_masks > (int64_t{1} << 30)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_masks > kMaskedMaxMasks) return static_cast<int>(cudaErrorInvalidValue);
+  MaskedArgs a;
+  a.packed = static_cast<const uint8_t*>(packed);
+  a.words = static_cast<const uint32_t*>(words);
+  a.kept = static_cast<const int*>(kept);
+  a.counts = static_cast<int4*>(counts);
+  a.n_var = n_var;
+  a.rec = rec;
+  a.n_masks = static_cast<int>(n_masks);
+  a.chunk = static_cast<int>(rec <= kMaskedWholeRow ? rec : kMaskedChunk);
+  a.n_chunks = static_cast<int>((rec + a.chunk - 1) / a.chunk);
+  a.mask_rows = 8 * ((a.n_masks + 7) / 8);
+  a.n_mbufs = a.n_chunks == 1 ? 1 : kMaskedStages;
+  // whole 32-B products; a mask row 4 (mod 8) words apart from the next, so
+  // the lanes of a warp read its E words from distinct banks
+  const int span = 32 * ((a.chunk + 31) / 32);
+  a.word_stride = static_cast<int>(8 * ((rec + 31) / 32));
+  a.mask_stride = span / 4 + 4;
+  // a row's slot (rows in chunks): its lead bytes, its words, and those its
+  // last funnel shift reads past them; an odd number of 16-B pieces. Whole
+  // rows: the tile's lead bytes, its rows, and the same words past them
+  a.pitch = 16 * ((15 + span + 8 + 15) / 16);
+  if (a.pitch % 32 == 0) a.pitch += 16;
+  a.tile_bytes = a.n_chunks == 1
+                     ? static_cast<int>(16 * ((15 + (kMaskedRows - 1) * rec + span + 8 + 15) / 16))
+                     : kMaskedRows * a.pitch;
+  const int smem = kMaskedStages * a.tile_bytes + 4 * a.n_mbufs * a.mask_rows * a.mask_stride +
+                   16 * kMaskedStages;
+  const int n_oct = (a.n_masks + 7) / 8;
+  const auto kernel = n_oct == 1   ? gt_counts_masked_kernel<1>
+                      : n_oct == 2 ? gt_counts_masked_kernel<2>
+                                   : gt_counts_masked_kernel<4>;
+  // the blocks the card holds at once for each of the last kMaskedFits
+  // kernels and shared-memory sizes asked of it (they vary with R and
+  // ceil(P / 8)): the attribute and the occupancy query took host time
+  // from every launch otherwise. The attribute is set to the card's most,
+  // so it holds for every size kept.
+  static MaskedFit fits[kMaskedFits];
+  static int next_fit = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const MaskedFit* found = nullptr;
+  for (const MaskedFit& f : fits) {
+    if (f.device == device && f.smem == smem && f.kernel == kernel) found = &f;
   }
-  const int64_t rows_per_block = kThreads / kWarp;
-  const int64_t blocks = (n_var + rows_per_block - 1) / rows_per_block;
-  gt_counts_masked_kernel<<<static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks),
-                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const uint4*>(slots),
-      static_cast<int4*>(counts), n_var, rec, static_cast<int>(n_masks), copy_words);
+  if (found == nullptr) {
+    int most = 0, sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMaskedThreads + kWarp,
+                                                          smem);
+    }
+    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+    if (err != cudaSuccess) return static_cast<int>(err);
+    MaskedFit& slot = fits[next_fit];
+    next_fit = (next_fit + 1) % kMaskedFits;
+    slot = MaskedFit{device, smem, kernel, static_cast<int64_t>(sms) * per_sm};
+    found = &slot;
+  }
+  const int64_t blocks = found->blocks;
+  // chunks an item counts: the fewest steps of the busiest block, with a
+  // step more an item for its stores and its pipeline's fill (so all of a
+  // tile's chunks in one item, and no atomics, wherever the tiles fill the
+  // card)
+  const int64_t n_tiles = (n_var + kMaskedRows - 1) / kMaskedRows;
+  int64_t best = -1;
+  for (int g = a.n_chunks; g >= 1; --g) {
+    const int64_t items = n_tiles * ((a.n_chunks + g - 1) / g);
+    const int64_t cost = (items + blocks - 1) / blocks * (g + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      a.group = g;
+    }
+  }
+  a.n_groups = (a.n_chunks + a.group - 1) / a.group;
+  // items and the grid stride past the last count in int
+  if (n_tiles * a.n_groups > INT32_MAX - blocks) return static_cast<int>(cudaErrorInvalidValue);
+  a.n_items = static_cast<int>(n_tiles * a.n_groups);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (a.n_groups > 1) {  // every item adds its counts
+    err = cudaMemsetAsync(counts, 0, 16 * n_var * n_masks, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(a.n_items < blocks ? a.n_items : blocks), kMaskedThreads + kWarp,
+           smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

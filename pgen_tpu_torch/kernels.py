@@ -92,7 +92,7 @@ def load() -> ctypes.CDLL:
     lib.pgen_text_from_codes.argtypes = [ptr, ptr, i64, i64, ptr]
     lib.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
     lib.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
-    lib.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
     lib.pgen_glm_planes.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.pgen_score_dosage.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.pgen_grm_z.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]

@@ -29,9 +29,12 @@ launches the kernel, a CPU tensor runs the plain PyTorch version beside it.
   for pgen_tpu's host ``gt_counts_subset`` (a 4-bit keep mask per record
   byte, ``sample_byte_masks``, then the native C++ or a LUT): each
   variant's histogram over the samples each of P keep masks keeps, all P
-  from one read of the records (fst counts every cohort at once). K8's
-  loads and popcounts, the keep mask's expanded words (``slot_masks``) in
-  place of K8's slot masks.
+  from one read of the records (fst counts every cohort at once). Tiles of
+  rows staged in shared memory, each row read at its own byte offset, so
+  one copy of each mask (its E words, ``mask_words``) serves every row;
+  the masks' E words and kept counts K_p (``kept_counts``) are made here.
+  The counts are binary products on the tensor cores (``mma.sync`` .b1
+  AND-POPC).
 
 ``gt_counts``, ``sample_counts`` and ``gt_counts_subset``/``gt_counts_subsets``
 stream a memory-mapped (V, R) record matrix through one staging tensor
@@ -56,8 +59,8 @@ from pgen_tpu_torch.ops.unpack import check_packed, unpack_codes_plain
 COUNT_BLOCK_ROWS = 1 << 16
 # The kernels count in int32; a call of fewer rows cannot overflow one.
 _MAX_ROWS = (1 << 31) - 1
-# Keep masks a K14 launch counts: more sample sets go in several launches,
-# so a block's (rows, masks, 4) counts stay within 33 MB.
+# Keep masks a K14 launch counts (csrc/genotype.cu:kMaskedMaxMasks): more
+# sample sets go in several launches.
 MAX_MASKS = 32
 
 
@@ -121,20 +124,27 @@ def _check_masks(masks, packed: torch.Tensor) -> int:
     return masks.shape[0]
 
 
-def slot_masks(masks: torch.Tensor) -> torch.Tensor:
+def kept_counts(masks: torch.Tensor) -> torch.Tensor:
+    """(P, R) u8 keep masks -> (P,) int32: the slots each mask keeps, the
+    popcount of bits 0-3 of its bytes (K_p, from which K14 makes each
+    count of code 0)."""
+    shifts = torch.arange(4, dtype=torch.int32, device=masks.device)
+    bits = (masks.to(torch.int32).unsqueeze(-1) >> shifts) & 1
+    return bits.sum((1, 2), dtype=torch.int32)
+
+
+def mask_words(masks: torch.Tensor) -> torch.Tensor:
     """(P, R) u8 keep masks (bit k of byte j keeps slot k of record byte j,
-    as ``sample_byte_masks`` makes them) -> K14's (16, P, W) u8 operand,
-    W = 16 * ceil((R + 15) / 16): each bit k moved to bit 2k, its slot's
-    low bit, and copy L holding every mask at byte offset L of a zeroed
-    row, for the records whose first byte lies L bytes past a 16-B
-    boundary. Its W bytes cover such a record's aligned 16-B words."""
+    as ``sample_byte_masks`` makes them) -> K14's (P, 8 ceil(R / 32)) int32
+    operand: each mask's E words, bit k of byte j moved to bit 2k of byte j
+    (the low bit of its slot, so x & E counts a record word x's kept low
+    bits), zero past R, each mask's row a whole number of 32-B products
+    (K14 copies a chunk's words, rounded up to 32 B, from inside it)."""
     n_masks, rec = masks.shape
-    width = 16 * ((rec + 30) // 16)
     spread = (masks & 1) | ((masks & 2) << 1) | ((masks & 4) << 2) | ((masks & 8) << 3)
-    out = torch.zeros((16, n_masks, width), dtype=torch.uint8, device=masks.device)
-    for lead in range(16):
-        out[lead, :, lead : lead + rec] = spread
-    return out
+    out = torch.zeros((n_masks, 32 * ((rec + 31) // 32)), dtype=torch.uint8, device=masks.device)
+    out[:, :rec] = spread
+    return out.view(torch.int32)
 
 
 def gt_counts_masked_plain(packed: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -149,13 +159,14 @@ def gt_counts_masked_plain(packed: torch.Tensor, masks: torch.Tensor) -> torch.T
     return torch.stack(per_mask, 1).reshape(n_var, masks.shape[0], 4)
 
 
-def gt_counts_masked(packed: torch.Tensor, masks: torch.Tensor,
-                     slots: torch.Tensor | None = None) -> torch.Tensor:
-    """(V, R) u8 packed records and (P, R) u8 keep masks on one device ->
-    (V, P, 4) int32: counts[v, p, c] = #{slots kept by mask p whose code in
-    record v is c}, on the input's device. ``slots`` is ``slot_masks(masks)``
-    when the caller keeps it across calls (K14 reads it; the plain version
-    reads the masks)."""
+def gt_counts_masked(packed: torch.Tensor, masks: torch.Tensor, words: torch.Tensor | None = None,
+                     kept: torch.Tensor | None = None) -> torch.Tensor:
+    """(V, R) u8 packed records and (P, R) u8 keep masks on one device, P <=
+    ``MAX_MASKS`` on CUDA -> (V, P, 4) int32: counts[v, p, c] = #{slots
+    kept by mask p whose code in record v is c}, on the input's device.
+    ``words`` and ``kept`` are ``mask_words(masks)`` and
+    ``kept_counts(masks)`` when the caller keeps them across calls (K14
+    reads them; the plain version reads the masks alone)."""
     n_var, rec = check_packed(packed)
     n_masks = _check_masks(masks, packed)
     if n_var > _MAX_ROWS:
@@ -164,16 +175,19 @@ def gt_counts_masked(packed: torch.Tensor, masks: torch.Tensor,
         return torch.zeros((n_var, n_masks, 4), dtype=torch.int32, device=packed.device)
     if packed.device.type == "cpu":
         return gt_counts_masked_plain(packed, masks)
-    if slots is None:
-        slots = slot_masks(masks)
-    width = 16 * ((rec + 30) // 16)
-    if (slots.dtype != torch.uint8 or tuple(slots.shape) != (16, n_masks, width)
-            or not slots.is_contiguous() or slots.device != packed.device):
-        raise ValueError(f"slots must be slot_masks(masks): contiguous (16, {n_masks}, {width}) "
-                         f"uint8 on {packed.device}")
+    if n_masks > MAX_MASKS:
+        raise ValueError(f"{n_masks} masks: K14 counts at most {MAX_MASKS} a launch")
+    words = mask_words(masks) if words is None else words
+    kept = kept_counts(masks) if kept is None else kept
+    for name, t, shape in (("words", words, (n_masks, 8 * ((rec + 31) // 32))),
+                           ("kept", kept, (n_masks,))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != packed.device):
+            raise ValueError(f"{name} must be mask_words(masks) and kept_counts(masks): "
+                             f"contiguous {shape} int32 on {packed.device}")
     counts = torch.empty((n_var, n_masks, 4), dtype=torch.int32, device=packed.device)
     launch(gt_counts_masked, "pgen_gt_counts_masked", packed, packed.data_ptr(),
-           slots.data_ptr(), counts.data_ptr(), n_var, rec, n_masks, width // 16)
+           words.data_ptr(), kept.data_ptr(), counts.data_ptr(), n_var, rec, n_masks)
     return counts
 
 
@@ -234,11 +248,12 @@ def gt_counts_subsets(records: np.ndarray, sample_sets, device,
         host_masks[p] = sample_byte_masks(np.asarray(ids), rec)
     masks = torch.from_numpy(host_masks).to(dev)
     groups = [(a, min(a + MAX_MASKS, len(sample_sets))) for a in range(0, len(sample_sets), MAX_MASKS)]
-    slots = [slot_masks(masks[a:b]) if dev.type == "cuda" else None for a, b in groups]
+    words, kept = mask_words(masks), kept_counts(masks)
     out = np.zeros((n_var, len(sample_sets), 4), dtype=np.int64)
     for lo, hi, block in stage_blocks(records, dev, block_rows):
-        for (a, b), group_slots in zip(groups, slots):
-            out[lo:hi, a:b] = gt_counts_masked(block, masks[a:b], group_slots).cpu().numpy()
+        for a, b in groups:
+            out[lo:hi, a:b] = gt_counts_masked(block, masks[a:b], words[a:b],
+                                               kept[a:b]).cpu().numpy()
     return out
 
 

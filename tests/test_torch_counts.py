@@ -6,9 +6,15 @@ and ``fst``.
   the streaming ``gt_counts_subsets`` are held with exact equality against
   pgen_tpu's ``gt_counts_subset`` with the native and the numpy provider,
   for 1-8 sample sets: empty, one sample, all, duplicated, unsorted and
-  with gaps. Its operand (``slot_masks``) is held on the CPU by the
-  kernel's own indexing: a record 0-15 B past a 16-B boundary, read as
-  aligned 16-B words, AND-ed with copy L's words.
+  with gaps, and P = 26 (a partition) and 33 (two launches). Its operand,
+  each mask's E words (``mask_words``), and its kept counts
+  (``kept_counts``) are held against the ids, and its indexing is emulated
+  with numpy (``_emulate_k14``): rows 0-15 B past a 16-B boundary staged as
+  the aligned 16-B words that hold them (whole rows as one span, rows in
+  chunks each in a slot of its own), read at their byte offsets by funnel
+  shifts against one copy of each mask's E words, in the tensor-core
+  products (their columns and the lanes that read them), at one mask and
+  at 26.
 - The CLI with ``--device cpu`` against ``pgen_tpu.cli.main``: query's
   stdout (and rc and stderr on its errors) byte for byte; each report's
   files and stats' stdout byte for byte against ``--provider numpy`` and
@@ -22,6 +28,7 @@ realistic genotype frequencies, random codes in the pad slots) at S = 1,
 
 import contextlib
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,7 +45,8 @@ from pgen_tpu_torch.ops.gt_stats import (
     gt_counts_masked_plain,
     gt_counts_subset,
     gt_counts_subsets,
-    slot_masks,
+    kept_counts,
+    mask_words,
 )
 from pgen_tpu_torch.ops.gt_stats_host import sample_byte_masks
 
@@ -71,12 +79,25 @@ def _sample_set(kind, n_samples, rng):
     return ids.astype(np.int32)
 
 
-@pytest.mark.parametrize("n_sets", range(1, 9))
+def _partition(n_samples, n_sets, rng):
+    """A seeded partition of the samples into n_sets labels (some empty at
+    small widths), as fst's populations are."""
+    labels = rng.integers(0, n_sets, n_samples)
+    return [np.flatnonzero(labels == p).astype(np.int32) for p in range(n_sets)]
+
+
+@pytest.mark.parametrize("n_sets", [*range(1, 9), 26, 33])
 @pytest.mark.parametrize("n_samples", WIDTHS)
 def test_masked_counts_match_pgen_tpu(n_samples, n_sets):
+    """1-8 sets of every kind, a partition into 26 labels (fst over 1000
+    Genomes' populations) and 33 sets (past MAX_MASKS: two launches a
+    block on a card)."""
     packed = _records(n_samples, seed=n_samples + n_sets)
     rng = np.random.default_rng(n_sets)
-    sets = [_sample_set(SET_KINDS[(k + n_sets) % 8], n_samples, rng) for k in range(n_sets)]
+    if n_sets == 26:
+        sets = _partition(n_samples, n_sets, rng)
+    else:
+        sets = [_sample_set(SET_KINDS[(k + n_sets) % 8], n_samples, rng) for k in range(n_sets)]
     masks = torch.from_numpy(np.stack([sample_byte_masks(ids, packed.shape[1]) for ids in sets]))
     got = gt_counts_masked(torch.from_numpy(packed), masks)
     assert got.dtype == torch.int32 and got.shape == (packed.shape[0], n_sets, 4)
@@ -92,6 +113,24 @@ def test_masked_counts_match_pgen_tpu(n_samples, n_sets):
                                       streamed[:, p])
 
 
+@pytest.mark.parametrize("n_samples", WIDTHS + [2497, 2505])
+def test_kept_counts_count_each_masks_samples(n_samples):
+    """K_p: the number of distinct ids of each set, for the empty set, one
+    sample, every sample, duplicates and gaps, at widths whose last byte
+    has pad slots (never kept)."""
+    rng = np.random.default_rng(n_samples)
+    sets = [_sample_set(kind, n_samples, rng) for kind in SET_KINDS]
+    masks = torch.from_numpy(np.stack([sample_byte_masks(ids, (n_samples + 3) // 4)
+                                       for ids in sets]))
+    kept = kept_counts(masks)
+    assert kept.dtype == torch.int32 and kept.shape == (len(sets),)
+    assert kept.tolist() == [len(np.unique(ids)) for ids in sets]
+    assert kept[SET_KINDS.index("empty")] == 0 and kept[SET_KINDS.index("all")] == n_samples
+
+
+# K14's constants (csrc/genotype.cu), held equal to the source below
+K14_SOURCE = Path(gt_stats.__file__).resolve().parent.parent / "csrc" / "genotype.cu"
+K14_CONSTANTS = {"kMaskedWholeRow": 640, "kMaskedChunk": 512}
 _POPC16 = np.array([bin(x).count("1") for x in range(1 << 16)], dtype=np.int64)
 
 
@@ -100,34 +139,151 @@ def _popc(words):
     return _POPC16[words & 0xFFFF] + _POPC16[words >> 16]
 
 
+def _funnel(lo, hi, shift):
+    """__funnelshift_r on uint32 arrays: the low 32 bits of (hi:lo) >> shift."""
+    wide = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return (wide >> shift.astype(np.uint64)).astype(np.uint32)
+
+
+def _emulate_k14(buf, first, n_var, rec, masks, kept, chunk, group):
+    """K14 on numpy: rows at buf[first + v rec] (n_var rows: one tile),
+    staged as the aligned 16-B words that hold them: whole rows (chunk
+    None) as one span, else each `chunk`-byte chunk of each row in a slot of
+    `pitch` bytes; beside them the chunk's E words of the wrapper's operand
+    (mask_words), 32 ceil(len / 32) bytes of each mask, which must lie in
+    its row of the operand. Whatever no copy wrote is stale: random bytes
+    here. Then the rows' words t and t + 4 of each 32 bytes by funnel shifts
+    against the columns of the three products per eight masks, the counts
+    read from the lanes' fragments, summed over the chunks of an item
+    (`group` chunks of a tile) and added up over the items, K_p by the item
+    holding chunk 0."""
+    stale = np.random.default_rng(7)
+    n_masks = masks.shape[0]
+    whole = chunk is None
+    chunk = rec if whole else chunk
+    n_chunks = -(-rec // chunk)
+    span = 32 * (-(-chunk // 32))
+    pitch = 16 * ((15 + span + 8 + 15) // 16)
+    pitch += 16 if pitch % 32 == 0 else 0
+    mask_rows = 8 * (-(-n_masks // 8))
+    words = mask_words(torch.from_numpy(masks)).numpy().view(np.uint32)
+    assert words.shape == (n_masks, 8 * (-(-rec // 32)))
+    counts = np.zeros((n_var, n_masks, 4), dtype=np.int64)
+    acc = np.zeros((n_var, mask_rows, 3), dtype=np.int64)
+    for c in range(n_chunks):
+        at, length = c * chunk, min(chunk, rec - c * chunk)
+        n_k = -(-length // 32)
+        # the chunk's E words in shared memory: mask rows past P zero
+        e = stale.integers(0, 1 << 32, (mask_rows, span // 4 + 4), dtype=np.uint32)
+        e[n_masks:] = 0
+        part = words[:, at // 4 : at // 4 + 8 * n_k]
+        assert part.shape[1] == 8 * n_k
+        e[:n_masks, : 8 * n_k] = part
+        # the staged tile: whole rows as one copy of the aligned 16-B words
+        # that hold them, row v's first byte at off[v]; rows in chunks each
+        # in a slot of `pitch` bytes, at its own lead
+        src = first + np.arange(n_var) * rec + at
+        if whole:
+            base = src[0] - src[0] % 16
+            top = -(-(src[-1] + length) // 16) * 16
+            tile = stale.integers(0, 256, 16 * ((15 + (n_var - 1) * rec + span + 8 + 15) // 16),
+                                  dtype=np.uint8)
+            tile[: top - base] = buf[base:top]
+            off = src - base
+        else:
+            tile = stale.integers(0, 256, n_var * pitch, dtype=np.uint8)
+            off = np.arange(n_var) * pitch + src % 16
+            for v in range(n_var):
+                lo = src[v] - src[v] % 16
+                hi = -(-(src[v] + length) // 16) * 16
+                tile[v * pitch : v * pitch + hi - lo] = buf[lo:hi]
+        t32 = tile.view("<u4")
+
+        def row_word(w):  # (n_var, len(w)) words aligned to each row's first byte
+            at32 = (off >> 2)[:, None] + w[None, :]
+            return _funnel(t32[at32], t32[at32 + 1], 8 * (off & 3)[:, None])
+
+        x = np.stack([row_word(8 * np.arange(n_k) + t) for t in range(8)], axis=2)
+        xb = x & (x >> 1)  # (n_var, k step, word)
+        for m8 in range(mask_rows // 8):
+            cols = {}  # product -> (8 columns' words): LH of masks 8m + 0-3, 4-7; B
+            for half in range(2):
+                cols[half] = np.stack([e[8 * m8 + 4 * half + g // 2, : 8 * n_k] << np.uint32(g % 2)
+                                       for g in range(8)])
+            cols[2] = np.stack([e[8 * m8 + g // 2 + 4 * (g % 2), : 8 * n_k] for g in range(8)])
+            d = {k: _popc((xb if k == 2 else x)[:, None, :, :]
+                          & w.reshape(8, n_k, 8)[None]).sum((2, 3))
+                 for k, w in cols.items()}  # (n_var, 8 columns)
+            # lane 4g + t: columns 2t, 2t + 1 of each product
+            for t in range(4):
+                for half in range(2):
+                    p = 8 * m8 + 4 * half + t
+                    acc[:, p] += np.stack([d[half][:, 2 * t], d[half][:, 2 * t + 1],
+                                           d[2][:, 2 * t + half]], axis=1)
+        if c + 1 == n_chunks or (c + 1) % group == 0:  # the item's last chunk
+            l, h, b = (acc[:, :n_masks, k] for k in range(3))
+            k0 = kept[None, :] if c < group else 0
+            counts += np.stack([k0 - l - h + b, l - b, h - b, b], axis=2)
+            acc[:] = 0
+    return counts
+
+
 @pytest.mark.parametrize("n_samples", WIDTHS + [2497, 2505])
-def test_slot_masks_follow_each_rows_offset(n_samples):
-    """K14's indexing on the CPU: each record of a buffer whose rows start
-    0-15 B past a 16-B boundary read as the aligned 16-B words holding its
-    bytes (its neighbours' bytes too), each word AND-ed with copy L of the
-    expanded masks, L the row's offset, gives the plain counts."""
+def test_mask_words_spread_each_keep_bit_to_its_slot(n_samples):
+    """K14's operand: kept sample s sets bit 2 (s % 16) of E word s // 16,
+    and nothing else is set, past R included (each row 8 ceil(R / 32)
+    words)."""
     rec = (n_samples + 3) // 4
     rng = np.random.default_rng(n_samples)
     sets = [_sample_set(kind, n_samples, rng) for kind in SET_KINDS]
-    host_masks = np.stack([sample_byte_masks(ids, rec) for ids in sets])
-    slots = slot_masks(torch.from_numpy(host_masks)).numpy()
-    assert slots.shape == (16, len(sets), 16 * ((rec + 30) // 16))
-    n_var = 17
+    words = mask_words(torch.from_numpy(np.stack([sample_byte_masks(ids, rec) for ids in sets])))
+    assert words.dtype == torch.int32 and words.shape == (len(sets), 8 * (-(-rec // 32)))
+    bits = np.unpackbits(words.numpy().view(np.uint8), axis=1, bitorder="little")
+    for p, ids in enumerate(sets):
+        want = np.zeros(bits.shape[1], dtype=np.uint8)
+        want[2 * np.unique(ids)] = 1
+        np.testing.assert_array_equal(bits[p], want)
+
+
+def test_k14_constants_match_the_source():
+    source = K14_SOURCE.read_text()
+    assert "constexpr int64_t kMaskedWholeRow = 640;" in source
+    assert "constexpr int64_t kMaskedChunk = 512;" in source
+    assert "a.pitch = 16 * ((15 + span + 8 + 15) / 16);" in source
+    assert "a.word_stride = static_cast<int>(8 * ((rec + 31) / 32));" in source
+    assert "(15 + (kMaskedRows - 1) * rec + span + 8 + 15) / 16" in source
+    assert "static_cast<uint32_t>(32 * ((len + 31) / 32))" in source
+
+
+@pytest.mark.parametrize("n_sets", [1, 26])
+@pytest.mark.parametrize("n_samples", WIDTHS + [2497, 2505])
+def test_k14_indexing_follows_each_rows_offset(n_samples, n_sets):
+    """K14's indexing on the CPU, emulated with numpy: the records of a
+    buffer whose rows start 0-15 B past a 16-B boundary, staged and read as
+    the kernel reads them, give the plain counts: rows whole, in chunks of
+    kMaskedChunk (as rows past kMaskedWholeRow go; two at R = 626) counted
+    by one item, and in chunks of 96 B (7 at R = 626) by items of two; for
+    one mask (seven zero mask rows beside it) and for 26: every kind of set
+    and a partition into 18 labels (four eights of masks, the last in
+    part)."""
+    rec = (n_samples + 3) // 4
+    rng = np.random.default_rng(n_samples + n_sets)
+    if n_sets == 1:
+        sets = [_sample_set("unsorted", n_samples, rng)]
+    else:
+        sets = [_sample_set(kind, n_samples, rng) for kind in SET_KINDS]
+        sets += _partition(n_samples, n_sets - len(SET_KINDS), rng)
+    masks = np.stack([sample_byte_masks(ids, rec) for ids in sets])
+    kept = kept_counts(torch.from_numpy(masks)).numpy().astype(np.int64)
+    n_var = 9
     for offset in range(16):
         buf = rng.integers(0, 256, offset + n_var * rec + 32, dtype=np.uint8)
-        packed = buf[offset : offset + n_var * rec].reshape(n_var, rec)
-        want = gt_counts_masked_plain(torch.from_numpy(np.ascontiguousarray(packed)),
-                                      torch.from_numpy(host_masks)).numpy()
-        for v in range(n_var):
-            first = offset + v * rec
-            lead = first % 16
-            n_words = (lead + rec + 15) // 16
-            x = buf[first - lead : first - lead + 16 * n_words].view("<u4")
-            for p in range(len(sets)):
-                m = slots[lead, p, : 16 * n_words].view("<u4")
-                lo, hi = x & m, (x >> 1) & m
-                k, low, high, both = (int(_popc(w).sum()) for w in (m, lo, hi, lo & hi))
-                assert [k - low - high + both, low - both, high - both, both] == list(want[v, p])
+        packed = np.ascontiguousarray(buf[offset : offset + n_var * rec].reshape(n_var, rec))
+        want = gt_counts_masked_plain(torch.from_numpy(packed), torch.from_numpy(masks)).numpy()
+        assert rec <= K14_CONSTANTS["kMaskedWholeRow"]
+        for chunk, group in ((None, 1), (K14_CONSTANTS["kMaskedChunk"], 2), (96, 2)):
+            got = _emulate_k14(buf, offset, n_var, rec, masks, kept, chunk, group)
+            np.testing.assert_array_equal(got, want, err_msg=f"offset {offset}, chunk {chunk}")
 
 
 def test_more_sets_than_one_launch_takes():

@@ -43,7 +43,7 @@ from pgen_tpu_torch.ops.gt_stats import (
     gt_counts_subsets,
     sample_counts_device,
     sample_counts_plain,
-    slot_masks,
+    kept_counts,
 )
 from pgen_tpu_torch.ops.gt_stats_host import sample_byte_masks
 from pgen_tpu_torch.ops.pack import (
@@ -400,15 +400,18 @@ def _keep_masks(n_samples, n_masks, seed, device):
     return sets, torch.from_numpy(masks).to(device)
 
 
-@pytest.mark.parametrize("n_masks", [1, 5])
+@pytest.mark.parametrize("n_masks", [1, 5, 8, 9, 26])
 @pytest.mark.parametrize("offset", range(16))
-@pytest.mark.parametrize("n_samples", [2504, 2503, 2497, 5, 1])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2497, 5, 1, 2560, 2561, 4101])
 def test_masked_counts_at_every_row_offset(cuda_device, n_samples, offset, n_masks):
     """K14 on records whose rows start at every byte offset from a 16-B
     boundary, S % 4 = 0, 3 and 1 (S of 1 and 5: a row shorter than one
-    word), in a tensor that ends at the end of its storage (its last row
-    alone too), P = 1 and 5 keep masks: equal to its plain version and to
-    pgen_tpu's gt_counts_subset."""
+    word; S of 2560: rows of 640 B, the longest staged whole; S of 2561 and
+    4101: rows of 641 and 1,026 B, counted in two and three chunks), in a
+    tensor that ends at the end of its storage (its last row alone too), P
+    = 1, 5, 8, 9 and 26 keep masks (one to four eights of masks in the
+    products): equal to its plain version and to pgen_tpu's
+    gt_counts_subset."""
     host = _packed(300, n_samples, 16 * n_samples + offset + n_masks, "cpu").numpy()
     packed = _records_at(host, offset, cuda_device)
     sets, masks = _keep_masks(n_samples, n_masks, offset, cuda_device)
@@ -438,11 +441,27 @@ def test_masked_counts_stream_many_sets(cuda_device, n_samples):
         np.testing.assert_array_equal(got[:, p], gt_counts_subset(host, sets[p], "numpy"))
 
 
+@pytest.mark.parametrize("n_masks", [1, 26])
+@pytest.mark.parametrize("n_samples, n_var", [(4101, 65_536), (40_003, 4_096), (40_003, 16_384)])
+def test_masked_counts_rows_in_chunks(cuda_device, n_samples, n_var, n_masks):
+    """K14 on rows counted in chunks at sizes where a tile's chunks are one
+    item (65,536 rows of 1,026 B; 16,384 of 10,001 B: plain stores) and
+    where they are split over items that add their counts (4,096 rows of
+    10,001 B: atomics): equal to its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n_samples + n_var)
+    packed = torch.randint(0, 256, (n_var, (n_samples + 3) // 4), dtype=torch.uint8,
+                           device=cuda_device, generator=gen)
+    _, masks = _keep_masks(n_samples, n_masks, n_var, cuda_device)
+    assert torch.equal(gt_counts_masked(packed, masks), gt_counts_masked_plain(packed, masks))
+
+
 def test_masked_counts_refuse_a_wrong_operand(cuda_device):
     packed = _packed(3, 17, 0, cuda_device)
     _, masks = _keep_masks(17, 3, 0, cuda_device)
-    with pytest.raises(ValueError, match="slot_masks"):
-        gt_counts_masked(packed, masks, slot_masks(masks[:2]))
+    with pytest.raises(ValueError, match="kept_counts"):
+        gt_counts_masked(packed, masks, kept_counts(masks[:2]))
+    with pytest.raises(ValueError, match="at most 32"):
+        gt_counts_masked(packed, masks[[0] * 33])
     with pytest.raises(ValueError, match="masks are on"):
         gt_counts_masked(packed, masks.cpu())
 
