@@ -142,6 +142,29 @@ Phases, each printing its own lines:
              lies at least 1e-3 from the thresholds used; each full-chr22
              run's peak device memory is printed and held under 4 GB. K15
              (and K8, K14 for prune's MAF) must have launched.
+ 12 mesh     glm, score, king, genome and pca over variant shards, one
+             process per card, where two or more cards are visible (else
+             one line says it was skipped): each rank a process of the
+             port's CLI with RANK, WORLD_SIZE, LOCAL_RANK and MASTER_* set
+             (LOCAL_RANK reversed at 4 ranks: rank r on card 3 - r), each
+             run against the same run as one lone process, on the full
+             chr22 fixture with phase 8's tables: (a) linear glm QT ~ C1 +
+             C2 over every variant, (b) --modifier genotypic over phase 8's
+             50,000-variant region (BETA/SE rtol 1e-3 atol 1e-5, OBS_CT
+             exact), (c) score of every 10th variant with and without
+             --no-mean-imputation (ALLELE_CT exact, |d| <= 1e-4 max|value|),
+             (d) king --min-kinship and --cutoff at the 99.9th percentile of
+             every pair's kinship and (e) genome --min-pi-hat at that of
+             PI_HAT (sha256-equal), (f) pca -k 10 --make-rel bin and (g)
+             --approx (m_used exact, eigenvalues at rtol 1e-3, GRM x m_used
+             within 1e-6 max|GRM|). Each run prints its wall (process start
+             and NCCL set-up inside), rank 0's --stats report (the
+             process_group and collective stages, one line a rank naming
+             its card and rows) and each rank's launches of its kernels,
+             which must not be 0; a rank other than 0 must print nothing of
+             the port's. (h) times the collectives alone (NCCL, CUDA
+             events) beside their bytes over NVLink's 450 GB/s. The default
+             run takes 2 ranks; --ranks 2 and 4.
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
@@ -154,7 +177,8 @@ just after. Then the products' line, one JSON line of the fifteen kernels
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
 
-    python3 chip_smoke.py --ranks   # on 2 or 4 cards: phase 7 (a) across ranks only
+    python3 chip_smoke.py --ranks   # on 2 or 4 cards: phase 7 (a) and phase 12 on
+                                    # 1, 2 and 4 ranks only
 
 chip_diag.py beside this script compares the kernels with another checkout's
 in one process (--ab DIR), traces their device time (--trace), times K5's two
@@ -1043,9 +1067,10 @@ def _time_products(rel, ops, s) -> dict:
     """The library products beside K12 and K13 at the paths' block shapes:
     one torch._int_mm Gram of K12's planes (2 S^2 x 32,768 int8 ops), one
     z'z in f64 as the exact GRM makes it (z cast in chunks of rows; 2 S^2 x
-    16,384 FLOP) and in full fp32 as pgen_tpu makes it, and one --approx
-    pass's z'(z q) (q of 18 columns), each against the card's dense peak
-    for its type."""
+    16,384 FLOP) and in full fp32 as pgen_tpu makes it, one --approx
+    pass's z'(z q) (q of 18 columns) and the first product of a logistic
+    IRLS iteration (X5: r C of a 256-variant block over phase 8 (c)'s
+    cohort, k = 2), each against the card's dense peak for its type."""
     import torch
 
     from pgen_tpu_torch.device import full_fp32, matmul_fp32
@@ -1056,6 +1081,9 @@ def _time_products(rel, ops, s) -> dict:
     planes = relatedness_planes(rel, s)
     z, _ = grm_z(ops, s)
     q = torch.randn((s, 18), device=z.device)
+    # ops/logistic_host.py: rq = mm(r, covars), r (256, cohort), C (cohort, 2)
+    r_irls = torch.randn((256, COHORT), device=z.device)
+    c_irls = torch.randn((COHORT, 2), device=z.device)
     acc = torch.zeros((s, s), dtype=torch.float64, device=z.device)
     gram = torch._int_mm(planes[0], planes[3].t())
     if not torch.equal(gram.double(), planes[0].double() @ planes[3].double().T):
@@ -1070,6 +1098,8 @@ def _time_products(rel, ops, s) -> dict:
                     "fp32"),
         "approx_pass_fp32": (lambda: matmul_fp32(z.T, matmul_fp32(z, q)),
                              4 * s * 18 * ops.shape[0], FP32_FLOP_PER_MS, "fp32"),
+        "irls_first_matmul_fp32": (lambda: matmul_fp32(r_irls, c_irls), 2 * 256 * COHORT * 2,
+                                   FP32_FLOP_PER_MS, "fp32"),
     }
     # K15's tile Grams as ops/ld.py makes them: tile t (band rows of c)
     # against its overlapping window, rows [t band, t band + 2 band), at
@@ -1104,6 +1134,11 @@ def _time_products(rel, ops, s) -> dict:
         print(f"[3 kernels] product {name}: {ms:.4f} ms for {ops_n:.4g} {kind} ops, "
               f"{ops_n / ms / 1e9:.1f} TOP/s, {100 * ops_n / ms / peak:.1f}% of the card's "
               f"dense {kind} peak ({peak * 1e3 / 1e12:.0f} T/s)")
+    irls_bytes = 4 * (256 * COHORT + COHORT * 2 + 256 * 2)
+    out["irls_first_matmul_fp32"]["bound_ms"] = irls_bytes / HBM_BYTES_PER_MS
+    print(f"[3 kernels] product irls_first_matmul_fp32 reads and writes {irls_bytes} B: bound "
+          f"{irls_bytes / HBM_BYTES_PER_MS:.5f} ms at 3.35 TB/s, "
+          f"{100 * irls_bytes / HBM_BYTES_PER_MS / out['irls_first_matmul_fp32']['ms']:.1f}% of it")
     return out
 
 
@@ -1893,6 +1928,27 @@ def _score_oracle(packed, rows, flip, weights, mean_impute: bool, n_samples: int
     return sums, dosage, allele_ct
 
 
+def _weights_table(tmp: Path, full: Path, n_var: int, rng) -> tuple:
+    """Phase 8 (d)'s score table ``tmp/weights.tsv``: three weight columns
+    on every 10th variant, drawn from ``rng``, the effect allele REF on
+    about half. Returns (the scored rows, their flips, the weights as
+    written)."""
+    import numpy as np
+
+    score_rows = np.arange(0, n_var, SCORE_EVERY)
+    flip = rng.random(len(score_rows)) < 0.5
+    weights = np.array([[float(f"{w:.6g}") for w in r] for r in rng.normal(size=(len(score_rows), 3))])
+    pvar = [ln.split(b"\t", 5) for ln in Path(f"{full}.pvar").read_bytes().split(b"\n")
+            if ln and not ln.startswith(b"#")]
+    with open(tmp / "weights.tsv", "w") as fh:
+        fh.write("ID\tA1\tW1\tW2\tW3\n")
+        for r, f, w in zip(score_rows, flip, weights):
+            fields = pvar[r]
+            fh.write(f"{fields[2].decode()}\t{fields[3 if f else 4].decode()}\t"
+                     f"{w[0]:.6g}\t{w[1]:.6g}\t{w[2]:.6g}\n")
+    return score_rows, flip, weights
+
+
 def _sscore(path: Path) -> tuple:
     import numpy as np
 
@@ -1925,18 +1981,7 @@ def phase_gwas(tmp: Path, full: Path, device: str = "cuda") -> dict:
     tables = _gwas_tables(tmp, iids, packed)
     ph, cv, planted, values = tables["pheno"], tables["covar"], tables["planted"], tables["values"]
     rng = np.random.default_rng(SEED + 8)
-    score_rows = np.arange(0, n_var, SCORE_EVERY)
-    flip = rng.random(len(score_rows)) < 0.5
-    weights = np.array([[float(f"{w:.6g}") for w in r] for r in rng.normal(size=(len(score_rows), 3))])
-    pvar = [ln.split(b"\t", 5) for ln in Path(f"{full}.pvar").read_bytes().split(b"\n")
-            if ln and not ln.startswith(b"#")]
-    with open(tmp / "weights.tsv", "w") as fh:
-        fh.write("ID\tA1\tW1\tW2\tW3\n")
-        for r, f, w in zip(score_rows, flip, weights):
-            fields = pvar[r]
-            fh.write(f"{fields[2].decode()}\t{fields[3 if f else 4].decode()}\t"
-                     f"{w[0]:.6g}\t{w[1]:.6g}\t{w[2]:.6g}\n")
-    del pvar
+    score_rows, flip, weights = _weights_table(tmp, full, n_var, rng)
     print(f"[8 GWAS] tables in {time.perf_counter() - t0:.1f} s: --pheno QT, QT0, CC and --covar "
           f"C1, C2 over {n} samples, effects planted on variants {planted.tolist()}; "
           f"{len(score_rows)} score lines, {int(flip.sum())} with the effect allele REF")
@@ -2947,6 +2992,363 @@ def phase_ld(tmp: Path, full: Path) -> list:
     return launches
 
 
+MESH_WORLDS = (2, 4)  # phase 12 under --ranks, as far as the visible cards go
+# NVLink 4 between the cards of an H100 SXM host: 450 GB/s a direction
+# (NVIDIA's data sheet), in bytes per ms: the bound of each collective
+NVLINK_BYTES_PER_MS = 450e9 / 1e3
+MESH_CARD_KERNELS = {"glm": ("glm_planes",), "score": ("score_dosage",),
+                     "king": ("relatedness_planes",),
+                     "genome": ("relatedness_planes", "gt_counts_device"), "pca": ("grm_z",)}
+
+# One rank of a phase 12 run: the port's CLI, then each kernel's launch
+# count written to the file named first.
+_RANK_MAIN = """
+import importlib, json, sys
+from pgen_tpu_torch.cli import main
+rc = main(sys.argv[3:])
+mods = [importlib.import_module(f"pgen_tpu_torch.ops.{m}")
+        for m in ("unpack", "gt_text", "pack", "gt_stats", "glm", "score", "relatedness",
+                  "pca", "ld")]
+names = sys.argv[2].split(",")
+json.dump({k: next(getattr(m, k).launches for m in mods if hasattr(m, k)) for k in names},
+          open(sys.argv[1], "w"))
+sys.exit(rc)
+"""
+
+# Phase 12 (h): one rank of the collectives timed alone, each case as the
+# mesh steps make it, median of 5 CUDA-event pairs after two warm-ups; rank
+# 0 prints {case: ms} as JSON.
+_COLLECTIVE_MAIN = """
+import json, os, statistics, sys
+import torch
+import torch.distributed as dist
+dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+torch.cuda.set_device(dev)
+dist.init_process_group("nccl", device_id=dev)
+gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+world = dist.get_world_size()
+out = {}
+for name, (op, specs) in json.loads(sys.argv[1]).items():
+    ts = [torch.ones(shape, dtype=getattr(torch, dtype), device=dev) for shape, dtype in specs]
+    wholes = [torch.empty((world * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=dev)
+              if op == "all_gather" else None for t in ts]
+
+    def run():
+        for t, whole in zip(ts, wholes):
+            if op == "all_reduce":
+                dist.all_reduce(t)
+            elif op == "broadcast":
+                dist.broadcast(t, src=0)
+            else:
+                gather(whole, t)
+
+    run()
+    run()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    out[name] = statistics.median(times)
+if dist.get_rank() == 0:
+    print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+_RANK_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "PGEN_TPU_COORDINATOR", "PGEN_TPU_NUM_PROCS", "PGEN_TPU_PROC_ID")
+
+
+def _spawn_ranks(cmds: list, world: int, tmp: Path, tag: str) -> tuple:
+    """``cmds[r]`` as rank r of ``world`` processes of this host, each a
+    torchrun-style rank (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT; at 4 ranks LOCAL_RANK reversed, rank r on card 3 - r), or
+    for one a lone process with none of them (no group). Each rank's output
+    goes to a file; a rank that fails stops the others at once. Returns the
+    wall seconds and each rank's (stdout, stderr)."""
+    env = {k: v for k, v in os.environ.items() if k not in _RANK_VARS}
+    if world > 1:
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world))
+    t0 = time.perf_counter()
+    procs, files = [], []
+    try:
+        for r in range(world):
+            rank = {} if world == 1 else {"RANK": str(r),
+                                          "LOCAL_RANK": str(world - 1 - r if world == 4 else r)}
+            files.append((open(tmp / f"{tag}.rank{r}.out", "w+"),
+                          open(tmp / f"{tag}.rank{r}.err", "w+")))
+            procs.append(subprocess.Popen(cmds[r], cwd=ROOT, stdout=files[-1][0],
+                                          stderr=files[-1][1], text=True, env={**env, **rank}))
+        deadline = time.perf_counter() + 600
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.02)
+        seconds = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f_out, f_err in files:
+        outs.append(tuple(f.seek(0) or f.read() for f in (f_out, f_err)))
+        for f in (f_out, f_err):
+            f.close()
+            Path(f.name).unlink()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: rank {r} of {world} exited {p.returncode}\n{err[-3000:]}")
+    return seconds, outs
+
+
+# what the port prints on stderr: its log and error lines, --stats stages and
+# the closing summary (torch's own runtime lines, such as c10d's, are not)
+_PORT_LINE = re.compile(r"^(pgen-tpu|.* pgen_tpu\.|.*: [\d.]+ ms over |[a-z]+: )")
+
+
+def _mesh_run(argv: list, out: Path, world: int, tmp: Path) -> tuple:
+    """One run of the port's CLI with ``--device cuda --stats -o out`` on
+    ``world`` ranks (``_spawn_ranks``). Fails if a rank other than 0
+    prints anything of the port's. Returns the wall seconds, rank 0's stderr
+    (its --stats report) and each rank's launch counts."""
+    names = ",".join(KERNELS)
+    cmds = [[sys.executable, "-c", _RANK_MAIN, str(tmp / f"launches{r}.json"), names,
+             *map(str, argv), "-o", str(out), "--device", "cuda", "--stats"]
+            for r in range(world)]
+    seconds, outs = _spawn_ranks(cmds, world, tmp, out.name)
+    for r, (o, e) in enumerate(outs[1:], 1):
+        said = [ln for ln in e.splitlines() if _PORT_LINE.match(ln)]
+        if o or said:
+            raise AssertionError(f"{out.name}: rank {r} of {world} printed {o[:300]!r} {said[:5]}")
+    launches = []
+    for r in range(world):
+        launches.append(json.loads((tmp / f"launches{r}.json").read_text()))
+        (tmp / f"launches{r}.json").unlink()
+    return seconds, outs[0][1], launches
+
+
+def _collective_cases(world: int, n_var: int, n: int) -> dict:
+    """The collectives of the mesh steps at chr22's shapes: case -> (op,
+    [(shape, dtype), ...]); all_gather shapes are one rank's shard."""
+    per = -(-n_var // world)
+    grams = [[n, n], "float64"]
+    return {
+        "king all_reduce (4 Grams)": ("all_reduce", [grams] * 4),
+        "genome all_reduce (5 Grams)": ("all_reduce", [grams] * 5),
+        "genome all_gather (counts)": ("all_gather", [[[1], "int64"], [[per, 4], "int64"]]),
+        "pca all_reduce (GRM, m_used)": ("all_reduce", [grams, [[1], "int64"]]),
+        "approx broadcast (q)": ("broadcast", [[[n, PCA_K + 8], "float32"]]),
+        "approx all_reduce (y, m_used)": ("all_reduce", [[[n, PCA_K + 8], "float32"],
+                                                         [[1], "int64"]]),
+        "score all_reduce": ("all_reduce", [[[n, 3], "float64"], [[n], "float64"],
+                                            [[n], "int64"], [[1], "int64"]]),
+        # GlmMoments of linear QT ~ C1 + C2: n, mp (10 columns), gq (3), sg, sg2
+        "glm all_gather (moments)": ("all_gather", [[[1], "int64"], [[per], "float64"],
+                                                   [[per, 10], "float64"],
+                                                   [[per, 3], "float64"], [[per], "float64"],
+                                                   [[per], "float64"]]),
+    }
+
+
+def _collective_bytes(op: str, specs: list, world: int) -> int:
+    """The bytes a collective's result holds: each tensor for an all_reduce
+    or broadcast, the gathered whole for an all_gather."""
+    import math
+
+    size = {"float64": 8, "int64": 8, "float32": 4}
+    one = sum(math.prod(shape) * size[dtype] for shape, dtype in specs)
+    return one * world if op == "all_gather" else one
+
+
+def _mesh_collectives(world: int, n_var: int, n: int, tmp: Path) -> dict:
+    """(12h) the mesh steps' collectives alone on ``world`` cards, each
+    beside its bound (its bytes over NVLink's 450 GB/s a direction)."""
+    cases = _collective_cases(world, n_var, n)
+    cmds = [[sys.executable, "-c", _COLLECTIVE_MAIN, json.dumps(cases)]] * world
+    seconds, outs = _spawn_ranks(cmds, world, tmp, f"collectives{world}")
+    times = json.loads(outs[0][0].strip().splitlines()[-1])
+    rows = {}
+    for name, (op, specs) in cases.items():
+        nbytes = _collective_bytes(op, specs, world)
+        rows[name] = {"ms": times[name], "bytes": nbytes,
+                      "bound_ms": nbytes / NVLINK_BYTES_PER_MS}
+        print(f"[12 mesh] (h) {name} on {world} cards: {times[name]:.4f} ms for "
+              f"{nbytes / 1e6:.2f} MB (NCCL alone, CUDA events, median of 5); bound "
+              f"{nbytes / NVLINK_BYTES_PER_MS:.4f} ms at 450 GB/s "
+              f"({100 * nbytes / NVLINK_BYTES_PER_MS / times[name]:.1f}%)")
+    print(f"[12 mesh] (h) on {world} cards: {seconds:.1f} s with process start and NCCL set-up")
+    return rows
+
+
+def _same_scores(label: str, got: Path, want: Path) -> float:
+    """Two .sscore tables: the same header, IIDs and ALLELE_CT; every other
+    column within 1e-4 of its largest |value|. Returns the worst share."""
+    import numpy as np
+
+    hg, ig, ng = _sscore(got)
+    hw, iw, nw = _sscore(want)
+    if hg != hw or ig != iw or not np.array_equal(ng[:, 0], nw[:, 0]):
+        raise AssertionError(f"{label}: header, IIDs or ALLELE_CT differ")
+    worst = 0.0
+    for c in range(1, nw.shape[1]):
+        d = float(np.abs(ng[:, c] - nw[:, c]).max() / np.abs(nw[:, c]).max())
+        if d > 1e-4:
+            raise AssertionError(f"{label}: {hw[c + 1]} off by {d:.3g} of max|value|, over 1e-4")
+        worst = max(worst, d)
+    return worst
+
+
+def _same_pca(label: str, got: Path, want: Path, err_got: str, err_want: str, n: int,
+              rel: bool) -> str:
+    """m_used equal, eigenvalues at rtol 1e-3 and, with ``rel``, the GRM x
+    m_used within 1e-6 of its largest entry."""
+    import numpy as np
+
+    m_got, m_want = _m_used(err_got), _m_used(err_want)
+    if m_got != m_want:
+        raise AssertionError(f"{label}: m_used {m_got} != {m_want}")
+    vals_got, _ = _pca_outputs(got, n)
+    vals_want, _ = _pca_outputs(want, n)
+    ratio = float(np.abs(vals_got / vals_want - 1).max())
+    if ratio > 1e-3:
+        raise AssertionError(f"{label}: eigenvalues off by {ratio:.3g} (rtol 1e-3)")
+    report = f"m_used {m_got} equal, eigenvalues within {ratio:.3g} (rtol 1e-3)"
+    if rel:
+        g = np.fromfile(f"{got}.rel.bin", dtype="<f8") * m_got
+        w = np.fromfile(f"{want}.rel.bin", dtype="<f8") * m_want
+        bound = 1e-6 * np.abs(w).max()
+        worst = float(np.abs(g - w).max())
+        if worst > bound:
+            raise AssertionError(f"{label}: GRM x m_used off by {worst:.4g} > {bound:.4g}")
+        report += f", GRM x m_used within {worst:.4g} (bound 1e-6 max|GRM| = {bound:.4g})"
+    return report
+
+
+def phase_mesh(tmp: Path, full: Path, worlds) -> dict:
+    """glm, score, king, genome and pca through the port's CLI over variant
+    shards, one process per card, on the full chr22 fixture with phase 8's
+    seeded tables, each against the same run as one lone process: (a)
+    linear glm QT ~ C1 + C2 over every variant and (b) --modifier genotypic
+    QT0 over phase 8's 50,000-variant region (_compare_glm_runs at BETA/SE
+    rtol 1e-3 atol 1e-5, OBS_CT and the NA cells exact); (c) score of every
+    10th variant with and without --no-mean-imputation (ALLELE_CT exact,
+    every other column within 1e-4 of its largest |value|); (d) king over
+    every variant with --min-kinship, and --cutoff, at the 99.9th
+    percentile of its kinships, and (e) genome with --min-pi-hat at that of
+    its PI_HAT, each output sha256-equal; (f) pca -k 10 --make-rel bin and
+    (g) --approx (m_used exact, eigenvalues at rtol 1e-3, the GRM x m_used
+    within 1e-6 of its largest entry). Every run prints its wall (process
+    start and NCCL set-up inside), its process_group and collective stages
+    and rank 0's --stats report, whose lines a rank name its card and rows;
+    every rank must have launched its kernels. (h) times the collectives
+    alone. Needs as many cards as the largest of ``worlds``."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.pipeline.genome import genome_table
+    from pgen_tpu_torch.pipeline.king import king_table
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in worlds if w <= cards]
+    if not worlds:
+        print(f"[12 mesh] skipped: {cards} card visible (one process per card needs two or "
+              "more)")
+        return {}
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, n = len(pos), len(iids)
+    tables = _gwas_tables(tmp, iids, packed)
+    _weights_table(tmp, full, n_var, np.random.default_rng(SEED + 8))
+    first_b = n_var // 2 - GWAS_REGION // 2
+    region_b = f"22:{pos[first_b]}-{pos[first_b + GWAS_REGION - 1]}"
+    # the 99.9th percentiles of every pair's kinship and PI_HAT, from one
+    # run each that emits no row
+    t0 = time.perf_counter()
+    iu = np.triu_indices(n, k=1)
+    kin = king_table(str(full), out_file=str(tmp / "probe.kin0"), device="cuda",
+                     min_kinship=1.0).kinship[iu]
+    pi_hat = genome_table(str(full), out_file=str(tmp / "probe.genome"), device="cuda",
+                          min_pi_hat=2.0).estimates["pi_hat"][iu]
+    kinship = float(f"{np.nanpercentile(kin, 99.9):.6g}")
+    min_pi = float(f"{np.nanpercentile(pi_hat, 99.9):.4f}")
+    for f in ("probe.kin0", "probe.genome"):
+        (tmp / f).unlink()
+    print(f"[12 mesh] 99.9th percentiles over every variant and pair: kinship {kinship}, "
+          f"PI_HAT {min_pi} ({time.perf_counter() - t0:.1f} s)")
+    tabs = ["--pheno", tables["pheno"], "--covar", tables["covar"], "--covar-name", "C1,C2"]
+    score = ["score", full, "--score", tmp / "weights.tsv", "--score-col-nums", "3-5",
+             "--score-sums"]
+    runs = [  # label, argv, output name, what compares, the collective named in --stats
+        ("(a) glm QT ~ C1 + C2, every variant", ["glm", full, *tabs, "--pheno-name", "QT"],
+         "a.glm", "glm", "all_gather"),
+        (f"(b) glm --modifier genotypic QT0 -r {region_b}",
+         ["glm", full, *tabs, "--pheno-name", "QT0", "--modifier", "genotypic", "-r", region_b],
+         "b.glm", "glm", "all_gather"),
+        ("(c) score, mean imputation", score, "c.sscore", "score", "all_reduce"),
+        ("(c) score --no-mean-imputation", [*score, "--no-mean-imputation"], "c_nm.sscore",
+         "score", "all_reduce"),
+        (f"(d) king --min-kinship {kinship}", ["king", full, "--min-kinship", kinship],
+         "d.kin0", ("",), "all_reduce"),
+        (f"(d) king --cutoff {kinship}", ["king", full, "--cutoff", kinship], "d_cut",
+         (".king.cutoff.in.id", ".king.cutoff.out.id"), "all_reduce"),
+        (f"(e) genome --min-pi-hat {min_pi}", ["genome", full, "--min-pi-hat", min_pi],
+         "e.genome", ("",), "all_reduce"),
+        ("(f) pca -k 10 --make-rel bin", ["pca", full, "-k", PCA_K, "--make-rel", "bin"], "f",
+         "pca", "all_reduce"),
+        ("(g) pca -k 10 --approx", ["pca", full, "-k", PCA_K, "--approx"], "g", "approx",
+         "all_reduce"),
+    ]
+    walls = {}
+    for label, argv, name, check, collective in runs:
+        errs = {}
+        for world in (1, *worlds):
+            out = tmp / f"w{world}.{name}"
+            seconds, err, launches = _mesh_run(argv, out, world, tmp)
+            walls[(label, world)] = seconds
+            errs[world] = err
+            for r, counts in enumerate(launches):
+                idle = [k for k in MESH_CARD_KERNELS[argv[0]] if counts[k] <= 0]
+                if idle:
+                    raise AssertionError(f"{label}: rank {r} of {world} never launched {idle}")
+            shared = ""
+            if world > 1:
+                shared = (f"; process_group {_stage_ms(err, 'process_group'):.1f} ms, "
+                          f"{collective} {_stage_ms(err, collective):.1f} ms")
+            kernels = ", ".join(f"{k} {[c[k] for c in launches]}"
+                                for k in MESH_CARD_KERNELS[argv[0]])
+            print(f"[12 mesh] {label} on {world} rank(s)"
+                  f"{' (LOCAL_RANK reversed)' if world == 4 else ''}: wall {seconds:.3f} s "
+                  f"(process start and NCCL set-up inside{shared}); launches a rank: {kernels}; "
+                  "rank 0's report:")
+            for line in err.strip().splitlines():
+                print(f"    {line}")
+        for world in worlds:
+            got, want = tmp / f"w{world}.{name}", tmp / f"w1.{name}"
+            if check == "glm":
+                report = _compare_glm_runs(label, got, want, 1e-3, 1e-5)
+            elif check == "score":
+                report = f"|d| within {_same_scores(label, got, want):.3g} of max|value|"
+            elif check in ("pca", "approx"):
+                report = _same_pca(label, got, want, errs[world], errs[1], n, check == "pca")
+            else:
+                for suffix in check:
+                    if _sha256(Path(f"{got}{suffix}")) != _sha256(Path(f"{want}{suffix}")):
+                        raise AssertionError(f"{label}: {got.name}{suffix} differs on "
+                                             f"{world} ranks")
+                report = "sha256-equal"
+            print(f"[12 mesh] {label}: {world} ranks against 1: {report}")
+        for f in tmp.glob(f"w*.{name}*"):
+            f.unlink()
+    collectives = {w: _mesh_collectives(w, n_var, n, tmp) for w in worlds}
+    shown = "; ".join(f"{label} x{w} {s:.3f} s" for (label, w), s in walls.items())
+    print(f"[12 mesh] walls: {shown}")
+    return collectives
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -2971,8 +3373,12 @@ def main(argv: list) -> int:
             print("[7 device provider] (a) on one rank:")
             _port_cli(["filter", full, *_argv_a(iids), "--provider", "device"], tmp / "a.vcf", "cuda")
             phase_ranks(tmp, full, _sha256(tmp / "a.vcf"))
+            t0 = time.perf_counter()
+            collectives = phase_mesh(tmp, full, MESH_WORLDS)
+            print(f"[12 mesh] phase 12 took {time.perf_counter() - t0:.1f} s")
     elif argv:
-        print(f"chip_smoke: unknown arguments {argv}; takes none or --ranks", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv}; takes none or --ranks (phases 7 (a) "
+              "and 12 across 2 and 4 cards)", file=sys.stderr)
         return 2
     else:
         measured = phase_kernels()
@@ -3002,6 +3408,9 @@ def main(argv: list) -> int:
             t0 = time.perf_counter()
             per_path += phase_ld(tmp, fixtures["full"])
             print(f"[11 ld] phase 11 took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            collectives = phase_mesh(tmp, fixtures["full"], (2,))
+            print(f"[12 mesh] phase 12 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:
@@ -3020,6 +3429,8 @@ def main(argv: list) -> int:
             })
         print(f"[smoke] products beside K12, K13 and K15: {json.dumps(measured['products'])}")
         print(json.dumps({"kernels": rows}))
+    if collectives:
+        print(f"[smoke] mesh collectives a card count: {json.dumps(collectives)}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

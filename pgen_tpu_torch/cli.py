@@ -27,7 +27,14 @@ do ``king`` (with ``--min-kinship`` and ``--cutoff``), ``genome`` (with
 ``--min-pi-hat``) and ``pca`` (``-k``, ``--make-rel``, ``--approx``), the
 reports (``freq --counts``, ``hardy --midp``, ``missing``'s out prefix),
 ``stats`` (``--per-sample``), ``fst``, ``ld`` (``-o -`` streams the table),
-``prune --indep-pairwise`` and ``clump``. ``query`` prints its rows to
+``prune --indep-pairwise`` and ``clump``. Under ``torchrun`` (or pgen_tpu's
+``PGEN_TPU_COORDINATOR`` variables) ``glm`` (linear, ``--modifier``),
+``score``, ``king``, ``genome`` and ``pca`` run over variant shards, one
+process per card (``MESH``, ``parallel/mesh.py``); rank 0 writes every
+output file and all of stdout, the other ranks print nothing but an error.
+What pgen_tpu has no mesh step for is refused under several ranks (exit 2):
+logistic ``glm``, ``--interaction``, the reports, ``stats``, ``fst``,
+``query``, ``ld``, ``prune`` and ``clump``. ``query`` prints its rows to
 stdout as pgen_tpu's does: ``-e`` excludes, and ``-r``/``-R`` with ``-s``
 is an error (exit 1). It exits as ``pgen_tpu.cli.main`` does: 141 on a
 broken pipe, 1 with the one stderr line ``pgen-tpu: error: ...`` on any
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import os
 import sys
 
@@ -112,6 +120,9 @@ _UNSERVED_ANALYTICS = {
 REPORTS = ("freq", "gcount", "missing", "hardy", "het")
 SERVED = ("filter", "import", "query", "glm", "score", "king", "genome", "pca", *REPORTS,
           "stats", "fst", "ld", "prune", "clump")
+# the analytics that run over variant shards under several ranks: pgen_tpu's
+# mesh steps (ROADMAP §1 item 17)
+MESH = ("glm", "score", "king", "genome", "pca")
 
 
 def build_torch_arg_parser() -> argparse.ArgumentParser:
@@ -257,9 +268,6 @@ def _split_names(text) -> list:
 
 
 def _glm(args) -> int:
-    from pgen_tpu_torch.ops.glm import MODIFIER_TESTS
-    from pgen_tpu_torch.pipeline.glm import glm_pfile
-
     covars = _split_names(args.covar_name)
     condition = _split_names(args.condition)
     if args.condition_list:
@@ -274,6 +282,20 @@ def _glm(args) -> int:
         print("glm: error: multiple phenotypes write one file each; use a file -o, not '-'",
               file=sys.stderr)
         return 2
+    # several phenotypes under ranks share one process group
+    group = contextlib.nullcontext()
+    if len(phenos) > 1:
+        from pgen_tpu_torch.parallel.distributed import process_group
+
+        group = process_group(args.device)
+    with group:
+        return _glm_phenotypes(args, covars, condition, phenos)
+
+
+def _glm_phenotypes(args, covars, condition, phenos) -> int:
+    from pgen_tpu_torch.ops.glm import MODIFIER_TESTS
+    from pgen_tpu_torch.pipeline.glm import glm_pfile
+
     for pheno in phenos:
         out_base = out_file = None
         if len(phenos) > 1 and args.out_file:
@@ -591,18 +613,64 @@ _RUNS = {"glm": _glm, "score": _score, "king": _king, "genome": _genome, "pca": 
          "prune": _prune, "clump": _clump}
 
 
+def _launched_ranks() -> int:
+    """The number of ranks a launcher names in the environment (1 for none)."""
+    return int(os.environ.get("WORLD_SIZE", os.environ.get("PGEN_TPU_NUM_PROCS", "1")))
+
+
+def _refuse_ranks(parser, args) -> None:
+    """Under several ranks, parser.error for what pgen_tpu has no mesh step
+    for: every subcommand outside ``MESH``, glm --interaction and --logistic
+    (a phenotype that makes glm logistic is refused once it is read)."""
+    from pgen_tpu_torch.parallel.mesh import ranks_refusal
+
+    world = _launched_ranks()
+    if world <= 1:
+        return
+    if args.command not in MESH:
+        parser.error(ranks_refusal(args.command, world, args.command))
+    if args.command == "glm" and args.interaction:
+        parser.error(ranks_refusal("glm --interaction", world, "its --interaction scan"))
+    if args.command == "glm" and args.model == "logistic":
+        parser.error(ranks_refusal("glm --logistic", world, "its logistic IRLS"))
+
+
+@contextlib.contextmanager
+def _rank0_speaks():
+    """Ranks other than 0 print nothing while the run lasts: their stdout,
+    stderr and log go nowhere (an error line is printed after it)."""
+    from pgen_tpu_torch.parallel.distributed import env_rank
+    from pgen_tpu_torch.utils.log import get_logger
+
+    if env_rank() == 0:
+        yield
+        return
+    get_logger("cli")  # the package's log is set up, so its level stays as set here
+    log = logging.getLogger("pgen_tpu")
+    level = log.level
+    log.setLevel(logging.CRITICAL + 1)
+    try:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+                contextlib.redirect_stderr(null):
+            yield
+    finally:
+        log.setLevel(level)
+
+
 def _analytics(parser, args) -> int:
     """glm, score, king, genome, pca, the reports, stats, fst, ld, prune and
-    clump: one GPU, the common query flags."""
+    clump: one GPU, or under several ranks (``MESH`` only) one process per
+    GPU over variant shards; the common query flags."""
+    from pgen_tpu_torch.parallel.mesh import SingleRankOnly
+
     _refuse_unserved(parser, args, _UNSERVED_ANALYTICS)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        parser.error(
-            f"{args.command} under WORLD_SIZE={os.environ['WORLD_SIZE']}: the port's "
-            f"{args.command} runs on one GPU; multi-GPU analytics (the mesh steps) are "
-            "ROADMAP §1 item 17"
-        )
+    _refuse_ranks(parser, args)
     _compose_queries(args)
-    return _RUNS[args.command](args)
+    try:
+        with _rank0_speaks():
+            return _RUNS[args.command](args)
+    except SingleRankOnly as e:
+        parser.error(str(e))
 
 
 def _import(parser, args) -> int:
@@ -705,6 +773,7 @@ def main(argv=None) -> int:
         if args.command == "import":
             return _import(parser, args)
         if args.command == "query":
+            _refuse_ranks(parser, args)
             return _query(args)
         if args.command in _RUNS:
             return _analytics(parser, args)

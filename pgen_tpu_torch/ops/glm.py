@@ -24,6 +24,13 @@ estimable gate and with it the NA pattern are pgen_tpu's. The wrapper
 dispatches on the tensor's device with no fallback: a CUDA tensor launches
 K10, a CPU tensor runs ``glm_planes_plain``.
 
+``glm_moments_mesh`` and ``glm_geno_moments_mesh`` are pgen_tpu's mesh
+steps (``build_glm_mesh_step``, :359, ``build_glm_geno_mesh_step``, :664)
+over the ranks of a process group: each rank makes the moments of its own
+rows, and where pgen_tpu leaves per-variant outputs sharded, one
+all_gather a field brings every rank's rows in rank order, so the solve
+and the table run as in one process.
+
 The host half (the NamedTuples, ``_centered``, ``_moment_columns``,
 ``_geno_moment_inputs``, the modifier tables, the three solves and the
 Student-t tail ``_lgamma``/``betainc_reg``/``t_sf2``) is carried over from
@@ -44,6 +51,7 @@ from pgen_tpu_torch.device import matmul_fp32, resolve_device
 from pgen_tpu_torch.kernels import launch
 from pgen_tpu_torch.ops.gt_stats import stage_blocks
 from pgen_tpu_torch.ops.unpack import check_packed, check_sel, unpack_codes_plain
+from pgen_tpu_torch.parallel.mesh import all_gather_rows
 
 # Rows per staged block: pgen_tpu's device default (ops/glm.py:199, 739, 1051).
 DEFAULT_BLOCK_VARIANTS = 1 << 14
@@ -296,6 +304,17 @@ def glm_moments(packed, num_samples: int, y, covars, device,
     return GlmMoments(n, mp, gq, sg, sg2)
 
 
+def glm_moments_mesh(packed, num_samples: int, y, covars, device,
+                     block_variants: int = DEFAULT_BLOCK_VARIANTS, sample_idx=None,
+                     timer=None) -> GlmMoments:
+    """pgen_tpu's ``glm_moments_mesh`` over the ranks of the default process
+    group: ``packed`` is this rank's shard of the rows (zero rows give zero
+    rows), and every rank gets the moments of every rank's rows in rank
+    order, one all_gather a field (``timer``'s)."""
+    m = glm_moments(packed, num_samples, y, covars, device, block_variants, sample_idx)
+    return GlmMoments(*all_gather_rows(m, resolve_device(device), timer))
+
+
 def glm_solve(moments: GlmMoments, num_covars: int) -> GlmResult:
     """Assemble and solve the per-variant (k+2)-dim normal equations in
     f64; Student-t p-values via the regularized incomplete beta.
@@ -473,6 +492,15 @@ def glm_geno_moments(packed, num_samples: int, y, covars, device,
         device, block_variants, sample_idx,
     )
     return GlmGenoMoments(_row_sums(hist)[0], mp, hetq, homq)
+
+
+def glm_geno_moments_mesh(packed, num_samples: int, y, covars, device,
+                          block_variants: int = DEFAULT_BLOCK_VARIANTS, sample_idx=None,
+                          timer=None) -> GlmGenoMoments:
+    """pgen_tpu's ``glm_geno_moments_mesh``, the modifier designs' moments
+    over the ranks as ``glm_moments_mesh``'s."""
+    m = glm_geno_moments(packed, num_samples, y, covars, device, block_variants, sample_idx)
+    return GlmGenoMoments(*all_gather_rows(m, resolve_device(device), timer))
 
 
 def glm_solve_modifier(

@@ -12,6 +12,10 @@ refuses 2^24 rows or more in one call as pgen_tpu's device provider does
 (pipeline/genome.py chunks at 2^23 and sums the chunks in f64). The method
 of moments (``ibd_estimates``) runs on the host in f64.
 
+``ibd_counts_mesh`` is pgen_tpu's mesh step (``build_ibd_mesh_step``,
+:278) over the ranks of a process group, as ``ops/king.py``'s: one
+all_reduce a Gram in f64.
+
 ``IbdCounts``, ``ibs_from_counts``, ``ibd_counts_reference`` and
 ``ibd_estimates`` are copied from pgen_tpu (``ops/ibd.py:63-112``, ``:334``),
 whose module imports jax at module level; the tests pin each copy equal to
@@ -24,7 +28,9 @@ from typing import NamedTuple
 
 import numpy as np
 
+from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.ops.relatedness import A, C, H, R, relatedness_grams
+from pgen_tpu_torch.parallel.mesh import all_reduce_sum
 
 # H^T H, R^T A, R^T R, A^T A, C^T C (pgen_tpu's _block_grams, :142)
 IBD_GRAMS = ((H, H), (R, A), (R, R), (A, A), (C, C))
@@ -95,6 +101,22 @@ def ibd_counts_device(
         return IbdCounts(*(z.copy() for _ in range(5)))
     bv = min(block_variants, 1 << 24)
     return IbdCounts(*relatedness_grams(packed, num_samples, device, IBD_GRAMS, bv, sample_idx))
+
+
+def ibd_counts_mesh(
+    packed,
+    num_samples: int,
+    device,
+    block_variants: int = 1 << 15,
+    sample_idx=None,
+    timer=None,
+) -> IbdCounts:
+    """pgen_tpu's ``ibd_counts_mesh`` over the ranks of the default process
+    group: ``packed`` is this rank's shard of the rows (fewer than 2^24),
+    and every rank gets the five Grams of every rank's rows. The all_reduce
+    is ``timer``'s."""
+    counts = ibd_counts_device(packed, num_samples, device, block_variants, sample_idx)
+    return IbdCounts(*all_reduce_sum(counts, resolve_device(device), timer))
 
 
 def ibd_estimates(counts: IbdCounts, alt_freq: np.ndarray):

@@ -13,6 +13,11 @@ shared scan of ``ops/relatedness.py``: K12 writes the four int8 planes,
 refuses 2^24 rows or more in one call (pipeline/king.py chunks at 2^23
 and sums the chunks in f64).
 
+``king_counts_mesh`` is pgen_tpu's mesh step (``build_king_mesh_step``,
+:315) over the ranks of a process group: each rank's Grams of its own rows,
+summed by one all_reduce a Gram in f64 (exact: integers below 2^53, where
+pgen_tpu's f32 psum is exact below 2^24 rows).
+
 ``KingCounts``, ``king_counts_reference`` and ``king_kinship`` are copied
 from pgen_tpu (``ops/king.py:51-85``, ``:302``), whose module imports jax at
 module level; the tests pin each copy equal to pgen_tpu's.
@@ -24,7 +29,9 @@ from typing import NamedTuple
 
 import numpy as np
 
+from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.ops.relatedness import A, C, H, R, relatedness_grams
+from pgen_tpu_torch.parallel.mesh import all_reduce_sum
 
 # H^T H, R^T A, H^T C, C^T C (pgen_tpu's _device_block_grams, :134)
 KING_GRAMS = ((H, H), (R, A), (H, C), (C, C))
@@ -87,6 +94,22 @@ def king_counts_device(
         return KingCounts(z, z.copy(), z.copy(), z.copy())
     bv = min(block_variants, 1 << 24)
     return KingCounts(*relatedness_grams(packed, num_samples, device, KING_GRAMS, bv, sample_idx))
+
+
+def king_counts_mesh(
+    packed,
+    num_samples: int,
+    device,
+    block_variants: int = 1 << 15,
+    sample_idx=None,
+    timer=None,
+) -> KingCounts:
+    """pgen_tpu's ``king_counts_mesh`` over the ranks of the default process
+    group: ``packed`` is this rank's shard of the rows (fewer than 2^24; zero
+    rows give zero Grams), and every rank gets the Grams of every rank's
+    rows (a lone process its own). The all_reduce is ``timer``'s."""
+    counts = king_counts_device(packed, num_samples, device, block_variants, sample_idx)
+    return KingCounts(*all_reduce_sum(counts, resolve_device(device), timer))
 
 
 def king_kinship(counts: KingCounts):

@@ -30,6 +30,14 @@ code into z, in K11's three forms. Its wrapper dispatches on the tensor's
 device with no fallback: a CUDA tensor launches K13, a CPU tensor runs
 ``grm_z_plain``.
 
+Under a process group of several ranks each rank passes its own shard of
+the rows, as pgen_tpu's mesh steps shard the variant axis: ``grm_mesh``
+sums the ranks' f64 z'z and used counts by one all_reduce each
+(``build_grm_mesh_step``, :451), and each --approx pass all_reduces its
+(S, L) y and used count (the mesh branch of ``_make_approx_pass_device``,
+:342-396) after rank 0's q is broadcast, so every rank starts each pass
+from the same q bit for bit.
+
 ``GrmResult``, ``pca_from_grm``, ``PcaApproxResult`` and ``pca_approx`` are
 copied from pgen_tpu (``ops/pca.py:42-45``, ``:206``, ``:243-317``), whose
 module imports jax at module level; ``pca_approx`` takes a device where
@@ -55,6 +63,7 @@ from pgen_tpu_torch.ops.glm import (
 )
 from pgen_tpu_torch.ops.gt_stats import stage_blocks
 from pgen_tpu_torch.ops.unpack import check_packed
+from pgen_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_from_rank0
 
 
 class GrmResult(NamedTuple):
@@ -122,21 +131,45 @@ def grm_device(
     records (a memory map is read block by block), f64 on the device, and
     the used-row count, over the samples of ``sample_idx`` (all S
     without it)."""
+    acc, m_used = _grm_sums(packed, num_samples, resolve_device(device), block_variants,
+                            sample_idx)
+    return GrmResult(acc.cpu().numpy(), int(m_used))
+
+
+def grm_mesh(
+    packed,
+    num_samples: int,
+    device,
+    block_variants: int = 1 << 14,
+    sample_idx=None,
+    timer=None,
+) -> GrmResult:
+    """pgen_tpu's ``grm_mesh`` over the ranks of the default process group:
+    ``packed`` is this rank's shard of the rows (zero rows give zeros), and
+    every rank gets the f64 z'z and used count of every rank's rows, summed
+    on the device by one all_reduce each (``timer``'s)."""
     dev = resolve_device(device)
+    acc, m_used = all_reduce_sum(_grm_sums(packed, num_samples, dev, block_variants, sample_idx),
+                                 dev, timer)
+    return GrmResult(acc.cpu().numpy(), int(m_used))
+
+
+def _grm_sums(packed, num_samples: int, dev, block_variants: int, sample_idx) -> tuple:
+    """(S, S) f64 z'z and the () int64 used count of the records, on dev."""
     ns = num_samples if sample_idx is None else len(sample_idx)
     n_var = packed.shape[0]
-    if n_var == 0:
-        return GrmResult(np.zeros((ns, ns), dtype=np.float64), 0)
-    sel = device_sel(sample_idx, num_samples, dev)
     acc = torch.zeros((ns, ns), dtype=torch.float64, device=dev)
     m_used = torch.zeros((), dtype=torch.int64, device=dev)
+    if n_var == 0:
+        return acc, m_used
+    sel = device_sel(sample_idx, num_samples, dev)
     scratch = (torch.empty(min(block_variants, n_var) * ns, dtype=torch.float32, device=dev)
                if dev.type == "cuda" else None)
     for _, _, block in stage_blocks(packed, dev, block_variants):
         z, used = grm_z(block, num_samples, sel, out=scratch)
         add_gram_fp64(acc, z)
         m_used += used.sum()
-    return GrmResult(acc.cpu().numpy(), int(m_used))
+    return acc, m_used
 
 
 def add_gram_fp64(acc: torch.Tensor, z: torch.Tensor) -> None:
@@ -181,6 +214,7 @@ def pca_approx(
     iters: int = 10,
     oversample: int = 8,
     seed: int = 1,
+    timer=None,
 ) -> PcaApproxResult:
     """Randomized top-k PCA WITHOUT materializing the S x S GRM.
 
@@ -198,6 +232,8 @@ def pca_approx(
     Host-side QR between passes is (S, L) — milliseconds.
 
     Deterministic for a fixed seed across devices up to f32 Gram noise.
+    Under a process group ``packed`` is this rank's shard of the rows, and
+    each pass sums over the ranks (``timer`` times its collectives).
     """
     packed = np.asarray(packed, dtype=np.uint8)
     ns = num_samples if sample_idx is None else len(sample_idx)
@@ -209,7 +245,8 @@ def pca_approx(
     rng = np.random.default_rng(seed)
     q = np.linalg.qr(rng.standard_normal((ns, L)))[0]
 
-    pass_fn = _make_approx_pass(packed, num_samples, device, sample_idx, block_variants)
+    pass_fn = _make_approx_pass(packed, num_samples, device, sample_idx, block_variants,
+                                timer)
 
     m_used = 0
     y = None
@@ -234,10 +271,12 @@ def pca_approx(
     return PcaApproxResult(vals, vecs * flip, int(m_used))
 
 
-def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants):
-    """pgen_tpu's ``_make_approx_pass_device`` on one device: each pass
-    streams the records through K13 and the two tall-skinny fp32 products,
-    y and the used count summed on the device; returns (y f64, m_used)."""
+def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants, timer=None):
+    """pgen_tpu's ``_make_approx_pass_device``: each pass streams the records
+    through K13 and the two tall-skinny fp32 products, y and the used count
+    summed on the device; returns (y f64, m_used). Under a process group
+    (its mesh branch) rank 0's q is broadcast first and the pass's f32 y and
+    used count are summed over the ranks on the device."""
     dev = resolve_device(device)
     sel = device_sel(sample_idx, num_samples, dev)
     nvar = int(packed.shape[0])
@@ -247,13 +286,14 @@ def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants):
                if dev.type == "cuda" else None)
 
     def pass_fn(q):
-        qd = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(dev)
+        qd = broadcast_from_rank0(torch.tensor(q, dtype=torch.float32, device=dev), timer)
         y = torch.zeros((ns, q.shape[1]), dtype=torch.float32, device=dev)
         m_used = torch.zeros((), dtype=torch.int64, device=dev)
         for _, _, block in stage_blocks(packed, dev, bv):
             z, used = grm_z(block, num_samples, sel, out=scratch)
             y += matmul_fp32(z.T, matmul_fp32(z, qd))
             m_used += used.sum()
+        y, m_used = all_reduce_sum((y, m_used), dev, timer)
         return y.cpu().numpy().astype(np.float64), int(m_used)
 
     return pass_fn

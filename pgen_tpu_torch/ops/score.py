@@ -35,6 +35,10 @@ rows minus K9's per-sample missing count (``sample_counts_device``),
 gathered by the cohort ids: K9 already counts every code of every slot in
 one pass over the block's bytes, so K11 needs no atomics of its own.
 
+``score_mesh`` is pgen_tpu's mesh step (``build_score_mesh_step``, :344)
+over the ranks of a process group: each rank scores its own rows and the
+four results are summed over the ranks, one all_reduce each, in f64.
+
 ``ScoreResult`` is carried over from pgen_tpu, whose module imports jax at
 module level. ``score_dosage`` dispatches on the tensor's device with no
 fallback: a CUDA tensor launches K11, a CPU tensor runs
@@ -59,6 +63,7 @@ from pgen_tpu_torch.ops.glm import (
 )
 from pgen_tpu_torch.ops.gt_stats import sample_counts_device, stage_blocks
 from pgen_tpu_torch.ops.unpack import check_packed
+from pgen_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class ScoreResult(NamedTuple):
@@ -157,3 +162,16 @@ def score(packed, num_samples: int, weights, flip, device, mean_impute: bool = T
     ct = np.full(ns, 2 * m_used, dtype=np.int64) if mean_impute else 2 * called_ct.cpu().numpy()
     return ScoreResult(sums.cpu().numpy().astype(np.float64),
                        dosage.cpu().numpy().astype(np.float64), ct, m_used)
+
+
+def score_mesh(packed, num_samples: int, weights, flip, device, mean_impute: bool = True,
+               block_variants: int = DEFAULT_BLOCK_VARIANTS, sample_idx=None,
+               timer=None) -> ScoreResult:
+    """pgen_tpu's ``score_mesh`` over the ranks of the default process group:
+    ``packed``, ``weights`` and ``flip`` are this rank's shard of the rows
+    (zero rows give zeros), and every rank gets the sums, dosage sums,
+    ALLELE_CT and used count of every rank's rows, one all_reduce each
+    (``timer``'s)."""
+    res = score(packed, num_samples, weights, flip, device, mean_impute, block_variants,
+                sample_idx)
+    return ScoreResult(*all_reduce_sum(res, resolve_device(device), timer))

@@ -16,21 +16,31 @@ on the host for every provider. ``ibd_counts_chunked``, ``genome_table``
 and ``_emit_rows`` are copied from pgen_tpu, with a device where pgen_tpu
 takes a provider.
 
-Stages (``GenomeResult.timer``): predicates, gather, ibd_grams, freqs,
-genome_emit.
+Under a process group of several ranks (``parallel/mesh.py``) rank r
+gathers and counts only its contiguous shard of the kept variants: each
+chunk's Grams are summed over the ranks (``ibd_counts_mesh``), and the
+per-variant cohort counts of the freqs stage are all-gathered in rank
+order, so the method of moments averages the same frequencies in the same
+order as one rank does and the text is the same bytes. Rank 0 alone
+writes.
+
+Stages (``GenomeResult.timer``): process_group, predicates, gather,
+ibd_grams (its all_reduce inside), freqs (its all_gather inside),
+genome_emit; under several ranks, one line a rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.formats.header import read_pgen_header
 from pgen_tpu_torch.formats.metadata import read_metadata
 from pgen_tpu_torch.ops.gt_stats import gt_counts, gt_counts_subset
-from pgen_tpu_torch.ops.ibd import IbdCounts, ibd_counts_device, ibd_estimates
+from pgen_tpu_torch.ops.ibd import IbdCounts, ibd_counts_mesh, ibd_estimates
+from pgen_tpu_torch.parallel.mesh import all_gather_rows, shard_range, variant_mesh
 from pgen_tpu_torch.pipeline.filter import compute_masks
 from pgen_tpu_torch.pipeline.filter_host import _gather_rows
 from pgen_tpu_torch.utils.timer import StageTimer
@@ -51,23 +61,25 @@ class GenomeResult:
 
 
 def ibd_counts_chunked(records, num_samples, device, sample_idx, timer,
-                       block_variants=None):
-    """Device calls with host-side f64 accumulation across chunks
-    (mirrors pipeline/king.py king_counts_chunked)."""
+                       block_variants=None, rows=None):
+    """Device calls with host-side f64 accumulation across chunks, each
+    chunk's Grams summed over the ranks (mirrors pipeline/king.py
+    king_counts_chunked, ``rows`` too)."""
     kw = {}
     if block_variants:
         kw["block_variants"] = int(block_variants)
-    nvar = records.shape[0]
+    nvar = records.shape[0] if rows is None else rows
     step = _DEVICE_EXACT_VARIANTS
     total = None
     nbytes = records.shape[0] * records.shape[1]
     with timer.stage("ibd_grams", nbytes):
         for lo in range(0, max(nvar, 1), max(step, 1)):
-            part = ibd_counts_device(
+            part = ibd_counts_mesh(
                 records[lo : lo + step],
                 num_samples,
                 device,
                 sample_idx=sample_idx,
+                timer=timer,
                 **kw,
             )
             total = part if total is None else IbdCounts(
@@ -92,10 +104,18 @@ def genome_table(
 ) -> GenomeResult:
     """pgen_tpu's ``genome_table`` with ``provider="device"``, its device
     work on ``device`` (``"cuda"``, which must be available, or ``"cpu"``,
-    the kernels' plain versions). Same arguments otherwise, same output
-    bytes."""
-    dev = resolve_device(device)
+    the kernels' plain versions), over this rank's variant shard under a
+    process group. Same arguments otherwise, same output bytes, written by
+    rank 0."""
     timer = StageTimer()
+    with variant_mesh(device, timer) as mesh:
+        return _genome_table(pfile_prefix, var_query, sam_query, out_file, min_pi_hat,
+                             block_variants, out, mesh)
+
+
+def _genome_table(pfile_prefix, var_query, sam_query, out_file, min_pi_hat, block_variants,
+                  out, mesh) -> GenomeResult:
+    dev, timer = mesh.device, mesh.timer
 
     header = read_pgen_header(f"{pfile_prefix}.pgen")
     pvar = read_metadata(f"{pfile_prefix}.pvar")
@@ -117,15 +137,17 @@ def genome_table(
         raise ValueError(
             f"genome needs >= 2 samples after filtering (got {len(sam_idx)})"
         )
-    with timer.stage("gather", len(var_idx) * rec):
-        kept = _gather_rows(records, var_idx)
+    lo, hi = mesh.shard(len(var_idx), "ibd_grams")
+    with timer.stage("gather", (hi - lo) * rec):
+        kept = _gather_rows(records, var_idx[lo:hi])
 
     subset = (
         None if len(sam_idx) == header.num_samples
         else sam_idx.astype(np.int32)
     )
     counts = ibd_counts_chunked(
-        kept, header.num_samples, dev, subset, timer, block_variants
+        kept, header.num_samples, dev, subset, timer, block_variants,
+        rows=shard_range(len(var_idx), 0, mesh.world)[1],
     )
 
     # cohort ALT frequencies of the kept variants feed the MoM expectations
@@ -134,22 +156,21 @@ def genome_table(
             c = gt_counts(kept, header.num_samples, dev)
         else:
             c = gt_counts_subset(kept, subset, dev)
+        (c,) = all_gather_rows([c], dev, timer)
         an = 2.0 * (c[:, 0] + c[:, 1] + c[:, 2])
         with np.errstate(divide="ignore", invalid="ignore"):
             af = np.where(an > 0, (c[:, 1] + 2.0 * c[:, 2]) / np.maximum(an, 1),
                           np.nan)
+    mesh.report_ranks()
     est = ibd_estimates(counts, af)
 
     iids = psam.get_column_strs("IID")
     iids = [iids[int(s)] for s in sam_idx]
 
     n_pairs = 0
-    if out is not None:
-        n_pairs = _emit_rows(out, iids, est, min_pi_hat, timer)
-        out_path = None
-    else:
-        out_path = out_file or f"{pfile_prefix}.genome"
-        with open(out_path, "w") as fh:
+    out_path = None if out is not None else out_file or f"{pfile_prefix}.genome"
+    if mesh.rank == 0:
+        with contextlib.nullcontext(out) if out is not None else open(out_path, "w") as fh:
             n_pairs = _emit_rows(fh, iids, est, min_pi_hat, timer)
     return GenomeResult(
         num_variants=len(var_idx),

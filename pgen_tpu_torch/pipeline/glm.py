@@ -13,8 +13,19 @@ modifiers) and ``--adjust``. Every moment product and IRLS product runs on
 the jax-free helpers are the port's copies of pgen_tpu's
 (``pipeline/glm_host.py``).
 
-Stages (``GlmRunResult.timer``): predicates, phenotypes, gather, then
-moments and solve (linear) or irls (logistic), emit and adjust.
+Under a process group of several ranks (``parallel/mesh.py``) rank r
+gathers only its contiguous shard of the kept variants and makes their
+moments, which every rank then all-gathers in rank order
+(``glm_moments_mesh``, ``glm_geno_moments_mesh``: every --modifier design
+reaches the latter), so that the f64 solve is one rank's; rank 0 alone
+writes the table and the --adjust file. Every rank reads the phenotypes,
+covariates and --condition dosages whole and checks them the same way
+before the first collective. Logistic models and --interaction have no
+mesh step in pgen_tpu and are refused there (``SingleRankOnly``).
+
+Stages (``GlmRunResult.timer``): process_group, predicates, phenotypes,
+gather, then moments (its all_gather inside) and solve (linear) or irls
+(logistic), emit and adjust; under several ranks, one line a rank.
 """
 
 from __future__ import annotations
@@ -34,9 +45,9 @@ from pgen_tpu_torch.pipeline.glm_host import (
 )
 from pgen_tpu_torch.utils.log import get_logger
 from pgen_tpu_torch.utils.timer import StageTimer
-from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.ops import glm as ops_glm
 from pgen_tpu_torch.ops import logistic as ops_logistic
+from pgen_tpu_torch.parallel.mesh import SingleRankOnly, ranks_refusal, variant_mesh
 from pgen_tpu_torch.pipeline.filter import compute_masks
 
 log = get_logger("torch.glm")
@@ -120,7 +131,8 @@ def _fit(kept, header, y, covars, model, modifier, interaction, firth, dev, subs
             _log_firth(res.firth, firth)
         else:
             with timer.stage("moments", nbytes):
-                m = ops_glm.glm_geno_moments(kept, ns, y, covars, dev, sample_idx=subset, **kw)
+                m = ops_glm.glm_geno_moments_mesh(kept, ns, y, covars, dev, sample_idx=subset,
+                                                  timer=timer, **kw)
             with timer.stage("solve"):
                 res = ops_glm.glm_solve_modifier(m, k, modifier)
         multi = _TestView(res)
@@ -144,7 +156,8 @@ def _fit(kept, header, y, covars, model, modifier, interaction, firth, dev, subs
         _log_firth(res.firth, firth)
         return None, _TestView(res), None, None
     with timer.stage("moments", nbytes):
-        m = ops_glm.glm_moments(kept, ns, y, covars, dev, sample_idx=subset, **kw)
+        m = ops_glm.glm_moments_mesh(kept, ns, y, covars, dev, sample_idx=subset, timer=timer,
+                                     **kw)
     with timer.stage("solve"):
         res = ops_glm.glm_solve(m, k)
     return None, _TestView(res), None, None
@@ -238,9 +251,9 @@ def glm_pfile(
 ) -> GlmRunResult:
     """pgen_tpu's ``glm_pfile`` with ``provider="device"``, its device work
     on ``device`` (``"cuda"``, which must be available, or ``"cpu"``, the
-    kernels' plain versions). Same arguments otherwise, same output bytes
-    up to the f32 rounding of the moments."""
-    dev = resolve_device(device)
+    kernels' plain versions), over this rank's variant shard under a
+    process group. Same arguments otherwise, same output bytes up to the
+    f32 rounding of the moments, written by rank 0."""
     if adjust and out is not None:
         raise ValueError(
             "glm: --adjust writes a separate .adjusted file; use a file -o, not '-'"
@@ -253,6 +266,18 @@ def glm_pfile(
                 "glm: --modifier and --interaction are mutually exclusive (pick one design)"
             )
     timer = StageTimer()
+    with variant_mesh(device, timer) as mesh:
+        return _glm_pfile(pfile_prefix, pheno_name, covar_names, var_query, sam_query,
+                          out_file, block_variants, model, firth, pheno_file, covar_file,
+                          condition, write, out, interaction, adjust, adjust_lambda,
+                          covar_variance_standardize, out_base, modifier, mesh)
+
+
+def _glm_pfile(pfile_prefix, pheno_name, covar_names, var_query, sam_query, out_file,
+               block_variants, model, firth, pheno_file, covar_file, condition, write, out,
+               interaction, adjust, adjust_lambda, covar_variance_standardize, out_base,
+               modifier, mesh) -> GlmRunResult:
+    dev, timer = mesh.device, mesh.timer
     header = read_pgen_header(f"{pfile_prefix}.pgen")
     pvar = read_metadata(f"{pfile_prefix}.pvar")
     psam = read_metadata(f"{pfile_prefix}.psam")
@@ -323,12 +348,20 @@ def glm_pfile(
                 f"(need >= {2 * k + 3})"
             )
 
-    with timer.stage("gather", len(var_idx) * rec):
-        kept = _gather_rows(records, var_idx)
+    if mesh.world > 1 and (model == "logistic" or interaction):
+        raise SingleRankOnly(ranks_refusal(
+            "glm --interaction" if interaction else "logistic glm", mesh.world,
+            "its --interaction scan" if interaction else "its logistic IRLS"))
+
+    lo, hi = mesh.shard(len(var_idx), "moments")
+    with timer.stage("gather", (hi - lo) * rec):
+        kept = _gather_rows(records, var_idx[lo:hi])
     subset = None if n_sam == header.num_samples else sam_idx.astype(np.int32)
     kw = {"block_variants": int(block_variants)} if block_variants else {}
     multi, res, joint_stat, joint_p = _fit(kept, header, y, covars, model, modifier,
                                            interaction, firth, dev, subset, kw, timer, rec)
+    mesh.report_ranks()
+    write = write and mesh.rank == 0
 
     if out_file is not None:
         out_path = out_file

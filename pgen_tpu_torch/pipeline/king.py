@@ -17,19 +17,28 @@ are the port's ``compute_masks`` (genotype counts on the device, as glm's);
 a provider: device calls stay below 2^23 variants and their Grams add up
 in f64.
 
-Stages (``KingResult.timer``): predicates, gather, king_grams, king_emit.
+Under a process group of several ranks (torchrun, one process per card;
+``parallel/mesh.py``) rank r gathers and counts only its contiguous shard
+of the kept variants, each chunk's Grams are summed over the ranks by
+``king_counts_mesh``, and rank 0 alone writes. A lone process is the one
+rank and makes no group.
+
+Stages (``KingResult.timer``): process_group, predicates, gather,
+king_grams (its all_reduce inside), king_emit; under several ranks, one
+line a rank (its card, rows and king_grams).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.formats.header import read_pgen_header
 from pgen_tpu_torch.formats.metadata import read_metadata
-from pgen_tpu_torch.ops.king import KingCounts, king_counts_device, king_kinship
+from pgen_tpu_torch.ops.king import KingCounts, king_counts_mesh, king_kinship
+from pgen_tpu_torch.parallel.mesh import shard_range, variant_mesh
 from pgen_tpu_torch.pipeline.filter import compute_masks
 from pgen_tpu_torch.pipeline.filter_host import _gather_rows
 from pgen_tpu_torch.utils.timer import StageTimer
@@ -52,26 +61,30 @@ class KingResult:
 
 
 def king_counts_chunked(records, num_samples, device, sample_idx, timer,
-                        block_variants=None):
-    """Device calls with host-side f64 accumulation across chunks.
+                        block_variants=None, rows=None):
+    """Device calls with host-side f64 accumulation across chunks, each
+    chunk's Grams summed over the ranks (``king_counts_mesh``).
 
     Each chunk is small enough that the device Grams are exact; the f64
-    sums keep exactness for any total variant count.
+    sums keep exactness for any total variant count. ``rows`` (the largest
+    shard's, this rank's without it) sets the number of chunks, so every
+    rank makes as many collectives.
     """
     kw = {}
     if block_variants:
         kw["block_variants"] = int(block_variants)
-    nvar = records.shape[0]
+    nvar = records.shape[0] if rows is None else rows
     step = _DEVICE_EXACT_VARIANTS
     total = None
     nbytes = records.shape[0] * records.shape[1]
     with timer.stage("king_grams", nbytes):
         for lo in range(0, max(nvar, 1), max(step, 1)):
-            part = king_counts_device(
+            part = king_counts_mesh(
                 records[lo : lo + step],
                 num_samples,
                 device,
                 sample_idx=sample_idx,
+                timer=timer,
                 **kw,
             )
             total = part if total is None else KingCounts(
@@ -118,11 +131,18 @@ def king_table(
 ) -> KingResult:
     """pgen_tpu's ``king_table`` with ``provider="device"``, its device work
     on ``device`` (``"cuda"``, which must be available, or ``"cpu"``, the
-    kernels' plain versions). Same arguments otherwise, same output
-    bytes."""
-    dev = resolve_device(device)
+    kernels' plain versions), over this rank's variant shard under a
+    process group. Same arguments otherwise, same output bytes, written by
+    rank 0."""
     timer = StageTimer()
+    with variant_mesh(device, timer) as mesh:
+        return _king_table(pfile_prefix, var_query, sam_query, out_file, min_kinship,
+                           block_variants, out, cutoff, mesh)
 
+
+def _king_table(pfile_prefix, var_query, sam_query, out_file, min_kinship, block_variants,
+                out, cutoff, mesh) -> KingResult:
+    dev, timer = mesh.device, mesh.timer
     header = read_pgen_header(f"{pfile_prefix}.pgen")
     pvar = read_metadata(f"{pfile_prefix}.pvar")
     psam = read_metadata(f"{pfile_prefix}.psam")
@@ -143,16 +163,19 @@ def king_table(
         raise ValueError(
             f"king needs >= 2 samples after filtering (got {len(sam_idx)})"
         )
-    with timer.stage("gather", len(var_idx) * rec):
-        kept = _gather_rows(records, var_idx)
+    lo, hi = mesh.shard(len(var_idx), "king_grams")
+    with timer.stage("gather", (hi - lo) * rec):
+        kept = _gather_rows(records, var_idx[lo:hi])
 
     subset = (
         None if len(sam_idx) == header.num_samples
         else sam_idx.astype(np.int32)
     )
     counts = king_counts_chunked(
-        kept, header.num_samples, dev, subset, timer, block_variants
+        kept, header.num_samples, dev, subset, timer, block_variants,
+        rows=shard_range(len(var_idx), 0, mesh.world)[1],
     )
+    mesh.report_ranks()
 
     kin, ibs0 = king_kinship(counts)
     iids = psam.get_column_strs("IID")
@@ -161,15 +184,16 @@ def king_table(
     if cutoff is not None:
         keep = king_cutoff_mask(kin, cutoff)
         out_path = out_file or pfile_prefix
-        with timer.stage("king_emit"):
-            with open(f"{out_path}.king.cutoff.in.id", "w") as fh:
-                fh.writelines(
-                    f"{iid}\n" for iid, k in zip(iids, keep) if k
-                )
-            with open(f"{out_path}.king.cutoff.out.id", "w") as fh:
-                fh.writelines(
-                    f"{iid}\n" for iid, k in zip(iids, keep) if not k
-                )
+        if mesh.rank == 0:
+            with timer.stage("king_emit"):
+                with open(f"{out_path}.king.cutoff.in.id", "w") as fh:
+                    fh.writelines(
+                        f"{iid}\n" for iid, k in zip(iids, keep) if k
+                    )
+                with open(f"{out_path}.king.cutoff.out.id", "w") as fh:
+                    fh.writelines(
+                        f"{iid}\n" for iid, k in zip(iids, keep) if not k
+                    )
         return KingResult(
             num_variants=len(var_idx),
             num_samples=len(sam_idx),
@@ -182,12 +206,9 @@ def king_table(
         )
 
     n_pairs = 0
-    if out is not None:
-        n_pairs = _emit_rows(out, iids, kin, ibs0, counts, min_kinship, timer)
-        out_path = None
-    else:
-        out_path = out_file or f"{pfile_prefix}.kin0"
-        with open(out_path, "w") as fh:
+    out_path = None if out is not None else out_file or f"{pfile_prefix}.kin0"
+    if mesh.rank == 0:
+        with contextlib.nullcontext(out) if out is not None else open(out_path, "w") as fh:
             n_pairs = _emit_rows(fh, iids, kin, ibs0, counts, min_kinship, timer)
     return KingResult(
         num_variants=len(var_idx),

@@ -16,8 +16,14 @@ OUT.rel.id; ``-k 0`` skips the eigendecomposition. The masks are the port's
 ``compute_masks`` (genotype counts on the device, as glm's); ``pca`` is
 copied from pgen_tpu, with a device where pgen_tpu takes a provider.
 
-Stages (``PcaResult.timer``): predicates, gather, grm and eigh, or
-pca_approx; emit, emit_rel.
+Under a process group of several ranks (``parallel/mesh.py``) rank r
+gathers and standardizes only its contiguous shard of the kept variants:
+the GRM's z'z and used count are summed over the ranks (``grm_mesh``), and
+each --approx pass's y likewise; rank 0 alone writes.
+
+Stages (``PcaResult.timer``): process_group, predicates, gather, grm (its
+all_reduce inside) and eigh, or pca_approx (its broadcasts and
+all_reduces inside); emit, emit_rel; under several ranks, one line a rank.
 """
 
 from __future__ import annotations
@@ -26,10 +32,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from pgen_tpu_torch.device import resolve_device
 from pgen_tpu_torch.formats.header import read_pgen_header
 from pgen_tpu_torch.formats.metadata import read_metadata
-from pgen_tpu_torch.ops.pca import grm_device, pca_approx, pca_from_grm
+from pgen_tpu_torch.ops.pca import grm_mesh, pca_approx, pca_from_grm
+from pgen_tpu_torch.parallel.mesh import variant_mesh
 from pgen_tpu_torch.pipeline.filter import compute_masks
 from pgen_tpu_torch.pipeline.filter_host import _gather_rows
 from pgen_tpu_torch.utils.timer import StageTimer
@@ -62,7 +68,8 @@ def pca(
 ) -> PcaResult:
     """pgen_tpu's ``pca`` with ``provider="device"``, its device work on
     ``device`` (``"cuda"``, which must be available, or ``"cpu"``, the
-    kernels' plain versions). Same arguments otherwise."""
+    kernels' plain versions), over this rank's variant shard under a
+    process group. Same arguments otherwise; rank 0 writes."""
     if make_rel not in (None, "bin", "text"):
         raise ValueError(f"--make-rel must be 'bin' or 'text', got {make_rel!r}")
     if k == 0 and make_rel is None:
@@ -72,9 +79,15 @@ def pca(
             "--make-rel materializes the exact S x S GRM, which --approx "
             "exists to avoid; drop one of the two"
         )
-    dev = resolve_device(device)
     timer = StageTimer()
+    with variant_mesh(device, timer) as mesh:
+        return _pca(pfile_prefix, k, var_query, sam_query, out_prefix, block_variants, write,
+                    make_rel, approx, approx_iters, seed, mesh)
 
+
+def _pca(pfile_prefix, k, var_query, sam_query, out_prefix, block_variants, write, make_rel,
+         approx, approx_iters, seed, mesh) -> PcaResult:
+    dev, timer = mesh.device, mesh.timer
     header = read_pgen_header(f"{pfile_prefix}.pgen")
     pvar = read_metadata(f"{pfile_prefix}.pvar")
     psam = read_metadata(f"{pfile_prefix}.psam")
@@ -95,8 +108,9 @@ def pca(
     if n_sam < 2:
         raise ValueError(f"pca needs >= 2 samples after filtering (got {n_sam})")
     k = min(k, n_sam)
-    with timer.stage("gather", len(var_idx) * rec):
-        kept = _gather_rows(records, var_idx)
+    lo, hi = mesh.shard(len(var_idx), "pca_approx" if approx else "grm")
+    with timer.stage("gather", (hi - lo) * rec):
+        kept = _gather_rows(records, var_idx[lo:hi])
 
     subset = (
         None if n_sam == header.num_samples else sam_idx.astype(np.int32)
@@ -108,16 +122,18 @@ def pca(
         with timer.stage("pca_approx", kept.shape[0] * rec):
             ares = pca_approx(
                 kept, header.num_samples, k, dev,
-                sample_idx=subset, iters=approx_iters, seed=seed, **kw,
+                sample_idx=subset, iters=approx_iters, seed=seed, timer=timer, **kw,
             )
         vals, vecs = ares.eigenvalues, ares.eigenvectors
         m_used = ares.m_used
+        mesh.report_ranks()
     else:
         with timer.stage("grm", kept.shape[0] * rec):
-            res = grm_device(kept, header.num_samples, dev,
-                             sample_idx=subset, **kw)
+            res = grm_mesh(kept, header.num_samples, dev,
+                           sample_idx=subset, timer=timer, **kw)
         m_used = res.m_used
-        if k > 0:
+        mesh.report_ranks()
+        if k > 0 and mesh.rank == 0:
             with timer.stage("eigh"):
                 vals, vecs = pca_from_grm(res.grm_sum, res.m_used, k)
         else:
@@ -127,6 +143,7 @@ def pca(
     out = out_prefix or f"{pfile_prefix}.pca"
     iids = psam.get_column_strs("IID")
     iids = [iids[int(s)] for s in sam_idx]
+    write = write and mesh.rank == 0
     if write and k > 0:
         with timer.stage("emit"):
             with open(f"{out}.eigenvec", "w") as fh:

@@ -12,8 +12,18 @@ genotype counts on ``device``: K8 over every sample, K14 over a sample
 subset (``gt_counts_masked``). The table
 parsers are the port's copies of pgen_tpu's (``pipeline/score_host.py``).
 
-Stages (``ScoreRunResult.timer``): score_file, predicates, match, gather,
-moments (the counts of --center/--variance-standardize), score, emit.
+Under a process group of several ranks (``parallel/mesh.py``) rank r
+gathers and scores only its contiguous shard of the matched variants (of a
+--q-score-range range, the range's rows inside that shard), with its slice
+of the weights and flips; the four results are summed over the ranks
+(``score_mesh``), the counts of --center/--variance-standardize
+all-gathered in rank order, and rank 0 alone writes, after every range is
+scored.
+
+Stages (``ScoreRunResult.timer``): process_group, score_file, predicates,
+match, gather, moments (the counts of --center/--variance-standardize, its
+all_gather inside), score (its all_reduce inside), emit; under several
+ranks, one line a rank.
 """
 
 from __future__ import annotations
@@ -33,8 +43,8 @@ from pgen_tpu_torch.pipeline.score_host import (
 )
 from pgen_tpu_torch.utils.log import get_logger
 from pgen_tpu_torch.utils.timer import StageTimer
-from pgen_tpu_torch.device import resolve_device
-from pgen_tpu_torch.ops.score import score
+from pgen_tpu_torch.ops.score import score_mesh
+from pgen_tpu_torch.parallel.mesh import all_gather_rows, variant_mesh
 from pgen_tpu_torch.pipeline.filter import compute_masks
 
 log = get_logger("torch.score")
@@ -72,16 +82,19 @@ def _match(table, pvar, var_mask) -> tuple:
     return var_idx, weights, flip, unmatched, mismatched
 
 
-def _effect_means(kept, num_samples, subset, flip, weights, variance_standardize, dev):
+def _effect_means(kept, num_samples, subset, flip, weights, variance_standardize, dev,
+                  timer=None):
     """plink2 ``center``/``variance-standardize`` under mean imputation:
     the (possibly rescaled) weights and each variant's effect-allele mean,
-    from the kept rows' genotype counts."""
+    from the kept rows' genotype counts (``kept``: this rank's shard; the
+    counts of every rank's are all-gathered in rank order)."""
     from pgen_tpu_torch.ops.gt_stats import gt_counts, gt_counts_subset
 
     if subset is None:
         cts = gt_counts(kept, num_samples, dev)
     else:
         cts = gt_counts_subset(kept, subset, dev)
+    (cts,) = all_gather_rows([cts], dev, timer)
     n_called = cts[:, :3].sum(axis=1).astype(np.float64)
     used = n_called > 0
     safe_n = np.maximum(n_called, 1.0)
@@ -132,9 +145,21 @@ def score_pfile(
     work on ``device`` (``"cuda"``, which must be available, or ``"cpu"``).
     Same arguments otherwise: ``q_score_range`` is a (range file, data file)
     pair; with a stream ``out`` its tables are one table with a leading
-    RANGE column."""
-    dev = resolve_device(device)
+    RANGE column. Under a process group each rank scores its variant
+    shard, and rank 0 writes."""
     timer = StageTimer()
+    with variant_mesh(device, timer) as mesh:
+        return _score_pfile(pfile_prefix, score_file, var_id_col, allele_col, weight_cols,
+                            header_row, var_query, sam_query, out_file, mean_impute,
+                            write_sums, block_variants, write, out, q_score_range,
+                            q_data_col, center, variance_standardize, mesh)
+
+
+def _score_pfile(pfile_prefix, score_file, var_id_col, allele_col, weight_cols, header_row,
+                 var_query, sam_query, out_file, mean_impute, write_sums, block_variants,
+                 write, out, q_score_range, q_data_col, center, variance_standardize,
+                 mesh) -> ScoreRunResult:
+    dev, timer = mesh.device, mesh.timer
     with timer.stage("score_file"):
         table = read_score_file(score_file, var_id_col, allele_col, weight_cols, header_row)
     header = read_pgen_header(f"{pfile_prefix}.pgen")
@@ -160,8 +185,9 @@ def score_pfile(
                     "ALT)", mismatched)
     if len(var_idx) == 0:
         raise ValueError("score: no score variants matched the fileset")
-    with timer.stage("gather", len(var_idx) * rec):
-        kept = _gather_rows(records, var_idx)
+    lo, hi = mesh.shard(len(var_idx), "score")
+    with timer.stage("gather", (hi - lo) * rec):
+        kept = _gather_rows(records, var_idx[lo:hi])
     subset = None if n_sam == header.num_samples else sam_idx.astype(np.int32)
     kw = {"block_variants": int(block_variants)} if block_variants else {}
 
@@ -174,15 +200,20 @@ def score_pfile(
             )
         with timer.stage("moments", kept.shape[0] * rec):
             weights, mu_eff = _effect_means(kept, header.num_samples, subset, flip, weights,
-                                            variance_standardize, dev)
+                                            variance_standardize, dev, timer)
 
     def run(rows):
-        """Scores of the matched variants ``rows`` (a slice or index array),
-        centered when asked; returns (result, ALLELE_CT, averages)."""
-        rows_kept = kept[rows]
+        """Scores of the matched variants ``rows`` (every one, slice(None), or
+        an index array), this rank's shard of them scored here, centered
+        when asked; returns (result, ALLELE_CT, averages)."""
+        if isinstance(rows, slice):
+            mine, rows_kept = np.arange(lo, hi), kept
+        else:
+            mine = rows[(rows >= lo) & (rows < hi)]
+            rows_kept = kept[mine - lo]
         with timer.stage("score", rows_kept.shape[0] * rec):
-            res = score(rows_kept, header.num_samples, weights[rows], flip[rows], dev,
-                        mean_impute=mean_impute, sample_idx=subset, **kw)
+            res = score_mesh(rows_kept, header.num_samples, weights[mine], flip[mine], dev,
+                             mean_impute=mean_impute, sample_idx=subset, timer=timer, **kw)
         if mu_eff is not None:
             res = res._replace(sums=res.sums - (mu_eff[rows] @ weights[rows])[None, :])
         return res, res.allele_ct, res.sums / np.maximum(res.allele_ct, 1)[:, None]
@@ -200,37 +231,42 @@ def score_pfile(
         base = out_file or pfile_prefix
         if base.endswith(".sscore"):
             base = base[: -len(".sscore")]
-        if out is not None:
-            out.write("\t".join(["#RANGE"] + [h.lstrip("#") for h in hdr]) + "\n")
-        out_paths, last = [], None
+        scored = []
         for name, rlo, rhi in ranges:
             with np.errstate(invalid="ignore"):
                 sel = np.flatnonzero(~np.isnan(v) & (v >= rlo) & (v <= rhi))
             if sel.size == 0:
                 log.warning("score: --q-score-range %s matched no variants", name)
                 continue
-            res, ct, avgs = run(sel)
+            scored.append((name, *run(sel), int(sel.size)))
+        mesh.report_ranks()
+        if out is not None and mesh.rank == 0:
+            out.write("\t".join(["#RANGE"] + [h.lstrip("#") for h in hdr]) + "\n")
+        out_paths, last = [], None
+        for name, res, ct, avgs, n_sel in scored:
             if out is not None:
                 path = f"<stream>.{name}"
-                with timer.stage("emit"):
-                    _rows(out, iids, res, ct, avgs, write_sums, lead=(name,))
+                if mesh.rank == 0:
+                    with timer.stage("emit"):
+                        _rows(out, iids, res, ct, avgs, write_sums, lead=(name,))
             else:
                 path = f"{base}.{name}.sscore"
-                if write:
+                if write and mesh.rank == 0:
                     with timer.stage("emit"), open(path, "w") as fh:
                         fh.write("\t".join(hdr) + "\n")
                         _rows(fh, iids, res, ct, avgs, write_sums)
             out_paths.append(path)
-            last = (res, ct, avgs, int(sel.size))
+            last = (res, ct, avgs, n_sel)
         if last is None:
             raise ValueError("score: no --q-score-range range matched any variant")
         res, ct, avgs, n_scored = last
         out_path = "; ".join(out_paths)
     else:
         res, ct, avgs = run(slice(None))
+        mesh.report_ranks()
         n_scored = len(var_idx)
         out_path = out_file or f"{pfile_prefix}.sscore"
-        if write:
+        if write and mesh.rank == 0:
             with timer.stage("emit"):
                 cm = contextlib.nullcontext(out) if out is not None else open(out_path, "w")
                 with cm as fh:

@@ -495,6 +495,20 @@ def test_analytics_refusals(fileset, monkeypatch, capsys, command):
     assert e.value.code == 2 and "ROADMAP §1 item 17" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("ranks", ["WORLD_SIZE", "PGEN_TPU_NUM_PROCS"])
+def test_query_refuses_ranks(fileset, monkeypatch, capsys, ranks):
+    """query has no mesh step in pgen_tpu: under several ranks (either
+    launcher's variables) it exits 2 naming ROADMAP §1 item 17 and prints
+    no row."""
+    d, prefix, _ = fileset
+    monkeypatch.setenv(ranks, "2")
+    with pytest.raises(SystemExit) as e:
+        port_main(["query", prefix, *COMMANDS["query"], "--device", "cpu"])
+    got = capsys.readouterr()
+    assert e.value.code == 2 and not got.out
+    assert "query under 2 ranks" in got.err and "ROADMAP §1 item 17" in got.err
+
+
 @pytest.mark.parametrize("case", ["metadata", "include", "exclude", "regions", "samples"])
 def test_metadata_query_counts_nothing(fileset, monkeypatch, case):
     """A query without GT_* or a GT index reads only the .pvar/.psam (and

@@ -497,16 +497,29 @@ def test_cli_glm_refusals(tmp_path, capsys, argv):
 
 @pytest.mark.parametrize("command", ["glm", "score"])
 def test_cli_analytics_refuse_several_ranks(tmp_path, capsys, monkeypatch, command):
-    """Under WORLD_SIZE > 1 the one-GPU analytics refuse, naming the ROADMAP
-    item of multi-GPU analytics."""
+    """Under WORLD_SIZE > 1 linear glm and score are served (their mesh
+    steps, ROADMAP §1 item 17; a WORLD_SIZE without RANK makes no group, so
+    this process runs as the one rank and writes what it writes alone);
+    glm --interaction and --logistic, which pgen_tpu has no mesh step for,
+    still refuse, naming the item. tests/test_torch_mesh.py runs the
+    ranks."""
     prefix = _fileset(tmp_path, n_var=4)
-    (tmp_path / "w.tsv").write_text("rs1\tG\t0.5\n")
-    monkeypatch.setenv("WORLD_SIZE", "2")
+    (tmp_path / "w.tsv").write_text("rs1\tC\t0.5\nrs2\tA\t-0.25\n")
     extra = ["--pheno-name", "QT"] if command == "glm" else ["--score", str(tmp_path / "w.tsv")]
-    with pytest.raises(SystemExit) as e:
-        port_main([command, prefix, *extra, "--device", "cpu", "-o", str(tmp_path / "x")])
-    assert e.value.code == 2
-    assert "ROADMAP §1 item 17" in capsys.readouterr().err
+    argv = [command, prefix, *extra, "--device", "cpu"]
+    assert port_main([*argv, "-o", str(tmp_path / "alone")]) == 0
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert port_main([*argv, "-o", str(tmp_path / "x")]) == 0
+    assert (tmp_path / "x").read_bytes() == (tmp_path / "alone").read_bytes()
+    capsys.readouterr()
+    if command == "glm":
+        for flags in (["--interaction", "--covar-name", "C1"], ["--logistic"]):
+            with pytest.raises(SystemExit) as e:
+                port_main([*argv, *flags, "-o", str(tmp_path / "y")])
+            assert e.value.code == 2
+            err = capsys.readouterr().err
+            assert "no mesh step" in err and "ROADMAP §1 item 17" in err
+        assert not list(tmp_path.glob("y*"))
 
 
 def test_glm_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):

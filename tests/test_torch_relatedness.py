@@ -21,6 +21,7 @@ about a third of values.
 """
 
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -333,17 +334,23 @@ def test_cli_exits_and_reports_as_pgen_tpu(tmp_path, capsys, argv):
 
 @pytest.mark.parametrize("command", ["king", "genome", "pca"])
 def test_cli_refuses_host_providers_and_ranks(tmp_path, capsys, monkeypatch, command):
+    """pgen_tpu's host providers are refused (exit 2). Under WORLD_SIZE > 1
+    king, genome and pca are served (their mesh steps, ROADMAP §1 item 17;
+    a WORLD_SIZE without RANK makes no group, so this process runs as the
+    one rank, byte-equal to its run alone); tests/test_torch_mesh.py runs
+    the ranks."""
     prefix, _ = _fileset(tmp_path, 20, 6, 9)
     for provider in ("native", "numpy"):
         with pytest.raises(SystemExit) as e:
             port_main([command, prefix, "--provider", provider, "--device", "cpu"])
         assert e.value.code == 2
         assert "(item 10, done)" in capsys.readouterr().err
+    out = {"king": "", "genome": "", "pca": ".eigenvec"}[command]
+    assert port_main([command, prefix, "--device", "cpu", "-o", str(tmp_path / "alone")]) == 0
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit) as e:
-        port_main([command, prefix, "--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP §1 item 17" in capsys.readouterr().err
+    assert port_main([command, prefix, "--device", "cpu", "-o", str(tmp_path / "ranks")]) == 0
+    assert (Path(f"{tmp_path / 'ranks'}{out}").read_bytes()
+            == Path(f"{tmp_path / 'alone'}{out}").read_bytes())
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):
