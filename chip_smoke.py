@@ -165,6 +165,27 @@ Phases, each printing its own lines:
              the port's. (h) times the collectives alone (NCCL, CUDA
              events) beside their bytes over NVLink's 450 GB/s. The default
              run takes 2 ranks; --ranks 2 and 4.
+ 13 host     the twelve fileset subcommands through the port's CLI on the
+             full chr22 fixture, every sample: (a) merge of the first and
+             the last 1,252 samples (each written by filter --keep
+             --out-format pgen, K5) gives back the .pgen, sha256-equal (K1,
+             K4); (b) split --parts 4 then concat gives back the .pgen,
+             .pvar and .psam; (c) sort of a seeded shuffle of the rows gives
+             back the .pgen and .pvar, and isec with a 20,000-variant
+             region fileset gives that region; (d) index of the region's
+             .vcf.gz writes filter --index's .tbi byte for byte, view -r
+             prints a 100-variant span's rows, describe the fixture's
+             header; (e) diff against a copy with code changes planted in
+             64 seeded records reports exactly those cells, its
+             --per-sample counts equal to numpy's (K1); (f) annotate
+             --fill-info over every sample (K8) and a --samples-file of
+             1,001 (K14), 2,000 seeded variants' INFO equal to numpy's
+             counts, then --fill-info all on the region against --device
+             cpu; (g) export A, AD and ped of the region and (h) roh of the
+             region with homozygous runs planted in 8 seeded samples (each
+             called) against --device cpu by sha256 (K1). Each cut in
+             variants is printed; the phase prints its launches of K1, K4,
+             K8 and K14, each of which must be above zero, and its time.
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
@@ -172,7 +193,7 @@ last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
 just after. Then the products' line, one JSON line of the fifteen kernels
-(launches summed over phases 4-11), and as the last line
+(launches summed over phases 4-11 and 13), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
@@ -1185,23 +1206,35 @@ def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
             raise AssertionError(f"{vcf.name}: GT text of body row {bad} differs from the .pgen")
 
 
-def _port_cli(args: list, out: Path, device: str) -> tuple:
-    """One run of the port's CLI (``args`` is the subcommand and its input,
-    then its flags) with ``-o out``; returns its wall seconds and its stderr
-    (the --stats report), which it prints for the cuda run."""
+def _port_run(argv: list, device: str | None = None, stdout: Path | None = None) -> tuple:
+    """One run of the port's CLI with ``argv`` as given, plus ``--device``
+    when the subcommand has a card stage; stdout (text and
+    ``sys.stdout.buffer``) goes to the file ``stdout`` when given. Returns
+    its wall seconds and its stderr, which it prints for a cuda run."""
     from pgen_tpu_torch.cli import main as port_main
 
+    argv = [*map(str, argv), *(["--device", device] if device else [])]
     err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        rc = port_main([*map(str, args), "-o", str(out), "--device", device, "--stats"])
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stderr(err))
+        if stdout is not None:
+            stack.enter_context(contextlib.redirect_stdout(stack.enter_context(open(stdout, "w"))))
+        rc = port_main(argv)
     seconds = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"port CLI {args[0]} on {device} returned {rc}\n{err.getvalue()}")
-    if device == "cuda":
+        raise AssertionError(f"port CLI {' '.join(argv[:2])} returned {rc}\n{err.getvalue()}")
+    if device != "cpu":
         for line in err.getvalue().strip().splitlines():
             print(f"    {line}")
     return seconds, err.getvalue()
+
+
+def _port_cli(args: list, out: Path, device: str) -> tuple:
+    """One run of the port's CLI (``args`` is the subcommand and its input,
+    then its flags) with ``-o out`` and ``--stats``; returns its wall
+    seconds and its stderr (the --stats report)."""
+    return _port_run([*args, "-o", out, "--stats"], device)
 
 
 def _port_filter(prefix, argv, out: Path, device: str) -> float:
@@ -2397,16 +2430,7 @@ REPORTS = {"freq": ".afreq", "gcount": ".gcount", "hardy": ".hardy", "missing": 
 def _port_stdout(argv: list, out: Path, device: str) -> tuple:
     """One run of the port's CLI whose table goes to stdout (query, stats),
     written to ``out``; returns its wall seconds and its stderr."""
-    from pgen_tpu_torch.cli import main as port_main
-
-    err = io.StringIO()
-    t0 = time.perf_counter()
-    with open(out, "w") as fh, contextlib.redirect_stdout(fh), contextlib.redirect_stderr(err):
-        rc = port_main([*map(str, argv), "--device", device])
-    seconds = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"port CLI {argv[0]} on {device} returned {rc}\n{err.getvalue()}")
-    return seconds, err.getvalue()
+    return _port_run(argv, device, stdout=out)
 
 
 def _masked_counts_numpy(packed, rows, samples):
@@ -3349,6 +3373,344 @@ def phase_mesh(tmp: Path, full: Path, worlds) -> dict:
     return collectives
 
 
+HOST_REGION = 20_000  # variants of phase 13's region runs (export, roh, annotate vs cpu)
+DIFF_RECORDS = 64  # phase 13 (e): records with planted code changes
+ROH_SAMPLES = 8  # phase 13 (h): samples with a planted homozygous run
+ROH_RUN = 5000  # variants of each planted run (about 1.3 Mb at the fixture's spacing)
+
+
+def _unlink(*prefixes, exts=(".pgen", ".pvar", ".psam")) -> None:
+    for prefix in prefixes:
+        for ext in exts:
+            Path(f"{prefix}{ext}").unlink(missing_ok=True)
+
+
+def _write_fileset(prefix: Path, packed, pvar_head: bytes, pvar_rows, psam: Path,
+                   n_samples: int) -> None:
+    """A mode-0x02 fileset from numpy: the 12-byte header and the records,
+    the .pvar's header lines and rows, a copy of ``psam``."""
+    import shutil
+    import struct
+
+    with open(f"{prefix}.pgen", "wb") as f:
+        f.write(b"\x6c\x1b\x02" + struct.pack("<II", len(packed), n_samples) + b"\x40")
+        f.write(packed.tobytes())
+    with open(f"{prefix}.pvar", "wb") as f:
+        f.write(pvar_head)
+        f.write(b"".join(pvar_rows))
+    shutil.copyfile(psam, f"{prefix}.psam")
+
+
+def _pvar_parts(prefix: Path) -> tuple:
+    """The .pvar's header lines and its data rows (each with its newline)."""
+    data = Path(f"{prefix}.pvar").read_bytes()
+    body = data.index(b"\n#CHROM") + 1
+    body = data.index(b"\n", body) + 1
+    return data[:body], data[body:].splitlines(keepends=True)
+
+
+def _info_oracle(counts, n_cohort: int) -> list:
+    """--fill-info AC,AN,AF,MAF,NS,F_MISSING of each row of (rows, 4)
+    counts, as annotate writes it (%d and %.6g)."""
+    out = []
+    for hom_ref, het, hom_alt, miss in counts.tolist():
+        ac, nobs = het + 2 * hom_alt, hom_ref + het + hom_alt
+        af = ac / max(2 * nobs, 1) if nobs else 0.0
+        out.append("AC=%d;AN=%d;AF=%.6g;MAF=%.6g;NS=%d;F_MISSING=%.6g" % (
+            ac, 2 * nobs, af, min(af, 1.0 - af), nobs, miss / max(n_cohort, 1)))
+    return out
+
+
+def _same_on_cpu(label: str, run, files) -> float:
+    """``run("cpu", "cpu")`` after the cuda run that wrote ``files`` (each
+    named cuda.*; the cpu run writes cpu.*): sha256-equal, then both
+    deleted. Returns the cpu run's wall seconds."""
+    hashes = [_sha256(f) for f in files]
+    seconds = run("cpu", "cpu")
+    for f, want in zip(files, hashes):
+        twin = f.with_name(f.name.replace("cuda.", "cpu.", 1))
+        if _sha256(twin) != want:
+            raise AssertionError(f"{label}: {f.name} differs from the --device cpu run's")
+        f.unlink()
+        twin.unlink()
+    return seconds
+
+
+def phase_host(tmp: Path, full: Path, device: str = "cuda") -> dict:
+    """The twelve fileset subcommands (ROADMAP §1 item 13) through the port's
+    CLI on the full chr22 fixture, every sample, the card stages on
+    ``device`` (launch counts read around the phase):
+    (a) filter --keep writes the first and the last 1,252 samples as two
+    pgen filesets (K5); merge of the two (K1 + K4) gives back the fixture's
+    .pgen, sha256-equal. (b) split --parts 4, then concat of the parts:
+    .pgen, .pvar and .psam sha256-equal to the fixture's. (c) sort of a
+    copy with its rows in a seeded order gives back the .pgen and .pvar;
+    isec of the fixture with its 20,000-variant region (a pgen fileset
+    written by filter -r) gives that region (both_a, both_b). (d) index of
+    the region's .vcf.gz (filter -o X.vcf.gz) writes the .tbi of filter
+    --index, byte for byte; view -r of a 100-variant span prints those rows
+    of the gunzipped VCF; describe prints the fixture's header. (e) diff of
+    the fixture with a copy in which 64 seeded records hold seeded code
+    changes (between called codes) reports exactly those cells, and its
+    --per-sample DIFF_CT and CMP_CT are the planted and called counts (K1).
+    (f) annotate --fill-info AC,AN,AF,MAF,NS,F_MISSING over every sample
+    (K8) and a --samples-file of 1,001 (K14): the INFO of 2,000 seeded
+    variants equal to numpy counts' text; then --fill-info all on the
+    region fileset, with and without the cohort, sha256-equal to --device
+    cpu. (g) export A, AD and ped of the region, sha256-equal to --device
+    cpu (K1; a keep-all .raw of every variant would be 5.5 GB). (h) roh of
+    the region with homozygous runs of 5,000 variants planted in 8 seeded
+    samples: one segment a planted run, its ends within a window (50
+    variants) of the run's, and the .hom and
+    .hom.indiv sha256-equal to --device cpu (the host scan holds (S, L)
+    u16 arrays: all of chr22 would need tens of GB). Returns the launches."""
+    import gzip
+
+    import numpy as np
+
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, n = len(pos), len(iids)
+    rng = np.random.default_rng(SEED + 13)
+    first = int(rng.integers(0, n_var - HOST_REGION))
+    region = f"22:{pos[first]}-{pos[first + HOST_REGION - 1]}"
+    walls = {}
+    psam = Path(f"{full}.psam")
+    want_pgen = _sha256(Path(f"{full}.pgen"))
+
+    def timed(label, seconds):
+        walls[label] = seconds
+        print(f"[13 host] {label}: {seconds:.3f} s")
+
+    print(f"[13 host] every sample ({n}); cuts in variants: (a)-(f) all {n_var} but view "
+          f"-r (100) and the INFO oracle ({COUNT_ORACLE_VARIANTS}); the region of (c) isec, "
+          f"(d) index, (f) --device cpu, (g) and (h): {HOST_REGION} variants, {region}")
+    _reset_launches()
+
+    # (a) merge of two halves of the samples: K5 writes them, K1 + K4 join them
+    half = n // 2
+    for name, keep in (("h1", iids[:half]), ("h2", iids[half:])):
+        (tmp / f"{name}.txt").write_text("".join(f"{i}\n" for i in keep))
+        seconds, _ = _port_run(["filter", full, "--keep", tmp / f"{name}.txt", "--out-format",
+                                "pgen", "-o", tmp / name], device)
+        timed(f"(a) filter --keep {len(keep)} samples --out-format pgen", seconds)
+    seconds, _ = _port_run(["merge", tmp / "h1", tmp / "h2", "-o", tmp / "merged", "--stats"],
+                           device)
+    if _sha256(Path(f"{tmp / 'merged'}.pgen")) != want_pgen:
+        raise AssertionError("(a) merge of the two halves differs from the fixture's .pgen")
+    if Path(f"{tmp / 'merged'}.psam").read_text().count("\n") != n + 1:
+        raise AssertionError("(a) the merged .psam does not hold every sample")
+    timed(f"(a) merge {half} + {n - half} samples x {n_var} variants, .pgen sha256-equal "
+          f"to the fixture's", seconds)
+    _unlink(tmp / "h1", tmp / "h2", tmp / "merged")
+
+    # (b) split --parts 4, concat of the parts
+    seconds, _ = _port_run(["split", full, "--parts", "4", "-o", tmp / "sp", "--stats"])
+    timed("(b) split --parts 4", seconds)
+    parts = [tmp / f"sp.part{i}" for i in range(1, 5)]
+    seconds, _ = _port_run(["concat", *parts, "-o", tmp / "cat", "--stats"])
+    if _fileset_sha256(tmp / "cat") != _fileset_sha256(full):
+        raise AssertionError("(b) concat of split --parts 4 differs from the fixture")
+    timed("(b) concat of the 4 parts, .pgen/.pvar/.psam sha256-equal to the fixture's",
+          seconds)
+    _unlink(tmp / "cat", *parts)
+
+    # (c) sort of a shuffled copy; isec with the region
+    head, rows = _pvar_parts(full)
+    perm = rng.permutation(n_var)
+    t0 = time.perf_counter()
+    _write_fileset(tmp / "shuf", np.asarray(packed)[perm], head, [rows[i] for i in perm], psam,
+                   n)
+    print(f"[13 host] (c) a copy with its rows in a seeded order, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    seconds, _ = _port_run(["sort", tmp / "shuf", "-o", tmp / "sorted", "--stats"])
+    if (_fileset_sha256(tmp / "sorted")[:2] != _fileset_sha256(full)[:2]):
+        raise AssertionError("(c) sort of the shuffled copy is not the fixture")
+    timed("(c) sort of the shuffled copy, .pgen/.pvar sha256-equal to the fixture's", seconds)
+    _unlink(tmp / "shuf", tmp / "sorted")
+    seconds, _ = _port_run(["filter", full, "-r", region, "--out-format", "pgen",
+                            "-o", tmp / "reg"], device)
+    timed(f"(c) filter -r {region} --out-format pgen (the region fileset)", seconds)
+    seconds, _ = _port_run(["isec", full, tmp / "reg", "--write", "both_a,both_b",
+                            "-o", tmp / "is", "--stats"])
+    for side in ("both_a", "both_b"):
+        if _fileset_sha256(tmp / f"is.{side}") != _fileset_sha256(tmp / "reg"):
+            raise AssertionError(f"(c) isec's {side} is not the region")
+    timed("(c) isec of the fixture and the region: both_a and both_b sha256-equal to the "
+          "region", seconds)
+    _unlink(tmp / "is.both_a", tmp / "is.both_b")
+
+    # (d) index, view, describe
+    gz = tmp / "x.vcf.gz"
+    seconds, _ = _port_run(["filter", tmp / "reg", "-o", gz, "--index"], device)
+    timed(f"(d) filter -o X.vcf.gz --index of the region ({gz.stat().st_size} B)", seconds)
+    import shutil
+
+    shutil.copyfile(gz, tmp / "y.vcf.gz")
+    seconds, _ = _port_run(["index", tmp / "y.vcf.gz", "--stats"])
+    if Path(f"{tmp / 'y.vcf.gz'}.tbi").read_bytes() != Path(f"{gz}.tbi").read_bytes():
+        raise AssertionError("(d) index's .tbi differs from filter --index's")
+    timed("(d) index: .tbi byte-equal to filter --index's", seconds)
+    lo = first + HOST_REGION // 2
+    span = f"22:{pos[lo]}-{pos[lo + 99]}"
+    seconds, _ = _port_run(["view", tmp / "y.vcf.gz", "-r", span, "-H"],
+                           stdout=tmp / "view.txt")
+    with gzip.open(gz, "rb") as f:
+        body = [ln for ln in f.read().split(b"\n") if ln and not ln.startswith(b"#")]
+    want = b"".join(ln + b"\n" for ln in body[lo - first : lo - first + 100])
+    if (tmp / "view.txt").read_bytes() != want:
+        raise AssertionError(f"(d) view -r {span} does not print the span's 100 rows")
+    timed(f"(d) view -r {span} -H: the span's 100 rows of the gunzipped VCF", seconds)
+    seconds, _ = _port_run(["describe", f"{full}.pgen"], stdout=tmp / "describe.txt")
+    text = (tmp / "describe.txt").read_text()
+    if f"variants: {n_var}\nsamples: {n}\n" not in text or "storage mode: 0x02" not in text:
+        raise AssertionError(f"(d) describe printed {text!r}")
+    timed("(d) describe of the fixture's .pgen", seconds)
+    for f in (gz, tmp / "y.vcf.gz", Path(f"{gz}.tbi"), Path(f"{tmp / 'y.vcf.gz'}.tbi"),
+              tmp / "view.txt", tmp / "describe.txt"):
+        f.unlink()
+
+    # (e) diff against a copy with planted code changes
+    rows_k = np.sort(rng.choice(n_var, DIFF_RECORDS, replace=False))
+    changed = np.asarray(packed[rows_k]).copy()
+    cells = []
+    for k, r in enumerate(rows_k):
+        for s in np.sort(rng.choice(n, int(rng.integers(1, 4)), replace=False)):
+            shift = 2 * (s & 3)
+            old = (changed[k, s >> 2] >> shift) & 3
+            if old == 3:
+                continue  # half-missing pairs are not discordant by default
+            new = (old + 1 + int(rng.integers(0, 2))) % 3
+            changed[k, s >> 2] = (changed[k, s >> 2] & ~np.uint8(3 << shift)) | (new << shift)
+            cells.append((r, s, old, new))
+    shutil.copyfile(f"{full}.pgen", f"{tmp / 'planted'}.pgen")
+    shutil.copyfile(f"{full}.pvar", f"{tmp / 'planted'}.pvar")
+    shutil.copyfile(psam, f"{tmp / 'planted'}.psam")
+    copy = np.memmap(f"{tmp / 'planted'}.pgen", dtype=np.uint8, mode="r+", offset=12,
+                     shape=packed.shape)
+    copy[rows_k] = changed
+    copy.flush()
+    del copy
+    seconds, _ = _port_run(["diff", full, tmp / "planted", "--per-sample", "-o", tmp / "d.pdiff",
+                            "--stats"], device)
+    gt = ["0/0", "0/1", "1/1"]
+    want = "".join(f"22\t{pos[r]}\tsnp{r}\t{iids[s]}\t{gt[a]}\t{gt[b]}\n" for r, s, a, b in cells)
+    if (tmp / "d.pdiff").read_text() != "#CHROM\tPOS\tID\tIID\tGT1\tGT2\n" + want:
+        raise AssertionError("(e) diff does not report exactly the planted cells")
+    per = _lines(tmp / "d.pdiff.sdiff")
+    diff_ct = np.bincount([s for _, s, _, _ in cells], minlength=n)
+    called = n_var - _sample_missing_numpy(packed)[:n]
+    if ([int(f[1]) for f in per] != diff_ct.tolist()
+            or [int(f[2]) for f in per] != called.tolist()):
+        raise AssertionError("(e) diff --per-sample's DIFF_CT/CMP_CT are not the planted and "
+                             "called counts")
+    timed(f"(e) diff against {DIFF_RECORDS} records with {len(cells)} planted cells: exactly "
+          f"those reported; DIFF_CT and CMP_CT equal to numpy's", seconds)
+    _unlink(tmp / "planted", exts=(".pgen", ".pvar", ".psam"))
+    (tmp / "d.pdiff").unlink()
+    (tmp / "d.pdiff.sdiff").unlink()
+
+    # (f) annotate --fill-info: K8 over every sample, K14 over a cohort of 1,001
+    oracle_rows = np.sort(rng.choice(n_var, COUNT_ORACLE_VARIANTS, replace=False))
+    cohort = np.sort(rng.choice(n, KEEP_SAMPLES, replace=False))
+    (tmp / "cohort.txt").write_text("".join(f"{iids[s]}\n" for s in cohort))
+    tags = "AC,AN,AF,MAF,NS,F_MISSING"
+    for label, extra, samples in (("every sample", [], np.arange(n)),
+                                  (f"--samples-file of {KEEP_SAMPLES}",
+                                   ["--samples-file", tmp / "cohort.txt"], cohort)):
+        seconds, _ = _port_run(["annotate", full, "--fill-info", tags, *extra,
+                                "-o", tmp / "an", "--stats"], device)
+        _, got_rows = _pvar_parts(tmp / "an")
+        got = [got_rows[r].rstrip(b"\n").split(b"\t")[7].decode() for r in oracle_rows]
+        want = _info_oracle(_masked_counts_numpy(packed, oracle_rows, samples), len(samples))
+        if got != want:
+            bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"(f) annotate --fill-info over {label}: INFO of variant "
+                                 f"{oracle_rows[bad]} is {got[bad]!r}, numpy's {want[bad]!r}")
+        timed(f"(f) annotate --fill-info {tags} over {label}, {n_var} variants: "
+              f"{len(oracle_rows)} rows' INFO equal to numpy's", seconds)
+        _unlink(tmp / "an")
+    for label, extra in (("all samples", []),
+                         (f"{KEEP_SAMPLES} samples", ["--samples-file", tmp / "cohort.txt"])):
+        def run(tag, dev, extra=extra):
+            return _port_run(["annotate", tmp / "reg", "--fill-info", "all", *extra,
+                              "-o", tmp / f"{tag}.an"], dev)[0]
+        seconds = run("cuda", device)
+        cpu_s = _same_on_cpu("(f)", run, [tmp / f"cuda.an{e}" for e in (".pvar", ".pgen")])
+        Path(f"{tmp / 'cuda.an'}.psam").unlink()
+        Path(f"{tmp / 'cpu.an'}.psam").unlink()
+        timed(f"(f) annotate --fill-info all of the region, {label}, sha256-equal to --device "
+              f"cpu (cpu {cpu_s:.3f} s)", seconds)
+
+    # (g) export A, AD, ped of the region
+    for fmt, out, files in (("A", "ex.raw", [".raw"]), ("AD", "ex.raw", [".raw"]),
+                            ("ped", "ex", [".ped", ".map"])):
+        stem = out.split(".")[0]
+
+        def run(tag, dev, fmt=fmt, out=out):
+            return _port_run(["export", full, fmt, "-r", region, "-o", tmp / f"{tag}.{out}",
+                              "--stats"], dev)[0]
+        seconds = run("cuda", device)
+        if fmt == "A":
+            lines = Path(f"{tmp / 'cuda.ex.raw'}").read_bytes().split(b"\n", 4)[1:4]
+            codes = _codes_numpy(packed, np.arange(first, first + HOST_REGION))
+            for s, line in enumerate(lines):
+                cells = line.split(b"\t")[6:]
+                want = [b"NA" if c == 3 else str(c).encode() for c in codes[:, s].tolist()]
+                if cells != want:
+                    raise AssertionError(f"(g) export A: the row of sample {s} differs from "
+                                         "numpy's decode")
+        names = [tmp / f"cuda.{stem}{e}" for e in files]
+        size = sum(f.stat().st_size for f in names)
+        cpu_s = _same_on_cpu(f"(g) export {fmt}", run, names)
+        timed(f"(g) export {fmt} of the region ({size} B), sha256-equal to --device cpu "
+              f"(cpu {cpu_s:.3f} s)", seconds)
+
+    # (h) roh of the region with planted homozygous runs
+    reg_packed = np.asarray(packed[first : first + HOST_REGION]).copy()
+    planted = np.sort(rng.choice(n, ROH_SAMPLES, replace=False))
+    starts = rng.integers(0, HOST_REGION - ROH_RUN, ROH_SAMPLES)
+    for s, a in zip(planted, starts):
+        shift = 2 * (s & 3)
+        hom = rng.integers(0, 2, ROH_RUN).astype(np.uint8) * 2
+        col = reg_packed[a : a + ROH_RUN, s >> 2]
+        reg_packed[a : a + ROH_RUN, s >> 2] = (col & ~np.uint8(3 << shift)) | (hom << shift)
+    head, rows = _pvar_parts(tmp / "reg")
+    _write_fileset(tmp / "roh", reg_packed, head, rows, psam, n)
+
+    def run(tag, dev):
+        return _port_run(["roh", tmp / "roh", "-o", tmp / f"{tag}.roh", "--stats"], dev)[0]
+    seconds = run("cuda", device)
+    # plink's state needs 3 acceptable 50-SNP windows (0.05 of those
+    # covering a SNP) and the ends are trimmed to clean calls, so a called
+    # segment may start or end up to a window inside or outside the run
+    segs = _lines(Path(f"{tmp / 'cuda.roh'}.hom"))
+    rpos = pos[first : first + HOST_REGION]
+    want = sorted((iids[s], a, a + ROH_RUN - 1) for s, a in zip(planted, starts))
+    got = sorted((f[0], int(np.searchsorted(rpos, int(f[4]))), int(np.searchsorted(rpos, int(f[5]))))
+                 for f in segs)
+    if len(got) != len(want) or any(g[0] != w[0] or abs(g[1] - w[1]) > 50 or abs(g[2] - w[2]) > 50
+                                    for g, w in zip(got, want)):
+        raise AssertionError(f"(h) roh called {got} (IID, first and last variant of the "
+                             f"region), the planted runs are {want}")
+    cpu_s = _same_on_cpu("(h) roh", run, [Path(f"{tmp / 'cuda.roh'}{e}")
+                                          for e in (".hom", ".hom.indiv")])
+    timed(f"(h) roh of the region, {ROH_SAMPLES} planted runs of {ROH_RUN} variants each "
+          f"called, its ends within a window of the run's; .hom/.hom.indiv sha256-equal to "
+          f"--device cpu (cpu {cpu_s:.3f} s)", seconds)
+    _unlink(tmp / "roh", tmp / "reg")
+    (tmp / "h1.txt").unlink()
+    (tmp / "h2.txt").unlink()
+    (tmp / "cohort.txt").unlink()
+
+    launches = _read_launches()
+    print(f"[13 host] path launches: {launches}")
+    if device == "cuda":
+        for kname in ("unpack_codes", "pack_codes", "gt_counts_device", "gt_counts_masked"):
+            if launches[kname] <= 0:
+                raise AssertionError(f"{kname} never launched on the host subcommands' path")
+    return launches
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -3411,6 +3773,9 @@ def main(argv: list) -> int:
             t0 = time.perf_counter()
             collectives = phase_mesh(tmp, fixtures["full"], (2,))
             print(f"[12 mesh] phase 12 took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            per_path.append(phase_host(tmp, fixtures["full"]))
+            print(f"[13 host] phase 13 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:

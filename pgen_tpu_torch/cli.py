@@ -3,15 +3,19 @@
 It takes the port's copy of pgen_tpu's argument parser
 (``cli_parser.build_arg_parser``, every subcommand) and adds ``--device
 cuda|cpu`` (default ``cuda``, which must be available) to each subcommand
-it serves (``SERVED``): ``filter``, ``import``, ``query``, ``glm``,
-``score``, ``king``, ``genome``, ``pca``, the reports ``freq``,
-``gcount``, ``missing``, ``hardy`` and ``het``, ``stats``, ``fst``, ``ld``,
-``prune`` and ``clump``. The query flags compose exactly as in
-``pgen_tpu.cli.main``, through the port's
-copies of its host composers (``query/``): ``--keep/--remove``, ``-r/-R``,
-``--exclude-var/--exclude-sam``, ``--samples``, ``--extract/--exclude-ids``,
-the ``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup
-force-first|exclude-all``.
+it serves (``SERVED``) that runs on the card: ``filter``, ``import``,
+``query``, ``glm``, ``score``, ``king``, ``genome``, ``pca``, the reports
+``freq``, ``gcount``, ``missing``, ``hardy`` and ``het``, ``stats``,
+``fst``, ``ld``, ``prune``, ``clump``, and ``merge``, ``diff``,
+``annotate``, ``export`` and ``roh`` (``CARD_FILES``). ``describe``,
+``index``, ``view``, ``split``, ``concat``, ``sort`` and ``isec``
+(``HOST_FILES``) are host code alone and keep pgen_tpu's arguments
+exactly. The query flags compose exactly as in ``pgen_tpu.cli.main``,
+through the port's copies of its host composers (``query/``):
+``--keep/--remove``, ``-r/-R``, ``--exclude-var/--exclude-sam``,
+``--samples``, ``--extract/--exclude-ids``, the
+``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup`` (the
+``error|list`` report first, as pgen_tpu's).
 
 ``filter`` writes a VCF, or with ``--out-format pgen`` the fileset
 ``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``--provider device`` routes a
@@ -27,21 +31,26 @@ do ``king`` (with ``--min-kinship`` and ``--cutoff``), ``genome`` (with
 ``--min-pi-hat``) and ``pca`` (``-k``, ``--make-rel``, ``--approx``), the
 reports (``freq --counts``, ``hardy --midp``, ``missing``'s out prefix),
 ``stats`` (``--per-sample``), ``fst``, ``ld`` (``-o -`` streams the table),
-``prune --indep-pairwise`` and ``clump``. Under ``torchrun`` (or pgen_tpu's
+``prune --indep-pairwise`` and ``clump``; and the fileset tools: ``merge``
+(K1 and K4 splice the samples), ``diff`` (K1 and the compare on the card),
+``annotate`` (``--fill-info`` counts with K8, or K14 for a cohort),
+``export`` A/AD/ped and ``roh`` (K1 decodes; roh's scan stays on the
+host). Under ``torchrun`` (or pgen_tpu's
 ``PGEN_TPU_COORDINATOR`` variables) ``glm`` (linear, ``--modifier``),
 ``score``, ``king``, ``genome`` and ``pca`` run over variant shards, one
 process per card (``MESH``, ``parallel/mesh.py``); rank 0 writes every
 output file and all of stdout, the other ranks print nothing but an error.
 What pgen_tpu has no mesh step for is refused under several ranks (exit 2):
 logistic ``glm``, ``--interaction``, the reports, ``stats``, ``fst``,
-``query``, ``ld``, ``prune`` and ``clump``. ``query`` prints its rows to
+``query``, ``ld``, ``prune``, ``clump`` and the twelve fileset tools above.
+``query`` prints its rows to
 stdout as pgen_tpu's does: ``-e`` excludes, and ``-r``/``-R`` with ``-s``
 is an error (exit 1). It exits as ``pgen_tpu.cli.main`` does: 141 on a
 broken pipe, 1 with the one stderr line ``pgen-tpu: error: ...`` on any
 other exception, 2 on an argument error. What the port does not serve yet
-is refused with the ROADMAP.md item that will serve it: every other
-subcommand (item 13, the host-only subcommands), and the flags and inputs
-listed in ``_UNSERVED``, ``_UNSERVED_IMPORT`` and ``_UNSERVED_ANALYTICS``.
+is refused with the ROADMAP.md item that will serve it: the flags and
+inputs listed in ``_UNSERVED``, ``_UNSERVED_IMPORT`` and
+``_UNSERVED_ANALYTICS``.
 """
 
 from __future__ import annotations
@@ -88,10 +97,6 @@ _UNSERVED = {
         "--threads: host emission threads give way to the two-stream block "
         "pipeline, ROADMAP §1 item 12",
     ),
-    "rm_dup": (
-        lambda v: v in ("error", "list"),
-        "--rm-dup error|list: the duplicate report is ROADMAP §1 item 12",
-    ),
 }
 
 _UNSERVED_IMPORT = {
@@ -111,26 +116,33 @@ _UNSERVED_ANALYTICS = {
     "provider": (
         lambda v: v not in ("auto", "device"),
         "--provider native|numpy: the port's glm and score (ROADMAP §1 item 9, done), "
-        "king, genome, pca, ld and prune (item 10, done), and the reports, stats and fst "
-        "(item 8, done) run on one GPU (auto or device); pgen_tpu's host providers stay "
-        "pgen_tpu's",
+        "king, genome, pca, ld and prune (item 10, done), the reports, stats and fst "
+        "(item 8, done), and export, roh and annotate (item 13, done) run on one GPU "
+        "(auto or device); pgen_tpu's host providers stay pgen_tpu's",
     ),
 }
 
 REPORTS = ("freq", "gcount", "missing", "hardy", "het")
+# ROADMAP §1 item 13: the subcommands with a card stage (CARD_FILES) and the
+# ones that are host code alone (HOST_FILES), which take no --device
+CARD_FILES = ("merge", "diff", "annotate", "export", "roh")
+HOST_FILES = ("describe", "index", "view", "split", "concat", "sort", "isec")
 SERVED = ("filter", "import", "query", "glm", "score", "king", "genome", "pca", *REPORTS,
-          "stats", "fst", "ld", "prune", "clump")
+          "stats", "fst", "ld", "prune", "clump", *CARD_FILES, *HOST_FILES)
 # the analytics that run over variant shards under several ranks: pgen_tpu's
 # mesh steps (ROADMAP §1 item 17)
 MESH = ("glm", "score", "king", "genome", "pca")
 
 
 def build_torch_arg_parser() -> argparse.ArgumentParser:
-    """pgen_tpu's parser with ``--device`` on every served subcommand."""
+    """pgen_tpu's parser with ``--device`` on every served subcommand that
+    runs on the card (all but ``HOST_FILES``)."""
     p = build_arg_parser()
     p.prog = "pgen-tpu-torch"
     sub = next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
     for command in SERVED:
+        if command in HOST_FILES:
+            continue
         sub.choices[command].add_argument(
             "--device",
             choices=["cuda", "cpu"],
@@ -193,6 +205,45 @@ def _compose_filter_queries(args) -> int:
         fn = "dup_first_within" if args.rm_dup == "force-first" else "dup_unique_within"
         inner = args.var_query if args.var_query is not None else "true"
         args.var_query = f"{fn}(({inner}))"
+    elif args.rm_dup in ("error", "list"):
+        return _rm_dup_report(args)
+    return 0
+
+
+def _rm_dup_report(args) -> int:
+    """--rm-dup error|list, as pgen_tpu.cli.main runs it: the IDs that occur
+    more than once among the variants the composed queries keep. ``error``
+    returns 2 after one stderr line when there are any; ``list`` writes them
+    to ``{out}.rmdup.list`` and the filter goes on. Returns 0 or 2."""
+    from pgen_tpu_torch.pipeline.filter_host import duplicated_ids
+
+    dup_ids = duplicated_ids(
+        args.pfile_prefix, args.var_query, args.sam_query,
+        args.provider,
+    )
+    if args.rm_dup == "error":
+        if dup_ids:
+            print(
+                f"filter: error: --rm-dup error: "
+                f"{len(dup_ids)} duplicated variant ID(s) "
+                f"among kept variants (first: {dup_ids[0]})",
+                file=sys.stderr,
+            )
+            return 2
+    else:
+        base = (
+            args.out_file
+            if args.out_file and args.out_file != "-"
+            else f"{args.pfile_prefix}.pgen-rs.vcf"
+        )
+        lst = f"{base}.rmdup.list"
+        with open(lst, "w") as fh:
+            fh.write("".join(i + "\n" for i in dup_ids))
+        print(
+            f"filter: --rm-dup list: {len(dup_ids)} duplicated "
+            f"ID(s) -> {lst}",
+            file=sys.stderr,
+        )
     return 0
 
 
@@ -608,6 +659,313 @@ def _query(args) -> int:
     return 0
 
 
+def _roh(args) -> int:
+    from pgen_tpu_torch.ops.roh import RohParams
+    from pgen_tpu_torch.pipeline.roh import roh_report
+
+    result = roh_report(
+        args.pfile_prefix,
+        out_prefix=args.out_prefix,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        device=args.device,
+        params=RohParams(
+            window_snp=args.window_snp,
+            window_het=args.window_het,
+            window_missing=args.window_missing,
+            window_threshold=args.window_threshold,
+            min_snp=args.min_snp,
+            min_kb=args.min_kb,
+            density=args.density,
+            gap=args.gap,
+        ),
+        block_variants=args.block_variants,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"roh: {result.num_segments} segments over "
+        f"{result.num_samples} samples x {result.num_variants} "
+        f"variants -> {result.out_paths[0]}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _export(args) -> int:
+    from pgen_tpu_torch.pipeline.export_raw import export_ped, export_raw
+
+    if args.fmt == "ped":
+        if args.out_file == "-":
+            print("export: error: ped writes a .ped/.map pair; "
+                  "use -o PREFIX, not '-'", file=sys.stderr)
+            return 2
+        result = export_ped(
+            args.pfile_prefix,
+            out_prefix=args.out_file,
+            var_query=args.var_query,
+            sam_query=args.sam_query,
+            device=args.device,
+            block_variants=args.block_variants,
+        )
+        if args.stats:
+            print(result.timer.report(), file=sys.stderr)
+        print(
+            f"export ped: {result.num_samples} samples x "
+            f"{result.num_variants} variants -> {result.out_path} "
+            f"(+ .map)",
+            file=sys.stderr,
+        )
+        return 0
+    result = export_raw(
+        args.pfile_prefix,
+        fmt=args.fmt,
+        out_file=None if args.out_file == "-" else args.out_file,
+        out=sys.stdout.buffer if args.out_file == "-" else None,
+        var_query=args.var_query,
+        sam_query=args.sam_query,
+        device=args.device,
+        block_variants=args.block_variants,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    dest = "stdout" if args.out_file == "-" else result.out_path
+    print(
+        f"export {result.fmt}: {result.num_samples} samples x "
+        f"{result.num_variants} variants -> {dest}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _annotate(args) -> int:
+    from pgen_tpu_torch.pipeline.annotate import annotate_pgen
+
+    result = annotate_pgen(
+        args.pfile_prefix,
+        args.out_prefix,
+        set_id=args.set_id,
+        rename_chrs=args.rename_chrs,
+        rename_samples=args.rename_samples,
+        fill_info=args.fill_info,
+        sam_query=args.sam_query,
+        device=args.device,
+        annotations=args.annotations,
+        columns=args.columns,
+        remove=args.remove_annotations,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"annotated {result.num_variants} variants x "
+        f"{result.num_samples} samples -> {result.out_prefix}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _merge(args) -> int:
+    from pgen_tpu_torch.pipeline.merge import merge_pgen
+
+    result = merge_pgen(args.prefixes, args.out_prefix, device=args.device)
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"merged {result.num_inputs} filesets: "
+        f"{result.num_variants} variants x {result.num_samples} "
+        f"samples -> {result.out_prefix}.pgen",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _diff(args) -> int:
+    from pgen_tpu_torch.pipeline.diff import diff_pgen
+
+    result = diff_pgen(
+        args.prefix_a,
+        args.prefix_b,
+        out_file=None if args.out_file == "-" else args.out_file,
+        out=sys.stdout if args.out_file == "-" else None,
+        key=args.key,
+        include_missing=args.include_missing,
+        block_variants=args.block_variants,
+        per_sample=args.per_sample,
+        device=args.device,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    dest = "stdout" if args.out_file == "-" else result.out_path
+    print(
+        f"diff: {result.num_discordant} discordant of "
+        f"{result.num_cells} calls ({result.num_variants} matched "
+        f"variants x {result.num_samples} shared samples) -> {dest}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _concat(args) -> int:
+    from pgen_tpu_torch.pipeline.concat import concat_pgen
+
+    result = concat_pgen(args.prefixes, args.out_prefix)
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"concatenated {result.num_inputs} filesets: "
+        f"{result.num_variants} variants x {result.num_samples} "
+        f"samples -> {result.out_prefix}.pgen",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _split(args) -> int:
+    from pgen_tpu_torch.pipeline.split import split_pgen
+
+    result = split_pgen(
+        args.pfile_prefix,
+        args.out_prefix,
+        by_chrom=args.by_chrom,
+        parts=args.parts,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    print(
+        f"split {result.num_variants} variants x "
+        f"{result.num_samples} samples -> "
+        f"{len(result.out_prefixes)} filesets",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _isec(args) -> int:
+    from pgen_tpu_torch.pipeline.isec import isec_pgen, isec_pgen_multi
+
+    if args.nfiles is not None:
+        result = isec_pgen_multi(
+            args.prefixes,
+            args.out_prefix,
+            key=args.key,
+            nfiles=args.nfiles,
+        )
+    else:
+        if len(args.prefixes) != 2:
+            raise ValueError(
+                "isec takes exactly two filesets unless -n/--nfiles "
+                "selects the multi-file mode"
+            )
+        result = isec_pgen(
+            args.prefixes[0],
+            args.prefixes[1],
+            args.out_prefix,
+            key=args.key,
+            write=args.write,
+        )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    summary = "  ".join(
+        f"{name}={result.counts[name]}" for name in result.counts
+    )
+    print(f"isec: {summary}", file=sys.stderr)
+    for name, dest in result.out_prefixes.items():
+        suffix = "" if name == "sites" else ".pgen"
+        print(f"wrote {dest}{suffix}", file=sys.stderr)
+    return 0
+
+
+def _sort(args) -> int:
+    from pgen_tpu_torch.pipeline.sort import sort_pgen
+
+    result = sort_pgen(
+        args.pfile_prefix,
+        args.out_prefix,
+        check_only=args.check,
+    )
+    if args.stats:
+        print(result.timer.report(), file=sys.stderr)
+    if args.check:
+        state = "sorted" if result.already_sorted else "NOT sorted"
+        print(f"{args.pfile_prefix}: {state}", file=sys.stderr)
+        return 0 if result.already_sorted else 1
+    print(
+        f"sorted {result.num_variants} variants x "
+        f"{result.num_samples} samples -> {result.out_prefix}"
+        + (" (already sorted)" if result.already_sorted else ""),
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _index(args) -> int:
+    from pgen_tpu_torch.pipeline.index_vcf import index_vcf_gz
+    from pgen_tpu_torch.utils.timer import StageTimer
+
+    timer = StageTimer()
+    out_path = index_vcf_gz(args.vcf_gz, fmt=args.index_format, timer=timer)
+    if args.stats:
+        print(timer.report(), file=sys.stderr)
+    print(f"wrote {out_path}", file=sys.stderr)
+    return 0
+
+
+def _view(args) -> int:
+    from pgen_tpu_torch.pipeline.view import view_vcf_gz
+
+    view_vcf_gz(
+        args.vcf_gz,
+        regions=args.regions,
+        header=not args.no_header,
+    )
+    return 0
+
+
+def _describe(args) -> int:
+    from pgen_tpu_torch.formats.describe import describe_pgen
+    from pgen_tpu_torch.formats.header import read_pgen_header
+
+    # Dispatch on the storage-mode byte so a corrupt general-mode
+    # file surfaces its real parse error instead of a misleading
+    # mode-0x02 one (mode-0x02 files have no block index to walk).
+    with open(args.pgen_file, "rb") as fh:
+        mode_byte = fh.read(3)[2:3]
+    if mode_byte == b"\x02":
+        h = read_pgen_header(args.pgen_file)
+        print(
+            f"pgen: {h.path}\nstorage mode: 0x02 (fixed-width hard calls)\n"
+            f"variants: {h.num_variants}\nsamples: {h.num_samples}\n"
+            f"record size: {h.record_size} bytes\n"
+            f"records offset: {h.records_offset}"
+        )
+    else:
+        print(describe_pgen(args.pgen_file).summary())
+    return 0
+
+
+_FILES = {"roh": _roh, "export": _export, "annotate": _annotate, "merge": _merge,
+          "diff": _diff, "concat": _concat, "split": _split, "isec": _isec, "sort": _sort,
+          "index": _index, "view": _view, "describe": _describe}
+
+
+def _files(parser, args) -> int:
+    """ROADMAP §1 item 13's subcommands, dispatched as pgen_tpu.cli.main
+    does: one GPU for the card stages of ``CARD_FILES``, the host alone for
+    ``HOST_FILES``. export, roh and annotate take the query flags of
+    pgen_tpu (annotate only its sample selections, for --fill-info)."""
+    _refuse_unserved(parser, args, _UNSERVED_ANALYTICS)
+    _refuse_ranks(parser, args)
+    if args.command in ("export", "roh"):
+        _compose_queries(args)
+    elif args.command == "annotate":
+        from pgen_tpu_torch.query.samples import apply_keep_remove, apply_samples
+
+        if args.keep or args.remove:
+            args.sam_query = apply_keep_remove(args.sam_query, args.keep, args.remove)
+        args.sam_query = apply_samples(args.sam_query, args.samples, args.samples_file)
+    return _FILES[args.command](args)
+
+
 _RUNS = {"glm": _glm, "score": _score, "king": _king, "genome": _genome, "pca": _pca,
          **dict.fromkeys(REPORTS, _report), "stats": _stats, "fst": _fst, "ld": _ld,
          "prune": _prune, "clump": _clump}
@@ -762,11 +1120,6 @@ def main(argv=None) -> int:
     and returns 1."""
     parser = build_torch_arg_parser()
     args = parser.parse_args(argv)
-    if args.command not in SERVED:
-        parser.error(
-            f"{args.command}: the port serves only {', '.join(SERVED)} so far; "
-            f"{args.command} is ROADMAP §1 item 13 (the host-only subcommands)"
-        )
     if args.command == "filter":
         _refuse_unserved(parser, args, _UNSERVED)
     try:
@@ -777,6 +1130,8 @@ def main(argv=None) -> int:
             return _query(args)
         if args.command in _RUNS:
             return _analytics(parser, args)
+        if args.command in _FILES:
+            return _files(parser, args)
         return _filter(args)
     except BrokenPipeError:
         return 141

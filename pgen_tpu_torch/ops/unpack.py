@@ -7,15 +7,19 @@ reads byte ``s // 4`` and extracts ``(byte >> (2 * (s % 4))) & 3``. Codes:
 ``unpack_codes`` dispatches on the tensor's device: on a CUDA tensor it
 launches K1 (``csrc/genotype.cu:unpack_codes_kernel``, the counterpart of the
 Pallas ``_unpack_kernel``), on a CPU tensor it runs ``unpack_codes_plain``.
-There is no fallback between the two. No path calls it: K2, K3 and K5
-decode inside their own kernels. It stands alone for the analytics that
-reuse the decode. The input checks shared by every wrapper live here too.
+There is no fallback between the two. K2, K3 and K5 decode inside their
+own kernels; ``decode_rows`` streams a record matrix's rows through K1 for
+the paths that need the codes themselves: ``merge`` (then K4), ``diff``,
+``export`` and ``roh``. The input checks shared by every wrapper live here
+too.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from pgen_tpu_torch.device import synchronize
 from pgen_tpu_torch.kernels import launch
 
 
@@ -84,3 +88,34 @@ def unpack_codes(packed: torch.Tensor, num_samples: int) -> torch.Tensor:
 
 
 unpack_codes.launches = 0
+
+
+def decode_rows(records: np.ndarray, rows: np.ndarray, num_samples: int, dev: torch.device,
+                block_rows: int, cols: torch.Tensor | None, timer):
+    """Yield ``(lo, hi, codes)`` for each block of ``rows``, ids of rows of
+    the (V, R) u8 record matrix ``records`` (a memory map is read block by
+    block): the rows ``rows[lo:hi]``, gathered on the host into one staging
+    tensor (pinned when ``dev`` is CUDA), copied to ``dev`` and decoded by
+    ``unpack_codes`` (K1): (hi - lo, num_samples) u8 codes on ``dev``, or
+    their columns ``cols`` (int64 sample ids on ``dev``) when given. On
+    ``timer`` (a StageTimer) the host gather books ``gather`` and the copy
+    and decode ``decode``."""
+    rec = records.shape[1]
+    n = len(rows)
+    staging = torch.empty((max(min(block_rows, n), 1), rec), dtype=torch.uint8,
+                          pin_memory=dev.type == "cuda")
+    staged = staging.numpy()
+    for lo in range(0, n, block_rows):
+        hi = min(lo + block_rows, n)
+        idx = rows[lo:hi]
+        with timer.stage("gather", (hi - lo) * rec):
+            if (np.diff(idx) == 1).all():
+                np.copyto(staged[: hi - lo], records[int(idx[0]) : int(idx[-1]) + 1])
+            else:
+                np.take(records, idx, axis=0, out=staged[: hi - lo])
+        with timer.stage("decode", (hi - lo) * rec):
+            codes = unpack_codes(staging[: hi - lo].to(dev, non_blocking=True), num_samples)
+            if cols is not None:
+                codes = codes.index_select(1, cols)
+            synchronize(dev)
+        yield lo, hi, codes

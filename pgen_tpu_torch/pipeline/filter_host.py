@@ -1,10 +1,14 @@
 """The host half of ``pgen_tpu/pipeline/filter.py``, copied: the output row
 layout and its predicates (``derive_row_layout``, ``compute_masks`` with
 the GT-index masks), the prefix gather, the row assembler's numpy twin,
-tabix, the write loops and the row gather. Only the imports differ.
-Left out: ``_emit_block`` (its device branch runs jax), ``_emit_block_meta``,
-``filter_to_vcf``, ``duplicated_ids`` and ``_start_pretouch``, which no
-path of the port runs; the port's filters are ``pipeline/filter.py`` and
+tabix, the write loops and the row gather. Only the imports differ, and
+the row gather checks that a slice's ids step by one (``_gather_rows``).
+The duplicate-ID report of ``--rm-dup error|list`` (``duplicated_ids``)
+is copied too: its ``GT_*`` counts run on the host (the native C++ or
+numpy), whatever the provider. Left out:
+``_emit_block`` (its device branch runs jax), ``_emit_block_meta``,
+``filter_to_vcf`` and ``_start_pretouch``, which no path of the port
+runs; the port's filters are ``pipeline/filter.py`` and
 ``pipeline/mesh_filter.py``.
 """
 
@@ -172,6 +176,32 @@ def compute_masks(var_query, sam_query, pvar, psam, header, records, provider):
         extra = {**(extra or {}), **dup_extra}
     var_mask = compile_predicate(var_node, pvar, extra)
     return var_mask, sam_mask
+
+
+def duplicated_ids(
+    pfile_prefix: str,
+    var_query: str | None = None,
+    sam_query: str | None = None,
+    provider: str = "auto",
+) -> list:
+    """IDs that occur more than once among the variants KEPT by the
+    queries (the post-filter set --rm-dup error/list report on,
+    matching plink2's filter order)."""
+    provider = _resolve_provider(provider)
+    header = read_pgen_header(f"{pfile_prefix}.pgen")
+    pvar = read_metadata(f"{pfile_prefix}.pvar")
+    psam = read_metadata(f"{pfile_prefix}.psam")
+    rec = header.record_size
+    mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
+    records = mm[12 : 12 + header.num_variants * rec].reshape(
+        header.num_variants, rec
+    )
+    var_mask, _ = compute_masks(
+        var_query, sam_query, pvar, psam, header, records, provider
+    )
+    ids = pvar.get_column_bytes("ID")[np.flatnonzero(var_mask)]
+    uniq, counts = np.unique(ids, return_counts=True)
+    return sorted(x.decode() for x in uniq[counts > 1])
 
 
 @dataclass
@@ -404,8 +434,12 @@ def _pwrite_all(fd: int, data, offset: int) -> None:
 
 def _gather_rows(records: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """Row gather that stays zero-copy for contiguous kept ranges (the
-    keep-all fast path reads straight from the .pgen memory map)."""
-    if len(idx) and int(idx[-1]) - int(idx[0]) + 1 == len(idx):
+    keep-all fast path reads straight from the .pgen memory map).
+
+    pgen_tpu's takes the slice whenever the ends are ``len(idx) - 1``
+    apart, so a permuted block (sort's order, say [0, 2, 1, 3]) reads the
+    rows in file order; here the ids must step by one."""
+    if len(idx) and int(idx[-1]) - int(idx[0]) + 1 == len(idx) and (np.diff(idx) == 1).all():
         return records[int(idx[0]) : int(idx[-1]) + 1]
     return records[idx]
 

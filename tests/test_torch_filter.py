@@ -170,7 +170,7 @@ def test_cli_matches_pgen_tpu(tmp_path, argv):
         ["filter", "{prefix}", "--shards", "2"],
         ["filter", "{prefix}", "--out-format", "bed"],
         ["filter", "{prefix}", "--provider", "native"],
-        ["filter", "{prefix}", "--rm-dup", "list"],
+        ["filter", "{prefix}", "--resume"],
         ["filter", "{prefix}", "--threads", "2"],
         ["import", "{prefix}.bed"],
         ["import", "{dir}/in.vcf", "--provider", "native"],
@@ -201,11 +201,18 @@ def test_cli_profile_writes_a_trace(tmp_path, provider):
 
 
 def test_cli_refuses_other_subcommands(tmp_path, capsys):
+    """Every subcommand of pgen_tpu is served since ROADMAP §1 item 13
+    landed (describe was the last one this test refused): a name the parser
+    does not know exits 2 with argparse's own line, as pgen_tpu's does."""
     prefix = _fileset(tmp_path, 4, 4, seed=4)
-    with pytest.raises(SystemExit) as e:
-        port_main(["describe", f"{prefix}.pgen"])
-    assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert port_main(["describe", f"{prefix}.pgen"]) == 0
+    assert "variants: 4\n" in capsys.readouterr().out
+    out = []
+    for main in (port_main, tpu_main):
+        with pytest.raises(SystemExit) as e:
+            main(["nosuch", f"{prefix}.pgen"])
+        out.append((e.value.code, capsys.readouterr().err.rsplit(" error: ", 1)[1]))
+    assert out[0] == out[1] and out[0][0] == 2 and "invalid choice: 'nosuch'" in out[0][1]
 
 
 def test_cuda_without_a_card_raises(tmp_path, monkeypatch, capsys):

@@ -1033,3 +1033,56 @@ def test_banded_r2_on_the_card_matches_cpu(cuda_device, band, block_rows):
         oracle = banded_r2_numpy(host[:600], 2503, band, sample_idx=idx)
         np.testing.assert_allclose(got[: 600 - band], oracle[: 600 - band], rtol=1e-4, atol=1e-6)
         assert got[: 2999 - 256 : 3, 0].min() > 0.5  # the planted copies of random rows
+
+
+@pytest.mark.parametrize("widths", [(2505, 7), (2506, 7), (2507, 7), (5, 6, 3)],
+                         ids=lambda w: "-".join(map(str, w)))
+def test_merge_splice_on_the_card(cuda_device, widths):
+    """merge's splice: K1 on each input's rows, torch.cat on the sample axis
+    and K4, on the card, against the plain versions on the CPU and
+    pgen_tpu's numpy codecs; a first input of 4k+1, 4k+2 or 4k+3 samples
+    shifts the next one's codes inside the packed byte."""
+    from pgen_tpu_torch.ops.unpack import decode_rows
+    from pgen_tpu_torch.utils.timer import StageTimer
+
+    hosts = [_packed(300, w, k, "cpu").numpy() for k, w in enumerate(widths)]
+    rows = np.arange(hosts[0].shape[0])
+    got, want = [], []
+    for dev, out in ((cuda_device, got), (torch.device("cpu"), want)):
+        before = (unpack_codes.launches, pack_codes.launches)
+        streams = [decode_rows(h, rows, w, dev, 128, None, StageTimer())
+                   for h, w in zip(hosts, widths)]
+        for blocks in zip(*streams):
+            out.append(pack_codes(torch.cat([c for _, _, c in blocks], 1).contiguous()).cpu())
+        if dev.type == "cuda":
+            n_blocks = -(-rows.size // 128)  # 556 rows: 5 blocks
+            assert unpack_codes.launches == before[0] + n_blocks * len(widths)
+            assert pack_codes.launches == before[1] + n_blocks
+    got, want = torch.cat(got).numpy(), torch.cat(want).numpy()
+    np.testing.assert_array_equal(got, want)
+    codes = np.hstack([unpack_codes_reference(h, w) for h, w in zip(hosts, widths)])
+    np.testing.assert_array_equal(got, writer_pack_codes(codes))
+
+
+@pytest.mark.parametrize("n_samples", [2505, 2506, 2507])
+@pytest.mark.parametrize("kept", ["all", "cohort"])
+def test_export_sample_major_on_the_card(cuda_device, n_samples, kept):
+    """export's decode: K1 on the kept rows, the kept samples taken and the
+    block transposed on the card, one (samples, block) copy a block, against
+    the same on the CPU and a numpy decode of the records."""
+    from pgen_tpu_torch.pipeline.export_raw import _sample_major
+    from pgen_tpu_torch.utils.timer import StageTimer
+
+    host = _packed(1000, n_samples, n_samples, "cpu").numpy()
+    rng = np.random.default_rng(n_samples)
+    var_idx = np.sort(rng.choice(host.shape[0], 900, replace=False))
+    sam_idx = (np.arange(n_samples) if kept == "all"
+               else np.sort(rng.choice(n_samples, 1001, replace=False)))
+    before = unpack_codes.launches
+    got = _sample_major(host, var_idx, sam_idx, n_samples, cuda_device, 256, StageTimer())
+    assert unpack_codes.launches == before + 4
+    want = _sample_major(host, var_idx, sam_idx, n_samples, torch.device("cpu"), 256,
+                         StageTimer())
+    np.testing.assert_array_equal(got, want)
+    oracle = unpack_codes_reference(host[var_idx], n_samples)[:, sam_idx].T
+    np.testing.assert_array_equal(got, oracle)

@@ -92,7 +92,27 @@ ENTRY_POINTS = {
     "prune": [["prune", "{p}", "--indep-pairwise", "4", "1", "0.1", "-o", "{o}"]],
     "clump": [["clump", "{p}", "--clump", "{d}/assoc.tsv", "--clump-p1", "0.5", "--clump-r2",
                "0.01", "-o", "{o}.clumps"]],
+    # ROADMAP §1 item 13: the card stages with --device cpu, the host-only
+    # subcommands as pgen_tpu parses them (no --device)
+    "merge": [["merge", "{p}", "-o", "{o}.m"]],
+    "diff": [["diff", "{p}", "{p}", "--per-sample", "-o", "{o}.pdiff"]],
+    "annotate": [["annotate", "{p}", "--fill-info", "all", "--samples", "s1,s3,s4", "--set-id",
+                  'ID + "_" + INFO_AC', "-o", "{o}.an"]],
+    "export": [["export", "{p}", "AD", "--include-var", "GT_MAF > 0.1", "-o", "{o}.raw"],
+               ["export", "{p}", "ped", "-o", "{o}"]],
+    "roh": [["roh", "{p}", "--window-snp", "3", "--min-snp", "3", "--min-kb", "0", "-o", "{o}"]],
+    "describe": [["describe", "{p}.pgen"]],
+    "index": [["filter", "{p}", "-o", "{o}.vcf.gz"], ["index", "{o}.vcf.gz"]],
+    "view": [["filter", "{p}", "-o", "{o}.vcf.gz", "--index"],
+             ["view", "{o}.vcf.gz", "-r", "1:100-900"]],
+    "split": [["split", "{p}", "--by-chrom", "-o", "{o}.sp"]],
+    "concat": [["split", "{p}", "--parts", "2", "-o", "{o}.sp"],
+               ["concat", "{o}.sp.part1", "{o}.sp.part2", "-o", "{o}.cat"]],
+    "sort": [["sort", "{p}", "-o", "{o}.sorted"]],
+    "isec": [["isec", "{p}", "{p}", "-n", "+2", "-o", "{o}.is"]],
 }
+# the subcommands that parse no --device (cli.HOST_FILES)
+HOST_ONLY = ("describe", "index", "view", "split", "concat", "sort", "isec")
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +135,8 @@ def test_entry_point_loads_no_pgen_tpu(fileset, tmp_path, entry):
     that a stray (even lazy) import of pgen_tpu would succeed and be seen."""
     d, prefix = fileset
     out = tmp_path / "o"
-    runs = [[a.format(p=prefix, o=out, d=d) for a in argv] + ["--device", "cpu"]
+    runs = [[a.format(p=prefix, o=out, d=d) for a in argv]
+            + ([] if argv[0] in HOST_ONLY else ["--device", "cpu"])
             for argv in ENTRY_POINTS[entry]]
     code = (
         "import sys\n"
