@@ -186,6 +186,34 @@ Phases, each printing its own lines:
              called) against --device cpu by sha256 (K1). Each cut in
              variants is printed; the phase prints its launches of K1, K4,
              K8 and K14, each of which must be above zero, and its time.
+ 14 files    the rest of filter and import through the port's CLI on the
+    and      full chr22 fixture (keep-all VCF text on the 140,001-variant
+    workers  one), against phase 4's keep-two and plain keep-all outputs and
+             phase 5's --keep .pgen: (a) filter --out-format bed keep-all
+             (no kernel; the body numpy's code LUT of the records) and with
+             phase 5's --keep of 1,001 (K5, 17 launches; 2,000 seeded rows
+             equal to numpy's unpack, take, re-pack, LUT and pad mask), each
+             .bed/.bim/.fam sha256-equal to --device cpu, then import of
+             each .bed gives back the fixture's .pgen and phase 5's; (b)
+             --workers 2 and 4 on keep-two (K3) and the keep-all .vcf.gz
+             --index (K2): keep-two sha256-equal to phase 4's, the .gz
+             gunzipped equal to phase 4's keep-all and, with its .tbi,
+             sha256-equal to --shards N in one process (its BGZF members
+             follow the shards' blocks); keep-two again as a process of
+             the CLI under PGEN_TPU_MP_CONTEXT=fork (the default is
+             forkserver); each worker's launches (from --stats) above
+             0, its start against its work and its peak pinned and device
+             bytes printed; (c) --shards 3 in one process, then
+             --shard-index 0, 1 and 2 as three processes at once into one
+             shared .vcf, each sha256-equal to keep-two's; (d) --workers 3
+             with PGEN_TPU_TEST_FAIL_SHARD=1 exits 1, its manifest marking
+             shard 1 failed, and --resume runs shard 1 alone to keep-two's
+             bytes; (e) --threads 1, 2 and 4 on keep-two and the plain
+             keep-all, sha256-equal to phase 4's, exactly 17 and 3 launches,
+             the emit stage, the pinned bytes the threads' buffers ask for
+             and the peak device bytes printed.
+             Launches of K2, K3 and K5 must be above 0 (the worker and
+             shard processes' own counts added).
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
@@ -193,7 +221,7 @@ last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
 just after. Then the products' line, one JSON line of the fifteen kernels
-(launches summed over phases 4-11 and 13), and as the last line
+(launches summed over phases 4-11, 13 and 14), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
@@ -1307,11 +1335,13 @@ def make_fixtures(tmp: Path) -> dict:
     return made
 
 
-def phase_filter(tmp: Path, full: Path, ragged: Path) -> dict:
+def phase_filter(tmp: Path, full: Path, ragged: Path) -> tuple:
     """The port's CLI on cuda for each configuration (launch counts read
     around these runs only), each output checked with numpy against the
     .pgen; then the same CLI on cpu, whose plain PyTorch text the CPU tests
-    hold byte for byte against pgen_tpu, as the sha256 reference."""
+    hold byte for byte against pgen_tpu, as the sha256 reference. Returns
+    the launches and the sha256 of the keep-two and the plain keep-all
+    outputs (phase 14's references)."""
     import numpy as np
 
     iids, pos, _, packed = _read_fileset(full)
@@ -1376,7 +1406,7 @@ def phase_filter(tmp: Path, full: Path, ragged: Path) -> dict:
     for name in ("genotype_text", "subset_text_from_packed"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    return launches
+    return launches, {"keep-two": results[0][0][0], "keep-all": results[2][0][0]}
 
 
 def _check_fileset_header(pgen: Path, n_var: int, n_samples: int) -> None:
@@ -1406,16 +1436,24 @@ def _fileset_sha256(prefix: Path) -> list:
     return [_sha256(Path(f"{prefix}{suf}")) for suf in (".pgen", ".pvar", ".psam")]
 
 
-def phase_pgen_out(tmp: Path, full: Path) -> dict:
+def _keep_samples(iids):
+    """Phase 5's 1,001 samples, drawn with the seed, in file order."""
+    import numpy as np
+
+    return np.sort(np.random.default_rng(SEED).choice(len(iids), KEEP_SAMPLES, replace=False))
+
+
+def phase_pgen_out(tmp: Path, full: Path) -> tuple:
     """filter --out-format pgen --keep (1,001 samples drawn with the seed) on
     the full chr22 fixture through the port's CLI on cuda (launch counts read
     around that run only). The .pgen body must equal a numpy re-pack of the
     fixture's records at the kept samples; the three files must be
-    sha256-equal to the same CLI with --device cpu."""
+    sha256-equal to the same CLI with --device cpu. Returns the launches and
+    the .pgen's sha256 (phase 14's reference)."""
     import numpy as np
 
     iids, pos, _, packed = _read_fileset(full)
-    keep = np.sort(np.random.default_rng(SEED).choice(len(iids), KEEP_SAMPLES, replace=False))
+    keep = _keep_samples(iids)
     keep_file = tmp / "keep.txt"
     keep_file.write_text("".join(f"{iids[i]}\n" for i in keep))
     argv = ["--out-format", "pgen", "--keep", str(keep_file)]
@@ -1452,7 +1490,7 @@ def phase_pgen_out(tmp: Path, full: Path) -> dict:
     print(f"[5 pgen out] path launches: {launches}")
     if launches["subset_repack"] <= 0:
         raise AssertionError("subset_repack never launched on the pgen output path")
-    return launches
+    return launches, hashes[0]
 
 
 def phase_import(tmp: Path, fixture: Path) -> dict:
@@ -3087,27 +3125,20 @@ _RANK_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
               "PGEN_TPU_COORDINATOR", "PGEN_TPU_NUM_PROCS", "PGEN_TPU_PROC_ID")
 
 
-def _spawn_ranks(cmds: list, world: int, tmp: Path, tag: str) -> tuple:
-    """``cmds[r]`` as rank r of ``world`` processes of this host, each a
-    torchrun-style rank (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
-    MASTER_PORT; at 4 ranks LOCAL_RANK reversed, rank r on card 3 - r), or
-    for one a lone process with none of them (no group). Each rank's output
-    goes to a file; a rank that fails stops the others at once. Returns the
-    wall seconds and each rank's (stdout, stderr)."""
-    env = {k: v for k, v in os.environ.items() if k not in _RANK_VARS}
-    if world > 1:
-        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world))
+def _run_processes(cmds: list, envs: list, tmp: Path, tag: str, timeout: float = 600) -> tuple:
+    """``cmds[i]`` with the environment ``envs[i]``, all started at once from
+    the checkout's root, each one's stdout and stderr to a file; one that
+    fails stops the others at once, as does the timeout. Returns the wall
+    seconds and each one's (stdout, stderr); raises if one exited non-zero."""
     t0 = time.perf_counter()
     procs, files = [], []
     try:
-        for r in range(world):
-            rank = {} if world == 1 else {"RANK": str(r),
-                                          "LOCAL_RANK": str(world - 1 - r if world == 4 else r)}
-            files.append((open(tmp / f"{tag}.rank{r}.out", "w+"),
-                          open(tmp / f"{tag}.rank{r}.err", "w+")))
-            procs.append(subprocess.Popen(cmds[r], cwd=ROOT, stdout=files[-1][0],
-                                          stderr=files[-1][1], text=True, env={**env, **rank}))
-        deadline = time.perf_counter() + 600
+        for i, (cmd, env) in enumerate(zip(cmds, envs)):
+            files.append((open(tmp / f"{tag}.proc{i}.out", "w+"),
+                          open(tmp / f"{tag}.proc{i}.err", "w+")))
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=files[-1][0],
+                                          stderr=files[-1][1], text=True, env=env))
+        deadline = time.perf_counter() + timeout
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs) or time.perf_counter() > deadline:
                 break
@@ -3124,10 +3155,27 @@ def _spawn_ranks(cmds: list, world: int, tmp: Path, tag: str) -> tuple:
         for f in (f_out, f_err):
             f.close()
             Path(f.name).unlink()
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"{tag}: rank {r} of {world} exited {p.returncode}\n{err[-3000:]}")
+            raise AssertionError(f"{tag}: process {i} of {len(procs)} exited {p.returncode}\n"
+                                 f"{err[-3000:]}")
     return seconds, outs
+
+
+def _spawn_ranks(cmds: list, world: int, tmp: Path, tag: str) -> tuple:
+    """``cmds[r]`` as rank r of ``world`` processes of this host, each a
+    torchrun-style rank (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT; at 4 ranks LOCAL_RANK reversed, rank r on card 3 - r), or
+    for one a lone process with none of them (no group), through
+    ``_run_processes``. Returns the wall seconds and each rank's (stdout,
+    stderr)."""
+    env = {k: v for k, v in os.environ.items() if k not in _RANK_VARS}
+    if world > 1:
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world))
+    envs = [env if world == 1 else
+            {**env, "RANK": str(r), "LOCAL_RANK": str(world - 1 - r if world == 4 else r)}
+            for r in range(world)]
+    return _run_processes(cmds[:world], envs, tmp, tag)
 
 
 # what the port prints on stderr: its log and error lines, --stats stages and
@@ -3711,6 +3759,288 @@ def phase_host(tmp: Path, full: Path, device: str = "cuda") -> dict:
     return launches
 
 
+WORKERS = (2, 4)  # phase 14 (b): --workers N
+SHARDS = 3  # phase 14 (c): --shards and the --shard-index processes
+THREADS = (1, 2, 4)  # phase 14 (e): --threads T
+BED_ORACLE_VARIANTS = 2000  # phase 14 (a): seeded rows of the --keep .bed held against numpy
+_WORKER_LINE = re.compile(
+    r"^worker (\d+) \((\w+)\): entered ([\d.]+) s after the start, ran ([\d.]+) s; launches "
+    r"genotype_text (\d+), subset_text_from_packed (\d+); pinned (\d+) B, device peak (\d+) B$")
+_SHARD_LINE = re.compile(r"^launches: genotype_text (\d+), subset_text_from_packed (\d+)$")
+
+
+def _bed_lut_numpy():
+    """Each pgen record byte as a PLINK1 .bed byte, with numpy alone: code 0
+    (hom REF) -> 0b11, 1 (het) -> 0b10, 2 (hom ALT) -> 0b00, 3 (missing)
+    -> 0b01, LSB-first as in both formats."""
+    import numpy as np
+
+    plink = np.array([3, 2, 0, 1], dtype=np.uint8)
+    b = np.arange(256)
+    lut = np.zeros(256, dtype=np.uint8)
+    for k in range(4):
+        lut |= (plink[(b >> (2 * k)) & 3] << (2 * k)).astype(np.uint8)
+    return lut
+
+
+def _bed_files_sha256(prefix: Path) -> list:
+    return [_sha256(Path(f"{prefix}{suf}")) for suf in (".bed", ".bim", ".fam")]
+
+
+def _worker_reports(stderr: str, n: int, label: str, launched: bool = True) -> list:
+    """The --workers run's lines of its n workers: (start method, entered
+    s, ran s, K2 launches, K3 launches, pinned B, device peak B) each; with
+    ``launched`` every worker must have launched a kernel."""
+    rows = [m.groups() for m in map(_WORKER_LINE.match, stderr.splitlines()) if m]
+    if [int(r[0]) for r in rows] != list(range(n)):
+        raise AssertionError(f"{label}: --stats names workers {[r[0] for r in rows]}, not 0-{n - 1}")
+    reports = [(r[1], float(r[2]), float(r[3]), *map(int, r[4:])) for r in rows]
+    for i, r in enumerate(reports):
+        if launched and r[3] + r[4] <= 0:
+            raise AssertionError(f"{label}: worker {i} launched neither K2 nor K3")
+    return reports
+
+
+def _shard_launches(stderr: str, label: str, launched: bool = True) -> tuple:
+    """(K2, K3) launches a --shards run prints under --stats; with
+    ``launched`` one must be above 0."""
+    got = [tuple(map(int, m.groups())) for m in map(_SHARD_LINE.match, stderr.splitlines()) if m]
+    if len(got) != 1 or (launched and sum(got[0]) <= 0):
+        raise AssertionError(f"{label}: --stats printed launches {got}")
+    return got[0]
+
+
+def phase_files(tmp: Path, full: Path, ragged: Path, refs: dict, device: str = "cuda") -> dict:
+    """filter --out-format bed, import X.bed, --workers, --shards,
+    --shard-index, --resume and --threads through the port's CLI on the
+    card, on the full chr22 fixture (the 140,001-variant one for keep-all
+    VCF text). ``refs``: phase 4's keep-two and plain keep-all sha256 and
+    phase 5's --keep .pgen sha256. (a) --out-format bed keep-all (no kernel:
+    the body numpy's LUT of the records) and with phase 5's --keep (K5, 17
+    launches; 2,000 seeded rows equal to numpy's re-pack, LUT and pad mask),
+    each sha256-equal to --device cpu, then import of each .bed: the
+    fixture's .pgen and phase 5's. (b) --workers 2 and 4 on keep-two (K3)
+    and on the keep-all .vcf.gz --index (K2): keep-two sha256-equal to phase
+    4's; the .gz gunzipped equal to phase 4's plain keep-all, it and its
+    .tbi sha256-equal to --shards N in one process (BGZF members follow the
+    shards' blocks); keep-two again as a subprocess of the CLI under fork
+    (the default is forkserver; the CPU tests run spawn). Each worker's
+    launches must be above 0. (c) --shards 3 in one process, then --shard-index 0, 1 and 2
+    as three processes at once into one shared .vcf: each sha256-equal to
+    keep-two's. (d) --workers 3 with PGEN_TPU_TEST_FAIL_SHARD=1 exits 1 and
+    its manifest marks shard 1 failed; --resume runs shard 1 alone and gives
+    keep-two's bytes. (e) --threads 1, 2 and 4 on keep-two and on the plain
+    keep-all, each sha256-equal to phase 4's, with exactly 17 and 3
+    launches. Every card run is on ``device`` (``cpu`` skips the launch
+    checks). Returns the phase's launches, those of its worker and shard
+    processes added."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.cli import main as port_main
+
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, n_ragged = len(pos), len(_read_fileset(ragged)[1])
+    card = device == "cuda"
+    two = ["--samples", f"{iids[7]},{iids[2000]}"]
+    keep = _keep_samples(iids)
+    keep_file = tmp / "keep14.txt"
+    keep_file.write_text("".join(f"{iids[i]}\n" for i in keep))
+    lut = _bed_lut_numpy()
+    others = dict.fromkeys(KERNELS, 0)  # launches of the workers and shard processes
+    cli = [sys.executable, "-m", "pgen_tpu_torch.cli"]
+    print(f"[14 files] full chr22 ({n_var} variants x {len(iids)} samples); keep-all VCF text "
+          f"on the {n_ragged}-variant fixture; keep-two = samples 7 and 2000")
+    _reset_launches()
+
+    # (a) .bed out, keep-all then the --keep cohort; import of each
+    for label, argv, tag in (("keep-all", [], "ka"),
+                             (f"--keep {KEEP_SAMPLES}", ["--keep", keep_file], "kp")):
+        before = _read_launches()
+        cuda_s, err = _port_cli(["filter", full, "--out-format", "bed", *argv], tmp / f"{tag}_cuda",
+                                device)
+        k5 = _read_launches()["subset_repack"] - before["subset_repack"]
+        if card and k5 != (0 if tag == "ka" else -(-n_var // BLOCK_ROWS)):
+            raise AssertionError(f"(a) .bed {label}: K5 launched {k5} times")
+        width = len(iids) if tag == "ka" else KEEP_SAMPLES
+        rec = (width + 3) // 4
+        body = np.memmap(f"{tmp / tag}_cuda.bed", dtype=np.uint8, mode="r", offset=3,
+                         shape=(n_var, rec))
+        if tag == "ka":
+            for lo in range(0, n_var, BLOCK_ROWS):
+                if not np.array_equal(body[lo : lo + BLOCK_ROWS], lut[packed[lo : lo + BLOCK_ROWS]]):
+                    raise AssertionError(f"(a) .bed {label}: rows from {lo} are not numpy's LUT")
+        else:
+            rows = np.sort(np.random.default_rng(SEED + 14).choice(n_var, BED_ORACLE_VARIANTS,
+                                                                   replace=False))
+            want = lut[_repack_numpy(np.asarray(packed[rows]), keep)]
+            want[:, -1] &= (1 << (2 * (width % 4))) - 1 if width % 4 else 0xFF
+            if not np.array_equal(np.asarray(body[rows]), want):
+                raise AssertionError(f"(a) .bed {label}: rows differ from numpy's re-pack and LUT")
+        del body
+        hashes = _bed_files_sha256(tmp / f"{tag}_cuda")
+        cpu_s, _ = _port_cli(["filter", full, "--out-format", "bed", *argv], tmp / f"{tag}_cpu",
+                             "cpu")
+        if _bed_files_sha256(tmp / f"{tag}_cpu") != hashes:
+            raise AssertionError(f"(a) .bed {label}: the cuda run's files differ from the cpu run's")
+        _unlink(tmp / f"{tag}_cpu", exts=(".bed", ".bim", ".fam"))
+        imp_s, _ = _port_cli(["import", f"{tmp / tag}_cuda.bed"], tmp / f"{tag}_imp", device)
+        want_pgen = _sha256(Path(f"{full}.pgen")) if tag == "ka" else refs["keep-pgen"]
+        if _sha256(Path(f"{tmp / tag}_imp.pgen")) != want_pgen:
+            raise AssertionError(f"(a) import of the {label} .bed is not the "
+                                 f"{'fixture' if tag == 'ka' else 'phase 5'} .pgen")
+        _unlink(tmp / f"{tag}_cuda", exts=(".bed", ".bim", ".fam"))
+        _unlink(tmp / f"{tag}_imp")
+        print(f"[14 files] (a) .bed {label}: {n_var} x {rec} B body, "
+              f"{'numpy LUT of every record' if tag == 'ka' else f'{BED_ORACLE_VARIANTS} rows equal to numpy'}"
+              f", .bed/.bim/.fam sha256-equal to cpu; import gives back the "
+              f"{'fixture' if tag == 'ka' else 'phase 5'} .pgen; wall cuda {cuda_s:.3f} s, "
+              f"cpu {cpu_s:.3f} s, import {imp_s:.3f} s (K5 {k5})")
+
+    def workers_run(label, prefix, argv, out, n):
+        seconds, err = _port_cli(["filter", prefix, *argv, "--workers", str(n)], out, device)
+        reports = _worker_reports(err, n, label, card)
+        for r in reports:
+            others["genotype_text"] += r[3]
+            others["subset_text_from_packed"] += r[4]
+        return seconds, reports
+
+    def show(label, seconds, reports):
+        starts = ", ".join(f"{r[1]:.2f}/{r[2]:.2f}" for r in reports)
+        print(f"[14 files] {label}: wall {seconds:.3f} s, start method {reports[0][0]}; each "
+              f"worker's entry after the start / its shard's seconds: {starts}; launches "
+              f"K2/K3 {[(r[3], r[4]) for r in reports]}; peak pinned {[r[5] for r in reports]} B, "
+              f"device {[r[6] for r in reports]} B")
+
+    # (b) --workers N: keep-two (K3) and the keep-all .vcf.gz --index (K2)
+    for n in WORKERS:
+        out = tmp / f"w{n}.vcf"
+        seconds, reports = workers_run(f"(b) --workers {n} keep-two", full, two, out, n)
+        if _sha256(out) != refs["keep-two"]:
+            raise AssertionError(f"(b) --workers {n} keep-two differs from phase 4's")
+        out.unlink()
+        show(f"(b) --workers {n} keep-two, sha256-equal to phase 4's", seconds, reports)
+        gz = tmp / f"w{n}.vcf.gz"
+        seconds, reports = workers_run(f"(b) --workers {n} keep-all .vcf.gz --index", ragged,
+                                       ["--index"], gz, n)
+        ref = tmp / f"s{n}.vcf.gz"
+        ref_s, err = _port_cli(["filter", ragged, "--index", "--shards", str(n)], ref, device)
+        _shard_launches(err, f"(b) --shards {n} .vcf.gz", card)
+        for a, b in ((gz, ref), (Path(f"{gz}.tbi"), Path(f"{ref}.tbi"))):
+            if _sha256(a) != _sha256(b):
+                raise AssertionError(f"(b) --workers {n}: {a.name} differs from --shards {n}'s")
+        if _gunzip_sha256(gz) != refs["keep-all"]:
+            raise AssertionError(f"(b) --workers {n}: the .vcf.gz is not phase 4's keep-all text")
+        for f in (gz, ref, Path(f"{gz}.tbi"), Path(f"{ref}.tbi")):
+            f.unlink()
+        show(f"(b) --workers {n} keep-all .vcf.gz --index, .gz/.tbi sha256-equal to --shards "
+             f"{n} in one process ({ref_s:.3f} s), gunzipped equal to phase 4's", seconds,
+             reports)
+    for method in ("fork",):
+        out = tmp / f"{method}.vcf"
+        env = {**os.environ, "PGEN_TPU_MP_CONTEXT": method}
+        seconds, outs = _run_processes(
+            [[*cli, "filter", str(full), *two, "--workers", "2", "--device", device, "--stats",
+              "-o", str(out)]], [env], tmp, method)
+        reports = _worker_reports(outs[0][1], 2, f"(b) --workers 2 under {method}", card)
+        if reports[0][0] != method or _sha256(out) != refs["keep-two"]:
+            raise AssertionError(f"(b) --workers 2 under {method} differs from phase 4's")
+        for r in reports:
+            others["subset_text_from_packed"] += r[4]
+        out.unlink()
+        show(f"(b) --workers 2 keep-two as a process of the CLI, sha256-equal", seconds, reports)
+
+    # (c) --shards 3 in one process; --shard-index 0..2 as three processes at once
+    out = tmp / "sh.vcf"
+    seconds, err = _port_cli(["filter", full, *two, "--shards", str(SHARDS)], out, device)
+    launched = _shard_launches(err, f"(c) --shards {SHARDS}", card)
+    if _sha256(out) != refs["keep-two"]:
+        raise AssertionError(f"(c) --shards {SHARDS} differs from phase 4's keep-two")
+    out.unlink()
+    print(f"[14 files] (c) --shards {SHARDS} keep-two in one process: wall {seconds:.3f} s, "
+          f"sha256-equal; launches K2/K3 {launched}")
+    out = tmp / "shared.vcf"
+    cmds = [[*cli, "filter", str(full), *two, "--shards", str(SHARDS), "--shard-index", str(i),
+             "--device", device, "--stats", "-o", str(out)] for i in range(SHARDS)]
+    seconds, outs = _run_processes(cmds, [dict(os.environ)] * SHARDS, tmp, "shard_index")
+    launched = [_shard_launches(e, f"(c) --shard-index {i}", card)
+                for i, (_, e) in enumerate(outs)]
+    for k2, k3 in launched:
+        others["genotype_text"] += k2
+        others["subset_text_from_packed"] += k3
+    if _sha256(out) != refs["keep-two"]:
+        raise AssertionError("(c) the three --shard-index processes' file differs from keep-two's")
+    out.unlink()
+    print(f"[14 files] (c) --shard-index 0-{SHARDS - 1} as {SHARDS} processes at once into one "
+          f".vcf: wall {seconds:.3f} s (process start included), sha256-equal; launches K2/K3 "
+          f"{launched}")
+
+    # (d) a failed worker, then --resume
+    out = tmp / "resume.vcf"
+    base = ["filter", str(full), *two, "--workers", "3"]
+    os.environ["PGEN_TPU_TEST_FAIL_SHARD"] = "1"
+    err = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = port_main([*base, "--device", device, "-o", str(out)])
+        fail_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PGEN_TPU_TEST_FAIL_SHARD"]
+    manifest = json.loads(Path(f"{out}.manifest.json").read_text())
+    statuses = [s["status"] for s in manifest["shards"]]
+    if rc != 1 or statuses != ["done", "failed", "done"] or "--resume" not in err.getvalue():
+        raise AssertionError(f"(d) the injected failure gave rc {rc}, shards {statuses}\n"
+                             f"{err.getvalue()[-2000:]}")
+    seconds, err = _port_run([*base, "--resume", "--stats", "-o", out], device)
+    rows = [m.groups() for m in map(_WORKER_LINE.match, err.splitlines()) if m]
+    if [r[0] for r in rows] != ["1"] or (card and int(rows[0][5]) <= 0):
+        raise AssertionError(f"(d) --resume ran workers {[r[0] for r in rows]}, not shard 1 alone")
+    others["subset_text_from_packed"] += int(rows[0][5])
+    if _sha256(out) != refs["keep-two"] or Path(f"{out}.manifest.json").exists():
+        raise AssertionError("(d) --resume did not finish keep-two's bytes")
+    out.unlink()
+    print(f"[14 files] (d) --workers 3 with shard 1 failing: exit 1 in {fail_s:.3f} s, manifest "
+          f"{statuses}; --resume ran shard 1 alone in {seconds:.3f} s, sha256-equal to keep-two's")
+
+    # (e) --threads T: each thread its own buffers and stream
+    for label, prefix, argv, ref, kname, blocks in (
+            ("keep-two", full, two, refs["keep-two"], "subset_text_from_packed",
+             -(-n_var // BLOCK_ROWS)),
+            ("keep-all", ragged, [], refs["keep-all"], "genotype_text",
+             -(-n_ragged // BLOCK_ROWS))):
+        for t in THREADS:
+            out = tmp / f"t{t}.vcf"
+            before = _read_launches()[kname]
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            seconds, err = _port_cli(["filter", prefix, *argv, "--threads", str(t)], out, device)
+            launched = _read_launches()[kname] - before
+            if (card and launched != blocks) or _sha256(out) != ref:
+                raise AssertionError(f"(e) --threads {t} {label}: {launched} launches of {kname} "
+                                     f"(want {blocks}), or its bytes differ from phase 4's")
+            out.unlink()
+            threaded = any(ln.startswith("emit: ") for ln in err.splitlines())
+            emit = f"emit {_stage_ms(err, 'emit'):.1f} ms, " if threaded else ""
+            # each thread (no more than blocks) pins a block's staging and text
+            width = 2 if kname == "subset_text_from_packed" else len(iids)
+            pinned = min(t, blocks) * BLOCK_ROWS * ((len(iids) + 3) // 4 + 4 * width)
+            print(f"[14 files] (e) --threads {t} {label}: wall {seconds:.3f} s ({emit}assemble "
+                  f"{_stage_ms(err, 'assemble'):.1f} ms summed over threads), sha256-equal to "
+                  f"phase 4's, {launched} launches of {kname}; {pinned} B pinned"
+                  + (f", peak device {torch.cuda.max_memory_allocated()} B" if card else ""))
+    keep_file.unlink()
+
+    launches = _read_launches()
+    for kname, n in others.items():
+        launches[kname] += n
+    print(f"[14 files] path launches (its worker and shard processes' added): {launches}")
+    for kname in ("subset_repack", "genotype_text", "subset_text_from_packed"):
+        if card and launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on phase 14's paths")
+    return launches
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -3747,11 +4077,10 @@ def main(argv: list) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             tmp = Path(tmp)
             fixtures = make_fixtures(tmp)
-            per_path = [
-                phase_filter(tmp, fixtures["full"], fixtures["ragged"]),
-                phase_pgen_out(tmp, fixtures["full"]),
-                phase_import(tmp, fixtures["import"]),
-            ]
+            launches, refs = phase_filter(tmp, fixtures["full"], fixtures["ragged"])
+            per_path = [launches]
+            launches, refs["keep-pgen"] = phase_pgen_out(tmp, fixtures["full"])
+            per_path += [launches, phase_import(tmp, fixtures["import"])]
             launches, sha_a = phase_device_provider(tmp, fixtures["full"], fixtures["ragged"])
             per_path.append(launches)
             phase_ranks(tmp, fixtures["full"], sha_a)
@@ -3776,6 +4105,9 @@ def main(argv: list) -> int:
             t0 = time.perf_counter()
             per_path.append(phase_host(tmp, fixtures["full"]))
             print(f"[13 host] phase 13 took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            per_path.append(phase_files(tmp, fixtures["full"], fixtures["ragged"], refs))
+            print(f"[14 files] phase 14 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:

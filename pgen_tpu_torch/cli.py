@@ -17,14 +17,24 @@ through the port's copies of its host composers (``query/``):
 ``--maf/--max-maf/--geno/--hwe/--mind`` sugar and ``--rm-dup`` (the
 ``error|list`` report first, as pgen_tpu's).
 
-``filter`` writes a VCF, or with ``--out-format pgen`` the fileset
-``-o PREFIX`` (default ``{prefix}.pgen-rs``). ``--provider device`` routes a
-VCF to ``pipeline/mesh_filter.py`` (one process per GPU; run alone it needs
-no launcher and makes no process group; N cards: ``torchrun --nproc-per-node N -m
-pgen_tpu_torch.cli filter ... --provider device``) and makes the genotype
-counts of ``--out-format pgen``'s predicates on the device. ``--profile DIR``
-writes a torch.profiler trace per rank. ``import`` reads a ``.vcf`` or
-``.vcf.gz``. ``glm`` and ``score`` run on one GPU (``--provider auto`` or
+``filter`` dispatches in pgen_tpu's order. ``--out-format bed`` writes
+the PLINK1 fileset ``-o PREFIX`` (``pipeline/bed_import.py``, K5 for a
+sample subset) and ``--out-format pgen`` the pgen fileset (default
+``{prefix}.pgen-rs``). A VCF goes to ``--workers N`` (worker processes on
+the card, one variant shard each; ``--resume`` finishes a run whose
+manifest marks failed shards), else ``--shards N`` (the shards in this
+process, or with ``--shard-index I`` shard I alone into the shared file;
+``parallel/shard.py``), else ``--provider device``, which routes it to
+``pipeline/mesh_filter.py`` (one process per GPU; run alone it needs no
+launcher and makes no process group; N cards: ``torchrun --nproc-per-node
+N -m pgen_tpu_torch.cli filter ... --provider device``), else the
+one-process filter, whose ``--threads T`` emits a plain file's blocks from
+T host threads, each on its own CUDA stream. ``--provider device`` also
+makes the genotype counts of the pgen and bed outputs' predicates on the
+device. ``--profile DIR`` writes a torch.profiler trace per rank.
+``import`` reads a ``.vcf`` or ``.vcf.gz`` (K4 on ``--device``), or a
+PLINK1 ``.bed``, host code as in pgen_tpu, which ``--device`` does not
+touch. ``glm`` and ``score`` run on one GPU (``--provider auto`` or
 ``device``), as ``pgen_tpu.cli.main`` serves them: the multi-phenotype
 loop, ``-o -``, the same query composers and the closing stderr line; so
 do ``king`` (with ``--min-kinship`` and ``--cutoff``), ``genome`` (with
@@ -47,10 +57,11 @@ logistic ``glm``, ``--interaction``, the reports, ``stats``, ``fst``,
 stdout as pgen_tpu's does: ``-e`` excludes, and ``-r``/``-R`` with ``-s``
 is an error (exit 1). It exits as ``pgen_tpu.cli.main`` does: 141 on a
 broken pipe, 1 with the one stderr line ``pgen-tpu: error: ...`` on any
-other exception, 2 on an argument error. What the port does not serve yet
-is refused with the ROADMAP.md item that will serve it: the flags and
-inputs listed in ``_UNSERVED``, ``_UNSERVED_IMPORT`` and
-``_UNSERVED_ANALYTICS``.
+other exception, 2 on an argument error. The port serves every subcommand
+and flag of pgen_tpu but its host providers: ``--provider native|numpy``
+(and ``import --provider``) exit 2 naming ROADMAP.md, a decision rather
+than work to come (``_UNSERVED``, ``_UNSERVED_IMPORT``,
+``_UNSERVED_ANALYTICS``); the port's host path is ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -60,42 +71,17 @@ import contextlib
 import logging
 import os
 import sys
+import time
 
 from pgen_tpu_torch.cli_parser import build_arg_parser
 
 # flag dest -> (test on its parsed value, refusal naming the ROADMAP item)
 _UNSERVED = {
-    "workers": (
-        lambda v: v is not None,
-        "--workers: pgen_tpu's host multi-process filter is ROADMAP §1 item 15; "
-        "--provider device runs one process per GPU",
-    ),
-    "shards": (
-        lambda v: v is not None,
-        "--shards: pgen_tpu's host shard path is ROADMAP §1 item 15; "
-        "--provider device shards variants over the GPUs",
-    ),
-    "shard_index": (
-        lambda v: v is not None,
-        "--shard-index: pgen_tpu's host shard path is ROADMAP §1 item 15",
-    ),
-    "resume": (
-        lambda v: v,
-        "--resume: pgen_tpu's host multi-process filter is ROADMAP §1 item 15",
-    ),
-    "out_format": (
-        lambda v: v == "bed",
-        "--out-format bed: PLINK1 .bed output is ROADMAP §1 item 14",
-    ),
     "provider": (
         lambda v: v not in ("auto", "device"),
         "--provider native|numpy: the port serves auto (one GPU) and device "
-        "(ROADMAP §1 item 6, done); pgen_tpu's host providers stay pgen_tpu's",
-    ),
-    "threads": (
-        lambda v: v is not None,
-        "--threads: host emission threads give way to the two-stream block "
-        "pipeline, ROADMAP §1 item 12",
+        "(ROADMAP §1 item 6, done); pgen_tpu's host providers stay pgen_tpu's, "
+        "by decision (ROADMAP §1): the port's host path is --device cpu",
     ),
 }
 
@@ -104,10 +90,6 @@ _UNSERVED_IMPORT = {
         lambda v: v != "auto",
         "import --provider: the port's import (ROADMAP §1 item 7) has one "
         "path, chosen with --device; pgen_tpu's host providers stay pgen_tpu's",
-    ),
-    "vcf_file": (
-        lambda v: v.endswith(".bed"),
-        "import X.bed: PLINK1 .bed import is ROADMAP §1 item 14",
     ),
 }
 
@@ -1032,10 +1014,17 @@ def _analytics(parser, args) -> int:
 
 
 def _import(parser, args) -> int:
+    """``import`` of a VCF (K4 on --device), or of a PLINK1 .bed, which is
+    host code in pgen_tpu as in the port: --device does not touch it."""
     _refuse_unserved(parser, args, _UNSERVED_IMPORT)
-    from pgen_tpu_torch.pipeline.vcf_import import import_vcf
+    if args.vcf_file.endswith(".bed"):
+        from pgen_tpu_torch.pipeline.bed_import_host import import_bed
 
-    result = import_vcf(args.vcf_file, out_prefix=args.out_prefix, device=args.device)
+        result = import_bed(args.vcf_file, out_prefix=args.out_prefix)
+    else:
+        from pgen_tpu_torch.pipeline.vcf_import import import_vcf
+
+        result = import_vcf(args.vcf_file, out_prefix=args.out_prefix, device=args.device)
     if args.stats:
         print(result.timer.report(), file=sys.stderr)
     print(
@@ -1046,7 +1035,26 @@ def _import(parser, args) -> int:
     return 0
 
 
+def _worker_lines(result, t0: float) -> list:
+    """--stats of --workers: one line a worker of ``result`` (the start
+    method; when it entered, after ``t0``, and how long its shard ran; its
+    K2/K3 launches; its peak pinned host and device bytes). ``--workers 1``
+    runs in this process, which has no worker to report."""
+    from pgen_tpu_torch.parallel.shard import _mp_context
+
+    method = _mp_context().get_start_method()
+    return [
+        f"worker {i} ({method}): entered {r['entered'] - t0:.3f} s after the start, "
+        f"ran {r['seconds']:.3f} s; launches genotype_text {r['genotype_text']}, "
+        f"subset_text_from_packed {r['subset_text_from_packed']}; pinned {r['pinned']} B, "
+        f"device peak {r['device_peak']} B"
+        for i, r in sorted(getattr(result, "worker_reports", {}).items())
+    ]
+
+
 def _filter(args) -> int:
+    """filter, dispatched in pgen_tpu's order: --out-format bed, pgen,
+    --workers, --shards, --provider device, the one-process filter."""
     rc = _compose_filter_queries(args)
     if rc:
         return rc
@@ -1054,7 +1062,7 @@ def _filter(args) -> int:
     if args.out_file == "-":
         if args.out_format != "vcf":
             raise ValueError("-o - (stdout) supports VCF output only")
-        if args.provider == "device":
+        if args.workers is not None or args.shards is not None or args.provider == "device":
             raise ValueError(
                 "-o - (stdout) requires the single-process filter "
                 "(drop --workers/--shards/--provider device)"
@@ -1062,23 +1070,61 @@ def _filter(args) -> int:
     if args.index:
         if not str(args.out_file or "").endswith(".gz"):
             raise ValueError("--index requires -o out.vcf.gz")
+        if args.shards is not None and args.shard_index is not None:
+            raise ValueError(
+                "--index needs the complete file: drop --shard-index "
+                "(the merged run can index) or index afterwards"
+            )
         if args.out_format != "vcf":
             raise ValueError("--index applies to VCF output only")
 
     kwargs = {"block_variants": args.block_variants} if args.block_variants else {}
+    common = dict(var_query=args.var_query, sam_query=args.sam_query, device=args.device,
+                  provider=args.provider)
+    lines = []
     with _profile(args.profile, args.device):
-        if args.out_format == "pgen":
+        if args.out_format == "bed":
+            from pgen_tpu_torch.pipeline.bed_import import filter_to_bed
+
+            # pgen_tpu's bed output takes no --block-variants
+            result = filter_to_bed(args.pfile_prefix, out_prefix=args.out_file, **common)
+        elif args.out_format == "pgen":
             from pgen_tpu_torch.pipeline.pgen_out import filter_to_pgen
 
-            result = filter_to_pgen(
+            result = filter_to_pgen(args.pfile_prefix, out_prefix=args.out_file, **common,
+                                    **kwargs)
+        elif args.workers is not None:
+            from pgen_tpu_torch.parallel.shard import filter_to_vcf_parallel
+
+            t0 = time.time()
+            result = filter_to_vcf_parallel(
                 args.pfile_prefix,
-                var_query=args.var_query,
-                sam_query=args.sam_query,
-                out_prefix=args.out_file,
-                device=args.device,
-                provider=args.provider,
+                out_file=args.out_file,
+                num_workers=args.workers,
+                resume=args.resume,
+                index=args.index,
+                index_format=args.index_format,
+                **common,
                 **kwargs,
             )
+            lines = _worker_lines(result, t0)
+        elif args.shards is not None:
+            from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
+            from pgen_tpu_torch.parallel.shard import filter_to_vcf_sharded
+
+            before = genotype_text.launches, subset_text_from_packed.launches
+            result = filter_to_vcf_sharded(
+                args.pfile_prefix,
+                out_file=args.out_file,
+                num_shards=args.shards,
+                shard_index=args.shard_index,
+                index=args.index,
+                index_format=args.index_format,
+                **common,
+                **kwargs,
+            )
+            lines = [f"launches: genotype_text {genotype_text.launches - before[0]}, "
+                     f"subset_text_from_packed {subset_text_from_packed.launches - before[1]}"]
         elif args.provider == "device":
             from pgen_tpu_torch.pipeline.mesh_filter import filter_to_vcf_mesh
 
@@ -1092,8 +1138,7 @@ def _filter(args) -> int:
                 index_format=args.index_format,
                 **kwargs,
             )
-            if args.stats:
-                print(f"predicate route: {result.route}", file=sys.stderr)
+            lines = [f"predicate route: {result.route}"]
         else:
             from pgen_tpu_torch.pipeline.filter import filter_to_vcf
 
@@ -1105,10 +1150,14 @@ def _filter(args) -> int:
                 device=args.device,
                 index=args.index,
                 index_format=args.index_format,
+                emit_threads=1 if args.threads is None else args.threads,
                 **kwargs,
             )
     if args.stats:
-        print(result.timer.report(), file=sys.stderr)
+        # the device provider's route before the report; workers' and shards' lines after it
+        if lines and lines[0].startswith("predicate route"):
+            print(lines.pop(0), file=sys.stderr)
+        print("\n".join([result.timer.report(), *lines]), file=sys.stderr)
     return 0
 
 

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -35,6 +36,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# launch counts are read-modify-writes shared by the emission threads of
+# --threads (pipeline/filter.py), so each count is taken under this lock
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -128,4 +132,5 @@ def launch(wrapper, symbol: str, t: torch.Tensor, *args) -> None:
     if status != 0:
         msg = load().pgen_cuda_error_string(status).decode()
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error {status} ({msg})")
-    wrapper.launches += 1
+    with _COUNT_LOCK:
+        wrapper.launches += 1

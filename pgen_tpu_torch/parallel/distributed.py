@@ -16,8 +16,10 @@ launcher sets it:
   explicit one-rank group, the caller's or a launcher's ``WORLD_SIZE=1``,
   still runs the collectives.)
 
-pgen_tpu's ``run_distributed_filter`` (the host shard path,
-``parallel/shard.py``) is not ported: ROADMAP.md §1 item 15.
+pgen_tpu's ``run_distributed_filter`` (one jax process a shard of the
+host filter) is not ported: no entry point of pgen_tpu calls it, and the
+port's one process a shard is ``filter --shards N --shard-index I``
+(``parallel/shard.py``).
 """
 
 from __future__ import annotations

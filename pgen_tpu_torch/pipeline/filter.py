@@ -23,12 +23,20 @@ device is each block's kept rows, copied into a staging tensor. Per block:
   write     fd sink, compressed to BGZF for a .gz output
 
 The loop is synchronous: each stage ends before the next starts, so the
-StageTimer report attributes the time honestly. Overlapping the stages on
-two streams is later work. Output bytes equal pgen_tpu's for every provider.
+StageTimer report attributes the time honestly. With ``emit_threads`` T > 1
+(``--threads``, the mapped output only, as in pgen_tpu) T host threads run
+that loop over disjoint blocks into disjoint ranges of the mapped output,
+each with its own staging and text buffers and its own CUDA stream, so one
+thread's assembly overlaps another's copies and kernel; each thread keeps
+its own StageTimer, summed into the report after the loop, which one
+``emit`` stage spans. The BGZF/fd branch keeps one ordered loop.
+Overlapping the stages of one loop on two streams is later work. Output
+bytes equal pgen_tpu's for every provider and thread count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -49,7 +57,7 @@ from pgen_tpu_torch.pipeline.filter_host import (
     materialize_prefixes,
 )
 from pgen_tpu_torch.utils.log import get_logger
-from pgen_tpu_torch.utils.timer import StageTimer
+from pgen_tpu_torch.utils.timer import Stage, StageTimer
 from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
 
@@ -119,6 +127,97 @@ class _BlockRows:
                 n = _assemble_rows_numpy(text, pbuf, off, out)
         if n != out.nbytes:
             raise RuntimeError(f"rows [{lo},{hi}) took {n} bytes, layout says {out.nbytes}")
+
+
+def plan_blocks(lay, lo: int, hi: int, pos: int, block_variants: int) -> list:
+    """(lo, hi, byte offset, byte size) of each block of kept rows [lo, hi),
+    the first at byte ``pos`` of the output."""
+    blocks = []
+    for blo in range(lo, hi, block_variants):
+        bhi = min(blo + block_variants, hi)
+        cap = int(lay.prefix_sizes[bhi] - lay.prefix_sizes[blo]) + (bhi - blo) * lay.row_fixed
+        blocks.append((blo, bhi, pos, cap))
+        pos += cap
+    return blocks
+
+
+def _add_timers(timer: StageTimer, parts) -> None:
+    """Sum the stages of ``parts`` (one StageTimer a thread) into timer."""
+    for part in parts:
+        for name, st in part.stages.items():
+            into = timer.stages.setdefault(name, Stage())
+            into.seconds += st.seconds
+            into.bytes_moved += st.bytes_moved
+            into.calls += st.calls
+
+
+def emit_mapped(lay, dev: torch.device, blocks: list, out: np.ndarray, timer: StageTimer,
+                threads: int = 1) -> None:
+    """Write the rows of ``blocks`` (``plan_blocks``) into ``out`` at their
+    offsets.
+
+    One loop with one ``_BlockRows`` when ``threads`` is 1. Otherwise
+    ``threads`` host threads take every ``threads``-th block, each with its
+    own ``_BlockRows``, StageTimer and, on a card, CUDA stream (the
+    kernels, copies and synchronisations of a thread run on its current
+    stream); one ``emit`` stage spans them and their stages are summed
+    into ``timer`` after it."""
+    if not blocks:
+        return
+    rows_cap = max(hi - lo for lo, hi, _, _ in blocks)
+    if threads <= 1 or len(blocks) == 1:
+        rows = _BlockRows(lay, dev, rows_cap, timer)
+        for lo, hi, pos, cap in blocks:
+            rows.write(lo, hi, out[pos : pos + cap])
+        return
+    threads = min(threads, len(blocks))
+    timers = [StageTimer() for _ in range(threads)]
+
+    def run(t: int) -> None:
+        with contextlib.ExitStack() as ctx:
+            if dev.type == "cuda":
+                ctx.enter_context(torch.cuda.device(dev))
+                ctx.enter_context(torch.cuda.stream(torch.cuda.Stream(dev)))
+            rows = _BlockRows(lay, dev, rows_cap, timers[t])
+            for lo, hi, pos, cap in blocks[t::threads]:
+                rows.write(lo, hi, out[pos : pos + cap])
+
+    with timer.stage("emit", nbytes=sum(b[3] for b in blocks)):
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(run, range(threads)))  # raises a thread's exception
+    _add_timers(timer, timers)
+
+
+def emit_stream(lay, dev: torch.device, blocks: list, fd: int, gz: bool, timer: StageTimer,
+                head: bytes | None, eof: bool) -> int:
+    """Write ``head`` (when given), then the rows of ``blocks`` in order, to
+    ``fd``: plain, or each piece compressed to BGZF members when ``gz``,
+    then the BGZF EOF marker when ``eof``; returns the bytes written. One
+    loop, one ``_BlockRows`` and one scratch buffer; the ``write`` stage
+    holds the compression (over the host's cores) and the writes."""
+    written = 0
+    threads = os.cpu_count() or 1
+    with ThreadPoolExecutor(threads) as pool:
+
+        def sink(data: np.ndarray) -> int:
+            with timer.stage("write", nbytes=data.nbytes):
+                parts = _bgzf(pool, threads, data) if gz else [data]
+                for p in parts:
+                    _write_all(fd, memoryview(p))
+                return sum(p.nbytes for p in parts)
+
+        if head is not None:
+            written += sink(np.frombuffer(head, dtype=np.uint8))
+        if blocks:
+            rows = _BlockRows(lay, dev, max(hi - lo for lo, hi, _, _ in blocks), timer)
+            scratch = np.empty(max(b[3] for b in blocks), dtype=np.uint8)
+            for lo, hi, _, cap in blocks:
+                rows.write(lo, hi, scratch[:cap])
+                written += sink(scratch[:cap])
+    if eof:
+        _write_all(fd, memoryview(BGZF_EOF))
+        written += len(BGZF_EOF)
+    return written
 
 
 def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
@@ -215,6 +314,7 @@ def filter_to_vcf(
     block_variants: int = DEFAULT_BLOCK_VARIANTS,
     index: bool = False,
     index_format: str = "auto",
+    emit_threads: int = 1,
 ) -> FilterResult:
     """Filter a pgen fileset to a VCF with the genotype text made on
     ``device`` (``"cuda"``, which must be available, or ``"cpu"``).
@@ -223,6 +323,9 @@ def filter_to_vcf(
     ``out_file`` defaults to ``{prefix}.pgen-rs.vcf``, ``"-"`` streams to
     stdout, a ``.gz`` name writes BGZF, and ``index`` (``.gz`` only) also
     writes a tabix index (``index_format`` tbi, csi or auto).
+    ``emit_threads`` (``--threads``): host threads, each on its own CUDA
+    stream, emitting disjoint blocks into the mapped output (a plain file);
+    the default 1 runs one loop, as does any stream or ``.gz`` output.
     """
     from pgen_tpu_torch.native import HAVE_NATIVE
 
@@ -248,45 +351,22 @@ def filter_to_vcf(
 
     n_var = len(lay.var_idx)
     header_len = len(lay.header_bytes)
-    blocks = []
-    pos = header_len
-    for lo in range(0, n_var, block_variants):
-        hi = min(lo + block_variants, n_var)
-        cap = int(lay.prefix_sizes[hi] - lay.prefix_sizes[lo]) + (hi - lo) * lay.row_fixed
-        blocks.append((lo, hi, pos, cap))
-        pos += cap
+    blocks = plan_blocks(lay, 0, n_var, header_len, block_variants)
+    pos = blocks[-1][2] + blocks[-1][3] if blocks else header_len
     if pos != lay.total:
         raise RuntimeError(f"size accounting: planned {pos} bytes, layout says {lay.total}")
-    rows = _BlockRows(lay, dev, min(block_variants, n_var), timer) if n_var else None
 
     if _can_mmap(out_file) and not gz:
         out_mm = np.memmap(out_file, dtype=np.uint8, mode="w+", shape=(lay.total,))
         out_mm[:header_len] = np.frombuffer(lay.header_bytes, dtype=np.uint8)
-        for lo, hi, bpos, cap in blocks:
-            rows.write(lo, hi, out_mm[bpos : bpos + cap])
+        emit_mapped(lay, dev, blocks, out_mm, timer, emit_threads)
         del out_mm  # unmap; the OS writes back lazily, as pgen_tpu does
         bytes_written = lay.total
     else:
         fd = os.open(out_file, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
         try:
-            threads = os.cpu_count() or 1
-            with ThreadPoolExecutor(threads) as pool:
-
-                def sink(data: np.ndarray) -> int:
-                    with timer.stage("write", nbytes=data.nbytes):
-                        parts = _bgzf(pool, threads, data) if gz else [data]
-                        for p in parts:
-                            _write_all(fd, memoryview(p))
-                        return sum(p.nbytes for p in parts)
-
-                bytes_written = sink(np.frombuffer(lay.header_bytes, dtype=np.uint8))
-                scratch = np.empty(max((b[3] for b in blocks), default=0), dtype=np.uint8)
-                for lo, hi, _, cap in blocks:
-                    rows.write(lo, hi, scratch[:cap])
-                    bytes_written += sink(scratch[:cap])
-            if gz:
-                _write_all(fd, memoryview(BGZF_EOF))
-                bytes_written += len(BGZF_EOF)
+            bytes_written = emit_stream(lay, dev, blocks, fd, gz, timer, lay.header_bytes,
+                                        eof=gz)
         finally:
             os.close(fd)
 

@@ -50,8 +50,12 @@ from pgen_tpu_torch.pipeline.filter import compute_masks as device_masks
 log = get_logger("torch.pgen_out")
 
 
-def _write_subset_blocks(f, records, var_idx, sam_idx, dev, block_variants, timer) -> None:
-    """Re-pack the kept rows to the kept samples (K5), block by block, into f."""
+def subset_blocks(records, var_idx, sam_idx, dev, block_variants, timer):
+    """Re-pack the kept rows to the kept samples (K5), block by block: yields
+    each block's records, a (rows, ceil(K/4)) u8 host array that holds until
+    the next block is asked for. ``filter --out-format pgen`` writes them
+    as they are, ``--out-format bed`` (``pipeline/bed_import.py``) after
+    its code LUT."""
     cuda = dev.type == "cuda"
     rows = min(block_variants, len(var_idx))
     rec = records.shape[1]
@@ -77,8 +81,7 @@ def _write_subset_blocks(f, records, var_idx, sam_idx, dev, block_variants, time
                 out_host[:n].copy_(out, non_blocking=True)
                 synchronize(dev)
             out = out_host[:n]
-        with timer.stage("write_pgen", nbytes=n * out_rec):
-            f.write(out.numpy())
+        yield out.numpy()
 
 
 def filter_to_pgen(
@@ -151,7 +154,9 @@ def filter_to_pgen(
                 with timer.stage("write_pgen", nbytes=blk.nbytes):
                     f.write(blk)
         elif len(var_idx) and n_kept:
-            _write_subset_blocks(f, records, var_idx, sam_idx, dev, block_variants, timer)
+            for blk in subset_blocks(records, var_idx, sam_idx, dev, block_variants, timer):
+                with timer.stage("write_pgen", nbytes=blk.nbytes):
+                    f.write(blk)
 
     with timer.stage("write_meta"):
         _write_meta_subset(pvar, var_idx, f"{out_prefix}.pvar")

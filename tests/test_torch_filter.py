@@ -7,6 +7,7 @@ the kernels' plain PyTorch versions make the text; pgen_tpu runs its numpy
 provider and its device provider (JAX on the CPU).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -163,6 +164,109 @@ def test_cli_matches_pgen_tpu(tmp_path, argv):
     assert _read(a) == _read(b)
 
 
+@pytest.mark.parametrize("threads", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["keep_all", "sample_subset", "both_subsets"])
+def test_threads_match_pgen_tpu(tmp_path, case, threads):
+    """emit_threads (--threads): T host threads emit disjoint blocks into the
+    mapped output, the bytes of pgen_tpu's filter at the same T; each
+    block's stages are counted once, and one emit stage spans the threads."""
+    prefix = _fileset(tmp_path, 37, 7, seed=37 + threads)
+    kw = {**CASES[case], "block_variants": 5}
+    tpu_filter(prefix, out_file=tmp_path / "tpu.vcf", provider="numpy", emit_threads=threads,
+               **kw)
+    got = port_filter(prefix, out_file=tmp_path / "port.vcf", device="cpu",
+                      emit_threads=threads, **kw)
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+    blocks = -(-got.num_variants_kept // 5)
+    stages = got.timer.stages
+    assert stages["gather"].calls == stages["kernel"].calls == stages["assemble"].calls == blocks
+    assert ("emit" in stages) == (threads > 1)
+
+
+@pytest.mark.parametrize("threads", [2, 4])
+def test_threads_leave_stream_outputs_to_one_loop(tmp_path, threads):
+    """--threads applies to the mapped output only, as in pgen_tpu: a
+    .vcf.gz (and -o -) keeps its one ordered loop, with no emit stage."""
+    prefix = _fileset(tmp_path, 37, 7, seed=5)
+    argv = ["filter", prefix, "--block-variants", "5", "--threads", str(threads)]
+    assert port_main([*argv, "--device", "cpu", "-o", str(tmp_path / "port.vcf.gz"),
+                      "--index"]) == 0
+    assert tpu_main([*argv, "-o", str(tmp_path / "tpu.vcf.gz"), "--index"]) == 0
+    for suf in ("", ".tbi"):
+        assert _read(f"{tmp_path}/port.vcf.gz{suf}") == _read(f"{tmp_path}/tpu.vcf.gz{suf}")
+    got = port_filter(prefix, out_file=tmp_path / "x.vcf.gz", device="cpu",
+                      emit_threads=threads, block_variants=5)
+    assert "emit" not in got.timer.stages
+
+
+def test_launch_counts_stay_exact_under_threads(monkeypatch):
+    """kernels.launch counts under a lock: 16 threads (more than the cores
+    here) launching at a shortened switch interval lose no count, though
+    reading the count yields to the other threads (a read-modify-write
+    without the lock loses updates so). The library and the CUDA stream
+    are stand-ins; only the count is tested."""
+    import threading
+    import time
+    import types
+
+    from pgen_tpu_torch import kernels
+
+    lib = types.SimpleNamespace(pgen_fake=lambda *args: 0)
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    class Wrapper:
+        __name__ = "fake_kernel"
+        count = 0
+
+        @property
+        def launches(self):
+            n = self.count
+            time.sleep(0)
+            return n
+
+        @launches.setter
+        def launches(self, n):
+            self.count = n
+
+    wrapper = Wrapper()
+    t = torch.zeros(1)
+    threads = [threading.Thread(target=lambda: [kernels.launch(wrapper, "pgen_fake", t)
+                                                for _ in range(500)]) for _ in range(16)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    assert wrapper.count == 16 * 500
+
+
+def _port_cli_in_subprocess(argv: list, cwd, env: dict | None = None, timeout: float = 240,
+                            before: str = "") -> subprocess.CompletedProcess:
+    """The port's CLI ``main(argv)`` in a fresh interpreter (``python -c``,
+    the repository first on sys.path; ``before`` runs ahead of it), under
+    ``timeout`` seconds: how the tests run a path that starts processes, so
+    that a hung worker fails its test instead of holding the suite."""
+    code = (f"import sys\nsys.path.insert(0, {str(REPO)!r})\n{before}"
+            f"from pgen_tpu_torch.cli import main\nsys.exit(main({argv!r}))\n")
+    env = {k: v for k, v in {**os.environ, **(env or {})}.items()
+           if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK")}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _outputs(d: Path, stem: str) -> dict:
+    """Suffix -> bytes of every file named ``stem`` plus a suffix in d."""
+    return {p.name[len(stem):]: p.read_bytes() for p in d.iterdir() if p.name.startswith(stem)}
+
+
 @pytest.mark.parametrize(
     "argv",
     [
@@ -177,14 +281,32 @@ def test_cli_matches_pgen_tpu(tmp_path, argv):
     ],
 )
 def test_cli_refuses_unserved_flags_naming_roadmap(tmp_path, capsys, argv):
+    """Of the flags and inputs this test once refused, only pgen_tpu's host
+    providers (--provider native|numpy) stay refused, with exit 2 naming
+    ROADMAP. --workers, --shards, --out-format bed, --resume, --threads
+    (ROADMAP §1 items 14, 15, 12 (e)) and import X.bed are served: each
+    writes pgen_tpu's files (--workers in a subprocess, under a timeout)."""
     prefix = _fileset(tmp_path, 4, 4, seed=4)
     (tmp_path / "in.vcf").write_text("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\ts0\n")
     argv = [arg.format(prefix=prefix, dir=tmp_path) for arg in argv]
-    with pytest.raises(SystemExit) as e:
-        port_main([*argv, "--device", "cpu", "-o", str(tmp_path / "x.vcf")])
-    assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
-    assert not list(tmp_path.glob("x.vcf*"))
+    if "native" in argv:
+        with pytest.raises(SystemExit) as e:
+            port_main([*argv, "--device", "cpu", "-o", str(tmp_path / "x.vcf")])
+        assert e.value.code == 2
+        assert "ROADMAP" in capsys.readouterr().err
+        assert not list(tmp_path.glob("x.vcf*"))
+        return
+    if argv[0] == "import":
+        assert tpu_main(["filter", prefix, "--out-format", "bed", "-o", prefix]) == 0
+    port_argv = [*argv, "--device", "cpu", "-o", str(tmp_path / "port.vcf")]
+    if "--workers" in argv:
+        r = _port_cli_in_subprocess(port_argv, tmp_path)
+        assert r.returncode == 0, r.stderr[-3000:]
+    else:
+        assert port_main(port_argv) == 0
+    assert tpu_main([*argv, "-o", str(tmp_path / "tpu.vcf")]) == 0
+    got, want = _outputs(tmp_path, "port.vcf"), _outputs(tmp_path, "tpu.vcf")
+    assert got == want and got
 
 
 @pytest.mark.parametrize("provider", ["auto", "device"])
@@ -248,6 +370,10 @@ CLI_ERRORS = {
     "missing_fileset": ["filter", "{dir}/none", "-o", "{dir}/x.vcf"],
     "stdout_pgen": ["filter", "{prefix}", "--out-format", "pgen", "-o", "-"],
     "stdout_provider_device": ["filter", "{prefix}", "--provider", "device", "-o", "-"],
+    "stdout_workers": ["filter", "{prefix}", "--workers", "2", "-o", "-"],
+    "stdout_shards": ["filter", "{prefix}", "--shards", "2", "-o", "-"],
+    "index_shard_index": ["filter", "{prefix}", "--index", "--shards", "2", "--shard-index", "0",
+                          "-o", "{dir}/x.vcf.gz"],
     "index_without_gz": ["filter", "{prefix}", "--index", "-o", "{dir}/x.vcf"],
     "index_pgen": ["filter", "{prefix}", "--index", "--out-format", "pgen", "-o", "{dir}/x.vcf.gz"],
     "hwe_midp_without_hwe": ["filter", "{prefix}", "--hwe-midp", "-o", "{dir}/x.vcf"],

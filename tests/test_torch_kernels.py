@@ -1086,3 +1086,82 @@ def test_export_sample_major_on_the_card(cuda_device, n_samples, kept):
     np.testing.assert_array_equal(got, want)
     oracle = unpack_codes_reference(host[var_idx], n_samples)[:, sam_idx].T
     np.testing.assert_array_equal(got, oracle)
+
+
+def _small_fileset(d, n_var: int, n_samples: int, seed: int) -> str:
+    """A fileset of random records (pad bits too) with plain .pvar/.psam."""
+    from pgen_tpu.formats.writer import write_pgen_packed
+
+    rng = np.random.default_rng(seed)
+    prefix = str(d / "fs")
+    rec = (n_samples + 3) // 4
+    write_pgen_packed(f"{prefix}.pgen", rng.integers(0, 256, (n_var, rec), dtype=np.uint8),
+                      n_samples)
+    with open(f"{prefix}.pvar", "w") as f:
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        f.writelines(f"1\t{100 + i}\trs{i}\tA\tG\t.\t.\t.\n" for i in range(n_var))
+    with open(f"{prefix}.psam", "w") as f:
+        f.write("#IID\tSEX\n")
+        f.writelines(f"s{i}\t{1 + i % 2}\n" for i in range(n_samples))
+    return prefix
+
+
+@pytest.mark.parametrize("kept", ["all", "two"])
+def test_threads_launch_on_their_own_streams(cuda_device, tmp_path, monkeypatch, kept):
+    """--threads 2 (emit_threads): each thread launches K2/K3 on a stream of
+    its own, every block once; the file equals one thread's and the CPU's."""
+    from pgen_tpu_torch.ops import gt_text
+    from pgen_tpu_torch.pipeline.filter import filter_to_vcf
+
+    prefix = _small_fileset(tmp_path, 1000, 2503, seed=3)
+    query = None if kept == "all" else 'IID == "s7" || IID == "s2000"'
+    seen = []
+    real = gt_text.launch
+
+    def spy(wrapper, symbol, t, *args):
+        seen.append(torch.cuda.current_stream(t.device).cuda_stream)
+        real(wrapper, symbol, t, *args)
+
+    monkeypatch.setattr(gt_text, "launch", spy)
+    for name, device, threads in (("t2", cuda_device, 2), ("t1", cuda_device, 1),
+                                  ("cpu", "cpu", 2)):
+        filter_to_vcf(prefix, sam_query=query, out_file=tmp_path / f"{name}.vcf", device=device,
+                      block_variants=96, emit_threads=threads)
+        if name == "t2":
+            two = list(seen)
+    assert len(two) == 11  # ceil(1000 / 96) blocks, each launched once
+    default = torch.cuda.default_stream(cuda_device).cuda_stream
+    assert len(set(two)) == 2 and default not in two
+    got = (tmp_path / "t2.vcf").read_bytes()
+    assert got == (tmp_path / "t1.vcf").read_bytes() == (tmp_path / "cpu.vcf").read_bytes()
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two CUDA cards")
+def test_worker_on_the_second_card(tmp_path):
+    """filter_to_vcf_parallel with device cuda:1: each worker runs its shard
+    on card 1 (its peak device bytes are card 1's), under a timeout, and
+    the file equals the CPU's."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    prefix = _small_fileset(tmp_path, 1000, 2503, seed=5)
+    repo = str(Path(__file__).resolve().parent.parent)
+    code = (
+        f"import json, sys\nsys.path.insert(0, {repo!r})\n"
+        "from pgen_tpu_torch.parallel import shard\n"
+        "from pgen_tpu_torch.pipeline.filter import filter_to_vcf\n"
+        f"res = shard.filter_to_vcf_parallel({prefix!r}, out_file={str(tmp_path / 'w.vcf')!r}, "
+        "device='cuda:1', num_workers=2, block_variants=96)\n"
+        f"filter_to_vcf({prefix!r}, out_file={str(tmp_path / 'c.vcf')!r}, device='cpu')\n"
+        "print(json.dumps(res.worker_reports))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    reports = json.loads(r.stdout.splitlines()[-1])
+    assert sorted(reports) == ["0", "1"]
+    # 500 rows a shard in blocks of 96: 6 launches of K2 in each worker
+    assert all(x["genotype_text"] == 6 and x["device_peak"] > 0 for x in reports.values())
+    assert (tmp_path / "w.vcf").read_bytes() == (tmp_path / "c.vcf").read_bytes()

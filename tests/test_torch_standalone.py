@@ -68,6 +68,16 @@ ENTRY_POINTS = {
     "filter_pgen": [["filter", "{p}", "--out-format", "pgen", "--keep", "{d}/keep.txt",
                      "-o", "{o}.sub"]],
     "import": [["filter", "{p}", "-o", "{o}.vcf"], ["import", "{o}.vcf", "-o", "{o}.imp"]],
+    # ROADMAP §1 items 14, 15 and 12 (e)
+    "filter_bed": [["filter", "{p}", "--out-format", "bed", "--keep", "{d}/keep.txt",
+                    "-o", "{o}.b"]],
+    "import_bed": [["filter", "{p}", "--out-format", "bed", "-o", "{o}.b"],
+                   ["import", "{o}.b.bed", "-o", "{o}.bi"]],
+    "filter_workers": [["filter", "{p}", "--workers", "2", "--samples", "s1,s2", "-o",
+                        "{o}.w.vcf"]],
+    "filter_shards_threads": [["filter", "{p}", "--shards", "3", "-o", "{o}.s.vcf.gz", "--index"],
+                              ["filter", "{p}", "--threads", "2", "--block-variants", "5",
+                               "-o", "{o}.t.vcf"]],
     "provider_device": [["filter", "{p}", "--provider", "device", "--maf", "0.1",
                          "--include-var", 'ALT == "G"', "-o", "{o}.dev.vcf"],
                         ["filter", "{p}", "--provider", "device", "-r", "1:100-900",
