@@ -214,6 +214,27 @@ Phases, each printing its own lines:
              and the peak device bytes printed.
              Launches of K2, K3 and K5 must be above 0 (the worker and
              shard processes' own counts added).
+ 15 surface  the last of pgen_tpu's surface on the full chr22 fixture: (a)
+             --provider device's GT_* counts under --shards 2 in this
+             process: GT_MAF over every sample (K8), GT_MISSING_RATE over
+             the samples (K9), GT_MAF over a --samples-file of 1,001 (K14),
+             --rm-dup list with GT_MAF on a copy whose region holds
+             duplicated IDs (K8 for the report, then for the shards), and
+             --workers 2 with GT_MAF; thresholds at the median of numpy's
+             counts, each run writing a 5,000-variant region's rows and
+             counting every row: the K8/K9/K14 deltas exactly 17 launches
+             a mask computation (each worker's --stats line 17); each VCF's
+             GT text against numpy's decode of numpy's kept rows and
+             samples, the .rmdup.list against numpy's, then sha256 against
+             the lone --provider device filter and the same run on
+             --device cpu (each case a process of its own, the four beside
+             the card's runs); --workers against --shards; (b)
+             run_distributed_filter as two processes at once (PGEN_TPU_COORDINATOR, _NUM_PROCS, _PROC_ID) on the
+             visible card(s), keep-two with shared_fs and then without, in
+             the same processes (a gloo group of its own a call): the
+             shared file and the parts concatenated sha256-equal to phase
+             4's keep-two, each process's K3 launches above 0, its wall and
+             its time from start to the group printed.
 
 The script imports no jax and nothing of pgen_tpu, and neither does the
 port, which keeps its own copies of the jax-free host layers it runs; a
@@ -221,10 +242,16 @@ last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
 just after. Then the products' line, one JSON line of the fifteen kernels
-(launches summed over phases 4-11, 13 and 14), and as the last line
+(launches summed over phases 4-11 and 13-15), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
 directory without the rest of the repository.
+
+The run stops every process it starts before it exits, failed or not: it
+adopts the orphans of its subprocesses (PR_SET_CHILD_SUBREAPER), stops the
+forkserver and resource tracker that its in-process --workers runs start
+(they would outlive it by the time an interpreter holding torch takes to
+finish), and stops and reaps any other child left, printing each.
 
     python3 chip_smoke.py --ranks   # on 2 or 4 cards: phase 7 (a) and phase 12 on
                                     # 1, 2 and 4 ranks only
@@ -3763,10 +3790,14 @@ WORKERS = (2, 4)  # phase 14 (b): --workers N
 SHARDS = 3  # phase 14 (c): --shards and the --shard-index processes
 THREADS = (1, 2, 4)  # phase 14 (e): --threads T
 BED_ORACLE_VARIANTS = 2000  # phase 14 (a): seeded rows of the --keep .bed held against numpy
+# --stats of a --workers worker and of --shards: the launches of K2, K3 and
+# the counts K8, K9, K14 (pgen_tpu_torch/parallel/shard.py REPORTED)
+_LAUNCHES = (r"genotype_text (\d+), subset_text_from_packed (\d+), gt_counts_device (\d+), "
+             r"sample_counts_device (\d+), gt_counts_masked (\d+)")
 _WORKER_LINE = re.compile(
     r"^worker (\d+) \((\w+)\): entered ([\d.]+) s after the start, ran ([\d.]+) s; launches "
-    r"genotype_text (\d+), subset_text_from_packed (\d+); pinned (\d+) B, device peak (\d+) B$")
-_SHARD_LINE = re.compile(r"^launches: genotype_text (\d+), subset_text_from_packed (\d+)$")
+    + _LAUNCHES + r"; pinned (\d+) B, device peak (\d+) B$")
+_SHARD_LINE = re.compile(r"^launches: " + _LAUNCHES + "$")
 
 
 def _bed_lut_numpy():
@@ -3789,25 +3820,35 @@ def _bed_files_sha256(prefix: Path) -> list:
 
 def _worker_reports(stderr: str, n: int, label: str, launched: bool = True) -> list:
     """The --workers run's lines of its n workers: (start method, entered
-    s, ran s, K2 launches, K3 launches, pinned B, device peak B) each; with
-    ``launched`` every worker must have launched a kernel."""
+    s, ran s, K2 launches, K3 launches, pinned B, device peak B, (K8, K9,
+    K14 launches)) each; with ``launched`` every worker must have launched
+    a text kernel."""
     rows = [m.groups() for m in map(_WORKER_LINE.match, stderr.splitlines()) if m]
     if [int(r[0]) for r in rows] != list(range(n)):
         raise AssertionError(f"{label}: --stats names workers {[r[0] for r in rows]}, not 0-{n - 1}")
-    reports = [(r[1], float(r[2]), float(r[3]), *map(int, r[4:])) for r in rows]
+    reports = [(r[1], float(r[2]), float(r[3]), int(r[4]), int(r[5]), int(r[9]), int(r[10]),
+                tuple(map(int, r[6:9]))) for r in rows]
     for i, r in enumerate(reports):
         if launched and r[3] + r[4] <= 0:
             raise AssertionError(f"{label}: worker {i} launched neither K2 nor K3")
     return reports
 
 
+def _shard_line(stderr: str, label: str) -> tuple:
+    """(K2, K3, K8, K9, K14) launches a --shards run prints under --stats."""
+    got = [tuple(map(int, m.groups())) for m in map(_SHARD_LINE.match, stderr.splitlines()) if m]
+    if len(got) != 1:
+        raise AssertionError(f"{label}: --stats printed launches {got}")
+    return got[0]
+
+
 def _shard_launches(stderr: str, label: str, launched: bool = True) -> tuple:
     """(K2, K3) launches a --shards run prints under --stats; with
     ``launched`` one must be above 0."""
-    got = [tuple(map(int, m.groups())) for m in map(_SHARD_LINE.match, stderr.splitlines()) if m]
-    if len(got) != 1 or (launched and sum(got[0]) <= 0):
+    got = _shard_line(stderr, label)[:2]
+    if launched and sum(got) <= 0:
         raise AssertionError(f"{label}: --stats printed launches {got}")
-    return got[0]
+    return got
 
 
 def phase_files(tmp: Path, full: Path, ragged: Path, refs: dict, device: str = "cuda") -> dict:
@@ -4041,6 +4082,366 @@ def phase_files(tmp: Path, full: Path, ragged: Path, refs: dict, device: str = "
     return launches
 
 
+A4_REGION = 5000  # phase 15 (a): variants of the -r region whose rows are written
+A4_DUP_EVERY = 10  # phase 15 (a) --rm-dup: every 10th region row takes the ID before it
+CPU_TWIN_THREADS = 2  # phase 15 (a): torch threads of each of the four --device cpu runs
+COUNT_KERNELS = ("gt_counts_device", "sample_counts_device", "gt_counts_masked")
+
+# Phase 15 (b): one process of run_distributed_filter, its group from the
+# PGEN_TPU_* variables; then a second call in the same process with its own
+# group (coordinator_address given, overriding the variables), one part a
+# process. Prints one JSON line: its wall, and each call's wall, time from
+# the process's start to its group, and K2/K3 launches.
+_DIST_MAIN = """
+import json, os, sys, time
+started = time.time()
+from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
+from pgen_tpu_torch.parallel.distributed import run_distributed_filter
+prefix, sam_query, out, port2, device = sys.argv[1:6]
+calls = []
+for shared_fs, extra in ((True, {}), (False, {"coordinator_address": f"127.0.0.1:{port2}"})):
+    genotype_text.launches = subset_text_from_packed.launches = 0
+    t0 = time.time()
+    res = run_distributed_filter(prefix, sam_query=sam_query, out_file=out,
+                                 shared_fs=shared_fs, device=device, **extra)
+    stages = res.timer.stages
+    calls.append({"shared_fs": shared_fs, "call_s": time.time() - t0,
+                  "start_to_group_s": t0 - started + stages["process_group"].seconds,
+                  "group_s": stages["process_group"].seconds,
+                  "barrier_s": stages["barrier"].seconds,
+                  "K2": genotype_text.launches, "K3": subset_text_from_packed.launches})
+print(json.dumps({"rank": int(os.environ["PGEN_TPU_PROC_ID"]), "wall_s": time.time() - started,
+                  "calls": calls}))
+"""
+
+
+# Phase 15 (a): the port's CLI once for each argv list of argv[1] (JSON), in
+# order, on argv[2] threads; prints each run's wall seconds as one JSON list.
+_CPU_RUNS = """
+import json, sys, time
+import torch
+from pgen_tpu_torch.cli import main
+torch.set_num_threads(int(sys.argv[2]))
+walls = []
+for argv in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    if main(argv) != 0:
+        sys.exit(f"{argv[:2]} failed")
+    walls.append(time.perf_counter() - t0)
+print(json.dumps(walls))
+"""
+
+
+def _dup_fileset(tmp: Path, full: Path, rows) -> tuple:
+    """The full fixture with every ``A4_DUP_EVERY``-th of ``rows`` (from the
+    second) carrying the ID of the row before it: the .pgen and .psam
+    linked, the .pvar rewritten. Returns its prefix and every row's ID."""
+    d = tmp / "dup15"
+    d.mkdir()
+    prefix = d / "chr22"
+    for ext in (".pgen", ".psam"):
+        os.symlink(f"{full}{ext}", f"{prefix}{ext}")
+    head, body = _pvar_parts(full)
+    ids = [row.split(b"\t", 3)[2] for row in body]
+    for i in rows[1::A4_DUP_EVERY]:
+        f = body[i].split(b"\t", 3)
+        body[i] = b"\t".join([f[0], f[1], ids[i - 1], f[3]])
+        ids[i] = ids[i - 1]
+    Path(f"{prefix}.pvar").write_bytes(head + b"".join(body))
+    return prefix, ids
+
+
+def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> dict:
+    """The last of pgen_tpu's surface on the card, on the full chr22
+    fixture. (a) --provider device's GT_* counts under --shards 2 (in this
+    process): a variant GT_MAF predicate over every sample (K8), a sample
+    GT_MISSING_RATE predicate (K9), a GT_MAF predicate over a
+    --samples-file of 1,001 IIDs (K14), --rm-dup list with the first on a
+    copy of the fixture whose region holds duplicated IDs (K8 twice: the
+    report, then the shards), and --workers 2 on the first. Each threshold
+    is the median of numpy's counts, each run writes the rows of a
+    5,000-variant region (-r) and counts every row of the fixture: one
+    mask computation is 17 launches (65,536-row blocks), and each run's
+    K8/K9/K14 deltas must be exactly 17 times its computations (each
+    worker's --stats line 17). Each VCF is checked with numpy against the
+    .pgen (kept rows and samples from numpy's counts; the .rmdup.list
+    against numpy's), then by sha256 against the lone --provider device
+    filter and the same run on --device cpu (the plain counts, each case
+    in a process of its own, all four beside the card's runs on
+    ``CPU_TWIN_THREADS`` threads each); the --workers run against the
+    --shards run's. (b) run_distributed_filter as two processes at once
+    (PGEN_TPU_COORDINATOR, _NUM_PROCS, _PROC_ID) on the visible card(s):
+    keep-two with shared_fs, then, in the same processes with a group of
+    their own each call, shared_fs=False; the shared file and the two parts
+    concatenated are sha256-equal to phase 4's keep-two; each process's K3
+    launches must be above 0. Every card run is on ``device`` (``cpu``
+    skips the launch checks). Returns the phase's launches, its worker and
+    distributed processes' added."""
+    import numpy as np
+
+    from pgen_tpu_torch.ops.gt_stats import COUNT_BLOCK_ROWS
+
+    iids, pos, _, packed = _read_fileset(full)
+    n_var, card = len(pos), device == "cuda"
+    blocks = -(-n_var // COUNT_BLOCK_ROWS)
+    lo = n_var // 4
+    lo_pos, hi_pos = pos[lo], pos[lo + A4_REGION - 1]
+    region = f"22:{lo_pos}-{hi_pos}"
+    in_region = np.flatnonzero((pos >= lo_pos) & (pos <= hi_pos))
+    every, cohort = np.arange(len(iids)), _keep_samples(iids)
+    cohort_file = tmp / "cohort15.txt"
+    cohort_file.write_text("".join(f"{iids[i]}\n" for i in cohort))
+
+    # thresholds at the median of numpy's counts, so that about half pass
+    maf = _maf_numpy(_variant_counts_numpy(packed, in_region))
+    maf_thr = float(f"{np.median(maf):.6f}")
+    cmaf = _maf_numpy(_masked_counts_numpy(packed, in_region, cohort))
+    cmaf_thr = float(f"{np.median(cmaf):.6f}")
+    missing_rate = _sample_missing_numpy(packed)[: len(iids)] / n_var
+    miss_thr = float(f"{np.median(missing_rate):.8f}")
+    maf_rows, cohort_rows = in_region[maf >= maf_thr], in_region[cmaf >= cmaf_thr]
+    miss_samples = np.flatnonzero(missing_rate < miss_thr)
+    dup, ids = _dup_fileset(tmp, full, in_region)
+    kept_ids = [ids[i] for i in maf_rows]
+    want_dups = sorted(x.decode() for x in set(kept_ids) if kept_ids.count(x) > 1)
+    print(f"[15 surface] full chr22 ({n_var} variants x {len(iids)} samples), rows written of "
+          f"-r {region} ({len(in_region)} variants); one mask computation = {blocks} launches "
+          f"({COUNT_BLOCK_ROWS}-row blocks); GT_MAF >= {maf_thr} keeps {len(maf_rows)}, over "
+          f"the cohort of {KEEP_SAMPLES} >= {cmaf_thr} keeps {len(cohort_rows)}; "
+          f"GT_MISSING_RATE < {miss_thr} keeps {len(miss_samples)} samples; the --rm-dup copy "
+          f"lists {len(want_dups)} IDs (numpy)")
+
+    variant = ["--include-var", f"GT_MAF >= {maf_thr}", "-r", region]
+    cases = [
+        # label, fileset, argv, mask computations a count kernel, (kept rows, samples)
+        ("variant GT_MAF", full, variant, {"gt_counts_device": 1}, (maf_rows, every)),
+        ("sample GT_MISSING_RATE", full,
+         ["--include-sam", f"GT_MISSING_RATE < {miss_thr}", "-r", region],
+         {"sample_counts_device": 1}, (in_region, miss_samples)),
+        (f"--samples-file {KEEP_SAMPLES} GT_MAF", full,
+         ["--samples-file", cohort_file, "--include-var", f"GT_MAF >= {cmaf_thr}", "-r", region],
+         {"gt_counts_masked": 1}, (cohort_rows, cohort)),
+        ("--rm-dup list GT_MAF", dup, [*variant, "--rm-dup", "list"], {"gt_counts_device": 2},
+         (maf_rows, every)),
+    ]
+    others = dict.fromkeys(KERNELS, 0)  # launches of the worker and distributed processes
+    _reset_launches()
+    t_phase = time.perf_counter()
+
+    def outputs(out: Path) -> list:
+        return [out] + ([Path(f"{out}.rmdup.list")] if Path(f"{out}.rmdup.list").exists() else [])
+
+    def run_argv(i: int) -> list:
+        return ["filter", cases[i][1], *cases[i][2], "--provider", "device"]
+
+    # the --device cpu runs (the plain counts over every row, twice for
+    # --rm-dup), each case in a process of its own, all started beside the
+    # card's runs
+    cpu_procs = []
+    try:
+        for i in range(len(cases)):
+            cpu_run = [*map(str, run_argv(i)), "--shards", "2", "--device", "cpu", "-o",
+                       str(tmp / f"a4_{i}_cpu.vcf")]
+            log = open(tmp / f"a4_{i}_cpu.err", "w+")
+            cpu_procs.append((subprocess.Popen(
+                [sys.executable, "-c", _CPU_RUNS, json.dumps([cpu_run]), str(CPU_TWIN_THREADS)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=log, text=True), log))
+        # (a) --shards 2 in this process, then the lone --provider device filter
+        shas = []
+        for i, (label, _, argv, computations, (rows, samples)) in enumerate(cases):
+            out = tmp / f"a4_{i}.vcf"
+            before = _read_launches()
+            cuda_s, err = _port_cli([*run_argv(i), "--shards", "2"], out, device)
+            delta = {k: _read_launches()[k] - before[k] for k in COUNT_KERNELS}
+            want = {k: blocks * computations.get(k, 0) for k in COUNT_KERNELS}
+            line = _shard_line(err, f"(a) {label}")
+            if card and delta != want:
+                raise AssertionError(f"(a) {label}: count launches {delta}, want {want} "
+                                     f"({blocks} a mask computation)")
+            if card and line[2:] != tuple(blocks * min(computations.get(k, 0), 1)
+                                          for k in COUNT_KERNELS):
+                raise AssertionError(f"(a) {label}: the shards' --stats line says {line}")
+            _check_gt_text(out, packed, rows, samples)
+            if argv[-1] == "list":
+                got = Path(f"{out}.rmdup.list").read_text().splitlines()
+                if got != want_dups:
+                    raise AssertionError(f"(a) {label}: .rmdup.list has {len(got)} IDs, numpy "
+                                         f"{len(want_dups)}")
+            hashes = [_sha256(f) for f in outputs(out)]
+            # the lone --provider device filter
+            other = tmp / f"a4_{i}_lone.vcf"
+            lone_s, _ = _port_cli(run_argv(i), other, device)
+            if [_sha256(f) for f in outputs(other)] != hashes:
+                raise AssertionError(f"(a) {label}: the lone run's files differ")
+            for f in outputs(other):
+                f.unlink()
+            for f in outputs(out)[1:]:
+                f.unlink()
+            out.unlink()
+            shas.append(hashes)
+            print(f"[15 surface] (a) --shards 2 {label}: GT text equal to numpy's decode of the "
+                  f".pgen{', .rmdup.list to numpy' if len(hashes) > 1 else ''}, sha256-equal to "
+                  f"the lone run; count launches {delta} = {blocks} x {computations}; wall cuda "
+                  f"{cuda_s:.3f} s, lone {lone_s:.3f} s")
+
+        # (a) --workers 2 on the variant case: each worker counts on its card
+        out = tmp / "a4_workers.vcf"
+        seconds, err = _port_cli(["filter", full, *variant, "--provider", "device",
+                                  "--workers", "2"], out, device)
+        reports = _worker_reports(err, 2, "(a) --workers 2 GT_MAF", card)
+        for r in reports:
+            if card and r[7] != (blocks, 0, 0):
+                raise AssertionError(f"(a) --workers 2: a worker launched K8/K9/K14 {r[7]}, "
+                                     f"want ({blocks}, 0, 0)")
+            others["genotype_text"] += r[3]
+            others["subset_text_from_packed"] += r[4]
+            for k, n in zip(COUNT_KERNELS, r[7]):
+                others[k] += n
+        if _sha256(out) != shas[0][0]:
+            raise AssertionError("(a) --workers 2 differs from the --shards 2 run")
+        out.unlink()
+        print(f"[15 surface] (a) --workers 2 GT_MAF: wall {seconds:.3f} s, sha256-equal to "
+              f"--shards 2; each worker's entry / seconds {[(r[1], r[2]) for r in reports]}, "
+              f"launches K8/K9/K14 {[r[7] for r in reports]}, K2/K3 "
+              f"{[(r[3], r[4]) for r in reports]}")
+
+        # (b) run_distributed_filter, two processes at once
+        out = tmp / "dist15.vcf"
+        env = {k: v for k, v in os.environ.items() if k not in _RANK_VARS}
+        coordinator = f"127.0.0.1:{_free_port()}"
+        envs = [{**env, "PGEN_TPU_COORDINATOR": coordinator, "PGEN_TPU_NUM_PROCS": "2",
+                 "PGEN_TPU_PROC_ID": str(r)} for r in range(2)]
+        sam_query = f'IID == "{iids[7]}" || IID == "{iids[2000]}"'
+        cmd = [sys.executable, "-c", _DIST_MAIN, str(full), sam_query, str(out),
+               str(_free_port()), device]
+        seconds, outs = _run_processes([cmd, cmd], envs, tmp, "dist15")
+        reports = sorted((json.loads(o.strip().splitlines()[-1]) for o, _ in outs),
+                         key=lambda r: r["rank"])
+        parts = hashlib.sha256()
+        for r in range(2):
+            parts.update(Path(f"{out}.shard{r}").read_bytes())
+        if _sha256(out) != refs["keep-two"] or parts.hexdigest() != refs["keep-two"]:
+            raise AssertionError("(b) run_distributed_filter's file or parts differ from "
+                                 "phase 4's keep-two")
+        for r in reports:
+            for call in r["calls"]:
+                if card and call["K3"] <= 0:
+                    raise AssertionError(f"(b) process {r['rank']} launched no K3 "
+                                         f"(shared_fs={call['shared_fs']})")
+                others["genotype_text"] += call["K2"]
+                others["subset_text_from_packed"] += call["K3"]
+        for f in (out, *(Path(f"{out}.shard{r}") for r in range(2))):
+            f.unlink()
+        for r in reports:
+            calls = "; ".join(
+                f"shared_fs={c['shared_fs']}: call {c['call_s']:.3f} s, group "
+                f"{c['group_s']:.3f} s, barrier {c['barrier_s']:.3f} s, K3 {c['K3']}"
+                for c in r["calls"])
+            print(f"[15 surface] (b) run_distributed_filter process {r['rank']}: wall "
+                  f"{r['wall_s']:.3f} s, start to group "
+                  f"{r['calls'][0]['start_to_group_s']:.3f} s; {calls}")
+        print(f"[15 surface] (b) keep-two shared file and parts sha256-equal to phase 4's; both "
+              f"processes {seconds:.3f} s (process start included)")
+
+        # the background's --device cpu runs
+        cpu_walls = []
+        for i, (proc, log) in enumerate(cpu_procs):
+            cpu_out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                log.seek(0)
+                raise AssertionError(f"(a) {cases[i][0]}: the --device cpu run exited "
+                                     f"{proc.returncode}\n{log.read()[-3000:]}")
+            cpu_walls += json.loads(cpu_out.strip().splitlines()[-1])
+            other = tmp / f"a4_{i}_cpu.vcf"
+            if [_sha256(f) for f in outputs(other)] != shas[i]:
+                raise AssertionError(f"(a) {cases[i][0]}: the --device cpu run's files differ")
+            for f in outputs(other):
+                f.unlink()
+        print(f"[15 surface] (a) --device cpu runs beside the card's ({CPU_TWIN_THREADS} threads "
+              "each), each sha256-equal: "
+              + ", ".join(f"{case[0]} {w:.3f} s" for case, w in zip(cases, cpu_walls)))
+        cohort_file.unlink()
+        for ext in (".pgen", ".pvar", ".psam"):
+            Path(f"{dup}{ext}").unlink()
+    finally:
+        for proc, log in cpu_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+    launches = _read_launches()
+    for kname, n in others.items():
+        launches[kname] += n
+    print(f"[15 surface] path launches (its worker and distributed processes' added), "
+          f"{time.perf_counter() - t_phase:.1f} s: {launches}")
+    for kname in ("subset_text_from_packed", *COUNT_KERNELS):
+        if card and launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on phase 15's paths")
+    return launches
+
+
+def _adopt_orphans() -> None:
+    """Makes this process the child subreaper of what it starts (Linux
+    prctl PR_SET_CHILD_SUBREAPER), so that a process whose parent exits
+    before it does (a CLI subprocess's forkserver) becomes this process's
+    child, which ``_stop_processes`` can stop and reap."""
+    import ctypes
+
+    if ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def _children() -> dict:
+    """This process's children, pid -> (state, command line), from /proc."""
+    out = {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            state, ppid = (d / "stat").read_text().rsplit(")", 1)[1].split()[:2]
+            if int(ppid) == os.getpid():
+                cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+                out[int(d.name)] = (state, cmd)
+        except (OSError, IndexError, ValueError):
+            continue  # exited while being read
+    return out
+
+
+def _stop_processes() -> None:
+    """Stops every process this run started that is still there: the
+    workers' forkserver and multiprocessing's resource tracker, which the
+    --workers runs in this process start and which would otherwise exit
+    only after this process has (each closes its end of a pipe and waits),
+    then any other child or adopted orphan (SIGTERM, SIGKILL after 5 s),
+    each reaped and printed. Repeats until none is left, since a process
+    stopped can leave children of its own."""
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    for _ in range(10):
+        left = _children()
+        if not left:
+            return
+        for pid, (state, cmd) in left.items():
+            if state != "Z":  # a zombie is only reaped
+                print(f"[smoke] stopping process {pid} left running: {cmd[:200]}")
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGTERM)
+        deadline = time.monotonic() + 5
+        for pid in left:
+            with contextlib.suppress(ChildProcessError):
+                while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                    if time.monotonic() > deadline:
+                        os.kill(pid, signal.SIGKILL)
+                        os.waitpid(pid, 0)
+                        break
+                    time.sleep(0.05)
+    raise AssertionError(f"processes left running: {_children()}")
+
+
 def main(argv: list) -> int:
     started = time.perf_counter()
     import torch
@@ -4053,6 +4454,14 @@ def main(argv: list) -> int:
         print(f"chip_smoke: {ROOT} holds no checkout of the repository (pgen_tpu_torch/); "
               "run it from the root of one", file=sys.stderr)
         return 1
+    _adopt_orphans()
+    try:
+        return _smoke(argv, started, torch)
+    finally:
+        _stop_processes()
+
+
+def _smoke(argv: list, started: float, torch) -> int:
     sys.path.insert(0, str(ROOT))
     name = phase_device()
     phase_build()
@@ -4108,6 +4517,9 @@ def main(argv: list) -> int:
             t0 = time.perf_counter()
             per_path.append(phase_files(tmp, fixtures["full"], fixtures["ragged"], refs))
             print(f"[14 files] phase 14 took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            per_path.append(phase_surface(tmp, fixtures["full"], refs))
+            print(f"[15 surface] phase 15 took {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:

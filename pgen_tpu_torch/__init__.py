@@ -7,30 +7,35 @@ that each counterpart is easy to find:
   device.py           resolve_device: "cuda" (required, never replaced by
                       the CPU) or "cpu" (the kernels' plain versions)
   kernels.py          nvcc build of csrc/ (sm_90a) at first use, ctypes load
-  csrc/               the hand-written CUDA kernels
-  ops/unpack.py       unpack_codes (K1)
-  ops/gt_text.py      genotype_text (K2), subset_text_from_packed (K3),
-                      genotype_text_transposed (K6),
-                      genotype_text_from_codes (K7)
-  ops/pack.py         pack_codes (K4), subset_repack (K5)
-  ops/gt_stats.py     gt_counts_device (K8), sample_counts_device (K9)
-  ops/glm.py          glm_planes (K10); the GWAS moments and the f64 solves
-  ops/score.py        score_dosage (K11); polygenic score sums
-  ops/logistic.py     the logistic IRLS (pgen_tpu's) with fp32 products
-                      on the device
-  query/compile_device.py  lower_device: predicates as torch ops on the
-                      device over padded column tensors
-  parallel/distributed.py  the process group: one process per GPU
-  parallel/mesh.py    the rank-local block step and its all-gathers
-  pipeline/filter.py  filter_to_vcf on one GPU; compute_masks with the
-                      genotype counts on the device
-  pipeline/mesh_filter.py  filter_to_vcf_mesh (--provider device) on one
-                      or more GPUs
-  pipeline/pgen_out.py  filter_to_pgen (--out-format pgen) on one GPU
-  pipeline/vcf_import.py  import_vcf on one GPU
-  pipeline/glm.py     glm_pfile (--glm) on one GPU
-  pipeline/score.py   score_pfile (--score) on one GPU
-  cli.py              python -m pgen_tpu_torch.cli filter|import|glm|score ...
+  csrc/               the hand-written CUDA kernels (K1-K15)
+  formats/            .pgen header, .pvar/.psam metadata, the .pgen writer,
+                      tabix, describe and the chr22-scale fixtures
+  query/              the expression engine; compile_device.py lowers
+                      predicates to torch ops on the device
+  ops/                the kernels' wrappers: unpack (K1), gt_text (K2, K3,
+                      K6, K7), pack (K4, K5), gt_stats (K8, K9, K14), glm
+                      (K10), score (K11), relatedness (K12), pca (K13), ld
+                      (K15); the logistic IRLS, king, ibd, hwe and adjust
+  pipeline/           every subcommand: filter (filter_to_vcf, one GPU;
+                      derive_row_layout and duplicated_ids with the GT_*
+                      counts on the device for --provider device),
+                      mesh_filter (--provider device on one or more GPUs),
+                      pgen_out and bed_import (--out-format pgen|bed,
+                      import X.bed), vcf_import, query, glm, score, king,
+                      genome, pca, the reports, stats, fst, ld, prune,
+                      clump, and the fileset tools (merge, diff, annotate,
+                      export, roh, describe, index, view, split, concat,
+                      sort, isec)
+  parallel/           distributed.py: the process group and
+                      run_distributed_filter (one process a shard, on
+                      several hosts or cards); mesh.py: the rank-local
+                      block steps and their collectives; shard.py: --shards,
+                      --shard-index, --workers and --resume
+  cli.py              python -m pgen_tpu_torch.cli SUBCOMMAND ... (the
+                      console script pgen-tpu-torch): every subcommand and
+                      flag of pgen_tpu, --device cuda|cpu on those with a
+                      card stage; --provider native|numpy is refused by
+                      decision (ROADMAP §1)
 
 The package imports nothing of pgen_tpu. The jax-free host layers its entry
 points run are copies of pgen_tpu's, each naming its source and differing
@@ -45,13 +50,24 @@ X.py (pipeline/filter_host.py, vcf_import_host.py, pgen_out_host.py,
 glm_host.py, score_host.py, ops/gt_stats_host.py, ops/logistic_host.py).
 The system has no model and no weights; its state is the fileset.
 
-Imports are lazy (PEP 562), as in ``pgen_tpu.ops``: importing the package
-loads neither torch nor the kernel library, and no module of it loads jax.
+The exports are pgen_tpu's (``PgenHeader``, ``read_pgen_header``,
+``MetadataTable``, ``read_metadata``, and those of ``pipeline``,
+``parallel`` and ``ops``, each package's own), ``run_distributed_filter``,
+and the entry points and kernel wrappers listed in ``_LAZY``. Every
+exported function takes its pgen_tpu counterpart's parameters by the same
+names and defaults, with ``device`` after them. Imports are lazy (PEP 562),
+as in ``pgen_tpu.ops``: importing the package or a subpackage loads neither
+torch nor the kernel library, and no module of it loads jax.
 """
 
 __version__ = "0.1.0"
 
 _LAZY = {
+    "PgenHeader": "pgen_tpu_torch.formats.header",
+    "read_pgen_header": "pgen_tpu_torch.formats.header",
+    "MetadataTable": "pgen_tpu_torch.formats.metadata",
+    "read_metadata": "pgen_tpu_torch.formats.metadata",
+    "run_distributed_filter": "pgen_tpu_torch.parallel.distributed",
     "resolve_device": "pgen_tpu_torch.device",
     "unpack_codes": "pgen_tpu_torch.ops.unpack",
     "genotype_text": "pgen_tpu_torch.ops.gt_text",

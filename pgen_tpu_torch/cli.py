@@ -30,8 +30,11 @@ launcher and makes no process group; N cards: ``torchrun --nproc-per-node
 N -m pgen_tpu_torch.cli filter ... --provider device``), else the
 one-process filter, whose ``--threads T`` emits a plain file's blocks from
 T host threads, each on its own CUDA stream. ``--provider device`` also
-makes the genotype counts of the pgen and bed outputs' predicates on the
-device. ``--profile DIR`` writes a torch.profiler trace per rank.
+makes the ``GT_*`` counts of the predicates on the device on every other
+path: the pgen and bed outputs, ``--shards``, each ``--workers`` worker
+(on the device string it is handed) and the merged ``.vcf.gz``'s index,
+and the ``--rm-dup error|list`` report; ``--stats`` of ``--shards`` and
+of each worker prints its launches of K2, K3, K8, K9 and K14. ``--profile DIR`` writes a torch.profiler trace per rank.
 ``import`` reads a ``.vcf`` or ``.vcf.gz`` (K4 on ``--device``), or a
 PLINK1 ``.bed``, host code as in pgen_tpu, which ``--device`` does not
 touch. ``glm`` and ``score`` run on one GPU (``--provider auto`` or
@@ -196,12 +199,14 @@ def _rm_dup_report(args) -> int:
     """--rm-dup error|list, as pgen_tpu.cli.main runs it: the IDs that occur
     more than once among the variants the composed queries keep. ``error``
     returns 2 after one stderr line when there are any; ``list`` writes them
-    to ``{out}.rmdup.list`` and the filter goes on. Returns 0 or 2."""
-    from pgen_tpu_torch.pipeline.filter_host import duplicated_ids
+    to ``{out}.rmdup.list`` and the filter goes on. With ``--provider
+    device`` the ``GT_*`` counts of the queries run on ``--device``.
+    Returns 0 or 2."""
+    from pgen_tpu_torch.pipeline.filter import duplicated_ids
 
     dup_ids = duplicated_ids(
         args.pfile_prefix, args.var_query, args.sam_query,
-        args.provider,
+        args.provider, device=args.device,
     )
     if args.rm_dup == "error":
         if dup_ids:
@@ -1035,18 +1040,25 @@ def _import(parser, args) -> int:
     return 0
 
 
+def _launch_text(counts: dict) -> str:
+    """``name N`` of each kernel a shard can launch (``shard.REPORTED``)."""
+    from pgen_tpu_torch.parallel.shard import REPORTED
+
+    return ", ".join(f"{name} {counts[name]}" for name in REPORTED)
+
+
 def _worker_lines(result, t0: float) -> list:
     """--stats of --workers: one line a worker of ``result`` (the start
     method; when it entered, after ``t0``, and how long its shard ran; its
-    K2/K3 launches; its peak pinned host and device bytes). ``--workers 1``
-    runs in this process, which has no worker to report."""
+    launches of K2, K3 and the counts K8, K9, K14; its peak pinned host and
+    device bytes). ``--workers 1`` runs in this process, which has no
+    worker to report."""
     from pgen_tpu_torch.parallel.shard import _mp_context
 
     method = _mp_context().get_start_method()
     return [
         f"worker {i} ({method}): entered {r['entered'] - t0:.3f} s after the start, "
-        f"ran {r['seconds']:.3f} s; launches genotype_text {r['genotype_text']}, "
-        f"subset_text_from_packed {r['subset_text_from_packed']}; pinned {r['pinned']} B, "
+        f"ran {r['seconds']:.3f} s; launches {_launch_text(r)}; pinned {r['pinned']} B, "
         f"device peak {r['device_peak']} B"
         for i, r in sorted(getattr(result, "worker_reports", {}).items())
     ]
@@ -1109,10 +1121,10 @@ def _filter(args) -> int:
             )
             lines = _worker_lines(result, t0)
         elif args.shards is not None:
-            from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
-            from pgen_tpu_torch.parallel.shard import filter_to_vcf_sharded
+            from pgen_tpu_torch.parallel.shard import filter_to_vcf_sharded, reported_wrappers
 
-            before = genotype_text.launches, subset_text_from_packed.launches
+            wrappers = reported_wrappers()
+            before = {name: w.launches for name, w in wrappers.items()}
             result = filter_to_vcf_sharded(
                 args.pfile_prefix,
                 out_file=args.out_file,
@@ -1123,8 +1135,8 @@ def _filter(args) -> int:
                 **common,
                 **kwargs,
             )
-            lines = [f"launches: genotype_text {genotype_text.launches - before[0]}, "
-                     f"subset_text_from_packed {subset_text_from_packed.launches - before[1]}"]
+            lines = ["launches: " + _launch_text(
+                {name: w.launches - before[name] for name, w in wrappers.items()})]
         elif args.provider == "device":
             from pgen_tpu_torch.pipeline.mesh_filter import filter_to_vcf_mesh
 

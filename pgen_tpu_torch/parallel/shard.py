@@ -11,9 +11,10 @@ pgen_tpu (only the imports differ): ``plan_shards``, ``_shard_part_path``,
 ``_manifest_path``, ``_write_manifest``, ``_concat_gz_parts``,
 ``_index_merged_gz``, and ``filter_to_vcf_parallel`` with the manifest,
 the ``PGEN_TPU_TEST_FAIL_SHARD`` test hook and every message, changed in
-two places only: it passes ``device`` to each worker, and its ``_record``
-keeps the report each worker puts beside pgen_tpu's tuple, which it
-returns on a ``ParallelFilterResult``. The port's own:
+two places only: it passes ``device`` to each worker and to
+``_index_merged_gz`` (which takes it to count ``GT_*`` there), and its
+``_record`` keeps the report each worker puts beside pgen_tpu's tuple,
+which it returns on a ``ParallelFilterResult``. The port's own:
 
 - ``filter_to_vcf_sharded``: pgen_tpu's layout arithmetic, its standalone
   and shared-file modes and BGZF parts, with each block's text made by the
@@ -21,11 +22,15 @@ returns on a ``ParallelFilterResult``. The port's own:
   or K3 kept samples, D2H, assembly) through the same emitters as the
   one-process filter (``emit_mapped``, ``emit_stream``). Every shard runs
   on the card ``device`` names (bare ``cuda``: the process's current card).
-  The predicates run on the host (the native C++ counts, or numpy): the
-  port's multi-card filter is ``--provider device``
+  Its row layout is ``pipeline/filter.py``'s ``derive_row_layout``: with
+  ``provider="device"`` the ``GT_*`` predicates' genotypes are counted on
+  that card (K8, K9, K14), in every shard and worker and again in
+  ``_index_merged_gz``, as pgen_tpu counts them on its device; otherwise
+  on the host (the native C++ counts, or numpy). The port's multi-card
+  filter is ``--provider device`` without ``--shards`` or ``--workers``
   (``pipeline/mesh_filter.py``).
-- ``_worker_entry``: pgen_tpu's, which also reports the worker's K2/K3
-  launches, the time it entered, its seconds of work, and its pinned host
+- ``_worker_entry``: pgen_tpu's, which also reports the worker's launches
+  of K2, K3 and the counts K8, K9 and K14, the time it entered, its seconds of work, and its pinned host
   and peak device bytes; ``--stats`` prints one line a worker.
 - ``_mp_context``: pgen_tpu's picks ``fork`` unless jax is loaded, for
   jax's threads. A worker of the port runs CUDA, and a process forked
@@ -51,13 +56,17 @@ import numpy as np
 import torch
 
 from pgen_tpu_torch.device import resolve_device
-from pgen_tpu_torch.pipeline.filter import emit_mapped, emit_stream, plan_blocks
+from pgen_tpu_torch.pipeline.filter import (
+    derive_row_layout,
+    emit_mapped,
+    emit_stream,
+    plan_blocks,
+)
 from pgen_tpu_torch.pipeline.filter_host import (
     BGZF_EOF,
     FilterResult,
     _resolve_provider,
     _write_all,
-    derive_row_layout,
     emit_tabix_index,
 )
 from pgen_tpu_torch.pipeline.vcf import DEFAULT_SOURCE_TAG
@@ -94,30 +103,45 @@ def _mp_context():
     return ctx
 
 
+# the kernels a shard can launch, whose counts a worker reports and --stats
+# prints: the text (K2, K3) and the GT_* counts of provider="device" (K8,
+# K9, K14)
+REPORTED = ("genotype_text", "subset_text_from_packed", "gt_counts_device",
+            "sample_counts_device", "gt_counts_masked")
+
+
+def reported_wrappers() -> dict:
+    """The wrapper of each kernel in ``REPORTED`` by name; its ``launches``
+    counts its kernel's launches."""
+    from pgen_tpu_torch.ops import gt_stats, gt_text
+
+    return {name: getattr(gt_text, name, None) or getattr(gt_stats, name) for name in REPORTED}
+
+
 def _worker_entry(result_q, index: int, kwargs: dict, inject_fail: bool = False) -> None:
     """Process entry point: run one shard, report its result on the queue.
 
     pgen_tpu's tuple (index, variants kept, samples kept, bytes written) is
-    followed by this worker's report: its launches of K2 and K3 (counted
-    from 0 here, whatever a forked parent had counted), ``entered`` (the
+    followed by this worker's report: its launches of K2, K3, K8, K9 and
+    K14 (``REPORTED``, counted from 0 here, whatever a forked parent had
+    counted), ``entered`` (the
     epoch second it started), ``seconds`` (its shard's wall), ``pinned``
     (its peak pinned host bytes) and ``device_peak`` (its peak device
     bytes), the last two 0 on the CPU. ``inject_fail`` is the test hook
     (PGEN_TPU_TEST_FAIL_SHARD, evaluated in the parent so it works under
     any start method).
     """
-    from pgen_tpu_torch.ops.gt_text import genotype_text, subset_text_from_packed
-
     entered = time.time()
     if inject_fail:
         raise RuntimeError(f"injected failure for shard {index} (test hook)")
-    genotype_text.launches = subset_text_from_packed.launches = 0
+    wrappers = reported_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     res = filter_to_vcf_sharded(**kwargs)
     dev = torch.device(kwargs.get("device", "cuda"))
     cuda = dev.type == "cuda" and torch.cuda.is_initialized()
     report = {
-        "genotype_text": genotype_text.launches,
-        "subset_text_from_packed": subset_text_from_packed.launches,
+        **{name: w.launches for name, w in wrappers.items()},
         "entered": entered,
         "seconds": time.time() - entered,
         "pinned": torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0) if cuda else 0,
@@ -373,7 +397,8 @@ def filter_to_vcf_parallel(
         # the row layout (one metadata predicate pass — a second genotype
         # pass only for GT_* queries) and indexes it.
         _index_merged_gz(
-            out_file, pfile_prefix, var_query, sam_query, provider, index_format
+            out_file, pfile_prefix, var_query, sam_query, provider, index_format,
+            device,
         )
     return ParallelFilterResult(
         out_path=out_file,
@@ -392,12 +417,13 @@ def _index_merged_gz(
     sam_query,
     provider: str,
     index_format: str,
+    device: str = "cuda",
 ) -> str:
     """Index a merged sharded .vcf.gz: re-derive the deterministic row
     layout (the same arithmetic every worker used) and emit .tbi/.csi."""
-    from pgen_tpu_torch.pipeline.filter_host import derive_row_layout, emit_tabix_index
+    from pgen_tpu_torch.pipeline.filter import derive_row_layout, emit_tabix_index
 
-    lay = derive_row_layout(pfile_prefix, var_query, sam_query, provider)
+    lay = derive_row_layout(pfile_prefix, var_query, sam_query, provider, device=device)
     return emit_tabix_index(
         gz_path,
         lay.pvar,
@@ -426,7 +452,6 @@ def filter_to_vcf_sharded(
     sam_query: str | None = None,
     out_file: str | None = None,
     provider: str = "auto",
-    device: str = "cuda",
     num_shards: int = 1,
     shard_index: int | None = None,
     block_variants: int = 1 << 16,
@@ -435,6 +460,7 @@ def filter_to_vcf_sharded(
     gz: bool | None = None,
     index: bool = False,
     index_format: str = "auto",
+    device: str = "cuda",
 ) -> FilterResult:
     """Shard the kept variants over ``num_shards`` workers writing one VCF,
     the genotype text of each block made on ``device`` (``"cuda"``, which
@@ -448,7 +474,10 @@ def filter_to_vcf_sharded(
     concatenate to the full VCF in shard order). BGZF output (``gz=True``,
     default inferred from the .gz suffix) runs sequentially (EOF appended)
     or standalone (no EOF: the concatenating caller appends it); the
-    shared-file mode cannot compress.
+    shared-file mode cannot compress. ``provider="device"`` counts the
+    ``GT_*`` predicates' genotypes on ``device`` (K8, K9, K14), over every
+    row in each shard, as pgen_tpu's device provider does; ``auto`` counts
+    them on the host.
     """
     provider = _resolve_provider(provider)
     dev = resolve_device(device)
@@ -473,7 +502,7 @@ def filter_to_vcf_sharded(
         raise ValueError(f"block_variants must be positive, got {block_variants}")
 
     lay = derive_row_layout(
-        pfile_prefix, var_query, sam_query, provider, source_tag, timer
+        pfile_prefix, var_query, sam_query, provider, source_tag, timer, dev
     )
     var_idx = lay.var_idx
     header_bytes, prefix_sizes, row_fixed = lay.header_bytes, lay.prefix_sizes, lay.row_fixed

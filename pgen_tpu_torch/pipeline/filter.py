@@ -5,10 +5,15 @@ Everything but the genotype text is the port's copy of pgen_tpu's host
 code (``pipeline/filter_host.py``, ``formats/``, ``query/``, ``native/``):
 ``derive_row_layout`` (metadata, predicates, the byte layout of every output
 row), ``_gather_rows``, ``materialize_prefixes``, the C++ row assembler
-``native.assemble_rows_buf``, BGZF and tabix. This path's predicates run on
-the ``native`` provider, or ``numpy`` without a C++ toolchain.
-``compute_masks`` below is the device provider's (``--provider device``):
-pgen_tpu's, with its genotype counts made on the device (K8, K9).
+``native.assemble_rows_buf``, BGZF and tabix. With ``provider="auto"``
+this path's predicates run on the ``native`` provider, or ``numpy`` without
+a C++ toolchain. ``compute_masks`` below is the device provider's
+(``--provider device``): pgen_tpu's, with its genotype counts made on the
+device (K8, K9, K14). ``derive_row_layout`` and ``duplicated_ids`` below
+are the copy's two functions with those masks for ``provider="device"``
+(and the copy's own for any other provider); the sharded filters, the
+merged ``.vcf.gz`` index and ``--rm-dup error|list`` take them, so that
+``--provider device`` counts ``GT_*`` on the card on every path.
 
 The records are the memory-mapped ``.pgen`` matrix; what reaches the
 device is each block's kept rows, copied into a staging tensor. Per block:
@@ -44,18 +49,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pgen_tpu_torch.formats.header import read_pgen_header
+from pgen_tpu_torch.formats.metadata import read_metadata
+from pgen_tpu_torch.pipeline import filter_host
 from pgen_tpu_torch.pipeline.filter_host import (
     BGZF_EOF,
     DEFAULT_BLOCK_VARIANTS,
     FilterResult,
+    RowLayout,
     _assemble_rows_numpy,
     _can_mmap,
     _gather_rows,
+    _resolve_provider,
     _write_all,
-    derive_row_layout,
     emit_tabix_index,
     materialize_prefixes,
 )
+from pgen_tpu_torch.pipeline.vcf import DEFAULT_SOURCE_TAG, vcf_header_bytes
 from pgen_tpu_torch.utils.log import get_logger
 from pgen_tpu_torch.utils.timer import Stage, StageTimer
 from pgen_tpu_torch.device import resolve_device, synchronize
@@ -291,6 +301,136 @@ def compute_masks(var_query, sam_query, pvar, psam, header, records, device):
     return compile_predicate(var_node, pvar, extra), sam_mask
 
 
+def derive_row_layout(
+    pfile_prefix: str,
+    var_query,
+    sam_query,
+    provider: str,
+    source_tag: str = DEFAULT_SOURCE_TAG,
+    timer: StageTimer | None = None,
+    device: str | torch.device = "cuda",
+) -> RowLayout:
+    """Load the fileset, evaluate both predicates, and pin the output row
+    layout (shared by filter_to_vcf, the sharded writers, and the
+    merged-.gz indexer).
+
+    The device provider's layout: ``filter_host.derive_row_layout`` with the
+    masks of the port's ``compute_masks``, whose genotype counts run on
+    ``device`` (K8, K9, K14). Any other provider is the copy's, called as
+    it stands."""
+    if provider != "device":
+        return filter_host.derive_row_layout(
+            pfile_prefix, var_query, sam_query, provider, source_tag, timer
+        )
+    timer = timer or StageTimer()
+    provider = _resolve_provider(provider)
+    with timer.stage("metadata_load"):
+        header = read_pgen_header(f"{pfile_prefix}.pgen")
+        pvar = read_metadata(f"{pfile_prefix}.pvar")
+        psam = read_metadata(f"{pfile_prefix}.psam")
+    # IID lookup precedes filtering, so a missing IID column errors even
+    # when queries would keep nothing (pfile.rs:111-126 order).
+    psam.column_index("IID")
+
+    rec = header.record_size
+    pgen_mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
+    expected = 12 + header.num_variants * rec
+    if pgen_mm.shape[0] < expected:
+        raise ValueError(
+            f"{pfile_prefix}.pgen is {pgen_mm.shape[0]} bytes; header implies {expected}"
+        )
+    records = pgen_mm[12:expected].reshape(header.num_variants, rec)
+
+    with timer.stage("predicates"):
+        var_mask, sam_mask = compute_masks(
+            var_query, sam_query, pvar, psam, header, records, device
+        )
+    var_idx = np.flatnonzero(var_mask)
+    sam_idx = np.flatnonzero(sam_mask)
+    all_iids = psam.get_column_strs("IID")
+    sample_ids = [all_iids[i] for i in sam_idx]
+    n_kept_samples = len(sam_idx)
+    # Fast sequential-LUT emission only when the kept set is exactly the
+    # pgen's full sample range; otherwise index per sample. (A psam with
+    # fewer rows than the pgen is fine — the reference only indexes bytes
+    # for rows that exist; more rows than fit a record is an error there
+    # too, via the record_buf index panic at pfile.rs:173.)
+    keep_all_fast = n_kept_samples == psam.num_rows == header.num_samples
+    sample_idx_arg = None if keep_all_fast else sam_idx.astype(np.int32)
+
+    header_bytes = vcf_header_bytes(pvar, sample_ids, source_tag)
+
+    # Row prefixes are raw pvar line bytes + "\tGT"; only their spans are
+    # materialized here (emitters read straight from the metadata buffer).
+    line_starts_all, line_ends_all = pvar.row_line_spans()
+    v_starts = line_starts_all[var_idx]
+    v_ends = line_ends_all[var_idx]
+    prefix_sizes = np.zeros(len(var_idx) + 1, dtype=np.int64)
+    np.cumsum(v_ends - v_starts + 3, out=prefix_sizes[1:])
+    row_fixed = 4 * n_kept_samples + 1
+    total = len(header_bytes) + int(prefix_sizes[-1]) + len(var_idx) * row_fixed
+
+    if len(var_idx) and var_idx[-1] >= header.num_variants:
+        raise ValueError(
+            f"{pfile_prefix}.pvar row {int(var_idx[-1])} is beyond the pgen's "
+            f"{header.num_variants} variant records"
+        )
+    if len(sam_idx) and int(sam_idx[-1]) // 4 >= rec:
+        raise ValueError(
+            f"{pfile_prefix}.psam row {int(sam_idx[-1])} is beyond the pgen's "
+            f"{header.num_samples}-sample records"
+        )
+    return RowLayout(
+        header=header,
+        pvar=pvar,
+        psam=psam,
+        records=records,
+        var_idx=var_idx,
+        sam_idx=sam_idx,
+        sample_ids=sample_ids,
+        sample_idx_arg=sample_idx_arg,
+        header_bytes=header_bytes,
+        v_starts=v_starts,
+        v_ends=v_ends,
+        prefix_sizes=prefix_sizes,
+        row_fixed=row_fixed,
+        total=total,
+    )
+
+
+def duplicated_ids(
+    pfile_prefix: str,
+    var_query: str | None = None,
+    sam_query: str | None = None,
+    provider: str = "auto",
+    device: str | torch.device = "cuda",
+) -> list:
+    """IDs that occur more than once among the variants KEPT by the
+    queries (the post-filter set --rm-dup error/list report on,
+    matching plink2's filter order).
+
+    The device provider's report: ``filter_host.duplicated_ids`` with the
+    masks of the port's ``compute_masks`` on ``device``. Any other provider
+    is the copy's, called as it stands."""
+    if provider != "device":
+        return filter_host.duplicated_ids(pfile_prefix, var_query, sam_query, provider)
+    provider = _resolve_provider(provider)
+    header = read_pgen_header(f"{pfile_prefix}.pgen")
+    pvar = read_metadata(f"{pfile_prefix}.pvar")
+    psam = read_metadata(f"{pfile_prefix}.psam")
+    rec = header.record_size
+    mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
+    records = mm[12 : 12 + header.num_variants * rec].reshape(
+        header.num_variants, rec
+    )
+    var_mask, _ = compute_masks(
+        var_query, sam_query, pvar, psam, header, records, device
+    )
+    ids = pvar.get_column_bytes("ID")[np.flatnonzero(var_mask)]
+    uniq, counts = np.unique(ids, return_counts=True)
+    return sorted(x.decode() for x in uniq[counts > 1])
+
+
 def _bgzf(pool: ThreadPoolExecutor, threads: int, data: np.ndarray) -> list:
     """BGZF members of data, compressed in slices across the pool's threads
     (the C call releases the GIL)."""
@@ -310,11 +450,13 @@ def filter_to_vcf(
     var_query: str | None = None,
     sam_query: str | None = None,
     out_file: str | Path | None = None,
-    device: str | torch.device = "cuda",
+    provider: str = "auto",
     block_variants: int = DEFAULT_BLOCK_VARIANTS,
+    source_tag: str = DEFAULT_SOURCE_TAG,
+    emit_threads: int | None = None,
     index: bool = False,
     index_format: str = "auto",
-    emit_threads: int = 1,
+    device: str | torch.device = "cuda",
 ) -> FilterResult:
     """Filter a pgen fileset to a VCF with the genotype text made on
     ``device`` (``"cuda"``, which must be available, or ``"cpu"``).
@@ -322,13 +464,26 @@ def filter_to_vcf(
     Same arguments and output bytes as pgen_tpu's ``filter_to_vcf``:
     ``out_file`` defaults to ``{prefix}.pgen-rs.vcf``, ``"-"`` streams to
     stdout, a ``.gz`` name writes BGZF, and ``index`` (``.gz`` only) also
-    writes a tabix index (``index_format`` tbi, csi or auto).
-    ``emit_threads`` (``--threads``): host threads, each on its own CUDA
-    stream, emitting disjoint blocks into the mapped output (a plain file);
-    the default 1 runs one loop, as does any stream or ``.gz`` output.
+    writes a tabix index (``index_format`` tbi, csi or auto); ``source_tag``
+    names the ``##source`` header line. ``provider``: ``"auto"`` binds
+    ``GT_*`` predicates on the host (the native C++ counts, or numpy),
+    ``"device"`` counts them on ``device`` (``derive_row_layout`` above:
+    K8, K9, K14), as pgen_tpu's device provider counts on its device;
+    ``"native"`` and ``"numpy"`` raise. ``emit_threads`` (``--threads``):
+    host threads, each on its own CUDA stream, emitting disjoint blocks
+    into the mapped output (a plain file); the default ``None`` runs one
+    loop, as does any stream or ``.gz`` output.
     """
     from pgen_tpu_torch.native import HAVE_NATIVE
 
+    if provider in ("native", "numpy"):
+        raise ValueError(
+            f"provider {provider!r}: the port's filter serves auto and device; pgen_tpu's "
+            "host providers stay pgen_tpu's, by decision (ROADMAP §1): the port's host "
+            'path is device="cpu"'
+        )
+    if provider not in ("auto", "device"):
+        raise ValueError(f"unknown provider {provider!r}")
     dev = resolve_device(device)
     if block_variants < 1:
         raise ValueError(f"block_variants must be positive, got {block_variants}")
@@ -340,8 +495,7 @@ def filter_to_vcf(
     out_file = str(out_file)
 
     lay = derive_row_layout(
-        pfile_prefix, var_query, sam_query, "native" if HAVE_NATIVE else "numpy",
-        timer=timer,
+        pfile_prefix, var_query, sam_query, provider, source_tag, timer, dev
     )
     gz = out_file.endswith(".gz")
     if gz and not HAVE_NATIVE:
@@ -359,7 +513,7 @@ def filter_to_vcf(
     if _can_mmap(out_file) and not gz:
         out_mm = np.memmap(out_file, dtype=np.uint8, mode="w+", shape=(lay.total,))
         out_mm[:header_len] = np.frombuffer(lay.header_bytes, dtype=np.uint8)
-        emit_mapped(lay, dev, blocks, out_mm, timer, emit_threads)
+        emit_mapped(lay, dev, blocks, out_mm, timer, emit_threads or 1)
         del out_mm  # unmap; the OS writes back lazily, as pgen_tpu does
         bytes_written = lay.total
     else:

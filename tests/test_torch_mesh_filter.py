@@ -352,7 +352,7 @@ from pgen_tpu_torch.pipeline.mesh_filter import filter_to_vcf_mesh
 
 spec_path = sys.argv[1]
 spec = json.load(open(spec_path))
-rank, world, dev = initialize_from_env("cpu")
+rank, world, dev = initialize_from_env(device="cpu")
 results = {}
 for job in spec["jobs"]:
     res = filter_to_vcf_mesh(job["prefix"], job["vq"], job["sq"], job["out"], device="cpu",

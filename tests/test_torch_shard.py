@@ -285,23 +285,33 @@ def test_forced_fork_after_cuda_init_is_refused(monkeypatch):
 COPIED = ["plan_shards", "_shard_part_path", "_manifest_path", "_write_manifest",
           "_concat_gz_parts", "_index_merged_gz", "filter_to_vcf_parallel"]
 
-# the port's changes to filter_to_vcf_parallel, (port text, pgen_tpu text):
-# the device handed to every worker, and the workers' reports kept and
-# returned
-CHANGES = [
-    ('    provider: str = "auto",\n    device: str = "cuda",\n',
-     '    provider: str = "auto",\n'),
-    ("            provider=provider,\n            device=device,\n",
-     "            provider=provider,\n"),
-    ("                    provider=provider,\n                    device=device,\n",
-     "                    provider=provider,\n"),
-    ("    results = {}\n    reports = {}\n", "    results = {}\n"),
-    ("        idx, nv, ns, nbytes, report = item\n        reports[idx] = report\n",
-     "        idx, nv, ns, nbytes = item\n"),
-    ("    return ParallelFilterResult(\n", "    return FilterResult(\n"),
-    ("        timer=StageTimer(),\n        worker_reports=reports,\n",
-     "        timer=StageTimer(),\n"),
-]
+# the port's changes to its copies, (port text, pgen_tpu text) by function.
+# filter_to_vcf_parallel: the device handed to every worker and to
+# _index_merged_gz, and the workers' reports kept and returned.
+# _index_merged_gz: the device its layout counts GT_* on (provider="device").
+CHANGES = {
+    "filter_to_vcf_parallel": [
+        ('    provider: str = "auto",\n    device: str = "cuda",\n',
+         '    provider: str = "auto",\n'),
+        ("            provider=provider,\n            device=device,\n",
+         "            provider=provider,\n"),
+        ("                    provider=provider,\n                    device=device,\n",
+         "                    provider=provider,\n"),
+        ("    results = {}\n    reports = {}\n", "    results = {}\n"),
+        ("        idx, nv, ns, nbytes, report = item\n        reports[idx] = report\n",
+         "        idx, nv, ns, nbytes = item\n"),
+        ("    return ParallelFilterResult(\n", "    return FilterResult(\n"),
+        ("        timer=StageTimer(),\n        worker_reports=reports,\n",
+         "        timer=StageTimer(),\n"),
+        ("provider, index_format,\n            device,\n        )",
+         "provider, index_format\n        )"),
+    ],
+    "_index_merged_gz": [
+        ('    index_format: str,\n    device: str = "cuda",\n) -> str:',
+         "    index_format: str,\n) -> str:"),
+        ("sam_query, provider, device=device)", "sam_query, provider)"),
+    ],
+}
 
 
 @pytest.mark.parametrize("name", COPIED)
@@ -309,10 +319,9 @@ def test_copied_verbatim(name):
     want = inspect.getsource(getattr(tpu_shard, name))
     got = inspect.getsource(getattr(port_shard, name)).replace("pgen_tpu_torch.", "pgen_tpu.")
     got = got.replace("pipeline.filter_host import", "pipeline.filter import")
-    if name == "filter_to_vcf_parallel":
-        for port_text, tpu_text in CHANGES:
-            assert got.count(port_text) == 1, port_text
-            got = got.replace(port_text, tpu_text)
+    for port_text, tpu_text in CHANGES.get(name, []):
+        assert got.count(port_text) == 1, port_text
+        got = got.replace(port_text, tpu_text)
     assert got == want
 
 
@@ -334,8 +343,280 @@ def test_worker_report_beside_pgen_tpu_tuple(monkeypatch):
     port_shard._worker_entry(q, 1, {"x": 1})
     item = q.get_nowait()
     assert calls == [{"x": 1}] and item[:4] == (1, 3, 2, 100)
-    assert item[4]["genotype_text"] == 0 and item[4]["subset_text_from_packed"] == 0
-    assert set(item[4]) == {"genotype_text", "subset_text_from_packed", "entered", "seconds",
-                            "pinned", "device_peak"}
+    assert all(item[4][name] == 0 for name in port_shard.REPORTED)
+    assert set(item[4]) == {*port_shard.REPORTED, "entered", "seconds", "pinned",
+                            "device_peak"}
     with pytest.raises(RuntimeError, match="injected failure for shard 2"):
         port_shard._worker_entry(q, 2, {}, inject_fail=True)
+
+
+# -- --provider device: GT_* counted by the port's ops/gt_stats on every path ------
+
+# a variant GT_* predicate (K8), a sample one (K9) and a variant one over a
+# cohort (K14), each keeping some rows or samples of _fileset(29, 7, seed=38)
+# and not all; with the wrapper its counts go through
+A4 = {
+    "variant_gt": ({"var_query": "GT_MAF >= 0.3"}, "gt_counts_device"),
+    "sample_gt": ({"sam_query": "GT_MISSING_RATE < 0.25"}, "sample_counts_device"),
+    "cohort": ({"var_query": "GT_AC >= 3",
+                "sam_query": 'IID == "s1" || IID == "s3" || IID == "s4" || IID == "s6"'},
+               "gt_counts_masked"),
+}
+_COUNT_WRAPPERS = ("gt_counts_device", "sample_counts_device", "gt_counts_masked")
+_HOST_COUNTS = ("gt_counts_numpy", "sample_counts_numpy", "gt_counts_native", "gt_counts",
+                "sample_counts", "gt_counts_subset")
+
+
+def _a4_argv(case: str) -> list:
+    query = A4[case][0]
+    return [*(["--include-var", query["var_query"]] if "var_query" in query else []),
+            *(["--include-sam", query["sam_query"]] if "sam_query" in query else [])]
+
+
+@pytest.fixture
+def count_spy(monkeypatch):
+    """The names of ops/gt_stats's count wrappers in the order they are
+    called (each still counts); any call of ops/gt_stats_host's counts fails
+    the test."""
+    from pgen_tpu_torch.ops import gt_stats, gt_stats_host
+
+    calls = []
+    for name in _COUNT_WRAPPERS:
+        def spy(*args, _real=getattr(gt_stats, name), _name=name, **kwargs):
+            calls.append(_name)
+            return _real(*args, **kwargs)
+
+        spy.launches = 0
+        monkeypatch.setattr(gt_stats, name, spy)
+    for name in _HOST_COUNTS:
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"gt_stats_host.{_name} counted on the host")
+
+        monkeypatch.setattr(gt_stats_host, name, refuse)
+    return calls
+
+
+def _kept(vcf: bytes) -> tuple:
+    """(body rows, samples) of a VCF."""
+    lines = vcf.split(b"\n")
+    head = next(ln for ln in lines if ln.startswith(b"#CHROM"))
+    return sum(1 for ln in lines if ln and not ln.startswith(b"#")), len(head.split(b"\t")) - 9
+
+
+def _nontrivial(case: str, vcf: bytes) -> None:
+    rows, samples = _kept(vcf)
+    assert (0 < samples < 7) if case == "sample_gt" else (0 < rows < 29), (case, rows, samples)
+
+
+@pytest.mark.parametrize("suffix", [".vcf", ".vcf.gz"])
+@pytest.mark.parametrize("case", list(A4))
+def test_device_provider_shards_count_on_the_device(tmp_path, capfd, count_spy, case, suffix):
+    """--provider device --shards 2 (and .vcf.gz --index): the masks' counts
+    go through the port's wrappers once, never the host's, and the files
+    are pgen_tpu's CLI's with the same flags, byte for byte."""
+    from pgen_tpu.cli import main as tpu_main
+    from pgen_tpu_torch.cli import main as port_main
+
+    prefix = _fileset(tmp_path, 29, 7, seed=38)
+    argv = ["filter", prefix, *_a4_argv(case), "--provider", "device", "--shards", "2",
+            "--block-variants", "4", *(["--index"] if suffix == ".vcf.gz" else [])]
+    assert port_main([*argv, "--device", "cpu", "-o", str(tmp_path / f"port{suffix}")]) == 0
+    assert count_spy == [A4[case][1]]
+    assert tpu_main([*argv, "-o", str(tmp_path / f"tpu{suffix}")]) == 0
+    for suf in ("", ".tbi") if suffix == ".vcf.gz" else ("",):
+        assert _read(f"{tmp_path}/port{suffix}{suf}") == _read(f"{tmp_path}/tpu{suffix}{suf}")
+    if suffix == ".vcf":
+        _nontrivial(case, _read(tmp_path / "port.vcf"))
+
+
+@pytest.mark.parametrize("mode", ["list", "error"])
+@pytest.mark.parametrize("case", list(A4))
+def test_device_provider_rm_dup_counts_on_the_device(tmp_path, capfd, count_spy, case, mode):
+    """--rm-dup list|error with --provider device --shards 2: the report's
+    masks and then the shards' are counted by the port's wrappers; the
+    .rmdup.list, the VCF, or the exit code and message are pgen_tpu's."""
+    from pgen_tpu.cli import main as tpu_main
+    from pgen_tpu_torch.cli import main as port_main
+
+    prefix = _fileset(tmp_path, 29, 7, seed=38)
+    argv = ["filter", prefix, *_a4_argv(case), "--provider", "device", "--shards", "2",
+            "--rm-dup", mode]
+    rc = port_main([*argv, "--device", "cpu", "-o", str(tmp_path / "port.vcf")])
+    port_err = capfd.readouterr().err.splitlines()
+    assert tpu_main([*argv, "-o", str(tmp_path / "tpu.vcf")]) == rc
+    tpu_err = capfd.readouterr().err.splitlines()
+    if mode == "error":
+        assert rc == 2 and port_err == tpu_err and "duplicated variant ID" in port_err[-1]
+        assert count_spy == [A4[case][1]]
+        return
+    assert rc == 0 and count_spy == [A4[case][1]] * 2
+    listed = _read(tmp_path / "port.vcf.rmdup.list")
+    assert listed == _read(tmp_path / "tpu.vcf.rmdup.list") and listed
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+    assert [ln.replace("port.", "tpu.") for ln in port_err if "--rm-dup" in ln] == \
+        [ln for ln in tpu_err if "--rm-dup" in ln]
+
+
+@pytest.mark.parametrize("case", list(A4))
+def test_device_provider_merged_gz_index_counts_on_the_device(tmp_path, count_spy, case):
+    """_index_merged_gz (the parent's index of a --workers .vcf.gz)
+    re-derives the layout with the counts on the device: pgen_tpu's .tbi."""
+    from pgen_tpu.cli import main as tpu_main
+
+    prefix = _fileset(tmp_path, 29, 7, seed=38)
+    query = A4[case][0]
+    gz = str(tmp_path / "port.vcf.gz")
+    port_shard.filter_to_vcf_sharded(prefix, out_file=gz, provider="device", num_shards=2,
+                                     block_variants=4, device="cpu", **query)
+    count_spy.clear()
+    port_shard._index_merged_gz(gz, prefix, query.get("var_query"), query.get("sam_query"),
+                                "device", "auto", device="cpu")
+    assert count_spy == [A4[case][1]]
+    assert tpu_main(["filter", prefix, *_a4_argv(case), "--provider", "device", "--shards", "2",
+                     "--block-variants", "4", "--index", "-o", str(tmp_path / "tpu.vcf.gz")]) == 0
+    for suf in ("", ".tbi"):
+        assert _read(f"{gz}{suf}") == _read(f"{tmp_path}/tpu.vcf.gz{suf}")
+
+
+_SPIED_RESUME = """
+import json, os, sys
+sys.path.insert(0, {repo!r})
+os.environ["PGEN_TPU_MP_CONTEXT"] = "fork"  # the workers inherit the spies
+from pgen_tpu_torch.ops import gt_stats, gt_stats_host
+log = {log!r}
+
+def spy(name, real):
+    def call(*args, **kwargs):
+        with open(log, "a") as f:
+            f.write(f"{{os.getpid()}} {{name}}\\n")
+        return real(*args, **kwargs)
+    call.launches = 0
+    return call
+
+def refuse(name):
+    def call(*args, **kwargs):
+        raise AssertionError(f"gt_stats_host.{{name}} counted on the host")
+    return call
+
+for name in {wrappers!r}:
+    setattr(gt_stats, name, spy(name, getattr(gt_stats, name)))
+for name in {host!r}:
+    setattr(gt_stats_host, name, refuse(name))
+from pgen_tpu_torch.cli import main
+argv = {argv!r}
+os.environ["PGEN_TPU_TEST_FAIL_SHARD"] = "1"
+rc = main(argv)
+del os.environ["PGEN_TPU_TEST_FAIL_SHARD"]
+with open(log, "a") as f:
+    f.write("resume\\n")
+print(json.dumps([rc, main(argv + ["--resume"])]))
+"""
+
+
+@pytest.mark.parametrize("case", list(A4))
+def test_device_provider_resume_counts_on_the_device(tmp_path, case):
+    """--workers 3 --provider device with shard 1 failing, then --resume:
+    each worker that ran counted through the port's wrappers, in its own
+    process (forked, so that it carries the spies), and never on the host;
+    the file is pgen_tpu's --shards 3 with the same flags."""
+    import subprocess
+    import sys
+
+    from pgen_tpu.cli import main as tpu_main
+
+    prefix = _fileset(tmp_path, 29, 7, seed=38)
+    base = ["filter", prefix, *_a4_argv(case), "--provider", "device", "--block-variants", "4"]
+    log = tmp_path / "calls.log"
+    code = _SPIED_RESUME.format(
+        repo=str(Path(__file__).resolve().parent.parent), log=str(log),
+        wrappers=_COUNT_WRAPPERS, host=_HOST_COUNTS,
+        argv=[*base, "--workers", "3", "--device", "cpu", "-o", str(tmp_path / "port.vcf")])
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=240)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.splitlines()[-1]) == [1, 0]
+    first, resumed = log.read_text().split("resume\n")
+    calls = [[ln.split() for ln in part.splitlines()] for part in (first, resumed)]
+    # shards 0 and 2, then shard 1 alone: one count a worker, each its own process
+    assert [len(c) for c in calls] == [2, 1]
+    assert {name for c in calls for _, name in c} == {A4[case][1]}
+    assert len({pid for c in calls for pid, _ in c}) == 3
+    assert tpu_main([*base, "--shards", "3", "-o", str(tmp_path / "tpu.vcf")]) == 0
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+    _nontrivial(case, _read(tmp_path / "port.vcf"))
+
+
+def test_device_provider_workers_match_pgen_tpu(tmp_path):
+    """--workers 2 --provider device under the default start method: the
+    bytes of pgen_tpu's CLI with --shards 2 (a spy cannot reach a
+    forkserver's worker; the resume test above holds the route)."""
+    from pgen_tpu.cli import main as tpu_main
+
+    prefix = _fileset(tmp_path, 29, 7, seed=38)
+    base = ["filter", prefix, *_a4_argv("cohort"), "--provider", "device", "--block-variants", "4"]
+    r = _port_cli_in_subprocess([*base, "--workers", "2", "--device", "cpu", "--stats",
+                                 "-o", "port.vcf"], tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "gt_counts_masked 0" in r.stderr  # the CPU launches no kernel
+    assert tpu_main([*base, "--shards", "2", "-o", str(tmp_path / "tpu.vcf")]) == 0
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+
+
+@pytest.mark.parametrize("case", list(A4))
+def test_filter_to_vcf_device_provider_counts_on_the_device(tmp_path, count_spy, case):
+    """The library's filter_to_vcf(provider="device"), called as pgen_tpu's
+    is (provider fifth, by position): the port's wrappers count, and the
+    bytes are pgen_tpu's filter_to_vcf(provider="device")'s."""
+    query = A4[case][0]
+    args = (query.get("var_query"), query.get("sam_query"))
+    prefix = _fileset(tmp_path, 29, 7, seed=38)
+    port_filter(prefix, *args, tmp_path / "port.vcf", "device", 4, device="cpu")
+    assert count_spy == [A4[case][1]]
+    tpu_filter(prefix, *args, tmp_path / "tpu.vcf", "device", 4)
+    assert _read(tmp_path / "port.vcf") == _read(tmp_path / "tpu.vcf")
+
+
+# the device variants of filter_host's two functions (pipeline/filter.py), as
+# (port text, copy text): a device argument, a docstring paragraph and the
+# dispatch of any other provider to the copy, and the device in the mask call
+DEVICE_VARIANTS = {
+    "derive_row_layout": [
+        ('    timer: StageTimer | None = None,\n    device: str | torch.device = "cuda",\n',
+         "    timer: StageTimer | None = None,\n"),
+        ('    merged-.gz indexer).\n\n    The device provider\'s layout: '
+         "``filter_host.derive_row_layout`` with the\n    masks of the port's "
+         "``compute_masks``, whose genotype counts run on\n    ``device`` (K8, K9, K14). "
+         "Any other provider is the copy's, called as\n    it stands.\"\"\"\n"
+         '    if provider != "device":\n        return filter_host.derive_row_layout(\n'
+         "            pfile_prefix, var_query, sam_query, provider, source_tag, timer\n"
+         "        )\n",
+         '    merged-.gz indexer)."""\n'),
+        ("header, records, device\n", "header, records, provider\n"),
+    ],
+    "duplicated_ids": [
+        ('    provider: str = "auto",\n    device: str | torch.device = "cuda",\n',
+         '    provider: str = "auto",\n'),
+        ("    matching plink2's filter order).\n\n    The device provider's report: "
+         "``filter_host.duplicated_ids`` with the\n    masks of the port's ``compute_masks`` "
+         "on ``device``. Any other provider\n    is the copy's, called as it stands.\"\"\"\n"
+         '    if provider != "device":\n        return filter_host.duplicated_ids('
+         "pfile_prefix, var_query, sam_query, provider)\n",
+         "    matching plink2's filter order).\"\"\"\n"),
+        ("header, records, device\n", "header, records, provider\n"),
+    ],
+}
+
+
+@pytest.mark.parametrize("name", list(DEVICE_VARIANTS))
+def test_device_variant_differs_from_the_copy_in_the_mask_call(name):
+    """pipeline/filter.py's derive_row_layout and duplicated_ids are
+    filter_host's, line for line, but for the changes listed."""
+    from pgen_tpu_torch.pipeline import filter as port_filter_mod
+    from pgen_tpu_torch.pipeline import filter_host
+
+    got = inspect.getsource(getattr(port_filter_mod, name))
+    want = inspect.getsource(getattr(filter_host, name))
+    for port_text, copy_text in DEVICE_VARIANTS[name]:
+        assert got.count(port_text) == 1, port_text
+        got = got.replace(port_text, copy_text)
+    assert got == want

@@ -9,10 +9,17 @@ copies of pgen_tpu's jax-free host code give pgen_tpu's results.
   jax is loaded.
 - Copy parity: the port's chr22 fixture writer, argument parser and C++
   host library against pgen_tpu's (and ``tools/make_fixtures.py``'s).
+- The library surface: every name of each pgen_tpu package's ``__all__``
+  resolves in the port's counterpart (under the port's name where
+  ``pgen_tpu_torch.ops.RENAMES`` lists one), each exported function takes
+  pgen_tpu's parameters by name and default with ``device`` after them,
+  and importing any of the port's packages loads neither torch nor jax.
 """
 
 import argparse
 import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -55,6 +62,128 @@ def test_no_import_of_pgen_tpu(path):
         assert not named, f"{path.name} names a pgen_tpu module in strings at lines {named}"
 
 
+def _imports_jax(node) -> bool:
+    if isinstance(node, ast.Import):
+        return any(a.name.split(".")[0] in ("jax", "jaxlib") for a in node.names)
+    if isinstance(node, ast.ImportFrom):
+        return node.level == 0 and (node.module or "").split(".")[0] in ("jax", "jaxlib")
+    return False
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_jax(path):
+    tree = ast.parse(path.read_text(), str(path))
+    bad = [n.lineno for n in ast.walk(tree) if _imports_jax(n)]
+    assert not bad, f"{path.name} imports jax at lines {bad}"
+
+
+# -- the library surface ------------------------------------------------------
+
+PACKAGES = ["", ".pipeline", ".parallel", ".ops"]
+
+
+@pytest.mark.parametrize("sub", PACKAGES, ids=lambda s: f"pgen_tpu{s}")
+def test_pgen_tpu_exports_resolve_in_the_port(sub):
+    """Each name of pgen_tpu{sub}.__all__ is an attribute of
+    pgen_tpu_torch{sub}, under the port's name where RENAMES lists one;
+    the renames name exactly the names the port does not carry."""
+    from pgen_tpu_torch.ops import RENAMES
+
+    tpu = importlib.import_module(f"pgen_tpu{sub}")
+    port = importlib.import_module(f"pgen_tpu_torch{sub}")
+    missing = {n for n in tpu.__all__ if not hasattr(port, n)}
+    assert missing == (set(RENAMES) if sub == ".ops" else set())
+    for name in tpu.__all__:
+        assert getattr(port, RENAMES.get(name, name)) is not None
+        assert RENAMES.get(name, name) in port.__all__
+
+
+def test_renamed_and_moved_exports():
+    """K4 is pack_codes, K2 genotype_text (pgen_tpu's planes were a Mosaic
+    workaround), and the numpy oracle lives in ops/unpack_host.py."""
+    import pgen_tpu_torch.ops as ops
+    from pgen_tpu_torch.ops import gt_text, pack, unpack_host
+
+    assert ops.RENAMES == {"pack_codes_device": "pack_codes",
+                           "genotype_text_planes": "genotype_text"}
+    assert ops.pack_codes is pack.pack_codes
+    assert ops.genotype_text is gt_text.genotype_text
+    assert ops.unpack_codes_reference is unpack_host.unpack_codes_reference
+
+
+@pytest.mark.parametrize("sub", PACKAGES, ids=lambda s: f"pgen_tpu_torch{s}")
+def test_every_port_export_resolves(sub):
+    port = importlib.import_module(f"pgen_tpu_torch{sub}")
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    with pytest.raises(AttributeError):
+        getattr(port, "no_such_name")
+
+
+# (pgen_tpu module, port module, function): every exported function of
+# pgen_tpu's packages, and the distributed API
+SIGNATURES = [
+    ("pipeline.filter", "pipeline.filter", "filter_to_vcf"),
+    ("pipeline.query", "pipeline.query", "query_metadata"),
+    ("parallel.shard", "parallel.shard", "filter_to_vcf_sharded"),
+    ("parallel.shard", "parallel.shard", "plan_shards"),
+    ("formats.header", "formats.header", "read_pgen_header"),
+    ("formats.metadata", "formats.metadata", "read_metadata"),
+    ("parallel.distributed", "parallel.distributed", "run_distributed_filter"),
+    ("parallel.distributed", "parallel.distributed", "initialize_from_env"),
+]
+
+
+@pytest.mark.parametrize("tpu_mod,port_mod,name", SIGNATURES, ids=[s[2] for s in SIGNATURES])
+def test_signature_takes_pgen_tpu_parameters(tpu_mod, port_mod, name):
+    """pgen_tpu's parameters, in order, by the same names, kinds and
+    defaults; the port adds ``device`` alone, after them (before a
+    ``**kwargs``, which must stay last)."""
+    want = inspect.signature(getattr(importlib.import_module(f"pgen_tpu.{tpu_mod}"), name))
+    got = inspect.signature(getattr(importlib.import_module(f"pgen_tpu_torch.{port_mod}"), name))
+
+    def split(sig):
+        params = list(sig.parameters.values())
+        kw = [p for p in params if p.kind is p.VAR_KEYWORD]
+        return [p for p in params if p.kind is not p.VAR_KEYWORD], kw
+
+    (tpu_params, tpu_kw), (port_params, port_kw) = split(want), split(got)
+    assert [(p.name, p.kind) for p in port_kw] == [(p.name, p.kind) for p in tpu_kw]
+    assert [(p.name, p.default, p.kind) for p in port_params[: len(tpu_params)]] == \
+        [(p.name, p.default, p.kind) for p in tpu_params]
+    assert [p.name for p in port_params[len(tpu_params):]] in ([], ["device"])
+
+
+@pytest.mark.parametrize("provider", ["native", "numpy", "nope"])
+def test_filter_to_vcf_refuses_host_providers(tmp_path, provider):
+    """pgen_tpu's call with its host providers: refused by decision (the
+    port's host path is device="cpu"), an unknown one as unknown."""
+    from pgen_tpu_torch.pipeline.filter import filter_to_vcf
+
+    prefix = _fileset(tmp_path, 5, 3, seed=1)
+    with pytest.raises(ValueError, match="ROADMAP" if provider != "nope" else "unknown"):
+        filter_to_vcf(prefix, None, None, tmp_path / "o.vcf", provider, device="cpu")
+    assert not (tmp_path / "o.vcf").exists()
+
+
+@pytest.mark.parametrize("sub", PACKAGES, ids=lambda s: f"pgen_tpu_torch{s}")
+def test_package_import_loads_no_torch(sub):
+    """Importing the package (and its parents) in a fresh interpreter loads
+    neither torch nor jax nor pgen_tpu."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"import pgen_tpu_torch{sub}\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('torch', 'jax', 'pgen_tpu'))\n"
+        "assert not loaded, loaded[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=60)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 # -- each entry point in a subprocess --------------------------------------
 
 _CHECK = (
@@ -82,6 +211,10 @@ ENTRY_POINTS = {
                          "--include-var", 'ALT == "G"', "-o", "{o}.dev.vcf"],
                         ["filter", "{p}", "--provider", "device", "-r", "1:100-900",
                          "-o", "{o}.dev.vcf.gz", "--index"]],
+    # --provider device's GT_* counts under --shards and --rm-dup list
+    "provider_device_shards": [["filter", "{p}", "--provider", "device", "--shards", "2",
+                                "--maf", "0.1", "--rm-dup", "list", "--index",
+                                "-o", "{o}.ds.vcf.gz"]],
     "glm_linear": [["glm", "{p}", "--pheno", "{d}/ph.tsv", "--pheno-name", "QT", "--covar",
                     "{d}/ph.tsv", "--covar-name", "C1", "--adjust", "-o", "{o}.lin"]],
     "glm_logistic": [["glm", "{p}", "--pheno", "{d}/ph.tsv", "--pheno-name", "CC", "--covar",
