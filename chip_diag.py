@@ -3,23 +3,29 @@
 beside chip_smoke.py, whose fixtures, timer and oracles they use.
 
     python3 chip_diag.py --ab DIR      # K4, K5, K8-K11, K14 against the kernels of the checkout
-                                       # at DIR; K14's wrapper against that checkout's
+                                       # at DIR; K14's wrapper against that checkout's; K15 and
+                                       # K13's pass against that checkout's chains
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
     python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time,
-                                       # and K12, K13, their products, K15 and the LD tile Grams
+                                       # and K12, K13, their products, K15 and K13's pass
     python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
     python3 chip_diag.py --rates       # popcount and .b1 mma.sync rates of the card
+    python3 chip_diag.py --ld-cpu DIR... # full-chr22 ld and prune --device cpu, this checkout
+                                       # and those at DIR...
 
 --ab builds the kernel sources of another checkout (the parent commit's,
 unpacked with git archive) beside this one's and times both in one process
 on the same tensors; it then imports the other checkout's package beside
-this one's and times both K14 wrappers, host time included. --trace runs
-this checkout's launchers of the same cases under torch.profiler and prints
-each device operation's time per launch (kernels and memsets), which CUDA
-events around a launch cannot separate from the host's enqueue time; it also
+this one's and times both K14 wrappers, host time included, then K15 and
+K13's --approx pass against the other checkout's chains for the same work
+(its K15 c, tile Grams and r² ops; its K13 z and two products), through both
+packages, each side's device operations traced. --trace runs this
+checkout's launchers of the same cases under torch.profiler and prints each
+device operation's time per launch (kernels and memsets), which CUDA events
+around a launch cannot separate from the host's enqueue time; it also
 traces K12 and K13 and the library products beside them (one torch._int_mm
-Gram, one fp32 z'z and one --approx pass), and K15 and the fp32 tile Grams
-of ld (band 9) and prune (49), which --ab leaves out. --precision shows
+Gram, one fp32 z'z and an --approx pass's two products before its kernels),
+K15 at bands 9, 49 and 420 and K13's pass. --precision shows
 which part of an f32 moment product costs each GWAS design its accuracy
 against pgen_tpu's tolerances. --forms builds this checkout's kernels twice
 more, K5's launcher held to its direct form in one and to its staged form
@@ -27,8 +33,11 @@ more, K5's launcher held to its direct form in one and to its staged form
 at a range of K: the readings its threshold (kRepackDenseRatio) is fixed
 from. --rates times the two instructions a per-mask count can rest on: a
 popcount on the CUDA cores and K14's .b1 AND-POPC product on the tensor
-cores. All import no jax and nothing of pgen_tpu, and exit non-zero without
-CUDA.
+cores. --ld-cpu times the CPU's ld (band 9) and prune --indep-pairwise 50 5
+0.2 (band 49) over every variant of the chr22 fixture, each checkout's CLI
+a process of its own (--device cpu: K15's plain version), and prints each
+run's wall, its r2_band stage and the sha256 of its outputs. All import no
+jax and nothing of pgen_tpu, and exit non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (  # noqa: E402
     BLOCK_ROWS,
     BURST,
+    CHR22_VARIANTS,
     COHORT,
     COHORTS,
     KEEP_SAMPLES,
@@ -191,22 +201,6 @@ def _build_other(csrc: Path, defines: tuple = ()) -> Path:
     return so
 
 
-def _lead_copies(masks):
-    """K14's operand before its redesign, for the other checkout's launcher:
-    (P, R) u8 keep masks -> (16, P, W) u8, each bit k moved to bit 2k and
-    copy L holding every mask at byte offset L of a zeroed row of W = 16
-    ceil((R + 15) / 16) bytes."""
-    import torch
-
-    n_masks, rec = masks.shape
-    width = 16 * ((rec + 30) // 16)
-    spread = (masks & 1) | ((masks & 2) << 1) | ((masks & 4) << 2) | ((masks & 8) << 3)
-    out = torch.zeros((16, n_masks, width), dtype=torch.uint8, device=masks.device)
-    for lead in range(16):
-        out[lead, :, lead : lead + rec] = spread
-    return out
-
-
 def _masked_sets(n_samples: int) -> tuple:
     """K14's sample sets at n_samples: COHORTS sorted cohorts (KEEP_SAMPLES
     of 2504, the same share at other widths) and a seeded partition into
@@ -302,24 +296,15 @@ def _kernel_cases(other) -> dict:
             records.data_ptr(), counts.data_ptr(), records.shape[0], rec, stream)
 
     def masked_case(records, n_samples, sets):
-        """K14; the other checkout's launcher (the form before the tensor-
-        core redesign) takes its masks as 16 shifted copies (_lead_copies)
-        in place of their E words and kept counts."""
+        """K14: both launchers take the masks' E words and kept counts (the
+        tensor-core form's operand, in every checkout since it)."""
         masks = _keep_masks(n_samples, sets, dev)
         words, kept = mask_words(masks), kept_counts(masks)
-        copies = _lead_copies(masks) if other is not None else None
         (n_var, n_rec), n_masks = records.shape, masks.shape[0]
         counts = torch.empty((n_var, n_masks, 4), dtype=torch.int32, device=dev)
-
-        def call(lib):
-            if lib is other:
-                return lib.pgen_gt_counts_masked(records.data_ptr(), copies.data_ptr(),
-                                                 counts.data_ptr(), n_var, n_rec, n_masks,
-                                                 copies.shape[2] // 16, stream)
-            return lib.pgen_gt_counts_masked(records.data_ptr(), words.data_ptr(),
-                                             kept.data_ptr(), counts.data_ptr(), n_var, n_rec,
-                                             n_masks, stream)
-        return [counts], call
+        return [counts], lambda lib: lib.pgen_gt_counts_masked(
+            records.data_ptr(), words.data_ptr(), kept.data_ptr(), counts.data_ptr(), n_var,
+            n_rec, n_masks, stream)
 
     cohorts, partition = _masked_sets(s)
     wide_cohorts, wide_partition = _masked_sets(WIDE)
@@ -363,20 +348,21 @@ def _kernel_cases(other) -> dict:
 
 
 def _relatedness_cases() -> dict:
-    """K12 and K13 launchers and the products beside them, at the paths'
-    block shapes, for --trace only: {name: call(lib)}. K12 at 32,768 rows
-    of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the same;
-    one torch._int_mm Gram of the planes, one z'z in f64 (the exact GRM's)
-    and in full fp32 (pgen_tpu's), and one --approx pass's z'(z q), q of
-    18 columns; K15 at 16,384 rows, all samples or the sorted 1,001, and the fp32 tile Grams
-    of a block at bands 9 and 49 (torch.bmm of each tile against its
-    overlapping window, as ops/ld.py makes them)."""
+    """K12, K13 and K15 launchers and the products beside them, at the
+    paths' block shapes, for --trace only: {name: call(lib)}. K12 at 32,768
+    rows of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the
+    same; one torch._int_mm Gram of the planes, one z'z in f64 (the exact
+    GRM's) and in full fp32 (pgen_tpu's), and the two products of an
+    --approx pass before K13's pass kernels, z'(z q), q of 18 columns; K15
+    at 16,384 output rows of 2504 samples at bands 9, 49 and 420 and of a
+    sorted 1,001 re-packed by K5 at band 9; K13's pass on the same two
+    record sets."""
     import numpy as np
     import torch
 
-    from pgen_tpu_torch import kernels
-    from pgen_tpu_torch.device import full_fp32, matmul_fp32
-    from pgen_tpu_torch.ops.pca import add_gram_fp64
+    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.ops.pack import subset_repack
+    from pgen_tpu_torch.ops.pca import add_gram_fp64, approx_scratch
     from pgen_tpu_torch.ops.relatedness import plane_shape
 
     dev = torch.device("cuda", 0)
@@ -406,27 +392,19 @@ def _relatedness_cases() -> dict:
                                              z.data_ptr(), out.data_ptr(), n_var, n_rec, s, kept,
                                              stream)
 
-    def ld_case(rows, sel):
-        n_var, n_rec = rows.shape
-        kept = s if sel is None else sel.shape[0]
-        c = torch.empty((n_var, kept), dtype=torch.float32, device=dev)
-        norm2 = torch.empty(n_var, dtype=torch.float64, device=dev)
-        out = torch.empty((3, n_var), dtype=torch.int32, device=dev)
-        return c, lambda lib: lib.pgen_ld_centered(
-            rows.data_ptr(), None if sel is None else sel.data_ptr(), c.data_ptr(),
-            norm2.data_ptr(), out.data_ptr(), n_var, n_rec, s, kept, stream)
+    def band_case(rows, kept, band):
+        out = torch.empty((GLM_ROWS, band), dtype=torch.float64, device=dev)
+        return lambda lib: lib.pgen_ld_r2_band(rows.data_ptr(), out.data_ptr(), rows.shape[0],
+                                               GLM_ROWS, rows.shape[1], kept, band, stream)
 
-    def tile_grams(band):
-        tiles = GLM_ROWS // band
-        c, call = ld_case(records[: (tiles + 1) * band], None)
-        call(kernels.load())
-        a = c[: tiles * band].view(tiles, band, s)
-        w = c.as_strided((tiles, 2 * band, s), (band * s, s, 1)).transpose(1, 2)
-
-        def grams():
-            with full_fp32():
-                torch.bmm(a, w)
-        return grams
+    def pass_case(rows, kept):
+        q = torch.randn((kept, 18), device=dev, generator=gen)
+        y = torch.zeros((kept, 18), device=dev)
+        used = torch.zeros((), dtype=torch.int64, device=dev)
+        scratch = approx_scratch(rows.shape[0], kept, dev)
+        return lambda lib: lib.pgen_pca_approx_pass(
+            rows.data_ptr(), q.data_ptr(), y.data_ptr(), used.data_ptr(),
+            scratch.data_ptr(), rows.shape[0], rows.shape[1], kept, 18, scratch.numel(), stream)
 
     planes, k12 = planes_case(records, None)
     _, k12_sel = planes_case(records, keep)
@@ -434,6 +412,8 @@ def _relatedness_cases() -> dict:
     _, k13_sel = z_case(records[:GLM_ROWS], keep)
     q = torch.randn((s, 18), device=dev, generator=gen)
     acc = torch.zeros((s, s), dtype=torch.float64, device=dev)
+    ld_rows = records[: GLM_ROWS + 420]
+    ld_keep = subset_repack(ld_rows, keep)
 
     def product(fn):
         def call(lib):
@@ -452,10 +432,13 @@ def _relatedness_cases() -> dict:
         f"z'z fp32 ({GLM_ROWS} x {s})": product(lambda: matmul_fp32(z.T, z)),
         f"z'(z q) fp32 ({GLM_ROWS} x {s}, q {s} x 18)":
             product(lambda: matmul_fp32(z.T, matmul_fp32(z, q))),
-        f"K15 ld_centered V={GLM_ROWS} K=2504": ld_case(records[:GLM_ROWS], None)[1],
-        f"K15 ld_centered V={GLM_ROWS} K={KEEP_SAMPLES} sel": ld_case(records[:GLM_ROWS], keep)[1],
-        f"tile Grams fp32, band 9 ({GLM_ROWS // 9} tiles)": product(tile_grams(9)),
-        f"tile Grams fp32, band 49 ({GLM_ROWS // 49} tiles)": product(tile_grams(49)),
+        **{f"K15 ld_r2_band V={GLM_ROWS} K=2504 band {band}": band_case(ld_rows, s, band)
+           for band in (9, 49, 420)},
+        f"K15 ld_r2_band V={GLM_ROWS} K={KEEP_SAMPLES} (re-packed) band 9":
+            band_case(ld_keep, KEEP_SAMPLES, 9),
+        f"K13 pca_approx_pass V={GLM_ROWS} K=2504 L=18": pass_case(records[:GLM_ROWS], s),
+        f"K13 pca_approx_pass V={GLM_ROWS} K={KEEP_SAMPLES} (re-packed) L=18":
+            pass_case(subset_repack(records[:GLM_ROWS], keep), KEEP_SAMPLES),
     }
 
 
@@ -464,27 +447,16 @@ def phase_trace() -> None:
     torch.profiler after one untimed: each device operation's time per
     launch (kernels by name, and the memsets a launcher issues), without
     the host's enqueue time that CUDA events around a launch hold."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from pgen_tpu_torch import kernels
 
     this = kernels.load()
     calls = {name: call for name, (_, call) in _kernel_cases(None).items()}
     for name, call in {**calls, **_relatedness_cases()}.items():
-        call(this)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                if call(this) != 0:
-                    raise AssertionError(f"{name}: launch failed")
-            torch.cuda.synchronize()
-        ops = {}
-        for e in prof.key_averages():
-            us = getattr(e, "device_time_total", 0)
-            if us > 0:
-                kernel = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-                ops[kernel.strip() or e.key[:40]] = us / 10 / 1000
+        def run(call=call, name=name):
+            if call(this) != 0:
+                raise AssertionError(f"{name}: launch failed")
+
+        ops = _device_ops(run)
         shown = "; ".join(f"{k} {ms:.4f} ms" for k, ms in ops.items()) or "no events"
         print(f"[trace] {name}: device {sum(ops.values()):.4f} ms a launch ({shown})")
 
@@ -597,10 +569,10 @@ def phase_ab(other_root: Path) -> None:
     one launch and once with 4 launches in each pair; outputs held
     torch.equal. The C signatures below are those of both checkouts'
     launchers: a launcher whose signature differs between the two needs
-    its own (in both, K9's clears its counts itself and K11's takes 2V
-    called ints; K14's takes the parent's 16 shifted mask copies in place
-    of the masks' E words and kept counts). Each case's host time a call
-    follows; then K14's wrappers (_wrapper_ab)."""
+    its own (in both, K9's clears its counts itself, K11's takes 2V
+    called ints and K14's the masks' E words and kept counts). Each case's
+    host time a call follows; then K14's wrappers (_wrapper_ab) and K15's
+    and K13's pass's chains (_chain_ab)."""
     import ctypes
 
     import torch
@@ -616,8 +588,9 @@ def phase_ab(other_root: Path) -> None:
     other.pgen_sample_counts.argtypes = [ptr, ptr, i64, i64, ptr]
     other.pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     other.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
-    other.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-    print("[ab] K12, K13 and K15 are left out (--trace times them)")
+    other.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
+    print("[ab] K12 and K13's z are left out (--trace times them); K15 and K13's pass against "
+          "the other checkout's chains follow (_chain_ab)")
     for name, (outs, call) in _kernel_cases(other).items():
         def run(lib):
             status = call(lib)
@@ -635,6 +608,7 @@ def phase_ab(other_root: Path) -> None:
             raise AssertionError(f"{name}: this checkout's kernel differs from the other's")
         _print_ab("[ab]", name, lambda: run(other), lambda: run(this))
     _wrapper_ab(other_root)
+    _chain_ab(other_root)
 
 
 def _host_us(fn, calls: int = 50, reps: int = 5) -> float:
@@ -671,9 +645,9 @@ def _print_ab(tag: str, name: str, other_fn, this_fn) -> None:
           f"{t2:.1f} us")
 
 
-def _other_gt_stats(root: Path):
-    """The ops.gt_stats module of the checkout at ``root``, imported beside
-    this checkout's: while it loads, its pgen_tpu_torch modules stand in
+def _other_module(root: Path, name: str = "pgen_tpu_torch.ops.gt_stats"):
+    """The module ``name`` of the checkout at ``root``, imported beside this
+    checkout's: while it loads, its pgen_tpu_torch modules stand in
     sys.modules in place of this checkout's, which are put back after. Its
     functions keep their own modules (and kernel library) as globals."""
     import importlib
@@ -684,12 +658,146 @@ def _other_gt_stats(root: Path):
     saved = {k: sys.modules.pop(k) for k in ours()}
     sys.path.insert(0, str(root))
     try:
-        return importlib.import_module("pgen_tpu_torch.ops.gt_stats")
+        return importlib.import_module(name)
     finally:
         sys.path.remove(str(root))
         for k in ours():
             del sys.modules[k]
         sys.modules.update(saved)
+
+
+def _device_ops(fn, calls: int = 10) -> dict:
+    """Each device operation's time a call of fn in ms (kernels by name, and
+    memsets), from torch.profiler over ``calls`` calls after one untimed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        if us > 0:
+            kernel = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = kernel.strip() or e.key[:40]
+            ops[name] = ops.get(name, 0.0) + us / calls / 1000
+    return ops
+
+
+def _print_device_ops(name: str, sides: dict) -> None:
+    for side, fn in sides.items():
+        ops = _device_ops(fn)
+        shown = "; ".join(f"{k} {ms:.4f} ms" for k, ms in ops.items())
+        print(f"[ab chain] {name}, {side}: device {sum(ops.values()):.4f} ms a call ({shown})")
+
+
+def _chain_ab(other_root: Path) -> None:
+    """K15 and K13's pass of this checkout against the other checkout's
+    chains for the same work, each through its own package (the other's
+    imported beside this one's): LD at 16,384 output rows (rounded down to
+    whole tiles of the band, as the other's banded_r2 takes them) of 2504
+    samples at bands 9 and 49 and of a sorted 1,001 at band 9, the other's
+    K15 c, fp32 tile Grams and f64 r² against this K15 (after K5 for the
+    cohort), bands within rtol 1e-4 atol 1e-6; --approx at 16,384 rows, q
+    of 18 columns, the other's K13 z and two fp32 products against this
+    pass (after K5), y within 2 (K + V) u of the f32 sums' absolute terms.
+    Each timed as the launchers are (host time included), then each side's
+    device operations from a trace: the other chain's tile Grams and its r²
+    ops by kernel."""
+    import torch
+
+    from pgen_tpu_torch.device import matmul_fp32
+    from pgen_tpu_torch.ops import ld, pca
+    from pgen_tpu_torch.ops.pack import subset_repack
+
+    other_ld = _other_module(other_root, "pgen_tpu_torch.ops.ld")
+    other_pca = _other_module(other_root, "pgen_tpu_torch.ops.pca")
+    if not hasattr(other_ld, "ld_centered") or not hasattr(other_pca, "grm_z"):
+        raise AssertionError("the other checkout has no K15 ld_centered or K13 grm_z")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    s = WIDTHS[0]
+    rec = (s + 3) // 4
+    records = torch.randint(0, 256, (GLM_ROWS + 64, rec), dtype=torch.uint8, device=dev,
+                            generator=gen)
+    keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values
+    keep = keep.to(torch.int32)
+    c_scratch = torch.empty((GLM_ROWS + 64) * s, dtype=torch.float32, device=dev)
+    r2_out = torch.empty(GLM_ROWS * 49, dtype=torch.float64, device=dev)
+
+    def other_band(block, sel, band, n_out):
+        c, norm2 = other_ld.ld_centered(block, s, sel, out=c_scratch)
+        norm = torch.sqrt(norm2)
+        n_tiles = n_out // band
+        r2 = torch.empty((n_tiles, band, band), dtype=torch.float64, device=dev)
+        group = max(1, other_ld.GRAM_ENTRIES // (2 * band * band))
+        for t in range(0, n_tiles, group):
+            k = min(group, n_tiles - t)
+            r2[t : t + k] = other_ld._tile_r2(c, norm, t, k, band)
+        return r2.view(n_tiles * band, band)
+
+    def this_band(block, sel, band, n_out):
+        kept = s if sel is None else sel.shape[0]
+        rows = block if sel is None else subset_repack(block, sel)
+        return ld.ld_r2_band(rows, kept, band, n_out, r2_out)
+
+    for band, sel in ((9, None), (49, None), (9, keep)):
+        n_out = GLM_ROWS // band * band
+        block = records[: n_out + band]
+        name = f"LD band {band} V={n_out} K={s if sel is None else KEEP_SAMPLES}"
+        got, want = this_band(block, sel, band, n_out), other_band(block, sel, band, n_out)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+        def other_fn(block=block, sel=sel, band=band, n_out=n_out):
+            return other_band(block, sel, band, n_out)
+
+        def this_fn(block=block, sel=sel, band=band, n_out=n_out):
+            return this_band(block, sel, band, n_out)
+
+        _print_ab("[ab chain]", name, other_fn, this_fn)
+        _print_device_ops(name, {"other": other_fn, "this": this_fn})
+
+    q = torch.randn((s, 18), device=dev, generator=gen)
+    block = records[:GLM_ROWS]
+    scratch = pca.approx_scratch(GLM_ROWS, s, dev)
+    z_scratch = torch.empty(GLM_ROWS * s, dtype=torch.float32, device=dev)
+
+    def other_pass(sel, qq, y, used):
+        z, flags = other_pca.grm_z(block, s, sel, out=z_scratch)
+        y += matmul_fp32(z.T, matmul_fp32(z, qq))
+        used += flags.sum()
+
+    def this_pass(sel, qq, y, used):
+        kept = s if sel is None else sel.shape[0]
+        rows = block if sel is None else subset_repack(block, sel)
+        pca.pca_approx_pass(rows, kept, qq, y, used, scratch)
+
+    for sel in (None, keep):
+        kept = s if sel is None else KEEP_SAMPLES
+        qq = q[:kept].contiguous()
+        name = f"--approx pass V={GLM_ROWS} K={kept} L=18"
+        y = [torch.zeros((kept, 18), device=dev) for _ in range(2)]
+        used = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
+        this_pass(sel, qq, y[0], used[0])
+        other_pass(sel, qq, y[1], used[1])
+        rows = block if sel is None else subset_repack(block, sel)
+        z = pca.grm_z_plain(rows, kept)[0].double().abs()
+        bound = 2 * (kept + GLM_ROWS) * 2.0 ** -24 * (z.T @ (z @ qq.double().abs()))
+        if int(used[0]) != int(used[1]) or bool(((y[0] - y[1]).double().abs() > bound).any()):
+            raise AssertionError(f"{name}: this pass differs from the other chain")
+
+        def other_fn(sel=sel, qq=qq, y=y, used=used):
+            other_pass(sel, qq, y[1], used[1])
+
+        def this_fn(sel=sel, qq=qq, y=y, used=used):
+            this_pass(sel, qq, y[0], used[0])
+
+        _print_ab("[ab chain]", name, other_fn, this_fn)
+        _print_device_ops(name, {"other": other_fn, "this": this_fn})
 
 
 def _wrapper_ab(other_root: Path) -> None:
@@ -702,7 +810,7 @@ def _wrapper_ab(other_root: Path) -> None:
 
     from pgen_tpu_torch.ops import gt_stats
 
-    other = _other_gt_stats(other_root)
+    other = _other_module(other_root)
     if Path(other.__file__).resolve().parent == Path(gt_stats.__file__).resolve().parent:
         raise AssertionError("the other checkout's gt_stats is this one's")
     dev = torch.device("cuda", 0)
@@ -718,11 +826,11 @@ def _wrapper_ab(other_root: Path) -> None:
         for what, ids in sets.items():
             cases[f"S={n_samples} V={rows} {what}"] = (records, _keep_masks(n_samples, ids, dev))
     for name, (records, masks) in cases.items():
-        slots = other.slot_masks(masks)
+        other_words, other_kept = other.mask_words(masks), other.kept_counts(masks)
         words, kept = gt_stats.mask_words(masks), gt_stats.kept_counts(masks)
 
-        def other_fn(records=records, masks=masks, slots=slots):
-            return other.gt_counts_masked(records, masks, slots)
+        def other_fn(records=records, masks=masks, w=other_words, k=other_kept):
+            return other.gt_counts_masked(records, masks, w, k)
 
         def this_fn(records=records, masks=masks, words=words, kept=kept):
             return gt_stats.gt_counts_masked(records, masks, words, kept)
@@ -784,6 +892,42 @@ def phase_forms() -> None:
                   f"{statistics.median([d1, d2]) / statistics.median([s1, s2]):.2f}x the direct")
 
 
+def phase_ld_cpu(others: list) -> None:
+    """Full-chr22 ld and prune 50 5 0.2 on --device cpu through the CLI of
+    each checkout at ``others`` and then of this one, each run a process of
+    its own from its checkout's root; prints the wall, the r2_band stage of
+    --stats and the outputs' sha256, and whether they equal this
+    checkout's."""
+    from pgen_tpu_torch.formats.fixtures import ensure_chr22
+
+    with tempfile.TemporaryDirectory(prefix="chip_diag_ld_") as tmp:
+        tmp = Path(tmp)
+        full = ensure_chr22(tmp / "full", num_variants=CHR22_VARIANTS, uniform_bytes=True)
+        for label, argv, suffixes in (
+                ("ld (band 9)", ["ld", full], [""]),
+                ("prune 50 5 0.2 (band 49)", ["prune", full, "--indep-pairwise", "50", "5",
+                                              "0.2"], [".prune.in", ".prune.out"])):
+            shas = {}
+            for root in [*others, ROOT]:
+                out = tmp / f"out{len(shas)}"
+                env = {**os.environ, "PYTHONPATH": str(root)}
+                t0 = time.perf_counter()
+                r = subprocess.run([sys.executable, "-m", "pgen_tpu_torch.cli", *map(str, argv),
+                                    "-o", str(out), "--stats", "--device", "cpu"],
+                                   cwd=root, env=env, capture_output=True, text=True)
+                seconds = time.perf_counter() - t0
+                if r.returncode != 0:
+                    raise AssertionError(f"{label} in {root} returned {r.returncode}\n{r.stderr}")
+                shas[root] = [hashlib.sha256(Path(f"{out}{x}").read_bytes()).hexdigest()
+                              for x in suffixes]
+                stage = [ln.strip() for ln in r.stderr.splitlines() if "r2_band" in ln or "banded_r2" in ln]
+                print(f"[ld-cpu] {label}, {root}: {seconds:.3f} s wall; {stage}; sha256 "
+                      f"{[h[:16] for h in shas[root]]}")
+            for root in others:
+                print(f"[ld-cpu] {label}: {root} "
+                      f"{'equals' if shas[root] == shas[ROOT] else 'differs from'} this checkout")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -805,9 +949,11 @@ def main(argv: list) -> int:
         phase_forms()
     elif argv == ["--rates"]:
         phase_rates()
+    elif len(argv) >= 1 and argv[0] == "--ld-cpu":
+        phase_ld_cpu([Path(a).resolve() for a in argv[1:]])
     else:
         print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace, "
-              "--forms or --precision",
+              "--forms, --precision, --rates or --ld-cpu [OTHER_CHECKOUT ...]",
               file=sys.stderr)
         return 2
     return 0

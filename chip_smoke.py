@@ -8,7 +8,8 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K15 against their plain PyTorch versions on the card
+  3 kernels  K1-K15 and K13's --approx pass against their plain PyTorch
+             versions on the card
              (torch.equal) at widths 2504, 2503, 5 and 1 samples (K2 also into
              an output 4 B past a 16-B boundary; K3 at K = 2, 1000 and 20,000
              ids, reversed and repeated, each also 4 B past; K5 at K = 2,
@@ -28,7 +29,16 @@ Phases, each printing its own lines:
              with reversed, repeated and unsorted ids, past the 4,096 ids a
              staged block holds and at 40,003 samples; K12 and K13 on the
              16,640 rows of K10/K11, with and without that sample
-             selection, and K15 the same way; K14 at every width with P = 1 and 5 keep masks
+             selection; K15 (ld_r2_band) on the same rows, the selection's
+             records re-packed by K5 first, at bands 9, 49 and 420 and at
+             MAX_BAND on 300 output rows, bit for bit, and K13's pass
+             (pca_approx_pass, q of 18 columns) from a y0 at the scale of
+             y within approx_pass_tolerance of the plain pass (8 sigma of
+             the probabilistic rounding model), a second pass equal bit
+             for bit, and at 2504 and 2503 samples four planted faults
+             (half the rows or a 256-row chunk dropped, y0 lost, a column
+             shifted) outside that tolerance;
+             K14 at every width with P = 1 and 5 keep masks
              (a cohort of 1,001, all, none, gaps and a duplicate,
              unsorted), at 2504 and 2503 also on records 1-15 B past a
              16-B boundary);
@@ -38,18 +48,23 @@ Phases, each printing its own lines:
              of 40,003; K9 also at score's 16,384;
              K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
              K11 also tiled and at 40,000 of 40,003; K12 at 32,768 rows and
-             K13 and K15 at 16,384, each at K = 2504 and a sorted 1,001; K14 at
+             K13 at 16,384, each at K = 2504 and a sorted 1,001; K15 at
+             16,384 output rows at bands 9, 49 and 420 and at K = 1,001
+             (band 9), and K13's pass at 16,384 rows, each beside the
+             parent's chain for the same work where this checkout holds it
+             (K13's z and two fp32 products); K14 at
              65,536 rows with P = 1 and 5 cohorts of 1,001), CUDA
              events, median of 10
              pairs around one launch each, two alternated sets (the wrapper's
              host time lies inside; beside it burst_ms, 4 launches queued in
-             each pair), each beside its bound (the bytes it must move at 3.35 TB/s) and,
+             each pair), each beside its bound (the bytes it must move at
+             3.35 TB/s; for K15 and K13's pass the larger of that and its
+             operations at the card's int8 or fp32 peak) and,
              for K1, K2 and K7, one PyTorch call of the same function (a
              table gather, held torch.equal to the kernel); then the library
-             products beside K12, K13 and K15 (one torch._int_mm Gram, z'z in
-             f64 and fp32, an --approx pass, the fp32 tile Grams of a block
-             at bands 9 and 49, traced for copies of their overlapping
-             windows) against the card's dense peaks
+             products beside K12 and K13 (one torch._int_mm Gram, z'z in
+             f64 and fp32, an --approx pass's two products before K13's
+             pass kernels) against the card's dense peaks
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
              chr22-scale fixtures made by the port's copy of
              tools/make_fixtures.py: full 1000 Genomes chr22 (1,103,547 variants x 2504
@@ -108,8 +123,8 @@ Phases, each printing its own lines:
              GRM within that bound of --device cpu's and its eigenvalues at
              rtol 1e-3; (d) pca -k 10 --approx, orthonormal eigenvectors
              (1e-6), eigenvalues at most (1 + 1e-3) x (c)'s and descending,
-             the region's at rtol 1e-3 of --device cpu's. K12 and K13 must
-             have launched.
+             the region's at rtol 1e-3 of --device cpu's. K12, K13 and its
+             pass must have launched.
  10 counts   query, the reports, stats and fst through the port's CLI on
              the full chr22 fixture: (a) a metadata-only query launches no
              kernel; (b) a query binding GT_AF/GT_MISSING at median
@@ -131,9 +146,10 @@ Phases, each printing its own lines:
              codes: r² about 0.90, 0.35, 0.06): (a) ld at the defaults over
              every variant, the pairs of a seeded 20,000-variant region
              exactly those of the port's banded_r2_numpy (f64) and their R2
-             within rtol 1e-4 atol 1e-6; (b) ld --ld-window 50
+             within rtol 1e-4 atol 1e-6, then ld at the defaults on that
+             region sha256-equal to --device cpu; (b) ld --ld-window 50
              --ld-window-r2 0 --samples-file of 1,001 IIDs on the region
-             against --device cpu; (c) prune 50 5 0.2 over every variant, no
+             sha256-equal to --device cpu; (c) prune 50 5 0.2 over every variant, no
              two kept variants of 2,000 seeded windows of its walk over 0.2
              by the f64 oracle, then 50 5 0.2 and 100kb 1 0.5 with the cohort
              on the region, each equal to greedy_prune on the oracle's band
@@ -141,7 +157,8 @@ Phases, each printing its own lines:
              seeded P table, sha256-equal to --device cpu. Every oracle r²
              lies at least 1e-3 from the thresholds used; each full-chr22
              run's peak device memory is printed and held under 4 GB. K15
-             (and K8, K14 for prune's MAF) must have launched.
+             (and K5 for the cohort, K8, K14 for prune's MAF) must have
+             launched.
  12 mesh     glm, score, king, genome and pca over variant shards, one
              process per card, where two or more cards are visible (else
              one line says it was skipped): each rank a process of the
@@ -226,9 +243,11 @@ Phases, each printing its own lines:
              a mask computation (each worker's --stats line 17); each VCF's
              GT text against numpy's decode of numpy's kept rows and
              samples, the .rmdup.list against numpy's, then sha256 against
-             the lone --provider device filter and the same run on
-             --device cpu (each case a process of its own, the four beside
-             the card's runs); --workers against --shards; (b)
+             the lone --provider device filter; each case again on a
+             fileset of the 20,000 rows around the region on the card and
+             on --device cpu, sha256-equal (each cpu case a process of its
+             own, the four beside the card's runs); --workers against
+             --shards; (b)
              run_distributed_filter as two processes at once (PGEN_TPU_COORDINATOR, _NUM_PROCS, _PROC_ID) on the
              visible card(s), keep-two with shared_fs and then without, in
              the same processes (a gloo group of its own a call): the
@@ -241,7 +260,7 @@ port, which keeps its own copies of the jax-free host layers it runs; a
 last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
-just after. Then the products' line, one JSON line of the fifteen kernels
+just after. Then the products' line, one JSON line of the sixteen kernels
 (launches summed over phases 4-11 and 13-15), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
@@ -301,14 +320,16 @@ KERNELS = {
     "relatedness_planes": "pgen_tpu/ops/king.py:148",
     "grm_z": "pgen_tpu/ops/pca.py:109",
     "gt_counts_masked": "pgen_tpu/ops/gt_stats.py:90",
-    "ld_centered": "pgen_tpu/ops/ld.py:128",
+    "ld_r2_band": "pgen_tpu/ops/ld.py:128",
+    "pca_approx_pass": "pgen_tpu/ops/pca.py:412",
 }
 # kernels whose registers and spills phase 2 prints from ptxas' report
 PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel",
                  "subset_repack_staged_kernel", "subset_repack_direct_kernel", "gt_counts_kernel",
                  "sample_counts_kernel", "glm_planes_kernel", "dosage_flat_kernel",
                  "dosage_kernel", "dosage_counts_kernel", "relatedness_planes_kernel",
-                 "gt_counts_masked_kernel")
+                 "gt_counts_masked_kernel", "ld_r2_band_kernel", "pca_zq_kernel",
+                 "pca_zty_kernel", "pca_sum_kernel")
 PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
 GLM_ROWS = 1 << 14  # pgen_tpu_torch.ops.glm.DEFAULT_BLOCK_VARIANTS
 COHORT = 2454  # the samples of phase 8's QT: 2% of 2504 missing
@@ -323,12 +344,20 @@ POPULATIONS = 26  # K14's keep masks in phase 3's P = 26 cases: 1000 Genomes' po
 # the card's dense peaks (NVIDIA's H100 SXM data sheet): int8 tensor-core
 # ops, f32 FLOP outside the tensor cores and f64 tensor-core FLOP, per ms
 INT8_OPS_PER_MS = 1979e12 / 1e3
+# K15's .b1 AND-POPC operations (2 M N K a product): no peak is published;
+# chip_diag.py --rates measured 10.08 P a second of mma.sync m16n8k256 .b1
+# on an NVIDIA H100 80GB HBM3 at 700 W, 5.1x the int8 peak, so the bound
+# takes that rate
+B1_OPS_PER_MS = 10.08e15 / 1e3
 FP32_FLOP_PER_MS = 67e12 / 1e3
 FP64_FLOP_PER_MS = 67e12 / 1e3
-# H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: every
-# kernel here moves bytes with a few integer or f32 ops per byte, so bytes
-# bound them all
+# H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: it
+# bounds every kernel here but K15 and K13's pass, whose bound is the larger
+# of their bytes' time and their operations' at the peaks above
 HBM_BYTES_PER_MS = 3.35e9
+LD_BANDS = (9, 49, 420)  # phase 11's ld, prune 50 5 and (about) prune 100kb
+LD_MAX_ROWS = 300  # K15's output rows at MAX_BAND
+APPROX_COLS = 18  # the columns of pca -k 10 --approx's q: k and 8 more
 BURST = 4  # launches queued back to back inside each event pair of burst_ms
 
 
@@ -781,6 +810,65 @@ def _masked_cases(dev, gen):
     return worst
 
 
+def _approx_case(packed, n_samples: int, gen, plant: bool) -> float:
+    """K13's pass against its plain version on the card from the same y0 at
+    the scale of y (the plain pass's y from 0 times N(0, 1)), q of
+    APPROX_COLS columns: the used count exact, y within
+    approx_pass_tolerance of the plain y, and a second pass equal to the
+    first bit for bit. With plant, passes with a planted fault (half the
+    rows dropped, a 256-row chunk dropped, y0 lost, a column shifted) must
+    each lie outside that tolerance, so that the check would see them.
+    Returns the largest |error|."""
+    import torch
+
+    from pgen_tpu_torch.ops.pca import (
+        approx_pass_tolerance,
+        pca_approx_pass,
+        pca_approx_pass_plain,
+    )
+
+    dev = packed.device
+    q = torch.randn((n_samples, APPROX_COLS), device=dev, generator=gen)
+
+    def plain(rows, y0):
+        y = y0.clone()
+        pca_approx_pass_plain(rows, n_samples, q, y, torch.zeros((), dtype=torch.int64,
+                                                                 device=dev))
+        return y
+
+    zero = torch.zeros((n_samples, APPROX_COLS), device=dev)
+    scale = max(float(plain(packed, zero).std()), 1.0)
+    y0 = torch.randn(zero.shape, device=dev, generator=gen) * scale
+    y = [y0.clone() for _ in range(3)]
+    used = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(3)]
+    pca_approx_pass(packed, n_samples, q, y[0], used[0])
+    pca_approx_pass(packed, n_samples, q, y[1], used[1])
+    pca_approx_pass_plain(packed, n_samples, q, y[2], used[2])
+    tol = approx_pass_tolerance(packed, n_samples, q, y0)
+    diff = (y[0].double() - y[2].double()).abs()
+    if not torch.equal(y[0], y[1]):
+        raise AssertionError(f"pca_approx_pass at S={n_samples}: two passes differ")
+    if int(used[0]) != int(used[2]) or bool((diff > tol).any()):
+        raise AssertionError(f"pca_approx_pass at S={n_samples}: used {int(used[0])} against "
+                             f"{int(used[2])}, y off the plain y by up to "
+                             f"{float((diff / tol.clamp(min=1e-300)).max()):.3g} of its tolerance")
+    if plant:
+        v = packed.shape[0]
+        faults = {"half the rows dropped": plain(packed[: v // 2], y0),
+                  "a 256-row chunk dropped": plain(torch.cat([packed[:256], packed[512:]]), y0),
+                  "y0 lost": plain(packed, zero),
+                  "a column shifted": y[0].roll(1, 1)}
+        for fault, bad in faults.items():
+            if not bool(((bad.double() - y[2].double()).abs() > tol).any()):
+                raise AssertionError(f"pca_approx_pass at S={n_samples}: a pass with {fault} "
+                                     "lies within the tolerance")
+        print(f"[3 kernels] pca_approx_pass at S={n_samples}, V={v}: |error| "
+              f"{float(diff.max()):.4g} against a tolerance of {float(tol.min()):.4g} to "
+              f"{float(tol.max()):.4g} (median |y| {float(y[2].abs().median()):.4g}); planted "
+              f"faults ({', '.join(faults)}) all outside it")
+    return float(diff.max())
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns per-kernel errors and
     times at the paths' block shapes (2504 samples, 65,536 rows)."""
@@ -814,8 +902,15 @@ def phase_kernels() -> dict:
         subset_repack_plain,
     )
     from pgen_tpu_torch.ops.glm import LUT_GENO, LUT_MOMENTS, glm_planes, glm_planes_plain
-    from pgen_tpu_torch.ops.ld import ld_centered, ld_centered_plain
-    from pgen_tpu_torch.ops.pca import grm_z, grm_z_plain
+    from pgen_tpu_torch.ops.ld import ld_r2_band, ld_r2_band_plain
+    from pgen_tpu_torch.ops.pca import (
+        approx_scratch,
+        grm_z,
+        grm_z_plain,
+        pca_approx_pass,
+        pca_approx_pass_plain,
+    )
+    from pgen_tpu_torch.pipeline.prune import MAX_BAND
     from pgen_tpu_torch.ops.relatedness import (
         plane_shape,
         relatedness_planes,
@@ -903,8 +998,16 @@ def phase_kernels() -> dict:
                           relatedness_planes_plain(ops, s, sel)))
             got, want = grm_z(ops, s, sel), grm_z_plain(ops, s, sel)
             pairs += [("grm_z", got[0], want[0]), ("grm_z", got[1], want[1])]
-            got, want = ld_centered(ops, s, sel), ld_centered_plain(ops, s, sel)
-            pairs += [("ld_centered", got[0], want[0]), ("ld_centered", got[1], want[1])]
+            # K15 and K13's pass on the records of the samples of sel (K5),
+            # as the paths run them; K15 at MAX_BAND on 300 output rows
+            rows, kept = (ops, s) if sel is None else (subset_repack(ops, sel), sel.shape[0])
+            for band in LD_BANDS:
+                pairs.append(("ld_r2_band", ld_r2_band(rows, kept, band),
+                              ld_r2_band_plain(rows, kept, band)))
+            pairs.append(("ld_r2_band", ld_r2_band(rows, kept, MAX_BAND, LD_MAX_ROWS),
+                          ld_r2_band_plain(rows, kept, MAX_BAND, LD_MAX_ROWS)))
+            err["pca_approx_pass"] = max(err["pca_approx_pass"],
+                                         _approx_case(rows, kept, gen, s in WIDTHS[:2]))
         torch.cuda.synchronize()
         for name, got, want in pairs:
             e = _max_abs_err(got, want)
@@ -917,8 +1020,9 @@ def phase_kernels() -> dict:
               f"K10, K11 at V={ops.shape[0]}): K1, K2 x2 (its output 16-B aligned and 4 B "
               f"past), K3 x{n_k3} (K = 2, 1000, {BIG_K} with repeats; each also 4 B past), K4, "
               f"K5 x{n_k5}, K6, K7, K8, K9 x2 (also at {GLM_ROWS} rows), K10 x4 (P = 2, 3), "
-              "K11 x6 (also tiled, its output 4 B past), K12 x2, K13 x2 and K15 x2 (each with "
-              "and without sel) equal to their plain versions")
+              "K11 x6 (also tiled, its output 4 B past), K12 x2, K13 x2 and K15 x8 (bands "
+              f"{LD_BANDS} and {MAX_BAND} on {LD_MAX_ROWS} rows; each with and without sel, "
+              "K5 first) equal to their plain versions; K13's pass x2 within its tolerance")
 
     err["pack_codes"] = max(err["pack_codes"], _pack_cases(dev, gen))
     err["glm_planes"] = max(err["glm_planes"], _plane_cases(dev, gen, luts))
@@ -990,6 +1094,18 @@ def phase_kernels() -> dict:
     masks1, masks5 = (_keep_masks(s, cohort_sets[:p], dev) for p in (1, COHORTS))
     masks26 = _keep_masks(s, _partition(s, rng), dev)
     ops1, ops5, ops26 = ((mask_words(m), kept_counts(m)) for m in (masks1, masks5, masks26))
+    # K15 at the ld and prune paths' block: 16,384 output rows and the band's
+    # rows after them, all 2504 samples or a sorted 1,001 re-packed by K5;
+    # K13's pass at 16,384 rows, q of 18 columns, the same two cohorts
+    ld_rows = packed[: GLM_ROWS + LD_BANDS[-1]]
+    ld_keep = subset_repack(ld_rows, keep)
+    ld_out = torch.empty(GLM_ROWS * LD_BANDS[-1], dtype=torch.float64, device=dev)
+    ops_keep = subset_repack(ops, keep)
+    q18 = torch.randn((s, APPROX_COLS), device=dev, generator=gen)
+    q18_keep = q18[:KEEP_SAMPLES].contiguous()
+    y18 = torch.zeros((s, APPROX_COLS), device=dev)
+    used18 = torch.zeros((), dtype=torch.int64, device=dev)
+    scratch18 = approx_scratch(GLM_ROWS, s, dev)
     planes_bytes = 4 * plane_shape(REL_ROWS, s)[0] * plane_shape(REL_ROWS, s)[1]
     keep_planes = 4 * plane_shape(REL_ROWS, KEEP_SAMPLES)[0] * plane_shape(REL_ROWS, KEEP_SAMPLES)[1]
     shapes = {
@@ -1090,12 +1206,33 @@ def phase_kernels() -> dict:
                   ops.numel() + GLM_ROWS * (4 * s + 4)),
         f"grm_z K={KEEP_SAMPLES}": (lambda: grm_z(ops, s, keep), lambda: grm_z_plain(ops, s, keep),
                                     None, _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 4)),
-        # c and the f64 norms
-        "ld_centered": (lambda: ld_centered(ops, s), lambda: ld_centered_plain(ops, s), None,
-                        ops.numel() + GLM_ROWS * (4 * s + 8)),
-        f"ld_centered K={KEEP_SAMPLES}": (
-            lambda: ld_centered(ops, s, keep), lambda: ld_centered_plain(ops, s, keep), None,
-            _subset_bytes(GLM_ROWS, keep) + GLM_ROWS * (4 * KEEP_SAMPLES + 8)),
+        # the records and the (rows, band) f64 r²; its operations below
+        "ld_r2_band": (lambda: ld_r2_band(ld_rows[: GLM_ROWS + 9], s, 9, GLM_ROWS, ld_out),
+                       lambda: ld_r2_band_plain(ld_rows[: GLM_ROWS + 9], s, 9, GLM_ROWS), None,
+                       (GLM_ROWS + 9) * rec + GLM_ROWS * 9 * 8),
+        "ld_r2_band band=49": (
+            lambda: ld_r2_band(ld_rows[: GLM_ROWS + 49], s, 49, GLM_ROWS, ld_out),
+            lambda: ld_r2_band_plain(ld_rows[: GLM_ROWS + 49], s, 49, GLM_ROWS), None,
+            (GLM_ROWS + 49) * rec + GLM_ROWS * 49 * 8),
+        "ld_r2_band band=420": (
+            lambda: ld_r2_band(ld_rows, s, 420, GLM_ROWS, ld_out),
+            lambda: ld_r2_band_plain(ld_rows, s, 420, GLM_ROWS), None,
+            ld_rows.numel() + GLM_ROWS * 420 * 8),
+        f"ld_r2_band K={KEEP_SAMPLES}": (
+            lambda: ld_r2_band(ld_keep[: GLM_ROWS + 9], KEEP_SAMPLES, 9, GLM_ROWS, ld_out),
+            lambda: ld_r2_band_plain(ld_keep[: GLM_ROWS + 9], KEEP_SAMPLES, 9, GLM_ROWS), None,
+            (GLM_ROWS + 9) * keep_rec + GLM_ROWS * 9 * 8),
+        # the records, q, and y read and written
+        "pca_approx_pass": (
+            lambda: pca_approx_pass(ops, s, q18, y18, used18, scratch18),
+            lambda: pca_approx_pass_plain(ops, s, q18, y18, used18), None,
+            ops.numel() + 3 * 4 * s * APPROX_COLS),
+        f"pca_approx_pass K={KEEP_SAMPLES}": (
+            lambda: pca_approx_pass(ops_keep, KEEP_SAMPLES, q18_keep, y18[:KEEP_SAMPLES],
+                                    used18, scratch18),
+            lambda: pca_approx_pass_plain(ops_keep, KEEP_SAMPLES, q18_keep, y18[:KEEP_SAMPLES],
+                                          used18), None,
+            ops_keep.numel() + 3 * 4 * KEEP_SAMPLES * APPROX_COLS),
         # the record bytes that hold a kept sample of any mask, the masks and
         # the (V, P, 4) int32 counts
         "gt_counts_masked": (lambda: gt_counts_masked(packed, masks1, *ops1),
@@ -1110,6 +1247,14 @@ def phase_kernels() -> dict:
                                               _kept_bytes(BLOCK_ROWS, masks26)
                                               + BLOCK_ROWS * 16 * POPULATIONS),
     }
+    # the operations of K15 (18 K binary operations a pair: nine AND-POPC
+    # products of K bits) and of K13's pass (4 K L FLOP a row), at the peaks
+    # for their types; the larger of them and the bytes' time is the bound
+    op_bounds = {f"ld_r2_band{tag}": (18 * k * GLM_ROWS * band, B1_OPS_PER_MS)
+                 for tag, k, band in (("", s, 9), (" band=49", s, 49), (" band=420", s, 420),
+                                      (f" K={KEEP_SAMPLES}", KEEP_SAMPLES, 9))}
+    op_bounds.update({f"pca_approx_pass{tag}": (4 * k * APPROX_COLS * GLM_ROWS, FP32_FLOP_PER_MS)
+                      for tag, k in (("", s), (f" K={KEEP_SAMPLES}", KEEP_SAMPLES))})
     times = {}
     for name, (kernel, plain, library, nbytes) in cases.items():
         # alternate plain, kernel, kernel, plain (and library, library) so
@@ -1122,20 +1267,43 @@ def phase_kernels() -> dict:
             if not torch.equal(library(), kernel()):
                 raise AssertionError(f"{name}: the PyTorch call differs from the kernel")
             library_ms = statistics.median([_time_ms(library), _time_ms(library)])
-        bound_ms = nbytes / HBM_BYTES_PER_MS
+        n_ops, peak = op_bounds.get(name, (0, 1.0))
+        bound_by = "operations" if n_ops / peak > nbytes / HBM_BYTES_PER_MS else "bytes"
+        bound_ms = max(n_ops / peak, nbytes / HBM_BYTES_PER_MS)
         times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "burst_ms": burst_ms}
-        rows = (GLM_ROWS if name.startswith(("glm_planes", "score_dosage", "grm_z", "ld_centered"))
+                       "bound_ms": bound_ms, "burst_ms": burst_ms, "bound_by": bound_by}
+        rows = (GLM_ROWS if name.startswith(("glm_planes", "score_dosage", "grm_z", "ld_r2_band",
+                                             "pca_approx_pass"))
                 else BLOCK_ROWS)
         shape = shapes.get(name, f"({rows}, {rec}) S={s}")
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"[3 kernels] {name} at {shape}: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB moved), "
               f"plain {plain_ms:.4f} ms")
-        print(f"[3 kernels] {name}: bound {bound_ms:.4f} ms (bytes at 3.35 TB/s), kernel at "
+        print(f"[3 kernels] {name}: bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / HBM_BYTES_PER_MS:.4f} ms for the bytes at 3.35 TB/s, "
+              f"{n_ops / peak:.4f} ms for {n_ops:.4g} operations at the peak), kernel at "
               f"{100 * bound_ms / ms:.1f}% of it; one PyTorch call {lib}")
         print(f"[3 kernels] {name}: {BURST} launches per event pair {burst_ms:.4f} ms a launch, "
               f"{100 * bound_ms / burst_ms:.1f}% of the bound")
+    # K13's pass beside the parent's chain for the same work: K13's z, then
+    # the two fp32 products (ops/pca.py before the pass kernels), in turns
+    def chain(rows, sel, q):
+        from pgen_tpu_torch.device import matmul_fp32
+
+        z, _ = grm_z(rows, s, sel)
+        return matmul_fp32(z.T, matmul_fp32(z, q))
+
+    for name, (kernel, rows, sel, q) in {
+            "pca_approx_pass": (cases["pca_approx_pass"][0], ops, None, q18),
+            f"pca_approx_pass K={KEEP_SAMPLES}": (cases[f"pca_approx_pass K={KEEP_SAMPLES}"][0],
+                                                  ops, keep, q18_keep)}.items():
+        c1, k1, k2, c2 = (_time_ms(f) for f in (lambda: chain(rows, sel, q), kernel, kernel,
+                                                  lambda: chain(rows, sel, q)))
+        times[name]["chain_ms"] = statistics.median([c1, c2])
+        print(f"[3 kernels] {name}: the parent's chain (K13 z, two fp32 products) "
+              f"{c1:.4f} / {c2:.4f} ms, the pass {k1:.4f} / {k2:.4f} ms (chain, pass, pass, "
+              f"chain): {statistics.median([c1, c2]) / statistics.median([k1, k2]):.2f}x")
     return {"err": err, "times": times, "products": _time_products(rel, ops, s)}
 
 
@@ -1143,14 +1311,14 @@ def _time_products(rel, ops, s) -> dict:
     """The library products beside K12 and K13 at the paths' block shapes:
     one torch._int_mm Gram of K12's planes (2 S^2 x 32,768 int8 ops), one
     z'z in f64 as the exact GRM makes it (z cast in chunks of rows; 2 S^2 x
-    16,384 FLOP) and in full fp32 as pgen_tpu makes it, one --approx
-    pass's z'(z q) (q of 18 columns) and the first product of a logistic
+    16,384 FLOP) and in full fp32 as pgen_tpu makes it, the two products
+    of an --approx pass before K13's pass kernels, z'(z q) (q of 18
+    columns), and the first product of a logistic
     IRLS iteration (X5: r C of a 256-variant block over phase 8 (c)'s
     cohort, k = 2), each against the card's dense peak for its type."""
     import torch
 
-    from pgen_tpu_torch.device import full_fp32, matmul_fp32
-    from pgen_tpu_torch.ops.ld import ld_centered
+    from pgen_tpu_torch.device import matmul_fp32
     from pgen_tpu_torch.ops.pca import add_gram_fp64, grm_z
     from pgen_tpu_torch.ops.relatedness import relatedness_planes
 
@@ -1177,32 +1345,6 @@ def _time_products(rel, ops, s) -> dict:
         "irls_first_matmul_fp32": (lambda: matmul_fp32(r_irls, c_irls), 2 * 256 * COHORT * 2,
                                    FP32_FLOP_PER_MS, "fp32"),
     }
-    # K15's tile Grams as ops/ld.py makes them: tile t (band rows of c)
-    # against its overlapping window, rows [t band, t band + 2 band), at
-    # the bands of phase 11's ld (9) and prune (49), a 16,384-row block
-    for band in (9, 49):
-        tiles = GLM_ROWS // band
-        c, _ = ld_centered(rel[: (tiles + 1) * band], s)
-        a = c[: tiles * band].view(tiles, band, s)
-        w = c.as_strided((tiles, 2 * band, s), (band * s, s, 1)).transpose(1, 2)
-
-        def tile_grams(a=a, w=w):
-            with full_fp32():
-                return torch.bmm(a, w)
-
-        # within what a sequential f32 sum of s terms may round to (s ulps
-        # of the largest entry, a diagonal one): cuBLAS's kernel at band 49
-        # sums each entry in order, 2.4e-5 of it off on an H100
-        want = torch.bmm(a.double(), w.double())
-        err = float((tile_grams().double() - want).abs().max() / want.abs().max())
-        if err > s * 2.0 ** -24:
-            raise AssertionError(f"the band-{band} tile Grams are {err:.3g} off an f64 product")
-        copies = _copies_in(tile_grams)
-        print(f"[3 kernels] product bmm_band{band}: {tiles} tiles of {band} x {s} against "
-              f"windows of {2 * band} rows, {err:.2g} of max off an f64 product; copies of the "
-              f"overlapping windows in a trace: {copies or 'none'}")
-        cases[f"bmm_band{band}_fp32"] = (tile_grams, 4 * tiles * band * band * s,
-                                         FP32_FLOP_PER_MS, "fp32")
     out = {}
     for name, (fn, ops_n, peak, kind) in cases.items():
         ms = statistics.median([_time_ms(fn), _time_ms(fn)])
@@ -1216,20 +1358,6 @@ def _time_products(rel, ops, s) -> dict:
           f"{irls_bytes / HBM_BYTES_PER_MS:.5f} ms at 3.35 TB/s, "
           f"{100 * irls_bytes / HBM_BYTES_PER_MS / out['irls_first_matmul_fp32']['ms']:.1f}% of it")
     return out
-
-
-def _copies_in(fn) -> list:
-    """Names of the copy operations and kernels one call of fn runs, from a
-    torch.profiler trace of the host and the card."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events()}
-    return sorted(n for n in names if n in ("aten::clone", "aten::contiguous", "aten::copy_")
-                  or "copy" in n.lower() and not n.startswith("aten::"))
 
 
 def _check_gt_text(vcf: Path, packed, rows, sample_idx) -> None:
@@ -2381,7 +2509,7 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     for label, argv, name in region_runs[-3:]:
         run(label, argv, tmp / f"cuda.{name}")
     launches = _read_launches()
-    for kname in ("relatedness_planes", "grm_z"):
+    for kname in ("relatedness_planes", "grm_z", "pca_approx_pass"):
         if launches[kname] <= 0:
             raise AssertionError(f"{kname} never launched on the relatedness path")
 
@@ -2902,9 +3030,10 @@ def phase_ld(tmp: Path, full: Path) -> list:
     variant at the defaults (window 10, 1000 kb, r² 0.2), the pairs of a
     seeded 20,000-variant region exactly those of the port's
     banded_r2_numpy (f64) and their R2 within rtol 1e-4 atol 1e-6 (and six
-    digits); (b) ld --ld-window 50 --ld-window-r2 0 on the region with a
-    --samples-file of 1,001 IIDs (K15 with sel) against --device cpu, pairs
-    exact and R2 at that tolerance; (c) prune 50 5 0.2 over every variant:
+    digits), then ld at the defaults on the region sha256-equal to --device
+    cpu; (b) ld --ld-window 50 --ld-window-r2 0 on the region with a
+    --samples-file of 1,001 IIDs (K5, then K15) sha256-equal to --device
+    cpu; (c) prune 50 5 0.2 over every variant:
     on 2,000 seeded windows of its walk no two kept variants over r² 0.2 by
     the f64 oracle; on the region prune 50 5 0.2, and 100kb 1 0.5 with the
     cohort, each list equal to greedy_prune on the oracle's band and
@@ -2968,9 +3097,14 @@ def phase_ld(tmp: Path, full: Path) -> list:
     # (a) ld over every variant at the defaults
     _reset_launches()
     full_run("(a) ld, every variant", ["ld", prefix], tmp / "a.ld")
+    seconds, _ = _port_cli(["ld", prefix, *region], tmp / "cuda.a.ld", "cuda")
+    timed("(a) ld, region", seconds)
     launches.append(_read_launches())
-    if launches[-1]["ld_centered"] <= 0:
-        raise AssertionError("(a) ld_centered never launched")
+    _port_cli(["ld", prefix, *region], tmp / "cpu.a.ld", "cpu")
+    region_pairs = sum(1 for _ in open(tmp / "cuda.a.ld")) - 1
+    _same_files("(a) ld on the region", [(tmp / "cuda.a.ld", tmp / "cpu.a.ld")])
+    if launches[-1]["ld_r2_band"] <= 0:
+        raise AssertionError("(a) ld_r2_band never launched")
     n_rows = sum(1 for _ in open(tmp / "a.ld")) - 1
     got = _ld_pairs(tmp / "a.ld", region_rows)
     ii, dd = np.nonzero(oracle[:, :9] >= 0.2)
@@ -2982,7 +3116,8 @@ def phase_ld(tmp: Path, full: Path) -> list:
                           np.array(list(want.values())), 1e-4, 1e-6)
     (tmp / "a.ld").unlink()
     print(f"[11 ld] (a) {n_rows} pairs over every variant; the region's {len(got)} pairs those "
-          f"of the f64 oracle, R2 at {worst:.3g} of rtol 1e-4 atol 1e-6")
+          f"of the f64 oracle, R2 at {worst:.3g} of rtol 1e-4 atol 1e-6; the region run's "
+          f"{region_pairs} pairs equal to --device cpu's (sha256)")
 
     # (b) a wide window over the cohort, all pairs, on the region
     b_argv = ["ld", prefix, "--ld-window", "50", "--ld-window-r2", "0", "--samples-file",
@@ -2993,15 +3128,11 @@ def phase_ld(tmp: Path, full: Path) -> list:
     timed("(b) ld --ld-window 50 --ld-window-r2 0, cohort, region", seconds)
     seconds, _ = _port_cli(b_argv, tmp / "cpu.b.ld", "cpu")
     timed("(b) the same, --device cpu", seconds)
-    got, want = _ld_pairs(tmp / "cuda.b.ld"), _ld_pairs(tmp / "cpu.b.ld")
-    if set(got) != set(want) or len(got) != LD_REGION * 49 - 49 * 50 // 2:
-        raise AssertionError(f"(b) {len(got)} pairs on cuda, {len(want)} on cpu")
-    worst = _assert_close("(b) R2", np.array([float(got[k]) for k in want]),
-                          np.array([float(v) for v in want.values()]), 1e-4, 1e-6)
-    (tmp / "cuda.b.ld").unlink()
-    (tmp / "cpu.b.ld").unlink()
-    print(f"[11 ld] (b) {len(got)} pairs, the same on cuda and cpu, R2 at {worst:.3g} of "
-          "rtol 1e-4 atol 1e-6")
+    got = _ld_pairs(tmp / "cuda.b.ld")
+    if len(got) != LD_REGION * 49 - 49 * 50 // 2:
+        raise AssertionError(f"(b) {len(got)} pairs on cuda")
+    _same_files("(b) ld --ld-window 50, cohort", [(tmp / "cuda.b.ld", tmp / "cpu.b.ld")])
+    print(f"[11 ld] (b) {len(got)} pairs, equal to --device cpu's (sha256)")
 
     # (c) prune over every variant, then on the region against the oracle
     _reset_launches()
@@ -3050,7 +3181,7 @@ def phase_ld(tmp: Path, full: Path) -> list:
         print(f"[11 ld] (c) prune {label} on the region: {int(expect.sum())} kept, equal to "
               "greedy_prune on the f64 oracle's band and to --device cpu's (sha256)")
     launches.append(_read_launches())
-    for kname in ("ld_centered", "gt_counts_device", "gt_counts_masked"):
+    for kname in ("ld_r2_band", "gt_counts_device", "gt_counts_masked"):
         if launches[-1][kname] <= 0:
             raise AssertionError(f"(c) {kname} never launched")
 
@@ -4084,6 +4215,7 @@ def phase_files(tmp: Path, full: Path, ragged: Path, refs: dict, device: str = "
 
 A4_REGION = 5000  # phase 15 (a): variants of the -r region whose rows are written
 A4_DUP_EVERY = 10  # phase 15 (a) --rm-dup: every 10th region row takes the ID before it
+A4_TWIN_PAD = 7500  # phase 15 (a): rows on each side of the region in the twins' fileset
 CPU_TWIN_THREADS = 2  # phase 15 (a): torch threads of each of the four --device cpu runs
 COUNT_KERNELS = ("gt_counts_device", "sample_counts_device", "gt_counts_masked")
 
@@ -4151,6 +4283,16 @@ def _dup_fileset(tmp: Path, full: Path, rows) -> tuple:
     return prefix, ids
 
 
+def _region_copy(prefix: Path, src: Path, rows, packed) -> Path:
+    """A fileset of ``rows`` of the fileset ``src`` whose records are
+    ``packed``: the records and .pvar rows taken, the .psam copied."""
+    prefix.parent.mkdir()
+    head, body = _pvar_parts(src)
+    _write_fileset(prefix, packed[rows], head, [body[i] for i in rows], Path(f"{src}.psam"),
+                   len(_read_fileset(src)[0]))
+    return prefix
+
+
 def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> dict:
     """The last of pgen_tpu's surface on the card, on the full chr22
     fixture. (a) --provider device's GT_* counts under --shards 2 (in this
@@ -4166,9 +4308,12 @@ def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> di
     worker's --stats line 17). Each VCF is checked with numpy against the
     .pgen (kept rows and samples from numpy's counts; the .rmdup.list
     against numpy's), then by sha256 against the lone --provider device
-    filter and the same run on --device cpu (the plain counts, each case
-    in a process of its own, all four beside the card's runs on
-    ``CPU_TWIN_THREADS`` threads each); the --workers run against the
+    filter; and each case on a fileset of the 20,000 rows around the
+    region (of the fixture, or of its --rm-dup copy) on the card against
+    the same run on --device cpu (the plain counts, each case in a process
+    of its own, all four beside the card's runs on ``CPU_TWIN_THREADS``
+    threads each: over every row they took 37.6-65.3 s each, the
+    smoke's time); the --workers run against the
     --shards run's. (b) run_distributed_filter as two processes at once
     (PGEN_TPU_COORDINATOR, _NUM_PROCS, _PROC_ID) on the visible card(s):
     keep-two with shared_fs, then, in the same processes with a group of
@@ -4202,6 +4347,9 @@ def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> di
     maf_rows, cohort_rows = in_region[maf >= maf_thr], in_region[cmaf >= cmaf_thr]
     miss_samples = np.flatnonzero(missing_rate < miss_thr)
     dup, ids = _dup_fileset(tmp, full, in_region)
+    twin_rows = np.arange(max(0, lo - A4_TWIN_PAD), min(n_var, lo + A4_REGION + A4_TWIN_PAD))
+    twins = {src: _region_copy(tmp / f"twin15_{k}" / "chr22", src, twin_rows, packed)
+             for k, src in enumerate((full, dup))}
     kept_ids = [ids[i] for i in maf_rows]
     want_dups = sorted(x.decode() for x in set(kept_ids) if kept_ids.count(x) > 1)
     print(f"[15 surface] full chr22 ({n_var} variants x {len(iids)} samples), rows written of "
@@ -4231,17 +4379,17 @@ def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> di
     def outputs(out: Path) -> list:
         return [out] + ([Path(f"{out}.rmdup.list")] if Path(f"{out}.rmdup.list").exists() else [])
 
-    def run_argv(i: int) -> list:
-        return ["filter", cases[i][1], *cases[i][2], "--provider", "device"]
+    def run_argv(i: int, fileset=None) -> list:
+        return ["filter", fileset or cases[i][1], *cases[i][2], "--provider", "device"]
 
-    # the --device cpu runs (the plain counts over every row, twice for
-    # --rm-dup), each case in a process of its own, all started beside the
-    # card's runs
-    cpu_procs = []
+    # the --device cpu runs on the twins' filesets (the plain counts over
+    # their rows, twice for --rm-dup), each case in a process of its own,
+    # all started beside the card's runs
+    cpu_procs, twin_shas = [], []
     try:
         for i in range(len(cases)):
-            cpu_run = [*map(str, run_argv(i)), "--shards", "2", "--device", "cpu", "-o",
-                       str(tmp / f"a4_{i}_cpu.vcf")]
+            cpu_run = [*map(str, run_argv(i, twins[cases[i][1]])), "--shards", "2", "--device",
+                       "cpu", "-o", str(tmp / f"a4_{i}_cpu.vcf")]
             log = open(tmp / f"a4_{i}_cpu.err", "w+")
             cpu_procs.append((subprocess.Popen(
                 [sys.executable, "-c", _CPU_RUNS, json.dumps([cpu_run]), str(CPU_TWIN_THREADS)],
@@ -4279,6 +4427,12 @@ def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> di
                 f.unlink()
             out.unlink()
             shas.append(hashes)
+            # the same on the twins' fileset, against the --device cpu run
+            twin = tmp / f"a4_{i}_twin.vcf"
+            _port_cli([*run_argv(i, twins[cases[i][1]]), "--shards", "2"], twin, device)
+            twin_shas.append([_sha256(f) for f in outputs(twin)])
+            for f in outputs(twin):
+                f.unlink()
             print(f"[15 surface] (a) --shards 2 {label}: GT text equal to numpy's decode of the "
                   f".pgen{', .rmdup.list to numpy' if len(hashes) > 1 else ''}, sha256-equal to "
                   f"the lone run; count launches {delta} = {blocks} x {computations}; wall cuda "
@@ -4353,16 +4507,19 @@ def phase_surface(tmp: Path, full: Path, refs: dict, device: str = "cuda") -> di
                                      f"{proc.returncode}\n{log.read()[-3000:]}")
             cpu_walls += json.loads(cpu_out.strip().splitlines()[-1])
             other = tmp / f"a4_{i}_cpu.vcf"
-            if [_sha256(f) for f in outputs(other)] != shas[i]:
+            if [_sha256(f) for f in outputs(other)] != twin_shas[i]:
                 raise AssertionError(f"(a) {cases[i][0]}: the --device cpu run's files differ")
             for f in outputs(other):
                 f.unlink()
-        print(f"[15 surface] (a) --device cpu runs beside the card's ({CPU_TWIN_THREADS} threads "
-              "each), each sha256-equal: "
+        print(f"[15 surface] (a) on the {len(twin_rows)} rows around the region, --device cpu "
+              f"runs beside the card's ({CPU_TWIN_THREADS} threads each), each sha256-equal to "
+              "the card's run: "
               + ", ".join(f"{case[0]} {w:.3f} s" for case, w in zip(cases, cpu_walls)))
         cohort_file.unlink()
         for ext in (".pgen", ".pvar", ".psam"):
             Path(f"{dup}{ext}").unlink()
+            for twin in twins.values():
+                Path(f"{twin}{ext}").unlink()
     finally:
         for proc, log in cpu_procs:
             if proc.poll() is None:
@@ -4533,10 +4690,13 @@ def _smoke(argv: list, started: float, torch) -> int:
                 "name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
                 "launches": sum(launches[kname] for launches in per_path),
                 "max_abs_err": measured["err"][kname], "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": "bytes", "library_ms": m["library_ms"],
-                "burst_ms": m["burst_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": m["library_ms"], "burst_ms": m["burst_ms"],
             })
-        print(f"[smoke] products beside K12, K13 and K15: {json.dumps(measured['products'])}")
+        print(f"[smoke] products beside K12 and K13: {json.dumps(measured['products'])}")
+        print("[smoke] launches count wrapper calls; a call of pca_approx_pass launches three "
+              "kernels (pca_zq_kernel, pca_zty_kernel, pca_sum_kernel) for each 24 of q's "
+              "columns")
         print(json.dumps({"kernels": rows}))
     if collectives:
         print(f"[smoke] mesh collectives a card count: {json.dumps(collectives)}")

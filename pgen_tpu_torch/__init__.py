@@ -14,8 +14,8 @@ that each counterpart is easy to find:
                       predicates to torch ops on the device
   ops/                the kernels' wrappers: unpack (K1), gt_text (K2, K3,
                       K6, K7), pack (K4, K5), gt_stats (K8, K9, K14), glm
-                      (K10), score (K11), relatedness (K12), pca (K13), ld
-                      (K15); the logistic IRLS, king, ibd, hwe and adjust
+                      (K10), score (K11), relatedness (K12), pca (K13 and
+                      its --approx pass), ld (K15); the logistic IRLS, king, ibd, hwe and adjust
   pipeline/           every subcommand: filter (filter_to_vcf, one GPU;
                       derive_row_layout and duplicated_ids with the GT_*
                       counts on the device for --provider device),

@@ -1,8 +1,9 @@
 // Genotype kernels for Hopper (sm_90a): packed 2-bit records <-> codes, a
 // sample subset of records re-packed, records or codes -> VCF GT text,
 // records -> per-variant and per-sample code counts, records -> the f32
-// operands of the GWAS moment, polygenic score, GRM/PCA and LD products,
-// and records -> the int8 indicator planes of the relatedness Grams.
+// operands of the GWAS moment, polygenic score and GRM products, records ->
+// LD's banded r² and pca --approx's pass y += Z^T (Z q), and records -> the
+// int8 indicator planes of the relatedness Grams.
 // Built by pgen_tpu_torch/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes.
 //
@@ -832,7 +833,6 @@ constexpr int64_t kMaskedWholeRow = 640;  // record bytes of a row staged whole
 constexpr int64_t kMaskedChunk = 512;     // record bytes of a chunk of a longer row
 constexpr int kMaskedStages = 2;          // tiles of a block in shared memory
 constexpr int kMaskedThreads = kWarp * kMaskedRows / 16;  // a warp for each 16 rows
-constexpr int kMaskedFits = 4;            // launch shapes the launcher keeps
 
 struct MaskedArgs {
   const uint8_t* packed;
@@ -849,14 +849,6 @@ struct MaskedArgs {
   int word_stride;         // E words of a mask in the operand: 8 ceil(R / 32)
   int mask_stride;         // u32 between masks in shared memory
   int n_mbufs;             // mask buffers: 1 (whole rows) or kMaskedStages
-};
-
-// A launch shape the card was asked about: device, dynamic shared memory,
-// kernel and the blocks of that shape it holds at once.
-struct MaskedFit {
-  int device = -1, smem = 0;
-  void (*kernel)(MaskedArgs) = nullptr;
-  int64_t blocks = 0;
 };
 
 // A step of a block: chunk c of an item (tile `unit`, chunks [c0, end)),
@@ -1546,17 +1538,16 @@ __global__ void glm_planes_kernel(const uint8_t* __restrict__ packed,
 //   1,024-row block with too few warps in flight: 0.4 ms. The tiled kernel
 //   then reads each row's table from the sums.
 // The three kernels take the row's table from a policy (ScoreRows here,
-// GrmRows for K13, LdRows for K15), and write the policy's per-row value
-// (its Out: an int, K15's an f64 norm) to row_out; the chunked form's sums
-// are (kSums x V) ints at sums (n, the row sum, and for K15 c2). K11 passes
-// called for both: in the chunked form its row_out value is the n_called
-// already there.
+// GrmRows for K13), and write the policy's per-row value (its Out) to
+// row_out; the chunked form's sums are (kSums x V) ints at sums (n, then the
+// row sum). K11 passes called for both: in the chunked form its row_out
+// value is the n_called already there.
 struct ScoreRows {
   using Out = int32_t;
   static constexpr int kSums = 2;  // the chunked form's sums: n, then the row sum
   // a called code's effect dosage, a missing call's fill; the called count
-  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t sum, uint32_t,
-                                                  bool flipped, int mean_impute, float (&t)[4]) {
+  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t sum, bool flipped,
+                                                  int mean_impute, float (&t)[4]) {
     t[0] = flipped ? 2.0f : 0.0f;
     t[1] = 1.0f;
     t[2] = flipped ? 0.0f : 2.0f;
@@ -1588,7 +1579,7 @@ struct GrmRows {
   using Out = int32_t;
   static constexpr int kSums = 2;
   // z of codes 0, 1, 2 and of a missing call; the used flag
-  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t ac, uint32_t, bool, int,
+  __device__ static __forceinline__ int32_t table(uint32_t n, uint32_t ac, bool, int,
                                                   float (&t)[4]) {
     const float nf = static_cast<float>(n);
     const float p = n > 0 ? static_cast<float>(ac) / fmaxf(2.0f * nf, 1.0f) : 0.0f;
@@ -1604,49 +1595,8 @@ struct GrmRows {
   }
 };
 
-// K15. Replaces the decode and centering legs of pgen_tpu/ops/ld.py's
-// banded_r2_device, inner _tiles (:128-137): the Pallas _unpack_kernel, the
-// XLA take of the cohort's columns, the f32 mean-imputed centered dosages c
-// and their squared norms, before the tile Grams (torch.bmm in full fp32 in
-// the caller, as pgen_tpu pins Precision.HIGHEST).
-// (V, R) u8 records + sel (K) int32 ids (or null: K = S) -> c (V, K) f32
-// and norm2 (V) f64. Per row, over the selected samples: n = called count,
-// ac = c1 + 2 c2, m = ac / max(n, 1) in f32 with IEEE division (the
-// reference's f32 sums of 0/1/2 are exact below 2^24), then c = g - m on a
-// called entry and 0 on a missing one; norm2 = sum_k n_k t_k^2 in f64 over
-// the codes' counts n_k and the row's table t = {0 - m, 1 - m, 2 - m}, each
-// product and sum rounded on its own (no fused multiply-add), so the plain
-// version's f64 ops give the same bits.
-// Bound: memory, K13's: 4 B written per selected sample against a quarter
-// byte read: a 16,384-row block of 2504 samples writes 164 MB, 0.052 ms at
-// 3.35 TB/s. Design: K11's three forms with this per-row table; the norm
-// needs the row's third count (c2), which the chunked form's count pass
-// sums as a third row of sums.
-struct LdRows {
-  using Out = double;
-  static constexpr int kSums = 3;
-  // c of codes 0, 1, 2 and of a missing call; the row's squared norm
-  __device__ static __forceinline__ double table(uint32_t n, uint32_t ac, uint32_t c2, bool, int,
-                                                 float (&t)[4]) {
-    const float m = __fdiv_rn(static_cast<float>(ac), fmaxf(static_cast<float>(n), 1.0f));
-    t[0] = 0.0f - m;
-    t[1] = 1.0f - m;
-    t[2] = 2.0f - m;
-    t[3] = 0.0f;
-    const uint32_t c1 = ac - 2 * c2;
-    const uint32_t counts[3] = {n - c1 - c2, c1, c2};
-    double norm2 = 0.0;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const double tk = static_cast<double>(t[k]);
-      norm2 = __dadd_rn(norm2, __dmul_rn(static_cast<double>(counts[k]), __dmul_rn(tk, tk)));
-    }
-    return norm2;
-  }
-};
-
 // A row's sum for the policies: the effect-allele dosage sum (flipped: 2 c0
-// + c1) for K11, the alt count for K13 and K15 (flip is null there).
+// + c1) for K11, the alt count for K13 (flip is null there).
 __device__ __forceinline__ uint32_t row_sum(const uint32_t c[4], bool flipped) {
   return flipped ? 2 * c[0] + c[1] : c[1] + 2 * c[2];
 }
@@ -1667,8 +1617,8 @@ __global__ void dosage_flat_kernel(const uint8_t* __restrict__ packed,
     row_code_counts<1>(rows, static_cast<int>(4 * n_quads), lane, counts);
     const uint32_t* c = counts[0];
     float t[4];
-    const typename Rows::Out value = Rows::table(c[0] + c[1] + c[2], row_sum(c, flipped), c[2],
-                                                 flipped, mean_impute, t);
+    const typename Rows::Out value =
+        Rows::table(c[0] + c[1] + c[2], row_sum(c, flipped), flipped, mean_impute, t);
     if (lane == 0) row_out[v] = value;
     auto dose = [&](uint32_t code) {
       return code == 0u ? t[0] : (code == 1u ? t[1] : (code == 2u ? t[2] : t[3]));
@@ -1686,7 +1636,7 @@ __global__ void dosage_counts_kernel(const uint8_t* __restrict__ packed,
                                      const int32_t* __restrict__ sel,
                                      const uint8_t* __restrict__ flip,
                                      int32_t* __restrict__ sums, int64_t n_var, int64_t rec,
-                                     int n_samples, int n_kept, int chunk, int n_sums) {
+                                     int n_samples, int n_kept, int chunk) {
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* ids = reinterpret_cast<int32_t*>(smem);
   const int c0 = blockIdx.y * chunk;  // this block's columns [c0, c0 + kc)
@@ -1716,7 +1666,6 @@ __global__ void dosage_counts_kernel(const uint8_t* __restrict__ packed,
       atomicAdd(sums + v, static_cast<int>(c[0] + c[1] + c[2]));
       atomicAdd(sums + n_var + v,
                 static_cast<int>(row_sum(c, flip != nullptr && flip[v] != 0)));
-      if (n_sums > 2) atomicAdd(sums + 2 * n_var + v, static_cast<int>(c[2]));
     }
   }
 }
@@ -1763,20 +1712,18 @@ __global__ void dosage_kernel(const uint8_t* __restrict__ packed,
     if (tid < rows) {
       const int64_t v = v0 + tid;
       const bool flipped = flip != nullptr && flip[v] != 0;
-      uint32_t n, sum, c2 = 0;
+      uint32_t n, sum;
       if (chunked) {
         n = static_cast<uint32_t>(sums[v]);
         sum = static_cast<uint32_t>(sums[n_var + v]);
-        if (Rows::kSums > 2) c2 = static_cast<uint32_t>(sums[2 * n_var + v]);
       } else {
         uint32_t* c = counts + 4 * tid;
         n = c[0] + c[1] + c[2];
         sum = row_sum(c, flipped);
-        c2 = c[2];
         c[0] = c[1] = c[2] = c[3] = 0;  // for the next tile, after two barriers
       }
       float tab[4];
-      const typename Rows::Out value = Rows::table(n, sum, c2, flipped, mean_impute, tab);
+      const typename Rows::Out value = Rows::table(n, sum, flipped, mean_impute, tab);
       if (!chunked || blockIdx.y == 0) row_out[v] = value;
 #pragma unroll
       for (int k = 0; k < 4; ++k) table[4 * tid + k] = tab[k];
@@ -1785,6 +1732,520 @@ __global__ void dosage_kernel(const uint8_t* __restrict__ packed,
     store_span(out + v0 * n_kept + c0, rows * kc, tile, table);
     __syncthreads();  // before the next tile's codes overwrite these
   }
+}
+
+// K15. Replaces pgen_tpu/ops/ld.py's banded_r2_device (:106): its
+// _tiles (:128-150: the Pallas _unpack_kernel, the XLA take of the cohort,
+// the f32 mean-imputed centered dosages c, their norms and the HIGHEST
+// einsum of each band tile against its window) and the f64 r² of :151-160.
+// Its first form wrote c, 16 times the records' bytes, for
+// torch.bmm tile Grams; this one counts each pair's products from the codes.
+// (n_rows, R) u8 records of S samples (a cohort is re-packed by K5 first)
+// -> out (n_out, band) f64, out[i][d] = r²(i, i + 1 + d); a row at or past
+// n_rows is all missing (r² 0). Per row, over its S samples: n called, ac =
+// c1 + 2 c2, the mean m = ac / max(n, 1) in f32 and ||c||² = sum_k c_k t_k²
+// in f64 with t_k = k - m in f32 (its first form's table and norm). Per pair, with
+// three bit planes of a row, U1 (code 1 or 2), U2 (code 2) and V (called),
+// so that the dosage x = U1 + U2 (0 on a missing call):
+//   S_xx = sum x_i x_j = U1U1 + U1U2 + U2U1 + U2U2 (each an AND-POPC count),
+//   S_xi = sum of x_i over j's called samples = U1V + U2V, S_xj = VU1 + VU2,
+//   N = VV, dot = S_xx - m_j S_xi - m_i S_xj + m_i m_j N,
+//   r² = dot² / (||c_i||² ||c_j||²), 0 where that product is 0;
+// the counts are exact integers (under 2^31 at 40,003 samples), and every
+// f64 product, sum and quotient is rounded on its own in this order, as
+// ld_r2_band_plain's tensor operations round them: the two agree bit for bit
+// (no square root: torch's f64 sqrt on the CPU is not correctly rounded).
+// Bound: a block of 16,384 rows of 2504 samples reads 10.3 MB of records
+// and writes 1.2 MB of r² at band 9 (6.4 MB at 49): 0.0034 (0.0050) ms at
+// 3.35 TB/s; its 9 x 2 x 2504 binary operations a pair, 6.6 G at band 9 (36
+// G at 49), take 0.0034 (0.018) ms at the int8 tensor rate of 1,979 TOPS.
+// Design: a block takes an item, 64 output rows (a warp each 16) by a tile
+// of DT = 8 NT - 15 offsets d (NT the n-tiles of 8 columns a warp takes, 2
+// to 8: DT up to 49, the whole band below 50), and stages the rows the item
+// reads, the 64 rows then their window of 48 + 8 NT rows (one run when the
+// two overlap), in chunks of kLdChunk record bytes: cp.async copies of the
+// aligned 16-B words that hold each row's chunk into a raw slot, the next
+// chunk's copies in flight while this one is counted. The raw bytes become
+// the three planes in shared memory (two record words a plane word of 32
+// samples; bytes past the row's end read 0xFF and its last byte's pad
+// slots 3, so neither counts), each row's n, popc(U1) and popc(U2) summed
+// over the chunks as they pass. A warp then takes its 16 rows against the
+// 8 NT columns of its window with mma.sync m16n8k256 .b1 AND-POPC (K14's),
+// nine products a k-step and n-tile into four sums. The epilogue works out
+// each staged row's m and squared norm, and each lane the r² of its
+// fragment's pairs that fall in the item's tile.
+constexpr int kLdRows = 64;                 // output rows of an item
+constexpr int kLdWarps = kLdRows / 16;
+constexpr int kLdThreads = kLdWarps * kWarp;
+constexpr int kLdChunk = 128;               // record bytes of a row staged at a time: two k-steps
+constexpr int kLdWords = kLdChunk / 8;      // plane words (32 samples) of a row's chunk
+constexpr int kLdPitch = 3 * kLdWords + 4;  // u32 of a row's planes: 4 (mod 8), so 8 rows x 4 words
+                                            // of a fragment load hit 32 banks
+constexpr int kLdSlot = kLdChunk + 32;      // raw bytes of a row's slot: lead, chunk, funnel slack
+constexpr int kLdPieces = kLdChunk / 16 + 1;  // aligned 16-B words that hold a chunk
+constexpr int kLdMaxNt = 8;
+
+__host__ __device__ constexpr int ld_staged_rows(int nt) { return kLdRows + 48 + 8 * nt; }
+__host__ __device__ constexpr int ld_band_tile(int nt) { return 8 * nt - 15; }
+
+// Shared memory of a block: two raw buffers, the planes, the rows' counts,
+// then their means and norms.
+__host__ __device__ constexpr int ld_smem_bytes(int nt) {
+  return ld_staged_rows(nt) * (2 * kLdSlot + 4 * kLdPitch + 3 * 4 + 4 + 8);
+}
+
+struct LdArgs {
+  const uint8_t* packed;
+  double* out;
+  int64_t n_rows, n_out, rec;
+  int used;  // record bytes that hold a sample: ceil(S / 4)
+  int band;
+  int n_dtiles, n_items, n_chunks;
+  uint32_t last_pad;  // the pad slots' bits of byte used - 1 (both bits of each)
+};
+
+// The bits OR-ed into the record word at row byte b: 0xFF for each byte at
+// or past the used ones, the pad slots' bits in the last used byte.
+__device__ __forceinline__ uint32_t ld_fill(int64_t b, const LdArgs& a) {
+  if (b + 4 < a.used) return 0u;
+  uint32_t f = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int64_t at = b + k;
+    f |= (at >= a.used ? 0xFFu : (at == a.used - 1 ? a.last_pad : 0u)) << (8 * k);
+  }
+  return f;
+}
+
+// Two record words (32 slots) -> one word of each plane: the even bits from
+// r0, the odd ones from r1.
+__device__ __forceinline__ void ld_planes(uint32_t r0, uint32_t r1, uint32_t& u1, uint32_t& u2,
+                                          uint32_t& v) {
+  const uint32_t lo0 = r0 & 0x55555555u, hi0 = (r0 >> 1) & 0x55555555u;
+  const uint32_t lo1 = r1 & 0x55555555u, hi1 = (r1 >> 1) & 0x55555555u;
+  u1 = (lo0 ^ hi0) | ((lo1 ^ hi1) << 1);
+  u2 = (hi0 & ~lo0) | ((hi1 & ~lo1) << 1);
+  v = ((lo0 & hi0) ^ 0x55555555u) | (((lo1 & hi1) ^ 0x55555555u) << 1);
+}
+
+// A row's mean and squared norm from its called count n, alt count ac and
+// count of code 2: the first form's table and f64 norm.
+__device__ __forceinline__ void ld_row_stats(uint32_t n, uint32_t ac, uint32_t c2, float& m,
+                                             double& norm2) {
+  m = __fdiv_rn(static_cast<float>(ac), fmaxf(static_cast<float>(n), 1.0f));
+  const float t[3] = {0.0f - m, 1.0f - m, 2.0f - m};
+  const uint32_t c1 = ac - 2 * c2;
+  const uint32_t counts[3] = {n - c1 - c2, c1, c2};
+  norm2 = 0.0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const double tk = static_cast<double>(t[k]);
+    norm2 = __dadd_rn(norm2, __dmul_rn(static_cast<double>(counts[k]), __dmul_rn(tk, tk)));
+  }
+}
+
+__device__ __forceinline__ double ld_r2(int sxx, int sxi, int sxj, int nn, float mi_f, float mj_f,
+                                        double n2i, double n2j) {
+  const double den = __dmul_rn(n2i, n2j);
+  if (!(den > 0.0)) return 0.0;
+  const double mi = mi_f, mj = mj_f;
+  double dot = __dsub_rn(static_cast<double>(sxx), __dmul_rn(mj, static_cast<double>(sxi)));
+  dot = __dsub_rn(dot, __dmul_rn(mi, static_cast<double>(sxj)));
+  dot = __dadd_rn(dot, __dmul_rn(__dmul_rn(mi, mj), static_cast<double>(nn)));
+  return __ddiv_rn(__dmul_rn(dot, dot), den);
+}
+
+template <int kNt>
+__global__ void __launch_bounds__(kLdThreads) ld_r2_band_kernel(LdArgs a) {
+  constexpr int kStaged = ld_staged_rows(kNt);
+  constexpr int kDt = ld_band_tile(kNt);
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* raw = smem;  // [2][kStaged][kLdSlot]
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 2 * kStaged * kLdSlot);
+  int* stats = reinterpret_cast<int*>(planes + kStaged * kLdPitch);  // [kStaged][3]
+  float* mean = reinterpret_cast<float*>(stats + 3 * kStaged);
+  double* norm2 = reinterpret_cast<double*>(mean + kStaged);  // kStaged is a multiple of 8
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    const int64_t i0 = static_cast<int64_t>(item / a.n_dtiles) * kLdRows;
+    const int d0 = (item % a.n_dtiles) * kDt;
+    // rows [i0, i0 + 64), then the window's from i0 + 1 + d0 at staged row
+    // joff: one run up to d0 = 63, two runs gap rows apart past it
+    const int gap = d0 + 1 > kLdRows ? d0 + 1 - kLdRows : 0;
+    const int joff = 1 + d0 - gap;
+    const int n_staged = joff + 48 + 8 * kNt;
+    auto row_of = [&](int k) { return i0 + k + (k >= kLdRows ? gap : 0); };
+    for (int k = tid; k < 3 * n_staged; k += kLdThreads) stats[k] = 0;
+    auto stage = [&](int c) {
+      uint8_t* buf = raw + (c & 1) * kStaged * kLdSlot;
+      const int64_t off = static_cast<int64_t>(c) * kLdChunk;
+      const int len = static_cast<int>(a.used - off < kLdChunk ? a.used - off : kLdChunk);
+      for (int p = tid; p < n_staged * kLdPieces; p += kLdThreads) {
+        const int k = p / kLdPieces, piece = p % kLdPieces;
+        const int64_t v = row_of(k);
+        if (v >= a.n_rows) continue;
+        const uint8_t* src = a.packed + v * a.rec + off;
+        const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+        if (piece < (lead + len + 15) / 16) {
+          cp_async_16(buf + k * kLdSlot + 16 * piece, src - lead + 16 * piece);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+    int acc[4][kNt][4];  // S_xx, S_xi, S_xj and N of each n-tile's fragment
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        acc[q][nt][0] = acc[q][nt][1] = acc[q][nt][2] = acc[q][nt][3] = 0;
+      }
+    stage(0);
+    for (int c = 0; c < a.n_chunks; ++c) {
+      if (c + 1 < a.n_chunks) {
+        stage(c + 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();  // chunk c has landed, and the planes of chunk c - 1 are read
+      // the planes: half a warp a row, a lane a plane word
+      const uint8_t* buf = raw + (c & 1) * kStaged * kLdSlot;
+      const int64_t off = static_cast<int64_t>(c) * kLdChunk;
+      const int w = lane % 16;
+      for (int k0 = 2 * warp; k0 < n_staged; k0 += 2 * kLdWarps) {
+        const int k = k0 + lane / 16;
+        const int64_t v = row_of(k);
+        uint32_t r0 = ~0u, r1 = ~0u;
+        if (k < n_staged && v < a.n_rows) {
+          const uint8_t* src = a.packed + v * a.rec + off;
+          const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+          const uint32_t* slot = reinterpret_cast<const uint32_t*>(buf + k * kLdSlot);
+          const int at = (lead >> 2) + 2 * w;
+          const uint32_t x0 = slot[at], x1 = slot[at + 1], x2 = slot[at + 2];
+          r0 = __funnelshift_r(x0, x1, 8 * (lead & 3)) | ld_fill(off + 8 * w, a);
+          r1 = __funnelshift_r(x1, x2, 8 * (lead & 3)) | ld_fill(off + 8 * w + 4, a);
+        }
+        uint32_t u1, u2, vv;
+        ld_planes(r0, r1, u1, u2, vv);
+        int cn = __popc(vv), c1 = __popc(u1), c2 = __popc(u2);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) {
+          cn += __shfl_xor_sync(0xFFFFFFFFu, cn, o);
+          c1 += __shfl_xor_sync(0xFFFFFFFFu, c1, o);
+          c2 += __shfl_xor_sync(0xFFFFFFFFu, c2, o);
+        }
+        if (k < n_staged) {
+          uint32_t* pl = planes + k * kLdPitch;
+          pl[w] = u1;
+          pl[kLdWords + w] = u2;
+          pl[2 * kLdWords + w] = vv;
+          if (w == 0) {
+            stats[3 * k] += cn;
+            stats[3 * k + 1] += c1;
+            stats[3 * k + 2] += c2;
+          }
+        }
+      }
+      __syncthreads();  // the chunk's planes are complete
+      const uint32_t* pa0 = planes + (16 * warp + g) * kLdPitch;
+      const uint32_t* pa1 = pa0 + 8 * kLdPitch;
+#pragma unroll
+      for (int ks = 0; ks < kLdChunk / 64; ++ks) {
+        const int wo = 8 * ks + t;
+        const uint32_t au1[4] = {pa0[wo], pa1[wo], pa0[wo + 4], pa1[wo + 4]};
+        const uint32_t au2[4] = {pa0[kLdWords + wo], pa1[kLdWords + wo], pa0[kLdWords + wo + 4],
+                                 pa1[kLdWords + wo + 4]};
+        const uint32_t av[4] = {pa0[2 * kLdWords + wo], pa1[2 * kLdWords + wo],
+                                pa0[2 * kLdWords + wo + 4], pa1[2 * kLdWords + wo + 4]};
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const uint32_t* pb = planes + (joff + 16 * warp + 8 * nt + g) * kLdPitch + wo;
+          const uint32_t b10 = pb[0], b11 = pb[4];
+          const uint32_t b20 = pb[kLdWords], b21 = pb[kLdWords + 4];
+          const uint32_t bv0 = pb[2 * kLdWords], bv1 = pb[2 * kLdWords + 4];
+          mma_and_popc(acc[0][nt], au1, b10, b11);
+          mma_and_popc(acc[0][nt], au1, b20, b21);
+          mma_and_popc(acc[0][nt], au2, b10, b11);
+          mma_and_popc(acc[0][nt], au2, b20, b21);
+          mma_and_popc(acc[1][nt], au1, bv0, bv1);
+          mma_and_popc(acc[1][nt], au2, bv0, bv1);
+          mma_and_popc(acc[2][nt], av, b10, b11);
+          mma_and_popc(acc[2][nt], av, b20, b21);
+          mma_and_popc(acc[3][nt], av, bv0, bv1);
+        }
+      }
+    }
+    __syncthreads();  // every row's counts are complete
+    for (int k = tid; k < n_staged; k += kLdThreads) {
+      const uint32_t n = stats[3 * k], u1 = stats[3 * k + 1], u2 = stats[3 * k + 2];
+      ld_row_stats(n, u1 + u2, u2, mean[k], norm2[k]);
+    }
+    __syncthreads();
+    // fragment entry e: row g + 8 (e / 2) of the warp's 16, column 2 t + e % 2
+    // of n-tile nt, so d - d0 = 8 nt + 2 t + e % 2 - row
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), col = 8 * nt + 2 * t + (e & 1);
+        const int dd = col - r, d = d0 + dd;
+        const int64_t i = i0 + 16 * warp + r;
+        if (dd < 0 || dd >= kDt || d >= a.band || i >= a.n_out) continue;
+        const int ki = 16 * warp + r, kj = joff + 16 * warp + col;
+        a.out[i * a.band + d] = ld_r2(acc[0][nt][e], acc[1][nt][e], acc[2][nt][e], acc[3][nt][e],
+                                      mean[ki], mean[kj], norm2[ki], norm2[kj]);
+      }
+    }
+    __syncthreads();  // before the next item's counts and copies
+  }
+}
+
+// K13's --approx pass. Replaces the body of pgen_tpu/ops/pca.py's
+// _approx_pass_jit (:412-445): the Pallas _unpack_kernel, the XLA take,
+// _standardize_block_jnp (:91) and the two HIGHEST products z_b^T (z_b q),
+// where the port first wrote z (16 times the records' bytes) for two fp32
+// torch.matmul products that each read it back.
+// (V, R) u8 records of S samples (a cohort is re-packed by K5 first), q (S,
+// L) f32, y (S, L) f32, used (an int64) -> y += Z^T (Z q), used += the rows
+// with var > 0; Z is K13's z (GrmRows' table, the same bits as grm_z).
+// Columns go in chunks of up to kPcaMaxCols, three kernels a chunk:
+// - pca_zq_kernel (t = Z q): a warp takes kPcaRows rows, works out their
+//   tables from row_code_counts (K8's), and its lanes take every 32nd
+//   sample, two samples an iteration, z of each row from the row's byte
+//   (through L1) and q's row from shared memory (all of q's columns staged
+//   once a block where they fit, else in sample chunks for each group of
+//   rows): kPcaRows x C fp32 FMAs a sample. The lanes' sums go through a
+//   fixed butterfly, so every lane holds the same sums, and lane c writes
+//   column c. It writes each row's table for the second kernel.
+// - pca_zty_kernel (Z^T t by chunks of rows): a block takes a slice of 128
+//   record bytes (512 samples, a thread a byte) by a chunk of kPcaRowChunk
+//   rows, whose tables and t it stages in shared memory first; a thread
+//   adds z x t over the chunk's rows for its four samples (the record
+//   bytes of four rows loaded together, each row's table and t read by
+//   every thread at once), then writes its partial sums.
+// - pca_sum_kernel: a thread an entry of y adds the chunks' partial sums to
+//   it in chunk order. No float atomics: a pass repeats bit for bit.
+// (A first form had the last block of each slice add the slice's partials:
+// 2,560 dependent loads a thread, 0.42 of the pass's 0.62 ms. pca_zty_kernel
+// reading t and the tables from L2 a row at a time took 0.135 ms, staged
+// 0.120 ms; pca_zq_kernel with four rows a warp and 12 warps a block, so
+// that each of q's loads serves twice the FMAs, took 0.179 ms against 0.120
+// with two rows and 16 warps.)
+// Bound: operations, 4 S L FLOP a row: 2.95 GFLOP at 16,384 rows x 2504
+// samples and L = 18, 0.044 ms at 67 TFLOPS fp32 (its 10.3 MB of records
+// take 0.003 ms at 3.35 TB/s). fp32 FMA on the CUDA cores throughout, as
+// pgen_tpu pins Precision.HIGHEST (no TF32).
+constexpr int kPcaRows = 2;               // rows a warp of pca_zq_kernel
+constexpr int kPcaWarps = 16;             // one block an SM: q takes its shared memory
+constexpr int kPcaThreads = kPcaWarps * kWarp;
+constexpr int kPcaMaxCols = 24;           // q's columns a pair of launches
+constexpr int kPcaQBytes = 200 * 1024;    // shared memory of q's staged rows
+constexpr int kPcaSliceThreads = 128;     // record bytes of a slice: 512 samples
+constexpr int kPcaRowChunk = 256;         // rows of a pca_zty_kernel block
+
+// q's row pitch in shared memory: a multiple of 4 floats with an odd count
+// of 16-B pieces, so 8 lanes' float4 loads of consecutive rows hit 8 bank
+// groups.
+__host__ __device__ constexpr int pca_pitch(int cols) { return 4 * ((cols / 4) | 1); }
+
+struct PcaArgs {
+  const uint8_t* packed;
+  const float* q;
+  float* y;
+  unsigned long long* used;
+  float4* table;  // (V) z of codes 0, 1, 2 and 0
+  float* zq;      // (V, kCols) t
+  float* parts;   // (chunks, slices x 512, kCols) partial sums
+  int64_t n_var, rec;
+  int n_samples, n_cols, col0, pitch;  // pitch: the columns of q and y (L)
+  int q_rows;                          // q's rows staged at once
+  int count_used;
+  int n_chunks, n_slices;
+};
+
+__device__ __forceinline__ float pca_z(const float (&tab)[4], uint32_t code) {
+  return code == 0u ? tab[0] : (code == 1u ? tab[1] : (code == 2u ? tab[2] : 0.0f));
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(kPcaThreads, 1) pca_zq_kernel(PcaArgs a) {
+  constexpr int kPitch = pca_pitch(kCols);
+  extern __shared__ __align__(16) float qs[];  // [q_rows][kPitch]
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int n_qchunks = (a.n_samples + a.q_rows - 1) / a.q_rows;
+  auto stage_q = [&](int qc) {
+    const int s0 = qc * a.q_rows;
+    const int rows = a.n_samples - s0 < a.q_rows ? a.n_samples - s0 : a.q_rows;
+    for (int i = tid; i < rows * kPitch; i += kPcaThreads) {
+      const int s = i / kPitch, c = i % kPitch;
+      qs[i] = c < a.n_cols ? a.q[static_cast<int64_t>(s0 + s) * a.pitch + a.col0 + c] : 0.0f;
+    }
+  };
+  if (n_qchunks == 1) {
+    stage_q(0);
+    __syncthreads();
+  }
+  constexpr int kBlockRows = kPcaWarps * kPcaRows;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kBlockRows; base < a.n_var;
+       base += static_cast<int64_t>(gridDim.x) * kBlockRows) {
+    const int64_t v0 = base + warp * kPcaRows;
+    const uint8_t* rows[kPcaRows];
+#pragma unroll
+    for (int r = 0; r < kPcaRows; ++r) {
+      rows[r] = v0 + r < a.n_var ? a.packed + (v0 + r) * a.rec : nullptr;
+    }
+    uint32_t cnt[kPcaRows][4];
+    row_code_counts<kPcaRows>(rows, a.n_samples, lane, cnt);
+    float tab[kPcaRows][4];
+    int used = 0;
+#pragma unroll
+    for (int r = 0; r < kPcaRows; ++r) {
+      const int u = GrmRows::table(cnt[r][0] + cnt[r][1] + cnt[r][2], cnt[r][1] + 2 * cnt[r][2],
+                                   false, 0, tab[r]);
+      if (rows[r] != nullptr) {
+        used += u;
+        if (lane == r) a.table[v0 + r] = make_float4(tab[r][0], tab[r][1], tab[r][2], tab[r][3]);
+      }
+    }
+    if (a.count_used && lane == 0 && used > 0) {
+      atomicAdd(a.used, static_cast<unsigned long long>(used));
+    }
+    float acc[kPcaRows][kCols];
+#pragma unroll
+    for (int r = 0; r < kPcaRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
+    for (int qc = 0; qc < n_qchunks; ++qc) {
+      if (n_qchunks > 1) {
+        __syncthreads();  // every warp is done with the last chunk
+        stage_q(qc);
+        __syncthreads();
+      }
+      const int s0 = qc * a.q_rows;
+      const int s1 = a.n_samples - s0 < a.q_rows ? a.n_samples : s0 + a.q_rows;
+      // samples s and s + 32 an iteration, their loads issued together; a
+      // sample past s1 reads q's staged row 0 and adds z 0
+      for (int s = s0 + lane; s < s1; s += 2 * kWarp) {
+        float z[2][kPcaRows];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = s + h * kWarp;
+          const int byte = (at < s1 ? at : s) >> 2, shift = 2 * ((at < s1 ? at : s) & 3);
+#pragma unroll
+          for (int r = 0; r < kPcaRows; ++r) {
+            const uint32_t code =
+                rows[r] == nullptr ? 3u : (static_cast<uint32_t>(__ldg(rows[r] + byte)) >> shift) & 3u;
+            z[h][r] = at < s1 ? pca_z(tab[r], code) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = s + h * kWarp;
+          const float4* qrow = reinterpret_cast<const float4*>(qs + (at < s1 ? at - s0 : 0) * kPitch);
+#pragma unroll
+          for (int c4 = 0; c4 < kCols / 4; ++c4) {
+            const float4 x = qrow[c4];
+#pragma unroll
+            for (int r = 0; r < kPcaRows; ++r) {
+              acc[r][4 * c4] = fmaf(z[h][r], x.x, acc[r][4 * c4]);
+              acc[r][4 * c4 + 1] = fmaf(z[h][r], x.y, acc[r][4 * c4 + 1]);
+              acc[r][4 * c4 + 2] = fmaf(z[h][r], x.z, acc[r][4 * c4 + 2]);
+              acc[r][4 * c4 + 3] = fmaf(z[h][r], x.w, acc[r][4 * c4 + 3]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPcaRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        float x = acc[r][c];
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, o);
+        if (lane == c && rows[r] != nullptr) a.zq[(v0 + r) * kCols + c] = x;
+      }
+    }
+  }
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(kPcaSliceThreads) pca_zty_kernel(PcaArgs a) {
+  // each row of the chunk: its table, then its t
+  constexpr int kRowF4 = kCols / 4 + 1;
+  __shared__ float4 staged[kPcaRowChunk * kRowF4];
+  const int slice = static_cast<int>(blockIdx.x) % a.n_slices;
+  const int chunk = static_cast<int>(blockIdx.x) / a.n_slices;
+  const int64_t j = static_cast<int64_t>(slice) * kPcaSliceThreads + threadIdx.x;  // record byte
+  const int64_t used_bytes = (a.n_samples + 3) / 4;
+  const int64_t v_lo = static_cast<int64_t>(chunk) * kPcaRowChunk;
+  const int rows = static_cast<int>(a.n_var - v_lo < kPcaRowChunk ? a.n_var - v_lo : kPcaRowChunk);
+  for (int i = threadIdx.x; i < rows * kRowF4; i += kPcaSliceThreads) {
+    const int r = i / kRowF4, f = i % kRowF4;
+    staged[i] = f == 0 ? __ldg(a.table + v_lo + r)
+                       : __ldg(reinterpret_cast<const float4*>(a.zq + (v_lo + r) * kCols) + f - 1);
+  }
+  __syncthreads();
+  float acc[4][kCols];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[k][c] = 0.0f;
+  // adds row r's terms for the byte b of this thread's four samples
+  auto add_row = [&](int r, uint32_t b) {
+    const float4* row = staged + r * kRowF4;
+    const float4 t4 = row[0];
+    const float tab[4] = {t4.x, t4.y, t4.z, t4.w};
+    float z[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) z[k] = pca_z(tab, (b >> (2 * k)) & 3u);
+#pragma unroll
+    for (int c4 = 0; c4 < kCols / 4; ++c4) {
+      const float4 x = row[1 + c4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[k][4 * c4] = fmaf(z[k], x.x, acc[k][4 * c4]);
+        acc[k][4 * c4 + 1] = fmaf(z[k], x.y, acc[k][4 * c4 + 1]);
+        acc[k][4 * c4 + 2] = fmaf(z[k], x.z, acc[k][4 * c4 + 2]);
+        acc[k][4 * c4 + 3] = fmaf(z[k], x.w, acc[k][4 * c4 + 3]);
+      }
+    }
+  };
+  if (j < used_bytes) {
+    const uint8_t* col = a.packed + v_lo * a.rec + j;
+    int r = 0;
+    for (; r + 4 <= rows; r += 4) {
+      uint32_t b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) b[u] = __ldg(col + (r + u) * a.rec);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) add_row(r + u, b[u]);
+    }
+    for (; r < rows; ++r) add_row(r, __ldg(col + r * a.rec));
+  }
+  const int64_t slice_samples = static_cast<int64_t>(a.n_slices) * 4 * kPcaSliceThreads;
+  float4* mine = reinterpret_cast<float4*>(a.parts + (chunk * slice_samples + 4 * j) * kCols);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int c = 0; c < kCols / 4; ++c) {
+      mine[k * (kCols / 4) + c] =
+          make_float4(acc[k][4 * c], acc[k][4 * c + 1], acc[k][4 * c + 2], acc[k][4 * c + 3]);
+    }
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(kThreads) pca_sum_kernel(PcaArgs a) {
+  const int64_t at = first_index();
+  if (at >= static_cast<int64_t>(a.n_samples) * a.n_cols) return;
+  const int64_t s = at / a.n_cols;
+  const int c = static_cast<int>(at % a.n_cols);
+  const int64_t slice_samples = static_cast<int64_t>(a.n_slices) * 4 * kPcaSliceThreads;
+  float* y = a.y + s * a.pitch + a.col0 + c;
+  float sum = *y;
+  for (int ch = 0; ch < a.n_chunks; ++ch) sum += a.parts[(ch * slice_samples + s) * kCols + c];
+  *y = sum;
 }
 
 // K12. Replaces the decode and plane legs of pgen_tpu/ops/king.py's
@@ -1932,7 +2393,7 @@ int launch_dosage(const uint8_t* in, const int32_t* ids, const uint8_t* flip, vo
     dosage_counts_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(t.chunks)),
                            kThreads, static_cast<size_t>(id_bytes), s>>>(
         in, ids, flip, sums, n_var, rec, static_cast<int>(n_samples), static_cast<int>(n_kept),
-        static_cast<int>(t.chunk), Rows::kSums);
+        static_cast<int>(t.chunk));
     const cudaError_t counted = cudaGetLastError();
     if (counted != cudaSuccess) return static_cast<int>(counted);
   }
@@ -1940,6 +2401,89 @@ int launch_dosage(const uint8_t* in, const int32_t* ids, const uint8_t* flip, vo
       in, ids, flip, static_cast<float*>(out), row_out, sums, n_var, rec,
       static_cast<int>(n_samples), static_cast<int>(n_kept), mean_impute,
       static_cast<int>(t.tile_rows), static_cast<int>(t.chunk), t.row_warps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A launch shape the card was asked about: the blocks of it the card holds
+// at once, cached per kernel, device and dynamic shared memory (the
+// attribute and the occupancy query cost every launch host time
+// otherwise). The kernel's shared-memory attribute is set to the card's
+// most, so it holds for every size a kernel is launched with.
+struct Fit {
+  const void* kernel = nullptr;
+  int device = -1, smem = 0;
+  int64_t blocks = 0;
+};
+
+int64_t resident_blocks(const void* kernel, int threads, int smem, cudaError_t* err) {
+  static Fit fits[16];
+  static int next_fit = 0;
+  int device = 0;
+  *err = cudaGetDevice(&device);
+  if (*err != cudaSuccess) return 0;
+  for (const Fit& f : fits) {
+    if (f.kernel == kernel && f.device == device && f.smem == smem) return f.blocks;
+  }
+  int most = 0, sms = 0, per_sm = 0;
+  *err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (*err == cudaSuccess) {
+    *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err == cudaSuccess) {
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
+  if (*err != cudaSuccess) return 0;
+  fits[next_fit] = Fit{kernel, device, smem, static_cast<int64_t>(sms) * per_sm};
+  const int64_t blocks = fits[next_fit].blocks;
+  next_fit = (next_fit + 1) % 16;
+  return blocks;
+}
+
+// K15: items of 64 rows by DT offsets, one block for each up to as many as
+// the card holds at once.
+template <int kNt>
+int launch_ld(LdArgs a, cudaStream_t s) {
+  constexpr int kDt = ld_band_tile(kNt);
+  a.n_dtiles = (a.band + kDt - 1) / kDt;
+  const int64_t items = (a.n_out + kLdRows - 1) / kLdRows * a.n_dtiles;
+  if (items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  a.n_items = static_cast<int>(items);
+  const int smem = ld_smem_bytes(kNt);
+  cudaError_t err;
+  const int64_t blocks = resident_blocks(reinterpret_cast<const void*>(ld_r2_band_kernel<kNt>),
+                                         kLdThreads, smem, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ld_r2_band_kernel<kNt><<<static_cast<unsigned>(items < blocks ? items : blocks), kLdThreads,
+                          smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13's pass, one chunk of kCols columns (a multiple of 4): q's rows in
+// shared memory (all of them where they fit in kPcaQBytes), then t = Z q,
+// Z^T t by chunks of rows, and y += their sum.
+template <int kCols>
+int launch_pca(PcaArgs a, cudaStream_t s) {
+  constexpr int kPitch = pca_pitch(kCols);
+  const int most = kPcaQBytes / (4 * kPitch) / kWarp * kWarp;
+  const int need = (a.n_samples + kWarp - 1) / kWarp * kWarp;
+  a.q_rows = need < most ? need : most;
+  const int smem = 4 * kPitch * a.q_rows;
+  cudaError_t err;
+  const int64_t blocks = resident_blocks(reinterpret_cast<const void*>(pca_zq_kernel<kCols>),
+                                         kPcaThreads, smem, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t groups = (a.n_var + kPcaWarps * kPcaRows - 1) / (kPcaWarps * kPcaRows);
+  pca_zq_kernel<kCols><<<static_cast<unsigned>(groups < blocks ? groups : blocks), kPcaThreads,
+                         smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pca_zty_kernel<kCols><<<static_cast<unsigned>(a.n_slices * a.n_chunks), kPcaSliceThreads, 0,
+                          s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pca_sum_kernel<kCols><<<grid_for(static_cast<int64_t>(a.n_samples) * a.n_cols), kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2162,41 +2706,12 @@ int pgen_gt_counts_masked(const void* packed, const void* words, const void* kep
   const auto kernel = n_oct == 1   ? gt_counts_masked_kernel<1>
                       : n_oct == 2 ? gt_counts_masked_kernel<2>
                                    : gt_counts_masked_kernel<4>;
-  // the blocks the card holds at once for each of the last kMaskedFits
-  // kernels and shared-memory sizes asked of it (they vary with R and
-  // ceil(P / 8)): the attribute and the occupancy query took host time
-  // from every launch otherwise. The attribute is set to the card's most,
-  // so it holds for every size kept.
-  static MaskedFit fits[kMaskedFits];
-  static int next_fit = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  // the blocks the card holds at once for this kernel and shared memory
+  // (they vary with R and ceil(P / 8))
+  cudaError_t err;
+  const int64_t blocks =
+      resident_blocks(reinterpret_cast<const void*>(kernel), kMaskedThreads + kWarp, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const MaskedFit* found = nullptr;
-  for (const MaskedFit& f : fits) {
-    if (f.device == device && f.smem == smem && f.kernel == kernel) found = &f;
-  }
-  if (found == nullptr) {
-    int most = 0, sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    }
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMaskedThreads + kWarp,
-                                                          smem);
-    }
-    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-    if (err != cudaSuccess) return static_cast<int>(err);
-    MaskedFit& slot = fits[next_fit];
-    next_fit = (next_fit + 1) % kMaskedFits;
-    slot = MaskedFit{device, smem, kernel, static_cast<int64_t>(sms) * per_sm};
-    found = &slot;
-  }
-  const int64_t blocks = found->blocks;
   // chunks an item counts: the fewest steps of the busiest block, with a
   // step more an item for its stores and its pipeline's fill (so all of a
   // tile's chunks in one item, and no atomics, wherever the tiles fill the
@@ -2325,21 +2840,102 @@ int pgen_grm_z(const void* packed, const void* sel, void* z, void* rows, int64_t
                                 static_cast<cudaStream_t>(stream));
 }
 
-// rows: (3V) int32, the chunked form's n, alt count and c2 sums; norm2 (V)
-// f64, 8-B aligned.
-int pgen_ld_centered(const void* packed, const void* sel, void* c, void* norm2, void* rows,
-                     int64_t n_var, int64_t rec, int64_t n_samples, int64_t n_kept,
-                     void* stream) {
-  if (n_var <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(c) % 4 != 0 || reinterpret_cast<uintptr_t>(norm2) % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(rows) % 4 != 0) {
+// out (n_out, band) f64, 8-B aligned; rows at or past n_rows are missing.
+int pgen_ld_r2_band(const void* packed, void* out, int64_t n_rows, int64_t n_out, int64_t rec,
+                    int64_t n_samples, int64_t band, void* stream) {
+  if (n_out <= 0 || band <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(out) % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n_samples < 0 || n_samples > 4 * rec || band > INT32_MAX || rec > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LdArgs a;
+  a.packed = static_cast<const uint8_t*>(packed);
+  a.out = static_cast<double*>(out);
+  a.n_rows = n_rows;
+  a.n_out = n_out;
+  a.rec = rec;
+  a.used = static_cast<int>((n_samples + 3) / 4);
+  a.band = static_cast<int>(band);
+  a.n_chunks = (a.used + kLdChunk - 1) / kLdChunk;
+  // the samples of the last used byte, 1 to 4: the slots past them are pad
+  const int tail = static_cast<int>(n_samples - 4 * (a.used - 1));
+  a.last_pad = n_samples > 0 ? (0xFFu << (2 * tail)) & 0xFFu : 0u;
+  // n-tiles a warp: its 16 rows against the DT offsets of a tile, the whole
+  // band up to 49
+  const int64_t dt = band < ld_band_tile(kLdMaxNt) ? band : ld_band_tile(kLdMaxNt);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch ((15 + dt + 7) / 8) {
+    case 2: return launch_ld<2>(a, s);
+    case 3: return launch_ld<3>(a, s);
+    case 4: return launch_ld<4>(a, s);
+    case 5: return launch_ld<5>(a, s);
+    case 6: return launch_ld<6>(a, s);
+    case 7: return launch_ld<7>(a, s);
+    default: return launch_ld<8>(a, s);
+  }
+}
+
+// The pass's scratch for a block of n_var rows of n_samples samples, in
+// bytes: each row's table (V) float4, t (V, kPcaMaxCols) f32 and the chunks'
+// partial sums (chunks, slices x 512, kPcaMaxCols) f32, each 16-B aligned.
+int64_t pgen_pca_approx_scratch_bytes(int64_t n_var, int64_t n_samples) {
+  const int64_t slices = ((n_samples + 3) / 4 + kPcaSliceThreads - 1) / kPcaSliceThreads;
+  const int64_t chunks = (n_var + kPcaRowChunk - 1) / kPcaRowChunk;
+  return 4 * (n_var * (4 + kPcaMaxCols) + chunks * slices * 4 * kPcaSliceThreads * kPcaMaxCols);
+}
+
+// q and y (S, L) f32, used one int64; scratch scratch_bytes bytes, at least
+// pgen_pca_approx_scratch_bytes(n_var, n_samples) of them.
+int pgen_pca_approx_pass(const void* packed, const void* q, void* y, void* used, void* scratch,
+                         int64_t n_var, int64_t rec, int64_t n_samples, int64_t n_cols,
+                         int64_t scratch_bytes, void* stream) {
+  if (n_var <= 0 || n_samples <= 0 || n_cols <= 0) return 0;
+  const auto misaligned = [](const void* p, uintptr_t to) {
+    return reinterpret_cast<uintptr_t>(p) % to != 0;
+  };
+  if (misaligned(q, 4) || misaligned(y, 4) || misaligned(used, 8) || misaligned(scratch, 16)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  if (n_kept <= 0) return 0;  // no sample: the wrapper returns zeros
-  return launch_dosage<LdRows>(static_cast<const uint8_t*>(packed),
-                               static_cast<const int32_t*>(sel), nullptr, c,
-                               static_cast<double*>(norm2), static_cast<int32_t*>(rows), n_var,
-                               rec, n_samples, n_kept, 0, static_cast<cudaStream_t>(stream));
+  if (n_samples > 4 * rec || n_samples > INT32_MAX || n_cols > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t slices = ((n_samples + 3) / 4 + kPcaSliceThreads - 1) / kPcaSliceThreads;
+  const int64_t chunks = (n_var + kPcaRowChunk - 1) / kPcaRowChunk;
+  if (pgen_pca_approx_scratch_bytes(n_var, n_samples) > scratch_bytes ||
+      slices * chunks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PcaArgs a;
+  a.packed = static_cast<const uint8_t*>(packed);
+  a.q = static_cast<const float*>(q);
+  a.y = static_cast<float*>(y);
+  a.used = static_cast<unsigned long long*>(used);
+  a.table = static_cast<float4*>(scratch);
+  a.zq = reinterpret_cast<float*>(a.table + n_var);
+  a.parts = a.zq + n_var * kPcaMaxCols;
+  a.n_var = n_var;
+  a.rec = rec;
+  a.n_samples = static_cast<int>(n_samples);
+  a.pitch = static_cast<int>(n_cols);
+  a.n_slices = static_cast<int>(slices);
+  a.n_chunks = static_cast<int>(chunks);
+  const auto s = static_cast<cudaStream_t>(stream);
+  for (int64_t col0 = 0; col0 < n_cols; col0 += kPcaMaxCols) {
+    a.col0 = static_cast<int>(col0);
+    a.n_cols = static_cast<int>(n_cols - col0 < kPcaMaxCols ? n_cols - col0 : kPcaMaxCols);
+    a.count_used = col0 == 0;
+    int status;
+    switch ((a.n_cols + 3) / 4) {
+      case 1: status = launch_pca<4>(a, s); break;
+      case 2: status = launch_pca<8>(a, s); break;
+      case 3: status = launch_pca<12>(a, s); break;
+      case 4: status = launch_pca<16>(a, s); break;
+      case 5: status = launch_pca<20>(a, s); break;
+      default: status = launch_pca<24>(a, s); break;
+    }
+    if (status != 0) return status;
+  }
+  return 0;
 }
 
 int pgen_relatedness_planes(const void* packed, const void* sel, void* planes, int64_t n_var,

@@ -100,7 +100,10 @@ def load() -> ctypes.CDLL:
     lib.pgen_glm_planes.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.pgen_score_dosage.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
     lib.pgen_grm_z.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-    lib.pgen_ld_centered.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.pgen_ld_r2_band.argtypes = [ptr, ptr, i64, i64, i64, i64, i64, ptr]
+    lib.pgen_pca_approx_pass.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+    lib.pgen_pca_approx_scratch_bytes.argtypes = [i64, i64]
+    lib.pgen_pca_approx_scratch_bytes.restype = i64
     lib.pgen_relatedness_planes.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr]
     for fn in (
         lib.pgen_unpack_codes, lib.pgen_genotype_text, lib.pgen_subset_text,
@@ -108,7 +111,8 @@ def load() -> ctypes.CDLL:
         lib.pgen_genotype_text_transposed, lib.pgen_text_from_codes,
         lib.pgen_gt_counts, lib.pgen_sample_counts, lib.pgen_gt_counts_masked,
         lib.pgen_glm_planes,
-        lib.pgen_score_dosage, lib.pgen_grm_z, lib.pgen_ld_centered, lib.pgen_relatedness_planes,
+        lib.pgen_score_dosage, lib.pgen_grm_z, lib.pgen_ld_r2_band, lib.pgen_pca_approx_pass,
+        lib.pgen_relatedness_planes,
     ):
         fn.restype = ctypes.c_int
     lib.pgen_cuda_error_string.argtypes = [ctypes.c_int]

@@ -169,15 +169,15 @@ def kept_count(packed: torch.Tensor, num_samples: int, sel) -> int:
     return n_kept
 
 
-def scratch_view(out, shape: tuple, device) -> torch.Tensor:
-    """A contiguous f32 tensor of ``shape``: the front of the flat buffer
-    ``out`` when one is given (allocated once per call by the block loops),
-    else a new one."""
+def scratch_view(out, shape: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """A contiguous ``dtype`` tensor of ``shape``: the front of the flat
+    buffer ``out`` when one is given (allocated once per call by the block
+    loops), else a new one."""
     n = int(np.prod(shape))
     if out is None:
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    if out.dtype != torch.float32 or out.device != device or out.numel() < n:
-        raise ValueError(f"out must be float32 on {device} with at least {n} elements")
+        return torch.empty(shape, dtype=dtype, device=device)
+    if out.dtype != dtype or out.device != device or out.numel() < n:
+        raise ValueError(f"out must be {dtype} on {device} with at least {n} elements")
     return out.view(-1)[:n].view(shape)
 
 

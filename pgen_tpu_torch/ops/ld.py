@@ -8,29 +8,26 @@ mean-imputed centered dosages c (missing calls at the row's mean, 0):
     r(i, j) = <c_i, c_j> / (||c_i|| ||c_j||)
 
 ``banded_r2`` is pgen_tpu's ``banded_r2_device`` (:106) on one device. It
-streams the records by blocks of whole tiles (``BLOCK_ROWS``, a multiple of
-band) plus one tile of context, so a chromosome run's c never exists whole
-(pgen_tpu decodes the whole run: 11 GB of f32 c at chr22's 1.1M x 2504, and
-twice that in its windows). Per block, on ``device``:
+streams the records by blocks of ``BLOCK_ROWS`` output rows plus the band
+rows after them, so a chromosome run's dosages never exist (pgen_tpu decodes
+the whole run: 11 GB of f32 c at chr22's 1.1M x 2504, and twice that in its
+windows). Per block, on ``device``:
 
-  K15 ``ld_centered``  records -> (rows, K) f32 c and (rows,) f64 ||c||²
-  tile Grams           tile t (band rows) against its window, the rows
-                       [t band, t band + 2 band) of c: an overlapping
-                       ``as_strided`` view, no copy; ``torch.bmm`` in full
-                       fp32 (TF32 off), as pgen_tpu pins Precision.HIGHEST
-  r² (f64)             the band entries of each Gram (a diagonal view),
-                       den = norm_i norm_j, where(den > 0, (g / max(den,
-                       1e-300))², 0): pgen_tpu's host elementwise operations
-                       (:156-162), on the card
-  past-the-end zeros   then one D2H of the block's (rows, band) f64 band
+  K5 ``subset_repack``  a cohort's samples re-packed, when there is one
+  K15 ``ld_r2_band``    records -> the block's (rows, band) f64 r², in one
+                        kernel: each pair's dot of centered dosages from
+                        exact AND-POPC counts of the rows' bit planes, each
+                        row's mean and norm from its code counts
+                        (``csrc/genotype.cu:ld_r2_band_kernel``)
+  one D2H of the band; rows past the end are all missing, so r² is 0 there
 
-The last block pads with 0xFF rows (all missing: c and the norm are 0
-there, so r² is 0). K15 (``csrc/genotype.cu:LdRows``, K11's three forms
-with a per-row table {0 - m, 1 - m, 2 - m, 0}) replaces the Pallas unpack,
-the cohort take and the centering of ``_tiles`` (:128-137); ||c||² comes
-from the row's code counts in f64 (pgen_tpu's is an f32 sum of c²). Its
-wrapper dispatches on the tensor's device with no fallback: a CUDA tensor
-launches K15, a CPU tensor runs ``ld_centered_plain``.
+r² = <c_i, c_j>² / (||c_i||² ||c_j||²) with c the mean-imputed centered
+dosage (m = ac / max(n, 1) in f32, as pgen_tpu's device mean). K15's first
+form wrote c in f32 for fp32 ``torch.bmm`` tile Grams; its dot now comes from
+integer counts in f64 (``ld_r2_band_plain`` gives the formula), so a pair's
+r² no longer depends on the block it lies in. The wrapper dispatches on the
+tensor's device with no fallback: a CUDA tensor launches K15, a CPU tensor
+runs ``ld_r2_band_plain``.
 
 ``centered_dosage_np``, ``banded_r2_reference``, ``banded_r2_numpy``,
 ``_take_band`` and ``greedy_prune`` are copied from pgen_tpu (``:40``,
@@ -54,16 +51,16 @@ import torch
 
 from pgen_tpu_torch.device import full_fp32, resolve_device
 from pgen_tpu_torch.kernels import launch
-from pgen_tpu_torch.ops.glm import code_hist, device_sel, kept_count, scratch_view, select_codes
-from pgen_tpu_torch.ops.unpack import check_packed
+from pgen_tpu_torch.ops.glm import code_hist, device_sel, scratch_view, select_codes
+from pgen_tpu_torch.ops.pack import subset_repack
+from pgen_tpu_torch.ops.unpack import check_packed, unpack_codes_plain
 
-# Output rows of a block, rounded down to a multiple of band (at least one
-# tile); a block stages one more tile of context. At 2504 samples a block's
-# c is 164 MB.
+# Output rows of a block: 131 MB of r² at band 1,000, 1 GB at MAX_BAND
+# (pipeline/prune.py), as the tile form before it held.
 BLOCK_ROWS = 1 << 14
-# f32 entries of the Grams one bmm makes: one 8,192-row tile (MAX_BAND) against
-# its 16,384-row window, 512 MB. Smaller bands take several tiles a bmm.
-GRAM_ENTRIES = 1 << 27
+# Output rows of a chunk of the plain version's Grams: the band's width
+# (so few off-band entries are computed), within these limits.
+PLAIN_ROWS = (32, 256)
 
 
 def centered_dosage_np(codes: np.ndarray):
@@ -132,74 +129,147 @@ def _take_band(r2: np.ndarray, band: int) -> np.ndarray:
     return np.where(valid, r2[np.arange(w)[:, None], np.minimum(cols, L - 1)], 0.0)
 
 
-# ---- K15: records -> centered dosages and their squared norms ----
+# ---- K15: records -> the banded r² ----
 
 
-def ld_centered_plain(packed: torch.Tensor, num_samples: int, sel=None) -> tuple:
-    """Plain PyTorch K15: (V, K) f32 centered dosages of the selected
-    samples and (V,) f64 squared norms, in the kernel's arithmetic order:
-    m = ac / max(n, 1) in f32, c = table[code] with table = {0 - m, 1 - m,
-    2 - m, 0}, ||c||² = sum over codes 0-2 of count x t² in f64."""
-    codes = select_codes(packed, num_samples, sel)
-    hist = code_hist(codes)
+def _row_table(hist: torch.Tensor) -> tuple:
+    """(V, 3 or 4) code counts -> the rows' (V,) f32 means m = ac / max(n, 1), the
+    (V, 4) f32 tables {0 - m, 1 - m, 2 - m, 0} of c by code and the (V,) f64
+    squared norms ||c||² = sum over codes 0-2 of count x t² in f64, each
+    product and sum rounded on its own."""
     n_called = hist[:, 0] + hist[:, 1] + hist[:, 2]
     ac = hist[:, 1] + 2 * hist[:, 2]
     m = ac.float() / torch.clamp(n_called.float(), min=1.0)
     table = torch.stack([0.0 - m, 1.0 - m, 2.0 - m, torch.zeros_like(m)], 1)
-    norm2 = torch.zeros(codes.shape[0], dtype=torch.float64, device=packed.device)
+    norm2 = torch.zeros(hist.shape[0], dtype=torch.float64, device=hist.device)
     for k in range(3):
         tk = table[:, k].double()
         norm2 = norm2 + hist[:, k].double() * (tk * tk)
+    return m, table, norm2
+
+
+def ld_centered_plain(packed: torch.Tensor, num_samples: int, sel=None) -> tuple:
+    """(V, K) f32 centered dosages c of the selected samples and (V,) f64
+    squared norms: c = table[code] of ``_row_table``, 0 on a missing call.
+    K15's first form wrote this c; ``ld_r2_band_plain`` takes its m and
+    norms."""
+    codes = select_codes(packed, num_samples, sel)
+    _, table, norm2 = _row_table(code_hist(codes))
     return table.gather(1, codes), norm2
 
 
-def ld_centered(packed: torch.Tensor, num_samples: int, sel=None, out=None) -> tuple:
-    """(V, R) u8 records -> (V, K) f32 mean-imputed centered dosages c of
-    the selected samples (``sel``: a 1-D int32 tensor of ids in [0,
-    num_samples); all S without it; missing calls 0) and (V,) f64 squared
-    norms ||c||², on the input's device. ``out`` is an optional flat f32
-    device buffer for c."""
-    n_var, rec = check_packed(packed, num_samples)
-    n_kept = kept_count(packed, num_samples, sel)
+def _band_view(x: torch.Tensor, lo: int, n: int, band: int) -> torch.Tensor:
+    """(n, band) view of the 1-D x: [r, d] = x[lo + r + 1 + d]."""
+    return x.as_strided((n, band), (1, 1), x.storage_offset() + lo + 1)
+
+
+def _plane_rows(packed: torch.Tensor, num_samples: int, height: int) -> tuple:
+    """(2, height, S) f32 planes of the records' rows, the dosage x = H + 2 A
+    (0 where missing) and V (called), rows past the records' end all
+    missing; and the rows' (height, 3) code counts of 0, 1 and 2, from the
+    planes' exact sums (x² = H + 4 A)."""
+    codes = unpack_codes_plain(packed[:height], num_samples)
+    planes = torch.zeros((2, height, num_samples), dtype=torch.float32, device=packed.device)
+    rows = codes.shape[0]
+    called = codes != 3
+    planes[1, :rows] = called
+    planes[0, :rows] = codes * called
+    sx, sxx, n = planes[0].sum(1), (planes[0] * planes[0]).sum(1), planes[1].sum(1)
+    c2 = (sxx - sx) / 2
+    c1 = sx - 2 * c2
+    return planes, torch.stack([n - c1 - c2, c1, c2], 1).long()
+
+
+def _band_sums(planes: torch.Tensor, band: int, n_out: int):
+    """For each chunk of output rows of ``_plane_rows``' planes: (lo, hi,
+    (hi - lo, band, 4) int64 sums S_xx, S_xi, S_xj and N of rows [lo, hi)
+    against their band), from one f32 Gram of the stacked planes a chunk,
+    exact: integer sums under 4 S < 2^24."""
+    step = min(max(band, PLAIN_ROWS[0]), PLAIN_ROWS[1])
+    for lo in range(0, n_out, step):
+        hi = min(lo + step, n_out)
+        n, w = hi - lo, hi - lo + band
+        with full_fp32():
+            gram = torch.matmul(planes[:, lo:hi].reshape(2 * n, -1),
+                                planes[:, lo : hi + band].reshape(2 * w, -1).T)
+        # [r, d] of plane pair (p, q) = gram[p n + r, q w + r + 1 + d]
+        sums = [gram.as_strided((n, band), (2 * w + 1, 1), 2 * w * n * p + w * q + 1)
+                for p in (0, 1) for q in (0, 1)]
+        yield lo, hi, torch.stack(sums, -1).round().long()
+
+
+def ld_band_sums_plain(packed: torch.Tensor, num_samples: int, band: int,
+                       n_out: int | None = None) -> torch.Tensor:
+    """(n_out, band, 4) int64: for the pair (i, j = i + 1 + d), with x = H +
+    2 A the dosage (H code 1, A code 2) and V called, the sums over the
+    samples S_xx = sum x_i x_j, S_xi = sum x_i V_j, S_xj = sum V_i x_j and
+    N = sum V_i V_j (the nine plane-pair counts HH + 2 HA + 2 AH + 4 AA,
+    HV + 2 AV, VH + 2 VA and VV); a row at or past the records' end is all
+    missing."""
+    n_out = packed.shape[0] if n_out is None else n_out
+    planes, _ = _plane_rows(packed, num_samples, n_out + band)
+    sums = [s for _, _, s in _band_sums(planes, band, n_out)]
+    if not sums:
+        return torch.zeros((0, band, 4), dtype=torch.int64, device=packed.device)
+    return torch.cat(sums)
+
+
+def ld_r2_band_plain(packed: torch.Tensor, num_samples: int, band: int,
+                     n_out: int | None = None) -> torch.Tensor:
+    """Plain PyTorch K15: (n_out, band) f64, [i, d] = r²(i, i + 1 + d) over
+    the S samples of the records (n_out: all rows without it; a row at or
+    past their end is all missing). From the sums of ``ld_band_sums_plain``
+    and m, ||c||² of ``_row_table``:
+        dot = S_xx - m_j S_xi - m_i S_xj + m_i m_j N,
+        r² = dot² / (||c_i||² ||c_j||²), 0 where that product is 0,
+    each f64 operation in this order, as the kernel rounds them (no square
+    root: torch's f64 sqrt on the CPU is not correctly rounded)."""
+    n_rows = packed.shape[0]
+    n_out = n_rows if n_out is None else n_out
+    out = torch.zeros((n_out, band), dtype=torch.float64, device=packed.device)
+    if n_out == 0 or band == 0:
+        return out
+    planes, hist = _plane_rows(packed, num_samples, n_out + band)
+    m, _, norm2 = _row_table(hist)  # 0 for the rows past the end
+    m = m.double()
+    for lo, hi, sums in _band_sums(planes, band, n_out):
+        sxx, sxi, sxj, n = sums.double().unbind(-1)
+        mi, ni = m[lo:hi, None], norm2[lo:hi, None]
+        mj, nj = _band_view(m, lo, hi - lo, band), _band_view(norm2, lo, hi - lo, band)
+        den = ni * nj
+        dot = sxx - mj * sxi
+        dot = dot - mi * sxj
+        dot = dot + (mi * mj) * n
+        out[lo:hi] = torch.where(den > 0, (dot * dot) / den, 0.0)
+    return out
+
+
+def ld_r2_band(packed: torch.Tensor, num_samples: int, band: int, n_out: int | None = None,
+               out=None) -> torch.Tensor:
+    """(n_rows, R) u8 records of ``num_samples`` samples -> (n_out, band) f64
+    r²: [i, d] = r²(i, i + 1 + d), rows at or past n_rows all missing (r²
+    0), on the input's device. ``out`` is an optional flat f64 device buffer
+    for the band (allocated once by ``banded_r2``)."""
+    n_rows, rec = check_packed(packed, num_samples)
+    n_out = n_rows if n_out is None else int(n_out)
+    if band < 0 or n_out < 0:
+        raise ValueError(f"band={band} and n_out={n_out} must be >= 0")
     if packed.device.type == "cpu":
-        return ld_centered_plain(packed, num_samples, sel)
-    c = scratch_view(out, (n_var, n_kept), packed.device)
-    if n_var == 0 or n_kept == 0:
-        return c, torch.zeros(n_var, dtype=torch.float64, device=packed.device)
-    norm2 = torch.empty(n_var, dtype=torch.float64, device=packed.device)  # every row is written
-    rows = torch.empty((3, n_var), dtype=torch.int32, device=packed.device)  # chunked-form sums
-    launch(ld_centered, "pgen_ld_centered", packed,
-           packed.data_ptr(), None if sel is None else sel.data_ptr(), c.data_ptr(),
-           norm2.data_ptr(), rows.data_ptr(), n_var, rec, num_samples, n_kept)
-    return c, norm2
+        return ld_r2_band_plain(packed, num_samples, band, n_out)
+    r2 = scratch_view(out, (n_out, band), packed.device, torch.float64)
+    if n_out == 0 or band == 0:
+        return r2
+    if num_samples == 0:  # no sample: every norm is 0
+        return r2.zero_()
+    launch(ld_r2_band, "pgen_ld_r2_band", packed,
+           packed.data_ptr(), r2.data_ptr(), n_rows, n_out, rec, num_samples, band)
+    return r2
 
 
-ld_centered.launches = 0
+ld_r2_band.launches = 0
 
 
 # ---- the streamed band ----
-
-
-def _tile_r2(c: torch.Tensor, norm: torch.Tensor, first: int, n_tiles: int,
-             band: int) -> torch.Tensor:
-    """(n_tiles, band, band) f64 r² of tiles [first, first + n_tiles) of a
-    staged block: [t, i, d] = r²(row t band + i, row t band + i + 1 + d)."""
-    n_kept = c.shape[1]
-    base = first * band
-    tiles = c[base : base + n_tiles * band].view(n_tiles, band, n_kept)
-    # tile t's window: rows [t band, t band + 2 band), overlapping views of c
-    windows = c.as_strided((n_tiles, 2 * band, n_kept), (band * n_kept, n_kept, 1),
-                           c.storage_offset() + base * n_kept)
-    with full_fp32():
-        gram = torch.bmm(tiles, windows.transpose(1, 2))  # (n_tiles, band, 2 band)
-    # [t, i, d] = gram[t, i, i + 1 + d]: a diagonal view, no gather
-    g = gram.as_strided((n_tiles, band, band), (2 * band * band, 2 * band + 1, 1),
-                        gram.storage_offset() + 1).double()
-    norm_i = norm[base : base + n_tiles * band].view(n_tiles, band, 1)
-    norm_j = norm.as_strided((n_tiles, band, band), (band, 1, 1), norm.storage_offset() + base + 1)
-    den = norm_i * norm_j
-    x = g / torch.clamp(den, min=1e-300)
-    return torch.where(den > 0, x * x, 0.0)
 
 
 def banded_r2(packed, num_samples: int, band: int, device, sample_idx=None,
@@ -207,40 +277,32 @@ def banded_r2(packed, num_samples: int, band: int, device, sample_idx=None,
     """pgen_tpu's ``banded_r2_device`` on ``device`` (``"cuda"`` or
     ``"cpu"``, the kernels' plain versions): (V, R) u8 records (a memory map
     is read block by block) -> (V, band) f64, [i, d] = r²(i, i+1+d) over the
-    samples of ``sample_idx`` (all S without it); 0 past the end and where
-    either norm is 0."""
+    samples of ``sample_idx`` (all S without it, any order, repeats
+    allowed); 0 past the end and where either norm is 0. The staging, the
+    re-packed cohort and the band on the card are allocated once a call."""
     nvar, rec = packed.shape
     out = np.zeros((nvar, band), dtype=np.float64)
     if nvar == 0 or band == 0:
         return out
     dev = resolve_device(device)
+    cuda = dev.type == "cuda"
     sel = device_sel(sample_idx, num_samples, dev)
     n_kept = num_samples if sel is None else sel.shape[0]
-    rows = max(1, block_rows // band) * band
-    most = min(rows, -(-nvar // band) * band) + band  # staged rows of the largest block
-    staging = torch.empty((most, rec), dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    rows = min(max(1, block_rows), nvar)
+    staging = torch.empty((min(rows + band, nvar), rec), dtype=torch.uint8, pin_memory=cuda)
     staged = staging.numpy()
-    scratch = (torch.empty(most * n_kept, dtype=torch.float32, device=dev)
-               if dev.type == "cuda" else None)
-    group = max(1, GRAM_ENTRIES // (2 * band * band))  # tiles a bmm
-    offsets = 1 + torch.arange(band, device=dev)
+    r2 = torch.empty(rows * band, dtype=torch.float64, device=dev) if cuda else None
+    repacked = (torch.empty(staging.shape[0] * ((n_kept + 3) // 4), dtype=torch.uint8, device=dev)
+                if cuda and sel is not None else None)
     for lo in range(0, nvar, rows):
         n_out = min(rows, nvar - lo)
-        n_tiles = -(-n_out // band)
-        height = (n_tiles + 1) * band
-        hi = min(lo + height, nvar)
+        hi = min(lo + n_out + band, nvar)  # the rows the block's pairs read
         np.copyto(staged[: hi - lo], packed[lo:hi])
-        staged[hi - lo : height] = 0xFF  # all missing: c and its norm 0
-        block = staging[:height].to(dev, non_blocking=True)
-        c, norm2 = ld_centered(block, num_samples, sel, out=scratch)
-        norm = torch.sqrt(norm2)
-        r2 = torch.empty((n_tiles, band, band), dtype=torch.float64, device=dev)
-        for t in range(0, n_tiles, group):
-            k = min(group, n_tiles - t)
-            r2[t : t + k] = _tile_r2(c, norm, t, k, band)
-        r2 = r2.view(n_tiles * band, band)[:n_out]
-        past = (lo + torch.arange(n_out, device=dev)[:, None] + offsets[None, :]) >= nvar
-        out[lo : lo + n_out] = r2.masked_fill(past, 0.0).cpu().numpy()
+        block = staging[: hi - lo].to(dev, non_blocking=True)
+        if sel is not None:
+            block = subset_repack(block, sel, out=repacked)
+        # the D2H into the output synchronises, so the staging is free again
+        torch.from_numpy(out[lo : lo + n_out]).copy_(ld_r2_band(block, n_kept, band, n_out, r2))
     return out
 
 

@@ -70,11 +70,13 @@ def pack_codes(codes: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-def subset_repack(packed: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+def subset_repack(packed: torch.Tensor, sel: torch.Tensor, out=None) -> torch.Tensor:
     """Records of the kept samples straight from the packed bytes: (V, R) u8
     records and ``sel``, a 1-D int32 tensor of sample ids on the same device
     in any order, -> (V, ceil(K/4)) u8 records in ``sel`` order, pad bits
-    zero. On CUDA an id outside [0, 4R) fails a device-side assert."""
+    zero. On CUDA an id outside [0, 4R) fails a device-side assert. ``out``
+    is an optional flat u8 device buffer for the records (a block loop's,
+    allocated once)."""
     n_var, rec = check_packed(packed)
     n_kept = check_sel(sel, packed)
     out_rec = (n_kept + 3) // 4
@@ -82,7 +84,13 @@ def subset_repack(packed: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         return torch.empty((n_var, out_rec), dtype=torch.uint8, device=packed.device)
     if packed.device.type == "cpu":
         return subset_repack_plain(packed, sel)
-    out = torch.empty((n_var, out_rec), dtype=torch.uint8, device=packed.device)
+    if out is None:
+        out = torch.empty((n_var, out_rec), dtype=torch.uint8, device=packed.device)
+    elif out.dtype != torch.uint8 or out.device != packed.device or out.numel() < n_var * out_rec:
+        raise ValueError(f"out must be uint8 on {packed.device} with at least "
+                         f"{n_var * out_rec} elements")
+    else:
+        out = out.view(-1)[: n_var * out_rec].view(n_var, out_rec)
     launch(subset_repack, "pgen_subset_repack", packed,
            packed.data_ptr(), sel.data_ptr(), out.data_ptr(), n_var, rec, n_kept)
     return out

@@ -10,25 +10,31 @@ iteration without the S x S matrix (``pca_approx``).
 
 Per staged block (``stage_blocks``, pinned when the device is CUDA):
 
-  K13 ``grm_z``   records -> (V, K) f32 z and (V,) int32 used flags
-  exact GRM:      acc += z.T @ z in f64         (16,384 rows a block)
-  --approx pass:  y += z.T @ (z @ q) in fp32    (q: the (K, L) subspace)
+  exact GRM:      K13 ``grm_z`` records -> (V, K) f32 z and (V,) int32
+                  used flags, then acc += z.T @ z in f64 (16,384 rows a
+                  block)
+  --approx pass:  K5 ``subset_repack`` (a cohort), then K13's pass
+                  ``pca_approx_pass``: y += Z^T (Z q) and the used count
+                  straight from the records, in three kernels (t = Z q,
+                  Z^T t by chunks of rows, their sum added to y), fp32
+                  FMAs, z never in device memory
 
-The --approx products are ``matmul_fp32`` (``torch.matmul`` in full fp32,
-TF32 off), as pgen_tpu pins ``Precision.HIGHEST`` in ``_approx_pass_jit``
-(:412), and y stays f32 on the device as pgen_tpu carries it. The exact
-GRM's z'z is f64 (z cast in chunks of rows) and sums in f64, where
-pgen_tpu's ``_grm_device_jit`` (:109) makes it in f32 and carries an f32
-sum: on the full chr22 fixture that f32 Gram came out 1.275 off an f64
+The exact GRM's z'z is f64 (z cast in chunks of rows) and sums in f64,
+where pgen_tpu's ``_grm_device_jit`` (:109) makes it in f32 and carries an
+f32 sum: on the full chr22 fixture that f32 Gram came out 1.275 off an f64
 oracle's GRM x m_used, past 1e-6 of its largest entry (1.106; the card's
 own f32 accumulation over a block's 16,384 rows is most of it), and the
 f64 product is about as fast on the card (FP64 tensor cores; PERF.md). K13
 (``csrc/genotype.cu:dosage_*_kernel<GrmRows>``) replaces the Pallas unpack,
 the cohort take and ``_standardize_block_jnp`` (:91): each row's code counts
 first (its p needs them), then a per-row table of four floats turns each
-code into z, in K11's three forms. Its wrapper dispatches on the tensor's
-device with no fallback: a CUDA tensor launches K13, a CPU tensor runs
-``grm_z_plain``.
+code into z, in K11's three forms. The --approx pass replaces
+``_approx_pass_jit`` (:412), whose products pgen_tpu pins at
+``Precision.HIGHEST``: its kernels (``csrc/genotype.cu:pca_zq_kernel``,
+``pca_zty_kernel``, ``pca_sum_kernel``) take the same table, sum in full fp32 in a fixed order
+and keep y f32 on the device as pgen_tpu carries it. Each wrapper
+dispatches on the tensor's device with no fallback: a CUDA tensor launches
+its kernels, a CPU tensor runs ``grm_z_plain`` or ``pca_approx_pass_plain``.
 
 Under a process group of several ranks each rank passes its own shard of
 the rows, as pgen_tpu's mesh steps shard the variant axis: ``grm_mesh``
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from pgen_tpu_torch.device import matmul_fp32, resolve_device
-from pgen_tpu_torch.kernels import launch
+from pgen_tpu_torch.kernels import launch, load
 from pgen_tpu_torch.ops.glm import (
     F64_CHUNK_ROWS,
     code_hist,
@@ -62,6 +68,7 @@ from pgen_tpu_torch.ops.glm import (
     select_codes,
 )
 from pgen_tpu_torch.ops.gt_stats import stage_blocks
+from pgen_tpu_torch.ops.pack import subset_repack
 from pgen_tpu_torch.ops.unpack import check_packed
 from pgen_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_from_rank0
 
@@ -117,6 +124,85 @@ def grm_z(packed: torch.Tensor, num_samples: int, sel=None, out=None) -> tuple:
 
 
 grm_z.launches = 0
+
+
+def pca_approx_pass_plain(packed: torch.Tensor, num_samples: int, q: torch.Tensor,
+                          y: torch.Tensor, used: torch.Tensor) -> None:
+    """Plain PyTorch K13 pass: y += z.T @ (z @ q) in full fp32 and used +=
+    the used rows, z and the flags of ``grm_z_plain``, as pgen_tpu's
+    ``_approx_pass_jit`` adds a block."""
+    z, flags = grm_z_plain(packed, num_samples)
+    y += matmul_fp32(z.T, matmul_fp32(z, q))
+    used += flags.sum()
+
+
+def approx_pass_tolerance(packed: torch.Tensor, num_samples: int, q: torch.Tensor,
+                          y0: torch.Tensor, z_ulps: int = 0) -> torch.Tensor:
+    """(S, L) f64: how far two fp32 evaluations of one pass, y0 + Z^T (Z q)
+    with Z ``grm_z_plain``'s z, may lie apart entry by entry when they sum
+    in other orders (``pca_approx_pass`` and ``pca_approx_pass_plain``, or
+    pgen_tpu's ``_approx_pass_jit``). It is 8 sigma of the probabilistic
+    model of rounding (each rounding independent and at most u = 2^-24
+    relative; Higham and Mary, SIAM J. Sci. Comput. 41, 2019), in which a
+    sum of n terms whose partial sums stay below P is off by at most
+    u sqrt(n) P in sigma:
+      t = Z q, n = 2 K: P = A_vl = sum_s |z_vs q_sl|, carried into y as
+        sqrt(sum_v z_vs² (u sqrt(2 K) A_vl)²);
+      y = y0 + Z^T t, n = 2 V + 1: P = |y0_sl| + sum_v |z_vs t_vl|;
+      with z_ulps, rows of z that differ by up to z_ulps u relative (each
+        row's z scales t and y once): sqrt(sum_v (2 z_ulps u z_vs t_vl)²).
+    The factor 8 is sqrt 2 for the difference of two evaluations times 5.7
+    sigma. Twice the terms bounds the roundings of any order of a sum."""
+    z = grm_z_plain(packed, num_samples)[0].double()
+    qd = q.double()
+    n_var = z.shape[0]
+    t = z @ qd
+    a = z.abs() @ qd.abs()
+    u = 2.0 ** -24
+    var = (2 * num_samples) * u * u * ((z * z).T @ (a * a))
+    var += (2 * n_var + 1) * u * u * (y0.double().abs() + z.abs().T @ t.abs()) ** 2
+    var += (2 * z_ulps * u) ** 2 * ((z * z).T @ (t * t))
+    return 8 * var.sqrt()
+
+
+def approx_scratch(n_var: int, num_samples: int, device) -> torch.Tensor:
+    """The pass kernels' scratch for blocks of up to n_var rows of
+    num_samples samples on the card, allocated once a run: bytes, as many
+    as the kernels' library asks for (each row's z table, t = Z q and the
+    row chunks' partial sums of y)."""
+    return torch.empty(load().pgen_pca_approx_scratch_bytes(n_var, num_samples),
+                       dtype=torch.uint8, device=device)
+
+
+def pca_approx_pass(packed: torch.Tensor, num_samples: int, q: torch.Tensor, y: torch.Tensor,
+                    used: torch.Tensor, scratch=None) -> None:
+    """One block of an --approx pass on the input's device: (V, R) u8
+    records of ``num_samples`` samples (a cohort re-packed first), q (S, L)
+    f32 -> y (S, L) f32 += Z^T (Z q) and used (an int64 scalar) += the
+    block's polymorphic rows, in place; Z is ``grm_z``'s z. ``scratch`` is
+    ``approx_scratch``'s, for at least V rows (else made here)."""
+    n_var, rec = check_packed(packed, num_samples)
+    n_cols = q.shape[1] if q.dim() == 2 else -1
+    for name, t, dtype, shape in (("q", q, torch.float32, (num_samples, n_cols)),
+                                  ("y", y, torch.float32, (num_samples, n_cols)),
+                                  ("used", used, torch.int64, ())):
+        if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != packed.device):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} on "
+                             f"{packed.device}")
+    if packed.device.type == "cpu":
+        return pca_approx_pass_plain(packed, num_samples, q, y, used)
+    if n_var == 0 or num_samples == 0 or n_cols == 0:
+        return None
+    if scratch is None:
+        scratch = approx_scratch(n_var, num_samples, packed.device)
+    launch(pca_approx_pass, "pgen_pca_approx_pass", packed,
+           packed.data_ptr(), q.data_ptr(), y.data_ptr(), used.data_ptr(), scratch.data_ptr(),
+           n_var, rec, num_samples, n_cols, scratch.numel())
+    return None
+
+
+pca_approx_pass.launches = 0
 
 
 def grm_device(
@@ -273,26 +359,28 @@ def pca_approx(
 
 def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants, timer=None):
     """pgen_tpu's ``_make_approx_pass_device``: each pass streams the records
-    through K13 and the two tall-skinny fp32 products, y and the used count
-    summed on the device; returns (y f64, m_used). Under a process group
-    (its mesh branch) rank 0's q is broadcast first and the pass's f32 y and
-    used count are summed over the ranks on the device."""
+    through ``pca_approx_pass`` (after K5 under a cohort), y and the used
+    count summed on the device; returns (y f64, m_used). Under a process
+    group (its mesh branch) rank 0's q is broadcast first and the pass's f32
+    y and used count are summed over the ranks on the device."""
     dev = resolve_device(device)
     sel = device_sel(sample_idx, num_samples, dev)
     nvar = int(packed.shape[0])
     bv = min(block_variants or (1 << 14), max(nvar, 1))
     ns = num_samples if sel is None else sel.shape[0]
-    scratch = (torch.empty(min(bv, nvar) * ns, dtype=torch.float32, device=dev)
-               if dev.type == "cuda" else None)
+    cuda = dev.type == "cuda"
+    scratch = approx_scratch(min(bv, nvar), ns, dev) if cuda else None
+    repacked = (torch.empty(min(bv, nvar) * ((ns + 3) // 4), dtype=torch.uint8, device=dev)
+                if cuda and sel is not None else None)
 
     def pass_fn(q):
         qd = broadcast_from_rank0(torch.tensor(q, dtype=torch.float32, device=dev), timer)
         y = torch.zeros((ns, q.shape[1]), dtype=torch.float32, device=dev)
         m_used = torch.zeros((), dtype=torch.int64, device=dev)
         for _, _, block in stage_blocks(packed, dev, bv):
-            z, used = grm_z(block, num_samples, sel, out=scratch)
-            y += matmul_fp32(z.T, matmul_fp32(z, qd))
-            m_used += used.sum()
+            if sel is not None:
+                block = subset_repack(block, sel, out=repacked)
+            pca_approx_pass(block, ns, qd, y, m_used, scratch)
         y, m_used = all_reduce_sum((y, m_used), dev, timer)
         return y.cpu().numpy().astype(np.float64), int(m_used)
 

@@ -15,7 +15,7 @@ plink's three knobs (documented conventions):
 
 Pairs never span a chromosome-run boundary; variants must be grouped by
 chromosome. Each run's band is ``ops/ld.py``'s ``banded_r2`` on ``device``
-(K15 and the fp32 tile Grams, streamed by blocks); the masks are the port's
+(K15 ``ld_r2_band``, streamed by blocks); the masks are the port's
 ``compute_masks`` (genotype counts on the device). ``LdResult``,
 ``_chrom_runs`` and ``ld_report`` are copied from pgen_tpu, with a device
 where pgen_tpu takes a provider.

@@ -17,7 +17,8 @@ windows require CHROM/POS-sorted input.
 On ``device``: the masks (the port's ``compute_masks``), the MAF counts
 (K8 ``gt_counts`` over every sample, K14 ``gt_counts_subset`` over a
 cohort, where pgen_tpu counts on the host) and the band (``banded_r2``:
-K15 and the fp32 tile Grams); the greedy walk is the host copy.
+K15 ``ld_r2_band``, K5 first for a cohort); the greedy walk is the host
+copy.
 ``PruneResult``, ``MAX_BAND``, ``parse_window_spec``, ``_chrom_run_ends``,
 ``window_extents`` and ``prune`` are copied from pgen_tpu, with a device
 where pgen_tpu takes a provider.

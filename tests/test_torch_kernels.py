@@ -62,10 +62,17 @@ from pgen_tpu_torch.ops.glm import (
     glm_planes,
     glm_planes_plain,
 )
-from pgen_tpu_torch.ops.pca import grm_device, grm_z, grm_z_plain
+from pgen_tpu_torch.ops.pca import (
+    approx_pass_tolerance,
+    grm_device,
+    grm_z,
+    grm_z_plain,
+    pca_approx_pass,
+    pca_approx_pass_plain,
+)
 from pgen_tpu_torch.ops.relatedness import relatedness_planes, relatedness_planes_plain
 from pgen_tpu_torch.ops.king import king_counts_device
-from pgen_tpu_torch.ops.ld import banded_r2, banded_r2_numpy, ld_centered, ld_centered_plain
+from pgen_tpu_torch.ops.ld import banded_r2, banded_r2_numpy, ld_r2_band, ld_r2_band_plain
 from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
 from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
 
@@ -940,99 +947,182 @@ def test_interaction_beta_on_the_card_within_pgen_tpu_tolerance(cuda_device, mon
     np.testing.assert_allclose(got.se, want.se, rtol=2e-4, atol=1e-6, equal_nan=True)
 
 
-# ---- K15 ld_centered and the streamed band ----
+# ---- K15 ld_r2_band, the streamed band, and K13's --approx pass ----
 
 
-def _ld_pair(packed, n_samples, sel):
-    c, norm2 = ld_centered(packed, n_samples, sel)
-    want_c, want_norm2 = ld_centered_plain(packed, n_samples, sel)
-    assert torch.equal(c, want_c) and torch.equal(norm2, want_norm2)
+def _ld_equal(packed, n_samples, band, n_out=None):
+    """K15 against its plain version on the same records: bit for bit."""
+    got = ld_r2_band(packed, n_samples, band, n_out)
+    want = ld_r2_band_plain(packed, n_samples, band, n_out)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    return got
 
 
-@pytest.mark.parametrize("n_samples", [2509, 2504, 2503, 2502, 2505, 17, 8, 5, 1, 9_001])
-def test_ld_centered_matches_plain(cuda_device, n_samples):
-    """K15 in its flat form (no sel, S % 4 == 0), its tiled form and, at
-    9,001 samples with sel, its chunked form (the count pass sums c2 as a
-    third row), on records whose every byte value sits at every position
-    (0xFF: a row with no called sample, c and norm 0): c and the f64 norms
-    bit-equal to the plain version's; one launch a call."""
-    rng = np.random.default_rng(n_samples)
-    packed = _packed(300, n_samples, 5 * n_samples, cuda_device)
-    before = ld_centered.launches
-    cohorts = _cohorts(n_samples, rng, cuda_device)
-    for sel in cohorts:
-        _ld_pair(packed, n_samples, sel)
-    assert ld_centered.launches == before + len(cohorts)
+def _ld_records(n_var, n_samples, seed, device):
+    """_packed's records with every third row a copy of the one before, a
+    few bytes redrawn, so the band holds r² near 1 beside random ones."""
+    host = _packed(n_var, n_samples, seed, "cpu").numpy()
+    host[1:-256:3] = host[0:-257:3][: len(host[1:-256:3])]
+    width = min(2, host.shape[1])
+    host[1:-256:3, :width] = np.random.default_rng(seed).integers(
+        0, 256, (len(host[1:-256:3]), width))
+    return torch.from_numpy(host).to(device)
 
 
-@pytest.mark.parametrize("kind", ["sorted", "reversed", "repeated"])
-@pytest.mark.parametrize("n_kept", [1, 2, 1001, 8_200])
-def test_ld_centered_any_ids(cuda_device, n_kept, kind):
-    rng = np.random.default_rng(n_kept)
-    packed = _packed(90, 2504, n_kept, cuda_device)
-    sel = torch.from_numpy(np.ascontiguousarray(_ids(kind, n_kept, 2504, rng), dtype=np.int32))
-    _ld_pair(packed, 2504, sel.to(cuda_device))
+@pytest.mark.parametrize("band", [1, 9, 49, 50, 420])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 2497, 95, 33, 5, 1])
+def test_ld_r2_band_matches_plain(cuda_device, n_samples, band):
+    """K15 at every n-tile count it is built for (band 1: 2, 9: 3, 49 and
+    past it: 8, in tiles of 49 offsets), S % 32 = 0, 1, 8, 31 and S < 8,
+    on records whose every byte value sits at every position (0xFF rows; pad
+    slots random): all rows, then 300 output rows (the pairs past the
+    records' end missing); one launch a call."""
+    packed = _ld_records(700, n_samples, n_samples + band, cuda_device)
+    before = ld_r2_band.launches
+    got = _ld_equal(packed, n_samples, band)
+    _ld_equal(packed, n_samples, band, 300)
+    _ld_equal(packed[:40], n_samples, band, 60)
+    assert ld_r2_band.launches == before + 3
+    if n_samples > 2000:  # 8 samples redrawn
+        assert got[0:600:3, 0].min() > 0.5  # the planted copies
 
 
-@pytest.mark.parametrize("offset", [1, 4, 15])
-def test_ld_centered_at_row_offsets(cuda_device, offset):
-    """Records 1-15 B past a 16-B boundary; c 4 B past one (the tiled form
-    where the flat form would run), nothing written outside it."""
-    host = _packed(200, 2504, offset, "cpu").numpy()
+def test_ld_r2_band_max_band(cuda_device):
+    """MAX_BAND (pipeline/prune.py) on 300 output rows of 2504 samples."""
+    from pgen_tpu_torch.pipeline.prune import MAX_BAND
+
+    packed = _ld_records(300 + MAX_BAND - 256, 2504, 8, cuda_device)
+    _ld_equal(packed, 2504, MAX_BAND, 300)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_ld_r2_band_at_row_offsets(cuda_device, offset):
+    """Records 1-15 B past a 16-B boundary, ending at the end of their
+    storage (a row's last chunk copies the aligned words that hold it and
+    nothing past the allocation), whole, one row and nine."""
+    host = _packed(200, 2503, offset, "cpu").numpy()
     packed = _records_at(host, offset, cuda_device)
-    _ld_pair(packed, 2504, None)
-    n_var = packed.shape[0]
-    guard = torch.full((n_var * 2504 + 8,), float("nan"), device=cuda_device)
-    c = guard[1 : 1 + n_var * 2504].view(n_var, 2504)
-    norm2 = torch.full((n_var,), float("nan"), dtype=torch.float64, device=cuda_device)
-    rows = torch.full((3, n_var), -1, dtype=torch.int32, device=cuda_device)
-    kernels.launch(ld_centered, "pgen_ld_centered", packed, packed.data_ptr(), None,
-                   c.data_ptr(), norm2.data_ptr(), rows.data_ptr(), n_var, host.shape[1], 2504,
-                   2504)
-    want_c, want_norm2 = ld_centered_plain(packed, 2504)
-    assert torch.equal(c, want_c) and torch.equal(norm2, want_norm2)
-    assert torch.isnan(guard[0]) and bool(torch.isnan(guard[1 + c.numel():]).all())
+    for rows in (packed, packed[-1:], packed[:9]):
+        for band in (9, 49):
+            _ld_equal(rows, 2503, band)
 
 
-def test_ld_centered_wide_cohorts(cuda_device):
-    packed = _packed(300, 40_003, 4, cuda_device)
-    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 40_003, 40_000)
-                           .astype(np.int32)).to(cuda_device)
-    for sel in (None, ids):
-        _ld_pair(packed, 40_003, sel)
+@pytest.mark.parametrize("n_samples", [40_003, 9_001])
+def test_ld_r2_band_wide_rows(cuda_device, n_samples):
+    packed = _ld_records(300, n_samples, 4, cuda_device)
+    for band in (9, 49):
+        _ld_equal(packed, n_samples, band)
 
 
-def test_ld_centered_launches_nothing_when_empty(cuda_device):
-    before = ld_centered.launches
+def test_ld_r2_band_launches_nothing_when_empty(cuda_device):
+    before = ld_r2_band.launches
     packed = _packed(3, 17, 0, cuda_device)
-    c, norm2 = ld_centered(packed, 17, torch.empty(0, dtype=torch.int32, device=cuda_device))
-    assert c.shape == (259, 0) and not norm2.any()
-    c, norm2 = ld_centered(packed[:0], 17)
-    assert c.shape == (0, 17) and norm2.shape == (0,)
-    assert ld_centered.launches == before
+    assert ld_r2_band(packed, 17, 0).shape == (259, 0)
+    assert ld_r2_band(packed, 17, 5, 0).shape == (0, 5)
+    assert not ld_r2_band(packed, 0, 5).any()
+    assert ld_r2_band(packed[:0], 17, 5).shape == (0, 5)
+    assert ld_r2_band.launches == before
 
 
 @pytest.mark.parametrize("band,block_rows", [(9, 1000), (49, 500), (1, 64), (300, 700)])
 def test_banded_r2_on_the_card_matches_cpu(cuda_device, band, block_rows):
-    """The streamed band on the card (K15, fp32 bmm, f64 r²) against the
-    same on the CPU and against numpy's f64 band, at pgen_tpu's device
-    tolerance (rtol 1e-4, atol 1e-6), all samples and a cohort; 2,999 rows
-    with every 3rd a near copy of the one before, so no block ends on a
-    tile and the window of a block's last tile lies in the next."""
+    """The streamed band on the card (K5 under a cohort, K15) against the
+    same on the CPU (the plain versions) bit for bit, and against numpy's
+    f64 band at pgen_tpu's device tolerance (rtol 1e-4, atol 1e-6), all
+    samples and cohorts sorted, unsorted and repeated; 2,999 rows with
+    every 3rd a near copy of the one before, no block a multiple of the
+    band."""
     rng = np.random.default_rng(band)
     host = _packed(2999 - 256, 2503, band, "cpu").numpy()
     host[1::3] = host[0:-1:3][: len(host[1::3])]
     host[1::3, :7] = rng.integers(0, 256, (len(host[1::3]), 7), dtype=np.uint8)
-    for idx in (None, np.sort(rng.choice(2503, 1001, replace=False)).astype(np.int32)):
-        before = ld_centered.launches
+    for idx in (None, np.sort(rng.choice(2503, 1001, replace=False)),
+                rng.permutation(2503)[:1001], rng.integers(0, 2503, 1200)):
+        idx = None if idx is None else idx.astype(np.int32)
+        before, repacks = ld_r2_band.launches, subset_repack.launches
         got = banded_r2(host, 2503, band, "cuda", sample_idx=idx, block_rows=block_rows)
-        rows = max(1, block_rows // band) * band
-        assert ld_centered.launches == before + -(-host.shape[0] // rows)
+        blocks = -(-host.shape[0] // block_rows)
+        assert ld_r2_band.launches == before + blocks
+        assert subset_repack.launches == repacks + (0 if idx is None else blocks)
         want = banded_r2(host, 2503, band, "cpu", sample_idx=idx, block_rows=block_rows)
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+        np.testing.assert_array_equal(got, want)
         oracle = banded_r2_numpy(host[:600], 2503, band, sample_idx=idx)
         np.testing.assert_allclose(got[: 600 - band], oracle[: 600 - band], rtol=1e-4, atol=1e-6)
         assert got[: 2999 - 256 : 3, 0].min() > 0.5  # the planted copies of random rows
+
+
+def _pass_pair(packed, n_samples, q):
+    """K13's pass against its plain version on the card, each from the same
+    y0 at the scale of y (so that a pass that lost y0 shows): used exact, y
+    within approx_pass_tolerance; the kernel's y again from y0 equal to its
+    first bit for bit. Returns the kernel's y."""
+    scale = torch.zeros((n_samples, q.shape[1]), device=q.device)
+    pca_approx_pass_plain(packed, n_samples, q, scale, torch.zeros((), dtype=torch.int64,
+                                                                   device=q.device))
+    y0 = torch.randn(scale.shape, device=q.device) * max(float(scale.std()), 1.0)
+    got, want = y0.clone(), y0.clone()
+    used = torch.zeros((), dtype=torch.int64, device=q.device)
+    used_plain = used.clone()
+    pca_approx_pass(packed, n_samples, q, got, used)
+    pca_approx_pass_plain(packed, n_samples, q, want, used_plain)
+    assert int(used) == int(used_plain)
+    tol = approx_pass_tolerance(packed, n_samples, q, y0)
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+    again = y0.clone()
+    pca_approx_pass(packed, n_samples, q, again, torch.zeros_like(used))
+    assert torch.equal(again, got)
+    return got
+
+
+@pytest.mark.parametrize("n_cols", [18, 4, 25, 50])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 1001, 33, 5, 1])
+def test_pca_approx_pass_matches_plain(cuda_device, n_samples, n_cols):
+    """K13's pass at q's widths of one chunk of columns (18: pca -k 10's,
+    4) and of several (25, 50: 24 a chunk), every S % 4 and S < 8, on
+    records whose every byte value sits at every position (0xFF: a row with
+    no called sample; monomorphic rows unused), y starting non-zero; one
+    launch a call."""
+    packed = _packed(900, n_samples, n_samples + n_cols, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n_samples)
+    q = torch.randn((n_samples, n_cols), device=cuda_device, generator=gen)
+    before = pca_approx_pass.launches
+    _pass_pair(packed, n_samples, q)
+    _pass_pair(packed[:7], n_samples, q)
+    assert pca_approx_pass.launches == before + 4
+
+
+def test_pca_approx_pass_block_rows(cuda_device):
+    """A 16,384-row block (32 chunks of rows a slice) and one of 16,385."""
+    packed = _packed(16_385 - 256, 2504, 3, cuda_device)
+    q = torch.randn((2504, 18), device=cuda_device)
+    _pass_pair(packed, 2504, q)
+    _pass_pair(packed[:16_384], 2504, q)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4, 8, 15])
+def test_pca_approx_pass_at_row_offsets(cuda_device, offset):
+    host = _packed(200, 2503, 11 * offset, "cpu").numpy()
+    packed = _records_at(host, offset, cuda_device)
+    q = torch.randn((2503, 18), device=cuda_device)
+    for rows in (packed, packed[-1:], packed[:9]):
+        _pass_pair(rows, 2503, q)
+
+
+def test_pca_approx_pass_wide_rows(cuda_device):
+    """40,003 samples: q's rows staged in chunks (3.2 MB of them)."""
+    packed = _packed(300, 40_003, 5, cuda_device)
+    q = torch.randn((40_003, 18), device=cuda_device)
+    _pass_pair(packed, 40_003, q)
+
+
+def test_pca_approx_pass_launches_nothing_when_empty(cuda_device):
+    before = pca_approx_pass.launches
+    packed = _packed(3, 17, 0, cuda_device)
+    used = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    y = torch.zeros((17, 4), device=cuda_device)
+    pca_approx_pass(packed[:0], 17, torch.zeros((17, 4), device=cuda_device), y, used)
+    pca_approx_pass(packed, 17, torch.zeros((17, 0), device=cuda_device), y[:, :0], used)
+    assert pca_approx_pass.launches == before and not y.any() and int(used) == 0
 
 
 @pytest.mark.parametrize("widths", [(2505, 7), (2506, 7), (2507, 7), (5, 6, 3)],

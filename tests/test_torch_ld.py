@@ -1,11 +1,18 @@
 """The port's LD family (pgen_tpu_torch.ops.ld, pipeline.ld_report, prune and
 clump and their CLI) against pgen_tpu.
 
-- K15's plain version (what a CPU tensor runs) against pgen_tpu's
-  ``centered_dosage_np``: c at rtol/atol 1e-6 (the port's mean is f32, as
-  pgen_tpu's device mean is), ||c||² at rtol 1e-6, at S = 7, 5, 4 and 1, all
-  samples and a cohort with a gap and a duplicate, with monomorphic and
-  all-missing rows.
+- ``ld_centered_plain`` (the plain definition of the mean and ||c||² that
+  K15 builds on) against pgen_tpu's ``centered_dosage_np``: c at rtol/atol
+  1e-6 (the port's mean is f32, as pgen_tpu's device mean is), ||c||² at
+  rtol 1e-6, at S = 7, 5, 4 and 1, all samples and a cohort with a gap and a
+  duplicate, with monomorphic and all-missing rows.
+- K15's plain version (what a CPU tensor runs): its sums S_xx, S_xi, S_xj
+  and N equal those of numpy int64 plane-pair counts exactly (also in
+  chunks of rows capped below the band), and its band is within pgen_tpu's
+  device tolerance of ``banded_r2_device(interpret=True)`` and
+  ``banded_r2_numpy``, at S % 32 = 0, 1, 8 and 31, bands 1, 9, 49 and past
+  the rows, with 0xFF, all-missing and monomorphic rows, and on cohorts
+  re-packed by K5's plain version (unsorted and repeated ids).
 - ``banded_r2(..., device="cpu")``, streamed in blocks of a few tiles,
   against pgen_tpu's ``banded_r2_device(interpret=True)`` (JAX on the CPU)
   and ``banded_r2_numpy`` (f64) at pgen_tpu's own device tolerance, rtol
@@ -27,6 +34,7 @@ clump and their CLI) against pgen_tpu.
 import contextlib
 import inspect
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,11 +44,13 @@ from conftest import build_fileset
 from pgen_tpu.cli import main as tpu_main
 from pgen_tpu.formats.writer import write_pgen
 from pgen_tpu.ops import ld as tpu_ld
+from pgen_tpu.ops.unpack_host import unpack_codes_numpy
 from pgen_tpu.pipeline import clump as tpu_clump
 from pgen_tpu.pipeline import ld_report as tpu_ld_report
 from pgen_tpu.pipeline import prune as tpu_prune
 from pgen_tpu_torch.cli import main as port_main
 from pgen_tpu_torch.ops import ld as port_ld
+from pgen_tpu_torch.ops.pack import subset_repack_plain
 from pgen_tpu_torch.pipeline import clump as port_clump
 from pgen_tpu_torch.pipeline import ld_report as port_ld_report
 from pgen_tpu_torch.pipeline import prune as port_prune
@@ -82,7 +92,7 @@ def test_ld_centered_plain_matches_centered_dosage_np(tmp_path, n_samples, kind)
     packed = torch.from_numpy(_pack(codes, tmp_path))
     idx = _cohort(kind, n_samples)
     sel = None if idx is None else torch.from_numpy(idx)
-    c, norm2 = port_ld.ld_centered(packed, n_samples, sel)
+    c, norm2 = port_ld.ld_centered_plain(packed, n_samples, sel)
     assert c.dtype == torch.float32 and norm2.dtype == torch.float64
     want_c, want_norm = tpu_ld.centered_dosage_np(codes if idx is None else codes[:, idx])
     np.testing.assert_allclose(c.numpy(), want_c, rtol=1e-6, atol=1e-6)
@@ -122,18 +132,202 @@ def test_banded_r2_matches_pgen_tpu(tmp_path, n_var, n_samples, band, block_rows
         assert not got[past].any()
 
 
-def test_banded_r2_block_size_changes_nothing_but_order(tmp_path, monkeypatch):
-    """One block against blocks of one tile, and against one tile a bmm
-    (GRAM_ENTRIES as small as a tile's Gram, the grouping MAX_BAND's tiles
-    take): the same r² to f32 rounding, the planted pairs near 1."""
+def test_banded_r2_block_size_changes_nothing_but_order(tmp_path):
+    """One block against blocks of five rows and of twenty: each pair's r²
+    comes from its own integer counts, so the bands are equal bit for bit,
+    the planted pairs near 1."""
     packed = _pack(_codes(64, 40, 3), tmp_path)
     whole = port_ld.banded_r2(packed, 40, 5, "cpu")
-    tiles = port_ld.banded_r2(packed, 40, 5, "cpu", block_rows=5)
-    np.testing.assert_allclose(tiles, whole, rtol=1e-6, atol=1e-9)
-    monkeypatch.setattr(port_ld, "GRAM_ENTRIES", 2 * 5 * 5)
-    grouped = port_ld.banded_r2(packed, 40, 5, "cpu", block_rows=20)
-    np.testing.assert_allclose(grouped, whole, rtol=1e-6, atol=1e-9)
+    for rows in (5, 20):
+        np.testing.assert_array_equal(port_ld.banded_r2(packed, 40, 5, "cpu", block_rows=rows),
+                                      whole)
     assert whole[0, 0] > 0.9 and whole[10, 0] > 0.9
+
+
+# S % 32 = 0, 1, 8, 31 (a record word of 16 samples, a plane word of 32)
+COUNT_WIDTHS = [64, 33, 40, 95]
+COUNT_BANDS = [1, 9, 49, 70]  # 70: past the 60 rows
+
+
+def _with_ff_rows(packed):
+    """The records with two raw 0xFF rows (pad bits set too) after row 10."""
+    ff = np.full((2, packed.shape[1]), 0xFF, dtype=np.uint8)
+    return np.concatenate([packed[:11], ff, packed[11:]])
+
+
+def _counts_numpy(codes, band):
+    """(V, band, 9) int64 counts of H (code 1), A (code 2) and V (called)
+    of row i against row i + 1 + d, in the order HH, HA, HV, AH, AA, AV, VH,
+    VA, VV; 0 past the last row."""
+    planes = np.stack([codes == 1, codes == 2, codes != 3]).astype(np.int64)
+    n_var = codes.shape[0]
+    out = np.zeros((n_var, band, 9), dtype=np.int64)
+    for i in range(n_var):
+        for d in range(band):
+            j = i + 1 + d
+            if j < n_var:
+                out[i, d] = (planes[:, None, i] * planes[None, :, j]).sum(-1).reshape(9)
+    return out
+
+
+@pytest.mark.parametrize("band", COUNT_BANDS)
+@pytest.mark.parametrize("n_samples", COUNT_WIDTHS)
+def test_band_counts_plain_match_numpy(tmp_path, n_samples, band):
+    """The plain version's sums S_xx, S_xi, S_xj and N are those of the nine
+    plane-pair counts, in numpy int64."""
+    packed = _with_ff_rows(_pack(_codes(58, n_samples, n_samples + band), tmp_path))
+    codes = unpack_codes_numpy(packed, n_samples)
+    got = port_ld.ld_band_sums_plain(torch.from_numpy(packed), n_samples, band)
+    assert got.dtype == torch.int64 and got.shape == (60, band, 4)
+    hh, ha, hv, ah, aa, av, vh, va, vv = np.moveaxis(_counts_numpy(codes, band), -1, 0)
+    want = np.stack([hh + 2 * ha + 2 * ah + 4 * aa, hv + 2 * av, vh + 2 * va, vv], -1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("band", [255, 256, 257, 300])
+def test_band_sums_plain_past_a_chunk_of_rows(tmp_path, band):
+    """Bands at and past the plain version's largest chunk of rows (256),
+    on 600 rows: the sums those of numpy int64 Grams of x = H + 2 A and V."""
+    packed = _pack(_codes(600, 37, band), tmp_path)
+    codes = unpack_codes_numpy(packed, 37).astype(np.int64)
+    x, v = np.where(codes == 3, 0, codes), (codes != 3).astype(np.int64)
+    grams = [a @ b.T for a, b in ((x, x), (x, v), (v, x), (v, v))]
+    i = np.arange(600)[:, None]
+    j = i + 1 + np.arange(band)[None, :]
+    want = np.stack([np.where(j < 600, g[i, np.minimum(j, 599)], 0) for g in grams], -1)
+    got = port_ld.ld_band_sums_plain(torch.from_numpy(packed), 37, band)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["all", "unsorted", "repeated"])
+@pytest.mark.parametrize("band", COUNT_BANDS)
+@pytest.mark.parametrize("n_samples", COUNT_WIDTHS)
+def test_ld_r2_band_plain_matches_pgen_tpu(tmp_path, n_samples, band, kind):
+    """K15's plain band on whole rows (a cohort re-packed first, as
+    banded_r2 does) against pgen_tpu's device band and numpy band of the
+    same samples; the 0xFF, all-missing and monomorphic rows 0."""
+    packed = _with_ff_rows(_pack(_codes(58, n_samples, 2 * n_samples + band), tmp_path))
+    rng = np.random.default_rng(band)
+    idx = {"all": None, "unsorted": rng.permutation(n_samples)[: n_samples - 3],
+           "repeated": rng.integers(0, n_samples, n_samples + 5)}[kind]
+    records, n_kept = torch.from_numpy(packed), n_samples
+    if idx is not None:
+        idx = idx.astype(np.int32)
+        records, n_kept = subset_repack_plain(records, torch.from_numpy(idx)), len(idx)
+    got = port_ld.ld_r2_band_plain(records, n_kept, band).numpy()
+    assert got.shape == (60, band)
+    want = tpu_ld.banded_r2_numpy(packed, n_samples, band, sample_idx=idx)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    device = tpu_ld.banded_r2_device(packed, n_samples, band, sample_idx=idx, interpret=True)
+    np.testing.assert_allclose(got, device, rtol=RTOL, atol=ATOL)
+    # every pair with an all-missing row (6, and the 0xFF rows 11 and 12) or
+    # the monomorphic row 2 is 0
+    i = np.arange(60)[:, None]
+    j = i + 1 + np.arange(band)[None, :]
+    assert not got[np.isin(i, (2, 6, 11, 12)) | np.isin(j, (2, 6, 11, 12))].any()
+
+
+# -- K15's kernel, mirrored with numpy ----------------------------------------
+#
+# ld_r2_band_kernel (pgen_tpu_torch/csrc/genotype.cu) runs only on the card;
+# these tests follow its index arithmetic and its bit planes on the CPU, with
+# its constants held to the source: change both together.
+
+K15_SOURCE = Path(port_ld.__file__).resolve().parent.parent / "csrc" / "genotype.cu"
+K15_ROWS, K15_CHUNK, K15_MAX_NT = 64, 128, 8
+
+
+def test_k15_constants_match_the_source():
+    source = K15_SOURCE.read_text()
+    assert f"constexpr int kLdRows = {K15_ROWS};" in source
+    assert f"constexpr int kLdChunk = {K15_CHUNK};" in source
+    assert f"constexpr int kLdMaxNt = {K15_MAX_NT};" in source
+    assert "return kLdRows + 48 + 8 * nt;" in source
+    assert "return 8 * nt - 15;" in source
+    assert "const int gap = d0 + 1 > kLdRows ? d0 + 1 - kLdRows : 0;" in source
+    assert "switch ((15 + dt + 7) / 8) {" in source
+
+
+@pytest.mark.parametrize("n_out,band", [(1, 1), (100, 1), (130, 9), (64, 49), (200, 50),
+                                        (70, 420), (65, 8192)])
+def test_k15_items_write_each_pair_once(n_out, band):
+    """The kernel's items (64 rows by a tile of DT offsets) and each lane's
+    fragment entries: every (i, d) of the band written once, its rows i and
+    i + 1 + d at the staged rows it reads them from, inside the staging."""
+    nt = (15 + min(band, 8 * K15_MAX_NT - 15) + 7) // 8
+    dt = 8 * nt - 15
+    n_dtiles = -(-band // dt)
+    w, lane, n, e = np.meshgrid(np.arange(4), np.arange(32), np.arange(nt), np.arange(4),
+                                indexing="ij")
+    g, t = lane // 4, lane % 4
+    r, col = g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1)
+    seen = np.zeros((n_out, band), dtype=np.int64)
+    for item in range(-(-n_out // K15_ROWS) * n_dtiles):
+        i0, d0 = (item // n_dtiles) * K15_ROWS, (item % n_dtiles) * dt
+        gap = max(0, d0 + 1 - K15_ROWS)
+        joff = 1 + d0 - gap
+        n_staged = joff + 48 + 8 * nt
+        dd = col - r
+        i, d = i0 + 16 * w + r, d0 + dd
+        keep = (dd >= 0) & (dd < dt) & (d < band) & (i < n_out)
+        ki, kj = (16 * w + r)[keep], (joff + 16 * w + col)[keep]
+        assert kj.max(initial=0) < n_staged and ki.max(initial=0) < K15_ROWS
+        assert np.array_equal(i0 + kj + np.where(kj >= K15_ROWS, gap, 0), i[keep] + 1 + d[keep])
+        np.add.at(seen, (i[keep], d[keep]), 1)
+    assert (seen == 1).all()
+
+
+def _k15_planes(packed, n_samples):
+    """The kernel's planes of each row, (V, 3, words) u32 U1, U2, V: record
+    words read in chunks of K15_CHUNK bytes, bytes past the used ones 0xFF
+    and the pad slots of the last used byte 3, two record words a plane
+    word."""
+    used = (n_samples + 3) // 4
+    width = -(-used // K15_CHUNK) * K15_CHUNK
+    rows = np.full((packed.shape[0], width), 0xFF, dtype=np.uint8)
+    rows[:, :used] = packed[:, :used]
+    tail = n_samples - 4 * (used - 1)
+    rows[:, used - 1] |= (0xFF << (2 * tail)) & 0xFF
+    words = rows.view("<u4").reshape(packed.shape[0], -1, 2)
+    lo, hi = words & 0x55555555, (words >> 1) & 0x55555555
+
+    def plane(x):
+        return (x[..., 0] | (x[..., 1] << 1)).astype(np.uint32)
+
+    return np.stack([plane(lo ^ hi), plane(hi & ~lo), plane((lo & hi) ^ 0x55555555)], 1)
+
+
+def _popc(x):
+    return np.unpackbits(x.view(np.uint8), axis=-1).sum(-1, dtype=np.int64)
+
+
+@pytest.mark.parametrize("n_samples", [1, 2, 3, 4, 5, 31, 33, 40, 512, 513, 2503])
+def test_k15_planes_count_as_the_plain_version(n_samples):
+    """The kernel's planes of records with random pad bits (and 0xFF rows):
+    each row's popcounts its called count, c1 + c2 and c2, and a pair's
+    AND-POPC sums S_xx, S_xi, S_xj and N those of ld_band_sums_plain."""
+    rng = np.random.default_rng(n_samples)
+    packed = rng.integers(0, 256, (12, (n_samples + 3) // 4), dtype=np.uint8)
+    packed[5] = 0xFF
+    planes = _k15_planes(packed, n_samples)
+    hist = port_ld.code_hist(port_ld.unpack_codes_plain(torch.from_numpy(packed),
+                                                        n_samples).long()).numpy()
+    np.testing.assert_array_equal(_popc(planes), np.stack(
+        [hist[:, 1] + hist[:, 2], hist[:, 2], hist[:, :3].sum(1)], 1))
+    sums = port_ld.ld_band_sums_plain(torch.from_numpy(packed), n_samples, 3).numpy()
+    u1, u2, v = planes[:, 0], planes[:, 1], planes[:, 2]
+    for i in range(12):
+        for d in range(3):
+            j = i + 1 + d
+            if j >= 12:
+                assert not sums[i, d].any()
+                continue
+            want = tuple(sums[i, d])
+            got = (sum(_popc(a_ & b_).sum() for a_ in (u1[i], u2[i]) for b_ in (u1[j], u2[j])),
+                   _popc(u1[i] & v[j]).sum() + _popc(u2[i] & v[j]).sum(),
+                   _popc(v[i] & u1[j]).sum() + _popc(v[i] & u2[j]).sum(),
+                   _popc(v[i] & v[j]).sum())
+            assert got == want
 
 
 # -- the CLI against pgen_tpu's ----------------------------------------------

@@ -39,6 +39,7 @@ from pgen_tpu_torch.cli import main as port_main
 from pgen_tpu_torch.ops import ibd as port_ibd
 from pgen_tpu_torch.ops import king as port_king
 from pgen_tpu_torch.ops import pca as port_pca
+from pgen_tpu_torch.ops.pack import subset_repack_plain
 from pgen_tpu_torch.ops.relatedness import plane_shape, relatedness_planes
 from pgen_tpu_torch.pipeline import king as port_king_pipeline
 from test_torch_standalone import ARGV_TABLE
@@ -138,6 +139,72 @@ def test_pca_approx_matches_pgen_tpu_device(tmp_path, n_samples):
     np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-3)
     for c in range(2):
         assert abs(float(got.eigenvectors[:, c] @ want.eigenvectors[:, c])) > 1 - 1e-4
+
+
+def _approx_pass_pair(packed, n_samples, kind):
+    """pgen_tpu's _approx_pass_jit (interpret mode) and the port's pass,
+    block by block (a cohort re-packed by K5's plain version first, as the
+    pass loop does), on the same records and q, from y = 0: (the port's y
+    and used, pgen_tpu's, the re-packed records, n_kept, q)."""
+    import jax.numpy as jnp
+
+    idx = _cohort(kind, n_samples)
+    n_kept = n_samples if idx is None else len(idx)
+    q = np.random.default_rng(n_samples).standard_normal((n_kept, 6)).astype(np.float32)
+    want_y, want_m = tpu_pca._approx_pass_jit(
+        jnp.asarray(packed), jnp.asarray(q), None if idx is None else jnp.asarray(idx),
+        n_samples, 128, True)
+    records = torch.from_numpy(packed)
+    if idx is not None:
+        records = subset_repack_plain(records, torch.from_numpy(idx))
+    y = torch.zeros((n_kept, 6), dtype=torch.float32)
+    used = torch.zeros((), dtype=torch.int64)
+    qt = torch.from_numpy(q)
+    for lo in range(0, packed.shape[0], 128):
+        port_pca.pca_approx_pass(records[lo : lo + 128], n_kept, qt, y, used)
+    return (y, used), (torch.from_numpy(np.array(want_y)), int(want_m)), records, n_kept, qt
+
+
+@pytest.mark.parametrize("kind", COHORTS)
+@pytest.mark.parametrize("n_samples", WIDTHS)
+def test_pca_approx_pass_plain_matches_approx_pass_jit(tmp_path, n_samples, kind):
+    """K13's plain pass against pgen_tpu's _approx_pass_jit: the used count
+    exact, y within approx_pass_tolerance with z_ulps = 1 (XLA's rsqrt on
+    the CPU is 1 ulp off the port's correctly rounded 1/sqrt in a third of
+    the rows)."""
+    packed = _packed(_planted_codes(300, n_samples, n_samples + 2), tmp_path)
+    (y, used), (want_y, want_m), records, n_kept, q = _approx_pass_pair(packed, n_samples, kind)
+    assert int(used) == want_m > 0
+    tol = port_pca.approx_pass_tolerance(records, n_kept, q, torch.zeros_like(y), z_ulps=1)
+    assert bool(((y.double() - want_y.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("fault", ["half the rows", "a block of rows", "y0 dropped",
+                                   "a column shifted"])
+def test_approx_pass_tolerance_fails_planted_faults(tmp_path, fault):
+    """The tolerance is tight enough to see a wrong pass: against pgen_tpu's
+    y, from a y0 at the scale of y, a pass that dropped half the rows, one
+    128-row block, or y0, or shifted its columns by one, lies outside it;
+    the right pass lies inside."""
+    packed = _packed(_planted_codes(512, 37, 41), tmp_path)
+    (y, _), (want_y, _), records, n_kept, q = _approx_pass_pair(packed, 37, "all")
+    y0 = torch.from_numpy(np.random.default_rng(5).standard_normal(y.shape).astype(np.float32))
+    y0 *= float(want_y.std())
+    want = (y0.double() + want_y.double())
+    tol = port_pca.approx_pass_tolerance(records, n_kept, q, y0, z_ulps=1)
+    got = y0 + y
+    assert bool(((got.double() - want).abs() <= tol).all())
+    used = torch.zeros((), dtype=torch.int64)
+    rows = {"half the rows": records[:256],
+            "a block of rows": torch.cat([records[:128], records[256:]])}.get(fault)
+    if rows is not None:
+        got = y0.clone()
+        port_pca.pca_approx_pass(rows, n_kept, q, got, used)
+    elif fault == "y0 dropped":
+        got = y.clone()
+    else:
+        got = got.roll(1, 1)
+    assert bool(((got.double() - want).abs() > tol).any())
 
 
 def _tpu_codes(packed, n_samples, idx):
