@@ -3,12 +3,13 @@
 beside chip_smoke.py, whose fixtures, timer and oracles they use.
 
     python3 chip_diag.py --ab DIR      # K4, K5, K8-K11, K14 against the kernels of the checkout
-                                       # at DIR; K14's wrapper against that checkout's; K15 and
-                                       # K13's pass against that checkout's chains
+                                       # at DIR; K14's wrapper against that checkout's; K12, K15
+                                       # and K13's pass against that checkout's chains
     python3 chip_diag.py --precision   # X1-X3 with f32, split-column and f64 products
     python3 chip_diag.py --trace       # the --ab cases' device time per launch, no host time,
                                        # and K12, K13, their products, K15 and K13's pass
     python3 chip_diag.py --forms       # K5's staged and direct forms at each K, and its threshold
+    python3 chip_diag.py --phase-times DIR # DIR's chip_smoke.py, each of its phases timed
     python3 chip_diag.py --rates       # popcount and .b1 mma.sync rates of the card
     python3 chip_diag.py --ld-cpu DIR... # full-chr22 ld and prune --device cpu, this checkout
                                        # and those at DIR...
@@ -16,22 +17,27 @@ beside chip_smoke.py, whose fixtures, timer and oracles they use.
 --ab builds the kernel sources of another checkout (the parent commit's,
 unpacked with git archive) beside this one's and times both in one process
 on the same tensors; it then imports the other checkout's package beside
-this one's and times both K14 wrappers, host time included, then K15 and
-K13's --approx pass against the other checkout's chains for the same work
-(its K15 c, tile Grams and r² ops; its K13 z and two products), through both
-packages, each side's device operations traced. --trace runs this
+this one's and times both K14 wrappers, host time included, then K12, K15
+and K13's --approx pass against the other checkout's chains for the same
+work (its K12 int8 planes and four or five torch._int_mm Grams; its K15 c,
+tile Grams and r² ops; its K13 z and two products), through both packages,
+each side's device operations traced, and each package's king and genome
+scans' peak device memory. --trace runs this
 checkout's launchers of the same cases under torch.profiler and prints each
 device operation's time per launch (kernels and memsets), which CUDA events
 around a launch cannot separate from the host's enqueue time; it also
-traces K12 and K13 and the library products beside them (one torch._int_mm
-Gram, one fp32 z'z and an --approx pass's two products before its kernels),
-K15 at bands 9, 49 and 420 and K13's pass. --precision shows
+traces K12's bits and Grams, K13 and the library products beside them (one
+torch._int_mm Gram of the CPU scan's int8 planes, one fp32 z'z and an
+--approx pass's two products before its kernels), K15 at bands 9, 49 and
+420 and K13's pass. --precision shows
 which part of an f32 moment product costs each GWAS design its accuracy
 against pgen_tpu's tolerances. --forms builds this checkout's kernels twice
 more, K5's launcher held to its direct form in one and to its staged form
 (wherever a row tile fits) in the other, and times both on the same records
 at a range of K: the readings its threshold (kRepackDenseRatio) is fixed
-from. --rates times the two instructions a per-mask count can rest on: a
+from. --phase-times runs the chip_smoke.py of another checkout (one whose
+smoke does not time its own phases, as this one's does) from that
+checkout's root, each of its phase functions timed. --rates times the two instructions a per-mask count can rest on: a
 popcount on the CUDA cores and K14's .b1 AND-POPC product on the tensor
 cores. --ld-cpu times the CPU's ld (band 9) and prune --indep-pairwise 50 5
 0.2 (band 49) over every variant of the chr22 fixture, each checkout's CLI
@@ -349,9 +355,11 @@ def _kernel_cases(other) -> dict:
 
 def _relatedness_cases() -> dict:
     """K12, K13 and K15 launchers and the products beside them, at the
-    paths' block shapes, for --trace only: {name: call(lib)}. K12 at 32,768
-    rows of 2504 samples, all or a sorted 1,001; K13 at 16,384 rows, the
-    same; one torch._int_mm Gram of the planes, one z'z in f64 (the exact
+    paths' block shapes, for --trace only: {name: call(lib)}. K12's bits at
+    32,768 rows of 2504 samples and of a sorted 1,001 re-packed by K5 (K5
+    too), its Gram kernel from each with king's and genome's sets; K13 at
+    16,384 rows, all or the 1,001; one torch._int_mm Gram of the CPU scan's
+    int8 planes (made by relatedness_planes_plain), one z'z in f64 (the exact
     GRM's) and in full fp32 (pgen_tpu's), and the two products of an
     --approx pass before K13's pass kernels, z'(z q), q of 18 columns; K15
     at 16,384 output rows of 2504 samples at bands 9, 49 and 420 and of a
@@ -363,7 +371,11 @@ def _relatedness_cases() -> dict:
     from pgen_tpu_torch.device import matmul_fp32
     from pgen_tpu_torch.ops.pack import subset_repack
     from pgen_tpu_torch.ops.pca import add_gram_fp64, approx_scratch
-    from pgen_tpu_torch.ops.relatedness import plane_shape
+    from pgen_tpu_torch.ops.relatedness import (
+        GRAM_SETS,
+        relatedness_bits,
+        relatedness_planes_plain,
+    )
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -374,14 +386,25 @@ def _relatedness_cases() -> dict:
     keep = keep.to(torch.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def planes_case(rows, sel):
+    def bits_case(rows, kept):
         n_var, n_rec = rows.shape
-        kept = s if sel is None else sel.shape[0]
-        s_pad, v_pad = plane_shape(n_var, kept)
-        planes = torch.empty((4, s_pad, v_pad), dtype=torch.int8, device=dev)
-        return planes, lambda lib: lib.pgen_relatedness_planes(
-            rows.data_ptr(), None if sel is None else sel.data_ptr(), planes.data_ptr(), n_var,
-            n_rec, s, kept, s_pad, v_pad, stream)
+        bits = relatedness_bits(rows, kept)
+        return bits, lambda lib: lib.pgen_relatedness_bits(
+            rows.data_ptr(), bits.data_ptr(), n_var, n_rec, kept, bits.shape[1], bits.shape[2],
+            stream)
+
+    def gram_case(bits, set_):
+        s_pad = 16 * bits.shape[1]
+        grams = torch.zeros((len(GRAM_SETS[set_]), s_pad, s_pad), dtype=torch.int32, device=dev)
+        return lambda lib: lib.pgen_relatedness_gram(bits.data_ptr(), grams.data_ptr(),
+                                                     bits.shape[1], bits.shape[2], set_, stream)
+
+    def repack_case(rows, sel):
+        out = torch.empty((rows.shape[0], (sel.shape[0] + 3) // 4), dtype=torch.uint8,
+                          device=dev)
+        return lambda lib: lib.pgen_subset_repack(rows.data_ptr(), sel.data_ptr(),
+                                                  out.data_ptr(), rows.shape[0], rows.shape[1],
+                                                  sel.shape[0], stream)
 
     def z_case(rows, sel):
         n_var, n_rec = rows.shape
@@ -406,8 +429,10 @@ def _relatedness_cases() -> dict:
             rows.data_ptr(), q.data_ptr(), y.data_ptr(), used.data_ptr(),
             scratch.data_ptr(), rows.shape[0], rows.shape[1], kept, 18, scratch.numel(), stream)
 
-    planes, k12 = planes_case(records, None)
-    _, k12_sel = planes_case(records, keep)
+    records_keep = subset_repack(records, keep)
+    bits, k12_bits = bits_case(records, s)
+    keep_bits, k12_bits_keep = bits_case(records_keep, KEEP_SAMPLES)
+    planes = relatedness_planes_plain(records, s)
     z, k13 = z_case(records[:GLM_ROWS], None)
     _, k13_sel = z_case(records[:GLM_ROWS], keep)
     q = torch.randn((s, 18), device=dev, generator=gen)
@@ -422,11 +447,16 @@ def _relatedness_cases() -> dict:
         return call
 
     return {
-        f"K12 relatedness_planes V={REL_ROWS} K=2504": k12,
-        f"K12 relatedness_planes V={REL_ROWS} K={KEEP_SAMPLES} sel": k12_sel,
+        f"K5 subset_repack V={REL_ROWS} K={KEEP_SAMPLES} sorted": repack_case(records, keep),
+        f"K12 relatedness_bits V={REL_ROWS} K=2504": k12_bits,
+        f"K12 relatedness_bits V={REL_ROWS} K={KEEP_SAMPLES} (re-packed)": k12_bits_keep,
+        **{f"K12 relatedness_gram {label} V={REL_ROWS} K={kept}": gram_case(b, set_)
+           for b, kept in ((bits, s), (keep_bits, KEEP_SAMPLES))
+           for set_, label in enumerate(("king", "genome"))},
         f"K13 grm_z V={GLM_ROWS} K=2504": k13,
         f"K13 grm_z V={GLM_ROWS} K={KEEP_SAMPLES} sel": k13_sel,
-        f"torch._int_mm Gram ({planes.shape[1]} x {planes.shape[2]} by its transpose)":
+        f"torch._int_mm Gram of int8 planes ({planes.shape[1]} x {planes.shape[2]} by its "
+        "transpose)":
             product(lambda: torch._int_mm(planes[0], planes[3].t())),
         f"z'z f64 ({GLM_ROWS} x {s}, cast in chunks)": product(lambda: add_gram_fp64(acc, z)),
         f"z'z fp32 ({GLM_ROWS} x {s})": product(lambda: matmul_fp32(z.T, z)),
@@ -589,8 +619,8 @@ def phase_ab(other_root: Path) -> None:
     other.pgen_subset_repack.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     other.pgen_gt_counts.argtypes = [ptr, ptr, i64, i64, i64, ptr]
     other.pgen_gt_counts_masked.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr]
-    print("[ab] K12 and K13's z are left out (--trace times them); K15 and K13's pass against "
-          "the other checkout's chains follow (_chain_ab)")
+    print("[ab] K13's z is left out (--trace times it); K12, K15 and K13's pass against the "
+          "other checkout's chains follow (_chain_ab)")
     for name, (outs, call) in _kernel_cases(other).items():
         def run(lib):
             status = call(lib)
@@ -609,6 +639,7 @@ def phase_ab(other_root: Path) -> None:
         _print_ab("[ab]", name, lambda: run(other), lambda: run(this))
     _wrapper_ab(other_root)
     _chain_ab(other_root)
+    _k12_chain_ab(other_root)
 
 
 def _host_us(fn, calls: int = 50, reps: int = 5) -> float:
@@ -707,7 +738,8 @@ def _chain_ab(other_root: Path) -> None:
     pass (after K5), y within 2 (K + V) u of the f32 sums' absolute terms.
     Each timed as the launchers are (host time included), then each side's
     device operations from a trace: the other chain's tile Grams and its r²
-    ops by kernel."""
+    ops by kernel. A line says so where the other checkout has no such
+    chain."""
     import torch
 
     from pgen_tpu_torch.device import matmul_fp32
@@ -717,7 +749,10 @@ def _chain_ab(other_root: Path) -> None:
     other_ld = _other_module(other_root, "pgen_tpu_torch.ops.ld")
     other_pca = _other_module(other_root, "pgen_tpu_torch.ops.pca")
     if not hasattr(other_ld, "ld_centered") or not hasattr(other_pca, "grm_z"):
-        raise AssertionError("the other checkout has no K15 ld_centered or K13 grm_z")
+        # a checkout that holds these redesigns already has no chain to run
+        print("[ab chain] K15 and K13's pass: the other checkout has no K15 ld_centered or K13 "
+              "grm_z chain to run beside them")
+        return
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     s = WIDTHS[0]
@@ -798,6 +833,85 @@ def _chain_ab(other_root: Path) -> None:
 
         _print_ab("[ab chain]", name, other_fn, this_fn)
         _print_device_ops(name, {"other": other_fn, "this": this_fn})
+
+
+def _k12_chain_ab(other_root: Path) -> None:
+    """K12's bits and Gram kernel of this checkout against the other
+    checkout's K12 chain for the same work, each through its own package: at
+    32,768 rows of 2504 samples and of a sorted 1,001, king's four Grams and
+    genome's five; the other's K12 int8 planes (the ids taken by K12) and a
+    torch._int_mm a Gram against this side's K5 re-pack (for the cohort),
+    bits and one Gram launch, the Grams held equal. Each timed as the
+    launchers are (host time included), then each side's device operations
+    from a trace. Last each package's king_counts_device and
+    ibd_counts_device over three such blocks of all samples: the Grams
+    equal, and each scan's peak device memory above what was allocated
+    before it."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.ops import ibd, king
+    from pgen_tpu_torch.ops import relatedness as rel
+    from pgen_tpu_torch.ops.pack import subset_repack
+
+    other_rel = _other_module(other_root, "pgen_tpu_torch.ops.relatedness")
+    if not hasattr(other_rel, "relatedness_planes"):
+        raise AssertionError("the other checkout has no K12 relatedness_planes")
+    other_king = _other_module(other_root, "pgen_tpu_torch.ops.king")
+    other_ibd = _other_module(other_root, "pgen_tpu_torch.ops.ibd")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    s = WIDTHS[0]
+    records = torch.randint(0, 256, (REL_ROWS, (s + 3) // 4), dtype=torch.uint8, device=dev,
+                            generator=gen)
+    keep = torch.randperm(s, generator=gen, device=dev)[:KEEP_SAMPLES].sort().values
+    keep = keep.to(torch.int32)
+    bits_out = torch.empty(int(np.prod(rel.bits_shape(REL_ROWS, s))), dtype=torch.int32,
+                           device=dev)
+    repacked = torch.empty(REL_ROWS * ((KEEP_SAMPLES + 3) // 4), dtype=torch.uint8, device=dev)
+    for set_, pairs in enumerate(rel.GRAM_SETS):
+        for sel in (None, keep):
+            kept = s if sel is None else KEEP_SAMPLES
+            o_pad, t_pad = other_rel.plane_shape(0, kept)[0], rel.gram_pad(kept)
+            other_grams = [torch.zeros((o_pad, o_pad), dtype=torch.int32, device=dev)
+                           for _ in pairs]
+            this_grams = torch.zeros((len(pairs), t_pad, t_pad), dtype=torch.int32, device=dev)
+
+            def other_fn(sel=sel, pairs=pairs, grams=other_grams):
+                planes = other_rel.relatedness_planes(records, s, sel)
+                for gram, (x, y) in zip(grams, pairs):
+                    gram += torch._int_mm(planes[x], planes[y].t())
+
+            def this_fn(sel=sel, kept=kept, pairs=pairs, grams=this_grams):
+                rows = records if sel is None else subset_repack(records, sel, out=repacked)
+                rel.relatedness_gram(rel.relatedness_bits(rows, kept, bits_out), pairs, grams)
+
+            other_fn()
+            this_fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o[:kept, :kept], t[:kept, :kept])
+                       for o, t in zip(other_grams, rel.mirror_symmetric(this_grams.clone(), pairs))):
+                raise AssertionError(f"K12: this checkout's Grams differ from the other's at K={kept}")
+            name = f"K12 {('king', 'genome')[set_]} V={REL_ROWS} K={kept}"
+            _print_ab("[ab chain]", name, other_fn, this_fn)
+            _print_device_ops(name, {"other": other_fn, "this": this_fn})
+    host = np.concatenate([records.cpu().numpy()] * 3)
+    for label, fns in (("king_counts_device", (other_king.king_counts_device,
+                                               king.king_counts_device)),
+                       ("ibd_counts_device", (other_ibd.ibd_counts_device,
+                                              ibd.ibd_counts_device))):
+        peaks, outs = [], []
+        for fn in fns:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            outs.append(fn(host, s, "cuda"))
+            peaks.append(torch.cuda.max_memory_allocated() - before)
+        if not all(np.array_equal(o, t) for o, t in zip(*outs)):
+            raise AssertionError(f"{label}: this checkout's Grams differ from the other's")
+        print(f"[ab chain] {label} over {host.shape[0]} rows of {s} samples (Grams equal): peak "
+              f"device memory other {peaks[0] / 1e6:.1f} MB, this {peaks[1] / 1e6:.1f} MB")
 
 
 def _wrapper_ab(other_root: Path) -> None:
@@ -892,6 +1006,41 @@ def phase_forms() -> None:
                   f"{statistics.median([d1, d2]) / statistics.median([s1, s2]):.2f}x the direct")
 
 
+# Run in a fresh interpreter from another checkout's root (so that its
+# chip_smoke and its pgen_tpu_torch are the ones imported): each phase
+# function of its chip_smoke.py, and make_fixtures, prints its seconds.
+_PHASE_TIMER = """
+import sys, time
+import chip_smoke
+
+def timed(name, fn):
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            print(f"[phase-times] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return call
+
+for name, fn in list(vars(chip_smoke).items()):
+    if name.startswith("phase_") or name == "make_fixtures":
+        setattr(chip_smoke, name, timed(name, fn))
+sys.exit(chip_smoke.main([]))
+"""
+
+
+def phase_times(root: Path) -> int:
+    """The chip_smoke.py of the checkout at ``root``, run as a process of its
+    own from that root with each of its phases timed (``_PHASE_TIMER``):
+    the seconds by phase of a smoke that does not print them itself, such
+    as the parent commit's. Returns its exit code."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _PHASE_TIMER], cwd=root)
+    print(f"[phase-times] {root}: rc {r.returncode} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return r.returncode
+
+
 def phase_ld_cpu(others: list) -> None:
     """Full-chr22 ld and prune 50 5 0.2 on --device cpu through the CLI of
     each checkout at ``others`` and then of this one, each run a process of
@@ -935,6 +1084,8 @@ def main(argv: list) -> int:
         print("chip_diag: torch.cuda.is_available() is False; needs one CUDA card",
               file=sys.stderr)
         return 1
+    if len(argv) == 2 and argv[0] == "--phase-times":
+        return phase_times(Path(argv[1]).resolve())
     phase_device()
     phase_build()
     if argv == ["--precision"]:
@@ -953,7 +1104,8 @@ def main(argv: list) -> int:
         phase_ld_cpu([Path(a).resolve() for a in argv[1:]])
     else:
         print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace, "
-              "--forms, --precision, --rates or --ld-cpu [OTHER_CHECKOUT ...]",
+              "--forms, --precision, --rates, --ld-cpu [OTHER_CHECKOUT ...] or --phase-times "
+              "OTHER_CHECKOUT",
               file=sys.stderr)
         return 2
     return 0

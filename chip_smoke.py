@@ -8,8 +8,9 @@ Phases, each printing its own lines:
   1 device   CUDA present and compute capability 9.0; the card's name and
              power limit as nvidia-smi reports them
   2 build    nvcc build of pgen_tpu_torch/csrc from this checkout
-  3 kernels  K1-K15 and K13's --approx pass against their plain PyTorch
-             versions on the card
+  3 kernels  K1-K15 (K12 as its two kernels, relatedness_bits and
+             relatedness_gram) and K13's --approx pass against their plain
+             PyTorch versions on the card
              (torch.equal) at widths 2504, 2503, 5 and 1 samples (K2 also into
              an output 4 B past a 16-B boundary; K3 at K = 2, 1000 and 20,000
              ids, reversed and repeated, each also 4 B past; K5 at K = 2,
@@ -27,9 +28,12 @@ Phases, each printing its own lines:
              40,003 samples in column chunks, flip random, none and all;
              K5 and K8 also on records 1-15 B past a 16-B boundary, K5
              with reversed, repeated and unsorted ids, past the 4,096 ids a
-             staged block holds and at 40,003 samples; K12 and K13 on the
-             16,640 rows of K10/K11, with and without that sample
-             selection; K15 (ld_r2_band) on the same rows, the selection's
+             staged block holds and at 40,003 samples; K13 on the 16,640
+             rows of K10/K11, with and without that sample selection; K12's
+             bits on the same rows (the selection's records re-packed by K5
+             first) and its Gram kernel from them, king's and genome's
+             sets added into random Grams; K15 (ld_r2_band) on the same
+             rows, the selection's
              records re-packed by K5 first, at bands 9, 49 and 420 and at
              MAX_BAND on 300 output rows, bit for bit, and K13's pass
              (pca_approx_pass, q of 18 columns) from a y0 at the scale of
@@ -47,8 +51,9 @@ Phases, each printing its own lines:
              staged form) and 2 (its direct form), and 4,096 rows at 40,000
              of 40,003; K9 also at score's 16,384;
              K10/K11 16,384 rows at K = 2504 and at a selection of 2,454;
-             K11 also tiled and at 40,000 of 40,003; K12 at 32,768 rows and
-             K13 at 16,384, each at K = 2504 and a sorted 1,001; K15 at
+             K11 also tiled and at 40,000 of 40,003; K12's bits and Grams
+             (king's and genome's) at 32,768 rows and K13 at 16,384, each at
+             K = 2504 and a sorted 1,001 (re-packed by K5 for K12); K15 at
              16,384 output rows at bands 9, 49 and 420 and at K = 1,001
              (band 9), and K13's pass at 16,384 rows, each beside the
              parent's chain for the same work where this checkout holds it
@@ -58,11 +63,12 @@ Phases, each printing its own lines:
              pairs around one launch each, two alternated sets (the wrapper's
              host time lies inside; beside it burst_ms, 4 launches queued in
              each pair), each beside its bound (the bytes it must move at
-             3.35 TB/s; for K15 and K13's pass the larger of that and its
-             operations at the card's int8 or fp32 peak) and,
+             3.35 TB/s; for K12's Grams, K15 and K13's pass the larger of
+             that and its operations at the card's .b1 or fp32 rate) and,
              for K1, K2 and K7, one PyTorch call of the same function (a
              table gather, held torch.equal to the kernel); then the library
-             products beside K12 and K13 (one torch._int_mm Gram, z'z in
+             products beside K12 and K13 (one torch._int_mm Gram of the
+             plain int8 planes, as the CPU's scan makes it, z'z in
              f64 and fp32, an --approx pass's two products before K13's
              pass kernels) against the card's dense peaks
   4 filter   the port's CLI (pgen_tpu_torch.cli.main --device cuda) on
@@ -123,8 +129,9 @@ Phases, each printing its own lines:
              GRM within that bound of --device cpu's and its eigenvalues at
              rtol 1e-3; (d) pca -k 10 --approx, orthonormal eigenvectors
              (1e-6), eigenvalues at most (1 + 1e-3) x (c)'s and descending,
-             the region's at rtol 1e-3 of --device cpu's. K12, K13 and its
-             pass must have launched.
+             the region's at rtol 1e-3 of --device cpu's. K12's two kernels,
+             K13 and its pass must have launched; the peak device memory of
+             (a) and (b) is printed.
  10 counts   query, the reports, stats and fst through the port's CLI on
              the full chr22 fixture: (a) a metadata-only query launches no
              kernel; (b) a query binding GT_AF/GT_MISSING at median
@@ -260,7 +267,8 @@ port, which keeps its own copies of the jax-free host layers it runs; a
 last check fails if jax or pgen_tpu was loaded.
 
 Each path's launch counts are set to 0 just before its cuda runs and read
-just after. Then the products' line, one JSON line of the sixteen kernels
+just after. Each phase prints its seconds as it ends, and all of them in one
+line ("[smoke] seconds by phase") after the last. Then the products' line, one JSON line of the seventeen kernels
 (launches summed over phases 4-11 and 13-15), and as the last line
 {"ok": true, "device": {...}}. Nothing is caught: any failed phase exits
 non-zero before the result lines, as does a machine without CUDA or a
@@ -277,7 +285,8 @@ finish), and stops and reaps any other child left, printing each.
 
 chip_diag.py beside this script compares the kernels with another checkout's
 in one process (--ab DIR), traces their device time (--trace), times K5's two
-forms (--forms) and the GWAS products' precisions (--precision).
+forms (--forms) and the GWAS products' precisions (--precision), and times
+another checkout's smoke by phase (--phase-times DIR).
 """
 
 from __future__ import annotations
@@ -317,7 +326,8 @@ KERNELS = {
     "sample_counts_device": "pgen_tpu/ops/gt_stats.py:216",
     "glm_planes": "pgen_tpu/ops/glm.py:168",
     "score_dosage": "pgen_tpu/ops/score.py:133",
-    "relatedness_planes": "pgen_tpu/ops/king.py:148",
+    "relatedness_bits": "pgen_tpu/ops/king.py:148",
+    "relatedness_gram": "pgen_tpu/ops/king.py:134",
     "grm_z": "pgen_tpu/ops/pca.py:109",
     "gt_counts_masked": "pgen_tpu/ops/gt_stats.py:90",
     "ld_r2_band": "pgen_tpu/ops/ld.py:128",
@@ -327,7 +337,8 @@ KERNELS = {
 PTXAS_KERNELS = ("pack_codes_flat_kernel", "pack_codes_staged_kernel",
                  "subset_repack_staged_kernel", "subset_repack_direct_kernel", "gt_counts_kernel",
                  "sample_counts_kernel", "glm_planes_kernel", "dosage_flat_kernel",
-                 "dosage_kernel", "dosage_counts_kernel", "relatedness_planes_kernel",
+                 "dosage_kernel", "dosage_counts_kernel", "relatedness_bits_kernel",
+                 "relatedness_gram_kernel",
                  "gt_counts_masked_kernel", "ld_r2_band_kernel", "pca_zq_kernel",
                  "pca_zty_kernel", "pca_sum_kernel")
 PACK_WIDTHS = (2502, 2501)  # K4 beside WIDTHS: with them every S % 4 at chr22's width
@@ -344,16 +355,17 @@ POPULATIONS = 26  # K14's keep masks in phase 3's P = 26 cases: 1000 Genomes' po
 # the card's dense peaks (NVIDIA's H100 SXM data sheet): int8 tensor-core
 # ops, f32 FLOP outside the tensor cores and f64 tensor-core FLOP, per ms
 INT8_OPS_PER_MS = 1979e12 / 1e3
-# K15's .b1 AND-POPC operations (2 M N K a product): no peak is published;
-# chip_diag.py --rates measured 10.08 P a second of mma.sync m16n8k256 .b1
-# on an NVIDIA H100 80GB HBM3 at 700 W, 5.1x the int8 peak, so the bound
-# takes that rate
+# K12's Grams' and K15's .b1 AND-POPC operations (2 M N K a product): no
+# peak is published; chip_diag.py --rates measured 10.08 P a second of
+# mma.sync m16n8k256 .b1 on an NVIDIA H100 80GB HBM3 at 700 W, 5.1x the int8
+# peak, so the bound takes that rate
 B1_OPS_PER_MS = 10.08e15 / 1e3
 FP32_FLOP_PER_MS = 67e12 / 1e3
 FP64_FLOP_PER_MS = 67e12 / 1e3
 # H100 SXM HBM3 at 3.35 TB/s (NVIDIA's data sheet), in bytes per ms: it
-# bounds every kernel here but K15 and K13's pass, whose bound is the larger
-# of their bytes' time and their operations' at the peaks above
+# bounds every kernel here but K12's Grams, K15 and K13's pass, whose bound
+# is the larger of their bytes' time and their operations' at the rates
+# above
 HBM_BYTES_PER_MS = 3.35e9
 LD_BANDS = (9, 49, 420)  # phase 11's ld, prune 50 5 and (about) prune 100kb
 LD_MAX_ROWS = 300  # K15's output rows at MAX_BAND
@@ -495,10 +507,11 @@ def phase_build() -> float:
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(k in line for k in PTXAS_KERNELS):
                 name = next(k for k in PTXAS_KERNELS if k in line)
-                # a template's int argument, or K11's and K13's row policy
-                instance = re.search(r"ILi(\d+)E|(ScoreRows|GrmRows)", line)
+                # a template's int arguments, or K11's and K13's row policy
+                instance = re.search(r"I((?:Li\d+E)+)E|(ScoreRows|GrmRows)", line)
                 if instance:
-                    name = f"{name}<{instance.group(1) or instance.group(2)}>"
+                    ints = ",".join(re.findall(r"Li(\d+)E", instance.group(1) or ""))
+                    name = f"{name}<{ints or instance.group(2)}>"
                 print(f"[2 build] ptxas {name}: {lines[i + 2].strip()}; "
                       f"{lines[i + 3].split(':', 1)[1].strip()}")
     return seconds
@@ -912,9 +925,12 @@ def phase_kernels() -> dict:
     )
     from pgen_tpu_torch.pipeline.prune import MAX_BAND
     from pgen_tpu_torch.ops.relatedness import (
-        plane_shape,
-        relatedness_planes,
-        relatedness_planes_plain,
+        GRAM_SETS,
+        gram_pad,
+        relatedness_bits,
+        relatedness_bits_plain,
+        relatedness_gram,
+        relatedness_gram_plain,
     )
     from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
     from pgen_tpu_torch.ops.unpack import unpack_codes, unpack_codes_plain
@@ -992,15 +1008,14 @@ def phase_kernels() -> dict:
                     run, db, called = _score_at_offset(ops, s, flip, 4, mean_impute)
                     run()
                     pairs += [("score_dosage", db, want[0]), ("score_dosage", called, want[1])]
-            # K12 and K13 on the same rows: 0xFF rows all missing, pad slots
-            # of random codes never read
-            pairs.append(("relatedness_planes", relatedness_planes(ops, s, sel),
-                          relatedness_planes_plain(ops, s, sel)))
+            # K13 on the same rows: 0xFF rows all missing, pad slots of
+            # random codes never read
             got, want = grm_z(ops, s, sel), grm_z_plain(ops, s, sel)
             pairs += [("grm_z", got[0], want[0]), ("grm_z", got[1], want[1])]
-            # K15 and K13's pass on the records of the samples of sel (K5),
-            # as the paths run them; K15 at MAX_BAND on 300 output rows
+            # K12, K15 and K13's pass on the records of the samples of sel
+            # (K5), as the paths run them; K15 at MAX_BAND on 300 output rows
             rows, kept = (ops, s) if sel is None else (subset_repack(ops, sel), sel.shape[0])
+            pairs += _relatedness_pairs(rows, kept, gen)
             for band in LD_BANDS:
                 pairs.append(("ld_r2_band", ld_r2_band(rows, kept, band),
                               ld_r2_band_plain(rows, kept, band)))
@@ -1020,7 +1035,8 @@ def phase_kernels() -> dict:
               f"K10, K11 at V={ops.shape[0]}): K1, K2 x2 (its output 16-B aligned and 4 B "
               f"past), K3 x{n_k3} (K = 2, 1000, {BIG_K} with repeats; each also 4 B past), K4, "
               f"K5 x{n_k5}, K6, K7, K8, K9 x2 (also at {GLM_ROWS} rows), K10 x4 (P = 2, 3), "
-              "K11 x6 (also tiled, its output 4 B past), K12 x2, K13 x2 and K15 x8 (bands "
+              "K11 x6 (also tiled, its output 4 B past), K12's bits x2 and Grams x4 (king's "
+              "and genome's into random Grams), K13 x2 and K15 x8 (bands "
               f"{LD_BANDS} and {MAX_BAND} on {LD_MAX_ROWS} rows; each with and without sel, "
               "K5 first) equal to their plain versions; K13's pass x2 within its tolerance")
 
@@ -1084,8 +1100,22 @@ def phase_kernels() -> dict:
                                 device=dev, generator=gen)
     score_tiled, _, _ = _score_at_offset(ops, s, flip, 4)
     # K12 at the relatedness block: 32,768 rows, all samples or a sorted
-    # cohort of 1,001 (phase 9's --samples-file)
+    # cohort of 1,001 (phase 9's --samples-file) re-packed by K5, as the
+    # scan runs them; each kernel held to its plain version there first
     rel = packed[:REL_ROWS]
+    rel_keep = subset_repack(rel, keep)
+    for rows, kept in ((rel, s), (rel_keep, KEEP_SAMPLES)):
+        for name, got, want in _relatedness_pairs(rows, kept, gen):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from its plain version at {REL_ROWS} rows "
+                                     f"of {kept} samples")
+    rel_bits, keep_bits = relatedness_bits(rel, s), relatedness_bits(rel_keep, KEEP_SAMPLES)
+    bits_out = torch.empty_like(rel_bits)
+    king, genome = GRAM_SETS
+    rel_grams = {(n, k): torch.zeros((len(pairs), gram_pad(k), gram_pad(k)), dtype=torch.int32,
+                                     device=dev)
+                 for n, pairs, k in (("king", king, s), ("genome", genome, s),
+                                     ("king", king, KEEP_SAMPLES))}
     # K14 at the count paths' block: P = 1 (a cohort of 1,001), P = 5
     # cohorts of 1,001 and P = 26 (a partition), their E words and kept
     # counts made once as the paths make them
@@ -1106,8 +1136,6 @@ def phase_kernels() -> dict:
     y18 = torch.zeros((s, APPROX_COLS), device=dev)
     used18 = torch.zeros((), dtype=torch.int64, device=dev)
     scratch18 = approx_scratch(GLM_ROWS, s, dev)
-    planes_bytes = 4 * plane_shape(REL_ROWS, s)[0] * plane_shape(REL_ROWS, s)[1]
-    keep_planes = 4 * plane_shape(REL_ROWS, KEEP_SAMPLES)[0] * plane_shape(REL_ROWS, KEEP_SAMPLES)[1]
     shapes = {
         "genotype_text_transposed": f"({rec}, {BLOCK_ROWS}) S={s}",
         "genotype_text S=2503": f"({BLOCK_ROWS}, {rec}) S={s - 1}",
@@ -1119,8 +1147,13 @@ def phase_kernels() -> dict:
             f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
         f"sample_counts_device V={GLM_ROWS}": f"({GLM_ROWS}, {rec}) S={s}",
         f"score_dosage K={WIDE - 3} of S={WIDE}": f"({WIDE_GLM_ROWS}, {(WIDE + 3) // 4}) S={WIDE}",
-        "relatedness_planes": f"({REL_ROWS}, {rec}) S={s}",
-        f"relatedness_planes K={KEEP_SAMPLES}": f"({REL_ROWS}, {rec}) S={s}",
+        "relatedness_bits": f"({REL_ROWS}, {rec}) S={s}",
+        f"relatedness_bits K={KEEP_SAMPLES}": f"({REL_ROWS}, {keep_rec}) S={KEEP_SAMPLES} "
+                                               "(re-packed)",
+        "relatedness_gram": f"bits of ({REL_ROWS}, {rec}) S={s}, king's 4 Grams",
+        "relatedness_gram genome": f"bits of ({REL_ROWS}, {rec}) S={s}, genome's 5 Grams",
+        f"relatedness_gram K={KEEP_SAMPLES}": f"bits of ({REL_ROWS}, {keep_rec}) "
+                                               f"S={KEEP_SAMPLES}, king's 4 Grams",
     }
     cases = {
         # name: kernel, plain, library call or None, bytes the function must
@@ -1195,13 +1228,27 @@ def phase_kernels() -> dict:
             lambda: score_dosage(ops_wide, WIDE, flip_wide, True, sel_wide),
             lambda: score_dosage_plain(ops_wide, WIDE, flip_wide, True, sel_wide), None,
             _subset_bytes(WIDE_GLM_ROWS, sel_wide) + WIDE_GLM_ROWS * (4 * (WIDE - 3) + 5)),
-        # the planes' pad samples and variants are written too (as zeros)
-        "relatedness_planes": (lambda: relatedness_planes(rel, s),
-                               lambda: relatedness_planes_plain(rel, s), None,
-                               rel.numel() + planes_bytes),
-        f"relatedness_planes K={KEEP_SAMPLES}": (
-            lambda: relatedness_planes(rel, s, keep), lambda: relatedness_planes_plain(rel, s, keep),
-            None, _subset_bytes(REL_ROWS, keep) + keep_planes),
+        # the records read and the bits written, their pad samples and
+        # rows too (code 3); the Grams: the bits read, and each Gram's K x K
+        # entries read and written; their operations below
+        "relatedness_bits": (lambda: relatedness_bits(rel, s, bits_out),
+                             lambda: relatedness_bits_plain(rel, s), None,
+                             rel.numel() + 4 * rel_bits.numel()),
+        f"relatedness_bits K={KEEP_SAMPLES}": (
+            lambda: relatedness_bits(rel_keep, KEEP_SAMPLES, bits_out),
+            lambda: relatedness_bits_plain(rel_keep, KEEP_SAMPLES), None,
+            rel_keep.numel() + 4 * keep_bits.numel()),
+        "relatedness_gram": (lambda: relatedness_gram(rel_bits, king, rel_grams["king", s]),
+                             lambda: relatedness_gram_plain(rel_bits, king, rel_grams["king", s]),
+                             None, 4 * rel_bits.numel() + len(king) * 8 * s * s),
+        "relatedness_gram genome": (
+            lambda: relatedness_gram(rel_bits, genome, rel_grams["genome", s]),
+            lambda: relatedness_gram_plain(rel_bits, genome, rel_grams["genome", s]), None,
+            4 * rel_bits.numel() + len(genome) * 8 * s * s),
+        f"relatedness_gram K={KEEP_SAMPLES}": (
+            lambda: relatedness_gram(keep_bits, king, rel_grams["king", KEEP_SAMPLES]),
+            lambda: relatedness_gram_plain(keep_bits, king, rel_grams["king", KEEP_SAMPLES]), None,
+            4 * keep_bits.numel() + len(king) * 8 * KEEP_SAMPLES ** 2),
         "grm_z": (lambda: grm_z(ops, s), lambda: grm_z_plain(ops, s), None,
                   ops.numel() + GLM_ROWS * (4 * s + 4)),
         f"grm_z K={KEEP_SAMPLES}": (lambda: grm_z(ops, s, keep), lambda: grm_z_plain(ops, s, keep),
@@ -1255,6 +1302,9 @@ def phase_kernels() -> dict:
                                       (f" K={KEEP_SAMPLES}", KEEP_SAMPLES, 9))}
     op_bounds.update({f"pca_approx_pass{tag}": (4 * k * APPROX_COLS * GLM_ROWS, FP32_FLOP_PER_MS)
                       for tag, k in (("", s), (f" K={KEEP_SAMPLES}", KEEP_SAMPLES))})
+    op_bounds.update({f"relatedness_gram{tag}": (_gram_ops(pairs, k, REL_ROWS), B1_OPS_PER_MS)
+                      for tag, pairs, k in (("", king, s), (" genome", genome, s),
+                                            (f" K={KEEP_SAMPLES}", king, KEEP_SAMPLES))})
     times = {}
     for name, (kernel, plain, library, nbytes) in cases.items():
         # alternate plain, kernel, kernel, plain (and library, library) so
@@ -1274,7 +1324,7 @@ def phase_kernels() -> dict:
                        "bound_ms": bound_ms, "burst_ms": burst_ms, "bound_by": bound_by}
         rows = (GLM_ROWS if name.startswith(("glm_planes", "score_dosage", "grm_z", "ld_r2_band",
                                              "pca_approx_pass"))
-                else BLOCK_ROWS)
+                else REL_ROWS if name.startswith("relatedness") else BLOCK_ROWS)
         shape = shapes.get(name, f"({rows}, {rec}) S={s}")
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"[3 kernels] {name} at {shape}: kernel {ms:.4f} ms "
@@ -1307,9 +1357,44 @@ def phase_kernels() -> dict:
     return {"err": err, "times": times, "products": _time_products(rel, ops, s)}
 
 
+def _gram_ops(pairs, k: int, rows: int) -> int:
+    """.b1 operations of K12's Gram kernel on ``rows`` rows of k samples, 2 M
+    N K a product: a symmetric Gram's triangle (K (K + 1) / 2 entries), an
+    asymmetric one's K^2 entries, 2 operations a row each."""
+    return sum(rows * (k * (k + 1) if x == y else 2 * k * k) for x, y in pairs)
+
+
+def _relatedness_pairs(rows, kept: int, gen) -> list:
+    """K12's two kernels on records of ``kept`` samples against their plain
+    versions on the same inputs: the bits, then each set's Grams (king's and
+    genome's) from those bits, added into the same random int32 Grams."""
+    import torch
+
+    from pgen_tpu_torch.ops.relatedness import (
+        GRAM_SETS,
+        gram_pad,
+        relatedness_bits,
+        relatedness_bits_plain,
+        relatedness_gram,
+        relatedness_gram_plain,
+    )
+
+    bits = relatedness_bits(rows, kept)
+    out = [("relatedness_bits", bits, relatedness_bits_plain(rows, kept))]
+    s_pad = gram_pad(kept)
+    for pairs in GRAM_SETS:
+        start = torch.randint(-(1 << 20), 1 << 20, (len(pairs), s_pad, s_pad), dtype=torch.int32,
+                              device=rows.device, generator=gen)
+        out.append(("relatedness_gram", relatedness_gram(bits, pairs, start.clone()),
+                    relatedness_gram_plain(bits, pairs, start.clone())))
+    return out
+
+
 def _time_products(rel, ops, s) -> dict:
     """The library products beside K12 and K13 at the paths' block shapes:
-    one torch._int_mm Gram of K12's planes (2 S^2 x 32,768 int8 ops), one
+    one torch._int_mm Gram of the int8 planes of the CPU's scan (made on the
+    card by relatedness_planes_plain; K12's first form wrote them and
+    chained four or five such products; 2 S^2 x 32,768 int8 ops), one
     z'z in f64 as the exact GRM makes it (z cast in chunks of rows; 2 S^2 x
     16,384 FLOP) and in full fp32 as pgen_tpu makes it, the two products
     of an --approx pass before K13's pass kernels, z'(z q) (q of 18
@@ -1320,9 +1405,9 @@ def _time_products(rel, ops, s) -> dict:
 
     from pgen_tpu_torch.device import matmul_fp32
     from pgen_tpu_torch.ops.pca import add_gram_fp64, grm_z
-    from pgen_tpu_torch.ops.relatedness import relatedness_planes
+    from pgen_tpu_torch.ops.relatedness import relatedness_planes_plain
 
-    planes = relatedness_planes(rel, s)
+    planes = relatedness_planes_plain(rel, s)
     z, _ = grm_z(ops, s)
     q = torch.randn((s, 18), device=z.device)
     # ops/logistic_host.py: rq = mm(r, covars), r (256, cohort), C (cohort, 2)
@@ -2454,6 +2539,7 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     (1 + 1e-3) times (c)'s, descending; the region's at rtol 1e-3 of
     --device cpu's --approx."""
     import numpy as np
+    import torch
 
     iids, pos, _, packed = _read_fileset(full)
     n_var, n = len(pos), len(iids)
@@ -2468,7 +2554,7 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     samples = np.sort(rng.choice(n, REL_SAMPLES, replace=False))
     region_args = ["-r", region]
     cohort_args = [*region_args, "--samples-file", tmp / "cohort.txt"]
-    walls = {}
+    walls, memory = {}, {}
 
     def run(label, argv, out, device="cuda"):
         if device == "cuda":
@@ -2478,8 +2564,12 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
         return err
 
     _reset_launches()
-    run("(a) king, every variant", ["king", full], tmp / "king.kin0")
-    run("(b) genome, every variant", ["genome", full], tmp / "genome.genome")
+    for label, argv, out in (("(a) king, every variant", ["king", full], "king.kin0"),
+                             ("(b) genome, every variant", ["genome", full], "genome.genome")):
+        torch.cuda.reset_peak_memory_stats()
+        run(label, argv, tmp / out)
+        memory[label] = torch.cuda.max_memory_allocated()
+        print(f"[9 relatedness] {label}: peak device memory {memory[label] / 1e6:.1f} MB")
     err_c = run("(c) pca -k 10 --make-rel bin, every variant",
                 ["pca", full, "-k", PCA_K, "--make-rel", "bin"], tmp / "pca_full")
     run("(d) pca -k 10 --approx, every variant", ["pca", full, "-k", PCA_K, "--approx"],
@@ -2509,7 +2599,7 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     for label, argv, name in region_runs[-3:]:
         run(label, argv, tmp / f"cuda.{name}")
     launches = _read_launches()
-    for kname in ("relatedness_planes", "grm_z", "pca_approx_pass"):
+    for kname in ("relatedness_bits", "relatedness_gram", "grm_z", "pca_approx_pass"):
         if launches[kname] <= 0:
             raise AssertionError(f"{kname} never launched on the relatedness path")
 
@@ -3217,8 +3307,9 @@ MESH_WORLDS = (2, 4)  # phase 12 under --ranks, as far as the visible cards go
 # (NVIDIA's data sheet), in bytes per ms: the bound of each collective
 NVLINK_BYTES_PER_MS = 450e9 / 1e3
 MESH_CARD_KERNELS = {"glm": ("glm_planes",), "score": ("score_dosage",),
-                     "king": ("relatedness_planes",),
-                     "genome": ("relatedness_planes", "gt_counts_device"), "pca": ("grm_z",)}
+                     "king": ("relatedness_bits", "relatedness_gram"),
+                     "genome": ("relatedness_bits", "relatedness_gram", "gt_counts_device"),
+                     "pca": ("grm_z",)}
 
 # One rank of a phase 12 run: the port's CLI, then each kernel's launch
 # count written to the file named first.
@@ -4618,8 +4709,29 @@ def main(argv: list) -> int:
         _stop_processes()
 
 
+def _time_phases() -> dict:
+    """Wraps each phase function of this script, and make_fixtures, so that
+    a call prints its seconds and adds them to the returned dict, by name in
+    the order the phases start."""
+    seconds = {}
+    space = globals()
+    for fname in [n for n in space if n.startswith("phase_") or n == "make_fixtures"]:
+        def timed(*args, _fn=space[fname], _name=fname, **kwargs):
+            seconds.setdefault(_name, 0.0)
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                seconds[_name] += time.perf_counter() - t0
+                print(f"[smoke] {_name} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        space[fname] = timed
+    return seconds
+
+
 def _smoke(argv: list, started: float, torch) -> int:
     sys.path.insert(0, str(ROOT))
+    seconds = _time_phases()
     name = phase_device()
     phase_build()
     if argv == ["--ranks"]:
@@ -4631,9 +4743,7 @@ def _smoke(argv: list, started: float, torch) -> int:
             print("[7 device provider] (a) on one rank:")
             _port_cli(["filter", full, *_argv_a(iids), "--provider", "device"], tmp / "a.vcf", "cuda")
             phase_ranks(tmp, full, _sha256(tmp / "a.vcf"))
-            t0 = time.perf_counter()
             collectives = phase_mesh(tmp, full, MESH_WORLDS)
-            print(f"[12 mesh] phase 12 took {time.perf_counter() - t0:.1f} s")
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}; takes none or --ranks (phases 7 (a) "
               "and 12 across 2 and 4 cards)", file=sys.stderr)
@@ -4650,33 +4760,19 @@ def _smoke(argv: list, started: float, torch) -> int:
             launches, sha_a = phase_device_provider(tmp, fixtures["full"], fixtures["ragged"])
             per_path.append(launches)
             phase_ranks(tmp, fixtures["full"], sha_a)
-            t0 = time.perf_counter()
             per_path.append(phase_gwas(tmp, fixtures["full"]))
-            print(f"[8 GWAS] phase 8 took {time.perf_counter() - t0:.1f} s")
             for kname in ("glm_planes", "score_dosage"):
                 if per_path[-1][kname] <= 0:
                     raise AssertionError(f"{kname} never launched on the GWAS path")
-            t0 = time.perf_counter()
             per_path.append(phase_relatedness(tmp, fixtures["full"]))
-            print(f"[9 relatedness] phase 9 took {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
             per_path += phase_counts(tmp, fixtures["full"])
-            print(f"[10 counts] phase 10 took {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
             per_path += phase_ld(tmp, fixtures["full"])
-            print(f"[11 ld] phase 11 took {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
             collectives = phase_mesh(tmp, fixtures["full"], (2,))
-            print(f"[12 mesh] phase 12 took {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
             per_path.append(phase_host(tmp, fixtures["full"]))
-            print(f"[13 host] phase 13 took {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
             per_path.append(phase_files(tmp, fixtures["full"], fixtures["ragged"], refs))
-            print(f"[14 files] phase 14 took {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
             per_path.append(phase_surface(tmp, fixtures["full"], refs))
-            print(f"[15 surface] phase 15 took {time.perf_counter() - t0:.1f} s")
+    print("[smoke] seconds by phase: "
+          + ", ".join(f"{fname} {sec:.1f}" for fname, sec in seconds.items()))
     print(f"[smoke] {time.perf_counter() - started:.1f} s in all")
     loaded = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "pgen_tpu")
     if loaded:

@@ -3,7 +3,7 @@
 // records -> per-variant and per-sample code counts, records -> the f32
 // operands of the GWAS moment, polygenic score and GRM products, records ->
 // LD's banded r² and pca --approx's pass y += Z^T (Z q), and records -> the
-// int8 indicator planes of the relatedness Grams.
+// bit planes of king's and genome's count Grams and the Grams themselves.
 // Built by pgen_tpu_torch/kernels.py with nvcc into a shared
 // library with a plain C interface, loaded with ctypes.
 //
@@ -2248,91 +2248,394 @@ __global__ void __launch_bounds__(kThreads) pca_sum_kernel(PcaArgs a) {
   *y = sum;
 }
 
-// K12. Replaces the decode and plane legs of pgen_tpu/ops/king.py's
+// K12. Replaces the decode, plane and product legs of pgen_tpu/ops/king.py's
 // _king_counts_device_jit (:148) and _king_counts_device_sel_jit (:182),
 // body _device_block_grams (:134), and of ops/ibd.py's
 // _ibd_counts_device_jit (:156) and _ibd_counts_device_sel_jit (:185),
 // body _block_grams (:142): the Pallas _unpack_kernel, the XLA take of the
-// cohort's columns and the bf16 0/1 indicator planes H (code 1), R (code
-// 0), A (code 2) and C (code != 3) that feed the Grams (torch._int_mm in
-// the caller, as pgen_tpu leaves them to jnp.matmul).
-// (V, R) u8 records + sel (K) int32 ids (or null: K = S) -> planes (4,
-// S_pad, V_pad) int8, planes[p][j][v] = 1 where the code of sample sel[j]
-// (or j) in row v is plane p's, else 0. Each plane is sample-major, so a
-// Gram is one int8 product of a row-major plane and a column-major view of
-// another, with no copy. Rows j >= K and columns v >= V are 0 in every
-// plane: all missing, in no Gram, as pgen_tpu's 0xFF pad rows.
-// Bound: memory, 4 B written per (sample, variant) against a quarter byte
-// read: a 32,768-row block of 2504 samples reads 20.5 MB and writes 328 MB,
-// 0.104 ms at 3.35 TB/s. Design, a first form that is simple: a block takes a
-// tile of kRelTileVars variants by kRelTileSamples samples. Its threads
-// decode the tile, each its column's id read once and one byte load per
-// code (the tile's rows through L1), into shared memory transposed (a
-// sample's row of codes padded to 17 words, so a warp's writes of one
-// variant hit 32 banks); then each thread turns 16 consecutive variants of
-// one sample into 16 bytes of each plane, four codes a u32 (byte-wise: H =
-// lo & ~hi, R = ~(lo | hi), A = hi & ~lo, C = ~(lo & hi) of the code's two
-// bits), and writes them as one 16-B store a plane, K6's transposed writer
-// with the codes staged.
-constexpr int kRelTileVars = 64;
-constexpr int kRelTileSamples = 128;
-constexpr int kRelPitch = kRelTileVars + 4;  // bytes of a sample's codes in the tile
+// cohort's columns, the bf16 0/1 indicator planes H (code 1), R (code 0),
+// A (code 2) and C (code != 3) and their Grams by jnp.matmul. Its first
+// form wrote those planes as int8, 16 times the records' bytes, for
+// torch._int_mm to read back; this one counts each Gram entry with AND-POPC
+// over bit planes as big as the records. Two kernels (a cohort's records
+// are re-packed by K5 first, so both see S samples in order):
+//
+// relatedness_bits_kernel: (V, R) u8 records of S samples -> the block's
+// bit planes lo and hi of each code (code = lo + 2 hi), u32 words in the
+// order the Gram kernel's mma.sync fragments read them: (2, G, steps, 128),
+// G = S_pad / 16 groups of 16 samples (S_pad a multiple of kRelPad), steps
+// = ceil(V / 256) k-steps of 256 variants. Entry [p][grp][k][4 lane + e],
+// lane = 4 g + t, holds plane p's word (32 variants, variant 256 k + 32 w +
+// b at bit b) of sample 16 grp + g + 8 (e & 1), word w = t + 4 (e >> 1): one
+// 16-B load a lane is the A fragment of the group's 16 samples, and the B
+// fragments of its two eights. A slot that is no call reads code 3, in no
+// plane: every sample at or past S (a row's pad slots, K5's zero pad bits,
+// the pad samples up to S_pad), by count, never by its bits, and every row
+// at or past V. Bound: memory, the records read and 2 bits a sample and
+// variant written: 20.5 + 21.0 MB at 32,768 rows of 2504 samples, 0.0124
+// ms at 3.35 TB/s. Design: a warp takes one group (a record word, 16
+// samples) over one k-step; each lane loads its record word of eight rows
+// (two aligned loads and a funnel shift, record_word; the block's eight
+// warps read 32 consecutive bytes of each row, through L1, and the blocks
+// of a k-step run side by side); each word of 32 rows is a 32 x 32 bit
+// matrix, transposed by five shuffles (transpose32), after which lane 2 r +
+// p holds plane p of sample r; four shuffles hand lane (g, t) its words,
+// written as one 16-B store a plane, a warp's 512 B contiguous.
+//
+// relatedness_gram_kernel: the bit planes of a block -> for each Gram of
+// the set (king: H^T H, R^T A, H^T C, C^T C; genome: H^T H, R^T A, R^T R,
+// A^T A, C^T C), gram += X^T Y over the block's variants, int32 (n_grams,
+// S_pad, S_pad), in place, exact (the callers keep a scan below 2^24
+// rows); a symmetric Gram on and above its diagonal only (the wrapper
+// mirrors it once a scan). Bound: operations, at the 10.08 P/s of .b1
+// mma.sync that chip_diag.py --rates measured: a Gram of 2504 samples over
+// 32,768 rows is 4.11e11 (2 M N K) operations, 0.0408 ms; the symmetric
+// ones need only their triangle, so king's four and genome's five are three
+// Grams' work each, 0.122 ms. The bytes (bits read once, each Gram's K x K
+// entries read and written once) take 0.066 / 0.081 ms. Design: a block
+// owns a square tile of kRelTile samples (I, J), I <= J (the upper
+// triangle of tiles, J-major), and two of the set's kRelProducts products
+// (a symmetric Gram one product, X_I^T X_J; an asymmetric one two, X_I^T
+// Y_J at (I, J) and Y_I^T X_J transposed into (J, I), the second left out
+// on the diagonal). Its threads stage the lo and hi words of the tile's row
+// and column groups, kRelStageSteps k-steps a stage, in a ring of
+// kRelStages by 16-B cp.async (each thread the same pieces of every stage:
+// its addresses are set once); its eight warps, 2 (rows) x 4 (columns), take
+// kRelMT m-tiles of 16 by kRelNT n-tiles of 8 each (64 x 32 samples, 128
+// int32 accumulators a thread for the two products),
+// forms each product's indicator words from lo and hi in registers, one
+// lop3 each (H = lo & ~hi, R = ~(lo | hi), A = hi & ~lo, C = ~(lo & hi):
+// code 3 is in none), and counts them with mma.sync m16n8k256 .b1
+// AND-POPC into int32 accumulators held over the whole block of rows. At
+// the end each product's tile goes through shared memory, transposed for
+// (J, I), and one thread a row adds it to the Gram by a bulk reduction
+// (cp.reduce.async.bulk .add: the L2 adds, and the block goes on once its
+// tile is read; the SM neither reads the Gram nor takes an atomic). Its
+// first epilogue, each lane's read-add-write of its fragments straight to
+// the Gram (a mirror's four bytes a column apart), took about a third of
+// the kernel's time. Of the three shapes timed (PERF.md row X6), this one
+// was the fastest: 64-sample tiles with all six products a block, and 16
+// warps of 32 x 32, were slower. The main loop runs at about half the .b1
+// rate chip_diag.py --rates measures, each warp's fragment loads and
+// products in turn.
+constexpr int kRelStep = 256;       // variants of a k-step of mma.sync m16n8k256 .b1
+constexpr int kRelPad = 128;        // S_pad is a multiple of the tile side
+constexpr int kRelBitsWarps = 8;    // warps of a transposer block: 128 samples
+constexpr int kRelStages = 4;       // stages in the Gram kernel's ring
+constexpr int kRelStageSteps = 2;   // k-steps a stage
+constexpr int kRelProducts = 6;     // products of either set (king's and genome's)
+constexpr int kRelPairs = kRelProducts / 2;  // a Gram block's products: one pair of them
+constexpr int kRelFragBytes = 512;  // one plane's words of a group over a k-step
+// The Gram kernel's block: 2 (rows) x kRelWC (columns) warps, a warp kRelMT
+// m-tiles (16 rows, a group each) by kRelNT n-tiles (8 columns, two a
+// group), two products.
+constexpr int kRelWC = 4, kRelMT = 4, kRelNT = 4;
+constexpr int kRelThreads = 2 * kRelWC * kWarp;
+constexpr int kRelTile = 16 * 2 * kRelMT;  // = 8 kRelWC kRelNT = kRelPad
+constexpr int kRelGroups = kRelTile / 16;  // 16-sample groups of a tile side
+// a stage: for each of the row then the column groups, lo then hi, each
+// kRelStageSteps k-steps (one contiguous span of the bits)
+constexpr int kRelStageBytes = 2 * kRelGroups * 2 * kRelStageSteps * kRelFragBytes;
+// the epilogue's tile of one product, a row kRelTile + 4 ints (4 mod 32: the
+// transposed fragment stores hit 32 banks); it reuses the ring
+constexpr int kRelPitch = kRelTile + 4;
+constexpr int kRelSmem = kRelStages * kRelStageBytes;
+constexpr int kRelCopies = kRelStageBytes / 16 / kRelThreads;  // 16-B copies a thread a stage
+static_assert(kRelTile == 8 * kRelWC * kRelNT && kRelTile == kRelPad, "tile");
+static_assert(4 * kRelTile * kRelPitch <= kRelSmem, "epilogue");
+static_assert(kRelCopies * 16 * kRelThreads == kRelStageBytes, "copies");
 
-__global__ void __launch_bounds__(kThreads)
-    relatedness_planes_kernel(const uint8_t* __restrict__ packed,
-                              const int32_t* __restrict__ sel, uint8_t* __restrict__ planes,
-                              int64_t n_var, int64_t rec, int n_samples, int n_kept,
-                              int64_t s_pad, int64_t v_pad) {
-  __shared__ __align__(16) uint8_t tile[kRelTileSamples * kRelPitch];
-  const int tid = threadIdx.x;
-  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kRelTileVars;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kRelTileSamples;
-  // decode: thread tid takes the tile's column tid % 128 and every second
-  // row from tid / 128
-  const int j = tid % kRelTileSamples;
-  const int64_t col = j0 + j;
-  int s = -1;  // no sample: a pad column
-  if (col < n_kept) {
-    s = sel != nullptr ? sel[col] : static_cast<int>(col);
-    assert(s >= 0 && s < n_samples);
-  }
-  const uint8_t* src = packed + (s >= 0 ? s >> 2 : 0);
-  const int shift = 2 * (s & 3);
-  constexpr int kRowStep = kThreads / kRelTileSamples;
-#pragma unroll 8
-  for (int i = 0; i < kRelTileVars / kRowStep; ++i) {
-    const int r = kRowStep * i + tid / kRelTileSamples;
-    const int64_t v = v0 + r;
-    uint32_t code = 3u;  // missing: 0 in every plane
-    if (s >= 0 && v < n_var) code = (static_cast<uint32_t>(__ldg(src + v * rec)) >> shift) & 3u;
-    tile[j * kRelPitch + r] = static_cast<uint8_t>(code);
-  }
-  __syncthreads();
-  const int64_t plane = s_pad * v_pad;
-  constexpr int kPieces = kRelTileVars / 16;  // 16-B pieces of a sample's row
-  for (int c = tid; c < kRelTileSamples * kPieces; c += kThreads) {
-    const int jj = c / kPieces, q = c % kPieces;
-    const int64_t row = j0 + jj;
-    const int64_t at = v0 + 16 * q;
-    if (row >= s_pad || at >= v_pad) continue;
-    const uint32_t* codes = reinterpret_cast<const uint32_t*>(tile + jj * kRelPitch + 16 * q);
-    uint32_t h[4], r[4], a[4], called[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t w = codes[k];
-      const uint32_t lo = w & 0x01010101u, hi = (w >> 1) & 0x01010101u;
-      h[k] = lo & ~hi;
-      r[k] = (lo | hi) ^ 0x01010101u;
-      a[k] = hi & ~lo;
-      called[k] = (lo & hi) ^ 0x01010101u;
+// lop3.b32 with the truth table `lut` of (a, b, c) = (0xF0, 0xCC, 0xAA).
+template <int kLut>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, 0, %3;\n" : "=r"(d) : "r"(a), "r"(b), "n"(kLut));
+  return d;
+}
+
+// Indicator plane p (H, R, A, C of ops/relatedness.py: 0..3) of the slots of
+// bit planes lo and hi (code = lo + 2 hi), one lop3 each; code 3 is in none.
+template <int kPlane>
+__device__ __forceinline__ uint32_t rel_plane(uint32_t lo, uint32_t hi) {
+  if constexpr (kPlane == 0) return lop3<0x30>(lo, hi);       // H: lo & ~hi, code 1
+  else if constexpr (kPlane == 1) return lop3<0x03>(lo, hi);  // R: ~(lo | hi), code 0
+  else if constexpr (kPlane == 2) return lop3<0x0C>(lo, hi);  // A: hi & ~lo, code 2
+  else return lop3<0x3F>(lo, hi);                             // C: ~(lo & hi), code != 3
+}
+
+enum RelMode { kRelUpper, kRelStore, kRelSwap };
+
+// Product i of a set (0 king, 1 genome): plane x of the tile's rows against
+// plane y of its columns into Gram `gram` (its index in KING_GRAMS or
+// IBD_GRAMS), symmetric ones first so a group of two shares its planes.
+struct RelProduct {
+  int x, y, gram, mode;
+};
+
+__host__ __device__ constexpr RelProduct rel_product(int set, int i) {
+  constexpr int H = 0, R = 1, A = 2, C = 3;
+  if (set == 0) {
+    switch (i) {
+      case 0: return {H, H, 0, kRelUpper};
+      case 1: return {C, C, 3, kRelUpper};
+      case 2: return {R, A, 1, kRelStore};
+      case 3: return {A, R, 1, kRelSwap};
+      case 4: return {H, C, 2, kRelStore};
+      default: return {C, H, 2, kRelSwap};
     }
-    uint8_t* dst = planes + row * v_pad + at;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(dst + plane) = make_uint4(r[0], r[1], r[2], r[3]);
-    *reinterpret_cast<uint4*>(dst + 2 * plane) = make_uint4(a[0], a[1], a[2], a[3]);
-    *reinterpret_cast<uint4*>(dst + 3 * plane) =
-        make_uint4(called[0], called[1], called[2], called[3]);
   }
+  switch (i) {
+    case 0: return {H, H, 0, kRelUpper};
+    case 1: return {C, C, 4, kRelUpper};
+    case 2: return {R, A, 1, kRelStore};
+    case 3: return {A, R, 1, kRelSwap};
+    case 4: return {R, R, 2, kRelUpper};
+    default: return {A, A, 3, kRelUpper};
+  }
+}
+
+// Calls f(std::integral_constant-like I<i>) for i in [kBegin, kEnd).
+template <int kI>
+struct RelIndex {
+  static constexpr int value = kI;
+};
+template <int kBegin, int kEnd, class F>
+__device__ __forceinline__ void rel_for(F&& f) {
+  if constexpr (kBegin < kEnd) {
+    f(RelIndex<kBegin>{});
+    rel_for<kBegin + 1, kEnd>(f);
+  }
+}
+
+// The 32 x 32 bit matrix of a warp's words (lane r's bit c is entry (r, c))
+// transposed: lane c's bit r is entry (r, c). Five swaps of off-diagonal
+// blocks, 16 to 1 wide, a shuffle each.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  constexpr uint32_t kKeep[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u,
+                                 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int j = 16 >> i;
+    const uint32_t y = __shfl_xor_sync(0xFFFFFFFFu, x, j);
+    x = lane & j ? (x & ~kKeep[i]) | ((y & ~kKeep[i]) >> j)
+                 : (x & kKeep[i]) | ((y & kKeep[i]) << j);
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kRelBitsWarps * kWarp)
+    relatedness_bits_kernel(const uint8_t* __restrict__ packed, uint32_t* __restrict__ bits,
+                            int64_t n_var, int64_t rec, int64_t n_samples, int64_t n_groups,
+                            int64_t n_steps) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  // blocks of one k-step side by side: the grid reads each row's bytes in turn
+  const int64_t blocks = (n_groups + kRelBitsWarps - 1) / kRelBitsWarps;
+  const int64_t step = blockIdx.x / blocks;
+  const int64_t grp = blockIdx.x % blocks * kRelBitsWarps + warp;
+  if (grp >= n_groups) return;
+  const uint32_t* last = reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<uintptr_t>(packed + n_var * rec - 1) & ~uintptr_t{3});
+  // out[p][e]: plane p's word of sample g + 8 (e & 1), word t + 4 (e >> 1)
+  uint32_t out[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+  uint32_t x[kRelStep / 32];
+#pragma unroll
+  for (int w = 0; w < kRelStep / 32; ++w) {
+    const int64_t v = step * kRelStep + 32 * w + lane;
+    x[w] = ~0u;  // a row past V: all missing
+    if (v < n_var && 4 * grp < rec) x[w] = record_word(packed + v * rec, 4 * grp, last);
+  }
+#pragma unroll
+  for (int w = 0; w < kRelStep / 32; ++w) {
+    // lane 2 r + p now holds plane p of sample 16 grp + r over the word's 32
+    // rows; lane (g, t) takes samples g and g + 8 of word w where t = w % 4
+    const uint32_t col = transpose32(x[w], lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint32_t word = __shfl_sync(0xFFFFFFFFu, col, 2 * (g + 8 * half) + p);
+        if (t == w % 4) out[p][half + 2 * (w / 4)] = word;
+      }
+    }
+  }
+  // samples at or past S are missing whatever their bits hold
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (16 * grp + g + 8 * half >= n_samples) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) out[p][half] = out[p][half + 2] = ~0u;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint4* dst = reinterpret_cast<uint4*>(bits + ((p * n_groups + grp) * n_steps + step) * 128);
+    dst[lane] = make_uint4(out[p][0], out[p][1], out[p][2], out[p][3]);
+  }
+}
+
+struct RelArgs {
+  const uint32_t* bits;
+  int32_t* grams;
+  int64_t n_groups, n_steps, s_pad;
+};
+
+// One block's products kFirst and kFirst + 1 of set kSet over the tile
+// (ti, tj). The first of a pair is never a swapped one, so every block has a
+// product to count.
+template <int kSet, int kFirst>
+__device__ __forceinline__ void rel_gram_tile(const RelArgs& a, int64_t ti, int64_t tj,
+                                              uint8_t* smem) {
+  constexpr int kCount = 2, kGroups = kRelGroups, kMT = kRelMT, kNT = kRelNT;
+  static_assert(rel_product(kSet, kFirst).mode != kRelSwap, "pairs");
+  constexpr int kSpan = kRelStageSteps * kRelFragBytes / 16;  // 16-B pieces of a (group, plane)
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / kRelWC, wn = warp % kRelWC;
+  const bool diag = ti == tj;
+  // this thread's copies: the same pieces of every stage, k-steps further on
+  const uint32_t* src[kRelCopies];
+  uint32_t dst[kRelCopies];
+#pragma unroll
+  for (int j = 0; j < kRelCopies; ++j) {
+    const int q = tid + j * kRelThreads;
+    const int chunk = q / kSpan, piece = q % kSpan;
+    const int side = chunk / 2, p = chunk % 2;
+    const int64_t grp = side < kGroups ? ti * kGroups + side : tj * kGroups + side - kGroups;
+    src[j] = a.bits + (p * a.n_groups + grp) * a.n_steps * 128 + 4 * piece;
+    dst[j] = smem_addr(smem) + 16 * q;
+  }
+  const int64_t n_stages = (a.n_steps + kRelStageSteps - 1) / kRelStageSteps;
+  auto stage = [&](int64_t st) {
+    if (st < n_stages) {
+      const int64_t k0 = st * kRelStageSteps;
+      const uint32_t off = static_cast<uint32_t>(st % kRelStages) * kRelStageBytes;
+#pragma unroll
+      for (int j = 0; j < kRelCopies; ++j) {
+        const int s = (j * kRelThreads + tid) % kSpan / (kRelFragBytes / 16);
+        if (k0 + s < a.n_steps) {
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst[j] + off),
+                       "l"(src[j] + k0 * 128));
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);  // empty past the last stage
+  };
+  int acc[kCount][kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kCount; ++i)
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][m][n][e] = 0;
+#pragma unroll
+  for (int st = 0; st < kRelStages - 1; ++st) stage(st);
+  for (int64_t st = 0; st < n_stages; ++st) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRelStages - 2) : "memory");
+    // stage st has landed, and stage st - 1's buffer, which the next copy
+    // overwrites, is read
+    __syncthreads();
+    stage(st + kRelStages - 1);
+    const uint4* buf = reinterpret_cast<const uint4*>(smem + (st % kRelStages) * kRelStageBytes);
+#pragma unroll
+    for (int s = 0; s < kRelStageSteps; ++s) {
+      if (st * kRelStageSteps + s >= a.n_steps) break;
+      // (group c, plane p) of this k-step, lane's 16 B
+      auto frag = [&](int c, int p) { return buf[((2 * c + p) * kRelStageSteps + s) * kWarp + lane]; };
+      uint4 blo[kNT / 2], bhi[kNT / 2];
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j) {
+        const int c = kGroups + wn * (kNT / 2) + j;
+        blo[j] = frag(c, 0);
+        bhi[j] = frag(c, 1);
+      }
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        const int r = wm * kMT + m;
+        const uint4 alo = frag(r, 0), ahi = frag(r, 1);
+        rel_for<0, kCount>([&](auto ii) {
+          constexpr RelProduct pr = rel_product(kSet, kFirst + decltype(ii)::value);
+          constexpr int i = decltype(ii)::value;
+          if (pr.mode == kRelSwap && diag) return;
+          const uint32_t ax[4] = {rel_plane<pr.x>(alo.x, ahi.x), rel_plane<pr.x>(alo.y, ahi.y),
+                                  rel_plane<pr.x>(alo.z, ahi.z), rel_plane<pr.x>(alo.w, ahi.w)};
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            // n-tile n: samples 8 (n % 2) .. of column group n / 2, whose
+            // words t and t + 4 are entries n % 2 and n % 2 + 2
+            const uint4 lo = blo[n / 2], hi = bhi[n / 2];
+            const uint32_t b0 = rel_plane<pr.y>(n % 2 ? lo.y : lo.x, n % 2 ? hi.y : hi.x);
+            const uint32_t b1 = rel_plane<pr.y>(n % 2 ? lo.w : lo.z, n % 2 ? hi.w : hi.z);
+            mma_and_popc(acc[i][m][n], ax, b0, b1);
+          }
+        });
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // every warp is past the ring, which the epilogue's tile reuses
+  // Each product's tile goes through shared memory, fragment entry e (row
+  // g + 8 (e / 2) of m-tile m, column 2 t + e % 2 of n-tile n) at [row][col],
+  // or at [col][row] for the transposed tile of (J, I); then one thread a
+  // row adds it to the Gram's row by a bulk reduction (the tensor memory
+  // accelerator adds in L2, and the block goes on once it has read the
+  // row). A symmetric Gram gets its entries on and above the diagonal
+  // only: its tiles (I, J), I <= J, the diagonal tiles' lower entries as 0.
+  int* tile = reinterpret_cast<int*>(smem);
+  auto add = [&](const int (&d)[kMT][kNT][4], bool transposed, bool upper, int32_t* dst) {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * (wm * kMT + m) + g + 8 * (e >> 1);
+          const int col = 8 * (wn * kNT + n) + 2 * t + (e & 1);
+          tile[transposed ? col * kRelPitch + row : row * kRelPitch + col] =
+              upper && row > col ? 0 : d[m][n][e];
+        }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid < kRelTile) {
+      asm volatile(
+          "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u32 [%0], [%1], %2;\n" ::"l"(
+              dst + tid * a.s_pad),
+          "r"(smem_addr(tile + tid * kRelPitch)), "n"(4 * kRelTile)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    __syncthreads();  // the tile is read before the next product's is written
+  };
+  rel_for<0, kCount>([&](auto ii) {
+    constexpr RelProduct pr = rel_product(kSet, kFirst + decltype(ii)::value);
+    constexpr int i = decltype(ii)::value;
+    if (pr.mode == kRelSwap && diag) return;
+    int32_t* gram = a.grams + static_cast<int64_t>(pr.gram) * a.s_pad * a.s_pad;
+    if (pr.mode == kRelSwap) {
+      add(acc[i], true, false, gram + tj * kRelTile * a.s_pad + ti * kRelTile);
+    } else {
+      add(acc[i], false, pr.mode == kRelUpper && diag,
+          gram + ti * kRelTile * a.s_pad + tj * kRelTile);
+    }
+  });
+}
+
+template <int kSet>
+__global__ void __launch_bounds__(kRelThreads, 1) relatedness_gram_kernel(RelArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // tile t of the upper triangle, J-major: t = tj (tj + 1) / 2 + ti, ti <= tj
+  const int64_t t = blockIdx.x;
+  int64_t tj = static_cast<int64_t>((sqrt(8.0 * static_cast<double>(t) + 1.0) - 1.0) / 2.0);
+  while (tj * (tj + 1) / 2 > t) --tj;
+  while ((tj + 1) * (tj + 2) / 2 <= t) ++tj;
+  const int64_t ti = t - tj * (tj + 1) / 2;
+  // blockIdx.y: the pair of products
+  if (blockIdx.y == 0) rel_gram_tile<kSet, 0>(a, ti, tj, smem);
+  else if (blockIdx.y == 1) rel_gram_tile<kSet, 2>(a, ti, tj, smem);
+  else rel_gram_tile<kSet, 4>(a, ti, tj, smem);
 }
 
 // One block for each tile of rows up to as many as the card holds at once:
@@ -2457,6 +2760,23 @@ int launch_ld(LdArgs a, cudaStream_t s) {
   if (err != cudaSuccess) return static_cast<int>(err);
   ld_r2_band_kernel<kNt><<<static_cast<unsigned>(items < blocks ? items : blocks), kLdThreads,
                           smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12's Gram kernel: one block for each tile of the upper triangle and pair
+// of products.
+template <int kSet>
+int launch_rel_gram(const RelArgs& a, cudaStream_t s) {
+  const int64_t sides = a.s_pad / kRelTile;
+  const int64_t tiles = sides * (sides + 1) / 2;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  // lifts the kernel's shared-memory limit
+  resident_blocks(reinterpret_cast<const void*>(relatedness_gram_kernel<kSet>), kRelThreads,
+                  kRelSmem, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relatedness_gram_kernel<kSet><<<dim3(static_cast<unsigned>(tiles), kRelPairs), kRelThreads,
+                                  kRelSmem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2938,23 +3258,47 @@ int pgen_pca_approx_pass(const void* packed, const void* q, void* y, void* used,
   return 0;
 }
 
-int pgen_relatedness_planes(const void* packed, const void* sel, void* planes, int64_t n_var,
-                            int64_t rec, int64_t n_samples, int64_t n_kept, int64_t s_pad,
-                            int64_t v_pad, void* stream) {
-  if (s_pad <= 0 || v_pad <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(planes) % 16 != 0 || v_pad % 16 != 0) {
+// bits (2, n_groups, n_steps, 128) u32, 16-B aligned; n_groups a multiple
+// of kRelPad / 16, at least ceil(n_samples / 16).
+int pgen_relatedness_bits(const void* packed, void* bits, int64_t n_var, int64_t rec,
+                          int64_t n_samples, int64_t n_groups, int64_t n_steps, void* stream) {
+  if (n_groups <= 0 || n_steps <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(bits) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  if (s_pad < n_kept || v_pad < n_var) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t gx = (v_pad + kRelTileVars - 1) / kRelTileVars;
-  const int64_t gy = (s_pad + kRelTileSamples - 1) / kRelTileSamples;
-  if (gy > 65535 || gx > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  relatedness_planes_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
-                              kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(sel),
-      static_cast<uint8_t*>(planes), n_var, rec, static_cast<int>(n_samples),
-      static_cast<int>(n_kept), s_pad, v_pad);
+  const int64_t blocks = n_steps * ((n_groups + kRelBitsWarps - 1) / kRelBitsWarps);
+  if (n_samples < 0 || n_samples > 4 * rec || n_samples > 16 * n_groups ||
+      n_steps != (n_var + kRelStep - 1) / kRelStep || blocks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  relatedness_bits_kernel<<<static_cast<unsigned>(blocks), kRelBitsWarps * kWarp, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), static_cast<uint32_t*>(bits), n_var, rec, n_samples,
+      n_groups, n_steps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// grams (n_grams, 16 n_groups, 16 n_groups) int32, 16-B aligned (the bulk
+// reductions' addresses; each row's is 64 B times a whole number on), added to in
+// place; set 0 king's four Grams, 1 genome's five (ops/relatedness.py's
+// GRAM_SETS).
+int pgen_relatedness_gram(const void* bits, void* grams, int64_t n_groups, int64_t n_steps,
+                          int64_t set, void* stream) {
+  if (n_groups <= 0 || n_steps <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(bits) % 16 != 0 || reinterpret_cast<uintptr_t>(grams) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if ((set != 0 && set != 1) || n_groups % (kRelPad / 16) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RelArgs a;
+  a.bits = static_cast<const uint32_t*>(bits);
+  a.grams = static_cast<int32_t*>(grams);
+  a.n_groups = n_groups;
+  a.n_steps = n_steps;
+  a.s_pad = 16 * n_groups;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return set == 0 ? launch_rel_gram<0>(a, s) : launch_rel_gram<1>(a, s);
 }
 
 const char* pgen_cuda_error_string(int status) {

@@ -104,7 +104,8 @@ def load() -> ctypes.CDLL:
     lib.pgen_pca_approx_pass.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
     lib.pgen_pca_approx_scratch_bytes.argtypes = [i64, i64]
     lib.pgen_pca_approx_scratch_bytes.restype = i64
-    lib.pgen_relatedness_planes.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr]
+    lib.pgen_relatedness_bits.argtypes = [ptr, ptr] + [i64] * 5 + [ptr]
+    lib.pgen_relatedness_gram.argtypes = [ptr, ptr, i64, i64, i64, ptr]
     for fn in (
         lib.pgen_unpack_codes, lib.pgen_genotype_text, lib.pgen_subset_text,
         lib.pgen_pack_codes, lib.pgen_subset_repack,
@@ -112,7 +113,7 @@ def load() -> ctypes.CDLL:
         lib.pgen_gt_counts, lib.pgen_sample_counts, lib.pgen_gt_counts_masked,
         lib.pgen_glm_planes,
         lib.pgen_score_dosage, lib.pgen_grm_z, lib.pgen_ld_r2_band, lib.pgen_pca_approx_pass,
-        lib.pgen_relatedness_planes,
+        lib.pgen_relatedness_bits, lib.pgen_relatedness_gram,
     ):
         fn.restype = ctypes.c_int
     lib.pgen_cuda_error_string.argtypes = [ctypes.c_int]

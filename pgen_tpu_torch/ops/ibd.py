@@ -6,8 +6,10 @@ R, A and C (``ops/relatedness.py``):
 
     HETHET = H^T H,  RA = R^T A,  RR = R^T R,  AA = A^T A,  NSNP = C^T C
 
-``ibd_counts_device`` makes them per block of 32,768 rows from the same K12
-planes as ``ops/king.py``, five ``torch._int_mm`` a block, exact, and
+``ibd_counts_device`` makes them per block of 32,768 rows through the same
+scan as ``ops/king.py``: on a card K12's bit planes and its Gram kernel,
+the five Grams in one launch a block (H^T H, R^T R, A^T A and C^T C over
+their triangle), exact; on the CPU int8 planes and ``torch._int_mm``. It
 refuses 2^24 rows or more in one call as pgen_tpu's device provider does
 (pipeline/genome.py chunks at 2^23 and sums the chunks in f64). The method
 of moments (``ibd_estimates``) runs on the host in f64.
@@ -29,11 +31,11 @@ from typing import NamedTuple
 import numpy as np
 
 from pgen_tpu_torch.device import resolve_device
-from pgen_tpu_torch.ops.relatedness import A, C, H, R, relatedness_grams
+from pgen_tpu_torch.ops.relatedness import GRAM_SETS, relatedness_grams
 from pgen_tpu_torch.parallel.mesh import all_reduce_sum
 
 # H^T H, R^T A, R^T R, A^T A, C^T C (pgen_tpu's _block_grams, :142)
-IBD_GRAMS = ((H, H), (R, A), (R, R), (A, A), (C, C))
+IBD_GRAMS = GRAM_SETS[1]
 
 
 class IbdCounts(NamedTuple):

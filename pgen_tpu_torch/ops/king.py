@@ -8,10 +8,13 @@ H (het), R (hom-ref), A (hom-alt) and C (called):
     HetHet = H^T H,  IBS0 = R^T A + (R^T A)^T,  HetCal = H^T C,  NSNP = C^T C
 
 ``king_counts_device`` makes them per block of 32,768 rows through the
-shared scan of ``ops/relatedness.py``: K12 writes the four int8 planes,
-``torch._int_mm`` the four int32 Grams. Like pgen_tpu's device provider it
-refuses 2^24 rows or more in one call (pipeline/king.py chunks at 2^23
-and sums the chunks in f64).
+shared scan of ``ops/relatedness.py``: on a card K12's transposer writes the
+block's bit planes (as many bytes as the records; K5 re-packs a cohort
+first) and its Gram kernel adds the four int32 Grams from them by .b1
+AND-POPC, H^T H and C^T C over their triangle; on the CPU int8 planes and
+``torch._int_mm``. Like pgen_tpu's device provider it refuses 2^24 rows or
+more in one call (pipeline/king.py chunks at 2^23 and sums the chunks in
+f64).
 
 ``king_counts_mesh`` is pgen_tpu's mesh step (``build_king_mesh_step``,
 :315) over the ranks of a process group: each rank's Grams of its own rows,
@@ -30,11 +33,11 @@ from typing import NamedTuple
 import numpy as np
 
 from pgen_tpu_torch.device import resolve_device
-from pgen_tpu_torch.ops.relatedness import A, C, H, R, relatedness_grams
+from pgen_tpu_torch.ops.relatedness import GRAM_SETS, relatedness_grams
 from pgen_tpu_torch.parallel.mesh import all_reduce_sum
 
 # H^T H, R^T A, H^T C, C^T C (pgen_tpu's _device_block_grams, :134)
-KING_GRAMS = ((H, H), (R, A), (H, C), (C, C))
+KING_GRAMS = GRAM_SETS[0]
 
 
 class KingCounts(NamedTuple):

@@ -3,7 +3,7 @@ pgen_tpu's device provider.
 
 The PLINK ``--genome`` analog: the same include/exclude predicates,
 regions and sample lists as ``filter``, the five IBS pair-count Grams on
-``device`` (``ops/ibd.py``: K12 and ``torch._int_mm``), Z0/Z1/Z2/PI_HAT by
+``device`` (``ops/ibd.py``: K12's bits and Gram kernels), Z0/Z1/Z2/PI_HAT by
 the method of moments from the kept cohort's ALT frequencies, then a
 ``.genome``-flavored TSV
 

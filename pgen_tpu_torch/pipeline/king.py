@@ -3,7 +3,7 @@ pgen_tpu's device provider.
 
 The plink2 ``--make-king-table`` analog: the same include/exclude
 predicates, regions and sample lists as ``filter``, the four pair-count
-Grams on ``device`` (``ops/king.py``: K12 and ``torch._int_mm``), then a
+Grams on ``device`` (``ops/king.py``: K12's bits and Gram kernels), then a
 ``.kin0``-flavored TSV
 
     #IID1  IID2  NSNP  HETHET  IBS0  KINSHIP

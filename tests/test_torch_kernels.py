@@ -70,7 +70,17 @@ from pgen_tpu_torch.ops.pca import (
     pca_approx_pass,
     pca_approx_pass_plain,
 )
-from pgen_tpu_torch.ops.relatedness import relatedness_planes, relatedness_planes_plain
+from pgen_tpu_torch.ops.relatedness import (
+    GRAM_SETS,
+    mirror_symmetric,
+    relatedness_bits,
+    relatedness_bits_plain,
+    relatedness_gram,
+    relatedness_gram_plain,
+    relatedness_grams,
+    relatedness_planes_plain,
+)
+from pgen_tpu_torch.ops.ibd import ibd_counts_device
 from pgen_tpu_torch.ops.king import king_counts_device
 from pgen_tpu_torch.ops.ld import banded_r2, banded_r2_numpy, ld_r2_band, ld_r2_band_plain
 from pgen_tpu_torch.ops.score import score_dosage, score_dosage_plain
@@ -81,7 +91,7 @@ WRAPPERS = (unpack_codes, genotype_text, subset_text_from_packed)
 NEW_WRAPPERS = (pack_codes, subset_repack, genotype_text_transposed, genotype_text_from_codes)
 COUNT_WRAPPERS = (gt_counts_device, sample_counts_device)
 OPERAND_WRAPPERS = (glm_planes, score_dosage)
-RELATEDNESS_WRAPPERS = (relatedness_planes, grm_z)
+RELATEDNESS_WRAPPERS = (relatedness_bits, relatedness_gram, grm_z)
 
 pytestmark = pytest.mark.cuda
 
@@ -806,14 +816,44 @@ def test_glm_planes_wide_cohorts(cuda_device, sel):
         assert torch.equal(planes, want_planes) and torch.equal(hist, want_hist)
 
 
-def _relatedness_pairs(packed, n_samples, sel):
-    """K12 and K13 against their plain versions on the same records."""
-    planes = relatedness_planes(packed, n_samples, sel)
-    assert torch.equal(planes, relatedness_planes_plain(packed, n_samples, sel))
-    z, used = grm_z(packed, n_samples, sel)
-    want_z, want_used = grm_z_plain(packed, n_samples, sel)
-    assert torch.equal(z, want_z) and torch.equal(used, want_used)
-    return planes
+def _k12_grams_equal_plain(bits, pairs, gen=None):
+    """K12's Gram kernel against its plain version on the same bits: each
+    set's Grams added into the same random int32 Grams (zeros without
+    ``gen``, one Gram at a time, which a wide cohort's memory needs)."""
+    s_pad = 16 * bits.shape[1]
+    if gen is not None:
+        start = torch.randint(-(1 << 20), 1 << 20, (len(pairs), s_pad, s_pad), dtype=torch.int32,
+                              device=bits.device, generator=gen)
+        got = relatedness_gram(bits, pairs, start.clone())
+        assert torch.equal(got, relatedness_gram_plain(bits, pairs, start))
+        return got
+    got = relatedness_gram(bits, pairs, torch.zeros((len(pairs), s_pad, s_pad),
+                                                    dtype=torch.int32, device=bits.device))
+    for i, pair in enumerate(pairs):
+        want = relatedness_gram_plain(bits, [pair], torch.zeros((1, s_pad, s_pad),
+                                                                dtype=torch.int32,
+                                                                device=bits.device))
+        assert torch.equal(got[i], want[0])
+        del want
+    return got
+
+
+def _relatedness_pairs(packed, n_samples, sel, grm=True, gen=True):
+    """K12's two kernels and K13 against their plain versions on the same
+    records: K12's bits of the records (the cohort's re-packed by K5 first,
+    as the scan runs them) and king's and genome's Grams from those bits;
+    K13's z and flags. Returns the bits."""
+    rows, kept = (packed, n_samples) if sel is None else (subset_repack(packed, sel), sel.shape[0])
+    bits = relatedness_bits(rows, kept)
+    assert torch.equal(bits, relatedness_bits_plain(rows, kept))
+    gen = torch.Generator(device=packed.device).manual_seed(kept) if gen else None
+    for pairs in GRAM_SETS:
+        _k12_grams_equal_plain(bits, pairs, gen)
+    if grm:
+        z, used = grm_z(packed, n_samples, sel)
+        want_z, want_used = grm_z_plain(packed, n_samples, sel)
+        assert torch.equal(z, want_z) and torch.equal(used, want_used)
+    return bits
 
 
 @pytest.mark.parametrize("n_samples", [2509, 2497, 2504, 2503, 2502, 2501, 2505, 17, 8, 5, 1,
@@ -824,7 +864,8 @@ def test_relatedness_kernels_match_plain(cuda_device, n_samples):
     tiles, without and with a sel holding a
     gap, a duplicate and the last sample, on records whose pad slots hold
     random codes and every byte value sits at every position (0xFF: a row
-    with no called sample); V = 556 is no multiple of 8 or 16."""
+    with no called sample); V = 556 is no multiple of 8 or 256. K12 launches
+    its bits once and its Gram kernel twice (king's and genome's) a case."""
     rng = np.random.default_rng(n_samples)
     packed = _packed(300, n_samples, n_samples, cuda_device)
     counts = [w.launches for w in RELATEDNESS_WRAPPERS]
@@ -832,7 +873,19 @@ def test_relatedness_kernels_match_plain(cuda_device, n_samples):
     for sel in cohorts:
         _relatedness_pairs(packed, n_samples, sel)
     torch.cuda.synchronize()
-    assert [w.launches for w in RELATEDNESS_WRAPPERS] == [c + len(cohorts) for c in counts]
+    n = len(cohorts)
+    assert [w.launches for w in RELATEDNESS_WRAPPERS] == [counts[0] + n, counts[1] + 2 * n,
+                                                          counts[2] + n]
+
+
+@pytest.mark.parametrize("n_var", [1, 255, 256, 257, 32_768])
+@pytest.mark.parametrize("n_samples", [2504, 2503, 5])
+def test_relatedness_kernels_at_row_counts(cuda_device, n_samples, n_var):
+    """K12's bits and Grams at V = 1, 255, 256, 257 and 32,768 (the scan's
+    block): the rows past V in the last k-step of 256 are code 3, in no
+    Gram; the byte-value rows come first."""
+    packed = _packed(max(0, n_var - 256), n_samples, n_var, cuda_device).roll(1, 0)[:n_var]
+    _relatedness_pairs(packed.contiguous(), n_samples, None, grm=False)
 
 
 @pytest.mark.parametrize("offset", [1, 3, 4, 8, 15])
@@ -860,7 +913,8 @@ def test_relatedness_kernels_at_row_offsets(cuda_device, n_samples, offset):
 @pytest.mark.parametrize("n_kept", [1, 2, 17, 1001, 2504, 8_200])
 def test_relatedness_kernels_any_ids(cuda_device, n_kept, kind):
     """K12 and K13 with sel sorted, reversed and repeated, K from 1 (one
-    sample) to past K13's 8,192-column tiles."""
+    sample) to past K13's 8,192-column tiles; K12 on K5's re-packed
+    records, whose pad bits are zero (code 0) and count as missing."""
     rng = np.random.default_rng(n_kept)
     packed = _packed(90, 2504, n_kept, cuda_device)
     sel = torch.from_numpy(np.ascontiguousarray(_ids(kind, n_kept, 2504, rng), dtype=np.int32))
@@ -869,33 +923,42 @@ def test_relatedness_kernels_any_ids(cuda_device, n_kept, kind):
 
 @pytest.mark.parametrize("sel", [False, True])
 def test_relatedness_kernels_wide_cohorts(cuda_device, sel):
-    """40,003 samples (a 32,768-row block's planes would be 5.2 GB: fewer
-    rows here), all of them or 40,000 repeated ids."""
+    """40,003 samples, all of them or 40,000 repeated ids (fewer rows than a
+    block; each Gram 6.4 GB, held to its plain version one at a time)."""
     packed = _packed(1000, 40_003, 4, cuda_device)
     ids = None
     if sel:
         ids = torch.from_numpy(np.random.default_rng(2).integers(0, 40_003, 40_000)
                                .astype(np.int32)).to(cuda_device)
-    _relatedness_pairs(packed, 40_003, ids)
+    _relatedness_pairs(packed, 40_003, ids, gen=False)
 
 
 @pytest.mark.parametrize("n_samples", [2504, 37, 5])
 def test_int_mm_grams_equal_f64_grams(cuda_device, n_samples):
-    """torch._int_mm of K12's planes (a row-major plane by a column-major
-    view of another, no copy; at 5 samples the planes' 24 rows, past the
-    16 it requires) equals the f64 product of the plain planes;
-    king_counts_device on the card equals it on the CPU, in blocks."""
+    """torch._int_mm of the CPU scan's int8 planes (a row-major plane by a
+    column-major view of another, no copy; at 5 samples the planes' 24
+    rows, past the 16 it requires), made on the card, equals the f64
+    product of the planes and K12's Grams of the same records, mirrored; and
+    king_counts_device and ibd_counts_device on the card equal them on the
+    CPU, in blocks, for every sample and for a cohort."""
     packed = _packed(3000, n_samples, 11, cuda_device)
-    planes = relatedness_planes(packed, n_samples)
-    plain = relatedness_planes_plain(packed, n_samples).double()
-    for x, y in ((0, 0), (1, 2), (0, 3), (3, 3), (1, 1), (2, 2)):
-        gram = torch._int_mm(planes[x], planes[y].t())
-        assert torch.equal(gram.double(), plain[x] @ plain[y].T)
+    planes = relatedness_planes_plain(packed, n_samples)
+    plain = planes.double()
+    bits = relatedness_bits(packed, n_samples)
+    for pairs in GRAM_SETS:
+        grams = mirror_symmetric(_k12_grams_equal_plain(bits, pairs), pairs)
+        for gram, (x, y) in zip(grams, pairs):
+            int_mm = torch._int_mm(planes[x], planes[y].t())
+            assert torch.equal(int_mm.double(), plain[x] @ plain[y].T)
+            assert torch.equal(gram[:n_samples, :n_samples], int_mm[:n_samples, :n_samples])
     host = packed.cpu().numpy()
-    got = king_counts_device(host, n_samples, "cuda", block_variants=1024)
-    want = king_counts_device(host, n_samples, "cpu", block_variants=1024)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
+    idx = np.random.default_rng(3).integers(0, n_samples, max(1, n_samples - 2))
+    for fn in (king_counts_device, ibd_counts_device):
+        for sample_idx in (None, idx):
+            got = fn(host, n_samples, "cuda", block_variants=1024, sample_idx=sample_idx)
+            want = fn(host, n_samples, "cpu", block_variants=1024, sample_idx=sample_idx)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
 
 
 def test_grm_on_the_card_matches_f64(cuda_device):
@@ -920,9 +983,40 @@ def test_relatedness_kernels_launch_nothing_when_empty(cuda_device):
     assert z.shape == (259, 0) and not used.any()
     z, used = grm_z(packed[:0], 17)
     assert z.shape == (0, 17) and used.shape == (0,)
-    assert [w.launches for w in RELATEDNESS_WRAPPERS] == [counts[0], counts[1]]
-    planes = relatedness_planes(packed[:0], 17)  # all pad: one launch writes the zeros
-    assert planes.shape == (4, 24, 16) and not planes.any()
+    bits = relatedness_bits(packed[:0], 17)  # no row: no k-step
+    assert bits.shape == (2, 8, 0, 128)
+    grams = torch.zeros((4, 128, 128), dtype=torch.int32, device=cuda_device)
+    assert not relatedness_gram(bits, GRAM_SETS[0], grams).any()
+    got = king_counts_device(packed.cpu().numpy(), 17, "cuda", sample_idx=np.empty(0, np.int32))
+    assert all(g.shape == (0, 0) for g in got)
+    assert [w.launches for w in RELATEDNESS_WRAPPERS] == counts
+
+
+def test_relatedness_gram_refuses_unaligned_grams_and_other_pairs(cuda_device):
+    """On the card, as on the CPU, relatedness_gram takes Grams and bits
+    that start on 16 B (the bulk reductions' addresses) and king's or
+    genome's pairs only; the library refuses a Gram 8 B past 16 B by itself
+    too (cudaErrorMisalignedAddress); nothing launches."""
+    bits = relatedness_bits(_packed(40, 17, 6, cuda_device), 17)
+    pairs = GRAM_SETS[0]
+    counts = [w.launches for w in RELATEDNESS_WRAPPERS]
+    flat = torch.zeros(len(pairs) * 128 * 128 + 4, dtype=torch.int32, device=cuda_device)
+    for offset in (1, 2, 3):
+        grams = flat[offset : offset + len(pairs) * 128 * 128].view(len(pairs), 128, 128)
+        with pytest.raises(ValueError, match="16 B"):
+            relatedness_gram(bits, pairs, grams)
+    grams = flat[2 : 2 + len(pairs) * 128 * 128]
+    status = kernels.load().pgen_relatedness_gram(
+        bits.data_ptr(), grams.data_ptr(), bits.shape[1], bits.shape[2], 0,
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert status == 716  # cudaErrorMisalignedAddress
+    with pytest.raises(ValueError, match="GRAM_SETS"):
+        relatedness_gram(bits, pairs[::-1], flat[:len(pairs) * 128 * 128].view(len(pairs), 128, 128))
+    with pytest.raises(ValueError, match="GRAM_SETS"):
+        relatedness_grams(_packed(40, 17, 6, "cpu").numpy(), 17, "cuda", pairs[:3], 1024)
+    torch.cuda.synchronize()
+    assert not flat.any()
+    assert [w.launches for w in RELATEDNESS_WRAPPERS] == counts
 
 
 def test_interaction_beta_on_the_card_within_pgen_tpu_tolerance(cuda_device, monkeypatch):

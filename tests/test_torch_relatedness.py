@@ -3,7 +3,8 @@ ops.ibd, ops.pca, pipeline.king/genome/pca and their CLI) against
 pgen_tpu's device provider.
 
 The port runs with device="cpu", where K12's and K13's plain PyTorch
-versions make the planes and the standardized dosages; pgen_tpu runs its
+versions make the planes and the standardized dosages (and K12's bits and
+Grams, beside a numpy model of its two kernels); pgen_tpu runs its
 device functions with the Pallas unpack in interpret mode, JAX on the CPU
 (tests/test_king.py:48, tests/test_genome.py:47, tests/test_pca.py:63).
 Filesets have planted structure: two populations with shifted allele
@@ -40,7 +41,18 @@ from pgen_tpu_torch.ops import ibd as port_ibd
 from pgen_tpu_torch.ops import king as port_king
 from pgen_tpu_torch.ops import pca as port_pca
 from pgen_tpu_torch.ops.pack import subset_repack_plain
-from pgen_tpu_torch.ops.relatedness import plane_shape, relatedness_planes
+from pgen_tpu_torch.ops.relatedness import (
+    GRAM_SETS,
+    bits_shape,
+    mirror_symmetric,
+    plane_shape,
+    relatedness_bits,
+    relatedness_bits_plain,
+    relatedness_gram,
+    relatedness_gram_plain,
+    relatedness_grams,
+    relatedness_planes_plain,
+)
 from pgen_tpu_torch.pipeline import king as port_king_pipeline
 from test_torch_standalone import ARGV_TABLE
 
@@ -223,7 +235,7 @@ def test_relatedness_planes_plain_match_pgen_tpu_planes(tmp_path, n_samples, kin
     idx = _cohort(kind, n_samples)
     codes = _tpu_codes(packed, n_samples, idx)
     sel = None if idx is None else torch.from_numpy(idx)
-    planes = relatedness_planes(torch.from_numpy(packed), n_samples, sel).numpy()
+    planes = relatedness_planes_plain(torch.from_numpy(packed), n_samples, sel).numpy()
     n_var, n_kept = codes.shape
     assert planes.shape == (4, *plane_shape(n_var, n_kept)) and planes.dtype == np.int8
     assert planes.shape[1] > 16 and planes.shape[1] % 8 == 0 and planes.shape[2] % 16 == 0
@@ -231,6 +243,344 @@ def test_relatedness_planes_plain_match_pgen_tpu_planes(tmp_path, n_samples, kin
         np.testing.assert_array_equal(planes[p, :n_kept, :n_var], want.T.astype(np.int8))
     assert not planes[:, n_kept:].any() and not planes[:, :, n_var:].any()
 
+
+# -- K12's two kernels: a numpy model of each, held to pgen_tpu --------------
+
+K12_SOURCE = Path(port_king.__file__).resolve().parent.parent / "csrc" / "genotype.cu"
+K12_STEP, K12_PAD = 256, 128
+# csrc's Gram kernel's block: warps 2 (rows) x kRelWC (columns), a warp
+# kRelMT m-tiles of 16 by kRelNT n-tiles of 8, two products a block
+K12_WR, K12_WC, K12_MT, K12_NT, K12_G = 2, 4, 4, 4, 2
+UPPER, STORE, SWAP = range(3)
+H_, R_, A_, C_ = range(4)
+# csrc's rel_product: (x, y, gram, mode) of king's (0) and genome's (1) set
+K12_PRODUCTS = (
+    ((H_, H_, 0, UPPER), (C_, C_, 3, UPPER), (R_, A_, 1, STORE), (A_, R_, 1, SWAP),
+     (H_, C_, 2, STORE), (C_, H_, 2, SWAP)),
+    ((H_, H_, 0, UPPER), (C_, C_, 4, UPPER), (R_, A_, 1, STORE), (A_, R_, 1, SWAP),
+     (R_, R_, 2, UPPER), (A_, A_, 3, UPPER)),
+)
+LANES = np.arange(32)
+G_OF, T_OF = LANES // 4, LANES % 4
+
+
+def test_k12_constants_match_the_source():
+    source = K12_SOURCE.read_text()
+    assert f"constexpr int kRelStep = {K12_STEP};" in source
+    assert f"constexpr int kRelPad = {K12_PAD};" in source
+    assert f"constexpr int kRelWC = {K12_WC}, kRelMT = {K12_MT}, kRelNT = {K12_NT};" in source
+    assert f"constexpr int kRelThreads = {K12_WR} * kRelWC * kWarp;" in source
+    assert f"constexpr int kRelTile = 16 * {K12_WR} * kRelMT;" in source
+    # a block's products: the pair kFirst, kFirst + 1 of blockIdx.y
+    assert f"constexpr int kRelPairs = kRelProducts / {K12_G};" in source
+    assert f"constexpr int kCount = {K12_G}," in source
+    for y in range(6 // K12_G):
+        assert f"rel_gram_tile<kSet, {K12_G * y}>(a, ti, tj, smem);" in source
+    names = {UPPER: "kRelUpper", STORE: "kRelStore", SWAP: "kRelSwap"}
+    planes = "HRAC"
+    for products in K12_PRODUCTS:
+        for i, (x, y, gram, mode) in enumerate(products):
+            case = f"case {i}" if i < 5 else "default"
+            assert (f"{case}: return {{{planes[x]}, {planes[y]}, {gram}, {names[mode]}}};"
+                    in source)
+    assert GRAM_SETS == (port_king.KING_GRAMS, port_ibd.IBD_GRAMS)
+
+
+def _transpose32(x):
+    """transpose32 of csrc in numpy: x (..., 32 lanes) u32 -> lane c's bit r
+    is bit c of lane r, by five swaps of off-diagonal blocks."""
+    x = x.astype(np.uint32)
+    for j, keep in zip((16, 8, 4, 2, 1), (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333,
+                                          0x55555555)):
+        y = x[..., LANES ^ j]
+        keep, drop = np.uint32(keep), np.uint32(~keep & 0xFFFFFFFF)
+        x = np.where(LANES & j, (x & drop) | ((y & drop) >> np.uint32(j)),
+                     (x & keep) | ((y & keep) << np.uint32(j)))
+    return x
+
+
+def _model_bits(packed, n_samples, seed=0):
+    """relatedness_bits_kernel in numpy: a warp a group of 16 samples and a
+    k-step; lane l's record word of row 256 k + 32 w + l at byte 4 grp (the
+    bytes past its row whatever follows there: random here; rows past V
+    0xFF), each word of rows transposed (lane 2 r + p: plane p of sample r),
+    lane (g, t) taking by shuffles words t and t + 4 of samples g and g + 8
+    in each plane; samples at or past S set to code 3 by count."""
+    n_var, rec = packed.shape
+    _, groups, steps, _ = bits_shape(n_var, n_samples)
+    buf = np.random.default_rng(seed).integers(0, 256, (steps * K12_STEP, 4 * groups + 4),
+                                               dtype=np.uint8)
+    buf[n_var:] = 0xFF
+    buf[:n_var, :rec] = packed
+    x = np.ascontiguousarray(buf[:, : 4 * groups]).view("<u4")  # (V_pad, groups)
+    out = np.zeros((2, groups, steps, 32, 4), dtype=np.uint32)
+    for k in range(steps):
+        for w in range(8):
+            rows = x[k * K12_STEP + 32 * w : k * K12_STEP + 32 * w + 32]  # (lanes, groups)
+            col = _transpose32(rows.T)  # (groups, lanes)
+            keep = T_OF == w % 4
+            for half in range(2):
+                for p in range(2):
+                    word = col[:, 2 * (G_OF + 8 * half) + p]  # the shuffle
+                    dst = out[p, :, k]  # (groups, lanes, entries)
+                    dst[:, keep, half + 2 * (w // 4)] = word[:, keep]
+    sample = 16 * np.arange(groups)[:, None, None] + G_OF[None, :, None] + 8 * (
+        np.arange(4)[None, None, :] & 1)  # (groups, lanes, e)
+    out[:, np.broadcast_to((sample >= n_samples)[:, None], (groups, steps, 32, 4))] = 0xFFFFFFFF
+    return out.reshape(2, groups, steps, 128)
+
+
+def _decoded(bits):
+    """(2, S_pad, V_pad) 0/1 of the model's or the plain version's bits."""
+    b = np.asarray(bits).view(np.uint32)
+    _, groups, steps, _ = b.shape
+    words = b.reshape(2, groups, steps, 8, 4, 2, 2).transpose(0, 1, 6, 3, 2, 5, 4)
+    words = words.reshape(2, groups * 16, steps * 8)
+    return ((words[..., None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(
+        2, groups * 16, steps * K12_STEP)
+
+
+def _cohort_records(packed, n_samples, kind):
+    """The records K12 sees: all samples, or the cohort's re-packed by K5's
+    plain version (pad bits zero: code 0, hom-ref, unless counted out)."""
+    idx = _cohort(kind, n_samples)
+    if idx is None:
+        return packed, n_samples, idx
+    return subset_repack_plain(torch.from_numpy(packed), torch.from_numpy(idx)).numpy(), len(idx), idx
+
+
+@pytest.mark.parametrize("n_var", [1, 255, 256, 257, 297])
+@pytest.mark.parametrize("kind", COHORTS)
+@pytest.mark.parametrize("n_samples", WIDTHS)
+def test_relatedness_bits_plain_match_numpy_model(tmp_path, n_samples, kind, n_var):
+    """K12's plain bits equal the numpy model of its transposer, at V = 1,
+    255, 256, 257 and 297 (the byte-value rows, 0xFF among them, from row
+    41 on), the cohort's records re-packed; each sample's planes are its
+    codes, and every pad slot, pad sample and pad row reads code 3."""
+    packed = _packed(_planted_codes(41, n_samples, n_samples), tmp_path)[:n_var]
+    rows, n_kept, idx = _cohort_records(packed, n_samples, kind)
+    got = relatedness_bits_plain(torch.from_numpy(rows), n_kept)
+    assert tuple(got.shape) == bits_shape(n_var, n_kept) and got.dtype == torch.int32
+    want = _model_bits(rows, n_kept, n_var)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    planes = _decoded(want)
+    codes = _tpu_codes(packed, n_samples, idx)
+    np.testing.assert_array_equal(planes[0, :n_kept, :n_var] + 2 * planes[1, :n_kept, :n_var],
+                                  codes.T)
+    assert planes[:, n_kept:].all() and planes[:, :, n_var:].all()
+    assert relatedness_bits(torch.from_numpy(rows), n_kept).equal(got)  # the CPU route
+
+
+def _plane(p, lo, hi):
+    """Indicator plane p (H, R, A, C) of lo and hi words."""
+    return (lo & ~hi, ~(lo | hi), hi & ~lo, ~(lo & hi))[p]
+
+
+def _mma_and_popc(a, b0, b1):
+    """mma.sync m16n8k256 .b1 AND-POPC of a warp, by its fragment layout:
+    a (32, 4) (a0, a2 row g, a1, a3 row g + 8; words t and t + 4), b0, b1
+    (32,) (column g, words t and t + 4) -> d (32, 4) (rows g, g + 8 x
+    columns 2 t, 2 t + 1)."""
+    rows = np.zeros((16, 8), dtype=np.uint32)
+    rows[G_OF, T_OF], rows[G_OF + 8, T_OF] = a[:, 0], a[:, 1]
+    rows[G_OF, T_OF + 4], rows[G_OF + 8, T_OF + 4] = a[:, 2], a[:, 3]
+    cols = np.zeros((8, 8), dtype=np.uint32)
+    cols[G_OF, T_OF], cols[G_OF, T_OF + 4] = b0, b1
+    both = rows[:, None, :] & cols[None, :, :]
+    d = np.unpackbits(both.view(np.uint8), axis=-1).reshape(16, 8, -1).sum(-1, dtype=np.int64)
+    return np.stack([d[G_OF, 2 * T_OF], d[G_OF, 2 * T_OF + 1], d[G_OF + 8, 2 * T_OF],
+                     d[G_OF + 8, 2 * T_OF + 1]], 1)
+
+
+def _model_grams(bits, set_, fault=None):
+    """relatedness_gram_kernel in numpy: the upper triangle of tiles of 16
+    kWR kMT (128) samples, J-major, each with its pairs of products; a
+    block's warps, kWR (rows) x kWC (columns), a warp kMT m-tiles (a group
+    each) by kNT n-tiles of 8 (two a group); each product's indicator fragments from lo
+    and hi, its sums by _mma_and_popc over every k-step, and its tile added
+    into its Gram: as it is, on and above the diagonal only for a symmetric
+    Gram, or (a swapped product) transposed, and left out on the diagonal.
+    ``fault`` plants one error of the kind a fragment or store can hold."""
+    bits = np.asarray(bits).view(np.uint32)
+    _, groups, steps, _ = bits.shape
+    k_wr, k_wc, k_mt, k_nt, k_g = K12_WR, K12_WC, K12_MT, K12_NT, K12_G
+    tile = 16 * k_wr * k_mt
+    assert tile == 8 * k_wc * k_nt
+    sides = 16 * groups // tile
+    products = K12_PRODUCTS[set_]
+    grams = np.zeros((len(GRAM_SETS[set_]), 16 * groups, 16 * groups), dtype=np.int64)
+    frag = bits.reshape(2, groups, steps, 32, 4)
+    for tj in range(sides):
+        for ti in range(tj + 1):
+            diag = ti == tj
+            for first in range(0, len(products), k_g):
+                group = [pr for pr in products[first : first + k_g]
+                         if not (pr[3] == SWAP and diag)]
+                for warp in range(k_wr * k_wc):
+                    wm, wn = warp // k_wc, warp % k_wc
+                    acc = np.zeros((len(group), k_mt, k_nt, 32, 4), dtype=np.int64)
+                    for k in range(steps):
+                        for m in range(k_mt):
+                            r = ti * tile // 16 + wm * k_mt + m
+                            alo, ahi = frag[0, r, k], frag[1, r, k]
+                            for i, (x, y, _, _) in enumerate(group):
+                                ax = _plane(x, alo, ahi)
+                                for n in range(k_nt):
+                                    c = tj * tile // 16 + wn * (k_nt // 2) + n // 2
+                                    h = n % 2
+                                    if fault == "B halves swapped":
+                                        h = 1 - h
+                                    blo, bhi = frag[0, c, k], frag[1, c, k]
+                                    b0 = _plane(y, blo[:, h], bhi[:, h])
+                                    b1 = _plane(y, blo[:, h + 2], bhi[:, h + 2])
+                                    if fault == "b0 and b1 swapped":
+                                        b0, b1 = b1, b0
+                                    a_ = ax[:, [1, 0, 3, 2]] if fault == "A rows swapped" else ax
+                                    acc[i, m, n] += _mma_and_popc(a_, b0, b1)
+                    for i, (_, _, gram, mode) in enumerate(group):
+                        for m in range(k_mt):
+                            for n in range(k_nt):
+                                for e in range(4):
+                                    row = ti * tile + 16 * (wm * k_mt + m) + G_OF + 8 * (e >> 1)
+                                    col = tj * tile + 8 * (wn * k_nt + n) + 2 * T_OF + (e & 1)
+                                    d = acc[i, m, n, :, e]
+                                    if mode == SWAP and fault == "swap stored untransposed":
+                                        mode = STORE
+                                    if mode == SWAP:
+                                        grams[gram, col, row] += d
+                                    else:
+                                        keep = (row <= col) | (mode != UPPER) | (not diag)
+                                        grams[gram, row[keep], col[keep]] += d[keep]
+    return grams
+
+
+def _tpu_block_grams(packed, n_samples, idx, set_):
+    """pgen_tpu's Grams of one block: _device_block_grams (king: of the bf16
+    indicators H, R, A, C that its scan's body makes, king.py:163-166) or
+    _block_grams (genome) of the interpret-mode codes of the cohort."""
+    import jax.numpy as jnp
+
+    codes = jnp.asarray(_tpu_codes(packed, n_samples, idx))
+    if set_ == 1:
+        return [np.asarray(g) for g in tpu_ibd._block_grams(codes)]
+    ind = [(codes == k).astype(jnp.bfloat16) for k in (1, 0, 2)]
+    return [np.asarray(g) for g in tpu_king._device_block_grams(
+        (*ind, (codes != 3).astype(jnp.bfloat16)))]
+
+
+@pytest.mark.parametrize("n_var", [1, 256, 297])
+@pytest.mark.parametrize("kind", COHORTS)
+@pytest.mark.parametrize("n_samples", [*WIDTHS, 131])
+def test_gram_model_matches_pgen_tpu_block_grams(tmp_path, n_samples, kind, n_var):
+    """The numpy model of the Gram kernel, on the model's bits of 1, 256 or
+    297 rows (one k-step almost all pad rows, one whole k-step, two k-steps
+    the last one part pad rows; the byte-value rows from row 41 on), equals
+    relatedness_gram_plain on the plain bits, and gives every Gram of king's
+    and genome's set, mirrored, exactly as pgen_tpu's _device_block_grams and
+    _block_grams: nothing below a symmetric Gram's diagonal, and the pad
+    samples' rows and columns 0. Up to 37 samples every sample lies in the
+    first tile; at 131 (S_pad 256) the tile off the diagonal holds samples
+    on both sides."""
+    packed = _packed(_planted_codes(41, n_samples, n_samples + 3), tmp_path)[:n_var]
+    rows, n_kept, idx = _cohort_records(packed, n_samples, kind)
+    bits = _model_bits(rows, n_kept)
+    plain_bits = relatedness_bits_plain(torch.from_numpy(rows), n_kept)
+    for set_, pairs in enumerate(GRAM_SETS):
+        want = _tpu_block_grams(packed, n_samples, idx, set_)
+        got = _model_grams(bits, set_)
+        s_pad = 16 * bits.shape[1]
+        plain = relatedness_gram(plain_bits, pairs,
+                                 torch.zeros((len(pairs), s_pad, s_pad), dtype=torch.int32))
+        np.testing.assert_array_equal(got, plain.numpy())
+        for i, (x, y) in enumerate(pairs):
+            if x == y:  # below the diagonal nothing is added
+                assert not np.tril(got[i], -1).any()
+        whole = mirror_symmetric(torch.from_numpy(got), pairs).numpy()
+        for g, w in zip(whole, want):
+            np.testing.assert_array_equal(g[:n_kept, :n_kept], w)
+            assert not g[n_kept:].any() and not g[:, n_kept:].any()
+
+
+@pytest.mark.parametrize("fault", ["B halves swapped", "b0 and b1 swapped", "A rows swapped",
+                                   "swap stored untransposed"])
+def test_gram_model_catches_fragment_faults(tmp_path, fault):
+    """The data tells a fragment read from the wrong place or a swapped
+    product stored untransposed: R^T A and H^T C are not symmetric, 131
+    samples fill the tile off the diagonal of two 128-sample tiles on both
+    sides, and each planted fault moves some Gram off pgen_tpu's."""
+    packed = _packed(_planted_codes(41, 131, 40), tmp_path)
+    bits = _model_bits(packed, 131)
+    want = _tpu_block_grams(packed, 131, None, 0)
+    assert (want[1] != want[1].T).any() and (want[2] != want[2].T).any()
+    got = mirror_symmetric(torch.from_numpy(_model_grams(bits, 0, fault)), GRAM_SETS[0])
+    assert any((g.numpy()[:131, :131] != w).any() for g, w in zip(got, want))
+
+
+def test_relatedness_gram_plain_adds_into_grams():
+    """relatedness_gram adds the block's Grams into the ones it is given
+    (the scan's sums across blocks), and takes only (2, G, steps, 128)
+    int32 bits with Grams of their S_pad."""
+    rng = np.random.default_rng(5)
+    packed = torch.from_numpy(rng.integers(0, 256, (300, 5), dtype=np.uint8))
+    bits = relatedness_bits_plain(packed, 19)
+    pairs = GRAM_SETS[0]
+    start = torch.from_numpy(rng.integers(-1000, 1000, (4, 128, 128)).astype(np.int32))
+    got = relatedness_gram(bits, pairs, start.clone())
+    want = relatedness_gram_plain(bits, pairs, torch.zeros_like(start)) + start
+    assert got.equal(want)
+    with pytest.raises(ValueError, match="grams must be"):
+        relatedness_gram(bits, pairs, torch.zeros((4, 64, 64), dtype=torch.int32))
+    with pytest.raises(ValueError, match="bits must be"):
+        relatedness_gram(bits.long(), pairs, start.clone())
+
+
+# pairs of Grams that neither king nor genome takes
+OTHER_PAIRS = {
+    "king reordered": (GRAM_SETS[0][1], GRAM_SETS[0][0], *GRAM_SETS[0][2:]),
+    "king without C^T C": GRAM_SETS[0][:3],
+    "king with A^T R": ((H_, H_), (A_, R_), (H_, C_), (C_, C_)),
+    "genome and H^T C": (*GRAM_SETS[1], (H_, C_)),
+    "none": (),
+}
+
+
+@pytest.mark.parametrize("fn", ["relatedness_gram", "relatedness_grams"])
+@pytest.mark.parametrize("case", list(OTHER_PAIRS))
+def test_relatedness_grams_refuse_other_pairs(case, fn):
+    """The Gram kernel makes king's and genome's sets only, so the scan
+    and its Gram wrapper refuse any other pairs on the CPU too, where the
+    plain version could make them; the two sets, as lists, are taken."""
+    pairs = OTHER_PAIRS[case]
+    packed = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (40, 5), dtype=np.uint8))
+    bits = relatedness_bits_plain(packed, 19)
+
+    def call(pairs):
+        if fn == "relatedness_grams":
+            return relatedness_grams(packed.numpy(), 19, "cpu", pairs, 16)
+        return relatedness_gram(bits, pairs, torch.zeros((len(pairs), 128, 128),
+                                                         dtype=torch.int32))
+
+    with pytest.raises(ValueError, match="GRAM_SETS"):
+        call(pairs)
+    for pairs in GRAM_SETS:
+        assert len(call([list(p) for p in pairs])) == len(pairs)
+
+
+@pytest.mark.parametrize("operand", ["grams", "bits"])
+def test_relatedness_gram_refuses_unaligned_operands(operand):
+    """Grams and bits must start on 16 B, as the kernel's bulk reductions
+    and copies need, on the CPU as on the card: a contiguous view 8 B on is
+    refused."""
+    packed = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (40, 5), dtype=np.uint8))
+    bits = relatedness_bits_plain(packed, 19)
+    grams = torch.zeros((4, 128, 128), dtype=torch.int32)
+    if operand == "grams":
+        grams = torch.zeros(grams.numel() + 2, dtype=torch.int32)[2:].view(4, 128, 128)
+    else:
+        bits = torch.zeros(bits.numel() + 2, dtype=torch.int32)[2:].view(bits.shape).copy_(bits)
+    assert grams.is_contiguous() and bits.is_contiguous()
+    with pytest.raises(ValueError, match="16 B"):
+        relatedness_gram(bits, GRAM_SETS[0], grams)
 
 @pytest.mark.parametrize("kind", COHORTS)
 @pytest.mark.parametrize("n_samples", WIDTHS)
