@@ -1843,9 +1843,10 @@ def _route(stderr: str) -> str:
 
 
 def _stage_ms(stderr: str, stage: str) -> float:
-    """A stage's milliseconds from a --stats report."""
+    """A stage's milliseconds from a --stats report (a child stage's line
+    is indented under its parent's)."""
     for line in stderr.splitlines():
-        if line.startswith(f"{stage}: "):
+        if line.lstrip(" ").startswith(f"{stage}: "):
             return float(line.split()[1])
     raise AssertionError(f"the --stats report has no {stage} stage")
 

@@ -246,8 +246,9 @@ def _refuse_unserved(parser, args, unserved: dict) -> None:
 def _profile(out_dir, device: str):
     """With ``--profile DIR``, a torch.profiler trace of the run (CPU
     activity, and CUDA activity on a card) written as the Chrome trace
-    ``DIR/rank{R}.trace.json``, R this process's rank; pgen_tpu maps the
-    flag to jax.profiler."""
+    ``DIR/rank{R}.trace.json``, R this process's rank, with a range
+    ``stage:<name>`` for each span of the program's timer
+    (``utils/timer.py``); pgen_tpu maps the flag to jax.profiler."""
     if out_dir is None:
         yield
         return

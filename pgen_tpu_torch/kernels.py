@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from pgen_tpu_torch.utils.timer import book_launch
+
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("genotype.cu", "genotype.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pgen_tpu_torch"
@@ -124,7 +126,8 @@ def load() -> ctypes.CDLL:
 def launch(wrapper, symbol: str, t: torch.Tensor, *args) -> None:
     """Launch ``wrapper``'s kernel through the library function ``symbol``
     with ``args`` and PyTorch's current stream on t's card, and count it on
-    ``wrapper.launches``.
+    ``wrapper.launches`` and on the calling thread's innermost open span
+    (``utils/timer.py``).
 
     The launchers run on the calling thread's current device, so t's device
     is made current around the call. A launcher that reports a CUDA error
@@ -139,3 +142,4 @@ def launch(wrapper, symbol: str, t: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error {status} ({msg})")
     with _COUNT_LOCK:
         wrapper.launches += 1
+    book_launch()

@@ -54,9 +54,13 @@ from pgen_tpu_torch.device import resolve_device, synchronize
 from pgen_tpu_torch.kernels import launch
 from pgen_tpu_torch.ops.gt_stats_host import sample_byte_masks
 from pgen_tpu_torch.ops.unpack import check_packed, unpack_codes_plain
+from pgen_tpu_torch.utils.timer import span
 
 # Rows per staged block: pipeline/filter_host.py's DEFAULT_BLOCK_VARIANTS.
 COUNT_BLOCK_ROWS = 1 << 16
+# The counts' staging spans, apart from an analytic's own "stage_read" and
+# "h2d": the GT_* predicates count inside a job's "predicates" stage
+COUNT_SPANS = ("count_read", "count_h2d")
 # The kernels count in int32; a call of fewer rows cannot overflow one.
 _MAX_ROWS = (1 << 31) - 1
 # Keep masks a K14 launch counts (csrc/genotype.cu:kMaskedMaxMasks): more
@@ -196,18 +200,25 @@ sample_counts_device.launches = 0
 gt_counts_masked.launches = 0
 
 
-def stage_blocks(records: np.ndarray, dev: torch.device, block_rows: int):
+def stage_blocks(records: np.ndarray, dev: torch.device, block_rows: int,
+                 spans: tuple = ("stage_read", "h2d")):
     """Yield (lo, hi, the records' rows [lo, hi) on dev), copied through one
-    staging tensor, pinned when dev is CUDA."""
+    staging tensor, pinned when dev is CUDA: each block's copy into it is a
+    span of the caller's timer named ``spans[0]``, its copy to dev and the
+    synchronise after it (which also waits for the kernels queued on the
+    block before) one named ``spans[1]``."""
     n_var, rec = records.shape
     staging = torch.empty((min(block_rows, n_var), rec), dtype=torch.uint8,
                           pin_memory=dev.type == "cuda")
     staged = staging.numpy()
+    read, copy = spans
     for lo in range(0, n_var, block_rows):
         hi = min(lo + block_rows, n_var)
-        np.copyto(staged[: hi - lo], records[lo:hi])
-        block = staging[: hi - lo].to(dev, non_blocking=True)
-        synchronize(dev)
+        with span(read, (hi - lo) * rec):
+            np.copyto(staged[: hi - lo], records[lo:hi])
+        with span(copy, (hi - lo) * rec):
+            block = staging[: hi - lo].to(dev, non_blocking=True)
+            synchronize(dev)
         yield lo, hi, block
 
 
@@ -217,7 +228,7 @@ def gt_counts(records: np.ndarray, num_samples: int, device,
     int64 per-variant code histogram, counted on ``device``."""
     dev = resolve_device(device)
     out = np.zeros((records.shape[0], 4), dtype=np.int64)
-    for lo, hi, block in stage_blocks(records, dev, block_rows):
+    for lo, hi, block in stage_blocks(records, dev, block_rows, COUNT_SPANS):
         out[lo:hi] = gt_counts_device(block, num_samples).cpu().numpy()
     return out
 
@@ -229,7 +240,7 @@ def sample_counts(records: np.ndarray, num_samples: int, device,
     ``device``; the blocks' int32 counts add up in int64."""
     dev = resolve_device(device)
     total = torch.zeros((num_samples, 4), dtype=torch.int64, device=dev)
-    for _, _, block in stage_blocks(records, dev, block_rows):
+    for _, _, block in stage_blocks(records, dev, block_rows, COUNT_SPANS):
         total += sample_counts_device(block, num_samples)
     return total.cpu().numpy()
 
@@ -250,7 +261,7 @@ def gt_counts_subsets(records: np.ndarray, sample_sets, device,
     groups = [(a, min(a + MAX_MASKS, len(sample_sets))) for a in range(0, len(sample_sets), MAX_MASKS)]
     words, kept = mask_words(masks), kept_counts(masks)
     out = np.zeros((n_var, len(sample_sets), 4), dtype=np.int64)
-    for lo, hi, block in stage_blocks(records, dev, block_rows):
+    for lo, hi, block in stage_blocks(records, dev, block_rows, COUNT_SPANS):
         for a, b in groups:
             out[lo:hi, a:b] = gt_counts_masked(block, masks[a:b], words[a:b],
                                                kept[a:b]).cpu().numpy()

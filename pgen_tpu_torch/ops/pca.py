@@ -19,6 +19,10 @@ Per staged block (``stage_blocks``, pinned when the device is CUDA):
                   Z^T t by chunks of rows, their sum added to y), fp32
                   FMAs, z never in device memory
 
+Each block's copy in, its kernels' launches and the GRM's copy back are
+spans of the caller's timer (``stage_read``, ``h2d``, ``kernels``,
+``d2h``; ``utils/timer.py``).
+
 The exact GRM's z'z is f64 (z cast in chunks of rows) and sums in f64,
 where pgen_tpu's ``_grm_device_jit`` (:109) makes it in f32 and carries an
 f32 sum: on the full chr22 fixture that f32 Gram came out 1.275 off an f64
@@ -71,6 +75,7 @@ from pgen_tpu_torch.ops.gt_stats import stage_blocks
 from pgen_tpu_torch.ops.pack import subset_repack
 from pgen_tpu_torch.ops.unpack import check_packed
 from pgen_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_from_rank0
+from pgen_tpu_torch.utils.timer import span
 
 
 class GrmResult(NamedTuple):
@@ -219,7 +224,7 @@ def grm_device(
     without it)."""
     acc, m_used = _grm_sums(packed, num_samples, resolve_device(device), block_variants,
                             sample_idx)
-    return GrmResult(acc.cpu().numpy(), int(m_used))
+    return _grm_to_host(acc, m_used)
 
 
 def grm_mesh(
@@ -237,7 +242,13 @@ def grm_mesh(
     dev = resolve_device(device)
     acc, m_used = all_reduce_sum(_grm_sums(packed, num_samples, dev, block_variants, sample_idx),
                                  dev, timer)
-    return GrmResult(acc.cpu().numpy(), int(m_used))
+    return _grm_to_host(acc, m_used)
+
+
+def _grm_to_host(acc: torch.Tensor, m_used: torch.Tensor) -> GrmResult:
+    """The GRM sum and used count copied back, as a ``d2h`` span."""
+    with span("d2h", acc.numel() * acc.element_size()):
+        return GrmResult(acc.cpu().numpy(), int(m_used))
 
 
 def _grm_sums(packed, num_samples: int, dev, block_variants: int, sample_idx) -> tuple:
@@ -252,9 +263,10 @@ def _grm_sums(packed, num_samples: int, dev, block_variants: int, sample_idx) ->
     scratch = (torch.empty(min(block_variants, n_var) * ns, dtype=torch.float32, device=dev)
                if dev.type == "cuda" else None)
     for _, _, block in stage_blocks(packed, dev, block_variants):
-        z, used = grm_z(block, num_samples, sel, out=scratch)
-        add_gram_fp64(acc, z)
-        m_used += used.sum()
+        with span("kernels"):
+            z, used = grm_z(block, num_samples, sel, out=scratch)
+            add_gram_fp64(acc, z)
+            m_used += used.sum()
     return acc, m_used
 
 
@@ -378,9 +390,10 @@ def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants, t
         y = torch.zeros((ns, q.shape[1]), dtype=torch.float32, device=dev)
         m_used = torch.zeros((), dtype=torch.int64, device=dev)
         for _, _, block in stage_blocks(packed, dev, bv):
-            if sel is not None:
-                block = subset_repack(block, sel, out=repacked)
-            pca_approx_pass(block, ns, qd, y, m_used, scratch)
+            with span("kernels"):
+                if sel is not None:
+                    block = subset_repack(block, sel, out=repacked)
+                pca_approx_pass(block, ns, qd, y, m_used, scratch)
         y, m_used = all_reduce_sum((y, m_used), dev, timer)
         return y.cpu().numpy().astype(np.float64), int(m_used)
 

@@ -23,6 +23,9 @@ on a CUDA tensor:
                             their diagonal only (mirrored once, at the end)
 
 (``csrc/genotype.cu:relatedness_bits_kernel``, ``relatedness_gram_kernel``.)
+Each block's copy in, its kernels' launches (and the mirror's) and the
+Grams' copy back are spans of the caller's timer (``stage_read``, ``h2d``,
+``kernels``, ``d2h``; ``utils/timer.py``).
 The Grams stay on the card as one (n, S_pad, S_pad) int32 tensor across
 blocks; S_pad is a multiple of 128, the kernel's tile side. Every
 slot that is no call reads code 3, in no plane: a row's pad slots, K5's
@@ -52,6 +55,7 @@ from pgen_tpu_torch.ops.glm import device_sel, scratch_view, select_codes
 from pgen_tpu_torch.ops.gt_stats import stage_blocks
 from pgen_tpu_torch.ops.pack import subset_repack
 from pgen_tpu_torch.ops.unpack import check_packed, unpack_codes_plain
+from pgen_tpu_torch.utils.timer import span
 
 # Plane order: H (code 1), R (code 0), A (code 2), C (code != 3).
 H, R, A, C = range(4)
@@ -230,10 +234,12 @@ def relatedness_grams(packed, num_samples: int, device, pairs, block_variants: i
         s_pad, _ = plane_shape(0, n_kept)
         grams = [torch.zeros((s_pad, s_pad), dtype=torch.int32) for _ in pairs]
         for _, _, block in stage_blocks(packed, dev, block_variants):
-            planes = relatedness_planes_plain(block, num_samples, sel)
-            for gram, (x, y) in zip(grams, pairs):
-                gram += torch._int_mm(planes[x], planes[y].t())
-        return [g[:n_kept, :n_kept].numpy().astype(np.float64) for g in grams]
+            with span("kernels"):
+                planes = relatedness_planes_plain(block, num_samples, sel)
+                for gram, (x, y) in zip(grams, pairs):
+                    gram += torch._int_mm(planes[x], planes[y].t())
+        with span("d2h", len(grams) * n_kept * n_kept * 4):
+            return [g[:n_kept, :n_kept].numpy().astype(np.float64) for g in grams]
     if n_kept == 0:
         return [np.zeros((0, 0), dtype=np.float64) for _ in pairs]
     s_pad = gram_pad(n_kept)
@@ -243,8 +249,11 @@ def relatedness_grams(packed, num_samples: int, device, pairs, block_variants: i
     repacked = (None if sel is None
                 else torch.empty(rows * ((n_kept + 3) // 4), dtype=torch.uint8, device=dev))
     for _, _, block in stage_blocks(packed, dev, block_variants):
-        if sel is not None:
-            block = subset_repack(block, sel, out=repacked)
-        relatedness_gram(relatedness_bits(block, n_kept, bits), pairs, grams)
-    mirror_symmetric(grams, pairs)
-    return [g[:n_kept, :n_kept].cpu().numpy().astype(np.float64) for g in grams]
+        with span("kernels"):
+            if sel is not None:
+                block = subset_repack(block, sel, out=repacked)
+            relatedness_gram(relatedness_bits(block, n_kept, bits), pairs, grams)
+    with span("kernels"):
+        mirror_symmetric(grams, pairs)
+    with span("d2h", len(pairs) * n_kept * n_kept * 4):
+        return [g[:n_kept, :n_kept].cpu().numpy().astype(np.float64) for g in grams]

@@ -292,7 +292,7 @@ class VariantMesh:
         dist.all_gather_object(lines, line)
         if self.rank == 0:
             for label, seconds, nbytes, calls in lines:
-                self.timer.stages[label] = Stage(seconds, nbytes, calls)
+                self.timer.stages[label] = Stage(seconds, nbytes, calls, self_seconds=seconds)
 
 
 @contextlib.contextmanager

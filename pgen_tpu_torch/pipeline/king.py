@@ -23,9 +23,10 @@ of the kept variants, each chunk's Grams are summed over the ranks by
 ``king_counts_mesh``, and rank 0 alone writes. A lone process is the one
 rank and makes no group.
 
-Stages (``KingResult.timer``): process_group, predicates, gather,
-king_grams (its all_reduce inside), king_emit; under several ranks, one
-line a rank (its card, rows and king_grams).
+Stages (``KingResult.timer``): process_group, metadata_load, predicates,
+gather, king_grams (inside it each block's stage_read and h2d, the Grams'
+d2h and the all_reduce), kinship, king_select, king_emit; under several
+ranks, one line a rank (its card, rows and king_grams).
 """
 
 from __future__ import annotations
@@ -143,16 +144,17 @@ def king_table(
 def _king_table(pfile_prefix, var_query, sam_query, out_file, min_kinship, block_variants,
                 out, cutoff, mesh) -> KingResult:
     dev, timer = mesh.device, mesh.timer
-    header = read_pgen_header(f"{pfile_prefix}.pgen")
-    pvar = read_metadata(f"{pfile_prefix}.pvar")
-    psam = read_metadata(f"{pfile_prefix}.psam")
-    psam.column_index("IID")
+    with timer.stage("metadata_load"):
+        header = read_pgen_header(f"{pfile_prefix}.pgen")
+        pvar = read_metadata(f"{pfile_prefix}.pvar")
+        psam = read_metadata(f"{pfile_prefix}.psam")
+        psam.column_index("IID")
 
-    rec = header.record_size
-    mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
-    records = mm[12 : 12 + header.num_variants * rec].reshape(
-        header.num_variants, rec
-    )
+        rec = header.record_size
+        mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
+        records = mm[12 : 12 + header.num_variants * rec].reshape(
+            header.num_variants, rec
+        )
     with timer.stage("predicates"):
         var_mask, sam_mask = compute_masks(
             var_query, sam_query, pvar, psam, header, records, dev
@@ -177,7 +179,8 @@ def _king_table(pfile_prefix, var_query, sam_query, out_file, min_kinship, block
     )
     mesh.report_ranks()
 
-    kin, ibs0 = king_kinship(counts)
+    with timer.stage("kinship"):
+        kin, ibs0 = king_kinship(counts)
     iids = psam.get_column_strs("IID")
     iids = [iids[int(s)] for s in sam_idx]
 
@@ -225,15 +228,16 @@ def _king_table(pfile_prefix, var_query, sam_query, out_file, min_kinship, block
 def _emit_rows(out, iids, kin, ibs0, counts, min_kinship, timer) -> int:
     """#IID1 IID2 NSNP HETHET IBS0 KINSHIP rows (i < j, psam order)."""
     ns = len(iids)
-    ii, jj = np.triu_indices(ns, k=1)
-    k = kin[ii, jj]
-    if min_kinship is not None:
-        keep = k >= min_kinship  # NaN compares false -> dropped
-        ii, jj, k = ii[keep], jj[keep], k[keep]
-    n = counts.nsnp[ii, jj]
-    safe_n = np.maximum(n, 1)
-    hethet = np.where(n > 0, counts.hethet[ii, jj] / safe_n, 0.0)
-    ib = np.where(n > 0, ibs0[ii, jj] / safe_n, 0.0)
+    with timer.stage("king_select"):
+        ii, jj = np.triu_indices(ns, k=1)
+        k = kin[ii, jj]
+        if min_kinship is not None:
+            keep = k >= min_kinship  # NaN compares false -> dropped
+            ii, jj, k = ii[keep], jj[keep], k[keep]
+        n = counts.nsnp[ii, jj]
+        safe_n = np.maximum(n, 1)
+        hethet = np.where(n > 0, counts.hethet[ii, jj] / safe_n, 0.0)
+        ib = np.where(n > 0, ibs0[ii, jj] / safe_n, 0.0)
     with timer.stage("king_emit"):
         out.write("#IID1\tIID2\tNSNP\tHETHET\tIBS0\tKINSHIP\n")
         write = out.write

@@ -21,9 +21,11 @@ gathers and standardizes only its contiguous shard of the kept variants:
 the GRM's z'z and used count are summed over the ranks (``grm_mesh``), and
 each --approx pass's y likewise; rank 0 alone writes.
 
-Stages (``PcaResult.timer``): process_group, predicates, gather, grm (its
-all_reduce inside) and eigh, or pca_approx (its broadcasts and
-all_reduces inside); emit, emit_rel; under several ranks, one line a rank.
+Stages (``PcaResult.timer``): process_group, metadata_load, predicates,
+gather, grm (inside it each block's stage_read and h2d, the all_reduce and
+the GRM's d2h) and eigh, or pca_approx (each pass's stage_read and h2d,
+its broadcasts and all_reduces inside); emit, emit_rel; under several
+ranks, one line a rank.
 """
 
 from __future__ import annotations
@@ -88,16 +90,17 @@ def pca(
 def _pca(pfile_prefix, k, var_query, sam_query, out_prefix, block_variants, write, make_rel,
          approx, approx_iters, seed, mesh) -> PcaResult:
     dev, timer = mesh.device, mesh.timer
-    header = read_pgen_header(f"{pfile_prefix}.pgen")
-    pvar = read_metadata(f"{pfile_prefix}.pvar")
-    psam = read_metadata(f"{pfile_prefix}.psam")
-    psam.column_index("IID")
+    with timer.stage("metadata_load"):
+        header = read_pgen_header(f"{pfile_prefix}.pgen")
+        pvar = read_metadata(f"{pfile_prefix}.pvar")
+        psam = read_metadata(f"{pfile_prefix}.psam")
+        psam.column_index("IID")
 
-    rec = header.record_size
-    mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
-    records = mm[12 : 12 + header.num_variants * rec].reshape(
-        header.num_variants, rec
-    )
+        rec = header.record_size
+        mm = np.memmap(f"{pfile_prefix}.pgen", dtype=np.uint8, mode="r")
+        records = mm[12 : 12 + header.num_variants * rec].reshape(
+            header.num_variants, rec
+        )
     with timer.stage("predicates"):
         var_mask, sam_mask = compute_masks(
             var_query, sam_query, pvar, psam, header, records, dev
