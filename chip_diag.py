@@ -13,6 +13,7 @@ beside chip_smoke.py, whose fixtures, timer and oracles they use.
     python3 chip_diag.py --rates       # popcount and .b1 mma.sync rates of the card
     python3 chip_diag.py --ld-cpu DIR... # full-chr22 ld and prune --device cpu, this checkout
                                        # and those at DIR...
+    python3 chip_diag.py --eigh        # exact pca's 2504 x 2504 f64 eigh on the card and host
 
 --ab builds the kernel sources of another checkout (the parent commit's,
 unpacked with git archive) beside this one's and times both in one process
@@ -42,7 +43,9 @@ popcount on the CUDA cores and K14's .b1 AND-POPC product on the tensor
 cores. --ld-cpu times the CPU's ld (band 9) and prune --indep-pairwise 50 5
 0.2 (band 49) over every variant of the chr22 fixture, each checkout's CLI
 a process of its own (--device cpu: K15's plain version), and prints each
-run's wall, its r2_band stage and the sha256 of its outputs. All import no
+run's wall, its r2_band stage and the sha256 of its outputs. --eigh times
+the eigendecomposition of exact pca's GRM on the card against LAPACK on
+the host, and builds no kernel. All import no
 jax and nothing of pgen_tpu, and exit non-zero without CUDA.
 """
 
@@ -590,6 +593,77 @@ def phase_rates() -> None:
               f"{blocks} blocks of {threads} on {sms} SMs)")
 
 
+EIGH_SAMPLES, EIGH_K = 2504, 10  # exact pca's GRM on the chr22 fixture, -k 10
+
+
+def _grm_like(n: int, seed: int = SEED):
+    """An (n, n) f64 SPD matrix on the card shaped like a GRM: a Gram of
+    standard normal rows over their count, plus ten planted components
+    with eigenvalues 40 down to 4, so that the top of the spectrum stands
+    apart as population structure does."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((4 * n, n), dtype=torch.float64, device="cuda", generator=gen)
+    u = torch.linalg.qr(torch.randn((n, EIGH_K), dtype=torch.float64, device="cuda",
+                                    generator=gen))[0]
+    lam = torch.linspace(40.0, 4.0, EIGH_K, dtype=torch.float64, device="cuda")
+    return x.T @ x / x.shape[0] + (u * lam) @ u.T
+
+
+def phase_eigh() -> None:
+    """The full symmetric eigendecomposition of exact pca's GRM, 2504 x 2504
+    f64, on the card (``torch.linalg.eigh``: CUDA events, and the host's
+    wall around the call and a synchronise) and on the host
+    (``np.linalg.eigh`` on the same matrix copied back), median of 10 after
+    a warm-up call; then ``pca_from_grm`` (k = 10) on the tensor against the
+    same call on the numpy array, each by host wall, and their top pairs'
+    largest differences."""
+    import numpy as np
+    import torch
+
+    from pgen_tpu_torch.ops.pca import pca_from_grm
+
+    g = _grm_like(EIGH_SAMPLES)
+    host = g.cpu().numpy()
+    torch.cuda.synchronize()
+
+    def wall_ms(fn, reps: int = 10) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    print(f"[eigh] {EIGH_SAMPLES} x {EIGH_SAMPLES} f64, {os.cpu_count()} host cores; "
+          f"torch {torch.__version__}, numpy {np.__version__}")
+    events = _time_ms(lambda: torch.linalg.eigh(g))
+    card = wall_ms(lambda: torch.linalg.eigh(g))
+    lapack = wall_ms(lambda: np.linalg.eigh(host))
+    print(f"[eigh] torch.linalg.eigh on the card: {events:.1f} ms by CUDA events, {card:.1f} ms "
+          f"host wall; np.linalg.eigh on the host: {lapack:.1f} ms host wall "
+          f"({lapack / card:.1f}x the card's wall)")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.linalg.eigh(g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[eigh] the card's eigh at its peak: {peak / 1e6:.1f} MB over the matrix's "
+          f"{g.numel() * 8 / 1e6:.1f} MB")
+    m_used = 1000
+    want = pca_from_grm(host * m_used, m_used, EIGH_K)
+    got = pca_from_grm(g * m_used, m_used, EIGH_K)
+    tensor_ms = wall_ms(lambda: pca_from_grm(g * m_used, m_used, EIGH_K))
+    array_ms = wall_ms(lambda: pca_from_grm(host * m_used, m_used, EIGH_K))
+    print(f"[eigh] pca_from_grm k={EIGH_K}: tensor on the card {tensor_ms:.1f} ms, numpy "
+          f"array {array_ms:.1f} ms; eigenvalues' largest relative difference "
+          f"{np.max(np.abs(got[0] - want[0]) / np.abs(want[0])):.3g}, sign-fixed vectors' "
+          f"{np.max(np.abs(got[1] - want[1])):.3g}")
+
+
 def phase_ab(other_root: Path) -> None:
     """K4, K5, K8-K11 of this checkout against the same launchers built
     from another checkout's sources (the parent commit's, unpacked at
@@ -1087,6 +1161,9 @@ def main(argv: list) -> int:
     if len(argv) == 2 and argv[0] == "--phase-times":
         return phase_times(Path(argv[1]).resolve())
     phase_device()
+    if argv == ["--eigh"]:  # no kernel of the checkout runs
+        phase_eigh()
+        return 0
     phase_build()
     if argv == ["--precision"]:
         with tempfile.TemporaryDirectory(prefix="chip_diag_") as tmp:
@@ -1104,8 +1181,8 @@ def main(argv: list) -> int:
         phase_ld_cpu([Path(a).resolve() for a in argv[1:]])
     else:
         print(f"chip_diag: unknown arguments {argv}; takes --ab OTHER_CHECKOUT, --trace, "
-              "--forms, --precision, --rates, --ld-cpu [OTHER_CHECKOUT ...] or --phase-times "
-              "OTHER_CHECKOUT",
+              "--forms, --precision, --rates, --eigh, --ld-cpu [OTHER_CHECKOUT ...] or "
+              "--phase-times OTHER_CHECKOUT",
               file=sys.stderr)
         return 2
     return 0

@@ -2538,9 +2538,12 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     --device cpu's and its eigenvalues at rtol 1e-3; (d) pca -k 10
     --approx: orthonormal eigenvectors (1e-6), each eigenvalue at most
     (1 + 1e-3) times (c)'s, descending; the region's at rtol 1e-3 of
-    --device cpu's --approx."""
+    --device cpu's --approx. Both exact runs on cuda decompose the GRM on
+    the card (``pca_from_grm.tensor_calls``)."""
     import numpy as np
     import torch
+
+    from pgen_tpu_torch.ops.pca import pca_from_grm
 
     iids, pos, _, packed = _read_fileset(full)
     n_var, n = len(pos), len(iids)
@@ -2565,6 +2568,7 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
         return err
 
     _reset_launches()
+    eighs = pca_from_grm.tensor_calls
     for label, argv, out in (("(a) king, every variant", ["king", full], "king.kin0"),
                              ("(b) genome, every variant", ["genome", full], "genome.genome")):
         torch.cuda.reset_peak_memory_stats()
@@ -2603,6 +2607,9 @@ def phase_relatedness(tmp: Path, full: Path) -> dict:
     for kname in ("relatedness_bits", "relatedness_gram", "grm_z", "pca_approx_pass"):
         if launches[kname] <= 0:
             raise AssertionError(f"{kname} never launched on the relatedness path")
+    if pca_from_grm.tensor_calls - eighs != 2:  # (c) over every variant and on the region
+        raise AssertionError(f"exact pca decomposed {pca_from_grm.tensor_calls - eighs} GRMs "
+                             "on the card, not 2")
 
     t0 = time.perf_counter()
     oracle = _relatedness_oracle(packed, n, pairs, samples)

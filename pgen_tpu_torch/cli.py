@@ -440,8 +440,10 @@ def _genome(args) -> int:
 
 
 def _pca(args) -> int:
+    from pgen_tpu_torch.ops.pca import grm_z, pca_approx_pass, pca_from_grm
     from pgen_tpu_torch.pipeline.pca import pca
 
+    before = (grm_z.launches, pca_approx_pass.launches, pca_from_grm.tensor_calls)
     result = pca(
         args.pfile_prefix,
         k=args.k,
@@ -457,6 +459,10 @@ def _pca(args) -> int:
     )
     if args.stats:
         print(result.timer.report(), file=sys.stderr)
+        # pca_from_grm's tensor calls: exact GRMs decomposed on their device
+        print(f"launches: grm_z {grm_z.launches - before[0]}, pca_approx_pass "
+              f"{pca_approx_pass.launches - before[1]}; pca_from_grm.tensor_calls "
+              f"{pca_from_grm.tensor_calls - before[2]}", file=sys.stderr)
     wrote = (
         f"{result.out_prefix}.eigenvec" if args.k
         else f"{result.out_prefix}.rel.*"

@@ -4,9 +4,11 @@
 Each variant's calls are standardized over the called samples of the
 cohort, z = (g - 2p) / sqrt(2p(1 - p)) with p the row's alt frequency, 0 on
 a missing call and on a monomorphic row (which is not counted in m_used).
-Then GRM = Z^T Z / m_used, eigendecomposed on the host (``pca_from_grm``),
-or, with ``--approx``, the top of its spectrum by blocked subspace
-iteration without the S x S matrix (``pca_approx``).
+Then GRM = Z^T Z / m_used, eigendecomposed in f64 on the device that summed
+it (``pca_from_grm`` on a tensor: ``torch.linalg.eigh``, cuSOLVER's syevd
+on a card), only the top k pairs copied back; or, with ``--approx``, the
+top of its spectrum by blocked subspace iteration without the S x S
+matrix (``pca_approx``).
 
 Per staged block (``stage_blocks``, pinned when the device is CUDA):
 
@@ -19,9 +21,9 @@ Per staged block (``stage_blocks``, pinned when the device is CUDA):
                   Z^T t by chunks of rows, their sum added to y), fp32
                   FMAs, z never in device memory
 
-Each block's copy in, its kernels' launches and the GRM's copy back are
-spans of the caller's timer (``stage_read``, ``h2d``, ``kernels``,
-``d2h``; ``utils/timer.py``).
+Each block's copy in and its kernels' launches, and the top k pairs' copy
+back, are spans of the caller's timer (``stage_read``, ``h2d``,
+``kernels``, ``d2h``; ``utils/timer.py``).
 
 The exact GRM's z'z is f64 (z cast in chunks of rows) and sums in f64,
 where pgen_tpu's ``_grm_device_jit`` (:109) makes it in f32 and carries an
@@ -51,7 +53,11 @@ from the same q bit for bit.
 ``GrmResult``, ``pca_from_grm``, ``PcaApproxResult`` and ``pca_approx`` are
 copied from pgen_tpu (``ops/pca.py:42-45``, ``:206``, ``:243-317``), whose
 module imports jax at module level; ``pca_approx`` takes a device where
-pgen_tpu's takes a provider, and its pass is this module's.
+pgen_tpu's takes a provider, and its pass is this module's. pgen_tpu
+decomposes the GRM by host LAPACK (``np.linalg.eigh``), as
+``pca_from_grm`` still does a numpy array; its tensor branch runs the same
+steps where the GRM lies, so that the (S, S) matrix never crosses to the
+host and the card does not idle through a host library call.
 """
 
 from __future__ import annotations
@@ -79,7 +85,9 @@ from pgen_tpu_torch.utils.timer import span
 
 
 class GrmResult(NamedTuple):
-    grm_sum: np.ndarray  # (S, S) f64: sum of z^T z over used variants
+    # (S, S) f64: sum of z^T z over used variants; a numpy array from
+    # grm_device, a tensor on the device that summed it from grm_mesh
+    grm_sum: np.ndarray | torch.Tensor
     m_used: int  # polymorphic (sd > 0) variant count
 
 
@@ -224,7 +232,8 @@ def grm_device(
     without it)."""
     acc, m_used = _grm_sums(packed, num_samples, resolve_device(device), block_variants,
                             sample_idx)
-    return _grm_to_host(acc, m_used)
+    with span("d2h", acc.numel() * acc.element_size()):
+        return GrmResult(acc.cpu().numpy(), int(m_used))
 
 
 def grm_mesh(
@@ -238,17 +247,12 @@ def grm_mesh(
     """pgen_tpu's ``grm_mesh`` over the ranks of the default process group:
     ``packed`` is this rank's shard of the rows (zero rows give zeros), and
     every rank gets the f64 z'z and used count of every rank's rows, summed
-    on the device by one all_reduce each (``timer``'s)."""
+    on the device by one all_reduce each (``timer``'s). The z'z stays there,
+    a tensor on ``device`` for ``pca_from_grm``."""
     dev = resolve_device(device)
     acc, m_used = all_reduce_sum(_grm_sums(packed, num_samples, dev, block_variants, sample_idx),
                                  dev, timer)
-    return _grm_to_host(acc, m_used)
-
-
-def _grm_to_host(acc: torch.Tensor, m_used: torch.Tensor) -> GrmResult:
-    """The GRM sum and used count copied back, as a ``d2h`` span."""
-    with span("d2h", acc.numel() * acc.element_size()):
-        return GrmResult(acc.cpu().numpy(), int(m_used))
+    return GrmResult(acc, int(m_used))
 
 
 def _grm_sums(packed, num_samples: int, dev, block_variants: int, sample_idx) -> tuple:
@@ -278,14 +282,17 @@ def add_gram_fp64(acc: torch.Tensor, z: torch.Tensor) -> None:
         acc.addmm_(chunk.T, chunk)
 
 
-def pca_from_grm(grm_sum: np.ndarray, m_used: int, k: int):
+def pca_from_grm(grm_sum: np.ndarray | torch.Tensor, m_used: int, k: int):
     """Top-k eigenpairs of GRM = grm_sum / m_used, descending, sign-fixed.
 
     Returns (eigenvalues (k,), eigenvectors (S, k)) with each column
     scaled to unit norm; ties/negatives kept as eigh reports them.
+    A tensor is decomposed on its own device (``_pca_from_grm_tensor``).
     """
     if m_used <= 0:
         raise ValueError("pca: no polymorphic variants after filtering")
+    if isinstance(grm_sum, torch.Tensor):
+        return _pca_from_grm_tensor(grm_sum, m_used, k)
     g = grm_sum / float(m_used)
     vals, vecs = np.linalg.eigh((g + g.T) / 2.0)  # symmetrize f32 noise
     order = np.argsort(vals)[::-1][:k]
@@ -294,6 +301,29 @@ def pca_from_grm(grm_sum: np.ndarray, m_used: int, k: int):
     flip = np.sign(vecs[np.argmax(np.abs(vecs), axis=0), np.arange(vecs.shape[1])])
     flip = np.where(flip == 0, 1.0, flip)
     return vals, vecs * flip
+
+
+def _pca_from_grm_tensor(grm_sum: torch.Tensor, m_used: int, k: int) -> tuple:
+    """``pca_from_grm``'s steps in f64 on the tensor's device: the scale,
+    the symmetrization, ``torch.linalg.eigh``, the top k descending (eigh's
+    ascending order reversed, as numpy's argsort of it reversed) and the
+    sign rule (``argmax`` takes the first largest |entry|, as numpy's does).
+    Only the k eigenvalues and the (S, k) eigenvectors come back, as f64
+    numpy arrays, in a ``d2h`` span."""
+    pca_from_grm.tensor_calls += 1
+    g = grm_sum.double() / float(m_used)
+    g = (g + g.T).div_(2.0)  # symmetrize f32 noise
+    vals, vecs = torch.linalg.eigh(g)
+    top = max(vals.shape[0] - k, 0)
+    vals, vecs = vals[top:].flip(0), vecs[:, top:].flip(1)
+    cols = torch.arange(vecs.shape[1], device=vecs.device)
+    flip = torch.sign(vecs[vecs.abs().argmax(dim=0), cols])
+    vecs = vecs * torch.where(flip == 0, 1.0, flip)
+    with span("d2h", (vals.numel() + vecs.numel()) * vecs.element_size()):
+        return vals.cpu().numpy(), vecs.cpu().numpy()
+
+
+pca_from_grm.tensor_calls = 0
 
 
 class PcaApproxResult(NamedTuple):

@@ -3,7 +3,8 @@ pgen_tpu's device provider.
 
 The plink2 ``--pca`` analog: the same include/exclude predicates, regions
 and sample lists as ``filter``; the GRM on ``device`` (``ops/pca.py``: K13
-and ``torch.matmul`` in full fp32), its top-k eigenpairs by host LAPACK, or
+and an f64 z'z), its top-k eigenpairs by ``torch.linalg.eigh`` in f64 on
+the same device (the GRM stays there; only the k pairs come back), or
 with ``--approx`` randomized subspace iteration (``pca_approx``, every data
 pass on ``device``). Writes
 
@@ -22,10 +23,11 @@ the GRM's z'z and used count are summed over the ranks (``grm_mesh``), and
 each --approx pass's y likewise; rank 0 alone writes.
 
 Stages (``PcaResult.timer``): process_group, metadata_load, predicates,
-gather, grm (inside it each block's stage_read and h2d, the all_reduce and
-the GRM's d2h) and eigh, or pca_approx (each pass's stage_read and h2d,
-its broadcasts and all_reduces inside); emit, emit_rel; under several
-ranks, one line a rank.
+gather, grm (inside it each block's stage_read, h2d and kernels, and the
+all_reduce) and eigh (the top k pairs' d2h inside), or pca_approx (each
+pass's stage_read and h2d, its broadcasts and all_reduces inside); emit,
+emit_rel (the whole GRM's copy back inside); under several ranks, one
+line a rank.
 """
 
 from __future__ import annotations
@@ -162,8 +164,8 @@ def _pca(pfile_prefix, k, var_query, sam_query, out_prefix, block_variants, writ
     if write and make_rel is not None:
         if m_used <= 0:
             raise ValueError("pca: no polymorphic variants after filtering")
-        rel = res.grm_sum / float(m_used)
-        with timer.stage("emit_rel", rel.nbytes):
+        with timer.stage("emit_rel", res.grm_sum.numel() * res.grm_sum.element_size()):
+            rel = res.grm_sum.cpu().numpy() / float(m_used)
             with open(f"{out}.rel.id", "w") as fh:
                 fh.writelines(f"{iid}\n" for iid in iids)
             if make_rel == "bin":

@@ -54,6 +54,7 @@ from pgen_tpu_torch.ops.relatedness import (
     relatedness_planes_plain,
 )
 from pgen_tpu_torch.pipeline import king as port_king_pipeline
+from pgen_tpu_torch.pipeline.pca import pca as port_pca_entry
 from test_torch_standalone import ARGV_TABLE
 
 # S % 4 = 1, 2, 3, 0 and 1 again, one of them below 8
@@ -631,6 +632,104 @@ def test_copied_host_functions_match_pgen_tpu():
     for cutoff in (0.1, 0.2, 0.5):
         np.testing.assert_array_equal(port_king_pipeline.king_cutoff_mask(kin, cutoff),
                                       tpu_king_pipeline.king_cutoff_mask(kin, cutoff))
+
+
+def _spd_with_top(n, k, seed):
+    """(n, n) f64 GRM sum over 7 used variants: a random orthonormal basis,
+    k top eigenvalues 10 apart from 100 down, the rest in [0.01, 1], and an
+    asymmetry of 1e-9 for the symmetrization to take out."""
+    rng = np.random.default_rng(seed)
+    q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+    lam = np.concatenate([100.0 - 10.0 * np.arange(k), rng.uniform(0.01, 1.0, n - k)])
+    return 7 * (q * lam) @ q.T + 1e-9 * rng.normal(size=(n, n))
+
+
+@pytest.mark.parametrize("n, k, seed", [(9, 3, 1), (40, 10, 2), (257, 10, 3), (64, 1, 4)])
+def test_pca_from_grm_on_a_tensor_matches_its_numpy_path(n, k, seed):
+    """A tensor is decomposed by torch's eigh in f64 on its device (here the
+    CPU's): the numpy path's eigenvalues at rtol 1e-12 in the same
+    descending order, its sign-fixed eigenvectors at atol 1e-10, f64 numpy
+    arrays back, the input left as it was, one tensor call counted."""
+    grm_sum = _spd_with_top(n, k, seed)
+    tensor = torch.from_numpy(grm_sum.copy())
+    calls = port_pca.pca_from_grm.tensor_calls
+    vals, vecs = port_pca.pca_from_grm(tensor, 7, k)
+    assert port_pca.pca_from_grm.tensor_calls == calls + 1
+    want_vals, want_vecs = port_pca.pca_from_grm(grm_sum, 7, k)
+    assert port_pca.pca_from_grm.tensor_calls == calls + 1
+    assert isinstance(vals, np.ndarray) and isinstance(vecs, np.ndarray)
+    assert vals.dtype == vecs.dtype == np.float64
+    assert vals.shape == (k,) and vecs.shape == (n, k)
+    np.testing.assert_allclose(vals, want_vals, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(vecs, want_vecs, rtol=0, atol=1e-10)
+    assert np.all(np.diff(vals) < 0)
+    np.testing.assert_array_equal(tensor.numpy(), grm_sum)
+
+
+@pytest.mark.parametrize("grm_sum", [np.eye(3), torch.eye(3, dtype=torch.float64)],
+                         ids=["numpy", "tensor"])
+def test_pca_from_grm_refuses_no_used_variants(grm_sum):
+    calls = port_pca.pca_from_grm.tensor_calls
+    for m_used in (0, -1):
+        with pytest.raises(ValueError, match="no polymorphic variants"):
+            port_pca.pca_from_grm(grm_sum, m_used, 2)
+    assert port_pca.pca_from_grm.tensor_calls == calls
+
+
+def _records(prefix, n_samples):
+    return np.fromfile(f"{prefix}.pgen", dtype=np.uint8)[12:].reshape(-1, (n_samples + 3) // 4)
+
+
+def test_pca_decomposes_the_grm_where_it_was_summed(tmp_path):
+    """Exact pca keeps the GRM on its device and decomposes it there: one
+    tensor call a job, none for --approx or -k 0, and the pairs of
+    pca_from_grm's numpy path on grm_device's host GRM of the same records
+    at rtol 1e-12 (eigenvalues) and atol 1e-10 (sign-fixed eigenvectors)."""
+    prefix, _ = _fileset(tmp_path, 300, 16, 4)
+    host = port_pca.grm_device(_records(prefix, 16), 16, "cpu")
+    want_vals, want_vecs = port_pca.pca_from_grm(host.grm_sum, host.m_used, 4)
+    calls = port_pca.pca_from_grm.tensor_calls
+    for job in range(2):
+        res = port_pca_entry(prefix, k=4, out_prefix=str(tmp_path / f"j{job}"), device="cpu")
+        assert port_pca.pca_from_grm.tensor_calls == calls + job + 1
+        assert res.num_used == host.m_used
+        np.testing.assert_allclose(res.eigenvalues, want_vals, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(res.eigenvectors, want_vecs, rtol=0, atol=1e-10)
+    port_pca_entry(prefix, k=2, approx=True, out_prefix=str(tmp_path / "a"), device="cpu")
+    port_pca_entry(prefix, k=0, make_rel="bin", out_prefix=str(tmp_path / "r"), device="cpu")
+    assert port_pca.pca_from_grm.tensor_calls == calls + 2
+
+
+@pytest.mark.parametrize("argv, calls", [(["-k", "3"], 1), (["-k", "2", "--approx"], 0)],
+                         ids=["exact", "approx"])
+def test_cli_stats_count_the_decompositions_on_the_device(tmp_path, capsys, argv, calls):
+    """pca --stats prints K13's launches (none on the CPU) and the GRMs that
+    pca_from_grm decomposed as tensors: one for exact pca, none for
+    --approx."""
+    prefix, _ = _fileset(tmp_path, 60, 9, 5)
+    assert port_main(["pca", prefix, *argv, "-o", str(tmp_path / "o"), "--device", "cpu",
+                      "--stats"]) == 0
+    lines = capsys.readouterr().err.splitlines()
+    assert (f"launches: grm_z 0, pca_approx_pass 0; pca_from_grm.tensor_calls {calls}"
+            in lines)
+
+
+@pytest.mark.parametrize("fmt", ["bin", "text"])
+def test_make_rel_writes_the_grm_as_before(tmp_path, fmt):
+    """--make-rel copies the whole GRM back in its emit_rel span and writes
+    the bytes it wrote from grm_device's host GRM: grm_sum / m_used as
+    little-endian f64, or each row's %.10g text."""
+    prefix, _ = _fileset(tmp_path, 300, 15, 6)
+    host = port_pca.grm_device(_records(prefix, 15), 15, "cpu")
+    rel = host.grm_sum / float(host.m_used)
+    res = port_pca_entry(prefix, k=2, make_rel=fmt, out_prefix=str(tmp_path / "o"),
+                         device="cpu")
+    assert res.timer.stages["emit_rel"].bytes_moved == rel.nbytes
+    if fmt == "bin":
+        assert (tmp_path / "o.rel.bin").read_bytes() == rel.astype("<f8").tobytes()
+    else:
+        want = "".join("\t".join(f"{v:.10g}" for v in row) + "\n" for row in rel)
+        assert (tmp_path / "o.rel").read_text() == want
 
 
 def test_device_calls_refuse_2_to_the_24_rows():

@@ -30,7 +30,7 @@ KING_PARENTS = {"process_group": None, "metadata_load": None, "predicates": None
                 "kinship": None, "king_select": None, "king_emit": None}
 PCA_PARENTS = {"process_group": None, "metadata_load": None, "predicates": None,
                "gather": None, "grm": None, "stage_read": "grm", "h2d": "grm",
-               "kernels": "grm", "d2h": "grm", "eigh": None, "emit": None}
+               "kernels": "grm", "eigh": None, "d2h": "eigh", "emit": None}
 # the entry's wall outside its outermost spans: the call, the timer and
 # the result around them (the collector held off while it is timed), and
 # what a loaded host's scheduler adds to the code between them
