@@ -2024,8 +2024,9 @@ __global__ void __launch_bounds__(kLdThreads) ld_r2_band_kernel(LdArgs a) {
 //   adds z x t over the chunk's rows for its four samples (the record
 //   bytes of four rows loaded together, each row's table and t read by
 //   every thread at once), then writes its partial sums.
-// - pca_sum_kernel: a thread an entry of y adds the chunks' partial sums to
-//   it in chunk order. No float atomics: a pass repeats bit for bit.
+// - pca_sum_kernel: a thread an entry of y at a time (grid-stride) adds the
+//   chunks' partial sums to it in chunk order. No float atomics: a pass
+//   repeats bit for bit.
 // (A first form had the last block of each slice add the slice's partials:
 // 2,560 dependent loads a thread, 0.42 of the pass's 0.62 ms. pca_zty_kernel
 // reading t and the tables from L2 a row at a time took 0.135 ms, staged
@@ -2235,17 +2236,20 @@ __global__ void __launch_bounds__(kPcaSliceThreads) pca_zty_kernel(PcaArgs a) {
     }
 }
 
+// A grid-stride loop: grid_for caps the grid at kMaxBlocks blocks, 2,097,152
+// threads, fewer than y's S L entries past 116,508 samples at L = 18.
 template <int kCols>
 __global__ void __launch_bounds__(kThreads) pca_sum_kernel(PcaArgs a) {
-  const int64_t at = first_index();
-  if (at >= static_cast<int64_t>(a.n_samples) * a.n_cols) return;
-  const int64_t s = at / a.n_cols;
-  const int c = static_cast<int>(at % a.n_cols);
+  const int64_t n = static_cast<int64_t>(a.n_samples) * a.n_cols;
   const int64_t slice_samples = static_cast<int64_t>(a.n_slices) * 4 * kPcaSliceThreads;
-  float* y = a.y + s * a.pitch + a.col0 + c;
-  float sum = *y;
-  for (int ch = 0; ch < a.n_chunks; ++ch) sum += a.parts[(ch * slice_samples + s) * kCols + c];
-  *y = sum;
+  for (int64_t at = first_index(); at < n; at += grid_stride()) {
+    const int64_t s = at / a.n_cols;
+    const int c = static_cast<int>(at % a.n_cols);
+    float* y = a.y + s * a.pitch + a.col0 + c;
+    float sum = *y;
+    for (int ch = 0; ch < a.n_chunks; ++ch) sum += a.parts[(ch * slice_samples + s) * kCols + c];
+    *y = sum;
+  }
 }
 
 // K12. Replaces the decode, plane and product legs of pgen_tpu/ops/king.py's

@@ -7,7 +7,10 @@ slower, but behavior-identical (tests cover both).
 
 Copied from ``pgen_tpu/native/lib.py`` (and ``pgen_native.cpp`` beside it,
 byte for byte but for one citation): only the imports and the build
-directory differ. It is host code, built with g++ and pgen_tpu's flags.
+directory differ, and the port adds ``format_g10_rows`` (pca's
+``.eigenvec`` text, the ``#include <charconv>`` and ``<cmath>`` it needs, and
+its code at the end of ``pgen_native.cpp``). It is host code, built with g++
+and pgen_tpu's flags.
 """
 
 from __future__ import annotations
@@ -194,6 +197,11 @@ class _Native:
                 u8p, u8p, f64p, ctypes.c_int64, ctypes.c_int,
                 ctypes.c_int64, f64p, i64p, f64p, i64p,
             ]
+        lib.pgen_format_g10_rows.restype = ctypes.c_int64
+        lib.pgen_format_g10_rows.argtypes = [
+            f64p, ctypes.c_int64, ctypes.c_int64, u8p, i64p, u8p, ctypes.c_int64,
+            ctypes.c_int,
+        ]
         self.has_vcf_import = hasattr(lib, "pgen_vcf_import_rows")
         if self.has_vcf_import:
             lib.pgen_vcf_import_rows.restype = ctypes.c_int64
@@ -678,6 +686,28 @@ class _Native:
             self._u8(packed), n_var, rec, n_samples, out.ctypes.data_as(i64p)
         )
         return out
+
+    def format_g10_rows(self, vals: np.ndarray, prefix_buf: np.ndarray,
+                        prefix_off: np.ndarray, threads: int) -> np.ndarray:
+        """(n, k) f64 values -> the bytes of n text rows, row r being
+        prefix_buf[prefix_off[r]:prefix_off[r + 1]], its values as
+        f"{x:.10g}" joined by tabs, and a newline; over ``threads`` threads."""
+        vals = np.ascontiguousarray(vals, dtype=np.float64)
+        n, k = vals.shape
+        prefix_buf = np.ascontiguousarray(prefix_buf, dtype=np.uint8)
+        prefix_off = np.ascontiguousarray(prefix_off, dtype=np.int64)
+        if (prefix_off.shape != (n + 1,) or prefix_off[0] < 0
+                or prefix_off[-1] > prefix_buf.size or (np.diff(prefix_off) < 0).any()):
+            raise ValueError("prefix_off must hold n + 1 ascending offsets into prefix_buf")
+        # room for each prefix and 18 bytes a value (the C++'s bound)
+        out = np.empty(int(prefix_off[-1] - prefix_off[0]) + n * (18 * k + 1), dtype=np.uint8)
+        got = self._lib.pgen_format_g10_rows(
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n, k,
+            self._u8(prefix_buf), prefix_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            self._u8(out), out.size, max(1, int(threads)))
+        if got < 0:
+            raise RuntimeError("native .10g rows overflowed their buffer")
+        return out[:got]
 
     def bgzf_decompress(self, data: np.ndarray) -> np.ndarray | None:
         """Parallel BGZF decode; None when `data` is not well-formed BGZF

@@ -18,6 +18,8 @@
 //   code extraction: (byte >> ((s % 4) * 2)) & 3, LSB-first (pfile.rs:171-175).
 
 #include <algorithm>
+#include <charconv>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <cstdlib>
@@ -1713,6 +1715,82 @@ void pgen_sample_counts(const unsigned char* packed, int64_t n_var,
                      n_samples, c1.data());
   th.join();
   for (int64_t i = 0; i < n_samples * 4; ++i) counts[i] += c1[i];
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Text rows of an f64 table (pca's .eigenvec): each row's prefix bytes, then
+// its k values tab-separated, then '\n'. A value is std::to_chars's general
+// form at 10 digits, which the standard defines as printf's "%.10g" and which
+// is Python's f"{x:.10g}" byte for byte: both round correctly, ties to even,
+// and write "-0", "inf" and "-inf" alike; a NaN of either sign is written
+// "nan", as Python writes it (to_chars writes "-nan"). The rows are split
+// over n_threads threads.
+
+namespace {
+
+// x as "%.10g" at dst (at most 17 bytes); returns the end.
+char* put_g10(char* dst, double x) {
+  if (std::isnan(x)) {
+    std::memcpy(dst, "nan", 3);
+    return dst + 3;
+  }
+  return std::to_chars(dst, dst + 17, x, std::chars_format::general, 10).ptr;
+}
+
+// Rows [lo, hi) at dst, which has room for each row's prefix and 18 bytes a
+// value ("-1.234567891e-308" is 17; a tab or the newline after each);
+// returns the end.
+char* format_g10_span(const double* vals, int64_t lo, int64_t hi, int64_t k,
+                      const unsigned char* prefix_buf, const int64_t* prefix_off,
+                      char* dst) {
+  for (int64_t r = lo; r < hi; ++r) {
+    const int64_t plen = prefix_off[r + 1] - prefix_off[r];
+    std::memcpy(dst, prefix_buf + prefix_off[r], (size_t)plen);
+    dst += plen;
+    for (int64_t c = 0; c < k; ++c) {
+      if (c) *dst++ = '\t';
+      dst = put_g10(dst, vals[r * k + c]);
+    }
+    *dst++ = '\n';
+  }
+  return dst;
+}
+
+}  // namespace
+
+extern "C" {
+
+// vals: (n, k) row-major f64; prefix_buf / prefix_off: row r's prefix is
+// prefix_buf[prefix_off[r], prefix_off[r + 1]). Each of n_threads threads
+// writes its share of the rows where the room for them starts in out; the
+// shares are then moved down to follow each other. Returns the bytes
+// written to out, or -1 if cap is short of the room for every row.
+int64_t pgen_format_g10_rows(const double* vals, int64_t n, int64_t k,
+                             const unsigned char* prefix_buf,
+                             const int64_t* prefix_off, unsigned char* out,
+                             int64_t cap, int n_threads) {
+  if (prefix_off[n] - prefix_off[0] + n * (18 * k + 1) > cap) return -1;
+  const int64_t parts = std::max<int64_t>(1, std::min<int64_t>(n_threads, n));
+  char* base = (char*)out;
+  std::vector<int64_t> start((size_t)parts), len((size_t)parts);
+  auto run = [&](int64_t t) {
+    const int64_t lo = n * t / parts, hi = n * (t + 1) / parts;
+    start[(size_t)t] = prefix_off[lo] - prefix_off[0] + lo * (18 * k + 1);
+    char* at = base + start[(size_t)t];
+    len[(size_t)t] = format_g10_span(vals, lo, hi, k, prefix_buf, prefix_off, at) - at;
+  };
+  std::vector<std::thread> pool;
+  for (int64_t t = 1; t < parts; ++t) pool.emplace_back(run, t);
+  run(0);
+  for (auto& th : pool) th.join();
+  int64_t total = len[0];
+  for (int64_t t = 1; t < parts; ++t) {
+    std::memmove(base + total, base + start[(size_t)t], (size_t)len[(size_t)t]);
+    total += len[(size_t)t];
+  }
+  return total;
 }
 
 }  // extern "C"

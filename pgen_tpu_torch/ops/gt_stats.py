@@ -47,6 +47,8 @@ other host helpers (``gt_variables``, ``sample_byte_masks``,
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -58,6 +60,10 @@ from pgen_tpu_torch.utils.timer import span
 
 # Rows per staged block: pipeline/filter_host.py's DEFAULT_BLOCK_VARIANTS.
 COUNT_BLOCK_ROWS = 1 << 16
+# Threads that copy a staged block out of the records (np.copyto lets go of
+# the GIL), each its share of the rows, and the least bytes a share
+STAGE_COPY_THREADS = 8
+STAGE_COPY_MIN_BYTES = 1 << 22
 # The counts' staging spans, apart from an analytic's own "stage_read" and
 # "h2d": the GT_* predicates count inside a job's "predicates" stage
 COUNT_SPANS = ("count_read", "count_h2d")
@@ -203,23 +209,41 @@ gt_counts_masked.launches = 0
 def stage_blocks(records: np.ndarray, dev: torch.device, block_rows: int,
                  spans: tuple = ("stage_read", "h2d")):
     """Yield (lo, hi, the records' rows [lo, hi) on dev), copied through one
-    staging tensor, pinned when dev is CUDA: each block's copy into it is a
-    span of the caller's timer named ``spans[0]``, its copy to dev and the
-    synchronise after it (which also waits for the kernels queued on the
-    block before) one named ``spans[1]``."""
+    staging tensor, pinned when dev is CUDA: each block's copy into it (on
+    up to ``STAGE_COPY_THREADS`` threads, ``copy_rows``) is a span of the
+    caller's timer named ``spans[0]``, its copy to dev and the synchronise
+    after it (which also waits for the kernels queued on the block before)
+    one named ``spans[1]``."""
     n_var, rec = records.shape
     staging = torch.empty((min(block_rows, n_var), rec), dtype=torch.uint8,
                           pin_memory=dev.type == "cuda")
     staged = staging.numpy()
     read, copy = spans
-    for lo in range(0, n_var, block_rows):
-        hi = min(lo + block_rows, n_var)
-        with span(read, (hi - lo) * rec):
-            np.copyto(staged[: hi - lo], records[lo:hi])
-        with span(copy, (hi - lo) * rec):
-            block = staging[: hi - lo].to(dev, non_blocking=True)
-            synchronize(dev)
-        yield lo, hi, block
+    parts = int(max(1, min(STAGE_COPY_THREADS, staged.nbytes // STAGE_COPY_MIN_BYTES)))
+    pool = ThreadPoolExecutor(parts - 1) if parts > 1 else None
+    try:
+        for lo in range(0, n_var, block_rows):
+            hi = min(lo + block_rows, n_var)
+            with span(read, (hi - lo) * rec):
+                copy_rows(staged[: hi - lo], records[lo:hi], pool, parts)
+            with span(copy, (hi - lo) * rec):
+                block = staging[: hi - lo].to(dev, non_blocking=True)
+                synchronize(dev)
+            yield lo, hi, block
+    finally:
+        if pool is not None:
+            pool.shutdown()
+
+
+def copy_rows(dst: np.ndarray, src: np.ndarray, pool=None, parts: int = 1) -> None:
+    """np.copyto(dst, src) in ``parts`` shares of the rows: this thread
+    copies the first, ``pool``'s threads the others."""
+    parts = parts if pool is not None else 1
+    cuts = [len(src) * i // parts for i in range(parts + 1)]
+    shares = [pool.submit(np.copyto, dst[a:b], src[a:b]) for a, b in zip(cuts[1:-1], cuts[2:])]
+    np.copyto(dst[: cuts[1]], src[: cuts[1]])
+    for share in shares:
+        share.result()
 
 
 def gt_counts(records: np.ndarray, num_samples: int, device,

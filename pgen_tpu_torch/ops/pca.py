@@ -23,7 +23,10 @@ Per staged block (``stage_blocks``, pinned when the device is CUDA):
 
 Each block's copy in and its kernels' launches, and the top k pairs' copy
 back, are spans of the caller's timer (``stage_read``, ``h2d``,
-``kernels``, ``d2h``; ``utils/timer.py``).
+``kernels``, ``d2h``; ``utils/timer.py``); --approx also opens one
+``approx_pass`` a pass around its blocks, ``orth`` around each scale and QR
+and ``rayleigh_ritz`` around the last step, these two also timed on the
+device (``timer.device_seconds``).
 
 The exact GRM's z'z is f64 (z cast in chunks of rows) and sums in f64,
 where pgen_tpu's ``_grm_device_jit`` (:109) makes it in f32 and carries an
@@ -53,7 +56,10 @@ from the same q bit for bit.
 ``GrmResult``, ``pca_from_grm``, ``PcaApproxResult`` and ``pca_approx`` are
 copied from pgen_tpu (``ops/pca.py:42-45``, ``:206``, ``:243-317``), whose
 module imports jax at module level; ``pca_approx`` takes a device where
-pgen_tpu's takes a provider, and its pass is this module's. pgen_tpu
+pgen_tpu's takes a provider, its pass is this module's, and its QR between
+passes and Rayleigh-Ritz step run in f64 on that device, where pgen_tpu
+copies each pass's (S, L) y back for numpy (0.7 s a QR at 488,377
+samples on an 8-core host; PERF.md §6). pgen_tpu
 decomposes the GRM by host LAPACK (``np.linalg.eigh``), as
 ``pca_from_grm`` still does a numpy array; its tensor branch runs the same
 steps where the GRM lies, so that the (S, S) matrix never crosses to the
@@ -82,6 +88,12 @@ from pgen_tpu_torch.ops.pack import subset_repack
 from pgen_tpu_torch.ops.unpack import check_packed
 from pgen_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_from_rank0
 from pgen_tpu_torch.utils.timer import span
+
+# --approx's rows a pass stages at once, unless given: 1 << 14, or as many
+# as hold 64 MiB of records where that is more (narrow records), so that
+# each staged copy is large enough to spread over the copy threads
+APPROX_BLOCK_ROWS = 1 << 14
+APPROX_BLOCK_BYTES = 1 << 26
 
 
 class GrmResult(NamedTuple):
@@ -356,8 +368,12 @@ def pca_approx(
 
     Every data touch is a tall-skinny matmul pair per variant block —
     z_b @ Q (bv x L) then z_b^T @ that (S x L accumulate) — on ``device``
-    (``_make_approx_pass``); the only O(S) state is the (S, L) subspace.
-    Host-side QR between passes is (S, L) — milliseconds.
+    (``_make_approx_pass``, one ``approx_pass`` span a pass). The Gaussian
+    is numpy's, drawn from ``seed`` as pgen_tpu draws it, and copied to the
+    device once; from there the subspace stays on the device in f64: each
+    pass's y scaled by 1 / M and orthonormalised by ``torch.linalg.qr``
+    (``orth`` spans), then the Rayleigh-Ritz step (``rayleigh_ritz``).
+    Only the k eigenvalues and the (S, k) eigenvectors come back (``d2h``).
 
     Deterministic for a fixed seed across devices up to f32 Gram noise.
     Under a process group ``packed`` is this rank's shard of the rows, and
@@ -370,61 +386,68 @@ def pca_approx(
     L = min(ns, k + max(0, oversample))
     if L < k:
         raise ValueError(f"pca approx: k={k} exceeds {ns} samples")
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    q = np.linalg.qr(rng.standard_normal((ns, L)))[0]
+    q = torch.from_numpy(rng.standard_normal((ns, L))).to(dev)
+    with span("orth", device=dev):
+        q = torch.linalg.qr(q)[0]
 
-    pass_fn = _make_approx_pass(packed, num_samples, device, sample_idx, block_variants,
-                                timer)
+    pass_fn = _make_approx_pass(packed, num_samples, dev, sample_idx, block_variants, timer)
 
-    m_used = 0
-    y = None
     for _ in range(max(1, iters)):
         y, m_used = pass_fn(q)
-        if m_used <= 0:
-            raise ValueError("pca: no polymorphic variants after filtering")
-        y /= float(m_used)
-        q = np.linalg.qr(y)[0]
+        with span("orth", device=dev):
+            q = torch.linalg.qr(y.double().div_(m_used))[0]
     # Rayleigh-Ritz on the converged subspace: one more data pass
     y, m_used = pass_fn(q)
-    y /= float(m_used)
-    c = q.T @ y
-    c = (c + c.T) / 2.0
-    vals, w = np.linalg.eigh(c)
-    order = np.argsort(vals)[::-1][:k]
-    vals = vals[order]
-    vecs = q @ w[:, order]
-    vecs /= np.linalg.norm(vecs, axis=0, keepdims=True)
-    flip = np.sign(vecs[np.argmax(np.abs(vecs), axis=0), np.arange(vecs.shape[1])])
-    flip = np.where(flip == 0, 1.0, flip)
-    return PcaApproxResult(vals, vecs * flip, int(m_used))
+    with span("rayleigh_ritz", device=dev):
+        c = q.T @ y.double().div_(m_used)
+        vals, w = torch.linalg.eigh((c + c.T).div_(2.0))
+        # eigh's ascending order reversed: the top k, descending
+        vals, w = vals[L - k :].flip(0), w[:, L - k :].flip(1)
+        vecs = q @ w
+        vecs /= torch.linalg.vector_norm(vecs, dim=0, keepdim=True)
+        # deterministic sign: the largest-|entry| component is positive
+        cols = torch.arange(k, device=dev)
+        flip = torch.sign(vecs[vecs.abs().argmax(dim=0), cols])
+        vecs *= torch.where(flip == 0, 1.0, flip)
+    with span("d2h", (vals.numel() + vecs.numel()) * vecs.element_size()):
+        return PcaApproxResult(vals.cpu().numpy(), vecs.cpu().numpy(), m_used)
 
 
-def _make_approx_pass(packed, num_samples, device, sample_idx, block_variants, timer=None):
+def _make_approx_pass(packed, num_samples, dev, sample_idx, block_variants, timer=None):
     """pgen_tpu's ``_make_approx_pass_device``: each pass streams the records
     through ``pca_approx_pass`` (after K5 under a cohort), y and the used
-    count summed on the device; returns (y f64, m_used). Under a process
-    group (its mesh branch) rank 0's q is broadcast first and the pass's f32
-    y and used count are summed over the ranks on the device."""
-    dev = resolve_device(device)
+    count summed on the device, inside one ``approx_pass`` span (the
+    records' bytes); returns y, an (S, L) f32 tensor on dev, and m_used, an
+    int. Under a process group (its mesh branch) rank 0's q is broadcast first
+    and the pass's y and used count are summed over the ranks on the
+    device. Raises when no row is polymorphic."""
     sel = device_sel(sample_idx, num_samples, dev)
     nvar = int(packed.shape[0])
-    bv = min(block_variants or (1 << 14), max(nvar, 1))
+    rec = int(packed.shape[1])
+    bv = block_variants or max(APPROX_BLOCK_ROWS, APPROX_BLOCK_BYTES // max(rec, 1))
+    bv = min(bv, max(nvar, 1))
     ns = num_samples if sel is None else sel.shape[0]
     cuda = dev.type == "cuda"
     scratch = approx_scratch(min(bv, nvar), ns, dev) if cuda else None
     repacked = (torch.empty(min(bv, nvar) * ((ns + 3) // 4), dtype=torch.uint8, device=dev)
                 if cuda and sel is not None else None)
 
-    def pass_fn(q):
-        qd = broadcast_from_rank0(torch.tensor(q, dtype=torch.float32, device=dev), timer)
-        y = torch.zeros((ns, q.shape[1]), dtype=torch.float32, device=dev)
-        m_used = torch.zeros((), dtype=torch.int64, device=dev)
-        for _, _, block in stage_blocks(packed, dev, bv):
-            with span("kernels"):
-                if sel is not None:
-                    block = subset_repack(block, sel, out=repacked)
-                pca_approx_pass(block, ns, qd, y, m_used, scratch)
-        y, m_used = all_reduce_sum((y, m_used), dev, timer)
-        return y.cpu().numpy().astype(np.float64), int(m_used)
+    def pass_fn(q: torch.Tensor):
+        with span("approx_pass", packed.nbytes):
+            qd = broadcast_from_rank0(q.float().contiguous(), timer)
+            y = torch.zeros((ns, q.shape[1]), dtype=torch.float32, device=dev)
+            m_used = torch.zeros((), dtype=torch.int64, device=dev)
+            for _, _, block in stage_blocks(packed, dev, bv):
+                with span("kernels"):
+                    if sel is not None:
+                        block = subset_repack(block, sel, out=repacked)
+                    pca_approx_pass(block, ns, qd, y, m_used, scratch)
+            y, m_used = all_reduce_sum((y, m_used), dev, timer)
+            m_used = int(m_used)
+        if m_used <= 0:
+            raise ValueError("pca: no polymorphic variants after filtering")
+        return y, m_used
 
     return pass_fn

@@ -24,25 +24,55 @@ each --approx pass's y likewise; rank 0 alone writes.
 
 Stages (``PcaResult.timer``): process_group, metadata_load, predicates,
 gather, grm (inside it each block's stage_read, h2d and kernels, and the
-all_reduce) and eigh (the top k pairs' d2h inside), or pca_approx (each
-pass's stage_read and h2d, its broadcasts and all_reduces inside); emit,
-emit_rel (the whole GRM's copy back inside); under several ranks, one
-line a rank.
+all_reduce) and eigh (the top k pairs' d2h inside), or pca_approx (inside
+it one approx_pass a pass, which holds the pass's stage_read, h2d, kernels,
+broadcast and all_reduce; orth, rayleigh_ritz and the top k pairs' d2h);
+emit (the .eigenvec in bulk: ``write_eigenvec``), emit_rel (the whole GRM's
+copy back inside); under several ranks, one line a rank.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from pgen_tpu_torch.formats.header import read_pgen_header
 from pgen_tpu_torch.formats.metadata import read_metadata
+from pgen_tpu_torch.native import HAVE_NATIVE, native
 from pgen_tpu_torch.ops.pca import grm_mesh, pca_approx, pca_from_grm
 from pgen_tpu_torch.parallel.mesh import variant_mesh
 from pgen_tpu_torch.pipeline.filter import compute_masks
 from pgen_tpu_torch.pipeline.filter_host import _gather_rows
 from pgen_tpu_torch.utils.timer import StageTimer
+
+
+def eigenvec_text(iids: list, vecs: np.ndarray):
+    """The ``.eigenvec`` body, as bytes or a uint8 array: a line a sample,
+    its IID then its row of ``vecs`` as f"{x:.10g}", tab-separated. The C++
+    runtime formats the rows over the host's cores
+    (``native.format_g10_rows``); without it, one ``%`` format a row. Both
+    give pgen_tpu's f-string a value, byte for byte."""
+    vecs = np.asarray(vecs, dtype=np.float64)
+    if not iids:
+        return b""
+    if not HAVE_NATIVE:
+        fmt = "%s\t" + "\t".join(["%.10g"] * vecs.shape[1]) + "\n"
+        return "".join(fmt % (iid, *row) for iid, row in zip(iids, vecs.tolist())).encode()
+    # each row's prefix is its IID and a tab: IIDs hold no tab (.psam fields)
+    prefix = np.frombuffer(("\t".join(iids) + "\t").encode(), dtype=np.uint8)
+    off = np.zeros(len(iids) + 1, dtype=np.int64)
+    off[1:] = np.flatnonzero(prefix == 9) + 1
+    return native.format_g10_rows(vecs, prefix, off, os.cpu_count() or 1)
+
+
+def write_eigenvec(path: str, iids: list, vecs: np.ndarray) -> None:
+    """``path``: the ``#IID PC1 .. PCk`` header, then ``eigenvec_text``."""
+    head = "#IID\t" + "\t".join(f"PC{i+1}" for i in range(vecs.shape[1])) + "\n"
+    with open(path, "wb") as fh:
+        fh.write(head.encode())
+        fh.write(memoryview(eigenvec_text(iids, vecs)))
 
 
 @dataclass
@@ -151,14 +181,7 @@ def _pca(pfile_prefix, k, var_query, sam_query, out_prefix, block_variants, writ
     write = write and mesh.rank == 0
     if write and k > 0:
         with timer.stage("emit"):
-            with open(f"{out}.eigenvec", "w") as fh:
-                fh.write("#IID\t" + "\t".join(f"PC{i+1}" for i in range(k)) + "\n")
-                for row, iid in enumerate(iids):
-                    fh.write(
-                        iid + "\t"
-                        + "\t".join(f"{vecs[row, c]:.10g}" for c in range(k))
-                        + "\n"
-                    )
+            write_eigenvec(f"{out}.eigenvec", iids, vecs)
             with open(f"{out}.eigenval", "w") as fh:
                 fh.writelines(f"{v:.10g}\n" for v in vals)
     if write and make_rel is not None:

@@ -15,6 +15,13 @@ While a torch profiler records, each span also opens the profiler range
 ``--trace 1``) puts the host's time down to the same names. ``span(name)``
 opens a stage on the innermost timer open on the calling thread, from code
 that is handed no timer (the ops), and does nothing without one.
+
+A span opened by ``span(name, device=...)`` on a CUDA device also records a
+timing event on that device's current stream where it opens and where it
+closes, so that ``timer.device_seconds(name)`` gives the device's time
+between them: from the end of the work queued before the span to the end of
+the work queued inside it. On any other device the work is done when the
+span closes, and its device time is its host time.
 """
 
 import sys
@@ -50,6 +57,8 @@ class Span:
     nbytes: int = 0  # as given to stage()
     launches: int = 0  # made while this span was its thread's innermost
     child_ns: int = 0  # the part of it its child spans cover
+    device_timed: bool = False  # opened by span(..., device=...)
+    events: tuple | None = None  # (start, end) timing events on a CUDA device
 
     @property
     def seconds(self) -> float:
@@ -110,6 +119,22 @@ class StageTimer:
             st.calls += 1
             st.launches += sp.launches
 
+    def device_seconds(self, name: str) -> float | None:
+        """The device time of the spans named ``name`` that ``span`` opened
+        with a device (the module's docstring), summed; None if there were
+        none. Waits for their work to end."""
+        spans = [sp for sp in self.spans if sp.name == name and sp.device_timed]
+        if not spans:
+            return None
+        total = 0.0
+        for sp in spans:
+            if sp.events:
+                sp.events[1].synchronize()
+                total += sp.events[0].elapsed_time(sp.events[1]) / 1e3
+            else:
+                total += sp.seconds
+        return total
+
     def report(self) -> str:
         """One line a stage, each indented under its parent: the stage all
         its spans sat in, or none (top level) when they sat in several."""
@@ -130,6 +155,9 @@ class StageTimer:
                 line += f", {st.bytes_moved/1e6:.1f} MB, {st.gbps:.2f} GB/s"
             if st.launches:
                 line += f", {st.launches} launches"
+            dev_s = self.device_seconds(name)
+            if dev_s is not None:
+                line += f", device {dev_s*1e3:.1f} ms"
             lines.append(line)
             for child in children[name]:
                 walk(child, depth + 1)
@@ -139,13 +167,44 @@ class StageTimer:
         return "\n".join(lines)
 
 
-def span(name: str, nbytes: int = 0):
-    """``stage(name, nbytes)`` of the innermost timer open on this thread;
-    without one, a context that records nothing (yielding a loose Stage)."""
+def _timing_events(device):
+    """(start, end, stream): two timing events and ``device``'s current
+    stream, where ``device`` is a CUDA device; else None."""
+    if device is None or getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True),
+            torch.cuda.current_stream(device))
+
+
+def span(name: str, nbytes: int = 0, device=None):
+    """``stage(name, nbytes)`` of the innermost timer open on this thread,
+    timed on ``device`` too where one is given (the module's docstring);
+    without an open timer, a context that records nothing (yielding a loose
+    Stage)."""
     stack = _stack()
     if not stack:
         return nullcontext(Stage())
-    return stack[-1][0].stage(name, nbytes)
+    if device is None:
+        return stack[-1][0].stage(name, nbytes)
+    return _device_timed(stack[-1][0], name, nbytes, device)
+
+
+@contextmanager
+def _device_timed(timer: StageTimer, name: str, nbytes: int, device):
+    with timer.stage(name, nbytes) as st:
+        sp = timer.spans[_stack()[-1][1]]
+        sp.device_timed = True
+        events = _timing_events(device)
+        if events:
+            events[0].record(events[2])
+        try:
+            yield st
+        finally:
+            if events:
+                events[1].record(events[2])
+                sp.events = events[:2]
 
 
 def book_launch() -> None:

@@ -524,3 +524,24 @@ def test_metadata_query_counts_nothing(fileset, monkeypatch, case):
     argv = ["query", prefix, *(a.format(d=d) for a in QUERY_ARGV[case])]
     got = _run(port_main, [*argv, "--device", "cpu"])
     assert got[0] == 0 and got == _run(tpu_main, argv)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 7])
+def test_staged_blocks_copied_on_threads_are_the_records(parts, monkeypatch):
+    """``stage_blocks`` with each block's copy split over ``parts`` threads
+    (``copy_rows``) yields the records' rows, a last short block included;
+    more shares than rows leave some empty."""
+    records = _records(37, 11, n_var=5000)
+    monkeypatch.setattr(gt_stats, "STAGE_COPY_THREADS", parts)
+    monkeypatch.setattr(gt_stats, "STAGE_COPY_MIN_BYTES", 1)
+    got = [(lo, hi, block.clone()) for lo, hi, block in
+           gt_stats.stage_blocks(records, torch.device("cpu"), 2048)]
+    assert [(lo, hi) for lo, hi, _ in got] == [(0, 2048), (2048, 4096), (4096, 5256)]
+    for lo, hi, block in got:
+        assert np.array_equal(block.numpy(), records[lo:hi])
+    few = np.zeros((3, 4), dtype=np.uint8)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max(1, parts - 1)) as pool:
+        gt_stats.copy_rows(few, records[:3, :4], pool, parts)
+    assert np.array_equal(few, records[:3, :4])

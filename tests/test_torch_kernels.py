@@ -1186,11 +1186,13 @@ def test_pca_approx_pass_matches_plain(cuda_device, n_samples, n_cols):
 
 
 def test_pca_approx_pass_block_rows(cuda_device):
-    """A 16,384-row block (32 chunks of rows a slice) and one of 16,385."""
+    """A 16,384-row block (32 chunks of rows a slice), one of 16,385, and
+    one of 107,202 (--approx's 64 MiB block of 2504 samples)."""
     packed = _packed(16_385 - 256, 2504, 3, cuda_device)
     q = torch.randn((2504, 18), device=cuda_device)
     _pass_pair(packed, 2504, q)
     _pass_pair(packed[:16_384], 2504, q)
+    _pass_pair(_packed(107_202 - 256, 2504, 4, cuda_device), 2504, q)
 
 
 @pytest.mark.parametrize("offset", [1, 3, 4, 8, 15])
